@@ -8,15 +8,21 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device   require CUDA; print the card's name and power limit (nvidia-smi)
 2. build    compile tpu_speech_commands_torch/csrc/*.cu with nvcc (sm_90a)
 3. kernels  each kernel against its plain PyTorch version on the card, at
-            B = 1000, over the configs and dtypes the slice can meet
-4. slice    make_batch_scorer("pretrained/direction_simple_gru.npz", "cuda")
-            scores the eight example/*.wav clips in f32 and bf16: top-1 must
-            equal every file's label, `.paths` must name both kernels, both
-            launch counts must rise, and the scores must agree with the same
-            scorer run on the CPU (plain versions)
+            B = 1000, over the configs and dtypes the slices can meet
+4. slices   each path driven on the eight example/*.wav clips in f32 and
+            bf16, with every launch count set to 0 just before it and read
+            just after:
+            - make_batch_scorer for direction_simple_gru.npz, and for
+              direction_simple_cnn.npz and direction_simple_cnn_lite.npz:
+              top-1 must equal every file's label, `.paths` must name both
+              kernels, both launch counts must rise, and the scores must
+              agree with the same scorer run on the CPU (plain versions);
+            - the fused-block-1 path (frontend kernel, then
+              make_fused_cnn_forward) for both CNN checkpoints: top-1 and the
+              block-1 launch count
 5. times    CUDA-event times at B = 8192, audio resident on the card: each
-            kernel against its plain version, and end-to-end windows/s
-            (information only)
+            kernel against its plain version, and end-to-end windows/s for
+            simple_gru and simple_cnn (information only)
 
 The line before the last is one JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}.  On a machine without CUDA the
@@ -36,6 +42,8 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CHECKPOINT = os.path.join(REPO, "pretrained", "direction_simple_gru.npz")
+CNN_CHECKPOINTS = {m: os.path.join(REPO, "pretrained", f"direction_{m}.npz")
+                   for m in ("simple_cnn", "simple_cnn_lite")}
 B_CHECK = 1000   # not a multiple of any tile either kernel uses
 B_TIME = 8192    # the serving batch the JAX benchmark measured
 
@@ -55,6 +63,17 @@ GRU_BF16_ATOL = 5e-2
 # - scores f32, card vs CPU: the feature bound carried through the GRU
 SCORE_ATOL = 1e-3
 SCORE_BF16_ATOL = 5e-2
+# - CNN logits f32: same math, f32 sums in another order over K <= 576
+CNN_ATOL, CNN_RTOL = 1e-4, 1e-5
+# - CNN logits bf16: a bf16 rounding of an activation can flip when two f32
+#   sums differ in the last bit; the bound tests/test_serving.py allows bf16
+CNN_BF16_ATOL = 5e-2
+# - CNN block-1 activations f32: one conv of 9 taps, another order
+BLOCK1_ATOL, BLOCK1_RTOL = 1e-5, 1e-5
+BLOCK1_BF16_ATOL = 5e-2
+# The plain versions' convs run through cuDNN, which takes float32 convs in
+# TF32 unless torch.backends.cudnn.allow_tf32 is False: main() sets it (and
+# the matmul flag) False, so every float32 reference here is float32.
 
 
 def log(msg: str = "") -> None:
@@ -117,6 +136,27 @@ def check_close(what, got, want, atol, rtol) -> float:
     return max_err
 
 
+def random_cnn(cls, h: int, w: int, seed: int, device):
+    """A `cls` CNN (5 classes, h x w input) with weights and BatchNorm
+    statistics from a numpy seed; some BatchNorm scales are negative, as
+    after training."""
+    import torch
+
+    model = cls(5, h, w)
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            if name.endswith("bn.var"):
+                val = rng.uniform(0.5, 2.0, t.shape)
+            elif name.endswith("bn.scale"):
+                val = rng.normal(1.0, 0.6, t.shape)
+            else:
+                fan_in = int(np.prod(t.shape[:-1])) if t.ndim > 1 else 10
+                val = rng.standard_normal(t.shape) / np.sqrt(fan_in)
+            t.copy_(torch.tensor(val, dtype=torch.float32))
+    return model.to(device).eval()
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     import torch
 
@@ -143,8 +183,14 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     from tpu_speech_commands_torch.frontend.dsp import Frontend
+    from tpu_speech_commands_torch.models import score_fn
+    from tpu_speech_commands_torch.models.cnn import SimpleCNN, SimpleCNNLite
     from tpu_speech_commands_torch.models.rnn import SimpleGRU
-    from tpu_speech_commands_torch.ops import _build, frontend_kernel, rnn_kernel
+    from tpu_speech_commands_torch.ops import (
+        _build, cnn_kernel, frontend_kernel, rnn_kernel)
+    from tpu_speech_commands_torch.ops.cnn_kernel import (
+        CNNClassifier, make_fused_cnn_forward)
+    from tpu_speech_commands_torch.ops.cnn_lowering import lower_block1
     from tpu_speech_commands_torch.ops.frontend_kernel import MfccFrontend
     from tpu_speech_commands_torch.ops.rnn_kernel import GRUClassifier
     from tpu_speech_commands_torch.params import ListenerParams
@@ -232,38 +278,128 @@ def main() -> int:
             else:
                 check_close(what, got, want, GRU_BF16_ATOL, 0.0)
 
-    # -- 4. the slice ----------------------------------------------------------
-    scorers = {dt: make_batch_scorer(CHECKPOINT, "cuda", dt)
-               for dt in (torch.float32, torch.bfloat16)}
-    clips_dev = torch.tensor(clips, device=dev)
-    frontend_kernel.mfcc_frontend_cuda.launches = 0
-    rnn_kernel.gru_layer_cuda.launches = 0
-    scores = {dt: s(clips_dev) for dt, s in scorers.items()}
-    torch.cuda.synchronize()
-    launches = {
-        "mfcc_frontend": frontend_kernel.mfcc_frontend_cuda.launches,
-        "gru_classifier": rnn_kernel.gru_layer_cuda.launches,
+    cnn_models = {m: load_native(path, dev).model
+                  for m, path in CNN_CHECKPOINTS.items()}
+    delta_feats = Frontend(ListenerParams(use_delta=True), "mfcc", dev)(audio_f32)
+    odd_feats = torch.tensor(
+        4.0 * np.random.default_rng(3).standard_normal((B_CHECK, 29, 21)),
+        dtype=torch.float32, device=dev)
+    cnn_cases = [
+        ("simple_cnn pretrained", cnn_models["simple_cnn"], feats),
+        ("simple_cnn_lite pretrained", cnn_models["simple_cnn_lite"], feats),
+        ("simple_cnn_lite random 30x40", random_cnn(SimpleCNNLite, 30, 40, 4, dev),
+         delta_feats),
+        ("simple_cnn random 29x21", random_cnn(SimpleCNN, 29, 21, 5, dev),
+         odd_feats),
+    ]
+    cnn_errs = []
+    for label, model, x in cnn_cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            cls = CNNClassifier(model, dtype)
+            xin = x.to(dtype)
+            got = cls(xin)
+            torch.cuda.synchronize()
+            want = cnn_kernel.cnn_classifier_plain(cls.consts, xin)
+            what = f"cnn {label} {str(dtype)[6:]}"
+            if dtype == torch.float32:
+                cnn_errs.append(check_close(what, got, want, CNN_ATOL, CNN_RTOL))
+            else:
+                check_close(what, got, want, CNN_BF16_ATOL, 0.0)
+    block1_errs = []
+    for name, model in cnn_models.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            stage = cnn_kernel.StageTensors(
+                lower_block1(model.variables(), model.separable, 30, 20), dev,
+                dtype)
+            got = cnn_kernel.cnn_block1_cuda(feats, stage)
+            torch.cuda.synchronize()
+            want = cnn_kernel.cnn_block1_plain(stage, feats)
+            what = f"block1 {name} {str(dtype)[6:]}"
+            if dtype == torch.float32:
+                block1_errs.append(check_close(what, got, want, BLOCK1_ATOL,
+                                               BLOCK1_RTOL))
+            else:
+                check_close(what, got, want, BLOCK1_BF16_ATOL, 0.0)
+        got = make_fused_cnn_forward(model)(feats)
+        torch.cuda.synchronize()
+        with torch.inference_mode():
+            want = model(feats)
+        check_close(f"fused-block-1 forward {name} vs model f32", got, want,
+                    CNN_ATOL, CNN_RTOL)
+
+    # -- 4. the slices ---------------------------------------------------------
+    counters = {
+        "mfcc_frontend": frontend_kernel.mfcc_frontend_cuda,
+        "gru_classifier": rnn_kernel.gru_layer_cuda,
+        "cnn_classifier": cnn_kernel.cnn_classifier_cuda,
+        "cnn_block1": cnn_kernel.cnn_block1_cuda,
     }
-    log(f"slice: {os.path.relpath(CHECKPOINT, REPO)} on 8 example clips, "
-        f"launches {launches}")
-    for name, count in launches.items():
-        if count < 1:
-            raise AssertionError(f"{name} kernel was not launched by the slice")
-    for dt, s in scorers.items():
-        if s.paths["frontend"].split("(")[0] != "cuda-mfcc" or \
-                s.paths["classifier"] != "cuda-gru":
-            raise AssertionError(f"paths {s.paths} do not name both kernels")
-        sc = scores[dt]
-        if sc.shape != (8, s.num_classes) or not torch.isfinite(sc).all():
-            raise AssertionError(f"scores {tuple(sc.shape)} not finite (8, C)")
-        top1 = [s.classes[i] for i in sc.argmax(-1).tolist()]
-        n_ok = sum(a == b for a, b in zip(top1, labels))
-        log(f"  {str(dt)[6:]:8s} paths {s.paths}  top-1 {n_ok}/8 {top1}")
-        if top1 != labels:
-            raise AssertionError(f"top-1 {top1} != labels {labels}")
-        cpu = make_batch_scorer(CHECKPOINT, "cpu", dt)(clips)
-        atol = SCORE_ATOL if dt == torch.float32 else SCORE_BF16_ATOL
-        check_close(f"scores card vs CPU {str(dt)[6:]}", sc.cpu(), cpu, atol, 0.0)
+    launches = dict.fromkeys(counters, 0)
+
+    def drive(label, run, need):
+        """Run one path with every launch count at 0; fail unless each
+        kernel in `need` was launched; add the counts to `launches`."""
+        for fn in counters.values():
+            fn.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        counts = {name: fn.launches for name, fn in counters.items()}
+        log(f"slice: {label}, launches {counts}")
+        for name in need:
+            if counts[name] < 1:
+                raise AssertionError(f"{name} kernel was not launched by {label}")
+        for name, count in counts.items():
+            launches[name] += count
+        return out
+
+    clips_dev = torch.tensor(clips, device=dev)
+    scorer_paths = (
+        (CHECKPOINT, "cuda-gru", "gru_classifier"),
+        (CNN_CHECKPOINTS["simple_cnn"], "cuda-cnn", "cnn_classifier"),
+        (CNN_CHECKPOINTS["simple_cnn_lite"], "cuda-cnn", "cnn_classifier"),
+    )
+    scorers_by_path = {}
+    for path, classifier_path, kernel_name in scorer_paths:
+        scorers = {dt: make_batch_scorer(path, "cuda", dt)
+                   for dt in (torch.float32, torch.bfloat16)}
+        scorers_by_path[path] = scorers
+        scores = drive(
+            f"make_batch_scorer({os.path.relpath(path, REPO)}) on 8 clips, "
+            "f32 and bf16",
+            lambda: {dt: s(clips_dev) for dt, s in scorers.items()},
+            ("mfcc_frontend", kernel_name))
+        for dt, s in scorers.items():
+            if s.paths["frontend"].split("(")[0] != "cuda-mfcc" or \
+                    s.paths["classifier"] != classifier_path:
+                raise AssertionError(f"paths {s.paths} do not name both kernels")
+            sc = scores[dt]
+            if sc.shape != (8, s.num_classes) or not torch.isfinite(sc).all():
+                raise AssertionError(f"scores {tuple(sc.shape)} not finite (8, C)")
+            top1 = [s.classes[i] for i in sc.argmax(-1).tolist()]
+            n_ok = sum(a == b for a, b in zip(top1, labels))
+            log(f"  {str(dt)[6:]:8s} paths {s.paths}  top-1 {n_ok}/8 {top1}")
+            if top1 != labels:
+                raise AssertionError(f"top-1 {top1} != labels {labels}")
+            cpu = make_batch_scorer(path, "cpu", dt)(clips)
+            atol = SCORE_ATOL if dt == torch.float32 else SCORE_BF16_ATOL
+            check_close(f"scores card vs CPU {str(dt)[6:]}", sc.cpu(), cpu,
+                        atol, 0.0)
+
+    for name, path in CNN_CHECKPOINTS.items():
+        predictor = load_native(path, dev)
+        fe = MfccFrontend(None, predictor.meta.get("feature_type", "mfcc"), dev)
+        forwards = {dt: make_fused_cnn_forward(predictor.model, dt)
+                    for dt in (torch.float32, torch.bfloat16)}
+        scores = drive(
+            f"frontend kernel + make_fused_cnn_forward({name}) on 8 clips, "
+            "f32 and bf16",
+            lambda: {dt: score_fn(f(fe(clips_dev))) for dt, f in forwards.items()},
+            ("mfcc_frontend", "cnn_block1"))
+        for dt, sc in scores.items():
+            top1 = [predictor.classes[i] for i in sc.argmax(-1).tolist()]
+            log(f"  {str(dt)[6:]:8s} top-1 {sum(a == b for a, b in zip(top1, labels))}/8")
+            if not torch.isfinite(sc).all() or top1 != labels:
+                raise AssertionError(f"top-1 {top1} != labels {labels}")
 
     # -- 5. times (information only) -------------------------------------------
     log(f"times at B = {B_TIME}, audio resident on the card ({card}):")
@@ -272,11 +408,22 @@ def main() -> int:
     fe = MfccFrontend(ListenerParams(), "mfcc", dev)
     big_feats = fe(big)
     cls = GRUClassifier(pretrained, torch.float32)
+    cnn = cnn_models["simple_cnn"]
+    cnn_cls = CNNClassifier(cnn, torch.float32)
+    stage = cnn_kernel.StageTensors(lower_block1(cnn.variables(), False, 30, 20),
+                                    dev)
     times = {
         "mfcc_frontend": (cuda_ms(lambda: fe(big), 20),
                           cuda_ms(lambda: fe.plain(big), 5)),
         "gru_classifier": (cuda_ms(lambda: cls(big_feats), 20),
                            cuda_ms(lambda: pretrained(big_feats), 5)),
+        "cnn_classifier": (
+            cuda_ms(lambda: cnn_cls(big_feats), 20),
+            cuda_ms(lambda: cnn_kernel.cnn_classifier_plain(cnn_cls.consts,
+                                                            big_feats), 10)),
+        "cnn_block1": (
+            cuda_ms(lambda: cnn_kernel.cnn_block1_cuda(big_feats, stage), 20),
+            cuda_ms(lambda: cnn_kernel.cnn_block1_plain(stage, big_feats), 10)),
     }
     for name, (k_ms, p_ms) in times.items():
         log(f"  {name:16s} kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  "
@@ -287,17 +434,37 @@ def main() -> int:
         f" ms  plain bf16 "
         f"{cuda_ms(lambda: pretrained(feats16.float(), torch.bfloat16), 5):.4f}"
         f" ms  ({card})")
-    for dt, s in scorers.items():
-        ms = cuda_ms(lambda: s(big), 10)
-        log(f"  end to end {str(dt)[6:]:8s} {ms:.4f} ms/batch  "
-            f"{B_TIME / ms * 1e3:.0f} windows/s  ({card})")
+    for name, model in cnn_models.items():
+        for dt in (torch.float32, torch.bfloat16):
+            c = CNNClassifier(model, dt)
+            x = big_feats.to(dt)
+            log(f"  cnn_classifier {name} {str(dt)[6:]}: kernel "
+                f"{cuda_ms(lambda: c(x), 20):.4f} ms  plain "
+                f"{cuda_ms(lambda: cnn_kernel.cnn_classifier_plain(c.consts, x), 10):.4f}"
+                f" ms  ({card})")
+    stage16 = cnn_kernel.StageTensors(
+        lower_block1(cnn.variables(), False, 30, 20), dev, torch.bfloat16)
+    log(f"  cnn_block1 simple_cnn bfloat16: kernel "
+        f"{cuda_ms(lambda: cnn_kernel.cnn_block1_cuda(big_feats, stage16), 20):.4f}"
+        f" ms  plain "
+        f"{cuda_ms(lambda: cnn_kernel.cnn_block1_plain(stage16, big_feats), 10):.4f}"
+        f" ms  ({card})")
+    for path, scorers in scorers_by_path.items():
+        for dt, s in scorers.items():
+            ms = cuda_ms(lambda: s(big), 10)
+            log(f"  end to end {os.path.basename(path)} {str(dt)[6:]:8s} "
+                f"{ms:.4f} ms/batch  {B_TIME / ms * 1e3:.0f} windows/s  ({card})")
 
     kernels = []
-    for name, mod, errs in (("mfcc_frontend", frontend_kernel, frontend_errs),
-                            ("gru_classifier", rnn_kernel, gru_errs)):
+    for name, mod, replaces, errs in (
+            ("mfcc_frontend", frontend_kernel, frontend_kernel.REPLACES,
+             frontend_errs),
+            ("gru_classifier", rnn_kernel, rnn_kernel.REPLACES, gru_errs),
+            ("cnn_classifier", cnn_kernel, cnn_kernel.REPLACES, cnn_errs),
+            ("cnn_block1", cnn_kernel, cnn_kernel.BLOCK1_REPLACES, block1_errs)):
         kernels.append({
             "name": name, "route": "cuda", "source": mod.SOURCE,
-            "replaces": mod.REPLACES, "launches": launches[name],
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(errs), "ms": times[name][0],
             "plain_ms": times[name][1],
         })

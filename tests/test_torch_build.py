@@ -40,7 +40,7 @@ def test_build_passes_hopper_flags_and_every_source(tmp_path, monkeypatch):
     assert lib.exists() and lib.with_suffix(".log").exists()
     args = args_file.read_text()
     assert "arch=compute_90a,code=sm_90a" in args
-    for src in ("mfcc_frontend.cu", "gru_classifier.cu"):
+    for src in ("mfcc_frontend.cu", "gru_classifier.cu", "cnn_classifier.cu"):
         assert src in args
 
 

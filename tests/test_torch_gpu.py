@@ -14,7 +14,12 @@ Tolerances, each with its reason:
 - GRU logits f32: atol 1e-4 / rtol 1e-5 (same math, other summation order);
 - GRU logits and scores bf16: atol 5e-2 (bf16 rounding can flip at a
   boundary and grow over 30 steps; the bound tests/test_serving.py allows);
-- scores f32, card vs CPU: atol 1e-3 (the feature bound through the GRU).
+- scores f32, card vs CPU: atol 1e-3 (the feature bound through the GRU);
+- CNN logits f32: atol 1e-4 / rtol 1e-5 (another summation order over
+  K <= 576); bf16: atol 5e-2 (a bf16 rounding of an activation can flip);
+- CNN block-1 activations f32: atol 1e-5 / rtol 1e-5; bf16: atol 5e-2.
+cuDNN runs float32 convs in TF32 unless told otherwise: the fixture turns
+TF32 off, so the plain versions' convs are float32.
 """
 import glob
 import os
@@ -24,8 +29,10 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_speech_commands_torch.models.cnn import SimpleCNN, SimpleCNNLite
 from tpu_speech_commands_torch.models.rnn import SimpleGRU
-from tpu_speech_commands_torch.ops import frontend_kernel, rnn_kernel
+from tpu_speech_commands_torch.ops import cnn_kernel, frontend_kernel, rnn_kernel
+from tpu_speech_commands_torch.ops.cnn_lowering import lower_block1
 from tpu_speech_commands_torch.ops.frontend_kernel import MfccFrontend
 from tpu_speech_commands_torch.ops.rnn_kernel import GRUClassifier
 from tpu_speech_commands_torch.params import ListenerParams
@@ -35,6 +42,11 @@ pytestmark = pytest.mark.gpu
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GRU_CKPT = os.path.join(REPO, "pretrained", "direction_simple_gru.npz")
+CNN_CKPTS = {m: os.path.join(REPO, "pretrained", f"direction_{m}.npz")
+             for m in ("simple_cnn", "simple_cnn_lite")}
+# the default MFCC shape, the use_delta shape (stride 2 over an even width
+# in block 3) and odd dimensions (the VALID pools drop a row and a column)
+CNN_SHAPES = [(30, 20), (30, 40), (29, 21)]
 
 CONFIGS = {
     "mfcc": ({}, "mfcc"),
@@ -140,5 +152,125 @@ def test_scorer_runs_both_kernels(cuda_device, compute_dtype):
     assert rnn_kernel.gru_layer_cuda.launches == 1
     assert [scorer.classes[i] for i in got.argmax(-1)] == labels
     want = make_batch_scorer(GRU_CKPT, "cpu", compute_dtype)(audio)
+    atol = 1e-3 if compute_dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(got, want, rtol=0, atol=atol)
+
+
+def _random_cnn(model_type, h, w, seed, device):
+    """A CNN with weights and BatchNorm statistics from a numpy seed; some
+    BatchNorm scales are negative, as after training."""
+    cls = SimpleCNNLite if model_type == "simple_cnn_lite" else SimpleCNN
+    model = cls(5, h, w)
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            if name.endswith("bn.var"):
+                val = rng.uniform(0.5, 2.0, t.shape)
+            elif name.endswith("bn.scale"):
+                val = rng.normal(1.0, 0.6, t.shape)
+            else:
+                fan_in = int(np.prod(t.shape[:-1])) if t.ndim > 1 else 10
+                val = rng.standard_normal(t.shape) / np.sqrt(fan_in)
+            t.copy_(torch.tensor(val, dtype=torch.float32))
+    return model.to(device).eval()
+
+
+def _cnn_features(batch, h, w, seed, device):
+    rng = np.random.default_rng(seed)
+    return torch.tensor(4.0 * rng.standard_normal((batch, h, w)),
+                        dtype=torch.float32, device=device)
+
+
+@pytest.mark.parametrize("shape", CNN_SHAPES)
+@pytest.mark.parametrize("model_type", ["simple_cnn", "simple_cnn_lite"])
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_cnn_classifier_kernel_matches_plain(cuda_device, shape, model_type,
+                                             compute_dtype):
+    """B = 37: a ragged last tile."""
+    model = _random_cnn(model_type, *shape, seed=sum(shape), device=cuda_device)
+    x = _cnn_features(37, *shape, seed=3, device=cuda_device).to(compute_dtype)
+    cls = cnn_kernel.CNNClassifier(model, compute_dtype)
+    before = cnn_kernel.cnn_classifier_cuda.launches
+    got = cls(x)
+    torch.cuda.synchronize()
+    assert cnn_kernel.cnn_classifier_cuda.launches == before + 1
+    assert got.shape == (37, 5) and got.dtype == torch.float32
+    want = cnn_kernel.cnn_classifier_plain(cls.consts, x)
+    if compute_dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+        with torch.no_grad():
+            torch.testing.assert_close(got, model(x), rtol=1e-5, atol=1e-4)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=5e-2)
+
+
+@pytest.mark.parametrize("shape", CNN_SHAPES)
+@pytest.mark.parametrize("model_type", ["simple_cnn", "simple_cnn_lite"])
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_cnn_block1_kernel_matches_plain(cuda_device, shape, model_type,
+                                         compute_dtype):
+    model = _random_cnn(model_type, *shape, seed=7, device=cuda_device)
+    x = _cnn_features(37, *shape, seed=4, device=cuda_device)
+    stage = cnn_kernel.StageTensors(
+        lower_block1(model.variables(), model.separable, *shape),
+        cuda_device, compute_dtype)
+    before = cnn_kernel.cnn_block1_cuda.launches
+    got = cnn_kernel.cnn_block1_cuda(x, stage)
+    torch.cuda.synchronize()
+    assert cnn_kernel.cnn_block1_cuda.launches == before + 1
+    assert got.shape == (37, shape[0] // 2, shape[1] // 2, 16)
+    want = cnn_kernel.cnn_block1_plain(stage, x)
+    if compute_dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=5e-2)
+
+
+@pytest.mark.parametrize("model_type", ["simple_cnn", "simple_cnn_lite"])
+def test_fused_cnn_forward_matches_model(cuda_device, model_type):
+    model = _random_cnn(model_type, 30, 20, seed=11, device=cuda_device)
+    x = _cnn_features(37, 30, 20, seed=5, device=cuda_device)
+    before = cnn_kernel.cnn_block1_cuda.launches
+    got = cnn_kernel.make_fused_cnn_forward(model)(x[..., None])
+    torch.cuda.synchronize()
+    assert cnn_kernel.cnn_block1_cuda.launches == before + 1
+    with torch.no_grad():
+        torch.testing.assert_close(got, model(x), rtol=1e-5, atol=1e-4)
+
+
+def test_cnn_wrappers_reject_what_they_cannot_take(cuda_device):
+    model = _random_cnn("simple_cnn", 30, 20, seed=1, device=cuda_device)
+    consts = cnn_kernel.CNNClassifier(model).consts
+    stage = consts.stages[0]
+    good = _cnn_features(2, 30, 20, seed=1, device=cuda_device)
+    for launch, arg in ((cnn_kernel.cnn_classifier_cuda, consts),
+                        (cnn_kernel.cnn_block1_cuda, stage)):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            launch(good.cpu(), arg)
+        with pytest.raises(TypeError):
+            launch(good.double(), arg)
+        with pytest.raises(ValueError):
+            launch(_cnn_features(2, 30, 21, seed=1, device=cuda_device), arg)
+        with pytest.raises(ValueError):
+            launch(good.transpose(0, 1).contiguous().transpose(0, 1), arg)
+        assert launch(good[:0], arg).shape[0] == 0
+    with pytest.raises(ValueError, match="block-1 kernel"):
+        cnn_kernel.cnn_block1_cuda(good, consts.stages[1])  # block 2
+
+
+@pytest.mark.parametrize("model_type", sorted(CNN_CKPTS))
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_cnn_scorer_runs_both_kernels(cuda_device, model_type, compute_dtype):
+    audio, labels = _clips()
+    scorer = make_batch_scorer(CNN_CKPTS[model_type], cuda_device, compute_dtype)
+    assert scorer.paths["frontend"].startswith("cuda-mfcc")
+    assert scorer.paths["classifier"] == "cuda-cnn"
+    frontend_kernel.mfcc_frontend_cuda.launches = 0
+    cnn_kernel.cnn_classifier_cuda.launches = 0
+    got = scorer(torch.tensor(audio, device=cuda_device)).cpu()
+    assert frontend_kernel.mfcc_frontend_cuda.launches == 1
+    assert cnn_kernel.cnn_classifier_cuda.launches == 1
+    assert [scorer.classes[i] for i in got.argmax(-1)] == labels
+    want = make_batch_scorer(CNN_CKPTS[model_type], "cpu", compute_dtype)(audio)
     atol = 1e-3 if compute_dtype == torch.float32 else 5e-2
     torch.testing.assert_close(got, want, rtol=0, atol=atol)

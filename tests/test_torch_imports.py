@@ -40,6 +40,9 @@ def test_port_imports_no_jax():
         "tpu_speech_commands_torch.export.inference_loader",
         "tpu_speech_commands_torch.frontend.dsp",
         "tpu_speech_commands_torch.models.rnn",
+        "tpu_speech_commands_torch.models.cnn",
+        "tpu_speech_commands_torch.ops.cnn_lowering",
+        "tpu_speech_commands_torch.ops.cnn_kernel",
         "tpu_speech_commands_torch.convert",
         "tpu_speech_commands_torch.checkpoints",
     }

@@ -23,6 +23,7 @@ from tpu_speech_commands.models import get_model as jax_get_model
 from tpu_speech_commands.ops.pallas_rnn import make_fused_rnn_classifier
 from tpu_speech_commands_torch.convert import torch_state_from_jax
 from tpu_speech_commands_torch.models import get_model, score_fn
+from tpu_speech_commands_torch.models.cnn import SimpleCNN, SimpleCNNLite
 from tpu_speech_commands_torch.models.rnn import SimpleGRU, SimpleLSTM
 from tpu_speech_commands_torch.ops import rnn_kernel
 from tpu_speech_commands_torch.ops.rnn_kernel import GRUClassifier
@@ -32,9 +33,9 @@ BF16_ATOL = 5e-2
 T, D = 30, 20
 
 
-def _jax_model(model_type, num_classes, num_layers, seed):
+def _jax_model(model_type, num_classes, num_layers, seed, shape=(T, D)):
     model = jax_get_model(model_type, num_classes, num_layers=num_layers)
-    x = jnp.zeros((2, T, D), jnp.float32)
+    x = jnp.zeros((2,) + shape, jnp.float32)
     variables = model.init({"params": jax.random.PRNGKey(seed)}, x,
                            train=False)
     return model, jax.tree_util.tree_map(np.asarray, variables)
@@ -145,13 +146,22 @@ def test_convert_rejects_bad_trees():
         torch_state_from_jax(bad, "simple_gru")
     with pytest.raises(ValueError, match="lstm_unit_"):
         torch_state_from_jax(variables, "simple_lstm")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a GRU tree is no CNN tree; a CNN tree converts (test_torch_cnn.py)
+    with pytest.raises(ValueError, match="batch_stats"):
         torch_state_from_jax(variables, "simple_cnn")
+    _, cnn_vars = _jax_model("simple_cnn", 5, 1, seed=0, shape=(30, 20, 1))
+    assert "block1.bn.mean" in torch_state_from_jax(cnn_vars, "simple_cnn")
 
 
 def test_factory_refuses_cnn_and_bad_layers():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("simple_cnn_lite", 5)
+    """CNNs build; a CNN with num_layers != 1 is refused, as are bad layer
+    counts and unknown types."""
+    assert isinstance(get_model("simple_cnn", 5), SimpleCNN)
+    lite = get_model("simple_cnn_lite", 5, n_features=30, feature_size=40)
+    assert isinstance(lite, SimpleCNNLite) and lite.separable
+    assert lite.feature_dense.kernel.shape == (2 * 2 * 128, 128)
+    with pytest.raises(ValueError, match="num_layers"):
+        get_model("simple_cnn", 5, num_layers=2)
     with pytest.raises(ValueError):
         get_model("simple_gru", 5, num_layers=0)
     with pytest.raises(ValueError):

@@ -1,7 +1,7 @@
 """The port's batch scorer against the JAX package's, on real data.
 
-Both scorers load the same pretrained checkpoint; the JAX one runs its
-Pallas kernels in interpret mode.  The eight labelled example clips are read
+Both scorers load the same pretrained checkpoint (or, for `use_delta`, the
+same fresh one); the JAX one runs its Pallas kernels in interpret mode.  The eight labelled example clips are read
 as int16 PCM.  Tolerances:
 - f32 scores: rtol 1e-4 / atol 1e-5, the bound tests/test_serving.py holds
   the fused JAX scorer to against its plain forward;
@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from tpu_speech_commands.serving import make_batch_scorer as jax_scorer
@@ -26,7 +27,8 @@ from tpu_speech_commands_torch.serving import make_batch_scorer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPTS = {m: os.path.join(REPO, "pretrained", f"direction_{m}.npz")
-         for m in ("simple_gru", "simple_lstm")}
+         for m in ("simple_cnn", "simple_cnn_lite", "simple_gru",
+                   "simple_lstm")}
 RTOL, ATOL = 1e-4, 1e-5
 BF16_ATOL = 5e-2
 
@@ -143,7 +145,28 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
         make_batch_scorer(CKPTS["simple_gru"], "cuda")
 
 
-def test_cnn_checkpoint_is_refused():
-    path = os.path.join(REPO, "pretrained", "direction_simple_cnn.npz")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_batch_scorer(path, "cpu")
+@pytest.mark.parametrize("model_type", ["simple_cnn", "simple_cnn_lite"])
+def test_use_delta_cnn_scorer_matches_jax(tmp_path, clips, model_type):
+    """use_delta doubles the features to 30 x 40, so block 3 runs stride 2
+    over an even width (SAME pads 0 low, 1 high).  A fresh checkpoint saved
+    by the JAX package, scored by both packages."""
+    from tpu_speech_commands.optim import get_optimizer
+    from tpu_speech_commands.training import create_train_state, save_checkpoint
+
+    pr.override({"use_delta": True})
+    classes = ["background", "left", "right", "up", "down"]
+    tx = get_optimizer("adam", 1e-3, decay_type=None)
+    _, state = create_train_state(model_type, len(classes), tx,
+                                  jax.random.PRNGKey(1))
+    path = str(tmp_path / f"{model_type}_delta.npz")
+    save_checkpoint(path, state, {
+        "model_type": model_type, "num_classes": len(classes),
+        "classes": classes, "params": pr.to_dict(), "feature_type": "mfcc"})
+    audio = clips[0][:6]
+    want = np.asarray(jax_scorer(path, batch_tile=2, classifier_tile=2,
+                                 interpret=True, use_pallas=True)(
+        jnp.asarray(audio)))
+    scorer = make_batch_scorer(path, "cpu")
+    assert scorer.params.feature_size == 40
+    np.testing.assert_allclose(scorer(audio).numpy(), want, rtol=RTOL,
+                               atol=ATOL)

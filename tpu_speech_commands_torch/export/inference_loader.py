@@ -10,14 +10,14 @@ import torch
 
 from ..checkpoints import load_checkpoint
 from ..convert import torch_state_from_jax
-from ..models import get_model, score_fn
+from ..models import features_to_input, get_model, score_fn
 from ..params import pr
 
 
 class NativePredictor:
     """A loaded checkpoint: `.model` (eval mode, on `.device`),
     `.model_type`, `.num_classes`, `.classes`, `.meta`.  Calling it maps
-    (B, n_features, feature_size) features to softmax scores (B, C)."""
+    (B, n_features, feature_size[, 1]) features to softmax scores (B, C)."""
 
     def __init__(self, model, model_type, num_classes, classes, meta, device):
         self.model = model
@@ -30,7 +30,7 @@ class NativePredictor:
     @torch.inference_mode()
     def __call__(self, features) -> torch.Tensor:
         x = torch.as_tensor(features, dtype=torch.float32, device=self.device)
-        return score_fn(self.model(x))
+        return score_fn(self.model(features_to_input(x, self.model_type)))
 
 
 def load_native(model_path: str, device="cpu") -> NativePredictor:

@@ -1,15 +1,16 @@
 """Model factory (counterpart of `tpu_speech_commands/models/factory.py`).
 
-RNN models take (B, n_features, feature_size) features; all models return
-logits (B, num_classes), and `score_fn` applies the reference's
-`score_predict` softmax.  The CNN families are not ported yet and are
-refused explicitly.
+CNN models take (B, n_features, feature_size, 1) features (or the same
+without the channel axis); RNN models take (B, n_features, feature_size).
+All models return logits (B, num_classes), and `score_fn` applies the
+reference's `score_predict` softmax.
 """
 from __future__ import annotations
 
 import torch
 
 from ..params import pr
+from .cnn import SimpleCNN, SimpleCNNLite
 from .rnn import SimpleGRU, SimpleLSTM
 
 MODEL_TYPES = ("simple_cnn", "simple_cnn_lite", "simple_gru", "simple_lstm")
@@ -21,18 +22,18 @@ def is_cnn(model_type: str) -> bool:
 
 
 def get_model(model_type: str, num_classes: int, num_layers: int = 1,
-              feature_size: int | None = None):
-    """Build a model for `model_type`; feature_size defaults to
-    pr.feature_size (the config the checkpoint injected)."""
+              feature_size: int | None = None, n_features: int | None = None):
+    """Build a model for `model_type`; feature_size and n_features default
+    to pr's (the config the checkpoint injected).  num_layers stacks RNN
+    layers; CNNs reject num_layers != 1."""
+    if is_cnn(model_type) and num_layers != 1:
+        raise ValueError(f"num_layers only applies to RNN models, not {model_type}")
     if num_layers < 1:
         raise ValueError(f"num_layers must be >= 1, got {num_layers}")
-    if is_cnn(model_type):
-        raise NotImplementedError(
-            f"{model_type} is not ported to PyTorch yet: see ROADMAP.md, "
-            "'Modules to port', item 3 (CNN models and the CNN classifier "
-            "kernel K4)"
-        )
     feature_size = feature_size or pr.feature_size
+    if is_cnn(model_type):
+        cls = SimpleCNN if model_type == "simple_cnn" else SimpleCNNLite
+        return cls(num_classes, n_features or pr.n_features, feature_size)
     if model_type == "simple_gru":
         return SimpleGRU(num_classes, feature_size, 48, num_layers)
     if model_type == "simple_lstm":

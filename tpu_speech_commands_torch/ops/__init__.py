@@ -1,8 +1,17 @@
 """Hand-written CUDA kernels of the port and their wrappers.  Nothing here
 builds or imports a compiler at import time: `_build.load_library` runs at
 the first launch."""
+from .cnn_kernel import (
+    CNNClassifier,
+    cnn_block1_cuda,
+    cnn_classifier_cuda,
+    make_fused_cnn_forward,
+    make_fused_conv_block1,
+)
 from .frontend_kernel import MfccFrontend, mfcc_frontend_cuda
 from .rnn_kernel import GRUClassifier, gru_layer_cuda
 
 __all__ = ["MfccFrontend", "mfcc_frontend_cuda", "GRUClassifier",
-           "gru_layer_cuda"]
+           "gru_layer_cuda", "CNNClassifier", "cnn_classifier_cuda",
+           "cnn_block1_cuda", "make_fused_conv_block1",
+           "make_fused_cnn_forward"]

@@ -1,11 +1,13 @@
 """Batch serving: audio -> scores for a checkpoint (counterpart of
 `tpu_speech_commands/serving.py::make_batch_scorer`).
 
-On a CUDA device the simple_gru path runs the two hand-written kernels:
+On a CUDA device the simple_gru, simple_cnn and simple_cnn_lite paths run
+two hand-written kernels each:
 
     (B, S) f32 | int16 audio, x gain
       -> MFCC frontend kernel   (ops/frontend_kernel.py, csrc/mfcc_frontend.cu)
       -> GRU classifier kernel  (ops/rnn_kernel.py, csrc/gru_classifier.cu)
+         or CNN classifier kernel (ops/cnn_kernel.py, csrc/cnn_classifier.cu)
       -> softmax scores (B, C)
 
 simple_lstm keeps its plain module loop for the classifier, as the JAX
@@ -21,7 +23,8 @@ from __future__ import annotations
 import torch
 
 from .export.inference_loader import load_native
-from .models import score_fn
+from .models import is_cnn, score_fn
+from .ops.cnn_kernel import CNNClassifier
 from .ops.frontend_kernel import MfccFrontend
 from .ops.rnn_kernel import GRUClassifier
 from .params import pr
@@ -53,10 +56,10 @@ def make_batch_scorer(checkpoint_path: str, device="cpu",
     """Load a native `.npz` checkpoint onto `device` and build audio ->
     scores.
 
-    compute_dtype=torch.bfloat16 runs the GRU kernel's matmuls on bf16
-    inputs with f32 accumulation, and the frontend kernel then hands its
-    features over in bf16 (the classifier rounds them to bf16 anyway).  The
-    LSTM classifier stays in float32, as in the JAX package.
+    compute_dtype=torch.bfloat16 runs the GRU or CNN kernel's matmuls on
+    bf16 inputs with f32 accumulation, and the frontend kernel then hands
+    its features over in bf16 (the classifier rounds them to bf16 anyway).
+    The LSTM classifier stays in float32, as in the JAX package.
 
     Raises RuntimeError for a CUDA device when CUDA is not available, and
     ValueError for a CUDA device when the frontend kernel cannot take the
@@ -79,6 +82,9 @@ def make_batch_scorer(checkpoint_path: str, device="cpu",
     if predictor.model_type == "simple_gru":
         classifier = GRUClassifier(model, compute_dtype)
         classifier_path = "cuda-gru" if on_cuda else "torch"
+    elif is_cnn(predictor.model_type):
+        classifier = CNNClassifier(model, compute_dtype)
+        classifier_path = "cuda-cnn" if on_cuda else "torch"
     else:
         def classifier(feats):
             return model(feats.to(torch.float32))
@@ -86,7 +92,7 @@ def make_batch_scorer(checkpoint_path: str, device="cpu",
         classifier_path = "torch"
     # bf16 feature handoff only into the kernel classifier, which rounds its
     # matmul inputs to bf16 anyway
-    handoff = (compute_dtype if classifier_path == "cuda-gru"
+    handoff = (compute_dtype if classifier_path in ("cuda-gru", "cuda-cnn")
                else torch.float32)
     frontend = MfccFrontend(p, feature_type, device, out_dtype=handoff)
     paths = {
