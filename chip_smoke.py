@@ -8,21 +8,27 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device   require CUDA; print the card's name and power limit (nvidia-smi)
 2. build    compile tpu_speech_commands_torch/csrc/*.cu with nvcc (sm_90a)
 3. kernels  each kernel against its plain PyTorch version on the card, at
-            B = 1000, over the configs and dtypes the slices can meet
+            B = 1000, over the configs and dtypes the slices can meet (the
+            fast_math frontend also at K6 make_bf16_kernel's own settings)
 4. slices   each path driven on the eight example/*.wav clips in f32 and
             bf16, with every launch count set to 0 just before it and read
             just after:
-            - make_batch_scorer for direction_simple_gru.npz, and for
-              direction_simple_cnn.npz and direction_simple_cnn_lite.npz:
-              top-1 must equal every file's label, `.paths` must name both
-              kernels, both launch counts must rise, and the scores must
-              agree with the same scorer run on the CPU (plain versions);
+            - make_batch_scorer for direction_simple_gru.npz,
+              direction_simple_lstm.npz, direction_simple_cnn.npz and
+              direction_simple_cnn_lite.npz: top-1 must equal every file's
+              label, `.paths` must name both kernels, both launch counts
+              must rise, and the scores must agree with the same scorer run
+              on the CPU (plain versions);
             - the fused-block-1 path (frontend kernel, then
               make_fused_cnn_forward) for both CNN checkpoints: top-1 and the
-              block-1 launch count
+              block-1 launch count;
+            - MfccFrontend(fast_math=True) into the GRU, LSTM and CNN
+              classifier kernels for all four checkpoints: top-1 and both
+              launch counts
 5. times    CUDA-event times at B = 8192, audio resident on the card: each
-            kernel against its plain version, and end-to-end windows/s for
-            simple_gru and simple_cnn (information only)
+            kernel against its plain version (the fast_math frontend also
+            against the FFT kernel), and end-to-end windows/s for every
+            scorer (information only)
 
 The line before the last is one JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}.  On a machine without CUDA the
@@ -42,6 +48,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CHECKPOINT = os.path.join(REPO, "pretrained", "direction_simple_gru.npz")
+LSTM_CHECKPOINT = os.path.join(REPO, "pretrained", "direction_simple_lstm.npz")
 CNN_CHECKPOINTS = {m: os.path.join(REPO, "pretrained", f"direction_{m}.npz")
                    for m in ("simple_cnn", "simple_cnn_lite")}
 B_CHECK = 1000   # not a multiple of any tile either kernel uses
@@ -55,7 +62,11 @@ B_TIME = 8192    # the serving batch the JAX benchmark measured
 FEAT_ATOL, FEAT_RTOL = 2e-3, 1e-3
 # - features bf16: the f32 bound plus one bf16 rounding step (2^-7 relative)
 FEAT_BF16_ATOL, FEAT_BF16_RTOL = 2e-3, 1e-3 + 2.0 ** -7
-# - GRU logits f32: same math, f32 sums in another order over 30 steps
+# (the fast_math frontend kernel is held to the same two bounds: its frames
+# and DFT matrix are the plain version's bf16 values bit for bit, and only
+# the f32 sums run in another order)
+# - GRU and LSTM logits f32: same math, f32 sums in another order over 30
+#   steps
 GRU_ATOL, GRU_RTOL = 1e-4, 1e-5
 # - GRU logits bf16: rounding of bf16 products can flip at a boundary and
 #   grow over the recurrence; the bound tests/test_serving.py allows bf16
@@ -185,14 +196,15 @@ def main() -> int:
     from tpu_speech_commands_torch.frontend.dsp import Frontend
     from tpu_speech_commands_torch.models import score_fn
     from tpu_speech_commands_torch.models.cnn import SimpleCNN, SimpleCNNLite
-    from tpu_speech_commands_torch.models.rnn import SimpleGRU
+    from tpu_speech_commands_torch.models.rnn import SimpleGRU, SimpleLSTM
     from tpu_speech_commands_torch.ops import (
         _build, cnn_kernel, frontend_kernel, rnn_kernel)
     from tpu_speech_commands_torch.ops.cnn_kernel import (
         CNNClassifier, make_fused_cnn_forward)
     from tpu_speech_commands_torch.ops.cnn_lowering import lower_block1
     from tpu_speech_commands_torch.ops.frontend_kernel import MfccFrontend
-    from tpu_speech_commands_torch.ops.rnn_kernel import GRUClassifier
+    from tpu_speech_commands_torch.ops.rnn_kernel import (
+        GRUClassifier, LSTMClassifier)
     from tpu_speech_commands_torch.params import ListenerParams
     from tpu_speech_commands_torch.export.inference_loader import load_native
     from tpu_speech_commands_torch.serving import make_batch_scorer
@@ -225,7 +237,6 @@ def main() -> int:
         np.clip(np.round(audio_np * 32768.0), -32768, 32767).astype(np.int16),
         device=dev)
     log(f"kernels vs plain on the card, B = {B_CHECK}, TF32 off:")
-    frontend_errs = []
     cases = [
         ("default", {}, "mfcc", audio_f32, torch.float32, 0.8),
         ("default", {}, "mfcc", audio_i16, torch.float32, 1.25),
@@ -239,44 +250,64 @@ def main() -> int:
         ("bark", {}, "bark", audio_f32, torch.float32, 0.8),
         ("bark", {}, "bark", audio_i16, torch.bfloat16, 1.25),
     ]
+    frontend_errs, fast_errs = [], []
     for name, kw, ftype, audio, out_dtype, gain in cases:
         p = ListenerParams(**kw)
-        fe = MfccFrontend(p, ftype, dev, out_dtype=out_dtype)
-        got = fe(audio, gain)
-        torch.cuda.synchronize()
-        want = fe.plain(audio, gain).to(out_dtype)
-        assert got.dtype == out_dtype
-        what = (f"frontend {name} {ftype} {str(audio.dtype)[6:]}->"
-                f"{str(out_dtype)[6:]} gain {gain}")
-        if out_dtype == torch.float32:
-            frontend_errs.append(
-                check_close(what, got, want, FEAT_ATOL, FEAT_RTOL))
-        else:
-            check_close(what, got, want, FEAT_BF16_ATOL, FEAT_BF16_RTOL)
+        for fast_math, errs in ((False, frontend_errs), (True, fast_errs)):
+            fe = MfccFrontend(p, ftype, dev, out_dtype=out_dtype,
+                              fast_math=fast_math)
+            got = fe(audio, gain)
+            torch.cuda.synchronize()
+            want = fe.plain(audio, gain).to(out_dtype)
+            assert got.dtype == out_dtype
+            what = (f"{'fast_math' if fast_math else 'frontend'} {name} "
+                    f"{ftype} {str(audio.dtype)[6:]}->{str(out_dtype)[6:]} "
+                    f"gain {gain}")
+            if out_dtype == torch.float32:
+                errs.append(check_close(what, got, want, FEAT_ATOL, FEAT_RTOL))
+            else:
+                check_close(what, got, want, FEAT_BF16_ATOL, FEAT_BF16_RTOL)
+    # K6 make_bf16_kernel's own settings: default params, f32 audio at
+    # gain 1, f32 output over all 30 frames
+    fe = MfccFrontend(ListenerParams(), "mfcc", dev, fast_math=True)
+    fast_errs.append(check_close(
+        "fast_math at K6 make_bf16_kernel's settings", fe(audio_f32),
+        fe.plain(audio_f32), FEAT_ATOL, FEAT_RTOL))
 
     feats = Frontend(ListenerParams(), "mfcc", dev)(audio_f32)
     pretrained = load_native(CHECKPOINT, dev).model
-    stacked = SimpleGRU(5, 20, 48, num_layers=2).to(dev)
+    lstm_pretrained = load_native(LSTM_CHECKPOINT, dev).model
     rng = np.random.default_rng(1)
-    with torch.no_grad():
-        for prm in stacked.parameters():
-            prm.copy_(torch.tensor(
-                0.1 * rng.standard_normal(tuple(prm.shape)), dtype=torch.float32))
-    gru_errs = []
-    for label, model in (("1 layer, pretrained", pretrained),
-                         ("2 layers, random", stacked)):
-        for dtype in (torch.float32, torch.bfloat16):
-            cls = GRUClassifier(model, dtype)
-            x = feats.to(dtype)
-            got = cls(x)
-            torch.cuda.synchronize()
-            with torch.inference_mode():
-                want = model(x.float(), dtype)
-            what = f"gru {label} {str(dtype)[6:]}"
-            if dtype == torch.float32:
-                gru_errs.append(check_close(what, got, want, GRU_ATOL, GRU_RTOL))
-            else:
-                check_close(what, got, want, GRU_BF16_ATOL, 0.0)
+
+    def random_rnn(cls):
+        model = cls(5, 20, 48, num_layers=2).to(dev)
+        with torch.no_grad():
+            for prm in model.parameters():
+                prm.copy_(torch.tensor(
+                    0.1 * rng.standard_normal(tuple(prm.shape)),
+                    dtype=torch.float32))
+        return model
+
+    rnn_errs = {"gru": [], "lstm": []}
+    for rnn, rnn_cls, models in (
+            ("gru", GRUClassifier, (("1 layer, pretrained", pretrained),
+                                    ("2 layers, random", random_rnn(SimpleGRU)))),
+            ("lstm", LSTMClassifier,
+             (("1 layer, pretrained", lstm_pretrained),
+              ("2 layers, random", random_rnn(SimpleLSTM))))):
+        for label, model in models:
+            for dtype in (torch.float32, torch.bfloat16):
+                x = feats.to(dtype)
+                got = rnn_cls(model, dtype)(x)
+                torch.cuda.synchronize()
+                with torch.inference_mode():
+                    want = model(x.float(), dtype)
+                what = f"{rnn} {label} {str(dtype)[6:]}"
+                if dtype == torch.float32:
+                    rnn_errs[rnn].append(
+                        check_close(what, got, want, GRU_ATOL, GRU_RTOL))
+                else:
+                    check_close(what, got, want, GRU_BF16_ATOL, 0.0)
 
     cnn_models = {m: load_native(path, dev).model
                   for m, path in CNN_CHECKPOINTS.items()}
@@ -330,7 +361,9 @@ def main() -> int:
     # -- 4. the slices ---------------------------------------------------------
     counters = {
         "mfcc_frontend": frontend_kernel.mfcc_frontend_cuda,
+        "dft_frontend_bf16": frontend_kernel.dft_frontend_bf16_cuda,
         "gru_classifier": rnn_kernel.gru_layer_cuda,
+        "lstm_classifier": rnn_kernel.lstm_layer_cuda,
         "cnn_classifier": cnn_kernel.cnn_classifier_cuda,
         "cnn_block1": cnn_kernel.cnn_block1_cuda,
     }
@@ -355,6 +388,7 @@ def main() -> int:
     clips_dev = torch.tensor(clips, device=dev)
     scorer_paths = (
         (CHECKPOINT, "cuda-gru", "gru_classifier"),
+        (LSTM_CHECKPOINT, "cuda-lstm", "lstm_classifier"),
         (CNN_CHECKPOINTS["simple_cnn"], "cuda-cnn", "cnn_classifier"),
         (CNN_CHECKPOINTS["simple_cnn_lite"], "cuda-cnn", "cnn_classifier"),
     )
@@ -401,6 +435,30 @@ def main() -> int:
             if not torch.isfinite(sc).all() or top1 != labels:
                 raise AssertionError(f"top-1 {top1} != labels {labels}")
 
+    fast_paths = (
+        (CHECKPOINT, GRUClassifier, "gru_classifier"),
+        (LSTM_CHECKPOINT, LSTMClassifier, "lstm_classifier"),
+        (CNN_CHECKPOINTS["simple_cnn"], CNNClassifier, "cnn_classifier"),
+        (CNN_CHECKPOINTS["simple_cnn_lite"], CNNClassifier, "cnn_classifier"),
+    )
+    for path, cls, kernel_name in fast_paths:
+        predictor = load_native(path, dev)
+        fe = MfccFrontend(None, predictor.meta.get("feature_type", "mfcc"), dev,
+                          fast_math=True)
+        classifiers = {dt: cls(predictor.model, dt)
+                       for dt in (torch.float32, torch.bfloat16)}
+        scores = drive(
+            f"MfccFrontend(fast_math=True) + {cls.__name__}("
+            f"{os.path.basename(path)}) on 8 clips, f32 and bf16",
+            lambda: {dt: score_fn(c(fe(clips_dev)))
+                     for dt, c in classifiers.items()},
+            ("dft_frontend_bf16", kernel_name))
+        for dt, sc in scores.items():
+            top1 = [predictor.classes[i] for i in sc.argmax(-1).tolist()]
+            log(f"  {str(dt)[6:]:8s} top-1 {sum(a == b for a, b in zip(top1, labels))}/8")
+            if not torch.isfinite(sc).all() or top1 != labels:
+                raise AssertionError(f"top-1 {top1} != labels {labels}")
+
     # -- 5. times (information only) -------------------------------------------
     log(f"times at B = {B_TIME}, audio resident on the card ({card}):")
     big_np = test_audio(clips, B_TIME, seed=2)
@@ -412,11 +470,17 @@ def main() -> int:
     cnn_cls = CNNClassifier(cnn, torch.float32)
     stage = cnn_kernel.StageTensors(lower_block1(cnn.variables(), False, 30, 20),
                                     dev)
+    fast_fe = MfccFrontend(ListenerParams(), "mfcc", dev, fast_math=True)
+    lstm_cls = LSTMClassifier(lstm_pretrained, torch.float32)
     times = {
         "mfcc_frontend": (cuda_ms(lambda: fe(big), 20),
                           cuda_ms(lambda: fe.plain(big), 5)),
+        "dft_frontend_bf16": (cuda_ms(lambda: fast_fe(big), 20),
+                              cuda_ms(lambda: fast_fe.plain(big), 5)),
         "gru_classifier": (cuda_ms(lambda: cls(big_feats), 20),
                            cuda_ms(lambda: pretrained(big_feats), 5)),
+        "lstm_classifier": (cuda_ms(lambda: lstm_cls(big_feats), 20),
+                            cuda_ms(lambda: lstm_pretrained(big_feats), 5)),
         "cnn_classifier": (
             cuda_ms(lambda: cnn_cls(big_feats), 20),
             cuda_ms(lambda: cnn_kernel.cnn_classifier_plain(cnn_cls.consts,
@@ -430,10 +494,17 @@ def main() -> int:
             f"(f32, {card})")
     cls16 = GRUClassifier(pretrained, torch.bfloat16)
     feats16 = big_feats.to(torch.bfloat16)
-    log(f"  gru_classifier   kernel bf16 {cuda_ms(lambda: cls16(feats16), 20):.4f}"
-        f" ms  plain bf16 "
-        f"{cuda_ms(lambda: pretrained(feats16.float(), torch.bfloat16), 5):.4f}"
-        f" ms  ({card})")
+    for name, model, c16 in (
+            ("gru_classifier", pretrained, cls16),
+            ("lstm_classifier", lstm_pretrained,
+             LSTMClassifier(lstm_pretrained, torch.bfloat16))):
+        log(f"  {name:16s} kernel bf16 {cuda_ms(lambda: c16(feats16), 20):.4f}"
+            f" ms  plain bf16 "
+            f"{cuda_ms(lambda: model(feats16.float(), torch.bfloat16), 5):.4f}"
+            f" ms  ({card})")
+    log(f"  dft_frontend_bf16 kernel {times['dft_frontend_bf16'][0]:.4f} ms vs "
+        f"FFT kernel (mfcc_frontend) {cuda_ms(lambda: fe(big), 20):.4f} ms, "
+        f"same call, f32 audio and output  ({card})")
     for name, model in cnn_models.items():
         for dt in (torch.float32, torch.bfloat16):
             c = CNNClassifier(model, dt)
@@ -456,14 +527,21 @@ def main() -> int:
                 f"{ms:.4f} ms/batch  {B_TIME / ms * 1e3:.0f} windows/s  ({card})")
 
     kernels = []
-    for name, mod, replaces, errs in (
-            ("mfcc_frontend", frontend_kernel, frontend_kernel.REPLACES,
+    for name, source, replaces, errs in (
+            ("mfcc_frontend", frontend_kernel.SOURCE, frontend_kernel.REPLACES,
              frontend_errs),
-            ("gru_classifier", rnn_kernel, rnn_kernel.REPLACES, gru_errs),
-            ("cnn_classifier", cnn_kernel, cnn_kernel.REPLACES, cnn_errs),
-            ("cnn_block1", cnn_kernel, cnn_kernel.BLOCK1_REPLACES, block1_errs)):
+            ("dft_frontend_bf16", frontend_kernel.DFT_SOURCE,
+             frontend_kernel.DFT_REPLACES, fast_errs),
+            ("gru_classifier", rnn_kernel.SOURCE, rnn_kernel.REPLACES,
+             rnn_errs["gru"]),
+            ("lstm_classifier", rnn_kernel.LSTM_SOURCE,
+             rnn_kernel.LSTM_REPLACES, rnn_errs["lstm"]),
+            ("cnn_classifier", cnn_kernel.SOURCE, cnn_kernel.REPLACES,
+             cnn_errs),
+            ("cnn_block1", cnn_kernel.SOURCE, cnn_kernel.BLOCK1_REPLACES,
+             block1_errs)):
         kernels.append({
-            "name": name, "route": "cuda", "source": mod.SOURCE,
+            "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(errs), "ms": times[name][0],
             "plain_ms": times[name][1],
@@ -471,7 +549,8 @@ def main() -> int:
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

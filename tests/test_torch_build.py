@@ -32,7 +32,7 @@ def test_build_passes_hopper_flags_and_every_source(tmp_path, monkeypatch):
     args_file = tmp_path / "args"
     monkeypatch.setenv("CUDA_HOME", _fake_nvcc(
         tmp_path,
-        f'echo "$@" > {args_file}\n'
+        f'echo "$@" >> {args_file}\n'
         'while [ "$1" != "-o" ]; do shift; done; touch "$2"\n'))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     lib = tmp_path / "build" / "lib.so"
@@ -40,7 +40,8 @@ def test_build_passes_hopper_flags_and_every_source(tmp_path, monkeypatch):
     assert lib.exists() and lib.with_suffix(".log").exists()
     args = args_file.read_text()
     assert "arch=compute_90a,code=sm_90a" in args
-    for src in ("mfcc_frontend.cu", "gru_classifier.cu", "cnn_classifier.cu"):
+    for src in ("mfcc_frontend.cu", "gru_classifier.cu", "cnn_classifier.cu",
+                "lstm_classifier.cu", "dft_frontend.cu"):
         assert src in args
 
 

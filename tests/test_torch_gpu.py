@@ -17,7 +17,11 @@ Tolerances, each with its reason:
 - scores f32, card vs CPU: atol 1e-3 (the feature bound through the GRU);
 - CNN logits f32: atol 1e-4 / rtol 1e-5 (another summation order over
   K <= 576); bf16: atol 5e-2 (a bf16 rounding of an activation can flip);
-- CNN block-1 activations f32: atol 1e-5 / rtol 1e-5; bf16: atol 5e-2.
+- CNN block-1 activations f32: atol 1e-5 / rtol 1e-5; bf16: atol 5e-2;
+- fast_math features: the bounds of the f32 features above (the kernel's
+  bf16 frames and DFT matrix are the plain version's values bit for bit;
+  only the f32 sums run in another order);
+- LSTM logits f32: atol 1e-4 / rtol 1e-5; bf16: atol 5e-2 (as the GRU).
 cuDNN runs float32 convs in TF32 unless told otherwise: the fixture turns
 TF32 off, so the plain versions' convs are float32.
 """
@@ -30,11 +34,11 @@ import pytest
 import torch
 
 from tpu_speech_commands_torch.models.cnn import SimpleCNN, SimpleCNNLite
-from tpu_speech_commands_torch.models.rnn import SimpleGRU
+from tpu_speech_commands_torch.models.rnn import SimpleGRU, SimpleLSTM
 from tpu_speech_commands_torch.ops import cnn_kernel, frontend_kernel, rnn_kernel
 from tpu_speech_commands_torch.ops.cnn_lowering import lower_block1
 from tpu_speech_commands_torch.ops.frontend_kernel import MfccFrontend
-from tpu_speech_commands_torch.ops.rnn_kernel import GRUClassifier
+from tpu_speech_commands_torch.ops.rnn_kernel import GRUClassifier, LSTMClassifier
 from tpu_speech_commands_torch.params import ListenerParams
 from tpu_speech_commands_torch.serving import make_batch_scorer
 
@@ -42,6 +46,7 @@ pytestmark = pytest.mark.gpu
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GRU_CKPT = os.path.join(REPO, "pretrained", "direction_simple_gru.npz")
+LSTM_CKPT = os.path.join(REPO, "pretrained", "direction_simple_lstm.npz")
 CNN_CKPTS = {m: os.path.join(REPO, "pretrained", f"direction_{m}.npz")
              for m in ("simple_cnn", "simple_cnn_lite")}
 # the default MFCC shape, the use_delta shape (stride 2 over an even width
@@ -274,3 +279,119 @@ def test_cnn_scorer_runs_both_kernels(cuda_device, model_type, compute_dtype):
     want = make_batch_scorer(CNN_CKPTS[model_type], "cpu", compute_dtype)(audio)
     atol = 1e-3 if compute_dtype == torch.float32 else 5e-2
     torch.testing.assert_close(got, want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+@pytest.mark.parametrize("audio_dtype", ["float32", "int16"])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_fast_math_kernel_matches_plain(cuda_device, name, audio_dtype,
+                                        out_dtype):
+    """B = 13: a ragged last tile of windows."""
+    kw, feature_type = CONFIGS[name]
+    p = ListenerParams(**kw)
+    clips, _ = _clips()
+    rows = clips[np.arange(13) % 8].astype(np.float32) / 32768.0
+    audio = rows * np.linspace(0.3, 1.5, 13, dtype=np.float32)[:, None]
+    if audio_dtype == "int16":
+        audio = np.clip(audio * 32768.0, -32768, 32767).astype(np.int16)
+    audio = torch.tensor(audio, device=cuda_device)
+    fe = MfccFrontend(p, feature_type, cuda_device, out_dtype=out_dtype,
+                      fast_math=True)
+    before = frontend_kernel.dft_frontend_bf16_cuda.launches
+    got = fe(audio, 0.8)
+    torch.cuda.synchronize()
+    assert frontend_kernel.dft_frontend_bf16_cuda.launches == before + 1
+    assert got.shape == (13, p.n_features, p.feature_size)
+    assert got.dtype == out_dtype
+    want = fe.plain(audio, 0.8).to(out_dtype)
+    rtol = 1e-3 if out_dtype == torch.float32 else 1e-3 + 2.0 ** -7
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=2e-3)
+
+
+def test_fast_math_kernel_rejects_what_it_cannot_take(cuda_device):
+    fe = MfccFrontend(ListenerParams(), "mfcc", cuda_device, fast_math=True)
+    with pytest.raises(TypeError):
+        fe(torch.zeros(2, 16000, dtype=torch.float64, device=cuda_device))
+    with pytest.raises(ValueError):
+        fe(torch.zeros(2, 32000, device=cuda_device)[:, ::2])  # strided
+    with pytest.raises(ValueError):
+        fe(torch.zeros(2, 8000, device=cuda_device))  # too short
+    with pytest.raises(ValueError, match="multiple of 8"):
+        MfccFrontend(ListenerParams(hop_t=0.0101), "mfcc", cuda_device,
+                     fast_math=True)
+    assert fe(torch.zeros(0, 16000, device=cuda_device)).shape == (0, 30, 20)
+
+
+@pytest.mark.parametrize("num_layers", [1, 2])
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_lstm_kernel_matches_plain(cuda_device, num_layers, compute_dtype):
+    """B = 37: a ragged last tile.  Weights from a numpy seed."""
+    model = SimpleLSTM(5, 20, 48, num_layers)
+    rng = np.random.default_rng(10 + num_layers)
+    with torch.no_grad():
+        for prm in model.parameters():
+            prm.copy_(torch.tensor(0.1 * rng.standard_normal(tuple(prm.shape)),
+                                   dtype=torch.float32))
+    model = model.to(cuda_device).eval()
+    x = torch.tensor(rng.standard_normal((37, 30, 20)), dtype=torch.float32,
+                     device=cuda_device).to(compute_dtype)
+    before = rnn_kernel.lstm_layer_cuda.launches
+    got = LSTMClassifier(model, compute_dtype)(x)
+    torch.cuda.synchronize()
+    assert rnn_kernel.lstm_layer_cuda.launches == before + num_layers
+    with torch.no_grad():
+        want = model(x.float(), compute_dtype)
+    atol = 1e-4 if compute_dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+
+
+def test_lstm_wrapper_rejects_what_it_cannot_take(cuda_device):
+    cell = SimpleLSTM(5, 20, 48).to(cuda_device).backbone.lstm_unit_0
+    weights = (cell.kernel.detach(), cell.recurrent_kernel.detach(),
+               cell.bias.detach())
+    good = torch.zeros(2, 30, 20, device=cuda_device)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        rnn_kernel.lstm_layer_cuda(good.cpu(), *weights)
+    with pytest.raises(TypeError):
+        rnn_kernel.lstm_layer_cuda(good.double(), *weights)
+    with pytest.raises(ValueError):
+        rnn_kernel.lstm_layer_cuda(good.transpose(0, 1).contiguous()
+                                   .transpose(0, 1), *weights)
+    with pytest.raises(ValueError, match="kernel"):
+        rnn_kernel.lstm_layer_cuda(torch.zeros(2, 30, 21, device=cuda_device),
+                                   *weights)
+    assert rnn_kernel.lstm_layer_cuda(good[:0], *weights).shape == (0, 30, 48)
+
+
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_lstm_scorer_runs_both_kernels(cuda_device, compute_dtype):
+    audio, labels = _clips()
+    scorer = make_batch_scorer(LSTM_CKPT, cuda_device, compute_dtype)
+    assert scorer.paths == {"frontend": "cuda-mfcc", "classifier": "cuda-lstm"}
+    frontend_kernel.mfcc_frontend_cuda.launches = 0
+    rnn_kernel.lstm_layer_cuda.launches = 0
+    got = scorer(torch.tensor(audio, device=cuda_device)).cpu()
+    assert frontend_kernel.mfcc_frontend_cuda.launches == 1
+    assert rnn_kernel.lstm_layer_cuda.launches == 1
+    assert [scorer.classes[i] for i in got.argmax(-1)] == labels
+    want = make_batch_scorer(LSTM_CKPT, "cpu", compute_dtype)(audio)
+    atol = 1e-3 if compute_dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(got, want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("ckpt", ["simple_gru", "simple_lstm", "simple_cnn",
+                                  "simple_cnn_lite"])
+def test_fast_math_frontend_into_classifier_kernels(cuda_device, ckpt):
+    from tpu_speech_commands_torch.export.inference_loader import load_native
+
+    audio, labels = _clips()
+    predictor = load_native(os.path.join(REPO, "pretrained",
+                                         f"direction_{ckpt}.npz"), cuda_device)
+    cls = {"simple_gru": GRUClassifier, "simple_lstm": LSTMClassifier}.get(
+        ckpt, cnn_kernel.CNNClassifier)(predictor.model)
+    fe = MfccFrontend(None, predictor.meta.get("feature_type", "mfcc"),
+                      cuda_device, fast_math=True)
+    before = frontend_kernel.dft_frontend_bf16_cuda.launches
+    logits = cls(fe(torch.tensor(audio, device=cuda_device)))
+    assert frontend_kernel.dft_frontend_bf16_cuda.launches == before + 1
+    assert [predictor.classes[i] for i in logits.argmax(-1).tolist()] == labels

@@ -8,9 +8,13 @@
     coeffs  = mels @ D^T [, :n_mfcc]         # DCT-II ortho
     coeffs[..., 0] = safe_log(sum(power))    # energy-coefficient swap
 
-This chain is the plain version of the frontend kernel
-(`ops/frontend_kernel.py`, `csrc/mfcc_frontend.cu`): the CPU path, and what
-the kernel is held against on the card.
+This chain is the plain version of the frontend kernels
+(`ops/frontend_kernel.py`): of `csrc/mfcc_frontend.cu` in f32, and with
+`fast_math=True` of `csrc/dft_frontend.cu`, the counterpart of
+`make_fused_frontend(fast_math=True, dft_mode='dense')`: the decoded,
+gained frames and the cos/sin matrices are rounded to bf16, the DFT
+products accumulate in f32, and the filterbank, log and DCT stay f32.  It
+is the CPU path, and what the kernels are held against on the card.
 """
 from __future__ import annotations
 
@@ -58,20 +62,30 @@ def decode_audio(audio: torch.Tensor, gain=None) -> torch.Tensor:
     return audio
 
 
+def _bf16_rounded(t: torch.Tensor) -> torch.Tensor:
+    """Round a float32 tensor to bfloat16 and back: a product of two such
+    values is exact in f32, so f32 matmuls of rounded operands equal bf16
+    matmuls with f32 accumulation."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
 class Frontend:
     """Batched feature frontend bound to a snapshot of a ListenerParams.
 
     feature_type: 'mfcc' (mel) or 'bark'.  Called on (B, S) float32 audio in
     [-1, 1] or int16 PCM; returns (B, n_features, feature_size) float32.
+    fast_math=True runs the DFT on bf16-rounded frames and matrices.
     """
 
     def __init__(self, params: ListenerParams | None = None,
-                 feature_type: str = "mfcc", device="cpu"):
+                 feature_type: str = "mfcc", device="cpu",
+                 fast_math: bool = False):
         # snapshot: a later inject_params must not mix new scalar config
         # (n_fft normalisation, framing) with the matrices built here
         p = (params or pr).replace()
         self.params = p
         self.feature_type = feature_type
+        self.fast_math = fast_math
         self.device = torch.device(device)
         filt = filterbank_matrix(p, feature_type)
         cos, sin = dft_matrices(p.window_samples, p.n_fft)
@@ -80,6 +94,9 @@ class Frontend:
             return torch.tensor(m, dtype=torch.float32, device=self.device)
 
         self._cos, self._sin = dev(cos), dev(sin)
+        if fast_math:
+            self._cos = _bf16_rounded(self._cos)
+            self._sin = _bf16_rounded(self._sin)
         self._filt = dev(filt)
         self._dct_t = dev(dct_t_matrix(p.n_filt))
         frames_from_max = (
@@ -94,6 +111,8 @@ class Frontend:
 
     def power_from_frames(self, frames: torch.Tensor) -> torch.Tensor:
         """(..., W) frames -> (..., n_fft // 2 + 1) power spectrum."""
+        if self.fast_math:
+            frames = _bf16_rounded(frames)
         re = torch.matmul(frames, self._cos)
         im = torch.matmul(frames, self._sin)
         return (re * re + im * im) / self.params.n_fft

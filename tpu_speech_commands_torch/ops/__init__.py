@@ -8,10 +8,20 @@ from .cnn_kernel import (
     make_fused_cnn_forward,
     make_fused_conv_block1,
 )
-from .frontend_kernel import MfccFrontend, mfcc_frontend_cuda
-from .rnn_kernel import GRUClassifier, gru_layer_cuda
+from .frontend_kernel import (
+    MfccFrontend,
+    dft_frontend_bf16_cuda,
+    mfcc_frontend_cuda,
+)
+from .rnn_kernel import (
+    GRUClassifier,
+    LSTMClassifier,
+    gru_layer_cuda,
+    lstm_layer_cuda,
+)
 
-__all__ = ["MfccFrontend", "mfcc_frontend_cuda", "GRUClassifier",
-           "gru_layer_cuda", "CNNClassifier", "cnn_classifier_cuda",
+__all__ = ["MfccFrontend", "mfcc_frontend_cuda", "dft_frontend_bf16_cuda",
+           "GRUClassifier", "gru_layer_cuda", "LSTMClassifier",
+           "lstm_layer_cuda", "CNNClassifier", "cnn_classifier_cuda",
            "cnn_block1_cuda", "make_fused_conv_block1",
            "make_fused_cnn_forward"]

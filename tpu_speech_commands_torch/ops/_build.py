@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (the idea of
 `tpu_speech_commands/utils/native_build.py`, for `csrc/*.cu`).
 
-Every `csrc/*.cu` is compiled by ONE nvcc call for Hopper (`sm_90a`) into a
+Every `csrc/*.cu` is compiled for Hopper (`sm_90a`) by its own nvcc call,
+all started together, and one more nvcc call links the objects into a
 shared library with a plain C interface, loaded with ctypes.  The library's
 name carries a hash of the sources and flags, so an edit rebuilds and an
 unchanged tree reuses the last build.  The build directory sits inside the
@@ -23,11 +24,13 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = (
+COMPILE_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-shared",)
+NVCC_FLAGS = COMPILE_FLAGS + LINK_FLAGS
 
 
 class KernelBuildError(RuntimeError):
@@ -80,27 +83,32 @@ build_info = BuildInfo()
 
 def _compile(lib_path: Path) -> str:
     nvcc = find_nvcc()
-    units = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
+    units = sorted(CSRC_DIR.glob("*.cu"))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build under a temporary name, then rename: a concurrent process never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, *units],
-            capture_output=True, text=True, check=False,
-        )
+    # build in a temporary directory, then rename: a concurrent process
+    # never loads a half-written library, and a failed build leaves nothing
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, unit.stem + ".o") for unit in units]
+        procs = [
+            subprocess.Popen([nvcc, *COMPILE_FLAGS, "-c", "-o", obj, str(unit)],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True)
+            for unit, obj in zip(units, objs)
+        ]
+        outputs = [proc.communicate() for proc in procs]
+        log = "".join(out + err for out, err in outputs)
+        failed = [unit.name for unit, proc in zip(units, procs)
+                  if proc.returncode != 0]
+        if failed:
+            raise KernelBuildError(f"nvcc failed on {', '.join(failed)}:\n{log}")
+        tmp_lib = os.path.join(tmp, lib_path.name)
+        proc = subprocess.run([nvcc, *LINK_FLAGS, "-o", tmp_lib, *objs],
+                              capture_output=True, text=True, check=False)
+        log += proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise KernelBuildError(
-                f"nvcc failed (exit {proc.returncode}):\n{proc.stdout}"
-                f"{proc.stderr}"
-            )
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    log = proc.stdout + proc.stderr
+                f"nvcc failed to link (exit {proc.returncode}):\n{log}")
+        os.replace(tmp_lib, lib_path)
     lib_path.with_suffix(".log").write_text(log)
     return log
 

@@ -1,4 +1,5 @@
-"""The MFCC / bark frontend kernel: wrapper, launch count and plain version.
+"""The MFCC / bark frontend kernels: wrappers, launch counts and plain
+versions.
 
 `csrc/mfcc_frontend.cu` replaces the TPU kernel
 `tpu_speech_commands/ops/pallas_frontend.py::_make_ct_frontend` (and takes
@@ -7,23 +8,36 @@ the contract of the dense branch of `make_fused_frontend`): gain x audio
 filterbank, log, DCT, log-energy coefficient, optional deltas and the tail
 trim to n_features, in one launch.
 
+`csrc/dft_frontend.cu` replaces the TPU kernel
+`tpu_speech_commands/ops/pallas_frontend.py::make_fused_frontend` with
+`fast_math=True` (the dense branch, pallas_call :340; and
+`tools/dev/pallas_experiments.py::make_bf16_kernel`, the same contract): the
+same chain with the DFT as a bf16 GEMM on the tensor cores, f32
+accumulation, and an f32 filterbank, log and DCT.
+
 `MfccFrontend` dispatches on the tensor it is given: a CPU tensor goes
-through the plain PyTorch chain (`frontend/dsp.py::Frontend`), a CUDA tensor
-launches the kernel or raises.  The kernel needs n_fft a power of two and
-window <= n_fft; other configs raise ValueError on CUDA.
+through the plain PyTorch chain (`frontend/dsp.py::Frontend`, with the same
+`fast_math`), a CUDA tensor launches the kernel or raises.  The FFT kernel
+needs n_fft a power of two and window <= n_fft; the DFT kernel needs a hop
+that is a multiple of 8 samples and at most 128 kept frames.  Other configs
+raise ValueError on CUDA.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from ..frontend.dsp import Frontend
-from ..frontend.filterbanks import dct_t_matrix, filterbank_matrix
+from ..frontend.filterbanks import dct_t_matrix, dft_matrices, filterbank_matrix
 from ..params import ListenerParams, pr
 from . import _build
 
 SOURCE = "tpu_speech_commands_torch/csrc/mfcc_frontend.cu"
 REPLACES = "tpu_speech_commands/ops/pallas_frontend.py:745"
+DFT_SOURCE = "tpu_speech_commands_torch/csrc/dft_frontend.cu"
+DFT_REPLACES = "tpu_speech_commands/ops/pallas_frontend.py:340"
 
 # tsc_mfcc_frontend(audio, audio_int16, gain, batch, n_samples, window, hop,
 #   n_fft, first_frame, n_features, twiddle, filt_t, dct_t, n_filt, n_mfcc,
@@ -31,6 +45,19 @@ REPLACES = "tpu_speech_commands/ops/pallas_frontend.py:745"
 _N_ARGS = 19
 _INT_ARGS = (1, 3, 4, 5, 6, 7, 8, 9, 13, 14, 15, 17)
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
+
+# tsc_dft_frontend_bf16(audio, audio_int16, gain, batch, n_samples, hop,
+#   first_frame, n_features, wpb, n_seg, seg_pitch, win_pitch, dft, k_pad,
+#   n_pad, n_bins, n_fft, filt_packed, n_packed, filt_range, dct_t, n_filt,
+#   n_mfcc, emit_deltas, out, out_bf16, stream)
+_DFT_N_ARGS = 27
+_DFT_INT_ARGS = (1, 3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 14, 15, 16, 18, 21, 22,
+                 23, 25)
+# csrc/dft_frontend.cu's tile: GEMM rows (frames) a block, DFT columns a
+# chunk, the K-slice, the B-stage row pitch and the B-stage count
+DFT_BM, DFT_BN, DFT_BK, DFT_BKP, DFT_STAGES = 128, 128, 64, 72, 2
+# shared memory a block may opt in to on an H100 (227 KB)
+DFT_SMEM_MAX = 232448
 
 
 def kernel_config_error(p: ListenerParams) -> str | None:
@@ -51,45 +78,177 @@ def kernel_config_error(p: ListenerParams) -> str | None:
     return None
 
 
+def _row_major(m: np.ndarray, device, dtype=np.float32) -> torch.Tensor:
+    """A row-major device copy: the matrix functions return transposed views,
+    and torch.tensor keeps a view's column-major strides."""
+    return torch.tensor(np.ascontiguousarray(m, dtype=dtype), device=device)
+
+
+def _check_row_major(tensors, shapes) -> None:
+    for t, shape in zip(tensors, shapes):
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"kernel constant {tuple(t.shape)} is not a "
+                             f"row-major {shape}")
+
+
 class KernelConstants:
-    """Device-resident constants of the kernel for one config: twiddles
+    """Device-resident constants of the FFT kernel for one config: twiddles
     exp(-2 pi i k / n_fft) built in float64 and stored as complex64, the
     filterbank transposed to (n_filt, n_bins), the transposed DCT."""
 
     def __init__(self, p: ListenerParams, feature_type: str, device):
         k = np.arange(p.n_fft // 2, dtype=np.float64)
         ang = -2.0 * np.pi * k / p.n_fft
-
-        # row-major copies: the matrix functions return transposed views, and
-        # torch.tensor keeps a view's column-major strides
-        def dev(m):
-            return torch.tensor(np.ascontiguousarray(m, dtype=np.float32),
-                                device=device)
-
-        self.twiddle = dev(np.stack([np.cos(ang), np.sin(ang)], axis=-1))
-        self.filt_t = dev(filterbank_matrix(p, feature_type).T)
-        self.dct_t = dev(dct_t_matrix(p.n_filt))
+        self.twiddle = _row_major(np.stack([np.cos(ang), np.sin(ang)], axis=-1),
+                                  device)
+        self.filt_t = _row_major(filterbank_matrix(p, feature_type).T, device)
+        self.dct_t = _row_major(dct_t_matrix(p.n_filt), device)
         self.device = self.twiddle.device  # with its index: cuda -> cuda:0
-        shapes = ((p.n_fft // 2, 2), (p.n_filt, p.n_fft_bins),
-                  (p.n_filt, p.n_filt))
-        for t, shape in zip((self.twiddle, self.filt_t, self.dct_t), shapes):
-            if tuple(t.shape) != shape or not t.is_contiguous():
-                raise ValueError(f"kernel constant {tuple(t.shape)} is not a "
-                                 f"row-major {shape}")
+        _check_row_major(
+            (self.twiddle, self.filt_t, self.dct_t),
+            ((p.n_fft // 2, 2), (p.n_filt, p.n_fft_bins), (p.n_filt, p.n_filt)))
 
 
-def mfcc_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
-                       consts: KernelConstants, p: ListenerParams,
-                       out_dtype=torch.float32) -> torch.Tensor:
-    """Launch the frontend kernel.  audio (B, S) float32 or int16 and gain
-    (1,) float32, both on consts' CUDA device -> (B, n_features,
-    feature_size) out_dtype.  Every launch adds one to `.launches`."""
-    err = kernel_config_error(p)
-    if err:
-        raise ValueError(err)
-    if not audio.is_cuda or audio.device != consts.device:
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class DftLayout:
+    """How `csrc/dft_frontend.cu` tiles one config.
+
+    The DFT matrix is (n_pad, k_pad): k_eff = min(window, n_fft) rows of the
+    DFT (longer windows meet zero rows) padded to the K-slice, and 2 x n_bins
+    columns padded to 16.  Each window's audio is staged in shared memory as
+    n_seg segments of one hop, seg_pitch = hop + pad elements apart, so that
+    8 consecutive frames start in 8 distinct 16-byte bank groups; wpb
+    windows a block, win_pitch elements apart."""
+
+    k_eff: int
+    k_pad: int
+    n_bins: int
+    n_pad: int
+    seg_pitch: int
+    n_seg: int
+    win_pitch: int
+    wpb: int
+    smem_bytes: int
+
+
+def _dft_smem_bytes(wpb, win_pitch, n_filt, n_mfcc, k_pad, n_packed) -> int:
+    """Mirrors smem_bytes() in csrc/dft_frontend.cu."""
+    return (_round_up(2 * wpb * win_pitch, 16)
+            + _round_up(2 * DFT_STAGES * DFT_BN * DFT_BKP, 16)
+            + _round_up(4 * DFT_BM * max(n_mfcc, DFT_BN // 2 + 1), 16)
+            + _round_up(4 * DFT_BM * ((n_filt + 1) | 1), 16)
+            + _round_up(4 * (k_pad // 8), 16)
+            + _round_up(4 * n_packed, 16)
+            + _round_up(4 * 3 * n_filt, 16)
+            + _round_up(4 * n_filt * n_filt, 16))
+
+
+def dft_layout(p: ListenerParams, feature_type: str = "mfcc") -> DftLayout:
+    n_packed = len(pack_filterbank(filterbank_matrix(p, feature_type).T)[0])
+    hop = p.hop_samples
+    k_eff = min(p.window_samples, p.n_fft)
+    k_pad = _round_up(k_eff, DFT_BK)
+    pad = 8 if (hop // 8) % 2 == 0 else 16  # (hop + pad) / 8 odd
+    seg_pitch = hop + pad
+    n_seg = -(-((p.n_features - 1) * hop + k_pad) // hop)
+    win_pitch = n_seg * seg_pitch
+    if (win_pitch // 8) % 2 == 0:
+        win_pitch += 8
+    wpb = max(1, DFT_BM // p.n_features)
+    def smem(wpb):
+        return _dft_smem_bytes(wpb, win_pitch, p.n_filt, p.n_mfcc, k_pad,
+                               n_packed)
+
+    while wpb > 1 and smem(wpb) > DFT_SMEM_MAX:
+        wpb -= 1
+    return DftLayout(
+        k_eff=k_eff, k_pad=k_pad, n_bins=p.n_fft_bins,
+        n_pad=_round_up(2 * p.n_fft_bins, 16), seg_pitch=seg_pitch,
+        n_seg=n_seg, win_pitch=win_pitch, wpb=wpb, smem_bytes=smem(wpb))
+
+
+def dft_config_error(p: ListenerParams,
+                     feature_type: str = "mfcc") -> str | None:
+    """Why the fast_math DFT kernel cannot take config `p`, or None."""
+    if p.hop_samples % 8:
+        return ("the CUDA fast_math frontend kernel needs hop_samples a "
+                f"multiple of 8, got {p.hop_samples}")
+    if p.n_features > DFT_BM:
+        return ("the CUDA fast_math frontend kernel takes at most "
+                f"{DFT_BM} frames a window, got {p.n_features}")
+    if p.n_mfcc > p.n_filt:
+        return (f"the CUDA fast_math frontend kernel needs n_mfcc <= n_filt, "
+                f"got {p.n_mfcc} > {p.n_filt}")
+    smem = dft_layout(p, feature_type).smem_bytes
+    if smem > DFT_SMEM_MAX:
+        return (f"one window of this config needs {smem} bytes of shared "
+                f"memory in the CUDA fast_math frontend kernel, more than "
+                f"{DFT_SMEM_MAX}")
+    return None
+
+
+def dft_bf16_matrix(p: ListenerParams, layout: DftLayout) -> np.ndarray:
+    """(n_pad, k_pad) float32 DFT matrix, rows 2k and 2k + 1 the cos and sin
+    of bin k over the frame's samples, zero-padded; the kernel takes it
+    rounded to bf16."""
+    cos, sin = dft_matrices(p.window_samples, p.n_fft)
+    m = np.zeros((layout.n_pad, layout.k_pad), np.float32)
+    m[0:2 * layout.n_bins:2, :layout.k_eff] = cos[:layout.k_eff].T
+    m[1:2 * layout.n_bins:2, :layout.k_eff] = sin[:layout.k_eff].T
+    return m
+
+
+def pack_filterbank(filt_t: np.ndarray):
+    """The (n_filt, n_bins) filterbank as the kernel keeps it in shared
+    memory: each filter's bins from its first to its last nonzero, back to
+    back in one float32 vector, and (n_filt, 3) int32 rows (lo, hi, offset)
+    so that filter m's weight of bin k in [lo, hi) is packed[offset + k -
+    lo].  An all-zero filter gets (0, 0, offset)."""
+    ranges = np.zeros((filt_t.shape[0], 3), np.int32)
+    chunks, offset = [], 0
+    for m, row in enumerate(filt_t):
+        nz = np.flatnonzero(row)
+        lo, hi = (nz[0], nz[-1] + 1) if nz.size else (0, 0)
+        ranges[m] = lo, hi, offset
+        chunks.append(row[lo:hi])
+        offset += hi - lo
+    packed = np.concatenate(chunks).astype(np.float32) if offset else \
+        np.zeros(0, np.float32)
+    return packed, ranges
+
+
+class DftConstants:
+    """Device-resident constants of the fast_math DFT kernel for one config:
+    the bf16 cos|sin matrix (`dft_bf16_matrix`), the transposed filterbank
+    packed to its nonzero ranges (`pack_filterbank`), the transposed DCT."""
+
+    def __init__(self, p: ListenerParams, feature_type: str, device):
+        self.feature_type = feature_type
+        self.layout = dft_layout(p, feature_type)
+        self.dft = _row_major(dft_bf16_matrix(p, self.layout), device).to(
+            torch.bfloat16)
+        packed, ranges = pack_filterbank(filterbank_matrix(p, feature_type).T)
+        self.filt_packed = _row_major(packed, device)
+        self.filt_range = _row_major(ranges, device, np.int32)
+        self.dct_t = _row_major(dct_t_matrix(p.n_filt), device)
+        self.device = self.dft.device
+        lay = self.layout
+        _check_row_major(
+            (self.dft, self.filt_packed, self.filt_range, self.dct_t),
+            ((lay.n_pad, lay.k_pad), (len(packed),), (p.n_filt, 3),
+             (p.n_filt, p.n_filt)))
+
+
+def _check_launch(audio, gain, device, p, out_dtype) -> int:
+    """Check a frontend launch's arguments; return the number of frames the
+    audio yields."""
+    if not audio.is_cuda or audio.device != device:
         raise ValueError(
-            f"audio on {audio.device}, kernel constants on {consts.device}"
+            f"audio on {audio.device}, kernel constants on {device}"
         )
     if audio.dtype not in (torch.float32, torch.int16):
         raise TypeError(f"audio must be float32 or int16, got {audio.dtype}")
@@ -103,16 +262,28 @@ def mfcc_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
         raise ValueError("gain must be one float32 value on the audio's device")
     if out_dtype not in _OUT_DTYPES:
         raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
-    batch, n_samples = audio.shape
+    n_samples = audio.shape[1]
     need = p.window_samples + (p.n_features - 1) * p.hop_samples
     if n_samples < need:
         raise ValueError(
             f"audio length {n_samples} yields fewer than "
             f"n_features={p.n_features} frames (need >= {need} samples)"
         )
-    n_frames = 1 + (n_samples - p.window_samples) // p.hop_samples
-    n_out = p.feature_size
-    out = torch.empty((batch, p.n_features, n_out), dtype=out_dtype,
+    return 1 + (n_samples - p.window_samples) // p.hop_samples
+
+
+def mfcc_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
+                       consts: KernelConstants, p: ListenerParams,
+                       out_dtype=torch.float32) -> torch.Tensor:
+    """Launch the frontend kernel.  audio (B, S) float32 or int16 and gain
+    (1,) float32, both on consts' CUDA device -> (B, n_features,
+    feature_size) out_dtype.  Every launch adds one to `.launches`."""
+    err = kernel_config_error(p)
+    if err:
+        raise ValueError(err)
+    n_frames = _check_launch(audio, gain, consts.device, p, out_dtype)
+    batch, n_samples = audio.shape
+    out = torch.empty((batch, p.n_features, p.feature_size), dtype=out_dtype,
                       device=audio.device)
     if batch == 0:
         return out
@@ -135,28 +306,72 @@ def mfcc_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
 mfcc_frontend_cuda.launches = 0
 
 
+def dft_frontend_bf16_cuda(audio: torch.Tensor, gain: torch.Tensor,
+                           consts: DftConstants, p: ListenerParams,
+                           out_dtype=torch.float32) -> torch.Tensor:
+    """Launch the fast_math (bf16 tensor-core DFT) frontend kernel.  audio
+    (B, S) float32 or int16 and gain (1,) float32, both on consts' CUDA
+    device -> (B, n_features, feature_size) out_dtype.  Every launch adds one
+    to `.launches`."""
+    err = dft_config_error(p, consts.feature_type)
+    if err:
+        raise ValueError(err)
+    n_frames = _check_launch(audio, gain, consts.device, p, out_dtype)
+    batch, n_samples = audio.shape
+    out = torch.empty((batch, p.n_features, p.feature_size), dtype=out_dtype,
+                      device=audio.device)
+    if batch == 0:
+        return out
+    lay = consts.layout
+    fn = _build.bind("tsc_dft_frontend_bf16", _DFT_N_ARGS, _DFT_INT_ARGS)
+    with torch.cuda.device(audio.device):
+        stream = torch.cuda.current_stream(audio.device).cuda_stream
+        rc = fn(
+            audio.data_ptr(), int(audio.dtype == torch.int16),
+            gain.data_ptr(), batch, n_samples, p.hop_samples,
+            n_frames - p.n_features, p.n_features, lay.wpb, lay.n_seg,
+            lay.seg_pitch, lay.win_pitch, consts.dft.data_ptr(), lay.k_pad,
+            lay.n_pad, lay.n_bins, p.n_fft, consts.filt_packed.data_ptr(),
+            consts.filt_packed.numel(), consts.filt_range.data_ptr(),
+            consts.dct_t.data_ptr(), p.n_filt,
+            p.n_mfcc, int(p.use_delta), out.data_ptr(),
+            int(out_dtype == torch.bfloat16), stream,
+        )
+    _build.check(rc, "tsc_dft_frontend_bf16")
+    dft_frontend_bf16_cuda.launches += 1
+    return out
+
+
+dft_frontend_bf16_cuda.launches = 0
+
+
 class MfccFrontend:
     """(B, S) audio [, gain] -> (B, n_features, feature_size) features, from
     a snapshot of the config.  CPU tensors take the plain `Frontend` chain;
-    CUDA tensors launch the kernel.  Constructing it for a CUDA device
-    raises ValueError when the kernel cannot take the config."""
+    CUDA tensors launch the FFT kernel, or with fast_math=True the bf16
+    tensor-core DFT kernel (the counterpart of
+    `make_fused_frontend(fast_math=True)`).  Constructing it for a CUDA
+    device raises ValueError when the kernel cannot take the config."""
 
     def __init__(self, params: ListenerParams | None = None,
                  feature_type: str = "mfcc", device="cpu",
-                 out_dtype=torch.float32):
+                 out_dtype=torch.float32, fast_math: bool = False):
         if out_dtype not in _OUT_DTYPES:
             raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
         self.params = (params or pr).replace()
         self.out_dtype = out_dtype
+        self.fast_math = fast_math
         self.device = torch.device(device)
-        err = kernel_config_error(self.params)
+        err = (dft_config_error(self.params, feature_type) if fast_math
+               else kernel_config_error(self.params))
         if err and self.device.type == "cuda":
             raise ValueError(err)
-        self.plain = Frontend(self.params, feature_type, self.device)
+        self.plain = Frontend(self.params, feature_type, self.device,
+                              fast_math=fast_math)
         self.consts = None
         if self.device.type == "cuda":
-            self.consts = KernelConstants(self.params, feature_type,
-                                          self.device)
+            consts_cls = DftConstants if fast_math else KernelConstants
+            self.consts = consts_cls(self.params, feature_type, self.device)
             self._unit_gain = torch.ones(1, dtype=torch.float32,
                                          device=self.device)
 
@@ -172,5 +387,5 @@ class MfccFrontend:
         else:
             gain_t = torch.as_tensor(gain, dtype=torch.float32,
                                      device=audio.device).reshape(-1)
-        return mfcc_frontend_cuda(audio, gain_t, self.consts, self.params,
-                                  self.out_dtype)
+        launch = dft_frontend_bf16_cuda if self.fast_math else mfcc_frontend_cuda
+        return launch(audio, gain_t, self.consts, self.params, self.out_dtype)

@@ -1,29 +1,37 @@
-"""The GRU classifier kernel: wrapper, launch count and plain version.
+"""The GRU and LSTM classifier kernels: wrappers, launch counts and plain
+versions.
 
-`csrc/gru_classifier.cu` replaces the TPU kernel
-`tpu_speech_commands/ops/pallas_rnn.py::make_fused_rnn_classifier` for
-`cell_type='gru'`: a Keras GRU layer (reset_after, linear candidate) over
-the whole sequence, with the dense head fused into the last layer's launch.
-A stacked model runs one launch per layer.
+`csrc/gru_classifier.cu` and `csrc/lstm_classifier.cu` replace the TPU
+kernel `tpu_speech_commands/ops/pallas_rnn.py::make_fused_rnn_classifier`
+for `cell_type='gru'` and `'lstm'`: a Keras GRU layer (reset_after, linear
+candidate) or LSTM layer (gates [i, f, c, o], one bias) over the whole
+sequence, with the dense head fused into the last layer's launch.  A
+stacked model runs one launch per layer.
 
-`GRUClassifier` dispatches on the tensor it is given: a CPU tensor goes
-through the plain module loop (`models/rnn.py::SimpleGRU`), a CUDA tensor
-launches the kernel or raises.
+`GRUClassifier` and `LSTMClassifier` dispatch on the tensor they are given:
+a CPU tensor goes through the plain module loop (`models/rnn.py::SimpleGRU`,
+`SimpleLSTM`), a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
 import torch
 
-from ..models.rnn import SimpleGRU
+from ..models.rnn import SimpleGRU, SimpleLSTM
 from . import _build
 
 SOURCE = "tpu_speech_commands_torch/csrc/gru_classifier.cu"
 REPLACES = "tpu_speech_commands/ops/pallas_rnn.py:223"
+LSTM_SOURCE = "tpu_speech_commands_torch/csrc/lstm_classifier.cu"
+LSTM_REPLACES = REPLACES
 
 # tsc_gru_layer(x, x_bf16, batch, T, D, U, w, u, b_in, b_rec, head_w,
 #   head_b, C, seq_out, logits, bf16_math, stream)
 _N_ARGS = 17
 _INT_ARGS = (1, 2, 3, 4, 5, 12, 15)
+# tsc_lstm_layer(x, x_bf16, batch, T, D, U, w, u, bias, head_w, head_b, C,
+#   seq_out, logits, bf16_math, stream)
+_LSTM_N_ARGS = 16
+_LSTM_INT_ARGS = (1, 2, 3, 4, 5, 11, 14)
 _COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -36,14 +44,7 @@ def _check_weight(name, t, shape, device):
         )
 
 
-def gru_layer_cuda(x: torch.Tensor, kernel: torch.Tensor,
-                   recurrent_kernel: torch.Tensor, bias_input: torch.Tensor,
-                   bias_recurrent: torch.Tensor, head_kernel=None,
-                   head_bias=None, compute_dtype=torch.float32) -> torch.Tensor:
-    """Launch the GRU kernel for one layer.  x (B, T, D) float32 or bfloat16
-    on a CUDA device, weights in the Keras layout (float32).  With a head:
-    returns logits (B, C) float32; without: the layer's h sequence (B, T, U)
-    float32.  Every launch adds one to `.launches`."""
+def _check_input(x, compute_dtype, units, what):
     if not x.is_cuda:
         raise ValueError(f"x must be a CUDA tensor, got {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -54,42 +55,65 @@ def gru_layer_cuda(x: torch.Tensor, kernel: torch.Tensor,
     if x.ndim != 3 or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous (B, T, D) tensor, got "
                          f"{tuple(x.shape)}")
-    batch, steps, d_in = x.shape
-    units = recurrent_kernel.shape[0]
     if units > 1024:
-        raise ValueError(f"the GRU kernel takes at most 1024 units, got {units}")
-    _check_weight("kernel", kernel, (d_in, 3 * units), x.device)
-    _check_weight("recurrent_kernel", recurrent_kernel, (units, 3 * units),
-                  x.device)
-    _check_weight("bias_input", bias_input, (3 * units,), x.device)
-    _check_weight("bias_recurrent", bias_recurrent, (3 * units,), x.device)
+        raise ValueError(f"the {what} kernel takes at most 1024 units, got "
+                         f"{units}")
+
+
+def _outputs(x, units, head_kernel, head_bias):
+    """The layer's output tensor and the (head_w, head_b, C, seq_out,
+    logits) launch arguments: logits (B, C) with a head, else the h
+    sequence (B, T, U)."""
+    batch, steps, _ = x.shape
     if head_kernel is not None:
         n_classes = head_kernel.shape[-1]
         _check_weight("head kernel", head_kernel, (units, n_classes), x.device)
         _check_weight("head bias", head_bias, (n_classes,), x.device)
         out = torch.empty((batch, n_classes), dtype=torch.float32,
                           device=x.device)
-        seq_ptr, logits_ptr = None, out.data_ptr()
-        head_ptrs = (head_kernel.data_ptr(), head_bias.data_ptr())
-    else:
-        n_classes = 0
-        out = torch.empty((batch, steps, units), dtype=torch.float32,
-                          device=x.device)
-        seq_ptr, logits_ptr = out.data_ptr(), None
-        head_ptrs = (None, None)
-    if batch == 0:
-        return out
-    fn = _build.bind("tsc_gru_layer", _N_ARGS, _INT_ARGS)
+        return out, (head_kernel.data_ptr(), head_bias.data_ptr(), n_classes,
+                     None, out.data_ptr())
+    out = torch.empty((batch, steps, units), dtype=torch.float32,
+                      device=x.device)
+    return out, (None, None, 0, out.data_ptr(), None)
+
+
+def _launch(name, n_args, int_args, x, weights, units, head_args,
+            compute_dtype):
+    batch, steps, d_in = x.shape
+    fn = _build.bind(name, n_args, int_args)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(
             x.data_ptr(), int(x.dtype == torch.bfloat16), batch, steps, d_in,
-            units, kernel.data_ptr(), recurrent_kernel.data_ptr(),
-            bias_input.data_ptr(), bias_recurrent.data_ptr(), *head_ptrs,
-            n_classes, seq_ptr, logits_ptr,
+            units, *(t.data_ptr() for t in weights), *head_args,
             int(compute_dtype == torch.bfloat16), stream,
         )
-    _build.check(rc, "tsc_gru_layer")
+    _build.check(rc, name)
+
+
+def gru_layer_cuda(x: torch.Tensor, kernel: torch.Tensor,
+                   recurrent_kernel: torch.Tensor, bias_input: torch.Tensor,
+                   bias_recurrent: torch.Tensor, head_kernel=None,
+                   head_bias=None, compute_dtype=torch.float32) -> torch.Tensor:
+    """Launch the GRU kernel for one layer.  x (B, T, D) float32 or bfloat16
+    on a CUDA device, weights in the Keras layout (float32).  With a head:
+    returns logits (B, C) float32; without: the layer's h sequence (B, T, U)
+    float32.  Every launch adds one to `.launches`."""
+    units = recurrent_kernel.shape[0]
+    _check_input(x, compute_dtype, units, "GRU")
+    d_in = x.shape[2]
+    _check_weight("kernel", kernel, (d_in, 3 * units), x.device)
+    _check_weight("recurrent_kernel", recurrent_kernel, (units, 3 * units),
+                  x.device)
+    _check_weight("bias_input", bias_input, (3 * units,), x.device)
+    _check_weight("bias_recurrent", bias_recurrent, (3 * units,), x.device)
+    out, head_args = _outputs(x, units, head_kernel, head_bias)
+    if x.shape[0] == 0:
+        return out
+    _launch("tsc_gru_layer", _N_ARGS, _INT_ARGS, x,
+            (kernel, recurrent_kernel, bias_input, bias_recurrent), units,
+            head_args, compute_dtype)
     gru_layer_cuda.launches += 1
     return out
 
@@ -97,14 +121,45 @@ def gru_layer_cuda(x: torch.Tensor, kernel: torch.Tensor,
 gru_layer_cuda.launches = 0
 
 
-class GRUClassifier:
-    """(B, T, D) features -> (B, C) float32 logits of a SimpleGRU.  CPU
-    tensors run the module's own loop; CUDA tensors launch the kernel once
-    per layer, the last launch with the head."""
+def lstm_layer_cuda(x: torch.Tensor, kernel: torch.Tensor,
+                    recurrent_kernel: torch.Tensor, bias: torch.Tensor,
+                    head_kernel=None, head_bias=None,
+                    compute_dtype=torch.float32) -> torch.Tensor:
+    """Launch the LSTM kernel for one layer.  x (B, T, D) float32 or
+    bfloat16 on a CUDA device, weights in the Keras layout (float32, gates
+    [i, f, c, o]).  With a head: returns logits (B, C) float32; without: the
+    layer's h sequence (B, T, U) float32.  Every launch adds one to
+    `.launches`."""
+    units = recurrent_kernel.shape[0]
+    _check_input(x, compute_dtype, units, "LSTM")
+    d_in = x.shape[2]
+    _check_weight("kernel", kernel, (d_in, 4 * units), x.device)
+    _check_weight("recurrent_kernel", recurrent_kernel, (units, 4 * units),
+                  x.device)
+    _check_weight("bias", bias, (4 * units,), x.device)
+    out, head_args = _outputs(x, units, head_kernel, head_bias)
+    if x.shape[0] == 0:
+        return out
+    _launch("tsc_lstm_layer", _LSTM_N_ARGS, _LSTM_INT_ARGS, x,
+            (kernel, recurrent_kernel, bias), units, head_args,
+            compute_dtype)
+    lstm_layer_cuda.launches += 1
+    return out
 
-    def __init__(self, model: SimpleGRU, compute_dtype=torch.float32):
-        if not isinstance(model, SimpleGRU):
-            raise TypeError(f"need a SimpleGRU, got {type(model).__name__}")
+
+lstm_layer_cuda.launches = 0
+
+
+class _RNNClassifier:
+    """(B, T, D) features -> (B, C) float32 logits.  CPU tensors run the
+    module's own loop; CUDA tensors launch the kernel once per layer, the
+    last launch with the head.  Subclasses name the model class and the
+    per-layer launch."""
+
+    def __init__(self, model, compute_dtype=torch.float32):
+        if not isinstance(model, self.model_cls):
+            raise TypeError(f"need a {self.model_cls.__name__}, got "
+                            f"{type(model).__name__}")
         if compute_dtype not in _COMPUTE_DTYPES:
             raise TypeError(f"compute_dtype must be float32 or bfloat16, got "
                             f"{compute_dtype}")
@@ -122,10 +177,30 @@ class GRUClassifier:
         seq = x.contiguous()
         for i, cell in enumerate(cells):
             last = i == len(cells) - 1
-            seq = gru_layer_cuda(
-                seq, cell.kernel, cell.recurrent_kernel, cell.bias_input,
-                cell.bias_recurrent,
-                head.kernel if last else None, head.bias if last else None,
-                self.compute_dtype,
-            )
+            seq = self._layer(seq, cell, head.kernel if last else None,
+                              head.bias if last else None, self.compute_dtype)
         return seq
+
+
+class GRUClassifier(_RNNClassifier):
+    """A SimpleGRU through the GRU kernel (`csrc/gru_classifier.cu`)."""
+
+    model_cls = SimpleGRU
+
+    @staticmethod
+    def _layer(seq, cell, head_kernel, head_bias, compute_dtype):
+        return gru_layer_cuda(seq, cell.kernel, cell.recurrent_kernel,
+                              cell.bias_input, cell.bias_recurrent,
+                              head_kernel, head_bias, compute_dtype)
+
+
+class LSTMClassifier(_RNNClassifier):
+    """A SimpleLSTM through the LSTM kernel (`csrc/lstm_classifier.cu`)."""
+
+    model_cls = SimpleLSTM
+
+    @staticmethod
+    def _layer(seq, cell, head_kernel, head_bias, compute_dtype):
+        return lstm_layer_cuda(seq, cell.kernel, cell.recurrent_kernel,
+                               cell.bias, head_kernel, head_bias,
+                               compute_dtype)

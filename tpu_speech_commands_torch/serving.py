@@ -1,18 +1,21 @@
 """Batch serving: audio -> scores for a checkpoint (counterpart of
 `tpu_speech_commands/serving.py::make_batch_scorer`).
 
-On a CUDA device the simple_gru, simple_cnn and simple_cnn_lite paths run
-two hand-written kernels each:
+On a CUDA device every path runs two hand-written kernels:
 
     (B, S) f32 | int16 audio, x gain
-      -> MFCC frontend kernel   (ops/frontend_kernel.py, csrc/mfcc_frontend.cu)
-      -> GRU classifier kernel  (ops/rnn_kernel.py, csrc/gru_classifier.cu)
+      -> MFCC frontend kernel    (ops/frontend_kernel.py, csrc/mfcc_frontend.cu)
+      -> GRU classifier kernel   (ops/rnn_kernel.py, csrc/gru_classifier.cu),
+         LSTM classifier kernel  (ops/rnn_kernel.py, csrc/lstm_classifier.cu)
          or CNN classifier kernel (ops/cnn_kernel.py, csrc/cnn_classifier.cu)
       -> softmax scores (B, C)
 
-simple_lstm keeps its plain module loop for the classifier, as the JAX
-package keeps the LSTM on the XLA scan.  On the CPU both stages run their
-plain PyTorch versions.  `.paths` records what each stage runs.
+simple_lstm runs its kernel in float32 for either compute_dtype, with an
+f32 feature handoff: the numerics of the JAX scorer, which keeps the LSTM
+in f32.  (The JAX scorer runs it on the XLA scan because that was faster on
+the TPU; on the card the plain loop is 30 steps of small launches.)  On the
+CPU both stages run their plain PyTorch versions.  `.paths` records what
+each stage runs.
 
     from tpu_speech_commands_torch.serving import make_batch_scorer
     scorer = make_batch_scorer("pretrained/direction_simple_gru.npz", "cuda")
@@ -26,7 +29,7 @@ from .export.inference_loader import load_native
 from .models import is_cnn, score_fn
 from .ops.cnn_kernel import CNNClassifier
 from .ops.frontend_kernel import MfccFrontend
-from .ops.rnn_kernel import GRUClassifier
+from .ops.rnn_kernel import GRUClassifier, LSTMClassifier
 from .params import pr
 
 
@@ -59,7 +62,8 @@ def make_batch_scorer(checkpoint_path: str, device="cpu",
     compute_dtype=torch.bfloat16 runs the GRU or CNN kernel's matmuls on
     bf16 inputs with f32 accumulation, and the frontend kernel then hands
     its features over in bf16 (the classifier rounds them to bf16 anyway).
-    The LSTM classifier stays in float32, as in the JAX package.
+    The LSTM classifier stays in float32, as in the JAX package; its bf16
+    mode is `ops.LSTMClassifier(model, torch.bfloat16)`.
 
     Raises RuntimeError for a CUDA device when CUDA is not available, and
     ValueError for a CUDA device when the frontend kernel cannot take the
@@ -86,12 +90,10 @@ def make_batch_scorer(checkpoint_path: str, device="cpu",
         classifier = CNNClassifier(model, compute_dtype)
         classifier_path = "cuda-cnn" if on_cuda else "torch"
     else:
-        def classifier(feats):
-            return model(feats.to(torch.float32))
-
-        classifier_path = "torch"
-    # bf16 feature handoff only into the kernel classifier, which rounds its
-    # matmul inputs to bf16 anyway
+        classifier = LSTMClassifier(model, torch.float32)
+        classifier_path = "cuda-lstm" if on_cuda else "torch"
+    # bf16 feature handoff only into the GRU and CNN kernels, which round
+    # their matmul inputs to bf16 anyway; the LSTM stays f32
     handoff = (compute_dtype if classifier_path in ("cuda-gru", "cuda-cnn")
                else torch.float32)
     frontend = MfccFrontend(p, feature_type, device, out_dtype=handoff)
