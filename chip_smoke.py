@@ -9,7 +9,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build    compile tpu_speech_commands_torch/csrc/*.cu with nvcc (sm_90a)
 3. kernels  each kernel against its plain PyTorch version on the card, at
             B = 1000, over the configs and dtypes the slices can meet (the
-            fast_math frontend also at K6 make_bf16_kernel's own settings)
+            fast_math frontend also at K6 make_bf16_kernel's own settings;
+            the f32 dense-DFT kernels at the default config and at W 800,
+            combined, or W = 2 hop = 800, halves; the load-floor kernels at
+            gains 1 and 1.5)
 4. slices   each path driven on the eight example/*.wav clips in f32 and
             bf16, with every launch count set to 0 just before it and read
             just after:
@@ -24,22 +27,37 @@ Phases, in order; any failure raises and the script exits non-zero:
               block-1 launch count;
             - MfccFrontend(fast_math=True) into the GRU, LSTM and CNN
               classifier kernels for all four checkpoints: top-1 and both
-              launch counts
-5. times    CUDA-event times at B = 8192, audio resident on the card: each
+              launch counts;
+            - the three measurement entry points of tpu_speech_commands_torch
+              .dev at their own batch (pallas_experiments B = 16384, every
+              variant; r3_experiments and r4_mxu_stage1 B = 8192), a few
+              iterations each: every checksum finite, r4's two frontends
+              within its stated bound of a float64 reference, and the
+              dense-DFT and load-floor launch counts must rise
+5. times    CUDA-event times at B = 8192, audio resident on the card (the
+            dense-DFT and load-floor kernels are first held to their plain
+            versions at this batch, their entry points' own, with the
+            phase-3 tolerances): each
             kernel against its plain version (the fast_math frontend also
-            against the FFT kernel), and end-to-end windows/s for every
-            scorer (information only)
+            against the FFT kernel), the one PyTorch call that computes the
+            same function where there is one (torch.sum for the load
+            floor's row sum, cuDNN nn.LSTM for the LSTM layer), each
+            kernel's bound (the larger of its operations over the card's
+            peak rate for their type and its bytes over 3.35 TB/s; a
+            frontend's FFT counted as a real-input transform, its
+            filterbank over the packed nonzero weights), and
+            end-to-end windows/s for every scorer (information only)
 
-The line before the last is one JSON object describing each kernel; the
-last line is {"ok": true, "device": {...}}.  On a machine without CUDA the
-script exits non-zero and prints no result.
+Two lines before the last: one JSON object describing each kernel, then the
+card's name and power limit; the last line is {"ok": true, "device":
+{...}}.  On a machine without CUDA the script exits non-zero and prints no
+result.
 """
 from __future__ import annotations
 
 import glob
 import json
 import os
-import subprocess
 import sys
 import time
 import wave
@@ -82,6 +100,14 @@ CNN_BF16_ATOL = 5e-2
 # - CNN block-1 activations f32: one conv of 9 taps, another order
 BLOCK1_ATOL, BLOCK1_RTOL = 1e-5, 1e-5
 BLOCK1_BF16_ATOL = 5e-2
+# - dense-DFT features (K6 :76, :188): the f32 feature bound above, the same
+#   f32 math in another summation order, magnified by the log
+# - load-floor row sums (K7): per row |err| <= LOAD_REL * sum |gain * x|,
+#   16,000 f32 terms summed in another order (eps * log2(16000) ~ 8.4e-7);
+#   a bare atol would be wrong, the sums reach the hundreds
+LOAD_REL = 2e-6
+# Published peaks of one H100 SXM (dense, at 700 W), for the kernels' bounds
+PEAK_F32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
 # The plain versions' convs run through cuDNN, which takes float32 convs in
 # TF32 unless torch.backends.cudnn.allow_tf32 is False: main() sets it (and
 # the matmul flag) False, so every float32 reference here is float32.
@@ -89,15 +115,6 @@ BLOCK1_BF16_ATOL = 5e-2
 
 def log(msg: str = "") -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip()
 
 
 def load_clips():
@@ -145,6 +162,105 @@ def check_close(what, got, want, atol, rtol) -> float:
     if excess > 0:
         raise AssertionError(f"{what}: error {max_err:.3e} outside tolerance")
     return max_err
+
+
+def check_rowsum(what, got, want, audio, gain) -> float:
+    """The load-floor bound: per row |got - want| <= LOAD_REL * sum |g x|."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    if not got.isfinite().all():
+        raise AssertionError(f"{what}: kernel output is not finite")
+    err = (got - want).abs()
+    bound = LOAD_REL * (audio * gain).abs().sum(1, keepdim=True)
+    max_err = float(err.max())
+    log(f"  {what:46s} max_abs_err {max_err:.3e}  (per row <= {LOAD_REL:g} "
+        f"x sum |gain x|, max bound {float(bound.max()):.3e})")
+    if not (err <= bound).all():
+        raise AssertionError(f"{what}: error {max_err:.3e} outside tolerance")
+    return max_err
+
+
+def bound_ms(flops_f32=0.0, flops_bf16=0.0, nbytes=0.0):
+    """(ms, "operations" | "bytes"): the least time the card could take, the
+    larger of the operations over the peak rate for their type and the
+    bytes over the memory rate."""
+    ops = flops_f32 / PEAK_F32 + flops_bf16 / PEAK_BF16
+    mem = nbytes / PEAK_BYTES
+    return max(ops, mem) * 1e3, ("operations" if ops >= mem else "bytes")
+
+
+def kernel_bounds(p, batch, n_samples, rnn_dims, cnn_consts):
+    """Each timed kernel's bound at the phase-5 shapes: f32 audio (batch,
+    n_samples) into the frontends and the load floor; (batch, T, F) f32
+    features into the classifiers (times are f32)."""
+    import math
+
+    from tpu_speech_commands_torch.frontend.filterbanks import filterbank_matrix
+    from tpu_speech_commands_torch.models.cnn import conv_out
+    from tpu_speech_commands_torch.ops.frontend_kernel import pack_filterbank
+
+    frames = batch * p.n_features
+    bins, n_filt, n_mfcc = p.n_fft_bins, p.n_filt, p.n_mfcc
+    n_packed = len(pack_filterbank(filterbank_matrix(p, "mfcc").T)[0])
+    audio_b = 4.0 * batch * n_samples
+    feats_b = 4.0 * frames * p.feature_size
+    # power and energy (4 a bin), the filterbank over its packed nonzero
+    # weights (as every frontend kernel applies it) and the DCT, f32 on the
+    # CUDA cores
+    cepstrum = frames * (4 * bins + 2 * n_packed + 2 * n_filt * n_mfcc)
+    # the DFT's nonzero columns: cos of every bin and sin of all but bin 0
+    # and the Nyquist bin, n_fft in all
+    dft = frames * 2.0 * min(p.window_samples, p.n_fft) * p.n_fft
+    # a real-input FFT of n_fft points: half a complex one's 5 n log2 n
+    fft = frames * 2.5 * p.n_fft * math.log2(p.n_fft)
+    steps, d_in, units, classes = rnn_dims
+    rnn = {g: batch * steps * 2.0 * g * units * (d_in + units)
+           + batch * 2.0 * units * classes for g in (3, 4)}
+    cnn = 0.0
+    for st in cnn_consts.stages:
+        s = st.stage
+        cnn += 2.0 * 9 * s.cin * s.cout * conv_out(s.h_in, s.stride) * \
+            conv_out(s.w_in, s.stride)
+    flat, hidden = cnn_consts.dense_w.shape
+    cnn_classes = cnn_consts.head_w.shape[1]
+    cnn = batch * (cnn + 2.0 * flat * hidden + 2.0 * hidden * cnn_classes)
+    b1 = cnn_consts.stages[0].stage
+    block1_out = 4.0 * batch * b1.h_out * b1.w_out * b1.cout
+    rnn_b = feats_b + 4.0 * batch * classes
+    cnn_b = feats_b + 4.0 * batch * cnn_classes
+    return {
+        "mfcc_frontend": bound_ms(fft + cepstrum, 0, audio_b + feats_b),
+        "dft_frontend_bf16": bound_ms(cepstrum, dft, audio_b + feats_b),
+        "gru_classifier": bound_ms(rnn[3], 0, rnn_b),
+        "lstm_classifier": bound_ms(rnn[4], 0, rnn_b),
+        "cnn_classifier": bound_ms(cnn, 0, cnn_b),
+        "cnn_block1": bound_ms(
+            batch * 2.0 * 9 * b1.cin * b1.cout * conv_out(b1.h_in, b1.stride)
+            * conv_out(b1.w_in, b1.stride), 0, feats_b + block1_out),
+        "dense_dft_combined": bound_ms(dft + cepstrum, 0, audio_b + feats_b),
+        "dense_dft_halves": bound_ms(dft + cepstrum, 0, audio_b + feats_b),
+        "load_rowsum": bound_ms(2.0 * batch * n_samples, 0,
+                                audio_b + 4.0 * batch),
+        "load_broadcast": bound_ms(2.0 * batch * n_samples, 0,
+                                   audio_b + 4.0 * batch * p.n_features * n_mfcc),
+    }
+
+
+def cudnn_lstm(model, device):
+    """The library yardstick of the LSTM kernel: torch.nn.LSTM (cuDNN) with
+    the one-layer Keras LSTM's weights (same gate order; the single Keras
+    bias as bias_ih).  Timed here only; the port never calls it."""
+    import torch
+
+    cell = model.backbone.lstm_unit_0
+    lstm = torch.nn.LSTM(cell.kernel.shape[0], cell.units, batch_first=True)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(cell.kernel.T)
+        lstm.weight_hh_l0.copy_(cell.recurrent_kernel.T)
+        lstm.bias_ih_l0.copy_(cell.bias)
+        lstm.bias_hh_l0.zero_()
+    return lstm.to(device).eval()
 
 
 def random_cnn(cls, h: int, w: int, seed: int, device):
@@ -197,8 +313,11 @@ def main() -> int:
     from tpu_speech_commands_torch.models import score_fn
     from tpu_speech_commands_torch.models.cnn import SimpleCNN, SimpleCNNLite
     from tpu_speech_commands_torch.models.rnn import SimpleGRU, SimpleLSTM
+    from tpu_speech_commands_torch.dev import (
+        card_line, pallas_experiments, r3_experiments, r4_mxu_stage1)
     from tpu_speech_commands_torch.ops import (
-        _build, cnn_kernel, frontend_kernel, rnn_kernel)
+        _build, cnn_kernel, dense_dft_kernel, frontend_kernel, load_kernel,
+        rnn_kernel)
     from tpu_speech_commands_torch.ops.cnn_kernel import (
         CNNClassifier, make_fused_cnn_forward)
     from tpu_speech_commands_torch.ops.cnn_lowering import lower_block1
@@ -358,6 +477,32 @@ def main() -> int:
         check_close(f"fused-block-1 forward {name} vs model f32", got, want,
                     CNN_ATOL, CNN_RTOL)
 
+    # the f32 dense-DFT frontends (K6 :76 and :188) and the load floor (K7)
+    dense_cases = (
+        ("dense_dft_combined", "default", {}),
+        ("dense_dft_combined", "window_t=0.05 (W 800)", {"window_t": 0.05}),
+        ("dense_dft_halves", "default", {}),
+        ("dense_dft_halves", "window_t=0.05, hop_t=0.025 (W = 2 hop = 800)",
+         {"window_t": 0.05, "hop_t": 0.025}),
+    )
+    dense_errs = {"dense_dft_combined": [], "dense_dft_halves": []}
+    for name, label, kw in dense_cases:
+        consts = dense_dft_kernel.DenseDftConstants(ListenerParams(**kw), dev)
+        got = getattr(dense_dft_kernel, name + "_cuda")(audio_f32, consts)
+        torch.cuda.synchronize()
+        want = getattr(dense_dft_kernel, name + "_plain")(audio_f32, consts)
+        dense_errs[name].append(check_close(f"{name} {label}", got, want,
+                                            FEAT_ATOL, FEAT_RTOL))
+    out_cols = ListenerParams().n_features * ListenerParams().n_mfcc
+    load_errs = {"load_rowsum": [], "load_broadcast": []}
+    for gain in (1.0, 1.5):
+        for name, extra in (("load_rowsum", ()), ("load_broadcast", (out_cols,))):
+            got = getattr(load_kernel, name + "_cuda")(audio_f32, gain, *extra)
+            torch.cuda.synchronize()
+            want = getattr(load_kernel, name + "_plain")(audio_f32, gain, *extra)
+            load_errs[name].append(check_rowsum(f"{name} gain {gain}", got,
+                                                want, audio_f32, gain))
+
     # -- 4. the slices ---------------------------------------------------------
     counters = {
         "mfcc_frontend": frontend_kernel.mfcc_frontend_cuda,
@@ -366,6 +511,10 @@ def main() -> int:
         "lstm_classifier": rnn_kernel.lstm_layer_cuda,
         "cnn_classifier": cnn_kernel.cnn_classifier_cuda,
         "cnn_block1": cnn_kernel.cnn_block1_cuda,
+        "dense_dft_combined": dense_dft_kernel.dense_dft_combined_cuda,
+        "dense_dft_halves": dense_dft_kernel.dense_dft_halves_cuda,
+        "load_rowsum": load_kernel.load_rowsum_cuda,
+        "load_broadcast": load_kernel.load_broadcast_cuda,
     }
     launches = dict.fromkeys(counters, 0)
 
@@ -459,6 +608,18 @@ def main() -> int:
             if not torch.isfinite(sc).all() or top1 != labels:
                 raise AssertionError(f"top-1 {top1} != labels {labels}")
 
+    # the measurement entry points, at their own batch, a few iterations each
+    drive("dev.pallas_experiments.main(): every variant, B = 16384",
+          lambda: pallas_experiments.main(["--iters", "2", "--repeats", "1"]),
+          ("dense_dft_combined", "dense_dft_halves", "dft_frontend_bf16",
+           "mfcc_frontend"))
+    drive("dev.r3_experiments.main(): load and frontend_tile, B = 8192",
+          lambda: r3_experiments.main(["--iters", "4", "--outer", "1"]),
+          ("load_rowsum", "mfcc_frontend"))
+    drive("dev.r4_mxu_stage1.main(): ct, dense and load, B = 8192",
+          lambda: r4_mxu_stage1.main(["--iters", "4"]),
+          ("mfcc_frontend", "dense_dft_combined", "load_broadcast"))
+
     # -- 5. times (information only) -------------------------------------------
     log(f"times at B = {B_TIME}, audio resident on the card ({card}):")
     big_np = test_audio(clips, B_TIME, seed=2)
@@ -489,9 +650,49 @@ def main() -> int:
             cuda_ms(lambda: cnn_kernel.cnn_block1_cuda(big_feats, stage), 20),
             cuda_ms(lambda: cnn_kernel.cnn_block1_plain(stage, big_feats), 10)),
     }
+    # the four measurement kernels are also held to their plain versions at
+    # this batch, the one their entry points run (r3, r4: 8192)
+    dense_consts = dense_dft_kernel.DenseDftConstants(ListenerParams(), dev)
+    for name in ("dense_dft_combined", "dense_dft_halves"):
+        launch = getattr(dense_dft_kernel, name + "_cuda")
+        plain = getattr(dense_dft_kernel, name + "_plain")
+        dense_errs[name].append(check_close(
+            f"{name} default B = {B_TIME}", launch(big, dense_consts),
+            plain(big, dense_consts), FEAT_ATOL, FEAT_RTOL))
+        times[name] = (cuda_ms(lambda: launch(big, dense_consts), 10),
+                       cuda_ms(lambda: plain(big, dense_consts), 5))
+    unit_gain = torch.ones(1, dtype=torch.float32, device=dev)
+    for name, extra in (("load_rowsum", ()), ("load_broadcast", (out_cols,))):
+        launch = getattr(load_kernel, name + "_cuda")
+        plain = getattr(load_kernel, name + "_plain")
+        for gain in (unit_gain, 1.5):
+            load_errs[name].append(check_rowsum(
+                f"{name} gain {float(gain)} B = {B_TIME}",
+                launch(big, gain, *extra), plain(big, gain, *extra), big,
+                gain))
+        times[name] = (cuda_ms(lambda: launch(big, unit_gain, *extra), 50),
+                       cuda_ms(lambda: plain(big, unit_gain, *extra), 20))
+    # one PyTorch call computing the same function, where there is one; the
+    # broadcast has none (a sum, then a copy), nor has any frontend (no
+    # library call gives an MFCC), the GRU (a linear candidate is not
+    # nn.GRU) or the fused CNNs
+    library = dict.fromkeys(times)
+    library["load_rowsum"] = cuda_ms(lambda: torch.sum(big, 1), 50)
+    lstm_lib = cudnn_lstm(lstm_pretrained, dev)
+    head = lstm_pretrained.score_predict
+    lib_logits = lstm_lib(big_feats)[0][:, -1] @ head.kernel + head.bias
+    check_close("cuDNN nn.LSTM (library yardstick) vs the LSTM kernel",
+                lstm_cls(big_feats), lib_logits, GRU_ATOL, GRU_RTOL)
+    library["lstm_classifier"] = cuda_ms(lambda: lstm_lib(big_feats), 20)
+    bounds = kernel_bounds(ListenerParams(), B_TIME, big.shape[1],
+                           (big_feats.shape[1], big_feats.shape[2],
+                            lstm_pretrained.backbone.lstm_unit_0.units,
+                            lstm_pretrained.num_classes), cnn_cls.consts)
     for name, (k_ms, p_ms) in times.items():
-        log(f"  {name:16s} kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  "
-            f"(f32, {card})")
+        lib = library[name]
+        log(f"  {name:18s} kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  "
+            f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})  library "
+            f"{'none' if lib is None else f'{lib:.4f} ms'}  (f32, {card})")
     cls16 = GRUClassifier(pretrained, torch.bfloat16)
     feats16 = big_feats.to(torch.bfloat16)
     for name, model, c16 in (
@@ -539,12 +740,21 @@ def main() -> int:
             ("cnn_classifier", cnn_kernel.SOURCE, cnn_kernel.REPLACES,
              cnn_errs),
             ("cnn_block1", cnn_kernel.SOURCE, cnn_kernel.BLOCK1_REPLACES,
-             block1_errs)):
+             block1_errs),
+            ("dense_dft_combined", dense_dft_kernel.SOURCE,
+             dense_dft_kernel.REPLACES, dense_errs["dense_dft_combined"]),
+            ("dense_dft_halves", dense_dft_kernel.SOURCE,
+             dense_dft_kernel.HALVES_REPLACES, dense_errs["dense_dft_halves"]),
+            ("load_rowsum", load_kernel.SOURCE, load_kernel.REPLACES,
+             load_errs["load_rowsum"]),
+            ("load_broadcast", load_kernel.SOURCE,
+             load_kernel.BROADCAST_REPLACES, load_errs["load_broadcast"])):
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(errs), "ms": times[name][0],
-            "plain_ms": times[name][1],
+            "plain_ms": times[name][1], "bound_ms": bounds[name][0],
+            "bound_by": bounds[name][1], "library_ms": library[name],
         })
     log(json.dumps({"kernels": kernels}))
     log(card)

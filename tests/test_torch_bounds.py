@@ -1,0 +1,70 @@
+"""chip_smoke.py's kernel bounds, against counts made by hand from the shapes.
+
+B = 8192 windows of 16,000 f32 samples at the default config: 245,760
+frames of 1,024 samples, 513 bins, 20 filters (927 nonzero weights once
+packed), 20 MFCCs; a 48-unit GRU or LSTM over (30, 20) features into 5
+classes.  Peaks: 67 TFLOP/s f32, 989 TFLOP/s bf16, 3.35 TB/s.
+
+- FFT frontend: a real-input 1024-point FFT is 2.5 n log2 n = 25,600
+  FLOP a frame (6.29 GFLOP), with the cepstrum (4 a bin, 2 a packed
+  weight, a 20 x 20 DCT: 4,706 a frame, 1.16 GFLOP) 0.111 ms of f32;
+  its bytes, 524.3 MB of audio and 19.7 MB of features, take 0.1624 ms;
+- the dense DFT: 1,024 samples x 1,024 nonzero columns x 2 a frame;
+- the load floor: the audio read, and 32.8 KB or 19.7 MB written.
+
+The times are computed here in float64 and compared to 1e-9 relative.
+"""
+import importlib.util
+import os
+
+import pytest
+
+from tpu_speech_commands_torch.models.cnn import SimpleCNN
+from tpu_speech_commands_torch.ops.cnn_kernel import CNNClassifier
+from tpu_speech_commands_torch.params import ListenerParams
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FRAMES = 8192 * 30
+AUDIO_B = 4 * 8192 * 16000
+FEATS_B = 4 * FRAMES * 20
+CEPSTRUM = FRAMES * (4 * 513 + 2 * 927 + 2 * 20 * 20)
+DFT = FRAMES * 2 * 1024 * 1024
+
+EXPECTED = {  # name: (bound_by, ms)
+    "mfcc_frontend": ("bytes", (AUDIO_B + FEATS_B) / 3.35e9),
+    "dft_frontend_bf16": ("operations", DFT / 989e9 + CEPSTRUM / 67e9),
+    "dense_dft_combined": ("operations", (DFT + CEPSTRUM) / 67e9),
+    "dense_dft_halves": ("operations", (DFT + CEPSTRUM) / 67e9),
+    "load_rowsum": ("bytes", (AUDIO_B + 4 * 8192) / 3.35e9),
+    "load_broadcast": ("bytes", (AUDIO_B + 4 * 8192 * 600) / 3.35e9),
+    "gru_classifier": ("operations",
+                       (FRAMES * 2 * 3 * 48 * 68 + 8192 * 2 * 48 * 5) / 67e9),
+    "lstm_classifier": ("operations",
+                        (FRAMES * 2 * 4 * 48 * 68 + 8192 * 2 * 48 * 5) / 67e9),
+}
+
+
+@pytest.fixture(scope="module")
+def bounds():
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    cnn = CNNClassifier(SimpleCNN(5, 30, 20)).consts
+    return chip_smoke.kernel_bounds(ListenerParams(), 8192, 16000,
+                                    (30, 20, 48, 5), cnn)
+
+
+@pytest.mark.parametrize("name", sorted(EXPECTED))
+def test_kernel_bound_matches_the_hand_count(bounds, name):
+    by, ms = EXPECTED[name]
+    assert bounds[name][1] == by
+    assert bounds[name][0] == pytest.approx(ms, rel=1e-9)
+
+
+def test_fft_frontend_operations_are_below_its_bytes(bounds):
+    """The FFT frontend is bound by its bytes: its operations, the real FFT
+    and the packed cepstrum, take 0.111 ms at the f32 peak."""
+    ops_ms = (FRAMES * 2.5 * 1024 * 10 + CEPSTRUM) / 67e9
+    assert ops_ms == pytest.approx(0.1112, abs=1e-4)
+    assert bounds["mfcc_frontend"][0] > ops_ms

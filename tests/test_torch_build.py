@@ -41,7 +41,8 @@ def test_build_passes_hopper_flags_and_every_source(tmp_path, monkeypatch):
     args = args_file.read_text()
     assert "arch=compute_90a,code=sm_90a" in args
     for src in ("mfcc_frontend.cu", "gru_classifier.cu", "cnn_classifier.cu",
-                "lstm_classifier.cu", "dft_frontend.cu"):
+                "lstm_classifier.cu", "dft_frontend.cu", "audio_load.cu",
+                "dense_dft_frontend.cu"):
         assert src in args
 
 

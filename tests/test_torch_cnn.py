@@ -154,8 +154,8 @@ def test_block1_plain_matches_jax_kernel(model_type, shape, compute_dtype):
         batch_tile=4, interpret=True,
         compute_dtype=getattr(jnp, compute_dtype))(jnp.asarray(x)))
     got = make_fused_conv_block1(
-        variables, h, w, jmodel.separable,
-        getattr(torch, compute_dtype))(torch.tensor(x[..., None])).numpy()
+        variables, h, w, jmodel.separable, getattr(torch, compute_dtype),
+        "cpu")(torch.tensor(x[..., None])).numpy()
     assert got.shape == (8, h // 2, w // 2, 16) == want.shape
     if compute_dtype == "float32":
         np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
@@ -321,7 +321,7 @@ def test_dispatchers_on_cpu_are_the_plain_versions(compute_dtype):
     torch.testing.assert_close(cls(x), want, rtol=0, atol=0)
     torch.testing.assert_close(cls(x[..., None]), want, rtol=0, atol=0)
     assert cls(x[:0]).shape == (0, 5)
-    block1 = make_fused_conv_block1(variables, *hw, True, compute_dtype)
+    block1 = make_fused_conv_block1(variables, *hw, True, compute_dtype, "cpu")
     stage = cnn_kernel.StageTensors(lower_block1(variables, True, *hw), "cpu",
                                     compute_dtype)
     torch.testing.assert_close(block1(x), cnn_kernel.cnn_block1_plain(stage, x),

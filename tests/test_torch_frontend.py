@@ -59,7 +59,7 @@ def audio_batch():
 
 
 def _port(p, feature_type, audio, gain=None):
-    return Frontend(p, feature_type)(torch.tensor(audio), gain).numpy()
+    return Frontend(p, feature_type, "cpu")(torch.tensor(audio), gain).numpy()
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
@@ -155,11 +155,11 @@ def test_add_deltas_first_frame_zero():
 
 def test_short_audio_raises():
     with pytest.raises(ValueError, match="n_features"):
-        Frontend(ListenerParams())(torch.zeros(2, 8000))
+        Frontend(ListenerParams(), device="cpu")(torch.zeros(2, 8000))
 
 
 def test_pad_audio_left_pads_and_trims():
-    fe = Frontend(ListenerParams())
+    fe = Frontend(ListenerParams(), device="cpu")
     padded = fe.pad_audio(torch.ones(2, 7000))
     assert padded.shape == (2, 16000) and torch.all(padded[:, :9000] == 0)
     assert fe.pad_audio(torch.ones(2, 20000)).shape == (2, 16000)
@@ -167,7 +167,7 @@ def test_pad_audio_left_pads_and_trims():
 
 def test_frontend_snapshots_params():
     p = ListenerParams()
-    fe = Frontend(p)
+    fe = Frontend(p, device="cpu")
     assert fe.params == p and fe.params is not p
 
 
@@ -178,8 +178,8 @@ def test_wrapper_on_cpu_is_the_plain_chain(audio_batch):
         fe = MfccFrontend(p, "mfcc", "cpu", out_dtype=out_dtype)
         got = fe(audio, 0.9)
         assert got.dtype == out_dtype
-        torch.testing.assert_close(got, Frontend(p)(audio, 0.9).to(out_dtype),
-                                   rtol=0, atol=0)
+        want = Frontend(p, device="cpu")(audio, 0.9).to(out_dtype)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_kernel_constants_row_major():

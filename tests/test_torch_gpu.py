@@ -21,7 +21,11 @@ Tolerances, each with its reason:
 - fast_math features: the bounds of the f32 features above (the kernel's
   bf16 frames and DFT matrix are the plain version's values bit for bit;
   only the f32 sums run in another order);
-- LSTM logits f32: atol 1e-4 / rtol 1e-5; bf16: atol 5e-2 (as the GRU).
+- LSTM logits f32: atol 1e-4 / rtol 1e-5; bf16: atol 5e-2 (as the GRU);
+- dense-DFT features: the bounds of the f32 features above (the same f32
+  math in another summation order, magnified by the log);
+- load-floor row sums: per row |err| <= 2e-6 * sum |gain * x| (16,000 f32
+  terms summed in another order; the sums reach the hundreds).
 cuDNN runs float32 convs in TF32 unless told otherwise: the fixture turns
 TF32 off, so the plain versions' convs are float32.
 """
@@ -35,11 +39,15 @@ import torch
 
 from tpu_speech_commands_torch.models.cnn import SimpleCNN, SimpleCNNLite
 from tpu_speech_commands_torch.models.rnn import SimpleGRU, SimpleLSTM
-from tpu_speech_commands_torch.ops import cnn_kernel, frontend_kernel, rnn_kernel
+from tpu_speech_commands_torch.dev import (pallas_experiments, r3_experiments,
+                                           r4_mxu_stage1)
+from tpu_speech_commands_torch.ops import (cnn_kernel, dense_dft_kernel,
+                                           frontend_kernel, load_kernel,
+                                           rnn_kernel)
 from tpu_speech_commands_torch.ops.cnn_lowering import lower_block1
 from tpu_speech_commands_torch.ops.frontend_kernel import MfccFrontend
 from tpu_speech_commands_torch.ops.rnn_kernel import GRUClassifier, LSTMClassifier
-from tpu_speech_commands_torch.params import ListenerParams
+from tpu_speech_commands_torch.params import ListenerParams, pr
 from tpu_speech_commands_torch.serving import make_batch_scorer
 
 pytestmark = pytest.mark.gpu
@@ -62,6 +70,14 @@ CONFIGS = {
     "alt_512": ({"window_t": 0.025, "hop_t": 0.01, "n_fft": 512,
                  "n_filt": 26, "n_mfcc": 13}, "mfcc"),
 }
+
+
+@pytest.fixture(autouse=True)
+def _restore_port_pr():
+    """Checkpoint loads write the port's global `pr`."""
+    snap = pr.to_dict()
+    yield
+    pr.override(snap)
 
 
 @pytest.fixture
@@ -395,3 +411,121 @@ def test_fast_math_frontend_into_classifier_kernels(cuda_device, ckpt):
     logits = cls(fe(torch.tensor(audio, device=cuda_device)))
     assert frontend_kernel.dft_frontend_bf16_cuda.launches == before + 1
     assert [predictor.classes[i] for i in logits.argmax(-1).tolist()] == labels
+
+
+DENSE_CASES = [("combined", {}), ("combined", {"window_t": 0.05}),
+               ("combined", {"window_t": 0.025, "hop_t": 0.01, "n_fft": 512,
+                             "n_filt": 26, "n_mfcc": 13}),
+               ("halves", {}), ("halves", {"window_t": 0.05, "hop_t": 0.025}),
+               ("halves", {"window_t": 0.01, "hop_t": 0.005, "n_fft": 256})]
+
+
+@pytest.mark.parametrize("variant,kw", DENSE_CASES,
+                         ids=[f"{v}-{kw}" for v, kw in DENSE_CASES])
+def test_dense_dft_kernel_matches_plain(cuda_device, variant, kw):
+    """B = 13: a ragged last tile of windows (and two tiles a window at hop
+    80)."""
+    p = ListenerParams(**kw)
+    clips, _ = _clips()
+    rows = clips[np.arange(13) % 8].astype(np.float32) / 32768.0
+    audio = torch.tensor(rows * np.linspace(0.3, 1.5, 13, dtype=np.float32)[:, None],
+                         device=cuda_device)
+    consts = dense_dft_kernel.DenseDftConstants(p, cuda_device)
+    launch = getattr(dense_dft_kernel, f"dense_dft_{variant}_cuda")
+    plain = getattr(dense_dft_kernel, f"dense_dft_{variant}_plain")
+    before = launch.launches
+    got = launch(audio, consts)
+    torch.cuda.synchronize()
+    assert launch.launches == before + 1
+    assert got.shape == (13, dense_dft_kernel.n_frames_of(p, 16000), p.n_mfcc)
+    torch.testing.assert_close(got, plain(audio, consts), rtol=1e-3, atol=2e-3)
+
+
+def test_dense_dft_kernels_reject_what_they_cannot_take(cuda_device):
+    consts = dense_dft_kernel.DenseDftConstants(ListenerParams(), cuda_device)
+    for launch in (dense_dft_kernel.dense_dft_combined_cuda,
+                   dense_dft_kernel.dense_dft_halves_cuda):
+        with pytest.raises(TypeError):
+            launch(torch.zeros(2, 16000, dtype=torch.float64, device=cuda_device),
+                   consts)
+        with pytest.raises(ValueError):
+            launch(torch.zeros(2, 32000, device=cuda_device)[:, ::2], consts)
+        with pytest.raises(ValueError):
+            launch(torch.zeros(2, 16000), consts)  # on the CPU
+        assert launch(torch.zeros(0, 16000, device=cuda_device),
+                      consts).shape == (0, 30, 20)
+    odd = dense_dft_kernel.DenseDftConstants(ListenerParams(window_t=0.05),
+                                             cuda_device)
+    with pytest.raises(ValueError, match="window == 2 hop"):
+        dense_dft_kernel.dense_dft_halves_cuda(
+            torch.zeros(2, 16000, device=cuda_device), odd)
+
+
+def test_dense_dft_smem_fits_two_blocks_an_sm_at_the_default_config(
+        cuda_device):
+    """__launch_bounds__(256, 2): two blocks' shared memory, each with the
+    1 KB the card reserves a block, fit an SM's 228 KB; a config the kernel
+    cannot take fails at the launch."""
+    consts = dense_dft_kernel.DenseDftConstants(ListenerParams(), cuda_device)
+    assert 2 * (dense_dft_kernel.smem_bytes(consts) + 1024) <= 228 * 1024
+    bad = dense_dft_kernel.DenseDftConstants(ListenerParams(n_mfcc=24),
+                                             cuda_device)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        dense_dft_kernel.dense_dft_combined_cuda(
+            torch.zeros(2, 16000, device=cuda_device), bad)
+
+
+@pytest.mark.parametrize("gain", [1.0, 1.5])
+@pytest.mark.parametrize("n_samples", [16000, 16001])
+def test_load_kernels_match_plain(cuda_device, gain, n_samples):
+    """16001 samples: rows that are not 16-byte aligned take the scalar
+    path."""
+    rng = np.random.default_rng(7)
+    audio = torch.tensor((0.3 * rng.standard_normal((37, n_samples)) + 0.05)
+                         .astype(np.float32), device=cuda_device)
+    bound = 2e-6 * (audio * gain).abs().sum(1, keepdim=True)
+    for launch, plain, extra in (
+            (load_kernel.load_rowsum_cuda, load_kernel.load_rowsum_plain, ()),
+            (load_kernel.load_broadcast_cuda, load_kernel.load_broadcast_plain,
+             (600,))):
+        before = launch.launches
+        got = launch(audio, gain, *extra)
+        torch.cuda.synchronize()
+        assert launch.launches == before + 1
+        want = plain(audio, gain, *extra)
+        assert got.shape == want.shape and torch.isfinite(got).all()
+        assert ((got - want).abs() <= bound).all()
+
+
+def test_load_kernels_reject_what_they_cannot_take(cuda_device):
+    for launch, extra in ((load_kernel.load_rowsum_cuda, ()),
+                          (load_kernel.load_broadcast_cuda, (600,))):
+        with pytest.raises(TypeError):
+            launch(torch.zeros(2, 16000, dtype=torch.float64, device=cuda_device),
+                   1.0, *extra)
+        with pytest.raises(ValueError):
+            launch(torch.zeros(2, 32000, device=cuda_device)[:, ::2], 1.0, *extra)
+        with pytest.raises(ValueError, match="gain"):
+            launch(torch.zeros(2, 16000, device=cuda_device), torch.ones(2),
+                   *extra)
+        assert launch(torch.zeros(0, 16000, device=cuda_device), 1.0,
+                      *extra).shape[0] == 0
+
+
+def test_dev_entry_points_run_their_kernels(cuda_device):
+    """The three dev mains at a small batch: each variant's kernels launch
+    and every checksum is finite."""
+    counters = (dense_dft_kernel.dense_dft_combined_cuda,
+                dense_dft_kernel.dense_dft_halves_cuda,
+                load_kernel.load_rowsum_cuda, load_kernel.load_broadcast_cuda)
+    for fn in counters:
+        fn.launches = 0
+    rates = pallas_experiments.main(["--batch", "64", "--iters", "2",
+                                     "--repeats", "1"])
+    assert set(rates) == {"combined", "reshape", "bf16mat", "fft", "xla"}
+    rates.update(r3_experiments.main(["--batch", "64", "--iters", "2",
+                                      "--outer", "1"]))
+    rates.update({f"r4 {k}": v for k, v in r4_mxu_stage1.main(
+        ["--batch", "64", "--iters", "2"]).items()})
+    assert all(r > 0 for r in rates.values())
+    assert all(fn.launches > 0 for fn in counters)

@@ -1,4 +1,5 @@
-"""The port imports no jax or flax, not even transitively.
+"""The port imports no jax or flax, and nothing of the JAX package
+`tpu_speech_commands`, not even transitively.
 
 Run in a fresh interpreter (this test process has jax loaded through
 conftest): import every module of tpu_speech_commands_torch and
@@ -20,7 +21,8 @@ for name in names:
 importlib.import_module("chip_smoke")
 print(json.dumps({
     "modules": names,
-    "leaked": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")),
+    "leaked": sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "flax", "optax", "tpu_speech_commands")),
 }))
 """
 
@@ -45,6 +47,14 @@ def test_port_imports_no_jax():
         "tpu_speech_commands_torch.ops.cnn_kernel",
         "tpu_speech_commands_torch.convert",
         "tpu_speech_commands_torch.checkpoints",
+        "tpu_speech_commands_torch.params",
+        "tpu_speech_commands_torch.device",
+        "tpu_speech_commands_torch.ops.dense_dft_kernel",
+        "tpu_speech_commands_torch.ops.load_kernel",
+        "tpu_speech_commands_torch.dev",
+        "tpu_speech_commands_torch.dev.pallas_experiments",
+        "tpu_speech_commands_torch.dev.r3_experiments",
+        "tpu_speech_commands_torch.dev.r4_mxu_stage1",
     }
     assert expected <= set(result["modules"])
     assert result["leaked"] == []

@@ -34,13 +34,22 @@ from tpu_speech_commands_torch.models import get_model
 from tpu_speech_commands_torch.models.rnn import SimpleGRU, SimpleLSTM
 from tpu_speech_commands_torch.ops import rnn_kernel
 from tpu_speech_commands_torch.ops.rnn_kernel import LSTMClassifier
-from tpu_speech_commands_torch.params import ListenerParams
+from tpu_speech_commands_torch.params import ListenerParams, pr
 
 RTOL, ATOL = 1e-4, 1e-5
 BF16_ATOL = 5e-2
 T, D = 30, 20
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LSTM_CKPT = os.path.join(REPO, "pretrained", "direction_simple_lstm.npz")
+
+
+@pytest.fixture(autouse=True)
+def _restore_port_pr():
+    """A checkpoint load writes its params into the port's own `pr`, which
+    tests/conftest.py does not restore: snapshot and restore it here."""
+    snap = pr.to_dict()
+    yield
+    pr.override(snap)
 
 
 def _jax_lstm(num_layers, seed):
@@ -86,14 +95,15 @@ def test_pretrained_lstm_on_clip_features_matches_fused():
         pcm = pcm[-16000:]
         clips.append(np.pad(pcm, (16000 - len(pcm), 0)))
     assert len(clips) == 8
-    feats = Frontend(ListenerParams())(torch.tensor(np.stack(clips)))
+    feats = Frontend(ListenerParams(), device="cpu")(
+        torch.tensor(np.stack(clips)))
     variables, meta = load_checkpoint(LSTM_CKPT)
     assert meta["model_type"] == "simple_lstm"
     fused = make_fused_rnn_classifier(
         variables, cell_type="lstm", n_features=T, feature_size=D,
         batch_tile=8, interpret=True)
     want = np.asarray(fused(jnp.asarray(feats.numpy())))
-    got = LSTMClassifier(load_native(LSTM_CKPT).model)(feats).numpy()
+    got = LSTMClassifier(load_native(LSTM_CKPT, "cpu").model)(feats).numpy()
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 

@@ -33,6 +33,15 @@ RTOL, ATOL = 1e-4, 1e-5
 BF16_ATOL = 5e-2
 
 
+@pytest.fixture(autouse=True)
+def _restore_port_pr():
+    """Checkpoint loads write their params into the port's own `pr`, which
+    tests/conftest.py does not restore: snapshot and restore it here."""
+    snap = pr.to_dict()
+    yield
+    pr.override(snap)
+
+
 @pytest.fixture(scope="module")
 def clips():
     """(8, 16000) int16 example clips, left-padded or tail-trimmed, and the
@@ -113,7 +122,7 @@ def test_scorer_immune_to_later_checkpoint_loads(tmp_path, clips):
     data["__meta__"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
     other = tmp_path / "other.npz"
     np.savez(other, **data)
-    load_native(str(other))
+    load_native(str(other), "cpu")
     assert pr.n_filt == 24
     torch.testing.assert_close(scorer(audio), before, rtol=0, atol=0)
     assert scorer.params.n_filt == 20
@@ -130,7 +139,7 @@ def test_load_native_predictor_matches_jax(model_type):
 
     feats = np.random.default_rng(5).standard_normal((7, 30, 20)).astype(
         np.float32)
-    port = load_native(CKPTS[model_type])
+    port = load_native(CKPTS[model_type], "cpu")
     jax_pred = jax_load_native(CKPTS[model_type])
     assert (port.model_type, port.num_classes, port.classes) == (
         jax_pred.model_type, jax_pred.num_classes, jax_pred.classes)
@@ -151,9 +160,12 @@ def test_use_delta_cnn_scorer_matches_jax(tmp_path, clips, model_type):
     over an even width (SAME pads 0 low, 1 high).  A fresh checkpoint saved
     by the JAX package, scored by both packages."""
     from tpu_speech_commands.optim import get_optimizer
+    from tpu_speech_commands.params import pr as jax_pr
     from tpu_speech_commands.training import create_train_state, save_checkpoint
 
-    pr.override({"use_delta": True})
+    # the JAX package builds its model from its own pr (tests/conftest.py
+    # restores it); the port reads the saved params from the checkpoint
+    jax_pr.override({"use_delta": True})
     classes = ["background", "left", "right", "up", "down"]
     tx = get_optimizer("adam", 1e-3, decay_type=None)
     _, state = create_train_state(model_type, len(classes), tx,
@@ -161,7 +173,8 @@ def test_use_delta_cnn_scorer_matches_jax(tmp_path, clips, model_type):
     path = str(tmp_path / f"{model_type}_delta.npz")
     save_checkpoint(path, state, {
         "model_type": model_type, "num_classes": len(classes),
-        "classes": classes, "params": pr.to_dict(), "feature_type": "mfcc"})
+        "classes": classes, "params": jax_pr.to_dict(),
+        "feature_type": "mfcc"})
     audio = clips[0][:6]
     want = np.asarray(jax_scorer(path, batch_tile=2, classifier_tile=2,
                                  interpret=True, use_pallas=True)(

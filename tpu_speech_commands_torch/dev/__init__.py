@@ -1,0 +1,68 @@
+"""Measurement entry points of the port, the counterparts of the JAX
+package's `tools/dev/` scripts whose TPU kernels the port carries:
+
+- `pallas_experiments`: the dense-DFT frontend variants (the combined and
+  halves f32 kernels, the bf16 fast_math kernel, the FFT kernel, the plain
+  chain) timed at B 16384;
+- `r3_experiments`: the audio-read floor (the load-only kernel) and the FFT
+  frontend at B 8192;
+- `r4_mxu_stage1`: the FFT kernel, the combined dense-DFT kernel and the
+  load floor side by side, with each frontend's error against a float64
+  reference.
+
+Each runs on the card and raises RuntimeError where CUDA is absent:
+
+    python -m tpu_speech_commands_torch.dev.pallas_experiments
+    python -m tpu_speech_commands_torch.dev.r3_experiments --batch 8192
+    python -m tpu_speech_commands_torch.dev.r4_mxu_stage1 --batch 8192
+
+Their `make_*` functions take `device="cpu"` for the plain versions.
+"""
+from __future__ import annotations
+
+import subprocess
+
+import numpy as np
+import torch
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip()
+
+
+def device_audio(batch: int, n_samples: int, seed: int, device) -> torch.Tensor:
+    """(batch, n_samples) float32 standard-normal audio from a numpy seed,
+    made on the host in one piece and copied to `device`."""
+    rng = np.random.default_rng(seed)
+    return torch.tensor(
+        rng.standard_normal((batch, n_samples), dtype=np.float32), device=device)
+
+
+def best_rate(fn, audio: torch.Tensor, gains: torch.Tensor,
+              repeats: int = 1) -> float:
+    """Best windows/s over `repeats` runs of fn(audio, gains[i:i + 1]) for
+    every gain in turn, timed with CUDA events after one warm-up call.  Each
+    output is summed into an on-device checksum, fetched at the end;
+    RuntimeError if it is not finite."""
+    checksum = torch.zeros((), dtype=torch.float32, device=audio.device)
+    checksum += fn(audio, gains[0:1]).sum()  # warm-up
+    best = 0.0
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(len(gains)):
+            checksum += fn(audio, gains[i:i + 1]).sum()
+        end.record()
+        end.synchronize()
+        seconds = start.elapsed_time(end) / 1e3
+        best = max(best, len(gains) * audio.shape[0] / seconds)
+    if not torch.isfinite(checksum).item():
+        raise RuntimeError("the checksum is not finite")
+    return best

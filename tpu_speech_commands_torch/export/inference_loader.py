@@ -10,6 +10,7 @@ import torch
 
 from ..checkpoints import load_checkpoint
 from ..convert import torch_state_from_jax
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..models import features_to_input, get_model, score_fn
 from ..params import pr
 
@@ -33,12 +34,14 @@ class NativePredictor:
         return score_fn(self.model(features_to_input(x, self.model_type)))
 
 
-def load_native(model_path: str, device="cpu") -> NativePredictor:
-    """Load a native `.npz` checkpoint onto `device`.
+def load_native(model_path: str, device=DEFAULT_DEVICE) -> NativePredictor:
+    """Load a native `.npz` checkpoint onto `device` (the card unless the
+    caller passes "cpu"; RuntimeError for CUDA without CUDA).
 
     Like the JAX loader, the checkpoint's stored audio params are applied to
-    the global `pr` (so the frontend built next matches the model), and
-    every tensor is shape-checked against a freshly built model."""
+    the port's global `pr` (so the frontend built next matches the model),
+    and every tensor is shape-checked against a freshly built model."""
+    device = resolve_device(device)
     variables, meta = load_checkpoint(model_path)
     model_type = meta.get("model_type")
     num_classes = meta.get("num_classes")
@@ -64,7 +67,6 @@ def load_native(model_path: str, device="cpu") -> NativePredictor:
                 f"model {tuple(want[key].shape)}"
             )
     model.load_state_dict(state)
-    device = torch.device(device)
     model.to(device).eval()
     return NativePredictor(model, model_type, num_classes,
                            meta.get("classes"), meta, device)

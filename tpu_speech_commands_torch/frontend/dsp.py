@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..params import ListenerParams, pr
 from .filterbanks import LOG_EPS, dct_t_matrix, dft_matrices, filterbank_matrix
 
@@ -74,11 +75,13 @@ class Frontend:
 
     feature_type: 'mfcc' (mel) or 'bark'.  Called on (B, S) float32 audio in
     [-1, 1] or int16 PCM; returns (B, n_features, feature_size) float32.
-    fast_math=True runs the DFT on bf16-rounded frames and matrices.
+    fast_math=True runs the DFT on bf16-rounded frames and matrices.  The
+    constants live on `device`: the card unless the caller passes "cpu"
+    (RuntimeError for CUDA without CUDA).
     """
 
     def __init__(self, params: ListenerParams | None = None,
-                 feature_type: str = "mfcc", device="cpu",
+                 feature_type: str = "mfcc", device=DEFAULT_DEVICE,
                  fast_math: bool = False):
         # snapshot: a later inject_params must not mix new scalar config
         # (n_fft normalisation, framing) with the matrices built here
@@ -86,7 +89,7 @@ class Frontend:
         self.params = p
         self.feature_type = feature_type
         self.fast_math = fast_math
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         filt = filterbank_matrix(p, feature_type)
         cos, sin = dft_matrices(p.window_samples, p.n_fft)
 

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..models.cnn import SimpleCNN, relu6
 from ..models.rnn import _rounded
 from . import _build
@@ -283,13 +284,15 @@ class CNNClassifier:
 
 def make_fused_conv_block1(variables: dict, n_features: int, feature_size: int,
                            separable: bool = False,
-                           compute_dtype=torch.float32, device="cpu"):
+                           compute_dtype=torch.float32, device=DEFAULT_DEVICE):
     """Build (B, H, W[, 1]) features -> (B, H//2, W//2, 16) NHWC float32
     block-1 activations from a JAX-layout variables tree, with the constants
-    on `device`.  CPU tensors run the plain version; CUDA tensors launch the
-    kernel."""
+    on `device` (the card unless the caller passes "cpu"; RuntimeError for
+    CUDA without CUDA).  CPU tensors run the plain version; CUDA tensors
+    launch the kernel."""
     stage = StageTensors(lower_block1(variables, separable, n_features,
-                                      feature_size), device, compute_dtype)
+                                      feature_size), resolve_device(device),
+                         compute_dtype)
 
     @torch.inference_mode()
     def forward(x: torch.Tensor) -> torch.Tensor:

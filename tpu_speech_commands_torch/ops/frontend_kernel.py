@@ -29,6 +29,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..frontend.dsp import Frontend
 from ..frontend.filterbanks import dct_t_matrix, dft_matrices, filterbank_matrix
 from ..params import ListenerParams, pr
@@ -350,11 +351,13 @@ class MfccFrontend:
     a snapshot of the config.  CPU tensors take the plain `Frontend` chain;
     CUDA tensors launch the FFT kernel, or with fast_math=True the bf16
     tensor-core DFT kernel (the counterpart of
-    `make_fused_frontend(fast_math=True)`).  Constructing it for a CUDA
-    device raises ValueError when the kernel cannot take the config."""
+    `make_fused_frontend(fast_math=True)`).  The device is the card unless
+    the caller passes "cpu".  Constructing it for a CUDA device raises
+    ValueError when the kernel cannot take the config, and RuntimeError
+    without CUDA."""
 
     def __init__(self, params: ListenerParams | None = None,
-                 feature_type: str = "mfcc", device="cpu",
+                 feature_type: str = "mfcc", device=DEFAULT_DEVICE,
                  out_dtype=torch.float32, fast_math: bool = False):
         if out_dtype not in _OUT_DTYPES:
             raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
@@ -366,6 +369,7 @@ class MfccFrontend:
                else kernel_config_error(self.params))
         if err and self.device.type == "cuda":
             raise ValueError(err)
+        resolve_device(self.device)
         self.plain = Frontend(self.params, feature_type, self.device,
                               fast_math=fast_math)
         self.consts = None

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from .device import DEFAULT_DEVICE, resolve_device
 from .export.inference_loader import load_native
 from .models import is_cnn, score_fn
 from .ops.cnn_kernel import CNNClassifier
@@ -54,7 +55,7 @@ class BatchScorer:
         return score_fn(self.classifier(self.frontend(audio, gain)))
 
 
-def make_batch_scorer(checkpoint_path: str, device="cpu",
+def make_batch_scorer(checkpoint_path: str, device=DEFAULT_DEVICE,
                       compute_dtype=torch.float32) -> BatchScorer:
     """Load a native `.npz` checkpoint onto `device` and build audio ->
     scores.
@@ -65,13 +66,12 @@ def make_batch_scorer(checkpoint_path: str, device="cpu",
     The LSTM classifier stays in float32, as in the JAX package; its bf16
     mode is `ops.LSTMClassifier(model, torch.bfloat16)`.
 
-    Raises RuntimeError for a CUDA device when CUDA is not available, and
+    The device is the card unless the caller passes "cpu".  Raises
+    RuntimeError for a CUDA device when CUDA is not available, and
     ValueError for a CUDA device when the frontend kernel cannot take the
     checkpoint's config; nothing falls back to the CPU.
     """
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but CUDA is not available")
+    device = resolve_device(device)
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"compute_dtype must be float32 or bfloat16, got "
                         f"{compute_dtype}")
