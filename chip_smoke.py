@@ -11,8 +11,11 @@ Phases, in order; any failure raises and the script exits non-zero:
             B = 1000, over the configs and dtypes the slices can meet (the
             fast_math frontend also at K6 make_bf16_kernel's own settings;
             the f32 dense-DFT kernels at the default config and at W 800,
-            combined, or W = 2 hop = 800, halves; the load-floor kernels at
-            gains 1 and 1.5)
+            combined, or W = 2 hop = 800, halves, and combined with a gain
+            and a first frame; the load-floor kernels at gains 1 and 1.5;
+            the CT split kernel's four instantiations at the default config,
+            batch- and time-major, and at n_fft = window = 768 with deltas,
+            int16 in and bf16 out; the FFT kernel at window 1200 > n_fft)
 4. slices   each path driven on the eight example/*.wav clips in f32 and
             bf16, with every launch count set to 0 just before it and read
             just after:
@@ -28,16 +31,26 @@ Phases, in order; any failure raises and the script exits non-zero:
             - MfccFrontend(fast_math=True) into the GRU, LSTM and CNN
               classifier kernels for all four checkpoints: top-1 and both
               launch counts;
-            - the three measurement entry points of tpu_speech_commands_torch
+            - make_batch_scorer for direction_simple_gru.npz with its params
+              set to the three classes of config the route choice covers:
+              n_fft = window = 768 (route cuda-ct, the CT kernel), window
+              1200 > n_fft 1024 (cuda-mfcc, the FFT kernel) and n_fft 400
+              (torch(xla-route), the plain chain): `.paths` must name the
+              route, its kernels' launch counts must rise, and the scores
+              must agree with the same scorer on the CPU;
+            - the six measurement entry points of tpu_speech_commands_torch
               .dev at their own batch (pallas_experiments B = 16384, every
-              variant; r3_experiments and r4_mxu_stage1 B = 8192), a few
-              iterations each: every checksum finite, r4's two frontends
-              within its stated bound of a float64 reference, and the
-              dense-DFT and load-floor launch counts must rise
+              variant; the others B = 8192), a few iterations each: every
+              checksum finite, r4's two frontends (dense: the gain applied,
+              the last n_features frames) within its stated bound of a
+              float64 reference, the CT variants within the f32 feature
+              bound of the FFT kernel, and the dense-DFT, load-floor and CT
+              launch counts must rise
 5. times    CUDA-event times at B = 8192, audio resident on the card (the
-            dense-DFT and load-floor kernels are first held to their plain
-            versions at this batch, their entry points' own, with the
-            phase-3 tolerances): each
+            dense-DFT, load-floor and CT kernels are first held to their
+            plain versions at this batch, their entry points' own, with the
+            phase-3 tolerances; the CT kernel's (F, F) instantiation is timed
+            against the FFT kernel in turns, fft, ct, ct, fft): each
             kernel against its plain version (the fast_math frontend also
             against the FFT kernel), the one PyTorch call that computes the
             same function where there is one (torch.sum for the load
@@ -45,7 +58,10 @@ Phases, in order; any failure raises and the script exits non-zero:
             kernel's bound (the larger of its operations over the card's
             peak rate for their type and its bytes over 3.35 TB/s; a
             frontend's FFT counted as a real-input transform, its
-            filterbank over the packed nonzero weights), and
+            filterbank over the packed nonzero weights; the CT split
+            kernels take the FFT kernel's bound, as they compute its
+            function, and the CT split's own operations are printed apart
+            as that algorithm's floor), and
             end-to-end windows/s for every scorer (information only)
 
 Two lines before the last: one JSON object describing each kernel, then the
@@ -76,10 +92,11 @@ B_TIME = 8192    # the serving batch the JAX benchmark measured
 # - features f32: the kernel's radix-2 FFT and the plain dense-DFT matmul
 #   sum in different orders, and the log of a small mel energy magnifies
 #   the difference; the bound tests/test_frontend_jax.py holds the f32
-#   frontend to against the float64 oracle.
-FEAT_ATOL, FEAT_RTOL = 2e-3, 1e-3
+#   frontend to against the float64 oracle.  main() imports it from the
+#   port (tpu_speech_commands_torch.dev: FEAT_ATOL, FEAT_RTOL), whose
+#   measurement entry points hold their features to the same bound.
 # - features bf16: the f32 bound plus one bf16 rounding step (2^-7 relative)
-FEAT_BF16_ATOL, FEAT_BF16_RTOL = 2e-3, 1e-3 + 2.0 ** -7
+BF16_STEP = 2.0 ** -7
 # (the fast_math frontend kernel is held to the same two bounds: its frames
 # and DFT matrix are the plain version's bf16 values bit for bit, and only
 # the f32 sums run in another order)
@@ -145,6 +162,19 @@ def test_audio(clips: np.ndarray, batch: int, seed: int) -> np.ndarray:
     return np.clip(rows * gains + noise, -1.0, 32767 / 32768).astype(np.float32)
 
 
+def with_params(path: str, overrides: dict, out_dir: str) -> str:
+    """A copy of checkpoint `path` in out_dir whose stored params carry
+    `overrides` (the loader applies them to the frontend it builds)."""
+    data = dict(np.load(path))
+    meta = json.loads(bytes(data["__meta__"]))
+    meta["params"].update(overrides)
+    data["__meta__"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
+    tag = "_".join(f"{k}{v}" for k, v in sorted(overrides.items()))
+    out = os.path.join(out_dir, f"{os.path.basename(path)[:-4]}_{tag}.npz")
+    np.savez(out, **data)
+    return out
+
+
 def check_close(what, got, want, atol, rtol) -> float:
     import torch
 
@@ -198,6 +228,7 @@ def kernel_bounds(p, batch, n_samples, rnn_dims, cnn_consts):
 
     from tpu_speech_commands_torch.frontend.filterbanks import filterbank_matrix
     from tpu_speech_commands_torch.models.cnn import conv_out
+    from tpu_speech_commands_torch.ops.ct_kernel import VARIANTS
     from tpu_speech_commands_torch.ops.frontend_kernel import pack_filterbank
 
     frames = batch * p.n_features
@@ -212,7 +243,8 @@ def kernel_bounds(p, batch, n_samples, rnn_dims, cnn_consts):
     # the DFT's nonzero columns: cos of every bin and sin of all but bin 0
     # and the Nyquist bin, n_fft in all
     dft = frames * 2.0 * min(p.window_samples, p.n_fft) * p.n_fft
-    # a real-input FFT of n_fft points: half a complex one's 5 n log2 n
+    # a real-input FFT of n_fft points: half a complex one's 5 n log2 n (the
+    # nominal count of a mixed-radix one where n_fft is not a power of two)
     fft = frames * 2.5 * p.n_fft * math.log2(p.n_fft)
     steps, d_in, units, classes = rnn_dims
     rnn = {g: batch * steps * 2.0 * g * units * (d_in + units)
@@ -229,8 +261,12 @@ def kernel_bounds(p, batch, n_samples, rnn_dims, cnn_consts):
     block1_out = 4.0 * batch * b1.h_out * b1.w_out * b1.cout
     rnn_b = feats_b + 4.0 * batch * classes
     cnn_b = feats_b + 4.0 * batch * cnn_classes
+    # the CT split kernel computes the FFT kernel's function: the same bound
+    # (its own algorithm's floor is ct_split_flops, information only)
+    frontend = bound_ms(fft + cepstrum, 0, audio_b + feats_b)
     return {
-        "mfcc_frontend": bound_ms(fft + cepstrum, 0, audio_b + feats_b),
+        **dict.fromkeys(VARIANTS, frontend),
+        "mfcc_frontend": frontend,
         "dft_frontend_bf16": bound_ms(cepstrum, dft, audio_b + feats_b),
         "gru_classifier": bound_ms(rnn[3], 0, rnn_b),
         "lstm_classifier": bound_ms(rnn[4], 0, rnn_b),
@@ -245,6 +281,28 @@ def kernel_bounds(p, batch, n_samples, rnn_dims, cnn_consts):
         "load_broadcast": bound_ms(2.0 * batch * n_samples, 0,
                                    audio_b + 4.0 * batch * p.n_features * n_mfcc),
     }
+
+
+def ct_split_flops(p, batch, per_piece_mel=False) -> float:
+    """The operations the CT split algorithm does on (batch, 16000) audio,
+    a floor of that algorithm and not of the function (a real FFT needs
+    ~15x fewer at n_fft 1024): stage 2, 2 + 2 (n2 - 2) products of 128 x 128
+    a frame; stage 1, the n2 = 8 butterfly's 24 operations a lane, else the
+    tables' n2 multiply-adds for each of n2 values; the packed cepstrum,
+    whose filterbank term the per-piece mel doubles (it runs on Xr^2 and
+    Xi^2)."""
+    from tpu_speech_commands_torch.frontend.filterbanks import filterbank_matrix
+    from tpu_speech_commands_torch.ops.frontend_kernel import pack_filterbank
+
+    frames = batch * p.n_features
+    n2 = p.n_fft // 128
+    n_packed = len(pack_filterbank(filterbank_matrix(p, "mfcc").T)[0])
+    stage2 = frames * (2 + 2 * (n2 - 2)) * 128 * 128 * 2.0
+    stage1 = frames * 128.0 * (24 if n2 == 8 else 2 * n2 * n2)
+    ceps = frames * (4 * p.n_fft_bins
+                     + 2 * n_packed * (2 if per_piece_mel else 1)
+                     + 2 * p.n_filt * p.n_mfcc)
+    return stage2 + stage1 + ceps
 
 
 def cudnn_lstm(model, device):
@@ -314,10 +372,11 @@ def main() -> int:
     from tpu_speech_commands_torch.models.cnn import SimpleCNN, SimpleCNNLite
     from tpu_speech_commands_torch.models.rnn import SimpleGRU, SimpleLSTM
     from tpu_speech_commands_torch.dev import (
-        card_line, pallas_experiments, r3_experiments, r4_mxu_stage1)
+        FEAT_ATOL, FEAT_RTOL, card_line, pallas_experiments, r3_experiments,
+        r3_frontend_variants, r3_stage2, r3_widecell, r4_mxu_stage1)
     from tpu_speech_commands_torch.ops import (
-        _build, cnn_kernel, dense_dft_kernel, frontend_kernel, load_kernel,
-        rnn_kernel)
+        _build, cnn_kernel, ct_kernel, dense_dft_kernel, frontend_kernel,
+        load_kernel, rnn_kernel)
     from tpu_speech_commands_torch.ops.cnn_kernel import (
         CNNClassifier, make_fused_cnn_forward)
     from tpu_speech_commands_torch.ops.cnn_lowering import lower_block1
@@ -328,6 +387,7 @@ def main() -> int:
     from tpu_speech_commands_torch.export.inference_loader import load_native
     from tpu_speech_commands_torch.serving import make_batch_scorer
 
+    FEAT_BF16_ATOL, FEAT_BF16_RTOL = FEAT_ATOL, FEAT_RTOL + BF16_STEP
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_grad_enabled(False)  # inference only: no autograd graphs
@@ -503,6 +563,49 @@ def main() -> int:
             load_errs[name].append(check_rowsum(f"{name} gain {gain}", got,
                                                 want, audio_f32, gain))
 
+    # the FFT kernel at a window longer than n_fft (it reads the first n_fft
+    # samples of a frame), and the dense combined kernel with a gain and a
+    # first frame (the JAX dense frontend's f32 contract)
+    fe = MfccFrontend(ListenerParams(window_t=0.075), "mfcc", dev)
+    frontend_errs.append(check_close(
+        "frontend window 1200 > n_fft 1024 mfcc int16->float32 gain 0.8",
+        fe(audio_i16, 0.8), fe.plain(audio_i16, 0.8), FEAT_ATOL, FEAT_RTOL))
+    consts = dense_dft_kernel.DenseDftConstants(ListenerParams(hop_t=0.03), dev)
+    gain_t = torch.full((1,), 1.3, dtype=torch.float32, device=dev)
+    dense_errs["dense_dft_combined"].append(check_close(
+        "dense_dft_combined hop_t=0.03 gain 1.3 first_frame 1",
+        dense_dft_kernel.dense_dft_combined_cuda(audio_f32, consts, gain_t, 1),
+        dense_dft_kernel.dense_dft_combined_plain(audio_f32, consts, gain_t, 1),
+        FEAT_ATOL, FEAT_RTOL))
+    # the CT split kernel, every instantiation
+    ct_errs = {name: [] for name in ct_kernel.VARIANTS}
+    ct_cases = (
+        ("default", {}, audio_f32, torch.float32, 0.8, (False, True)),
+        ("n_fft=window=768 use_delta", {"n_fft": 768, "window_t": 0.048,
+                                        "use_delta": True},
+         audio_i16, torch.bfloat16, 1.25, (False,)),
+    )
+    for label, kw, audio, out_dtype, gain, layouts in ct_cases:
+        p = ListenerParams(**kw)
+        consts = ct_kernel.CtConstants(p, "mfcc", dev)
+        gain_t = torch.full((1,), gain, dtype=torch.float32, device=dev)
+        for name, (paired, per_piece, _) in ct_kernel.VARIANTS.items():
+            for time_major in layouts:
+                got = ct_kernel.ct_frontend_cuda(audio, gain_t, consts, p,
+                                                 paired, per_piece, time_major,
+                                                 out_dtype)
+                torch.cuda.synchronize()
+                want = ct_kernel.ct_frontend_plain(audio, gain, consts, p,
+                                                   paired, per_piece,
+                                                   time_major, out_dtype)
+                what = (f"{name} {label} {'time' if time_major else 'batch'}"
+                        f"-major {str(audio.dtype)[6:]}->{str(out_dtype)[6:]}")
+                if out_dtype == torch.float32:
+                    ct_errs[name].append(check_close(what, got, want,
+                                                     FEAT_ATOL, FEAT_RTOL))
+                else:
+                    check_close(what, got, want, FEAT_BF16_ATOL, FEAT_BF16_RTOL)
+
     # -- 4. the slices ---------------------------------------------------------
     counters = {
         "mfcc_frontend": frontend_kernel.mfcc_frontend_cuda,
@@ -515,6 +618,7 @@ def main() -> int:
         "dense_dft_halves": dense_dft_kernel.dense_dft_halves_cuda,
         "load_rowsum": load_kernel.load_rowsum_cuda,
         "load_broadcast": load_kernel.load_broadcast_cuda,
+        **ct_kernel.counters,
     }
     launches = dict.fromkeys(counters, 0)
 
@@ -568,6 +672,31 @@ def main() -> int:
             check_close(f"scores card vs CPU {str(dt)[6:]}", sc.cpu(), cpu,
                         atol, 0.0)
 
+    # the frontend routes: a config of each class, on the GRU checkpoint
+    route_dir = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(route_dir, exist_ok=True)
+    route_cases = (
+        ("n_fft = window = 768", {"n_fft": 768, "window_t": 0.048}, "cuda-ct",
+         ("ct_frontend", "gru_classifier")),
+        ("window 1200 > n_fft 1024", {"window_t": 0.075}, "cuda-mfcc",
+         ("mfcc_frontend", "gru_classifier")),
+        ("n_fft 400", {"n_fft": 400, "window_t": 0.025}, "torch(xla-route)",
+         ("gru_classifier",)),
+    )
+    for label, overrides, route, need in route_cases:
+        path = with_params(CHECKPOINT, overrides, route_dir)
+        scorer = make_batch_scorer(path, "cuda")
+        sc = drive(f"make_batch_scorer(direction_simple_gru.npz, {label}) on "
+                   "8 clips", lambda: scorer(clips_dev), need)
+        log(f"  paths {scorer.paths}")
+        if scorer.paths["frontend"] != route:
+            raise AssertionError(f"{label}: frontend {scorer.paths['frontend']}"
+                                 f" is not {route}")
+        if sc.shape != (8, scorer.num_classes) or not torch.isfinite(sc).all():
+            raise AssertionError(f"scores {tuple(sc.shape)} not finite (8, C)")
+        check_close(f"scores card vs CPU, {label}", sc.cpu(),
+                    make_batch_scorer(path, "cpu")(clips), SCORE_ATOL, 0.0)
+
     for name, path in CNN_CHECKPOINTS.items():
         predictor = load_native(path, dev)
         fe = MfccFrontend(None, predictor.meta.get("feature_type", "mfcc"), dev)
@@ -619,6 +748,16 @@ def main() -> int:
     drive("dev.r4_mxu_stage1.main(): ct, dense and load, B = 8192",
           lambda: r4_mxu_stage1.main(["--iters", "4"]),
           ("mfcc_frontend", "dense_dft_combined", "load_broadcast"))
+    drive("dev.r3_frontend_variants.main(): mel concat and dup, B = 8192",
+          lambda: r3_frontend_variants.main(["--iters", "4"]),
+          ("mfcc_frontend", "ct_frontend", "ct_frontend_dup"))
+    drive("dev.r3_stage2.main(): perres, paired and ppmel, B = 8192",
+          lambda: r3_stage2.main(["--iters", "4"]),
+          ("mfcc_frontend", "ct_frontend", "ct_frontend_paired",
+           "ct_frontend_ppmel"))
+    drive("dev.r3_widecell.main(): B = 8192",
+          lambda: r3_widecell.main(["--iters", "4"]),
+          ("mfcc_frontend", "ct_frontend"))
 
     # -- 5. times (information only) -------------------------------------------
     log(f"times at B = {B_TIME}, audio resident on the card ({card}):")
@@ -672,6 +811,41 @@ def main() -> int:
                 gain))
         times[name] = (cuda_ms(lambda: launch(big, unit_gain, *extra), 50),
                        cuda_ms(lambda: plain(big, unit_gain, *extra), 20))
+    # the CT split kernel's instantiations, held to the plain version at
+    # this batch, and the (F, F) one against the FFT kernel in turns
+    p0 = ListenerParams()
+    ct_consts = ct_kernel.CtConstants(p0, "mfcc", dev)
+    for name, (paired, per_piece, _) in ct_kernel.VARIANTS.items():
+        def ct_launch(paired=paired, per_piece=per_piece):
+            return ct_kernel.ct_frontend_cuda(big, unit_gain, ct_consts, p0,
+                                              paired, per_piece)
+
+        def ct_plain(paired=paired, per_piece=per_piece):
+            return ct_kernel.ct_frontend_plain(big, None, ct_consts, p0,
+                                               paired, per_piece)
+
+        ct_errs[name].append(check_close(
+            f"{name} default B = {B_TIME}", ct_launch(), ct_plain(),
+            FEAT_ATOL, FEAT_RTOL))
+        times[name] = (cuda_ms(ct_launch, 20), cuda_ms(ct_plain, 3))
+    ab = {"fft": [], "ct_frontend": []}
+    for which in ("fft", "ct_frontend", "ct_frontend", "fft"):
+        ab[which].append(cuda_ms(
+            (lambda: fe(big)) if which == "fft" else
+            (lambda: ct_kernel.ct_frontend_cuda(big, unit_gain, ct_consts, p0)),
+            20))
+    log(f"  A/B at B = {B_TIME}, default config, f32 audio and output, in "
+        f"turns fft, ct, ct, fft: FFT kernel (mfcc_frontend) "
+        f"{ab['fft'][0]:.4f}, {ab['fft'][1]:.4f} ms; CT kernel (ct_frontend, "
+        f"(F, F)) {ab['ct_frontend'][0]:.4f}, {ab['ct_frontend'][1]:.4f} ms  "
+        f"({card})")
+    for name, (_, per_piece, _) in ct_kernel.VARIANTS.items():
+        floor = ct_split_flops(p0, B_TIME, per_piece)
+        log(f"  {name:18s} the CT split's own operations (an algorithm floor,"
+            f" not the function's bound): {floor / 1e9:.2f} GFLOP = "
+            f"{floor / PEAK_F32 * 1e3:.4f} ms at the f32 peak; kernel "
+            f"{times[name][0]:.4f} ms = {floor / times[name][0] / 1e9:.2f} "
+            f"TFLOP/s")
     # one PyTorch call computing the same function, where there is one; the
     # broadcast has none (a sum, then a copy), nor has any frontend (no
     # library call gives an MFCC), the GRU (a linear candidate is not
@@ -748,7 +922,9 @@ def main() -> int:
             ("load_rowsum", load_kernel.SOURCE, load_kernel.REPLACES,
              load_errs["load_rowsum"]),
             ("load_broadcast", load_kernel.SOURCE,
-             load_kernel.BROADCAST_REPLACES, load_errs["load_broadcast"])):
+             load_kernel.BROADCAST_REPLACES, load_errs["load_broadcast"]),
+            *((name, ct_kernel.SOURCE, replaces, ct_errs[name])
+              for name, (_, _, replaces) in ct_kernel.VARIANTS.items())):
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

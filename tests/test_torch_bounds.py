@@ -10,7 +10,12 @@ classes.  Peaks: 67 TFLOP/s f32, 989 TFLOP/s bf16, 3.35 TB/s.
   weight, a 20 x 20 DCT: 4,706 a frame, 1.16 GFLOP) 0.111 ms of f32;
   its bytes, 524.3 MB of audio and 19.7 MB of features, take 0.1624 ms;
 - the dense DFT: 1,024 samples x 1,024 nonzero columns x 2 a frame;
-- the load floor: the audio read, and 32.8 KB or 19.7 MB written.
+- the load floor: the audio read, and 32.8 KB or 19.7 MB written;
+- the CT split kernels compute the FFT frontend's function, so they share
+  its bound.  The CT split's own operations are a floor of that algorithm,
+  reported apart: stage 2, 14 products of 128 x 128 x 2 a frame (112.7
+  GFLOP), stage 1, the n2 = 8 butterfly's 24 operations a lane, and the
+  packed cepstrum: about 1.71 ms of f32.
 
 The times are computed here in float64 and compared to 1e-9 relative.
 """
@@ -29,10 +34,16 @@ AUDIO_B = 4 * 8192 * 16000
 FEATS_B = 4 * FRAMES * 20
 CEPSTRUM = FRAMES * (4 * 513 + 2 * 927 + 2 * 20 * 20)
 DFT = FRAMES * 2 * 1024 * 1024
+CT_STAGE2 = FRAMES * 14 * 128 * 128 * 2
+CT_STAGE1 = FRAMES * 128 * 24
 
 EXPECTED = {  # name: (bound_by, ms)
     "mfcc_frontend": ("bytes", (AUDIO_B + FEATS_B) / 3.35e9),
     "dft_frontend_bf16": ("operations", DFT / 989e9 + CEPSTRUM / 67e9),
+    "ct_frontend": ("bytes", (AUDIO_B + FEATS_B) / 3.35e9),
+    "ct_frontend_paired": ("bytes", (AUDIO_B + FEATS_B) / 3.35e9),
+    "ct_frontend_ppmel": ("bytes", (AUDIO_B + FEATS_B) / 3.35e9),
+    "ct_frontend_dup": ("bytes", (AUDIO_B + FEATS_B) / 3.35e9),
     "dense_dft_combined": ("operations", (DFT + CEPSTRUM) / 67e9),
     "dense_dft_halves": ("operations", (DFT + CEPSTRUM) / 67e9),
     "load_rowsum": ("bytes", (AUDIO_B + 4 * 8192) / 3.35e9),
@@ -45,11 +56,16 @@ EXPECTED = {  # name: (bound_by, ms)
 
 
 @pytest.fixture(scope="module")
-def bounds():
+def chip_smoke():
     spec = importlib.util.spec_from_file_location(
         "_chip_smoke", os.path.join(REPO, "chip_smoke.py"))
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.fixture(scope="module")
+def bounds(chip_smoke):
     cnn = CNNClassifier(SimpleCNN(5, 30, 20)).consts
     return chip_smoke.kernel_bounds(ListenerParams(), 8192, 16000,
                                     (30, 20, 48, 5), cnn)
@@ -60,6 +76,22 @@ def test_kernel_bound_matches_the_hand_count(bounds, name):
     by, ms = EXPECTED[name]
     assert bounds[name][1] == by
     assert bounds[name][0] == pytest.approx(ms, rel=1e-9)
+
+
+def test_ct_stage2_count(chip_smoke, bounds):
+    """112.7 GFLOP of stage 2 at B = 8192, 1.68 ms of the CT split's ~1.71
+    ms floor; the per-piece mel doubles the filterbank term.  The kernel's
+    bound is the function's, 0.1624 ms of bytes."""
+    assert CT_STAGE2 == pytest.approx(112.7e9, rel=1e-3)
+    assert CT_STAGE2 / 67e9 == pytest.approx(1.682, abs=1e-3)
+    p = ListenerParams()
+    floor = chip_smoke.ct_split_flops(p, 8192)
+    assert floor == pytest.approx(CT_STAGE2 + CT_STAGE1 + CEPSTRUM, rel=1e-12)
+    assert floor / 67e9 == pytest.approx(1.711, abs=1e-3)
+    assert chip_smoke.ct_split_flops(p, 8192, True) == pytest.approx(
+        floor + FRAMES * 2 * 927, rel=1e-12)
+    assert bounds["ct_frontend"] == bounds["mfcc_frontend"]
+    assert bounds["ct_frontend"][0] == pytest.approx(0.1624, abs=1e-4)
 
 
 def test_fft_frontend_operations_are_below_its_bytes(bounds):

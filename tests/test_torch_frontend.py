@@ -203,15 +203,22 @@ def test_kernel_constants_row_major():
 
 @pytest.mark.parametrize("kw,match", [
     ({"n_fft": 500, "window_t": 0.03}, "power of two"),
-    ({"n_fft": 512}, "window_samples <= n_fft"),
+    ({"n_fft": 768, "window_t": 0.048}, "power of two"),
     ({"n_mfcc": 24}, "n_mfcc <= n_filt"),
 ])
 def test_kernel_refuses_configs_it_cannot_take(kw, match):
+    """The FFT kernel's refusals; its wrapper raises on them before it looks
+    at the device, so no config reaches it silently.  (`MfccFrontend` sends
+    the first two down other routes: tests/test_torch_routes.py.)"""
     p = ListenerParams(**kw)
     assert match in kernel_config_error(p)
     with pytest.raises(ValueError, match=match):
-        MfccFrontend(p, "mfcc", "cuda")  # no silent plain path on CUDA
+        frontend_kernel.mfcc_frontend_cuda(
+            torch.zeros(1, 16000), torch.ones(1),
+            KernelConstants(p, "mfcc", "cpu"), p)
     assert kernel_config_error(ListenerParams()) is None
+    # a window longer than n_fft: the kernel reads a frame's first n_fft
+    assert kernel_config_error(ListenerParams(n_fft=512)) is None
 
 
 def test_raw_wrapper_refuses_cpu_tensors():

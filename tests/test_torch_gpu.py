@@ -25,7 +25,9 @@ Tolerances, each with its reason:
 - dense-DFT features: the bounds of the f32 features above (the same f32
   math in another summation order, magnified by the log);
 - load-floor row sums: per row |err| <= 2e-6 * sum |gain * x| (16,000 f32
-  terms summed in another order; the sums reach the hundreds).
+  terms summed in another order; the sums reach the hundreds);
+- CT split kernel features: the bounds of the f32 (and bf16) features above
+  (the same f32 math as its plain version in another summation order).
 cuDNN runs float32 convs in TF32 unless told otherwise: the fixture turns
 TF32 off, so the plain versions' convs are float32.
 """
@@ -40,10 +42,11 @@ import torch
 from tpu_speech_commands_torch.models.cnn import SimpleCNN, SimpleCNNLite
 from tpu_speech_commands_torch.models.rnn import SimpleGRU, SimpleLSTM
 from tpu_speech_commands_torch.dev import (pallas_experiments, r3_experiments,
-                                           r4_mxu_stage1)
-from tpu_speech_commands_torch.ops import (cnn_kernel, dense_dft_kernel,
-                                           frontend_kernel, load_kernel,
-                                           rnn_kernel)
+                                           r3_frontend_variants, r3_stage2,
+                                           r3_widecell, r4_mxu_stage1)
+from tpu_speech_commands_torch.ops import (cnn_kernel, ct_kernel,
+                                           dense_dft_kernel, frontend_kernel,
+                                           load_kernel, rnn_kernel)
 from tpu_speech_commands_torch.ops.cnn_lowering import lower_block1
 from tpu_speech_commands_torch.ops.frontend_kernel import MfccFrontend
 from tpu_speech_commands_torch.ops.rnn_kernel import GRUClassifier, LSTMClassifier
@@ -529,3 +532,189 @@ def test_dev_entry_points_run_their_kernels(cuda_device):
         ["--batch", "64", "--iters", "2"]).items()})
     assert all(r > 0 for r in rates.values())
     assert all(fn.launches > 0 for fn in counters)
+
+
+# the CT split kernel (csrc/ct_frontend.cu): n2 = 8 (the default config, the
+# butterfly), n2 = 6 with deltas (one tile a window, and 96 frames a window:
+# tiles led by a halo row), n2 = 10 (bm 32 without the per-piece mel)
+CT_CONFIGS = {
+    "n2=8": {},
+    "n2=6_deltas": {"n_fft": 768, "window_t": 0.048, "use_delta": True},
+    "n2=6_hop160_deltas": {"n_fft": 768, "window_t": 0.048, "hop_t": 0.01,
+                           "use_delta": True},
+    "n2=10": {"n_fft": 1280, "window_t": 0.08, "hop_t": 0.04},
+}
+
+
+def _ct_audio(audio_dtype, batch=13):
+    clips, _ = _clips()
+    rows = clips[np.arange(batch) % 8].astype(np.float32) / 32768.0
+    audio = rows * np.linspace(0.3, 1.5, batch, dtype=np.float32)[:, None]
+    if audio_dtype == "int16":
+        audio = np.clip(audio * 32768.0, -32768, 32767).astype(np.int16)
+    return audio
+
+
+@pytest.mark.parametrize("variant", sorted(ct_kernel.VARIANTS))
+@pytest.mark.parametrize("name", sorted(CT_CONFIGS))
+@pytest.mark.parametrize("audio_dtype", ["float32", "int16"])
+@pytest.mark.parametrize("time_major", [False, True])
+def test_ct_kernel_matches_plain(cuda_device, variant, name, audio_dtype,
+                                 time_major):
+    """B = 13: a ragged last block of windows."""
+    p = ListenerParams(**CT_CONFIGS[name])
+    paired, per_piece, _ = ct_kernel.VARIANTS[variant]
+    audio = torch.tensor(_ct_audio(audio_dtype), device=cuda_device)
+    consts = ct_kernel.CtConstants(p, "mfcc", cuda_device)
+    gain = torch.full((1,), 0.8, dtype=torch.float32, device=cuda_device)
+    before = ct_kernel.counters[variant].launches
+    got = ct_kernel.ct_frontend(audio, gain, consts, p, paired, per_piece,
+                                time_major)
+    torch.cuda.synchronize()
+    assert ct_kernel.counters[variant].launches == before + 1
+    want = ct_kernel.ct_frontend_plain(audio, 0.8, consts, p, paired,
+                                       per_piece, time_major)
+    shape = (p.n_features, 13) if time_major else (13, p.n_features)
+    assert got.shape == shape + (p.feature_size,)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=2e-3)
+
+
+def test_ct_kernel_bark_bf16(cuda_device):
+    """bf16 out and the bark filterbank."""
+    p = ListenerParams(n_fft=768, window_t=0.048, use_delta=True)
+    consts = ct_kernel.CtConstants(p, "bark", cuda_device)
+    audio = torch.tensor(_ct_audio("float32"), device=cuda_device)
+    got = ct_kernel.ct_frontend(audio, None, consts, p,
+                                out_dtype=torch.bfloat16)
+    want = ct_kernel.ct_frontend_plain(audio, None, consts, p,
+                                       out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=1e-3 + 2.0 ** -7, atol=2e-3)
+
+
+def test_ct_kernel_where_the_power_rows_fit_no_block(cuda_device):
+    """n_fft = window = 3072 (n2 = 24): a block's 1537-float power rows fit
+    in no shared memory, so the (F, F) and (T, F) launches, and route ct of
+    MfccFrontend, raise ValueError; the per-piece-mel instantiations keep no
+    power row and match the plain version."""
+    p = ListenerParams(n_fft=3072, window_t=0.192, hop_t=0.016)
+    consts = ct_kernel.CtConstants(p, "mfcc", cuda_device)
+    audio = torch.tensor(_ct_audio("int16"), device=cuda_device)
+    gain = torch.full((1,), 0.8, dtype=torch.float32, device=cuda_device)
+    for variant, (paired, per_piece, _) in ct_kernel.VARIANTS.items():
+        if not per_piece:
+            with pytest.raises(ValueError, match="shared memory"):
+                ct_kernel.ct_frontend_cuda(audio, gain, consts, p, paired)
+            continue
+        got = ct_kernel.ct_frontend_cuda(audio, gain, consts, p, paired, True)
+        want = ct_kernel.ct_frontend_plain(audio, 0.8, consts, p, paired, True)
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=2e-3)
+    fe = MfccFrontend(p, "mfcc", cuda_device)
+    assert fe.route == "ct"
+    with pytest.raises(ValueError, match="shared memory"):
+        fe(audio, 0.8)
+
+
+def test_ct_kernel_rejects_what_it_cannot_take(cuda_device):
+    p = ListenerParams(n_fft=768, window_t=0.048)
+    consts = ct_kernel.CtConstants(p, "mfcc", cuda_device)
+    one = torch.ones(1, device=cuda_device)
+    with pytest.raises(TypeError):
+        ct_kernel.ct_frontend_cuda(
+            torch.zeros(2, 16000, dtype=torch.float64, device=cuda_device),
+            one, consts, p)
+    with pytest.raises(ValueError):
+        ct_kernel.ct_frontend_cuda(
+            torch.zeros(2, 32000, device=cuda_device)[:, ::2], one, consts, p)
+    with pytest.raises(ValueError, match="n2 even"):
+        ct_kernel.ct_frontend_cuda(torch.zeros(2, 16000, device=cuda_device),
+                                   one, consts, ListenerParams(window_t=0.05))
+    assert ct_kernel.ct_frontend_cuda(
+        torch.zeros(0, 16000, device=cuda_device), one, consts,
+        p).shape == (0, 30, 20)
+
+
+def test_fft_kernel_takes_a_window_longer_than_n_fft(cuda_device):
+    """window 1200 > n_fft 1024: the kernel reads a frame's first 1024
+    samples, as the plain chain's DFT matrices do."""
+    p = ListenerParams(window_t=0.075)
+    fe = MfccFrontend(p, "mfcc", cuda_device)
+    assert fe.route == "fft"
+    audio = torch.tensor(_ct_audio("int16"), device=cuda_device)
+    got = fe(audio, 0.8)
+    torch.testing.assert_close(got, fe.plain(audio, 0.8), rtol=1e-3, atol=2e-3)
+
+
+def test_dense_kernel_applies_a_gain_and_a_first_frame(cuda_device):
+    """hop 480: 32 frames framed, 31 kept; gain 1.3 as g^2 on the power."""
+    p = ListenerParams(hop_t=0.03)
+    consts = dense_dft_kernel.DenseDftConstants(p, cuda_device)
+    audio = torch.tensor(_ct_audio("float32"), device=cuda_device)
+    gain = torch.full((1,), 1.3, dtype=torch.float32, device=cuda_device)
+    first = dense_dft_kernel.n_frames_of(p, 16000) - p.n_features
+    assert first == 1
+    for variant in ("combined", "halves"):
+        q = p if variant == "combined" else ListenerParams(window_t=0.06,
+                                                           hop_t=0.03)
+        c = consts if variant == "combined" else \
+            dense_dft_kernel.DenseDftConstants(q, cuda_device)
+        got = getattr(dense_dft_kernel, f"dense_dft_{variant}_cuda")(
+            audio, c, gain, first)
+        want = getattr(dense_dft_kernel, f"dense_dft_{variant}_plain")(
+            audio, c, gain, first)
+        assert got.shape == (13, dense_dft_kernel.n_frames_of(q, 16000) - 1,
+                             q.n_mfcc)
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=2e-3)
+    # the scorer's frontend at this config is the reference of that contract
+    torch.testing.assert_close(
+        dense_dft_kernel.dense_dft_combined_cuda(audio, consts, gain, first),
+        MfccFrontend(p, "mfcc", cuda_device).plain(audio, 1.3),
+        rtol=1e-3, atol=2e-3)
+
+
+def test_ct_dev_entry_points_run_their_kernels(cuda_device):
+    """The three CT dev mains at a small batch: each instantiation they
+    name launches, and every checksum is finite."""
+    for c in ct_kernel.counters.values():
+        c.launches = 0
+    rates = r3_frontend_variants.main(["--batch", "64", "--iters", "2"])
+    assert set(rates) == {"production", "concat", "dup"}
+    assert set(r3_stage2.main(["--batch", "64", "--iters", "2"])) == {
+        "perres", "paired", "ppmel"}
+    assert set(r3_widecell.main(["--batch", "64", "--iters", "2"])) == {
+        "prod", "widecell"}
+    assert all(c.launches > 0 for c in ct_kernel.counters.values())
+
+
+@pytest.mark.parametrize("kw,route,counter", [
+    ({"n_fft": 768, "window_t": 0.048}, "cuda-ct",
+     ct_kernel.counters["ct_frontend"]),
+    ({"window_t": 0.075}, "cuda-mfcc", frontend_kernel.mfcc_frontend_cuda),
+    ({"n_fft": 400, "window_t": 0.025}, "torch(xla-route)", None),
+])
+def test_scorer_route_of_each_config_class(cuda_device, tmp_path, kw, route,
+                                           counter):
+    """The GRU checkpoint with its params set to a config of each class:
+    the route the scorer records, its frontend kernel's launch, and the
+    scores of the same scorer on the CPU."""
+    import json
+
+    data = dict(np.load(GRU_CKPT))
+    meta = json.loads(bytes(data["__meta__"]))
+    meta["params"].update(kw)
+    data["__meta__"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
+    path = str(tmp_path / "gru.npz")
+    np.savez(path, **data)
+    clips, _ = _clips()
+    scorer = make_batch_scorer(path, cuda_device)
+    assert scorer.paths == {"frontend": route, "classifier": "cuda-gru"}
+    launches = {id(c): c.launches for c in (
+        ct_kernel.counters["ct_frontend"], frontend_kernel.mfcc_frontend_cuda)}
+    got = scorer(torch.tensor(clips, device=cuda_device), 0.9)
+    torch.cuda.synchronize()
+    for c in (ct_kernel.counters["ct_frontend"],
+              frontend_kernel.mfcc_frontend_cuda):
+        assert c.launches == launches[id(c)] + (c is counter)
+    want = make_batch_scorer(path, "cpu")(clips, 0.9)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-3)

@@ -55,6 +55,13 @@ def test_port_imports_no_jax():
         "tpu_speech_commands_torch.dev.pallas_experiments",
         "tpu_speech_commands_torch.dev.r3_experiments",
         "tpu_speech_commands_torch.dev.r4_mxu_stage1",
+        "tpu_speech_commands_torch.dev.r3_frontend_variants",
+        "tpu_speech_commands_torch.dev.r3_stage2",
+        "tpu_speech_commands_torch.dev.r3_widecell",
+        "tpu_speech_commands_torch.dev.ct_ablation",
+        "tpu_speech_commands_torch.ops.ct_constants",
+        "tpu_speech_commands_torch.ops.ct_kernel",
+        "tpu_speech_commands_torch.ops._checks",
     }
     assert expected <= set(result["modules"])
     assert result["leaked"] == []

@@ -10,13 +10,19 @@
 //   the DFT is two half-window products, X(t) = blk(t) @ M[:hop] +
 //   blk(t + 1) @ M[hop:].
 //
-// Both compute, from (B, S) f32 audio, no gain:
+// Both compute, from (B, S) f32 audio and a device gain g:
 //
-//   frames  t = 0 .. n_frames - 1, n_frames = 1 + (S - W) / hop
+//   frames  t = first_frame .. first_frame + n_frames - 1 (the JAX kernels:
+//           gain 1, first_frame 0 and every frame, 1 + (S - W) / hop)
 //   re, im  = frames @ cos, frames @ sin                          (f32)
-//   power   = (re^2 + im^2) / n_fft
+//   power   = g^2 (re^2 + im^2) / n_fft      (|g X|^2, up to rounding)
 //   mel[m]  = safe_log(sum_k power[k] filt[k, m]),  c = mel @ dct_t
 //   out     = [safe_log(sum_k power[k]), c[1:n_mfcc]]   (B, n_frames, n_mfcc)
+//
+// With the gain and first_frame = all frames - n_features, the combined
+// kernel computes the f32 contract of the JAX package's dense frontend
+// (make_fused_frontend(dft_mode="dense"), K2's f32 branch): the frames of the
+// production frontend, measured by dev/r4_mxu_stage1.py's dense line.
 //
 // What bounds it on this card: operations.  At B 8192 and the default
 // config the DFT is 245,760 frames x 1,024 samples x 1,026 columns x 2 = 516
@@ -96,6 +102,8 @@ __device__ __forceinline__ void cp_async_wait() {
 
 struct DenseArgs {
   const float* audio;
+  const float* gain;  // (1,), on the device
+  int first_frame;    // the first frame computed
   int batch, n_samples, hop, n_frames;
   int rows_per_win;  // R: GEMM rows of one window in a tile
   int wpb;           // windows a tile
@@ -162,7 +170,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int lw = r / R;
     const int j = f0 + r - lw * R;
     srow[r] = lw < nb && j < row_limit
-                  ? (long long)(b0 + lw) * a.n_samples + (long long)j * a.hop
+                  ? (long long)(b0 + lw) * a.n_samples +
+                        (long long)(a.first_frame + j) * a.hop
                   : -1;
   }
   __syncthreads();
@@ -214,6 +223,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   // the accumulator block's rows: i < 4 -> 4 ty + i, else 64 + 4 ty + i - 4
   auto acc_row = [&](int i) { return (i < 4 ? 0 : kBM / 2 - 4) + 4 * ty + i; };
 
+  const float g = __ldg(a.gain);
+  const float pscale = g * g * a.inv_fft;  // |g X|^2 / n_fft
   const int r_own = tid & (kBM - 1);  // filterbank: this thread's row
   const int m_first = tid / kBM;      // and its first filter
   constexpr int kMStep = kThreads / kBM;
@@ -251,9 +262,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     // cos n_fft/2): bin 0's power re^2, the Nyquist bin's im^2 (kept aside).
     const int pair0 = nc * kPairsPerChunk;
     auto power = [&](int r, int pl, float re, float im) {
-      if (pair0 + pl != 0) return (re * re + im * im) * a.inv_fft;
-      snyq[r] = a.nyquist ? im * im * a.inv_fft : 0.0f;
-      return re * re * a.inv_fft;
+      if (pair0 + pl != 0) return (re * re + im * im) * pscale;
+      snyq[r] = a.nyquist ? im * im * pscale : 0.0f;
+      return re * re * pscale;
     };
     if (kHalves) {
       // columns 4 tx + 0..3 of the chunk's pairs: acc[i][0..3] the
@@ -381,20 +392,22 @@ cudaError_t launch(const DenseArgs& a, int n_tiles, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-int run(bool halves, const void* audio, int batch, int n_samples, int hop,
-        int n_frames, int rows_per_win, int wpb, int n_tiles, const void* mat,
-        int k_valid, int k_pad, int n_chunks, int n_pairs, int nyquist,
-        int n_fft, const void* filt_packed, int n_packed,
-        const void* filt_range, const void* dct_t, int n_filt, int n_mfcc,
-        void* out, void* stream) {
+int run(bool halves, const void* audio, const void* gain, int first_frame,
+        int batch, int n_samples, int hop, int n_frames, int rows_per_win,
+        int wpb, int n_tiles, const void* mat, int k_valid, int k_pad,
+        int n_chunks, int n_pairs, int nyquist, int n_fft,
+        const void* filt_packed, int n_packed, const void* filt_range,
+        const void* dct_t, int n_filt, int n_mfcc, void* out, void* stream) {
   if (batch <= 0 || n_samples <= 0 || hop <= 0 || n_frames <= 0 ||
-      rows_per_win <= (halves ? 1 : 0) || wpb <= 0 || wpb * rows_per_win > kBM ||
-      n_tiles <= 0 || k_valid <= 0 || k_pad < k_valid || k_pad % kBK != 0 ||
-      n_chunks <= 0 || n_pairs <= 0 || n_fft <= 0 || n_packed < 0 ||
-      n_filt <= 0 || n_mfcc <= 0 || n_mfcc > n_filt || n_mfcc > kEP)
+      first_frame < 0 || rows_per_win <= (halves ? 1 : 0) || wpb <= 0 ||
+      wpb * rows_per_win > kBM || n_tiles <= 0 || k_valid <= 0 ||
+      k_pad < k_valid || k_pad % kBK != 0 || n_chunks <= 0 || n_pairs <= 0 ||
+      n_fft <= 0 || n_packed < 0 || n_filt <= 0 || n_mfcc <= 0 || n_mfcc > n_filt || n_mfcc > kEP)
     return cudaErrorInvalidValue;
   DenseArgs a;
   a.audio = static_cast<const float*>(audio);
+  a.gain = static_cast<const float*>(gain);
+  a.first_frame = first_frame;
   a.batch = batch;
   a.n_samples = n_samples;
   a.hop = hop;
@@ -422,24 +435,25 @@ int run(bool halves, const void* audio, int batch, int n_samples, int hop,
 
 }  // namespace
 
-// audio (batch, n_samples) f32 on the device.  Row i of window b's tile
-// (rows_per_win rows a window, wpb windows a tile, n_tiles tiles down a
-// window) is frame f0 + i, its samples audio[b, (f0 + i) hop + k] for
-// k < k_valid.  mat (k_pad, n_chunks x 128) f32, the column pairs of
-// ops/dense_dft_kernel.py::combined_matrix; filt_packed / filt_range the
-// packed filterbank (ops/frontend_kernel.py::pack_filterbank); dct_t
-// (n_filt, n_filt).  out (batch, n_frames, n_mfcc) f32.  Returns the
+// audio (batch, n_samples) f32 and gain (1,) f32 on the device.  Row i of
+// window b's tile (rows_per_win rows a window, wpb windows a tile, n_tiles
+// tiles down a window) is output frame f0 + i, its samples audio[b,
+// (first_frame + f0 + i) hop + k] for k < k_valid.  mat (k_pad, n_chunks x
+// 128) f32, the column pairs of ops/dense_dft_kernel.py::combined_matrix;
+// filt_packed / filt_range the packed filterbank
+// (ops/frontend_kernel.py::pack_filterbank); dct_t (n_filt, n_filt).  out (batch, n_frames, n_mfcc) f32.  Returns the
 // launch's cudaError_t.
 extern "C" int tsc_dense_dft_combined(
-    const void* audio, int batch, int n_samples, int hop, int n_frames,
-    int rows_per_win, int wpb, int n_tiles, const void* mat, int k_valid,
+    const void* audio, const void* gain, int first_frame, int batch,
+    int n_samples, int hop, int n_frames, int rows_per_win, int wpb,
+    int n_tiles, const void* mat, int k_valid,
     int k_pad, int n_chunks, int n_pairs, int nyquist, int n_fft,
     const void* filt_packed, int n_packed, const void* filt_range,
     const void* dct_t, int n_filt, int n_mfcc, void* out, void* stream) {
-  return run(false, audio, batch, n_samples, hop, n_frames, rows_per_win, wpb,
-             n_tiles, mat, k_valid, k_pad, n_chunks, n_pairs, nyquist, n_fft,
-             filt_packed, n_packed, filt_range, dct_t, n_filt, n_mfcc, out,
-             stream);
+  return run(false, audio, gain, first_frame, batch, n_samples, hop, n_frames,
+             rows_per_win, wpb, n_tiles, mat, k_valid, k_pad, n_chunks,
+             n_pairs, nyquist, n_fft, filt_packed, n_packed, filt_range, dct_t,
+             n_filt, n_mfcc, out, stream);
 }
 
 // The same for window == 2 hop: row i of a window's tile is hop block
@@ -447,15 +461,16 @@ extern "C" int tsc_dense_dft_combined(
 // for each chunk, 64 columns of the first-half matrix then the same 64 of
 // the second half (ops/dense_dft_kernel.py::halves_matrix).
 extern "C" int tsc_dense_dft_halves(
-    const void* audio, int batch, int n_samples, int hop, int n_frames,
-    int rows_per_win, int wpb, int n_tiles, const void* mat, int k_valid,
+    const void* audio, const void* gain, int first_frame, int batch,
+    int n_samples, int hop, int n_frames, int rows_per_win, int wpb,
+    int n_tiles, const void* mat, int k_valid,
     int k_pad, int n_chunks, int n_pairs, int nyquist, int n_fft,
     const void* filt_packed, int n_packed, const void* filt_range,
     const void* dct_t, int n_filt, int n_mfcc, void* out, void* stream) {
-  return run(true, audio, batch, n_samples, hop, n_frames, rows_per_win, wpb,
-             n_tiles, mat, k_valid, k_pad, n_chunks, n_pairs, nyquist, n_fft,
-             filt_packed, n_packed, filt_range, dct_t, n_filt, n_mfcc, out,
-             stream);
+  return run(true, audio, gain, first_frame, batch, n_samples, hop, n_frames,
+             rows_per_win, wpb, n_tiles, mat, k_valid, k_pad, n_chunks,
+             n_pairs, nyquist, n_fft, filt_packed, n_packed, filt_range, dct_t,
+             n_filt, n_mfcc, out, stream);
 }
 
 // Dynamic shared memory a block of either kernel takes, in bytes.  A launch

@@ -3,11 +3,14 @@
 // Replaces the TPU kernel tpu_speech_commands/ops/pallas_frontend.py::
 // _make_ct_frontend (pallas_call at :745), and takes the contract of the
 // dense branch of make_fused_frontend (:340) as well: one kernel for every
-// config with n_fft a power of two and window <= n_fft (zero-padded FFT).
+// config with n_fft a power of two.  A window shorter than n_fft is
+// zero-padded, a longer one cut to its first n_fft samples, as
+// np.fft.rfft(frame, n=n_fft) does; the frame count comes from the window.
 //
 //   audio (B, S) f32 | int16, gain (1,) f32  ->  features (B, T, F) f32 | bf16
 //   x = int16 ? pcm * (gain / 32768) : audio * gain
-//   per kept frame t:  X = FFT_n_fft(x[t*hop : t*hop + window], zero-padded)
+//   per kept frame t:  X = FFT_n_fft(x[t*hop : t*hop + min(window, n_fft)],
+//                                zero-padded)
 //                      power[k] = |X[k]|^2 / n_fft,   k = 0 .. n_fft/2
 //                      mel[m]   = safe_log(sum_k power[k] * filt_t[m, k])
 //                      c[0]     = safe_log(sum_k power[k])      (energy)
@@ -216,8 +219,7 @@ extern "C" int tsc_mfcc_frontend(const void* audio, int audio_int16,
                                  const void* dct_t, int n_filt, int n_mfcc,
                                  int emit_deltas, void* out, int out_bf16,
                                  void* stream) {
-  if (batch <= 0 || n_fft < 2 || (n_fft & (n_fft - 1)) != 0 || window > n_fft ||
-      n_mfcc > n_filt)
+  if (batch <= 0 || n_fft < 2 || (n_fft & (n_fft - 1)) != 0 || n_mfcc > n_filt)
     return cudaErrorInvalidValue;
   const int log2_fft = __builtin_ctz(static_cast<unsigned>(n_fft));
   const float* g = static_cast<const float*>(gain);

@@ -8,13 +8,19 @@ package's `tools/dev/` scripts whose TPU kernels the port carries:
   frontend at B 8192;
 - `r4_mxu_stage1`: the FFT kernel, the combined dense-DFT kernel and the
   load floor side by side, with each frontend's error against a float64
-  reference.
+  reference;
+- `r3_frontend_variants`, `r3_stage2`, `r3_widecell`: the CT split kernel's
+  instantiations (csrc/ct_frontend.cu) that the JAX package's CT variants
+  map onto, each held to the FFT kernel and timed beside it.
 
 Each runs on the card and raises RuntimeError where CUDA is absent:
 
     python -m tpu_speech_commands_torch.dev.pallas_experiments
     python -m tpu_speech_commands_torch.dev.r3_experiments --batch 8192
     python -m tpu_speech_commands_torch.dev.r4_mxu_stage1 --batch 8192
+    python -m tpu_speech_commands_torch.dev.r3_frontend_variants --batch 8192
+    python -m tpu_speech_commands_torch.dev.r3_stage2 --batch 8192
+    python -m tpu_speech_commands_torch.dev.r3_widecell --batch 8192
 
 Their `make_*` functions take `device="cpu"` for the plain versions.
 """
@@ -24,6 +30,8 @@ import subprocess
 
 import numpy as np
 import torch
+
+from ..ops.ct_kernel import CtConstants, ct_frontend
 
 
 def card_line() -> str:
@@ -66,3 +74,34 @@ def best_rate(fn, audio: torch.Tensor, gains: torch.Tensor,
     if not torch.isfinite(checksum).item():
         raise RuntimeError("the checksum is not finite")
     return best
+
+
+# f32 features from two kernels that sum in another order, magnified by the
+# log of a small mel energy: the bound the port's f32 features are held to
+FEAT_ATOL, FEAT_RTOL = 2e-3, 1e-3
+
+
+def check_features(label: str, got: torch.Tensor, want: torch.Tensor,
+                   atol: float = FEAT_ATOL, rtol: float = FEAT_RTOL) -> float:
+    """max|got - want|; RuntimeError if `got` is not finite or an element is
+    further from `want` than atol + rtol |want|."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape:
+        raise RuntimeError(f"{label}: shape {tuple(got.shape)} != "
+                           f"{tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        raise RuntimeError(f"{label}: output is not finite")
+    diff = (got - want).abs()
+    if (diff > atol + rtol * want.abs()).any():
+        raise RuntimeError(f"{label}: max|delta| {float(diff.max()):.2e} "
+                           f"outside atol {atol:g} + rtol {rtol:g}")
+    return float(diff.max())
+
+
+def ct_variant(p, device, paired: bool, per_piece_mel: bool,
+               time_major: bool):
+    """fn(audio, gain) -> features: one instantiation of the CT split kernel
+    for config `p` on `device` (the plain version on the CPU)."""
+    consts = CtConstants(p, "mfcc", device)
+    return lambda audio, gain=None: ct_frontend(
+        audio, gain, consts, p, paired, per_piece_mel, time_major)

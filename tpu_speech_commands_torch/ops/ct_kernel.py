@@ -1,0 +1,242 @@
+"""The Cooley-Tukey (CT) split frontend kernel: wrapper, launch counts and
+plain version.
+
+`csrc/ct_frontend.cu` computes what the JAX package's CT kernel computes
+(`tpu_speech_commands/ops/pallas_frontend.py::_make_ct_frontend`,
+pallas_call :745, and its variants in `tools/dev/`, the K8 kernels), with the
+scorer's whole contract: f32 or int16 audio times a device gain, the CT split
+DFT (`ct_constants.py`), the permuted mel or bark filterbank with its energy
+column, log, DCT, optional deltas, the tail trim to n_features, f32 or bf16
+out, batch-major (B, T, F) or time-major (T, B, F).
+
+Two compile-time switches carry over from the TPU variants, four
+instantiations (`VARIANTS`):
+- paired: the conjugate residues s and n2 - s share one read of the T rows,
+  one product of 256 columns (`r3_stage2.py`'s paired);
+- per_piece_mel: the filterbank runs on each residue's unfolded squares
+  against duplicated rows, with no power row in shared memory
+  (`r3_frontend_variants.py`'s mel='dup', `r3_stage2.py`'s ppmel).
+The TPU variants that differ only in how vregs and lanes are laid out
+(framing concat / reshape, wide cells, batch_tile) compute the same function
+the same way here, and map onto these four.
+
+`MfccFrontend` takes route "ct" (the (F, F) instantiation) for the configs
+the JAX scorer runs through its CT kernel and the FFT kernel cannot take.
+`ct_frontend` dispatches on the tensor it is given: a CPU tensor takes
+`ct_frontend_plain`, a CUDA tensor launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..frontend.dsp import add_deltas, decode_audio, frame_signal, safe_log
+from ..params import ListenerParams
+from . import _build
+from ._checks import OUT_DTYPES, check_launch, check_row_major, row_major
+from .ct_constants import CT_J, LANES, ct_eligible, ct_matrices
+
+SOURCE = "tpu_speech_commands_torch/csrc/ct_frontend.cu"
+_K1 = "tpu_speech_commands/ops/pallas_frontend.py:745"
+_VARIANTS_PY = "tools/dev/r3_frontend_variants.py:171"
+_STAGE2 = "tools/dev/r3_stage2.py:182"
+_WIDECELL = "tools/dev/r3_widecell.py:169"
+
+# name: (paired, per_piece_mel, the pallas_calls it counts for).  (F, F):
+# K1 for route "ct", r3_frontend_variants' mel concat (both framings),
+# r3_stage2's perres, r3_widecell; (T, F): r3_stage2's paired; (T, T):
+# r3_stage2's ppmel; (F, T): r3_frontend_variants' mel dup (both framings)
+VARIANTS = {
+    "ct_frontend": (False, False, f"{_K1}, {_VARIANTS_PY}, {_STAGE2}, "
+                    f"{_WIDECELL}"),
+    "ct_frontend_paired": (True, False, _STAGE2),
+    "ct_frontend_ppmel": (True, True, _STAGE2),
+    "ct_frontend_dup": (False, True, _VARIANTS_PY),
+}
+
+# tsc_ct_frontend(audio, audio_int16, gain, batch, n_samples, hop, n_fft,
+#   first_frame, n_features, paired, per_piece_mel, stage1, e2, filt,
+#   filt_nyq, jrange, dct_t, n_filt, n_mfcc, emit_deltas, time_major, out,
+#   out_bf16, stream).  The kernel picks its block rows and tiling itself.
+_N_ARGS = 24
+_INT_ARGS = (1, 3, 4, 5, 6, 7, 8, 9, 10, 17, 18, 19, 20, 22)
+_CUDA_ERROR_INVALID_VALUE = 1
+
+
+class LaunchCount:
+    """The launch count of one instantiation."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+counters = {name: LaunchCount() for name in VARIANTS}
+
+
+def variant_name(paired: bool, per_piece_mel: bool) -> str:
+    return next(name for name, (pa, pp, _) in VARIANTS.items()
+                if (pa, pp) == (bool(paired), bool(per_piece_mel)))
+
+
+def ct_config_error(p: ListenerParams) -> str | None:
+    """Why the CT kernel cannot take config `p`, or None when it can.  The
+    kernel itself refuses, at launch, a config whose block fits in no shared
+    memory the card offers (ValueError from `ct_frontend_cuda`)."""
+    if not ct_eligible(p):
+        return (f"the CUDA CT frontend kernel needs n_fft = 128 n2 with n2 "
+                f"even and window == n_fft, got n_fft {p.n_fft}, window "
+                f"{p.window_samples}")
+    if p.n_mfcc > p.n_filt:
+        return (f"the CUDA CT frontend kernel needs n_mfcc <= n_filt, got "
+                f"{p.n_mfcc} > {p.n_filt}")
+    return None
+
+
+class CtConstants:
+    """Device-resident constants of the CT kernel and its plain version for
+    one config (`ct_constants.ct_matrices`): the stage-1 tables, the unpaired
+    and paired stage-2 packs, the permuted filterbank, its per-piece ranges
+    and duplicated-row form, the Nyquist row and the transposed DCT."""
+
+    def __init__(self, p: ListenerParams, feature_type: str, device):
+        if not ct_eligible(p):
+            raise ValueError(ct_config_error(p))
+        m = ct_matrices(p.n_fft, p.n_filt, p.sample_rate, feature_type)
+        self.n2 = m.n2
+        self.stage1 = row_major(m.stage1, device)
+        self.e2 = {paired: row_major(m.stage2_pack(paired), device)
+                   for paired in (False, True)}
+        self.filt = row_major(m.filt_half, device)
+        self.filt_dup = row_major(m.filt_dup(), device)
+        self.filt_nyq = row_major(m.filt_nyq, device)
+        self.jrange = row_major(m.piece_ranges(), device, np.int32)
+        self.dct_t = row_major(m.dct_t, device)
+        self.device = self.stage1.device  # with its index: cuda -> cuda:0
+        n2, half, nf1 = m.n2, m.half, p.n_filt + 1
+        check_row_major(
+            (self.stage1, self.e2[False], self.e2[True], self.filt,
+             self.filt_dup, self.filt_nyq, self.jrange, self.dct_t),
+            ((2, n2, n2), (n2, 2 * LANES, LANES),
+             (half + 1, 2 * LANES, 2 * LANES), (n2 * CT_J, nf1),
+             (n2, LANES, nf1), (nf1,), (nf1, n2, 2), (p.n_filt, p.n_filt)))
+
+
+def ct_frontend_plain(audio: torch.Tensor, gain, consts: CtConstants,
+                      p: ListenerParams, paired: bool = False,
+                      per_piece_mel: bool = False, time_major: bool = False,
+                      out_dtype=torch.float32) -> torch.Tensor:
+    """The CT split in PyTorch: unfold the kept frames, stage 1 as an einsum
+    against the stage-1 tables, stage 2 against the unpaired or paired packs,
+    the fold and permuted filterbank or the per-piece filterbank on the
+    unfolded squares, then log, DCT, energy, deltas.  (B, S) float32 or
+    int16 audio [, gain] -> (B, n_features, F), or (n_features, B, F) when
+    time_major, in out_dtype (computed in float32)."""
+    x = decode_audio(audio, gain)
+    n_frames = 1 + (x.shape[-1] - p.window_samples) // p.hop_samples
+    if n_frames < p.n_features:
+        raise ValueError(f"audio length {x.shape[-1]} yields fewer than "
+                         f"n_features={p.n_features} frames")
+    frames = frame_signal(x, p.n_fft, p.hop_samples)
+    frames = frames[:, n_frames - p.n_features:n_frames]
+    n2, half = consts.n2, consts.n2 // 2
+    planes = frames.reshape(*frames.shape[:-1], n2, LANES)  # (B, T, a, b)
+    # stage 1 for residues s <= n2 / 2: (B, T, s, [T_re | T_im] over b)
+    tab = consts.stage1[:, :half + 1]
+    t = torch.cat([torch.einsum("ntak,sa->ntsk", planes, tab[0]),
+                   torch.einsum("ntak,sa->ntsk", planes, tab[1])], -1)
+    if paired:
+        groups = torch.einsum("ntsk,skc->ntsc", t, consts.e2[True])
+        xs = [None] * n2
+        for s in range(half + 1):
+            xs[s] = groups[:, :, s, :LANES]
+            if s not in (0, half):
+                xs[n2 - s] = groups[:, :, s, LANES:]
+        xs = torch.stack(xs, 2)
+    else:
+        sr = [s if s <= half else n2 - s for s in range(n2)]
+        xs = torch.einsum("ntsk,skc->ntsc", t[:, :, sr], consts.e2[False])
+    # xs: (B, T, n2, [Xr | Xi] of bins n2 j + s)
+    xnyq = (t[:, :, 0, :LANES] * _alternating(p, t)).sum(-1, keepdim=True)
+    sq = xs * xs
+    if per_piece_mel:
+        mel_e = torch.einsum("ntsc,scm->ntm", sq, consts.filt_dup)
+    else:
+        power = (sq[..., :CT_J] + sq[..., CT_J:]).flatten(2)
+        mel_e = torch.matmul(power, consts.filt)
+    logs = safe_log(mel_e + xnyq * xnyq * consts.filt_nyq)
+    coeffs = torch.matmul(logs[..., :p.n_filt], consts.dct_t)
+    out = torch.cat([logs[..., p.n_filt:], coeffs[..., 1:p.n_mfcc]], -1)
+    if p.use_delta:
+        out = add_deltas(out)
+    if time_major:
+        out = out.transpose(0, 1).contiguous()
+    return out.to(out_dtype)
+
+
+def _alternating(p: ListenerParams, like: torch.Tensor) -> torch.Tensor:
+    """(-1)^b / sqrt(n_fft), b < 128: the Nyquist bin's row sum of T[0]."""
+    sign = 1.0 - 2.0 * (torch.arange(LANES, device=like.device) % 2)
+    return sign.to(torch.float32) * float(1.0 / np.sqrt(p.n_fft))
+
+
+def ct_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
+                     consts: CtConstants, p: ListenerParams,
+                     paired: bool = False, per_piece_mel: bool = False,
+                     time_major: bool = False,
+                     out_dtype=torch.float32) -> torch.Tensor:
+    """Launch one instantiation of the CT kernel.  audio (B, S) float32 or
+    int16 and gain (1,) float32, both on consts' CUDA device -> (B,
+    n_features, F), or (n_features, B, F) when time_major, in out_dtype.
+    Every launch adds one to `counters[variant_name(paired,
+    per_piece_mel)].launches`."""
+    err = ct_config_error(p)
+    if err:
+        raise ValueError(err)
+    n_frames = check_launch(audio, gain, consts.device, p, out_dtype)
+    batch, n_samples = audio.shape
+    shape = ((p.n_features, batch, p.feature_size) if time_major
+             else (batch, p.n_features, p.feature_size))
+    out = torch.empty(shape, dtype=out_dtype, device=audio.device)
+    if batch == 0:
+        return out
+    fn = _build.bind("tsc_ct_frontend", _N_ARGS, _INT_ARGS)
+    with torch.cuda.device(audio.device):
+        stream = torch.cuda.current_stream(audio.device).cuda_stream
+        rc = fn(
+            audio.data_ptr(), int(audio.dtype == torch.int16), gain.data_ptr(),
+            batch, n_samples, p.hop_samples, p.n_fft, n_frames - p.n_features,
+            p.n_features, int(paired), int(per_piece_mel),
+            consts.stage1.data_ptr(), consts.e2[bool(paired)].data_ptr(),
+            consts.filt.data_ptr(), consts.filt_nyq.data_ptr(),
+            consts.jrange.data_ptr(), consts.dct_t.data_ptr(), p.n_filt,
+            p.n_mfcc, int(p.use_delta), int(time_major), out.data_ptr(),
+            int(out_dtype == torch.bfloat16), stream,
+        )
+    if rc == _CUDA_ERROR_INVALID_VALUE:
+        # every argument was checked above: what is left is shared memory
+        raise ValueError(
+            f"the CUDA CT frontend kernel ({variant_name(paired, per_piece_mel)})"
+            f" cannot take n_fft {p.n_fft} with {p.n_filt} filters: a block "
+            f"of its frame rows fits in no shared memory this card offers")
+    _build.check(rc, "tsc_ct_frontend")
+    counters[variant_name(paired, per_piece_mel)].launches += 1
+    return out
+
+
+def ct_frontend(audio: torch.Tensor, gain, consts: CtConstants,
+                p: ListenerParams, paired: bool = False,
+                per_piece_mel: bool = False, time_major: bool = False,
+                out_dtype=torch.float32) -> torch.Tensor:
+    """The plain version for a CPU tensor, the kernel for a CUDA one (gain
+    a float, None or a (1,) tensor; the kernel takes it as a device
+    tensor)."""
+    if out_dtype not in OUT_DTYPES:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    if audio.device.type == "cpu":
+        return ct_frontend_plain(audio, gain, consts, p, paired, per_piece_mel,
+                                 time_major, out_dtype)
+    if not isinstance(gain, torch.Tensor):
+        gain = torch.full((1,), 1.0 if gain is None else float(gain),
+                          dtype=torch.float32, device=audio.device)
+    return ct_frontend_cuda(audio, gain, consts, p, paired, per_piece_mel,
+                            time_major, out_dtype)

@@ -1,5 +1,5 @@
 """The MFCC / bark frontend kernels: wrappers, launch counts and plain
-versions.
+versions, and the choice of route for a config.
 
 `csrc/mfcc_frontend.cu` replaces the TPU kernel
 `tpu_speech_commands/ops/pallas_frontend.py::_make_ct_frontend` (and takes
@@ -17,10 +17,18 @@ accumulation, and an f32 filterbank, log and DCT.
 
 `MfccFrontend` dispatches on the tensor it is given: a CPU tensor goes
 through the plain PyTorch chain (`frontend/dsp.py::Frontend`, with the same
-`fast_math`), a CUDA tensor launches the kernel or raises.  The FFT kernel
-needs n_fft a power of two and window <= n_fft; the DFT kernel needs a hop
-that is a multiple of 8 samples and at most 128 kept frames.  Other configs
-raise ValueError on CUDA.
+`fast_math`), a CUDA tensor takes the route `frontend_route` chose for the
+config when the frontend was built:
+- "fft": n_fft a power of two, the FFT kernel (a window longer than n_fft
+  is cut to its first n_fft samples, as np.fft.rfft(frame, n=n_fft) does);
+- "ct": the configs the JAX package's CT kernel takes and the FFT kernel
+  cannot, n_fft = 128 n2 (n2 even, not a power of two) == window: the CT
+  split kernel (`ct_kernel.py`, csrc/ct_frontend.cu);
+- "torch": every other config, which the JAX scorer, too, serves with plain
+  XLA products outside any Pallas kernel: the plain chain on the card.
+The fast_math DFT kernel needs a hop that is a multiple of 8 samples and at
+most 128 kept frames.  A config a kernel route cannot take raises
+ValueError on CUDA; nothing falls back.
 """
 from __future__ import annotations
 
@@ -34,6 +42,9 @@ from ..frontend.dsp import Frontend
 from ..frontend.filterbanks import dct_t_matrix, dft_matrices, filterbank_matrix
 from ..params import ListenerParams, pr
 from . import _build
+from ._checks import OUT_DTYPES, check_launch, check_row_major, row_major
+from .ct_constants import ct_eligible
+from .ct_kernel import CtConstants, ct_config_error, ct_frontend_cuda
 
 SOURCE = "tpu_speech_commands_torch/csrc/mfcc_frontend.cu"
 REPLACES = "tpu_speech_commands/ops/pallas_frontend.py:745"
@@ -45,7 +56,6 @@ DFT_REPLACES = "tpu_speech_commands/ops/pallas_frontend.py:340"
 #   emit_deltas, out, out_bf16, stream)
 _N_ARGS = 19
 _INT_ARGS = (1, 3, 4, 5, 6, 7, 8, 9, 13, 14, 15, 17)
-_OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 # tsc_dft_frontend_bf16(audio, audio_int16, gain, batch, n_samples, hop,
 #   first_frame, n_features, wpb, n_seg, seg_pitch, win_pitch, dft, k_pad,
@@ -61,35 +71,27 @@ DFT_BM, DFT_BN, DFT_BK, DFT_BKP, DFT_STAGES = 128, 128, 64, 72, 2
 DFT_SMEM_MAX = 232448
 
 
+def frontend_route(p: ListenerParams) -> str:
+    """The route `MfccFrontend` takes on CUDA for config `p` (fast_math
+    aside): "fft" where n_fft is a power of two, "ct" where the JAX
+    package's CT kernel takes the config (`ct_eligible`), else "torch"."""
+    n_fft = p.n_fft
+    if n_fft >= 2 and not n_fft & (n_fft - 1):
+        return "fft"
+    return "ct" if ct_eligible(p) else "torch"
+
+
 def kernel_config_error(p: ListenerParams) -> str | None:
-    """Why the kernel cannot take config `p`, or None when it can."""
+    """Why the FFT kernel cannot take config `p`, or None when it can."""
     n_fft = p.n_fft
     if n_fft < 2 or n_fft & (n_fft - 1):
         return f"the CUDA frontend kernel needs n_fft a power of two, got {n_fft}"
-    if p.window_samples > n_fft:
-        return (
-            "the CUDA frontend kernel needs window_samples <= n_fft, got "
-            f"window {p.window_samples} > n_fft {n_fft}"
-        )
     if p.n_mfcc > p.n_filt:
         return (
             f"the CUDA frontend kernel needs n_mfcc <= n_filt, got "
             f"{p.n_mfcc} > {p.n_filt}"
         )
     return None
-
-
-def _row_major(m: np.ndarray, device, dtype=np.float32) -> torch.Tensor:
-    """A row-major device copy: the matrix functions return transposed views,
-    and torch.tensor keeps a view's column-major strides."""
-    return torch.tensor(np.ascontiguousarray(m, dtype=dtype), device=device)
-
-
-def _check_row_major(tensors, shapes) -> None:
-    for t, shape in zip(tensors, shapes):
-        if tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"kernel constant {tuple(t.shape)} is not a "
-                             f"row-major {shape}")
 
 
 class KernelConstants:
@@ -100,12 +102,12 @@ class KernelConstants:
     def __init__(self, p: ListenerParams, feature_type: str, device):
         k = np.arange(p.n_fft // 2, dtype=np.float64)
         ang = -2.0 * np.pi * k / p.n_fft
-        self.twiddle = _row_major(np.stack([np.cos(ang), np.sin(ang)], axis=-1),
-                                  device)
-        self.filt_t = _row_major(filterbank_matrix(p, feature_type).T, device)
-        self.dct_t = _row_major(dct_t_matrix(p.n_filt), device)
+        self.twiddle = row_major(np.stack([np.cos(ang), np.sin(ang)], axis=-1),
+                                 device)
+        self.filt_t = row_major(filterbank_matrix(p, feature_type).T, device)
+        self.dct_t = row_major(dct_t_matrix(p.n_filt), device)
         self.device = self.twiddle.device  # with its index: cuda -> cuda:0
-        _check_row_major(
+        check_row_major(
             (self.twiddle, self.filt_t, self.dct_t),
             ((p.n_fft // 2, 2), (p.n_filt, p.n_fft_bins), (p.n_filt, p.n_filt)))
 
@@ -230,47 +232,18 @@ class DftConstants:
     def __init__(self, p: ListenerParams, feature_type: str, device):
         self.feature_type = feature_type
         self.layout = dft_layout(p, feature_type)
-        self.dft = _row_major(dft_bf16_matrix(p, self.layout), device).to(
+        self.dft = row_major(dft_bf16_matrix(p, self.layout), device).to(
             torch.bfloat16)
         packed, ranges = pack_filterbank(filterbank_matrix(p, feature_type).T)
-        self.filt_packed = _row_major(packed, device)
-        self.filt_range = _row_major(ranges, device, np.int32)
-        self.dct_t = _row_major(dct_t_matrix(p.n_filt), device)
+        self.filt_packed = row_major(packed, device)
+        self.filt_range = row_major(ranges, device, np.int32)
+        self.dct_t = row_major(dct_t_matrix(p.n_filt), device)
         self.device = self.dft.device
         lay = self.layout
-        _check_row_major(
+        check_row_major(
             (self.dft, self.filt_packed, self.filt_range, self.dct_t),
             ((lay.n_pad, lay.k_pad), (len(packed),), (p.n_filt, 3),
              (p.n_filt, p.n_filt)))
-
-
-def _check_launch(audio, gain, device, p, out_dtype) -> int:
-    """Check a frontend launch's arguments; return the number of frames the
-    audio yields."""
-    if not audio.is_cuda or audio.device != device:
-        raise ValueError(
-            f"audio on {audio.device}, kernel constants on {device}"
-        )
-    if audio.dtype not in (torch.float32, torch.int16):
-        raise TypeError(f"audio must be float32 or int16, got {audio.dtype}")
-    if audio.ndim != 2 or not audio.is_contiguous():
-        raise ValueError(
-            f"audio must be a contiguous (B, S) tensor, got shape "
-            f"{tuple(audio.shape)} contiguous={audio.is_contiguous()}"
-        )
-    if (gain.dtype != torch.float32 or gain.numel() != 1
-            or gain.device != audio.device):
-        raise ValueError("gain must be one float32 value on the audio's device")
-    if out_dtype not in _OUT_DTYPES:
-        raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
-    n_samples = audio.shape[1]
-    need = p.window_samples + (p.n_features - 1) * p.hop_samples
-    if n_samples < need:
-        raise ValueError(
-            f"audio length {n_samples} yields fewer than "
-            f"n_features={p.n_features} frames (need >= {need} samples)"
-        )
-    return 1 + (n_samples - p.window_samples) // p.hop_samples
 
 
 def mfcc_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
@@ -282,7 +255,7 @@ def mfcc_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
     err = kernel_config_error(p)
     if err:
         raise ValueError(err)
-    n_frames = _check_launch(audio, gain, consts.device, p, out_dtype)
+    n_frames = check_launch(audio, gain, consts.device, p, out_dtype)
     batch, n_samples = audio.shape
     out = torch.empty((batch, p.n_features, p.feature_size), dtype=out_dtype,
                       device=audio.device)
@@ -317,7 +290,7 @@ def dft_frontend_bf16_cuda(audio: torch.Tensor, gain: torch.Tensor,
     err = dft_config_error(p, consts.feature_type)
     if err:
         raise ValueError(err)
-    n_frames = _check_launch(audio, gain, consts.device, p, out_dtype)
+    n_frames = check_launch(audio, gain, consts.device, p, out_dtype)
     batch, n_samples = audio.shape
     out = torch.empty((batch, p.n_features, p.feature_size), dtype=out_dtype,
                       device=audio.device)
@@ -348,39 +321,52 @@ dft_frontend_bf16_cuda.launches = 0
 
 class MfccFrontend:
     """(B, S) audio [, gain] -> (B, n_features, feature_size) features, from
-    a snapshot of the config.  CPU tensors take the plain `Frontend` chain;
-    CUDA tensors launch the FFT kernel, or with fast_math=True the bf16
-    tensor-core DFT kernel (the counterpart of
-    `make_fused_frontend(fast_math=True)`).  The device is the card unless
-    the caller passes "cpu".  Constructing it for a CUDA device raises
-    ValueError when the kernel cannot take the config, and RuntimeError
-    without CUDA."""
+    a snapshot of the config.  CPU tensors take the plain `Frontend` chain.
+    CUDA tensors take the route `frontend_route` chose for the config (the
+    FFT kernel, the CT kernel's (F, F) instantiation, or the plain chain on
+    the card), or with fast_math=True the bf16 tensor-core DFT kernel (the
+    counterpart of `make_fused_frontend(fast_math=True)`); `.route` names it.
+    The device is the card unless the caller passes "cpu".  Constructing it
+    for a CUDA device raises ValueError when the route's kernel cannot take
+    the config, and RuntimeError without CUDA; the CT kernel refuses with
+    ValueError at its launch a config whose power rows fit no block of the
+    card's shared memory."""
 
     def __init__(self, params: ListenerParams | None = None,
                  feature_type: str = "mfcc", device=DEFAULT_DEVICE,
                  out_dtype=torch.float32, fast_math: bool = False):
-        if out_dtype not in _OUT_DTYPES:
+        if out_dtype not in OUT_DTYPES:
             raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
-        self.params = (params or pr).replace()
+        p = self.params = (params or pr).replace()
         self.out_dtype = out_dtype
         self.fast_math = fast_math
         self.device = torch.device(device)
-        err = (dft_config_error(self.params, feature_type) if fast_math
-               else kernel_config_error(self.params))
+        self.route = "fast_math" if fast_math else frontend_route(p)
+        if fast_math:
+            err = dft_config_error(p, feature_type)
+        elif self.route == "fft":
+            err = kernel_config_error(p)
+        elif self.route == "ct":
+            err = ct_config_error(p)
+        else:
+            err = None
         if err and self.device.type == "cuda":
             raise ValueError(err)
         resolve_device(self.device)
-        self.plain = Frontend(self.params, feature_type, self.device,
+        self.plain = Frontend(p, feature_type, self.device,
                               fast_math=fast_math)
         self.consts = None
-        if self.device.type == "cuda":
-            consts_cls = DftConstants if fast_math else KernelConstants
-            self.consts = consts_cls(self.params, feature_type, self.device)
+        if self.device.type == "cuda" and self.route != "torch":
+            consts_cls = {"fast_math": DftConstants, "fft": KernelConstants,
+                          "ct": CtConstants}[self.route]
+            self.consts = consts_cls(p, feature_type, self.device)
             self._unit_gain = torch.ones(1, dtype=torch.float32,
                                          device=self.device)
 
     def __call__(self, audio: torch.Tensor, gain=None) -> torch.Tensor:
-        if audio.device.type == "cpu":
+        if audio.device.type == "cpu" or (
+                self.route == "torch" and audio.is_cuda
+                and self.device.type == "cuda"):
             return self.plain(audio, gain).to(self.out_dtype)
         if not audio.is_cuda or self.consts is None:
             raise ValueError(
@@ -391,5 +377,8 @@ class MfccFrontend:
         else:
             gain_t = torch.as_tensor(gain, dtype=torch.float32,
                                      device=audio.device).reshape(-1)
+        if self.route == "ct":
+            return ct_frontend_cuda(audio, gain_t, self.consts, self.params,
+                                    out_dtype=self.out_dtype)
         launch = dft_frontend_bf16_cuda if self.fast_math else mfcc_frontend_cuda
         return launch(audio, gain_t, self.consts, self.params, self.out_dtype)

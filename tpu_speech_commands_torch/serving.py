@@ -1,10 +1,18 @@
 """Batch serving: audio -> scores for a checkpoint (counterpart of
 `tpu_speech_commands/serving.py::make_batch_scorer`).
 
-On a CUDA device every path runs two hand-written kernels:
+On a CUDA device every path runs two hand-written kernels (one, where the
+config takes the plain frontend route):
 
     (B, S) f32 | int16 audio, x gain
-      -> MFCC frontend kernel    (ops/frontend_kernel.py, csrc/mfcc_frontend.cu)
+      -> MFCC frontend, by the route `frontend_route` picks for the config:
+         FFT kernel    (ops/frontend_kernel.py, csrc/mfcc_frontend.cu),
+                       n_fft a power of two ("cuda-mfcc");
+         CT kernel     (ops/ct_kernel.py, csrc/ct_frontend.cu), the configs
+                       the JAX scorer runs on its CT kernel, n_fft = 128 n2
+                       (n2 even) = window, not a power of two ("cuda-ct");
+         plain chain   every other config, which the JAX scorer, too, runs
+                       on plain XLA products ("torch(xla-route)")
       -> GRU classifier kernel   (ops/rnn_kernel.py, csrc/gru_classifier.cu),
          LSTM classifier kernel  (ops/rnn_kernel.py, csrc/lstm_classifier.cu)
          or CNN classifier kernel (ops/cnn_kernel.py, csrc/cnn_classifier.cu)
@@ -68,8 +76,8 @@ def make_batch_scorer(checkpoint_path: str, device=DEFAULT_DEVICE,
 
     The device is the card unless the caller passes "cpu".  Raises
     RuntimeError for a CUDA device when CUDA is not available, and
-    ValueError for a CUDA device when the frontend kernel cannot take the
-    checkpoint's config; nothing falls back to the CPU.
+    ValueError for a CUDA device when the frontend route's kernel cannot
+    take the checkpoint's config; nothing falls back to the CPU.
     """
     device = resolve_device(device)
     if compute_dtype not in (torch.float32, torch.bfloat16):
@@ -97,9 +105,11 @@ def make_batch_scorer(checkpoint_path: str, device=DEFAULT_DEVICE,
     handoff = (compute_dtype if classifier_path in ("cuda-gru", "cuda-cnn")
                else torch.float32)
     frontend = MfccFrontend(p, feature_type, device, out_dtype=handoff)
+    route = {"fft": "cuda-mfcc", "ct": "cuda-ct",
+             "torch": "torch(xla-route)"}[frontend.route]
     paths = {
-        "frontend": ("cuda-mfcc" + ("(bf16-handoff)"
-                                    if handoff != torch.float32 else ""))
+        "frontend": (route + ("(bf16-handoff)"
+                              if handoff != torch.float32 else ""))
         if on_cuda else "torch",
         "classifier": classifier_path,
     }
