@@ -15,7 +15,10 @@ Phases, in order; any failure raises and the script exits non-zero:
             and a first frame; the load-floor kernels at gains 1 and 1.5;
             the CT split kernel's four instantiations at the default config,
             batch- and time-major, and at n_fft = window = 768 with deltas,
-            int16 in and bf16 out; the FFT kernel at window 1200 > n_fft)
+            int16 in and bf16 out; the FFT kernel at window 1200 > n_fft;
+            every stage cut of the CT split and FFT kernels, streamed and
+            constant-block, at B = 1008 on f32 audio, and on int16 at
+            `full`)
 4. slices   each path driven on the eight example/*.wav clips in f32 and
             bf16, with every launch count set to 0 just before it and read
             just after:
@@ -38,14 +41,15 @@ Phases, in order; any failure raises and the script exits non-zero:
               (torch(xla-route), the plain chain): `.paths` must name the
               route, its kernels' launch counts must rise, and the scores
               must agree with the same scorer on the CPU;
-            - the six measurement entry points of tpu_speech_commands_torch
+            - the seven measurement entry points of tpu_speech_commands_torch
               .dev at their own batch (pallas_experiments B = 16384, every
               variant; the others B = 8192), a few iterations each: every
               checksum finite, r4's two frontends (dense: the gain applied,
               the last n_features frames) within its stated bound of a
               float64 reference, the CT variants within the f32 feature
-              bound of the FFT kernel, and the dense-DFT, load-floor and CT
-              launch counts must rise
+              bound of the FFT kernel, r3_omission's cuts within their
+              stage's bound of the plain version, and the dense-DFT,
+              load-floor, CT and stage-cut launch counts must rise
 5. times    CUDA-event times at B = 8192, audio resident on the card (the
             dense-DFT, load-floor and CT kernels are first held to their
             plain versions at this batch, their entry points' own, with the
@@ -61,8 +65,13 @@ Phases, in order; any failure raises and the script exits non-zero:
             filterbank over the packed nonzero weights; the CT split
             kernels take the FFT kernel's bound, as they compute its
             function, and the CT split's own operations are printed apart
-            as that algorithm's floor), and
-            end-to-end windows/s for every scorer (information only)
+            as that algorithm's floor), end-to-end windows/s for every
+            scorer (information only), and every stage cut of both
+            frontend kernels, streamed and constant-block, held to its
+            plain version and timed beside it and its bound (`cut_bounds`),
+            with the per-stage deltas: the streamed `load` cuts must take at
+            least 0.9x the load floor's time (they read every sample), and
+            each `full` cut is timed in turns with its shipped kernel
 
 Two lines before the last: one JSON object describing each kernel, then the
 card's name and power limit; the last line is {"ok": true, "device":
@@ -86,6 +95,7 @@ LSTM_CHECKPOINT = os.path.join(REPO, "pretrained", "direction_simple_lstm.npz")
 CNN_CHECKPOINTS = {m: os.path.join(REPO, "pretrained", f"direction_{m}.npz")
                    for m in ("simple_cnn", "simple_cnn_lite")}
 B_CHECK = 1000   # not a multiple of any tile either kernel uses
+B_CUT = 1008     # the stage cuts take multiples of 16: a multiple of no other tile
 B_TIME = 8192    # the serving batch the JAX benchmark measured
 
 # Tolerances, each with its reason:
@@ -283,6 +293,44 @@ def kernel_bounds(p, batch, n_samples, rnn_dims, cnn_consts):
     }
 
 
+def cut_bounds(p, batch, n_samples, constant_block):
+    """Each stage cut's bound (ops/omission_kernel.py) on (batch, n_samples)
+    f32 audio, by name (`counter_name`).  Bytes: the audio read once
+    (constant block: block 0's 16 rows) and the (batch, 128) f32 output.
+    Operations: what the cut's function needs, counted as kernel_bounds
+    counts the frontend: the load's scale and add a sample (as the load
+    floor); framing, one add a sample into its lane's plane sum; the
+    butterfly, stage 1's 24 operations a lane (as ct_split_flops); from
+    power on, the real FFT, 4 a bin (|X|^2 and its fold), then 2 a packed
+    filterbank weight, one log a mel lane and the DCT.  A stage's CT and FFT
+    cuts compute one function and share its bound."""
+    import math
+
+    from tpu_speech_commands_torch.frontend.filterbanks import filterbank_matrix
+    from tpu_speech_commands_torch.ops import omission_kernel
+    from tpu_speech_commands_torch.ops.frontend_kernel import pack_filterbank
+
+    n_frames = 1 + (n_samples - p.n_fft) // p.hop_samples
+    frames = batch * n_frames
+    n_packed = len(pack_filterbank(filterbank_matrix(p, "mfcc").T)[0])
+    rows = omission_kernel.BATCH_TILE if constant_block else batch
+    nbytes = 4.0 * rows * n_samples + 4.0 * batch * omission_kernel.LANES
+    power = frames * (2.5 * p.n_fft * math.log2(p.n_fft) + 4 * p.n_fft_bins)
+    mel = power + frames * 2.0 * n_packed
+    log_ = mel + frames * (p.n_filt + 1.0)
+    ops = {
+        "load": 2.0 * batch * n_samples,
+        "framing": frames * float(p.n_fft),
+        "butterfly": frames * 128.0 * 24,
+        "power": power,
+        "mel": mel,
+        "log": log_,
+        "full": log_ + frames * 2.0 * p.n_filt * p.n_mfcc,
+    }
+    return {omission_kernel.counter_name(k, s): bound_ms(ops[s], 0, nbytes)
+            for k, stages in omission_kernel.KERNELS.items() for s in stages}
+
+
 def ct_split_flops(p, batch, per_piece_mel=False) -> float:
     """The operations the CT split algorithm does on (batch, 16000) audio,
     a floor of that algorithm and not of the function (a real FFT needs
@@ -373,10 +421,11 @@ def main() -> int:
     from tpu_speech_commands_torch.models.rnn import SimpleGRU, SimpleLSTM
     from tpu_speech_commands_torch.dev import (
         FEAT_ATOL, FEAT_RTOL, card_line, pallas_experiments, r3_experiments,
-        r3_frontend_variants, r3_stage2, r3_widecell, r4_mxu_stage1)
+        r3_frontend_variants, r3_omission, r3_stage2, r3_widecell,
+        r4_mxu_stage1)
     from tpu_speech_commands_torch.ops import (
         _build, cnn_kernel, ct_kernel, dense_dft_kernel, frontend_kernel,
-        load_kernel, rnn_kernel)
+        load_kernel, omission_kernel, rnn_kernel)
     from tpu_speech_commands_torch.ops.cnn_kernel import (
         CNNClassifier, make_fused_cnn_forward)
     from tpu_speech_commands_torch.ops.cnn_lowering import lower_block1
@@ -605,6 +654,37 @@ def main() -> int:
                                                      FEAT_ATOL, FEAT_RTOL))
                 else:
                     check_close(what, got, want, FEAT_BF16_ATOL, FEAT_BF16_RTOL)
+    # the stage cuts of both frontend kernels (K8 r3_omission :164), each
+    # held to the one plain version with its stage's bound
+    cut_consts = omission_kernel.TruncatedConstants(ListenerParams(), dev)
+    cut_errs = {name: [] for name in omission_kernel.counters}
+
+    def check_cut(kernel, stage, audio, gain, constant_block, label):
+        p = ListenerParams()
+        gain_t = torch.full((1,), gain, dtype=torch.float32, device=dev)
+        got = omission_kernel.truncated(audio, gain_t, cut_consts, p, stage,
+                                        kernel, constant_block)
+        torch.cuda.synchronize()
+        want = omission_kernel.truncated_plain(audio, gain, p, stage,
+                                               constant_block, cut_consts.ct)
+        name = omission_kernel.counter_name(kernel, stage)
+        mode = "constant-block" if constant_block else "streamed"
+        cut_errs[name].append(check_close(f"{name} {mode} {label}", got, want,
+                                          *r3_omission.TOLERANCES[stage]))
+
+    cut_np = test_audio(clips, B_CUT, seed=4)
+    cut_f32 = torch.tensor(cut_np, device=dev)
+    cut_i16 = torch.tensor(
+        np.clip(np.round(cut_np * 32768.0), -32768, 32767).astype(np.int16),
+        device=dev)
+    for kernel, stages in omission_kernel.KERNELS.items():
+        for stage in stages:
+            for constant_block in (False, True):
+                check_cut(kernel, stage, cut_f32, 1.3, constant_block,
+                          f"B = {B_CUT} float32 gain 1.3")
+        for constant_block in (False, True):
+            check_cut(kernel, "full", cut_i16, 0.8, constant_block,
+                      f"B = {B_CUT} int16 gain 0.8")
 
     # -- 4. the slices ---------------------------------------------------------
     counters = {
@@ -619,6 +699,7 @@ def main() -> int:
         "load_rowsum": load_kernel.load_rowsum_cuda,
         "load_broadcast": load_kernel.load_broadcast_cuda,
         **ct_kernel.counters,
+        **omission_kernel.counters,
     }
     launches = dict.fromkeys(counters, 0)
 
@@ -758,6 +839,9 @@ def main() -> int:
     drive("dev.r3_widecell.main(): B = 8192",
           lambda: r3_widecell.main(["--iters", "4"]),
           ("mfcc_frontend", "ct_frontend"))
+    drive("dev.r3_omission.main(): every stage cut of both kernels, B = 8192",
+          lambda: r3_omission.main(["--iters", "2", "--outer", "1"]),
+          tuple(omission_kernel.counters))
 
     # -- 5. times (information only) -------------------------------------------
     log(f"times at B = {B_TIME}, audio resident on the card ({card}):")
@@ -901,6 +985,63 @@ def main() -> int:
             log(f"  end to end {os.path.basename(path)} {str(dt)[6:]:8s} "
                 f"{ms:.4f} ms/batch  {B_TIME / ms * 1e3:.0f} windows/s  ({card})")
 
+    # the stage cuts at this batch: each held to the plain version, then
+    # timed with it and beside its bound; the deltas give each stage's cost
+    cut_times, cut_bound = {}, {}  # (name, constant_block) -> ...
+    for constant_block in (False, True):
+        mode = "constant-block" if constant_block else "streamed"
+        cb = cut_bounds(p0, B_TIME, big.shape[1], constant_block)
+        for kernel, stages in omission_kernel.KERNELS.items():
+            prev = None
+            for stage in stages:
+                def cut_launch(kernel=kernel, stage=stage, cbk=constant_block):
+                    return omission_kernel.truncated(big, unit_gain, cut_consts,
+                                                     p0, stage, kernel, cbk)
+
+                def cut_plain(stage=stage, cbk=constant_block):
+                    return omission_kernel.truncated_plain(
+                        big, None, p0, stage, cbk, cut_consts.ct)
+
+                name = omission_kernel.counter_name(kernel, stage)
+                cut_errs[name].append(check_close(
+                    f"{name} {mode} B = {B_TIME}", cut_launch(), cut_plain(),
+                    *r3_omission.TOLERANCES[stage]))
+                k_ms, p_ms = cuda_ms(cut_launch, 10), cuda_ms(cut_plain, 2)
+                cut_times[name, constant_block] = (k_ms, p_ms)
+                cut_bound[name, constant_block] = cb[name]
+                delta = "" if prev is None else f"  delta {k_ms - prev:+.4f} ms"
+                log(f"  {name:24s} {mode:14s} kernel {k_ms:.4f} ms{delta}  "
+                    f"plain {p_ms:.4f} ms  bound {cb[name][0]:.4f} ms "
+                    f"({cb[name][1]})  ({card})")
+                prev = k_ms
+    # a load cut reads every sample, as the TPU block copy does: it cannot
+    # beat the load floor timed above in this run
+    for kernel in omission_kernel.KERNELS:
+        name = omission_kernel.counter_name(kernel, "load")
+        ratio = cut_times[name, False][0] / times["load_rowsum"][0]
+        log(f"  {name} streamed / load_rowsum {times['load_rowsum'][0]:.4f} ms"
+            f" = {ratio:.3f}  ({card})")
+        if ratio < 0.9:
+            raise AssertionError(f"{name} takes {ratio:.3f}x the load floor: "
+                                 "it does not read every sample")
+    # each `full` cut against its shipped kernel, in turns
+    shipped = {"fft": lambda: fe(big),
+               "ct": lambda: ct_kernel.ct_frontend_cuda(big, unit_gain,
+                                                        ct_consts, p0)}
+    for kernel, run_shipped in shipped.items():
+        name = omission_kernel.counter_name(kernel, "full")
+        full_ab = {"shipped": [], "cut": []}
+        for which in ("shipped", "cut", "cut", "shipped"):
+            full_ab[which].append(cuda_ms(
+                run_shipped if which == "shipped" else
+                (lambda k=kernel: omission_kernel.truncated(
+                    big, unit_gain, cut_consts, p0, "full", k)), 10))
+        log(f"  {name} vs its shipped kernel, in turns shipped, cut, cut, "
+            f"shipped: shipped {full_ab['shipped'][0]:.4f}, "
+            f"{full_ab['shipped'][1]:.4f} ms; cut {full_ab['cut'][0]:.4f}, "
+            f"{full_ab['cut'][1]:.4f} ms = "
+            f"{sum(full_ab['cut']) / sum(full_ab['shipped']):.4f}x  ({card})")
+
     kernels = []
     for name, source, replaces, errs in (
             ("mfcc_frontend", frontend_kernel.SOURCE, frontend_kernel.REPLACES,
@@ -931,6 +1072,25 @@ def main() -> int:
             "max_abs_err": max(errs), "ms": times[name][0],
             "plain_ms": times[name][1], "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1], "library_ms": library[name],
+        })
+    # the stage cuts: the main keys are the streamed cut's, the
+    # constant_block_* keys the constant-block cut's; no library call
+    # computes a cut
+    for name in omission_kernel.counters:
+        kernel = name.split("_", 1)[0]
+        k_ms, p_ms = cut_times[name, False]
+        c_ms, c_plain_ms = cut_times[name, True]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": (omission_kernel.CT_SOURCE if kernel == "ct"
+                       else omission_kernel.FFT_SOURCE),
+            "replaces": omission_kernel.REPLACES, "launches": launches[name],
+            "max_abs_err": max(cut_errs[name]), "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": cut_bound[name, False][0],
+            "bound_by": cut_bound[name, False][1], "library_ms": None,
+            "constant_block_ms": c_ms, "constant_block_plain_ms": c_plain_ms,
+            "constant_block_bound_ms": cut_bound[name, True][0],
+            "constant_block_bound_by": cut_bound[name, True][1],
         })
     log(json.dumps({"kernels": kernels}))
     log(card)

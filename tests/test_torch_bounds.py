@@ -15,7 +15,10 @@ classes.  Peaks: 67 TFLOP/s f32, 989 TFLOP/s bf16, 3.35 TB/s.
   its bound.  The CT split's own operations are a floor of that algorithm,
   reported apart: stage 2, 14 products of 128 x 128 x 2 a frame (112.7
   GFLOP), stage 1, the n2 = 8 butterfly's 24 operations a lane, and the
-  packed cepstrum: about 1.71 ms of f32.
+  packed cepstrum: about 1.71 ms of f32;
+- the stage cuts (ops/omission_kernel.py): the audio read (or, with a
+  constant block, block 0's 16 rows) and a (B, 128) f32 output; the
+  operations of the cut's function (`chip_smoke.cut_bounds`).
 
 The times are computed here in float64 and compared to 1e-9 relative.
 """
@@ -92,6 +95,55 @@ def test_ct_stage2_count(chip_smoke, bounds):
         floor + FRAMES * 2 * 927, rel=1e-12)
     assert bounds["ct_frontend"] == bounds["mfcc_frontend"]
     assert bounds["ct_frontend"][0] == pytest.approx(0.1624, abs=1e-4)
+
+
+CUT_BYTES = {False: AUDIO_B + 4 * 8192 * 128,            # 528.5 MB
+             True: 4 * 16 * 16000 + 4 * 8192 * 128}       # block 0 and out
+FFT_POWER = FRAMES * (2.5 * 1024 * 10 + 4 * 513)
+CUT_OPS = {
+    "load": 2 * 8192 * 16000,
+    "framing": FRAMES * 1024,
+    "butterfly": FRAMES * 128 * 24,
+    "power": FFT_POWER,
+    "mel": FFT_POWER + FRAMES * 2 * 927,
+    "log": FFT_POWER + FRAMES * (2 * 927 + 21),
+    "full": FFT_POWER + FRAMES * (2 * 927 + 21 + 2 * 20 * 20),
+}
+
+
+@pytest.mark.parametrize("constant_block", [False, True],
+                         ids=["streamed", "constant_block"])
+@pytest.mark.parametrize("stage", sorted(CUT_OPS))
+def test_cut_bound_matches_the_hand_count(chip_smoke, stage, constant_block):
+    """A stage cut's bound: the larger of its operations at the f32 peak
+    and its bytes; both kernels' cuts of a stage share it."""
+    ops_ms = CUT_OPS[stage] / 67e9
+    bytes_ms = CUT_BYTES[constant_block] / 3.35e9
+    bounds = chip_smoke.cut_bounds(ListenerParams(), 8192, 16000,
+                                   constant_block)
+    names = [f"{k}_truncated_{stage}" for k in ("ct", "fft")
+             if f"{k}_truncated_{stage}" in bounds]
+    assert names[0].startswith("ct") and len(names) == (
+        1 if stage == "butterfly" else 2)
+    for name in names:
+        assert bounds[name][1] == ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+        assert bounds[name][0] == pytest.approx(max(ops_ms, bytes_ms),
+                                                rel=1e-9)
+
+
+def test_streamed_cuts_are_bound_by_bytes_and_constant_ones_by_operations(
+        chip_smoke):
+    """Streamed, every cut reads the 524.3 MB of audio: 0.1578 ms.  With a
+    constant block the audio is 1 MB and every cut's operations bind."""
+    p = ListenerParams()
+    streamed = chip_smoke.cut_bounds(p, 8192, 16000, False)
+    constant = chip_smoke.cut_bounds(p, 8192, 16000, True)
+    assert len(streamed) == len(constant) == 13
+    for name, (ms, by) in streamed.items():
+        assert by == "bytes" and ms == pytest.approx(0.1578, abs=1e-4)
+        assert constant[name][1] == "operations"
+    assert constant["fft_truncated_full"][0] == pytest.approx(0.1112, abs=1e-3)
 
 
 def test_fft_frontend_operations_are_below_its_bytes(bounds):

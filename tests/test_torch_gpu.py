@@ -27,7 +27,10 @@ Tolerances, each with its reason:
 - load-floor row sums: per row |err| <= 2e-6 * sum |gain * x| (16,000 f32
   terms summed in another order; the sums reach the hundreds);
 - CT split kernel features: the bounds of the f32 (and bf16) features above
-  (the same f32 math as its plain version in another summation order).
+  (the same f32 math as its plain version in another summation order);
+- the stage cuts of the CT and FFT kernels (B, 128): `dev.r3_omission.
+  TOLERANCES`, each stage's bound with its reason (f32 sums in another
+  order; from the log on, the f32 feature bound summed over 30 frames).
 cuDNN runs float32 convs in TF32 unless told otherwise: the fixture turns
 TF32 off, so the plain versions' convs are float32.
 """
@@ -42,11 +45,13 @@ import torch
 from tpu_speech_commands_torch.models.cnn import SimpleCNN, SimpleCNNLite
 from tpu_speech_commands_torch.models.rnn import SimpleGRU, SimpleLSTM
 from tpu_speech_commands_torch.dev import (pallas_experiments, r3_experiments,
-                                           r3_frontend_variants, r3_stage2,
-                                           r3_widecell, r4_mxu_stage1)
+                                           r3_frontend_variants, r3_omission,
+                                           r3_stage2, r3_widecell,
+                                           r4_mxu_stage1)
 from tpu_speech_commands_torch.ops import (cnn_kernel, ct_kernel,
                                            dense_dft_kernel, frontend_kernel,
-                                           load_kernel, rnn_kernel)
+                                           load_kernel, omission_kernel,
+                                           rnn_kernel)
 from tpu_speech_commands_torch.ops.cnn_lowering import lower_block1
 from tpu_speech_commands_torch.ops.frontend_kernel import MfccFrontend
 from tpu_speech_commands_torch.ops.rnn_kernel import GRUClassifier, LSTMClassifier
@@ -718,3 +723,69 @@ def test_scorer_route_of_each_config_class(cuda_device, tmp_path, kw, route,
         assert c.launches == launches[id(c)] + (c is counter)
     want = make_batch_scorer(path, "cpu")(clips, 0.9)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-3)
+
+
+# the stage cuts of both frontend kernels (ops/omission_kernel.py)
+CUTS = [(k, s) for k, stages in omission_kernel.KERNELS.items() for s in stages]
+
+
+@pytest.mark.parametrize("kernel,stage", CUTS, ids=[f"{k}-{s}" for k, s in CUTS])
+@pytest.mark.parametrize("constant_block", [False, True],
+                         ids=["streamed", "constant_block"])
+@pytest.mark.parametrize("audio_dtype", ["float32", "int16"])
+def test_truncated_kernel_matches_plain(cuda_device, kernel, stage,
+                                        constant_block, audio_dtype):
+    """B = 48: three batch tiles (so the constant block's i mod 16 shows),
+    24 blocks of the CT kernel's two windows."""
+    p = ListenerParams()
+    consts = omission_kernel.TruncatedConstants(p, cuda_device)
+    audio = torch.tensor(_ct_audio(audio_dtype, batch=48), device=cuda_device)
+    gain = torch.full((1,), 1.3, dtype=torch.float32, device=cuda_device)
+    counter = omission_kernel.counters[omission_kernel.counter_name(kernel,
+                                                                    stage)]
+    before = counter.launches
+    got = omission_kernel.truncated(audio, gain, consts, p, stage, kernel,
+                                    constant_block)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert got.shape == (48, 128) and torch.isfinite(got).all()
+    want = omission_kernel.truncated_plain(audio, 1.3, p, stage,
+                                           constant_block, consts.ct)
+    atol, rtol = r3_omission.TOLERANCES[stage]
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+
+
+def test_truncated_kernels_reject_what_they_cannot_take(cuda_device):
+    p = ListenerParams()
+    consts = omission_kernel.TruncatedConstants(p, cuda_device)
+    one = torch.ones(1, device=cuda_device)
+    good = torch.zeros(16, 16000, device=cuda_device)
+    for launch, c in ((omission_kernel.ct_truncated_cuda, consts.ct),
+                      (omission_kernel.fft_truncated_cuda, consts.fft)):
+        with pytest.raises(TypeError):
+            launch(good.double(), one, c, p, "full")
+        with pytest.raises(ValueError, match="multiple of 16"):
+            launch(good[:8], one, c, p, "full")
+        with pytest.raises(ValueError):
+            launch(torch.zeros(16, 32000, device=cuda_device)[:, ::2], one, c,
+                   p, "full")
+        with pytest.raises(ValueError, match="unknown stage"):
+            launch(good, one, c, p, "dct")
+        with pytest.raises(ValueError, match="n2 = 8"):
+            launch(good, one, c, ListenerParams(hop_t=0.016), "full")
+        shifted = torch.zeros(16 * 16000 + 1, device=cuda_device)[1:]
+        with pytest.raises(ValueError, match="aligned"):
+            launch(shifted.view(16, 16000), one, c, p, "load")
+        assert launch(good[:0], one, c, p, "full").shape == (0, 128)
+    with pytest.raises(ValueError, match="butterfly"):
+        omission_kernel.fft_truncated_cuda(good, one, consts.fft, p, "butterfly")
+
+
+def test_omission_dev_entry_point_runs_every_cut(cuda_device):
+    """dev.r3_omission at a small batch: every cut is held to the plain
+    version, launches, and has a finite checksum."""
+    for c in omission_kernel.counters.values():
+        c.launches = 0
+    rates = r3_omission.main(["--batch", "64", "--iters", "2", "--outer", "1"])
+    assert len(rates) == 2 * len(CUTS) and all(r > 0 for r in rates.values())
+    assert all(c.launches > 0 for c in omission_kernel.counters.values())

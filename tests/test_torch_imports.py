@@ -62,6 +62,8 @@ def test_port_imports_no_jax():
         "tpu_speech_commands_torch.ops.ct_constants",
         "tpu_speech_commands_torch.ops.ct_kernel",
         "tpu_speech_commands_torch.ops._checks",
+        "tpu_speech_commands_torch.ops.omission_kernel",
+        "tpu_speech_commands_torch.dev.r3_omission",
     }
     assert expected <= set(result["modules"])
     assert result["leaked"] == []

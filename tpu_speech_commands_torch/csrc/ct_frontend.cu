@@ -65,6 +65,16 @@
 // (64, then 32) that fits the card's opt-in shared memory and cuts the
 // frames to it; it refuses a config where neither fits (without
 // PER_PIECE_MEL, from n_fft 2816 up at 20 filters on an H100).
+//
+// A third switch, STOP, cuts the (F, F) kernel after one stage for the
+// stage-omission profile of tools/dev/r3_omission.py (pallas_call :164,
+// ops/omission_kernel.py): load, framing, butterfly (stage 1), power (stage
+// 2 and the fold into the power row), mel, log or full.  A cut runs what the
+// shipped kernel runs up to its stage, with the same launch and shared
+// memory, then sums each window's per-frame row into a (B, 128) f32 output
+// instead of the deltas and the store.  The shipped instantiations take the
+// default, kShipped, and every cut is an `if constexpr`, so they compile as
+// before.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,6 +92,10 @@ constexpr int kStages = 3;    // the K-slice ring
 
 // float64 eps, the reference's safe_log clamp; a normal float32 value
 constexpr float kLogEps = 2.220446049250313e-16f;
+
+// STOP: the stage a cut ends after (ops/omission_kernel.py::STAGES), or the
+// whole shipped kernel
+enum Stop : int { kLoad, kFraming, kButterfly, kPower, kMel, kLog, kFull, kShipped };
 
 __device__ __forceinline__ float safe_log(float x) {
   return logf(fmaxf(x, kLogEps));
@@ -118,6 +132,7 @@ struct CtArgs {
   float nyq_scale;        // 1 / sqrt(n_fft)
   int n_filt, n_mfcc, emit_deltas, time_major, out_bf16;
   void* out;
+  int src_mod;  // a cut's window b reads audio row b % src_mod (0: row b)
 };
 
 __host__ __device__ inline int mel_pitch(int n_filt) { return (n_filt + 1) | 1; }
@@ -201,6 +216,71 @@ __device__ __forceinline__ void stage1_tables(const CtArgs& a, long long p,
   }
 }
 
+// The audio row a cut's window b reads: b, or b % src_mod for the
+// constant-block profile (every block of the TPU grid reads block 0)
+__device__ __forceinline__ int src_window(const CtArgs& a, int b) {
+  return a.src_mod ? b % a.src_mod : b;
+}
+
+// The sum of n4 4-sample vectors V (float4 or short4) at p: the block's
+// threads read neighbouring vectors, 16 a thread issued before the first is
+// added, so the read runs at the memory's rate and not at its latency
+template <typename V>
+__device__ __forceinline__ float window_sum(const V* p, int n4) {
+  constexpr int kBatch = 16;
+  float total = 0.0f;
+  for (int i0 = threadIdx.x; i0 < n4; i0 += kBatch * kThreads) {
+    V v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kThreads;
+      v[u] = i < n4 ? __ldg(p + i) : V{};
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      total += (static_cast<float>(v[u].x) + static_cast<float>(v[u].y)) +
+               (static_cast<float>(v[u].z) + static_cast<float>(v[u].w));
+  }
+  return total;
+}
+
+// The load cut: every sample of the block's windows is read, as the TPU
+// kernel's BlockSpec copies the whole (16, S) block, and out[l] = x[l] +
+// x[S - 128 + l].  The block's sum of all it read enters the output times
+// 0, so no read can be dropped and the output of finite audio does not
+// change.  S is a multiple of 4 (tsc_ct_truncated).
+__device__ void load_cut(const CtArgs& a, int b0, int nb, float scale, float* sred) {
+  const int tid = threadIdx.x;
+  float total = 0.0f;
+  for (int lw = 0; lw < nb; ++lw) {
+    const long long base = (long long)src_window(a, b0 + lw) * a.n_samples;
+    total += a.audio_int16
+                 ? window_sum(reinterpret_cast<const short4*>(
+                                  static_cast<const int16_t*>(a.audio) + base),
+                              a.n_samples / 4)
+                 : window_sum(reinterpret_cast<const float4*>(
+                                  static_cast<const float*>(a.audio) + base),
+                              a.n_samples / 4);
+  }
+  total *= scale;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) total += __shfl_xor_sync(0xffffffffu, total, off);
+  if ((tid & 31) == 0) sred[tid >> 5] = total;
+  __syncthreads();
+  float all = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) all += sred[w];
+  float* out = static_cast<float*>(a.out);
+  for (int idx = tid; idx < nb * kLanes; idx += kThreads) {
+    const int lw = idx / kLanes;
+    const int l = idx - lw * kLanes;
+    const long long base = (long long)src_window(a, b0 + lw) * a.n_samples;
+    out[(size_t)(b0 + lw) * kLanes + l] = load_x(a, base + l, scale) +
+                                          load_x(a, base + a.n_samples - kLanes + l, scale) +
+                                          0.0f * all;
+  }
+}
+
 // acc (BM / 16 rows x NB 128-column blocks) = T (k_rows) @ mat (k_rows x
 // NB * 128, row pitch LD), mat streamed through the ring `se`
 template <int BM, int NB, int LD>
@@ -271,7 +351,7 @@ __device__ __forceinline__ void stage2_product(const float* __restrict__ mat,
   }
 }
 
-template <int BM, bool PAIRED, bool PPMEL>
+template <int BM, bool PAIRED, bool PPMEL, int STOP = kShipped>
 __global__ void __launch_bounds__(kThreads, 1) ct_frontend_kernel(const CtArgs a) {
   constexpr int RM = BM / 16;
   constexpr int TP = BM + 4;
@@ -297,13 +377,20 @@ __global__ void __launch_bounds__(kThreads, 1) ct_frontend_kernel(const CtArgs a
   const int nf1 = a.n_filt + 1;
   const int n2 = a.n2;
   const int half = n2 / 2;
+  if constexpr (STOP == kLoad) {
+    load_cut(a, b0, nb, __ldg(a.gain) * (a.audio_int16 ? 1.0f / 32768.0f : 1.0f),
+             reinterpret_cast<float*>(smem_raw));
+    return;
+  }
 
   // each row's first sample, or -1 for a row that is no kept frame
   for (int r = tid; r < BM; r += kThreads) {
     const int lw = r / R;
     const int o = o0 + r - lw * R;
+    int win = b0 + lw;
+    if constexpr (STOP != kShipped) win = src_window(a, win);
     srow[r] = lw < nb && o >= 0 && o < a.n_features
-                  ? (long long)(b0 + lw) * a.n_samples +
+                  ? (long long)win * a.n_samples +
                         (long long)(a.first_frame + o) * a.hop
                   : -1;
   }
@@ -365,11 +452,20 @@ __global__ void __launch_bounds__(kThreads, 1) ct_frontend_kernel(const CtArgs a
 #pragma unroll
           for (int q = 0; q < kRows; ++q) {
             const int r = r0 + kStep * q;
+            if constexpr (STOP == kFraming) {  // the frame's 8 planes at lane b
+              float y = x[q][0];
+#pragma unroll
+              for (int i = 1; i < 8; ++i) y += x[q][i];
+              sq[r * pq + b] = y;
+              continue;
+            }
             float tre, tim;
             dft8(x[q], sr, tre, tim);
             const bool ok = srow[r] >= 0;
             ts[b * TP + r] = ok ? tre : 0.0f;
             ts[(kLanes + b) * TP + r] = ok ? tim : 0.0f;
+            if constexpr (STOP == kButterfly)  // T_re + T_im over the residues
+              sq[r * pq + b] = (sr == 0 ? 0.0f : sq[r * pq + b]) + tre + tim;
           }
         }
       } else {
@@ -382,14 +478,20 @@ __global__ void __launch_bounds__(kThreads, 1) ct_frontend_kernel(const CtArgs a
         }
       }
     }
+    if constexpr (STOP == kFraming) break;     // one pass: the frames' planes
+    if constexpr (STOP == kButterfly) continue;  // stage 1 alone, every residue
     if (sr == 0) {
       __syncthreads();
-      // the Nyquist bin's power, from T[0]
+      // the Nyquist bin's power, from T[0] (the power cut keeps its signed
+      // amplitude)
       for (int r = tid; r < BM; r += kThreads) {
         float x = 0.0f;
         for (int b = 0; b < kLanes; ++b)
           x += ts[b * TP + r] * ((b & 1) ? -a.nyq_scale : a.nyq_scale);
-        snyq[r] = x * x;
+        if constexpr (STOP == kPower)
+          snyq[r] = x;
+        else
+          snyq[r] = x * x;
       }
     }
     const int k_rows = single ? kLanes : 2 * kLanes;
@@ -462,36 +564,73 @@ __global__ void __launch_bounds__(kThreads, 1) ct_frontend_kernel(const CtArgs a
   }
 
   // ---- the filterbank over the folded power rows (no PER_PIECE_MEL)
-  if (!PPMEL) {
-    for (int s = 0; s < n2; ++s) filter_sums(sq + s * kJ, s, false);
-    __syncthreads();
+  if constexpr (STOP >= kMel) {
+    if (!PPMEL) {
+      for (int s = 0; s < n2; ++s) filter_sums(sq + s * kJ, s, false);
+      __syncthreads();
+    }
   }
   // ---- Nyquist, log
-  for (int idx = tid; idx < BM * nf1; idx += kThreads) {
-    const int r = idx % BM;
-    const int m = idx / BM;
-    if (srow[r] < 0) continue;
-    smel[r * mp + m] = safe_log(smel[r * mp + m] + snyq[r] * __ldg(&a.filt_nyq[m]));
+  if constexpr (STOP >= kLog) {
+    for (int idx = tid; idx < BM * nf1; idx += kThreads) {
+      const int r = idx % BM;
+      const int m = idx / BM;
+      if (srow[r] < 0) continue;
+      smel[r * mp + m] = safe_log(smel[r * mp + m] + snyq[r] * __ldg(&a.filt_nyq[m]));
+    }
+    __syncthreads();
   }
-  __syncthreads();
   // ---- DCT and the energy swap, into ts (row, coefficient)
   float* sc = ts;
-  for (int idx = tid; idx < BM * a.n_mfcc; idx += kThreads) {
-    const int r = idx / a.n_mfcc;
-    const int i = idx - r * a.n_mfcc;
-    if (srow[r] < 0) continue;
-    const float* mel = smel + r * mp;
-    float v;
-    if (i == 0) {
-      v = mel[a.n_filt];
-    } else {
-      v = 0.0f;
-      for (int m = 0; m < a.n_filt; ++m)
-        v = fmaf(mel[m], __ldg(&a.dct_t[m * a.n_filt + i]), v);
+  if constexpr (STOP >= kFull) {
+    for (int idx = tid; idx < BM * a.n_mfcc; idx += kThreads) {
+      const int r = idx / a.n_mfcc;
+      const int i = idx - r * a.n_mfcc;
+      if (srow[r] < 0) continue;
+      const float* mel = smel + r * mp;
+      float v;
+      if (i == 0) {
+        v = mel[a.n_filt];
+      } else {
+        v = 0.0f;
+        for (int m = 0; m < a.n_filt; ++m)
+          v = fmaf(mel[m], __ldg(&a.dct_t[m * a.n_filt + i]), v);
+      }
+      sc[idx] = v;
     }
-    sc[idx] = v;
+    __syncthreads();
   }
-  __syncthreads();
+  if constexpr (STOP != kShipped) {
+    // ---- a cut's fold: the per-frame row y(r, l) of its last stage, summed
+    // over each window's frames (one tile of rows_per_win rows a window)
+    __syncthreads();  // the framing and butterfly cuts leave the loop without one
+    float* out = static_cast<float*>(a.out);
+    for (int idx = tid; idx < nb * kLanes; idx += kThreads) {
+      const int lw = idx / kLanes;
+      const int l = idx - lw * kLanes;
+      float sum = 0.0f;
+      for (int i = 0; i < R; ++i) {
+        const int r = lw * R + i;
+        const float* row = sq + r * pq;
+        float y;
+        if constexpr (STOP <= kButterfly) {
+          y = row[l];
+        } else if constexpr (STOP == kPower) {  // the permuted power row's 128-lane chunks
+          y = snyq[r];
+          for (int c = 0; c < a.n_fft / 2; c += kLanes) y += row[c + l];
+        } else if constexpr (STOP == kMel) {
+          y = l < nf1 ? smel[r * mp + l] + snyq[r] * __ldg(&a.filt_nyq[l]) : 0.0f;
+        } else if constexpr (STOP == kLog) {  // log of the zero-padded lanes too
+          y = l < nf1 ? smel[r * mp + l] : safe_log(0.0f);
+        } else {
+          y = l < a.n_mfcc ? sc[r * a.n_mfcc + l] : 0.0f;
+        }
+        sum += y;
+      }
+      out[(size_t)(b0 + lw) * kLanes + l] = sum;
+    }
+    return;
+  }
   // ---- deltas and the store: rows past the halo that are kept frames
   const int n_out = a.emit_deltas ? 2 * a.n_mfcc : a.n_mfcc;
   for (int idx = tid; idx < BM * n_out; idx += kThreads) {
@@ -518,9 +657,9 @@ __global__ void __launch_bounds__(kThreads, 1) ct_frontend_kernel(const CtArgs a
   }
 }
 
-template <int BM, bool PAIRED, bool PPMEL>
+template <int BM, bool PAIRED, bool PPMEL, int STOP = kShipped>
 cudaError_t launch(const CtArgs& a, size_t smem, cudaStream_t stream) {
-  auto kernel = ct_frontend_kernel<BM, PAIRED, PPMEL>;
+  auto kernel = ct_frontend_kernel<BM, PAIRED, PPMEL, STOP>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -605,8 +744,78 @@ extern "C" int tsc_ct_frontend(
   a.time_major = time_major;
   a.out_bf16 = out_bf16;
   a.out = out;
+  a.src_mod = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = bm == 64 ? launch_bm<64>(a, paired, per_piece_mel, smem, s)
                  : launch_bm<32>(a, paired, per_piece_mel, smem, s);
+  return static_cast<int>(err);
+}
+
+// The (F, F) kernel cut after stage `stop` (0 load, 1 framing, 2 butterfly,
+// 3 power, 4 mel, 5 log, 6 full; ops/omission_kernel.py::STAGES), at the one
+// config tools/dev/r3_omission.py takes: n_fft = 1024 (n2 = 8), hop =
+// n_fft / 2, frames 0 .. n_frames - 1 of every window, n_samples a multiple
+// of 4, 64 block rows.  out
+// (batch, 128) f32: each window's per-frame rows of the stage summed over its
+// frames; window b reads audio row b % src_mod when src_mod > 0 (the
+// constant-block profile), else row b.  Constants as for tsc_ct_frontend
+// (e2 the unpaired pack).  Returns cudaErrorInvalidValue for any other
+// config, or where the block's shared memory does not fit.
+extern "C" int tsc_ct_truncated(
+    const void* audio, int audio_int16, const void* gain, int batch,
+    int n_samples, int hop, int n_fft, int n_frames, int stop, int src_mod,
+    const void* stage1, const void* e2, const void* filt, const void* filt_nyq,
+    const void* jrange, const void* dct_t, int n_filt, int n_mfcc, void* out,
+    void* stream) {
+  constexpr int kBm = 64;
+  if (batch <= 0 || n_fft != 8 * kLanes || 2 * hop != n_fft || n_frames <= 0 ||
+      n_frames > kBm || (long long)(n_frames - 1) * hop + n_fft > n_samples ||
+      n_samples % 4 != 0 || n_filt <= 0 || n_filt + 1 > kLanes || n_mfcc <= 0 ||
+      n_mfcc > n_filt || stop < kLoad || stop > kFull || src_mod < 0)
+    return cudaErrorInvalidValue;
+  int device = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = sizeof(float) * smem_floats(kBm, n_fft, n_filt, false, false);
+  if (smem > (size_t)smem_max) return cudaErrorInvalidValue;
+  CtArgs a;
+  a.audio = audio;
+  a.audio_int16 = audio_int16;
+  a.gain = static_cast<const float*>(gain);
+  a.batch = batch;
+  a.n_samples = n_samples;
+  a.hop = hop;
+  a.n_fft = n_fft;
+  a.n2 = n_fft / kLanes;
+  a.first_frame = 0;
+  a.n_features = n_frames;
+  a.emit_deltas = 0;
+  set_tiling(a, kBm);
+  a.stage1 = static_cast<const float*>(stage1);
+  a.e2 = static_cast<const float*>(e2);
+  a.filt = static_cast<const float*>(filt);
+  a.filt_nyq = static_cast<const float*>(filt_nyq);
+  a.jrange = static_cast<const int*>(jrange);
+  a.dct_t = static_cast<const float*>(dct_t);
+  a.nyq_scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(n_fft)));
+  a.n_filt = n_filt;
+  a.n_mfcc = n_mfcc;
+  a.time_major = 0;
+  a.out_bf16 = 0;
+  a.out = out;
+  a.src_mod = src_mod;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (stop) {
+    case kLoad: err = launch<kBm, false, false, kLoad>(a, smem, s); break;
+    case kFraming: err = launch<kBm, false, false, kFraming>(a, smem, s); break;
+    case kButterfly: err = launch<kBm, false, false, kButterfly>(a, smem, s); break;
+    case kPower: err = launch<kBm, false, false, kPower>(a, smem, s); break;
+    case kMel: err = launch<kBm, false, false, kMel>(a, smem, s); break;
+    case kLog: err = launch<kBm, false, false, kLog>(a, smem, s); break;
+    default: err = launch<kBm, false, false, kFull>(a, smem, s); break;
+  }
   return static_cast<int>(err);
 }

@@ -39,6 +39,17 @@
 // tile is written with coalesced stores.  Frames dropped by the tail trim
 // are never computed.  Nothing but the audio read and the feature write
 // touches device memory.
+//
+// A compile-time STOP cuts the kernel after one stage for the
+// stage-omission profile (ops/omission_kernel.py, the counterpart of
+// tools/dev/r3_omission.py): load (every sample of the window read),
+// framing (the bit-reversed frame loads), power (the radix-2 stages and the
+// power loop), mel (the filterbank, before its log), log, full (the DCT).  A
+// cut then sums its per-frame row over the window's frames into a (B, 128)
+// f32 output instead of the deltas and the store, in the CT split kernel's
+// lane order (csrc/ct_frontend.cu), so that both kernels' cuts compute one
+// function.  The shipped kernel takes the default, kShipped, and every cut
+// is an `if constexpr`, so it compiles as before.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,6 +59,11 @@ namespace {
 
 // float64 eps, the reference's safe_log clamp; a normal float32 value
 constexpr float kLogEps = 2.220446049250313e-16f;
+
+// STOP: the stage a cut ends after (ops/omission_kernel.py::STAGES; this
+// kernel has no butterfly stage), or the whole shipped kernel
+enum Stop : int { kLoad, kFraming, kButterfly, kPower, kMel, kLog, kFull, kShipped };
+constexpr int kLanes = 128;  // a cut's output row, and the CT split's lane
 
 __device__ __forceinline__ float safe_log(float x) {
   return logf(fmaxf(x, kLogEps));
@@ -64,6 +80,18 @@ __device__ __forceinline__ float load_sample(const int16_t* p) {
   return static_cast<float>(__ldg(p));
 }
 
+// the 4-sample vector a load cut reads the audio in
+template <typename InT>
+struct Vec4;
+template <>
+struct Vec4<float> {
+  using T = float4;
+};
+template <>
+struct Vec4<int16_t> {
+  using T = short4;
+};
+
 __device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
@@ -77,14 +105,14 @@ size_t smem_bytes(int n_warps, int n_fft, int n_filt, int n_features,
          sizeof(float) * ((size_t)n_warps * n_filt + (size_t)n_features * n_mfcc);
 }
 
-template <typename InT, typename OutT>
+template <typename InT, typename OutT, int STOP = kShipped>
 __global__ void mfcc_frontend_kernel(
     const InT* __restrict__ audio, const float* __restrict__ gain,
     float in_scale, int n_samples, int window, int hop, int n_fft,
     int log2_fft, int first_frame, int n_features,
     const float2* __restrict__ twiddle, const float* __restrict__ filt_t,
     const float* __restrict__ dct_t, int n_filt, int n_mfcc, int emit_deltas,
-    OutT* __restrict__ out) {
+    OutT* __restrict__ out, int src_mod) {
   extern __shared__ float4 smem_raw[];
   const int n_warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
@@ -100,7 +128,47 @@ __global__ void mfcc_frontend_kernel(
   const float inv_fft = 1.0f / static_cast<float>(n_fft);
   const float scale = __ldg(gain) * in_scale;
   const InT* row = audio + (size_t)blockIdx.x * n_samples;
+  if constexpr (STOP != kShipped) {  // the constant-block profile: row b % src_mod
+    if (src_mod) row = audio + (size_t)(blockIdx.x % src_mod) * n_samples;
+  }
+  OutT* cut_out = out + (size_t)blockIdx.x * kLanes;  // a cut's (B, 128) row
 
+  if constexpr (STOP == kLoad) {
+    // every sample of the window, read as 4-sample vectors (S a multiple of
+    // 4), 16 a thread issued before the first is added, and out[l] = x[l] +
+    // x[S - 128 + l]; the sum of all that was read enters the output times
+    // 0, so no read can be dropped and finite audio's output does not change
+    using V = typename Vec4<InT>::T;
+    const V* row4 = reinterpret_cast<const V*>(row);
+    constexpr int kBatch = 16;
+    float total = 0.0f;
+    for (int i0 = threadIdx.x; i0 < n_samples / 4; i0 += kBatch * blockDim.x) {
+      V v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + u * blockDim.x;
+        v[u] = i < n_samples / 4 ? __ldg(row4 + i) : V{};
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        total += (static_cast<float>(v[u].x) + static_cast<float>(v[u].y)) +
+                 (static_cast<float>(v[u].z) + static_cast<float>(v[u].w));
+    }
+    total = warp_sum(total * scale);
+    if (lane == 0) mels_all[warp] = total;
+    __syncthreads();
+    float all = 0.0f;
+    for (int w = 0; w < n_warps; ++w) all += mels_all[w];
+    for (int l = threadIdx.x; l < kLanes; l += blockDim.x)
+      store_out(cut_out + l, load_sample(row + l) * scale +
+                                 load_sample(row + n_samples - kLanes + l) * scale +
+                                 0.0f * all);
+    return;
+  }
+
+  // a cut's per-frame rows summed over the warp's frames, slot k at lane
+  // lane + 32 k (framing: see there)
+  float fold[kLanes / 32] = {0.0f, 0.0f, 0.0f, 0.0f};
   for (int f = warp; f < n_features; f += n_warps) {
     const InT* frame = row + (size_t)(first_frame + f) * hop;
     // bit-reversed load; samples past the window are the FFT's zero padding
@@ -109,6 +177,25 @@ __global__ void mfcc_frontend_kernel(
       buf[__brev(n) >> (32 - log2_fft)] = make_float2(x, 0.0f);
     }
     __syncwarp();
+    if constexpr (STOP == kFraming) {
+      // lane l's 8 planes, frame[128 a + l] (n_fft = 1024): the bit-reversed
+      // load put them side by side at buf[8 rev7(l) + rev3(a)], so slot k
+      // reads group m = lane + 32 k whole (16-byte reads, no bank conflict)
+      // and holds lane rev7(m) (the fold's store below)
+#pragma unroll
+      for (int k = 0; k < kLanes / 32; ++k) {
+        const float4* g = reinterpret_cast<const float4*>(buf + 8 * (lane + 32 * k));
+        float y = 0.0f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 v = g[i];
+          y += v.x + v.z;
+        }
+        fold[k] += y;
+      }
+      __syncwarp();
+      continue;
+    }
     for (int span = 1; span < n_fft; span <<= 1) {
       const int tw_step = half / span;
       for (int j = lane; j < half; j += 32) {
@@ -125,6 +212,11 @@ __global__ void mfcc_frontend_kernel(
       }
       __syncwarp();
     }
+    float xnyq = 0.0f;
+    if constexpr (STOP == kPower) {  // the Nyquist bin's signed amplitude
+      xnyq = buf[half].x * sqrtf(inv_fft);
+      __syncwarp();
+    }
     // power spectrum in place (the .x of bins 0 .. n_fft/2), and its sum
     float energy = 0.0f;
     for (int k = lane; k < n_bins; k += 32) {
@@ -135,14 +227,60 @@ __global__ void mfcc_frontend_kernel(
     }
     energy = warp_sum(energy);
     __syncwarp();
+    if constexpr (STOP == kPower) {
+      // the power row in the CT split's order (n_fft = 1024, n2 = 8): column
+      // s 64 + j is bin 8 j + s, so lane l's columns l + 128 c are the bins
+      // 8 (l % 64) + l / 64 + {0, 2, 4, 6}.  Slot k < 2 reads bins 8 j ..
+      // 8 j + 7 of j = lane + 32 k whole (16-byte reads, no bank conflict):
+      // the even ones are lane j's (slot k), the odd ones lane 64 + j's
+      // (slot k + 2).  Each lane adds the Nyquist amplitude; the energy is
+      // kept, times 0.
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const float4* g = reinterpret_cast<const float4*>(buf + 8 * (lane + 32 * k));
+        float even = xnyq + 0.0f * energy, odd = xnyq;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 v = g[i];
+          even += v.x;
+          odd += v.z;
+        }
+        fold[k] += even;
+        fold[k + 2] += odd;
+      }
+      __syncwarp();
+      continue;
+    }
     for (int m = 0; m < n_filt; ++m) {
       const float* fr = filt_t + (size_t)m * n_bins;
       float acc = 0.0f;
       for (int k = lane; k < n_bins; k += 32) acc += buf[k].x * __ldg(&fr[k]);
       acc = warp_sum(acc);
-      if (lane == 0) mels[m] = safe_log(acc);
+      if (lane == 0) {
+        if constexpr (STOP == kMel)
+          mels[m] = acc;
+        else
+          mels[m] = safe_log(acc);
+      }
     }
     __syncwarp();
+    if constexpr (STOP == kMel || STOP == kLog) {
+      // lanes: the filters, the energy, then zeros (their log for the log cut)
+#pragma unroll
+      for (int k = 0; k < kLanes / 32; ++k) {
+        const int l = lane + 32 * k;
+        float y;
+        if (l < n_filt)
+          y = mels[l];
+        else if (l == n_filt)
+          y = STOP == kLog ? safe_log(energy) : energy;
+        else
+          y = STOP == kLog ? safe_log(0.0f) : 0.0f;
+        fold[k] += y;
+      }
+      __syncwarp();
+      continue;
+    }
     for (int c = lane; c < n_mfcc; c += 32) {
       float v;
       if (c == 0) {
@@ -156,6 +294,30 @@ __global__ void mfcc_frontend_kernel(
     __syncwarp();  // the next frame reuses buf and mels
   }
   __syncthreads();
+
+  if constexpr (STOP == kFull) {  // the coefficients summed over the frames
+    for (int l = threadIdx.x; l < kLanes; l += blockDim.x) {
+      float sum = 0.0f;
+      if (l < n_mfcc)
+        for (int f = 0; f < n_features; ++f) sum += feats[f * n_mfcc + l];
+      store_out(cut_out + l, sum);
+    }
+    return;
+  } else if constexpr (STOP != kShipped) {  // the warps' sums, added
+    float* part = reinterpret_cast<float*>(smem_raw);  // the idle FFT buffers
+#pragma unroll
+    for (int k = 0; k < kLanes / 32; ++k) {
+      const int m = lane + 32 * k;  // slot k's lane: m, or rev7(m) for framing
+      part[warp * kLanes + (STOP == kFraming ? __brev(m) >> 25 : m)] = fold[k];
+    }
+    __syncthreads();
+    for (int l = threadIdx.x; l < kLanes; l += blockDim.x) {
+      float sum = 0.0f;
+      for (int w = 0; w < n_warps; ++w) sum += part[w * kLanes + l];
+      store_out(cut_out + l, sum);
+    }
+    return;
+  }
 
   const int n_out = emit_deltas ? 2 * n_mfcc : n_mfcc;
   OutT* dst = out + (size_t)blockIdx.x * n_features * n_out;
@@ -173,13 +335,14 @@ __global__ void mfcc_frontend_kernel(
   }
 }
 
-template <typename InT, typename OutT>
+template <typename InT, typename OutT, int STOP = kShipped>
 cudaError_t launch(const void* audio, float in_scale, const float* gain,
                    int batch, int n_samples, int window, int hop, int n_fft,
                    int log2_fft, int first_frame, int n_features,
                    const float2* twiddle, const float* filt_t,
                    const float* dct_t, int n_filt, int n_mfcc,
-                   int emit_deltas, void* out, cudaStream_t stream) {
+                   int emit_deltas, void* out, cudaStream_t stream,
+                   int src_mod = 0) {
   int device = 0, smem_max = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -193,15 +356,36 @@ cudaError_t launch(const void* audio, float in_scale, const float* gain,
     n_warps >>= 1;
   const size_t smem = smem_bytes(n_warps, n_fft, n_filt, n_features, n_mfcc);
   if (smem > (size_t)smem_max) return cudaErrorInvalidValue;
-  auto kernel = mfcc_frontend_kernel<InT, OutT>;
+  auto kernel = mfcc_frontend_kernel<InT, OutT, STOP>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<batch, n_warps * 32, smem, stream>>>(
       static_cast<const InT*>(audio), gain, in_scale, n_samples, window, hop,
       n_fft, log2_fft, first_frame, n_features, twiddle, filt_t, dct_t, n_filt,
-      n_mfcc, emit_deltas, static_cast<OutT*>(out));
+      n_mfcc, emit_deltas, static_cast<OutT*>(out), src_mod);
   return cudaGetLastError();
+}
+
+template <typename InT>
+cudaError_t launch_cut(int stop, const void* audio, float in_scale,
+                       const float* gain, int batch, int n_samples, int n_fft,
+                       int log2_fft, int hop, int n_frames, const float2* twiddle,
+                       const float* filt_t, const float* dct_t, int n_filt,
+                       int n_mfcc, void* out, cudaStream_t s, int src_mod) {
+#define TSC_CUT(STOP)                                                              \
+  launch<InT, float, STOP>(audio, in_scale, gain, batch, n_samples, n_fft, hop,   \
+                           n_fft, log2_fft, 0, n_frames, twiddle, filt_t, dct_t,  \
+                           n_filt, n_mfcc, 0, out, s, src_mod)
+  switch (stop) {
+    case kLoad: return TSC_CUT(kLoad);
+    case kFraming: return TSC_CUT(kFraming);
+    case kPower: return TSC_CUT(kPower);
+    case kMel: return TSC_CUT(kMel);
+    case kLog: return TSC_CUT(kLog);
+    default: return TSC_CUT(kFull);
+  }
+#undef TSC_CUT
 }
 
 }  // namespace
@@ -238,6 +422,44 @@ extern "C" int tsc_mfcc_frontend(const void* audio, int audio_int16,
   else
     err = out_bf16 ? TSC_LAUNCH(float, __nv_bfloat16) : TSC_LAUNCH(float, float);
 #undef TSC_LAUNCH
+  return static_cast<int>(err);
+}
+
+// The kernel cut after stage `stop` (0 load, 1 framing, 3 power, 4 mel, 5
+// log, 6 full; ops/omission_kernel.py::FFT_STAGES), at the config
+// tools/dev/r3_omission.py takes: frames of n_fft = 1024 samples (n2 = 8),
+// hop n_fft / 2, frames 0 .. n_frames - 1, n_samples a multiple of 4.  out
+// (batch, 128) f32: each
+// window's per-frame rows of the stage, in the CT split's lane order,
+// summed over its frames; window b reads audio row b % src_mod when src_mod
+// > 0 (the constant-block profile).  Constants as for tsc_mfcc_frontend.
+// Returns cudaErrorInvalidValue for any other config or stage.
+extern "C" int tsc_mfcc_truncated(const void* audio, int audio_int16,
+                                  const void* gain, int batch, int n_samples,
+                                  int hop, int n_fft, int n_frames, int stop,
+                                  int src_mod, const void* twiddle,
+                                  const void* filt_t, const void* dct_t,
+                                  int n_filt, int n_mfcc, void* out,
+                                  void* stream) {
+  if (batch <= 0 || n_fft != 8 * kLanes || 2 * hop != n_fft || n_frames <= 0 ||
+      (long long)(n_frames - 1) * hop + n_fft > n_samples || n_samples % 4 != 0 ||
+      n_filt <= 0 ||
+      n_filt + 1 > kLanes || n_mfcc <= 0 || n_mfcc > n_filt || stop < kLoad ||
+      stop > kFull || stop == kButterfly || src_mod < 0)
+    return cudaErrorInvalidValue;
+  const int log2_fft = __builtin_ctz(static_cast<unsigned>(n_fft));
+  const float* g = static_cast<const float*>(gain);
+  const float2* tw = static_cast<const float2*>(twiddle);
+  const float* fb = static_cast<const float*>(filt_t);
+  const float* dc = static_cast<const float*>(dct_t);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      audio_int16 ? launch_cut<int16_t>(stop, audio, 1.0f / 32768.0f, g, batch, n_samples,
+                                        n_fft, log2_fft, hop, n_frames, tw, fb, dc,
+                                        n_filt, n_mfcc, out, s, src_mod)
+                  : launch_cut<float>(stop, audio, 1.0f, g, batch, n_samples, n_fft,
+                                      log2_fft, hop, n_frames, tw, fb, dc, n_filt,
+                                      n_mfcc, out, s, src_mod);
   return static_cast<int>(err);
 }
 

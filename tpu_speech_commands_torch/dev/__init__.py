@@ -11,7 +11,12 @@ package's `tools/dev/` scripts whose TPU kernels the port carries:
   reference;
 - `r3_frontend_variants`, `r3_stage2`, `r3_widecell`: the CT split kernel's
   instantiations (csrc/ct_frontend.cu) that the JAX package's CT variants
-  map onto, each held to the FFT kernel and timed beside it.
+  map onto, each held to the FFT kernel and timed beside it;
+- `r3_omission`: the stage-omission profile, the CT split and FFT kernels
+  each cut after every stage (`ops/omission_kernel.py`), streamed and
+  constant-block, each cut held to its plain version and timed;
+- `ct_ablation`: the CT split kernel with one part of its source cut out at
+  a time, built beside the shipped library.
 
 Each runs on the card and raises RuntimeError where CUDA is absent:
 
@@ -21,6 +26,8 @@ Each runs on the card and raises RuntimeError where CUDA is absent:
     python -m tpu_speech_commands_torch.dev.r3_frontend_variants --batch 8192
     python -m tpu_speech_commands_torch.dev.r3_stage2 --batch 8192
     python -m tpu_speech_commands_torch.dev.r3_widecell --batch 8192
+    python -m tpu_speech_commands_torch.dev.r3_omission --batch 8192
+    python -m tpu_speech_commands_torch.dev.ct_ablation
 
 Their `make_*` functions take `device="cpu"` for the plain versions.
 """

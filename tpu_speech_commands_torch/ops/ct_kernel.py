@@ -138,31 +138,14 @@ def ct_frontend_plain(audio: torch.Tensor, gain, consts: CtConstants,
                          f"n_features={p.n_features} frames")
     frames = frame_signal(x, p.n_fft, p.hop_samples)
     frames = frames[:, n_frames - p.n_features:n_frames]
-    n2, half = consts.n2, consts.n2 // 2
-    planes = frames.reshape(*frames.shape[:-1], n2, LANES)  # (B, T, a, b)
-    # stage 1 for residues s <= n2 / 2: (B, T, s, [T_re | T_im] over b)
-    tab = consts.stage1[:, :half + 1]
-    t = torch.cat([torch.einsum("ntak,sa->ntsk", planes, tab[0]),
-                   torch.einsum("ntak,sa->ntsk", planes, tab[1])], -1)
-    if paired:
-        groups = torch.einsum("ntsk,skc->ntsc", t, consts.e2[True])
-        xs = [None] * n2
-        for s in range(half + 1):
-            xs[s] = groups[:, :, s, :LANES]
-            if s not in (0, half):
-                xs[n2 - s] = groups[:, :, s, LANES:]
-        xs = torch.stack(xs, 2)
-    else:
-        sr = [s if s <= half else n2 - s for s in range(n2)]
-        xs = torch.einsum("ntsk,skc->ntsc", t[:, :, sr], consts.e2[False])
-    # xs: (B, T, n2, [Xr | Xi] of bins n2 j + s)
-    xnyq = (t[:, :, 0, :LANES] * _alternating(p, t)).sum(-1, keepdim=True)
+    t = ct_stage1(frames, consts)
+    xs = ct_stage2(t, consts, paired)
+    xnyq = ct_nyquist(t, p)
     sq = xs * xs
     if per_piece_mel:
         mel_e = torch.einsum("ntsc,scm->ntm", sq, consts.filt_dup)
     else:
-        power = (sq[..., :CT_J] + sq[..., CT_J:]).flatten(2)
-        mel_e = torch.matmul(power, consts.filt)
+        mel_e = torch.matmul(ct_power(sq), consts.filt)
     logs = safe_log(mel_e + xnyq * xnyq * consts.filt_nyq)
     coeffs = torch.matmul(logs[..., :p.n_filt], consts.dct_t)
     out = torch.cat([logs[..., p.n_filt:], coeffs[..., 1:p.n_mfcc]], -1)
@@ -173,10 +156,43 @@ def ct_frontend_plain(audio: torch.Tensor, gain, consts: CtConstants,
     return out.to(out_dtype)
 
 
-def _alternating(p: ListenerParams, like: torch.Tensor) -> torch.Tensor:
-    """(-1)^b / sqrt(n_fft), b < 128: the Nyquist bin's row sum of T[0]."""
-    sign = 1.0 - 2.0 * (torch.arange(LANES, device=like.device) % 2)
-    return sign.to(torch.float32) * float(1.0 / np.sqrt(p.n_fft))
+def ct_stage1(frames: torch.Tensor, consts: CtConstants) -> torch.Tensor:
+    """(B, T, n_fft) frames -> (B, T, n2 / 2 + 1, 256): stage 1 for the
+    residues s <= n2 / 2 against the stage-1 tables, [T_re | T_im] over b."""
+    planes = frames.reshape(*frames.shape[:-1], consts.n2, LANES)  # (B, T, a, b)
+    tab = consts.stage1[:, :consts.n2 // 2 + 1]
+    return torch.cat([torch.einsum("ntak,sa->ntsk", planes, tab[0]),
+                      torch.einsum("ntak,sa->ntsk", planes, tab[1])], -1)
+
+
+def ct_stage2(t: torch.Tensor, consts: CtConstants, paired: bool) -> torch.Tensor:
+    """Stage 2 against the unpaired or paired packs: (B, T, n2, [Xr | Xi])
+    of the bins n2 j + s, scaled by 1 / sqrt(n_fft)."""
+    n2, half = consts.n2, consts.n2 // 2
+    if paired:
+        groups = torch.einsum("ntsk,skc->ntsc", t, consts.e2[True])
+        xs = [None] * n2
+        for s in range(half + 1):
+            xs[s] = groups[:, :, s, :LANES]
+            if s not in (0, half):
+                xs[n2 - s] = groups[:, :, s, LANES:]
+        return torch.stack(xs, 2)
+    sr = [s if s <= half else n2 - s for s in range(n2)]
+    return torch.einsum("ntsk,skc->ntsc", t[:, :, sr], consts.e2[False])
+
+
+def ct_power(sq: torch.Tensor) -> torch.Tensor:
+    """(B, T, n2, 128) squares -> (B, T, n_fft / 2) power row, permuted:
+    column s * 64 + j holds bin n2 j + s."""
+    return (sq[..., :CT_J] + sq[..., CT_J:]).flatten(2)
+
+
+def ct_nyquist(t: torch.Tensor, p: ListenerParams) -> torch.Tensor:
+    """(B, T, 1): the Nyquist bin's signed amplitude, sum_b (-1)^b T[0, b] /
+    sqrt(n_fft)."""
+    sign = 1.0 - 2.0 * (torch.arange(LANES, device=t.device) % 2)
+    alt = sign.to(torch.float32) * float(1.0 / np.sqrt(p.n_fft))
+    return (t[:, :, 0, :LANES] * alt).sum(-1, keepdim=True)
 
 
 def ct_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
