@@ -15,10 +15,13 @@ Phases, in order; any failure raises and the script exits non-zero:
             and a first frame; the load-floor kernels at gains 1 and 1.5;
             the CT split kernel's four instantiations at the default config,
             batch- and time-major, and at n_fft = window = 768 with deltas,
-            int16 in and bf16 out; the FFT kernel at window 1200 > n_fft;
-            every stage cut of the CT split and FFT kernels, streamed and
-            constant-block, at B = 1008 on f32 audio, and on int16 at
-            `full`)
+            int16 in and bf16 out; the FFT kernel at window 1200 > n_fft,
+            at alt_512 and an odd hop of 481, at every n_fft its register
+            body takes (128 .. 4096) and at 8192 (its radix-2 body), f32
+            and int16 in, f32 and bf16 out, and its radix-2 body at the
+            default config; every stage cut of the CT split and FFT
+            kernels, streamed and constant-block, at B = 1008 on f32
+            audio, and on int16 at `full`)
 4. slices   each path driven on the eight example/*.wav clips in f32 and
             bf16, with every launch count set to 0 just before it and read
             just after:
@@ -35,9 +38,10 @@ Phases, in order; any failure raises and the script exits non-zero:
               classifier kernels for all four checkpoints: top-1 and both
               launch counts;
             - make_batch_scorer for direction_simple_gru.npz with its params
-              set to the three classes of config the route choice covers:
+              set to the classes of config the route choice covers:
               n_fft = window = 768 (route cuda-ct, the CT kernel), window
-              1200 > n_fft 1024 (cuda-mfcc, the FFT kernel) and n_fft 400
+              1200 > n_fft 1024 (cuda-mfcc, the FFT kernel's register
+              body), n_fft 8192 (cuda-mfcc, its radix-2 body) and n_fft 400
               (torch(xla-route), the plain chain): `.paths` must name the
               route, its kernels' launch counts must rise, and the scores
               must agree with the same scorer on the CPU;
@@ -53,8 +57,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. times    CUDA-event times at B = 8192, audio resident on the card (the
             dense-DFT, load-floor and CT kernels are first held to their
             plain versions at this batch, their entry points' own, with the
-            phase-3 tolerances; the CT kernel's (F, F) instantiation is timed
-            against the FFT kernel in turns, fft, ct, ct, fft): each
+            phase-3 tolerances; the FFT kernel's register body is timed
+            against its radix-2 body in turns, radix-2, register, register,
+            radix-2, and the CT kernel's (F, F) instantiation against the
+            FFT kernel in turns, fft, ct, ct, fft): each
             kernel against its plain version (the fast_math frontend also
             against the FFT kernel), the one PyTorch call that computes the
             same function where there is one (torch.sum for the load
@@ -271,12 +277,14 @@ def kernel_bounds(p, batch, n_samples, rnn_dims, cnn_consts):
     block1_out = 4.0 * batch * b1.h_out * b1.w_out * b1.cout
     rnn_b = feats_b + 4.0 * batch * classes
     cnn_b = feats_b + 4.0 * batch * cnn_classes
-    # the CT split kernel computes the FFT kernel's function: the same bound
-    # (its own algorithm's floor is ct_split_flops, information only)
+    # the FFT kernel's two bodies and the CT split kernel compute one
+    # function: one bound (the CT split's own algorithm's floor is
+    # ct_split_flops, information only)
     frontend = bound_ms(fft + cepstrum, 0, audio_b + feats_b)
     return {
         **dict.fromkeys(VARIANTS, frontend),
         "mfcc_frontend": frontend,
+        "mfcc_frontend_radix2": frontend,
         "dft_frontend_bf16": bound_ms(cepstrum, dft, audio_b + feats_b),
         "gru_classifier": bound_ms(rnn[3], 0, rnn_b),
         "lstm_classifier": bound_ms(rnn[4], 0, rnn_b),
@@ -613,12 +621,54 @@ def main() -> int:
                                                 want, audio_f32, gain))
 
     # the FFT kernel at a window longer than n_fft (it reads the first n_fft
-    # samples of a frame), and the dense combined kernel with a gain and a
-    # first frame (the JAX dense frontend's f32 contract)
-    fe = MfccFrontend(ListenerParams(window_t=0.075), "mfcc", dev)
-    frontend_errs.append(check_close(
-        "frontend window 1200 > n_fft 1024 mfcc int16->float32 gain 0.8",
-        fe(audio_i16, 0.8), fe.plain(audio_i16, 0.8), FEAT_ATOL, FEAT_RTOL))
+    # samples of a frame), at alt_512 and an odd hop, at every n_fft of its
+    # register body and at one of its radix-2 body, in both input and output
+    # types; its radix-2 body at the default config
+    radix2_errs = []
+    fft_cases = [
+        ("window 1200 > n_fft 1024", {"window_t": 0.075}),
+        ("alt_512", {"window_t": 0.025, "hop_t": 0.01, "n_fft": 512,
+                     "n_filt": 26, "n_mfcc": 13}),
+        ("odd hop 481", {"hop_t": 481 / 16000}),
+        *((f"n_fft {n}", {"n_fft": n, "window_t": min(0.064, n / 16000)})
+          for n in (128, 256, 512, 2048, 4096, 8192)),
+    ]
+    for name, kw in fft_cases:
+        p = ListenerParams(**kw)
+        body = frontend_kernel.fft_body(p)
+        for audio, out_dtype, gain in ((audio_f32, torch.float32, 0.8),
+                                       (audio_i16, torch.bfloat16, 1.25),
+                                       (audio_i16, torch.float32, 1.0),
+                                       (audio_f32, torch.bfloat16, 1.1)):
+            fe = MfccFrontend(p, "mfcc", dev, out_dtype=out_dtype)
+            got = fe(audio, gain)
+            torch.cuda.synchronize()
+            want = fe.plain(audio, gain).to(out_dtype)
+            what = (f"frontend ({body}) {name} mfcc {str(audio.dtype)[6:]}->"
+                    f"{str(out_dtype)[6:]} gain {gain}")
+            if out_dtype == torch.float32:
+                (radix2_errs if body == "radix2" else frontend_errs).append(
+                    check_close(what, got, want, FEAT_ATOL, FEAT_RTOL))
+            else:
+                check_close(what, got, want, FEAT_BF16_ATOL, FEAT_BF16_RTOL)
+    p = ListenerParams()
+    fe_consts = frontend_kernel.KernelConstants(p, "mfcc", dev)
+    for audio, out_dtype, gain in ((audio_f32, torch.float32, 0.8),
+                                   (audio_i16, torch.bfloat16, 1.25)):
+        gain_t = torch.full((1,), gain, dtype=torch.float32, device=dev)
+        got = frontend_kernel.mfcc_frontend_cuda(audio, gain_t, fe_consts, p,
+                                                 out_dtype, _radix2=True)
+        torch.cuda.synchronize()
+        want = Frontend(p, "mfcc", dev)(audio, gain).to(out_dtype)
+        what = (f"frontend (radix2 forced) default mfcc "
+                f"{str(audio.dtype)[6:]}->{str(out_dtype)[6:]} gain {gain}")
+        if out_dtype == torch.float32:
+            radix2_errs.append(check_close(what, got, want, FEAT_ATOL,
+                                           FEAT_RTOL))
+        else:
+            check_close(what, got, want, FEAT_BF16_ATOL, FEAT_BF16_RTOL)
+    # the dense combined kernel with a gain and a first frame (the JAX
+    # dense frontend's f32 contract)
     consts = dense_dft_kernel.DenseDftConstants(ListenerParams(hop_t=0.03), dev)
     gain_t = torch.full((1,), 1.3, dtype=torch.float32, device=dev)
     dense_errs["dense_dft_combined"].append(check_close(
@@ -689,6 +739,7 @@ def main() -> int:
     # -- 4. the slices ---------------------------------------------------------
     counters = {
         "mfcc_frontend": frontend_kernel.mfcc_frontend_cuda,
+        "mfcc_frontend_radix2": frontend_kernel.RADIX2,
         "dft_frontend_bf16": frontend_kernel.dft_frontend_bf16_cuda,
         "gru_classifier": rnn_kernel.gru_layer_cuda,
         "lstm_classifier": rnn_kernel.lstm_layer_cuda,
@@ -761,6 +812,8 @@ def main() -> int:
          ("ct_frontend", "gru_classifier")),
         ("window 1200 > n_fft 1024", {"window_t": 0.075}, "cuda-mfcc",
          ("mfcc_frontend", "gru_classifier")),
+        ("n_fft 8192 (the radix-2 body)", {"n_fft": 8192}, "cuda-mfcc",
+         ("mfcc_frontend_radix2", "gru_classifier")),
         ("n_fft 400", {"n_fft": 400, "window_t": 0.025}, "torch(xla-route)",
          ("gru_classifier",)),
     )
@@ -856,9 +909,37 @@ def main() -> int:
                                     dev)
     fast_fe = MfccFrontend(ListenerParams(), "mfcc", dev, fast_math=True)
     lstm_cls = LSTMClassifier(lstm_pretrained, torch.float32)
+    p0 = ListenerParams()
+    unit_gain = torch.ones(1, dtype=torch.float32, device=dev)
+
+    def radix2(x=big):
+        return frontend_kernel.mfcc_frontend_cuda(x, unit_gain, fe.consts, p0,
+                                                  _radix2=True)
+
+    # both bodies held to the plain version at this batch, then in turns
+    fe_plain_big = fe.plain(big)
+    frontend_errs.append(check_close(f"frontend (register) default B = "
+                                     f"{B_TIME}", fe(big), fe_plain_big,
+                                     FEAT_ATOL, FEAT_RTOL))
+    radix2_errs.append(check_close(f"frontend (radix2 forced) default B = "
+                                   f"{B_TIME}", radix2(), fe_plain_big,
+                                   FEAT_ATOL, FEAT_RTOL))
+    del fe_plain_big
+    body_ab = {"radix2": [], "register": []}
+    for which in ("radix2", "register", "register", "radix2"):
+        body_ab[which].append(cuda_ms(radix2 if which == "radix2" else
+                                      (lambda: fe(big)), 20))
+    log(f"  A/B at B = {B_TIME}, default config, f32 audio and output, in "
+        f"turns radix-2, register, register, radix-2: register body "
+        f"(mfcc_frontend) {body_ab['register'][0]:.4f}, "
+        f"{body_ab['register'][1]:.4f} ms; radix-2 body "
+        f"(mfcc_frontend_radix2) {body_ab['radix2'][0]:.4f}, "
+        f"{body_ab['radix2'][1]:.4f} ms = "
+        f"{sum(body_ab['radix2']) / sum(body_ab['register']):.2f}x  ({card})")
+    fe_plain_ms = cuda_ms(lambda: fe.plain(big), 5)  # both bodies' function
     times = {
-        "mfcc_frontend": (cuda_ms(lambda: fe(big), 20),
-                          cuda_ms(lambda: fe.plain(big), 5)),
+        "mfcc_frontend": (cuda_ms(lambda: fe(big), 20), fe_plain_ms),
+        "mfcc_frontend_radix2": (cuda_ms(radix2, 10), fe_plain_ms),
         "dft_frontend_bf16": (cuda_ms(lambda: fast_fe(big), 20),
                               cuda_ms(lambda: fast_fe.plain(big), 5)),
         "gru_classifier": (cuda_ms(lambda: cls(big_feats), 20),
@@ -884,7 +965,6 @@ def main() -> int:
             plain(big, dense_consts), FEAT_ATOL, FEAT_RTOL))
         times[name] = (cuda_ms(lambda: launch(big, dense_consts), 10),
                        cuda_ms(lambda: plain(big, dense_consts), 5))
-    unit_gain = torch.ones(1, dtype=torch.float32, device=dev)
     for name, extra in (("load_rowsum", ()), ("load_broadcast", (out_cols,))):
         launch = getattr(load_kernel, name + "_cuda")
         plain = getattr(load_kernel, name + "_plain")
@@ -897,7 +977,6 @@ def main() -> int:
                        cuda_ms(lambda: plain(big, unit_gain, *extra), 20))
     # the CT split kernel's instantiations, held to the plain version at
     # this batch, and the (F, F) one against the FFT kernel in turns
-    p0 = ListenerParams()
     ct_consts = ct_kernel.CtConstants(p0, "mfcc", dev)
     for name, (paired, per_piece, _) in ct_kernel.VARIANTS.items():
         def ct_launch(paired=paired, per_piece=per_piece):
@@ -1046,6 +1125,8 @@ def main() -> int:
     for name, source, replaces, errs in (
             ("mfcc_frontend", frontend_kernel.SOURCE, frontend_kernel.REPLACES,
              frontend_errs),
+            ("mfcc_frontend_radix2", frontend_kernel.SOURCE,
+             frontend_kernel.REPLACES, radix2_errs),
             ("dft_frontend_bf16", frontend_kernel.DFT_SOURCE,
              frontend_kernel.DFT_REPLACES, fast_errs),
             ("gru_classifier", rnn_kernel.SOURCE, rnn_kernel.REPLACES,

@@ -78,6 +78,14 @@ CONFIGS = {
     "alt_512": ({"window_t": 0.025, "hop_t": 0.01, "n_fft": 512,
                  "n_filt": 26, "n_mfcc": 13}, "mfcc"),
 }
+# the FFT kernel also at both ends of its register body's sizes (n_fft 128
+# and 4096) and at a size its radix-2 body takes (64)
+FFT_CONFIGS = {
+    **CONFIGS,
+    "n_fft=128": ({"n_fft": 128, "window_t": 0.008}, "mfcc"),
+    "n_fft=4096": ({"n_fft": 4096}, "mfcc"),
+    "n_fft=64 radix2": ({"n_fft": 64, "window_t": 0.004}, "mfcc"),
+}
 
 
 @pytest.fixture(autouse=True)
@@ -108,14 +116,22 @@ def _clips():
     return np.stack(audio), labels
 
 
-@pytest.mark.parametrize("name", sorted(CONFIGS))
+def _frontend_counter(p):
+    """The launch count of the FFT kernel's body that config `p` takes."""
+    if frontend_kernel.fft_body(p) == "radix2":
+        return frontend_kernel.RADIX2
+    return frontend_kernel.mfcc_frontend_cuda
+
+
+@pytest.mark.parametrize("name", sorted(FFT_CONFIGS))
 @pytest.mark.parametrize("audio_dtype", ["float32", "int16"])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_frontend_kernel_matches_plain(cuda_device, name, audio_dtype,
                                        out_dtype):
     """B = 13: one block a window, so no tile multiple matters."""
-    kw, feature_type = CONFIGS[name]
+    kw, feature_type = FFT_CONFIGS[name]
     p = ListenerParams(**kw)
+    assert (frontend_kernel.fft_body(p) == "radix2") == name.endswith("radix2")
     clips, _ = _clips()
     rows = clips[np.arange(13) % 8].astype(np.float32) / 32768.0
     audio = rows * np.linspace(0.3, 1.5, 13, dtype=np.float32)[:, None]
@@ -123,15 +139,67 @@ def test_frontend_kernel_matches_plain(cuda_device, name, audio_dtype,
         audio = np.clip(audio * 32768.0, -32768, 32767).astype(np.int16)
     audio = torch.tensor(audio, device=cuda_device)
     fe = MfccFrontend(p, feature_type, cuda_device, out_dtype=out_dtype)
-    before = frontend_kernel.mfcc_frontend_cuda.launches
+    counter = _frontend_counter(p)
+    before = counter.launches
     got = fe(audio, 0.8)
     torch.cuda.synchronize()
-    assert frontend_kernel.mfcc_frontend_cuda.launches == before + 1
+    assert counter.launches == before + 1
     assert got.shape == (13, p.n_features, p.feature_size)
     assert got.dtype == out_dtype
     want = fe.plain(audio, 0.8).to(out_dtype)
     rtol = 1e-3 if out_dtype == torch.float32 else 1e-3 + 2.0 ** -7
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=2e-3)
+
+
+@pytest.mark.parametrize("audio_dtype", ["float32", "int16"])
+def test_frontend_kernel_ragged_batch(cuda_device, audio_dtype):
+    """B = 1000 windows at the default config: no batch multiple matters."""
+    p = ListenerParams()
+    audio = torch.tensor(_ct_audio(audio_dtype, batch=1000), device=cuda_device)
+    fe = MfccFrontend(p, "mfcc", cuda_device)
+    got = fe(audio, 1.1)
+    torch.cuda.synchronize()
+    assert got.shape == (1000, 30, 20) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, fe.plain(audio, 1.1), rtol=1e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("audio_dtype", ["float32", "int16"])
+def test_frontend_kernel_unaligned_frames(cuda_device, audio_dtype):
+    """hop 481 (odd frame starts), rows of 16001 samples (an odd pitch) and
+    a row base one sample off: the pair loads fall back to scalar loads
+    inside the kernel."""
+    p = ListenerParams(hop_t=481 / 16000)
+    rows = np.pad(_ct_audio(audio_dtype), ((0, 0), (0, 1)))
+    flat = torch.zeros(rows.size + 1, dtype=torch.float32
+                       if audio_dtype == "float32" else torch.int16)
+    flat[1:] = torch.tensor(rows.ravel())
+    fe = MfccFrontend(p, "mfcc", cuda_device)
+    for audio in (torch.tensor(rows, device=cuda_device),
+                  flat.to(cuda_device)[1:].view(rows.shape)):
+        got = fe(audio, 0.9)
+        torch.testing.assert_close(got, fe.plain(audio, 0.9), rtol=1e-3,
+                                   atol=2e-3)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_register_and_radix2_bodies_agree(cuda_device, out_dtype):
+    """The default config through both bodies of the FFT kernel (the A/B
+    chip_smoke.py times): within the feature bound of each other, each
+    counted to its own launch count."""
+    p = ListenerParams()
+    audio = torch.tensor(_ct_audio("float32", batch=64), device=cuda_device)
+    consts = frontend_kernel.KernelConstants(p, "mfcc", cuda_device)
+    gain = torch.full((1,), 1.2, dtype=torch.float32, device=cuda_device)
+    before = (frontend_kernel.mfcc_frontend_cuda.launches,
+              frontend_kernel.RADIX2.launches)
+    new = frontend_kernel.mfcc_frontend_cuda(audio, gain, consts, p, out_dtype)
+    old = frontend_kernel.mfcc_frontend_cuda(audio, gain, consts, p, out_dtype,
+                                             _radix2=True)
+    torch.cuda.synchronize()
+    assert (frontend_kernel.mfcc_frontend_cuda.launches,
+            frontend_kernel.RADIX2.launches) == (before[0] + 1, before[1] + 1)
+    rtol = 1e-3 if out_dtype == torch.float32 else 1e-3 + 2.0 ** -7
+    torch.testing.assert_close(new.float(), old.float(), rtol=rtol, atol=2e-3)
 
 
 def test_frontend_kernel_rejects_what_it_cannot_take(cuda_device):

@@ -16,7 +16,9 @@ package's `tools/dev/` scripts whose TPU kernels the port carries:
   each cut after every stage (`ops/omission_kernel.py`), streamed and
   constant-block, each cut held to its plain version and timed;
 - `ct_ablation`: the CT split kernel with one part of its source cut out at
-  a time, built beside the shipped library.
+  a time, built beside the shipped library;
+- `fft_ablation`: the FFT kernel's register body the same way, with one part
+  cut out or one design choice undone at a time.
 
 Each runs on the card and raises RuntimeError where CUDA is absent:
 
@@ -28,6 +30,7 @@ Each runs on the card and raises RuntimeError where CUDA is absent:
     python -m tpu_speech_commands_torch.dev.r3_widecell --batch 8192
     python -m tpu_speech_commands_torch.dev.r3_omission --batch 8192
     python -m tpu_speech_commands_torch.dev.ct_ablation
+    python -m tpu_speech_commands_torch.dev.fft_ablation
 
 Their `make_*` functions take `device="cpu"` for the plain versions.
 """

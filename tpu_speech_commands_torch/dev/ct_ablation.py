@@ -59,7 +59,7 @@ def variant_sources() -> dict:
     return out
 
 
-def build(sources: dict) -> dict:
+def build(sources: dict, stem: str = "ct") -> dict:
     """Compile each source into its own library (one nvcc each, all started
     together) in a temporary directory under the build directory."""
     nvcc = _build.find_nvcc()
@@ -67,7 +67,7 @@ def build(sources: dict) -> dict:
     tmp = tempfile.mkdtemp(dir=_build.BUILD_DIR)
     procs = {}
     for name, src in sources.items():
-        cu = f"{tmp}/ct_{name}.cu"
+        cu = f"{tmp}/{stem}_{name}.cu"
         with open(cu, "w") as f:
             f.write(src)
         procs[name] = subprocess.Popen(
@@ -78,7 +78,7 @@ def build(sources: dict) -> dict:
         log = proc.communicate()[0]
         if proc.returncode:
             raise _build.KernelBuildError(f"nvcc failed on variant {name}:\n{log}")
-        libs[name] = ctypes.CDLL(f"{tmp}/ct_{name}.so")
+        libs[name] = ctypes.CDLL(f"{tmp}/{stem}_{name}.so")
     return libs
 
 

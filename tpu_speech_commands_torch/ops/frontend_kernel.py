@@ -6,7 +6,10 @@ versions, and the choice of route for a config.
 the contract of the dense branch of `make_fused_frontend`): gain x audio
 (int16 decoded as x/32768), framing, FFT power spectrum, mel or bark
 filterbank, log, DCT, log-energy coefficient, optional deltas and the tail
-trim to n_features, in one launch.
+trim to n_features, in one launch.  It has two bodies, chosen from the
+config (`fft_body`): the register-resident real-input FFT with the packed
+filterbank for n_fft 128 .. 4096 (`fft_plan.py` holds its plan), and the
+shared-memory radix-2 FFT for every other power of two.
 
 `csrc/dft_frontend.cu` replaces the TPU kernel
 `tpu_speech_commands/ops/pallas_frontend.py::make_fused_frontend` with
@@ -20,7 +23,8 @@ through the plain PyTorch chain (`frontend/dsp.py::Frontend`, with the same
 `fast_math`), a CUDA tensor takes the route `frontend_route` chose for the
 config when the frontend was built:
 - "fft": n_fft a power of two, the FFT kernel (a window longer than n_fft
-  is cut to its first n_fft samples, as np.fft.rfft(frame, n=n_fft) does);
+  is cut to its first n_fft samples, as np.fft.rfft(frame, n=n_fft) does),
+  its register body for n_fft 128 .. 4096 and its radix-2 body otherwise;
 - "ct": the configs the JAX package's CT kernel takes and the FFT kernel
   cannot, n_fft = 128 n2 (n2 even, not a power of two) == window: the CT
   split kernel (`ct_kernel.py`, csrc/ct_frontend.cu);
@@ -44,7 +48,9 @@ from ..params import ListenerParams, pr
 from . import _build
 from ._checks import OUT_DTYPES, check_launch, check_row_major, row_major
 from .ct_constants import ct_eligible
-from .ct_kernel import CtConstants, ct_config_error, ct_frontend_cuda
+from .ct_kernel import CtConstants, LaunchCount, ct_config_error, ct_frontend_cuda
+from .fft_plan import (SMEM_OPTIN, fft_layout, fft_plan, filterbank_plan,
+                       pack_filterbank, takes_register_fft)
 
 SOURCE = "tpu_speech_commands_torch/csrc/mfcc_frontend.cu"
 REPLACES = "tpu_speech_commands/ops/pallas_frontend.py:745"
@@ -53,9 +59,10 @@ DFT_REPLACES = "tpu_speech_commands/ops/pallas_frontend.py:340"
 
 # tsc_mfcc_frontend(audio, audio_int16, gain, batch, n_samples, window, hop,
 #   n_fft, first_frame, n_features, twiddle, filt_t, dct_t, n_filt, n_mfcc,
-#   emit_deltas, out, out_bf16, stream)
-_N_ARGS = 19
-_INT_ARGS = (1, 3, 4, 5, 6, 7, 8, 9, 13, 14, 15, 17)
+#   emit_deltas, out, out_bf16, plan_twiddle, filt_packed, fb_table,
+#   n_packed, n_seg, radix2, stream)
+_N_ARGS = 25
+_INT_ARGS = (1, 3, 4, 5, 6, 7, 8, 9, 13, 14, 15, 17, 21, 22, 23)
 
 # tsc_dft_frontend_bf16(audio, audio_int16, gain, batch, n_samples, hop,
 #   first_frame, n_features, wpb, n_seg, seg_pitch, win_pitch, dft, k_pad,
@@ -81,6 +88,26 @@ def frontend_route(p: ListenerParams) -> str:
     return "ct" if ct_eligible(p) else "torch"
 
 
+def _register_plan(p: ListenerParams, feature_type: str):
+    """The register body's plan, filterbank plan and shared-memory layout
+    for config `p`."""
+    plan = fft_plan(p.n_fft)
+    fb = filterbank_plan(filterbank_matrix(p, feature_type).T, plan.lanes)
+    return plan, fb, fft_layout(plan, fb, p.n_filt, p.n_mfcc, p.n_features)
+
+
+def fft_body(p: ListenerParams, feature_type: str = "mfcc") -> str:
+    """Which body of the FFT kernel takes config `p` (route "fft"):
+    "register" for n_fft 128 .. 4096 where its shared memory fits a block,
+    "radix2" for every other power of two (and a config whose filterbank,
+    DCT or coefficients leave the register body no room).  Chosen from the
+    config, never from a failed launch."""
+    if not takes_register_fft(p.n_fft):
+        return "radix2"
+    smem = _register_plan(p, feature_type)[2].smem_bytes
+    return "register" if smem <= SMEM_OPTIN else "radix2"
+
+
 def kernel_config_error(p: ListenerParams) -> str | None:
     """Why the FFT kernel cannot take config `p`, or None when it can."""
     n_fft = p.n_fft
@@ -95,21 +122,36 @@ def kernel_config_error(p: ListenerParams) -> str | None:
 
 
 class KernelConstants:
-    """Device-resident constants of the FFT kernel for one config: twiddles
-    exp(-2 pi i k / n_fft) built in float64 and stored as complex64, the
-    filterbank transposed to (n_filt, n_bins), the transposed DCT."""
+    """Device-resident constants of the FFT kernel for one config.  Both
+    bodies: the transposed DCT.  The radix-2 body: twiddles exp(-2 pi i k /
+    n_fft), k < n_fft / 2, built in float64 and stored as float32 (cos, sin)
+    rows, and the filterbank transposed to (n_filt, n_bins).  The register
+    body, where `fft_body` gives it the config (else None): `plan.twiddle`
+    as float32 rows, the packed filterbank and its int32 lane / filter /
+    segment table (`fft_plan.filterbank_plan`), and `layout`, its shared
+    memory."""
 
     def __init__(self, p: ListenerParams, feature_type: str, device):
         k = np.arange(p.n_fft // 2, dtype=np.float64)
         ang = -2.0 * np.pi * k / p.n_fft
+        filt_t = filterbank_matrix(p, feature_type).T
         self.twiddle = row_major(np.stack([np.cos(ang), np.sin(ang)], axis=-1),
                                  device)
-        self.filt_t = row_major(filterbank_matrix(p, feature_type).T, device)
+        self.filt_t = row_major(filt_t, device)
         self.dct_t = row_major(dct_t_matrix(p.n_filt), device)
         self.device = self.twiddle.device  # with its index: cuda -> cuda:0
         check_row_major(
             (self.twiddle, self.filt_t, self.dct_t),
             ((p.n_fft // 2, 2), (p.n_filt, p.n_fft_bins), (p.n_filt, p.n_filt)))
+        self.plan = self.fb = self.layout = None
+        self.plan_twiddle = self.filt_packed = self.fb_table = None
+        if fft_body(p, feature_type) == "register":
+            self.plan, self.fb, self.layout = _register_plan(p, feature_type)
+            self.plan_twiddle = row_major(self.plan.twiddle, device)
+            self.filt_packed = row_major(self.fb.packed, device)
+            self.fb_table = row_major(self.fb.table, device, np.int32)
+            check_row_major((self.plan_twiddle, self.fb_table),
+                            ((len(self.plan.twiddle), 2), (len(self.fb.table),)))
 
 
 def _round_up(v: int, m: int) -> int:
@@ -205,25 +247,6 @@ def dft_bf16_matrix(p: ListenerParams, layout: DftLayout) -> np.ndarray:
     return m
 
 
-def pack_filterbank(filt_t: np.ndarray):
-    """The (n_filt, n_bins) filterbank as the kernel keeps it in shared
-    memory: each filter's bins from its first to its last nonzero, back to
-    back in one float32 vector, and (n_filt, 3) int32 rows (lo, hi, offset)
-    so that filter m's weight of bin k in [lo, hi) is packed[offset + k -
-    lo].  An all-zero filter gets (0, 0, offset)."""
-    ranges = np.zeros((filt_t.shape[0], 3), np.int32)
-    chunks, offset = [], 0
-    for m, row in enumerate(filt_t):
-        nz = np.flatnonzero(row)
-        lo, hi = (nz[0], nz[-1] + 1) if nz.size else (0, 0)
-        ranges[m] = lo, hi, offset
-        chunks.append(row[lo:hi])
-        offset += hi - lo
-    packed = np.concatenate(chunks).astype(np.float32) if offset else \
-        np.zeros(0, np.float32)
-    return packed, ranges
-
-
 class DftConstants:
     """Device-resident constants of the fast_math DFT kernel for one config:
     the bf16 cos|sin matrix (`dft_bf16_matrix`), the transposed filterbank
@@ -248,10 +271,14 @@ class DftConstants:
 
 def mfcc_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
                        consts: KernelConstants, p: ListenerParams,
-                       out_dtype=torch.float32) -> torch.Tensor:
+                       out_dtype=torch.float32, *,
+                       _radix2: bool = False) -> torch.Tensor:
     """Launch the frontend kernel.  audio (B, S) float32 or int16 and gain
     (1,) float32, both on consts' CUDA device -> (B, n_features,
-    feature_size) out_dtype.  Every launch adds one to `.launches`."""
+    feature_size) out_dtype.  The body is `fft_body(p)`'s; `_radix2` sends
+    a config the register body takes to the radix-2 body instead (the
+    same-call A/B of the two).  A launch of the register body adds one to
+    `.launches`, one of the radix-2 body to `RADIX2.launches`."""
     err = kernel_config_error(p)
     if err:
         raise ValueError(err)
@@ -261,23 +288,32 @@ def mfcc_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
                       device=audio.device)
     if batch == 0:
         return out
+    radix2 = _radix2 or consts.plan is None
     fn = _build.bind("tsc_mfcc_frontend", _N_ARGS, _INT_ARGS)
     with torch.cuda.device(audio.device):
         stream = torch.cuda.current_stream(audio.device).cuda_stream
+        plan_args = (0, 0, 0, 0, 0) if consts.plan is None else (
+            consts.plan_twiddle.data_ptr(), consts.filt_packed.data_ptr(),
+            consts.fb_table.data_ptr(), len(consts.fb.packed), consts.fb.n_seg)
         rc = fn(
             audio.data_ptr(), int(audio.dtype == torch.int16),
             gain.data_ptr(), batch, n_samples, p.window_samples,
             p.hop_samples, p.n_fft, n_frames - p.n_features, p.n_features,
             consts.twiddle.data_ptr(), consts.filt_t.data_ptr(),
             consts.dct_t.data_ptr(), p.n_filt, p.n_mfcc, int(p.use_delta),
-            out.data_ptr(), int(out_dtype == torch.bfloat16), stream,
+            out.data_ptr(), int(out_dtype == torch.bfloat16), *plan_args,
+            int(radix2), stream,
         )
     _build.check(rc, "tsc_mfcc_frontend")
-    mfcc_frontend_cuda.launches += 1
+    if radix2:
+        RADIX2.launches += 1
+    else:
+        mfcc_frontend_cuda.launches += 1
     return out
 
 
 mfcc_frontend_cuda.launches = 0
+RADIX2 = LaunchCount()  # launches of the radix-2 body
 
 
 def dft_frontend_bf16_cuda(audio: torch.Tensor, gain: torch.Tensor,

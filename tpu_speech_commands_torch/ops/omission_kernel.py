@@ -10,9 +10,9 @@ rate differences give each stage's cost.  The port cuts two kernels the same
 way, each with a compile-time STOP switch:
 - the CT split kernel, `csrc/ct_frontend.cu`'s (F, F) instantiation
   (`ct_truncated_cuda`): the port of the TPU kernel;
-- the FFT kernel, `csrc/mfcc_frontend.cu` (`fft_truncated_cuda`,
-  `FFT_STAGES`: it has no butterfly): the profile of the port's production
-  frontend.
+- the FFT kernel's register body, `csrc/mfcc_frontend.cu`
+  (`fft_truncated_cuda`, `FFT_STAGES`: it has no butterfly stage): the
+  profile of the port's production frontend.
 Every cut but the butterfly is one function of the audio whichever
 algorithm computes it, so both kernels are held to one plain version,
 `truncated_plain`.  At the one config the JAX tool takes (n_fft 1024 = 8 x
@@ -66,10 +66,10 @@ REPLACES = "tools/dev/r3_omission.py:164"
 _CT_N_ARGS = 20
 _CT_INT_ARGS = (1, 3, 4, 5, 6, 7, 8, 9, 16, 17)
 # tsc_mfcc_truncated(audio, audio_int16, gain, batch, n_samples, hop, n_fft,
-#   n_frames, stop, src_mod, twiddle, filt_t, dct_t, n_filt, n_mfcc, out,
-#   stream)
-_FFT_N_ARGS = 17
-_FFT_INT_ARGS = (1, 3, 4, 5, 6, 7, 8, 9, 13, 14)
+#   n_frames, stop, src_mod, plan_twiddle, filt_packed, fb_table, n_packed,
+#   n_seg, dct_t, n_filt, n_mfcc, out, stream)
+_FFT_N_ARGS = 20
+_FFT_INT_ARGS = (1, 3, 4, 5, 6, 7, 8, 9, 13, 14, 16, 17)
 _CUDA_ERROR_INVALID_VALUE = 1
 
 
@@ -234,7 +234,9 @@ def fft_truncated_cuda(audio: torch.Tensor, gain: torch.Tensor,
     `ct_truncated_cuda`, counting to `counters["fft_truncated_<stage>"]`."""
     return _launch("fft", audio, gain, consts.device, p, stage, constant_block,
                    "tsc_mfcc_truncated", _FFT_N_ARGS, _FFT_INT_ARGS,
-                   (consts.twiddle.data_ptr(), consts.filt_t.data_ptr(),
+                   (consts.plan_twiddle.data_ptr(),
+                    consts.filt_packed.data_ptr(), consts.fb_table.data_ptr(),
+                    len(consts.fb.packed), consts.fb.n_seg,
                     consts.dct_t.data_ptr()))
 
 
