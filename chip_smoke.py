@@ -9,6 +9,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build    compile tpu_speech_commands_torch/csrc/*.cu with nvcc (sm_90a)
 3. kernels  each kernel against its plain PyTorch version on the card, at
             B = 1000, over the configs and dtypes the slices can meet (the
+            CNN classifier's tiled implicit GEMM and its SIMT kernel,
+            `_simt=True`, at four model x shape cases, f32 and bf16; the
             fast_math frontend also at K6 make_bf16_kernel's own settings;
             the f32 dense-DFT kernels at the default config and at W 800,
             combined, or W = 2 hop = 800, halves, and combined with a gain
@@ -34,6 +36,9 @@ Phases, in order; any failure raises and the script exits non-zero:
             - the fused-block-1 path (frontend kernel, then
               make_fused_cnn_forward) for both CNN checkpoints: top-1 and the
               block-1 launch count;
+            - the SIMT CNN classifier kept for the A/B (frontend kernel, then
+              cnn_classifier_cuda(..., _simt=True)) for both CNN checkpoints:
+              top-1 and its launch count;
             - MfccFrontend(fast_math=True) into the GRU, LSTM and CNN
               classifier kernels for all four checkpoints: top-1 and both
               launch counts;
@@ -59,8 +64,11 @@ Phases, in order; any failure raises and the script exits non-zero:
             plain versions at this batch, their entry points' own, with the
             phase-3 tolerances; the FFT kernel's register body is timed
             against its radix-2 body in turns, radix-2, register, register,
-            radix-2, and the CT kernel's (F, F) instantiation against the
-            FFT kernel in turns, fft, ct, ct, fft): each
+            radix-2, the CT kernel's (F, F) instantiation against the
+            FFT kernel in turns, fft, ct, ct, fft, and the CNN classifier's
+            tiled implicit GEMM against its SIMT kernel in turns, simt, gemm,
+            gemm, simt, for both CNN checkpoints' models in f32 and bf16, each
+            beside its own bound, `cnn_bound`): each
             kernel against its plain version (the fast_math frontend also
             against the FFT kernel), the one PyTorch call that computes the
             same function where there is one (torch.sum for the load
@@ -265,18 +273,10 @@ def kernel_bounds(p, batch, n_samples, rnn_dims, cnn_consts):
     steps, d_in, units, classes = rnn_dims
     rnn = {g: batch * steps * 2.0 * g * units * (d_in + units)
            + batch * 2.0 * units * classes for g in (3, 4)}
-    cnn = 0.0
-    for st in cnn_consts.stages:
-        s = st.stage
-        cnn += 2.0 * 9 * s.cin * s.cout * conv_out(s.h_in, s.stride) * \
-            conv_out(s.w_in, s.stride)
-    flat, hidden = cnn_consts.dense_w.shape
-    cnn_classes = cnn_consts.head_w.shape[1]
-    cnn = batch * (cnn + 2.0 * flat * hidden + 2.0 * hidden * cnn_classes)
     b1 = cnn_consts.stages[0].stage
     block1_out = 4.0 * batch * b1.h_out * b1.w_out * b1.cout
     rnn_b = feats_b + 4.0 * batch * classes
-    cnn_b = feats_b + 4.0 * batch * cnn_classes
+    cnn = cnn_bound(cnn_consts.lowered, False, batch, "float32")
     # the FFT kernel's two bodies and the CT split kernel compute one
     # function: one bound (the CT split's own algorithm's floor is
     # ct_split_flops, information only)
@@ -288,7 +288,8 @@ def kernel_bounds(p, batch, n_samples, rnn_dims, cnn_consts):
         "dft_frontend_bf16": bound_ms(cepstrum, dft, audio_b + feats_b),
         "gru_classifier": bound_ms(rnn[3], 0, rnn_b),
         "lstm_classifier": bound_ms(rnn[4], 0, rnn_b),
-        "cnn_classifier": bound_ms(cnn, 0, cnn_b),
+        "cnn_classifier": cnn,
+        "cnn_classifier_simt": cnn,
         "cnn_block1": bound_ms(
             batch * 2.0 * 9 * b1.cin * b1.cout * conv_out(b1.h_in, b1.stride)
             * conv_out(b1.w_in, b1.stride), 0, feats_b + block1_out),
@@ -299,6 +300,36 @@ def kernel_bounds(p, batch, n_samples, rnn_dims, cnn_consts):
         "load_broadcast": bound_ms(2.0 * batch * n_samples, 0,
                                    audio_b + 4.0 * batch * p.n_features * n_mfcc),
     }
+
+
+def cnn_flops(lowered, separable: bool) -> float:
+    """The operations a window of the CNN classifier needs: each conv at the
+    positions the VALID pool keeps (block 2 keeps 140 of 150 at 30 x 20,
+    block 4 8 of 12), 2 a multiply-add; a separable block in the separable
+    form the function needs (depthwise 9 cin, pointwise cin cout a
+    position), not the composed dense kernel the kernels run; the dense
+    layer and the head."""
+    flops = 0.0
+    for st in lowered.stages:
+        kept = st.h_out * st.w_out * (4 if st.pool else 1)
+        per = 9 * st.cin + st.cin * st.cout if separable else \
+            9 * st.cin * st.cout
+        flops += 2.0 * per * kept
+    flat, hidden = lowered.dense_w.shape
+    return flops + 2.0 * flat * hidden + 2.0 * hidden * lowered.head_w.shape[1]
+
+
+def cnn_bound(lowered, separable: bool, batch: int, dtype: str):
+    """The CNN classifier's bound in a compute dtype ("float32": the f32
+    peak, f32 features; "bfloat16": the bf16 tensor-core peak, bf16
+    features, as the call reads them), logits f32."""
+    st = lowered.stages[0]
+    ops = batch * cnn_flops(lowered, separable)
+    nbytes = batch * (st.h_in * st.w_in * (4 if dtype == "float32" else 2)
+                      + 4 * lowered.head_w.shape[1])
+    if dtype == "float32":
+        return bound_ms(ops, 0, nbytes)
+    return bound_ms(0, ops, nbytes)
 
 
 def cut_bounds(p, batch, n_samples, constant_block):
@@ -559,19 +590,24 @@ def main() -> int:
         ("simple_cnn random 29x21", random_cnn(SimpleCNN, 29, 21, 5, dev),
          odd_feats),
     ]
-    cnn_errs = []
+    # the tiled implicit GEMM (what CNNClassifier launches) and the SIMT
+    # kernel kept for the A/B, each held to the plain version
+    cnn_errs = {"cnn_classifier": [], "cnn_classifier_simt": []}
     for label, model, x in cnn_cases:
         for dtype in (torch.float32, torch.bfloat16):
             cls = CNNClassifier(model, dtype)
             xin = x.to(dtype)
-            got = cls(xin)
-            torch.cuda.synchronize()
             want = cnn_kernel.cnn_classifier_plain(cls.consts, xin)
-            what = f"cnn {label} {str(dtype)[6:]}"
-            if dtype == torch.float32:
-                cnn_errs.append(check_close(what, got, want, CNN_ATOL, CNN_RTOL))
-            else:
-                check_close(what, got, want, CNN_BF16_ATOL, 0.0)
+            for name, simt in (("cnn_classifier", False),
+                               ("cnn_classifier_simt", True)):
+                got = cnn_kernel.cnn_classifier_cuda(xin, cls.consts, _simt=simt)
+                torch.cuda.synchronize()
+                what = f"{name} {label} {str(dtype)[6:]}"
+                if dtype == torch.float32:
+                    cnn_errs[name].append(check_close(what, got, want,
+                                                      CNN_ATOL, CNN_RTOL))
+                else:
+                    check_close(what, got, want, CNN_BF16_ATOL, 0.0)
     block1_errs = []
     for name, model in cnn_models.items():
         for dtype in (torch.float32, torch.bfloat16):
@@ -744,6 +780,7 @@ def main() -> int:
         "gru_classifier": rnn_kernel.gru_layer_cuda,
         "lstm_classifier": rnn_kernel.lstm_layer_cuda,
         "cnn_classifier": cnn_kernel.cnn_classifier_cuda,
+        "cnn_classifier_simt": cnn_kernel.SIMT,
         "cnn_block1": cnn_kernel.cnn_block1_cuda,
         "dense_dft_combined": dense_dft_kernel.dense_dft_combined_cuda,
         "dense_dft_halves": dense_dft_kernel.dense_dft_halves_cuda,
@@ -841,6 +878,24 @@ def main() -> int:
             "f32 and bf16",
             lambda: {dt: score_fn(f(fe(clips_dev))) for dt, f in forwards.items()},
             ("mfcc_frontend", "cnn_block1"))
+        for dt, sc in scores.items():
+            top1 = [predictor.classes[i] for i in sc.argmax(-1).tolist()]
+            log(f"  {str(dt)[6:]:8s} top-1 {sum(a == b for a, b in zip(top1, labels))}/8")
+            if not torch.isfinite(sc).all() or top1 != labels:
+                raise AssertionError(f"top-1 {top1} != labels {labels}")
+
+    # the SIMT classifier kept for the A/B, behind the frontend kernel
+    for name, path in CNN_CHECKPOINTS.items():
+        predictor = load_native(path, dev)
+        fe = MfccFrontend(None, predictor.meta.get("feature_type", "mfcc"), dev)
+        consts = {dt: CNNClassifier(predictor.model, dt).consts
+                  for dt in (torch.float32, torch.bfloat16)}
+        scores = drive(
+            f"frontend kernel + cnn_classifier_cuda({name}, _simt=True) on 8 "
+            "clips, f32 and bf16",
+            lambda: {dt: score_fn(cnn_kernel.cnn_classifier_cuda(
+                fe(clips_dev).to(dt), c, _simt=True)) for dt, c in consts.items()},
+            ("mfcc_frontend", "cnn_classifier_simt"))
         for dt, sc in scores.items():
             top1 = [predictor.classes[i] for i in sc.argmax(-1).tolist()]
             log(f"  {str(dt)[6:]:8s} top-1 {sum(a == b for a, b in zip(top1, labels))}/8")
@@ -950,6 +1005,11 @@ def main() -> int:
             cuda_ms(lambda: cnn_cls(big_feats), 20),
             cuda_ms(lambda: cnn_kernel.cnn_classifier_plain(cnn_cls.consts,
                                                             big_feats), 10)),
+        "cnn_classifier_simt": (
+            cuda_ms(lambda: cnn_kernel.cnn_classifier_cuda(
+                big_feats, cnn_cls.consts, _simt=True), 20),
+            cuda_ms(lambda: cnn_kernel.cnn_classifier_plain(cnn_cls.consts,
+                                                            big_feats), 10)),
         "cnn_block1": (
             cuda_ms(lambda: cnn_kernel.cnn_block1_cuda(big_feats, stage), 20),
             cuda_ms(lambda: cnn_kernel.cnn_block1_plain(stage, big_feats), 10)),
@@ -1043,14 +1103,42 @@ def main() -> int:
     log(f"  dft_frontend_bf16 kernel {times['dft_frontend_bf16'][0]:.4f} ms vs "
         f"FFT kernel (mfcc_frontend) {cuda_ms(lambda: fe(big), 20):.4f} ms, "
         f"same call, f32 audio and output  ({card})")
+    # the CNN classifier: the tiled implicit GEMM against the SIMT kernel in
+    # turns, simt, gemm, gemm, simt, each model and compute dtype (bf16 on
+    # bf16 features), both first held to the plain version at this batch
+    cnn_ab = {}
     for name, model in cnn_models.items():
         for dt in (torch.float32, torch.bfloat16):
-            c = CNNClassifier(model, dt)
+            consts = CNNClassifier(model, dt).consts
             x = big_feats.to(dt)
-            log(f"  cnn_classifier {name} {str(dt)[6:]}: kernel "
-                f"{cuda_ms(lambda: c(x), 20):.4f} ms  plain "
-                f"{cuda_ms(lambda: cnn_kernel.cnn_classifier_plain(c.consts, x), 10):.4f}"
-                f" ms  ({card})")
+            plain = cnn_kernel.cnn_classifier_plain(consts, x)
+            runs = {"gemm": lambda: cnn_kernel.cnn_classifier_cuda(x, consts),
+                    "simt": lambda: cnn_kernel.cnn_classifier_cuda(
+                        x, consts, _simt=True)}
+            for which, run in runs.items():
+                kname = "cnn_classifier" + ("_simt" if which == "simt" else "")
+                what = f"{kname} {name} {str(dt)[6:]} B = {B_TIME}"
+                if dt == torch.float32:
+                    cnn_errs[kname].append(check_close(what, run(), plain,
+                                                       CNN_ATOL, CNN_RTOL))
+                else:
+                    check_close(what, run(), plain, CNN_BF16_ATOL, 0.0)
+            ab = {"simt": [], "gemm": []}
+            for which in ("simt", "gemm", "gemm", "simt"):
+                ab[which].append(cuda_ms(runs[which], 20))
+            plain_ms = cuda_ms(lambda: cnn_kernel.cnn_classifier_plain(consts, x),
+                               10)
+            bound = cnn_bound(consts.lowered, model.separable, B_TIME,
+                              str(dt)[6:])
+            cnn_ab[name, str(dt)[6:]] = (ab, plain_ms, bound)
+            log(f"  cnn_classifier {name} {str(dt)[6:]}: A/B in turns simt, "
+                f"gemm, gemm, simt: gemm (cnn_classifier) {ab['gemm'][0]:.4f}, "
+                f"{ab['gemm'][1]:.4f} ms; simt (cnn_classifier_simt) "
+                f"{ab['simt'][0]:.4f}, {ab['simt'][1]:.4f} ms = "
+                f"{sum(ab['simt']) / sum(ab['gemm']):.2f}x; plain "
+                f"{plain_ms:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}; "
+                f"{cnn_flops(consts.lowered, model.separable) / 1e3:.3f} "
+                f"kFLOP a window)  ({card})")
     stage16 = cnn_kernel.StageTensors(
         lower_block1(cnn.variables(), False, 30, 20), dev, torch.bfloat16)
     log(f"  cnn_block1 simple_cnn bfloat16: kernel "
@@ -1134,7 +1222,9 @@ def main() -> int:
             ("lstm_classifier", rnn_kernel.LSTM_SOURCE,
              rnn_kernel.LSTM_REPLACES, rnn_errs["lstm"]),
             ("cnn_classifier", cnn_kernel.SOURCE, cnn_kernel.REPLACES,
-             cnn_errs),
+             cnn_errs["cnn_classifier"]),
+            ("cnn_classifier_simt", cnn_kernel.SOURCE, cnn_kernel.REPLACES,
+             cnn_errs["cnn_classifier_simt"]),
             ("cnn_block1", cnn_kernel.SOURCE, cnn_kernel.BLOCK1_REPLACES,
              block1_errs),
             ("dense_dft_combined", dense_dft_kernel.SOURCE,
@@ -1154,6 +1244,13 @@ def main() -> int:
             "plain_ms": times[name][1], "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1], "library_ms": library[name],
         })
+        if name.startswith("cnn_classifier"):
+            # simple_cnn in bf16 (bf16 features), from the A/B above
+            ab, plain_ms, bound = cnn_ab["simple_cnn", "bfloat16"]
+            kernels[-1].update({
+                "bf16_ms": ab["simt" if name.endswith("simt") else "gemm"][0],
+                "bf16_plain_ms": plain_ms, "bf16_bound_ms": bound[0],
+                "bf16_bound_by": bound[1]})
     # the stage cuts: the main keys are the streamed cut's, the
     # constant_block_* keys the constant-block cut's; no library call
     # computes a cut

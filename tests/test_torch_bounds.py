@@ -18,7 +18,14 @@ classes.  Peaks: 67 TFLOP/s f32, 989 TFLOP/s bf16, 3.35 TB/s.
   packed cepstrum: about 1.71 ms of f32;
 - the stage cuts (ops/omission_kernel.py): the audio read (or, with a
   constant block, block 0's 16 rows) and a (B, 128) f32 output; the
-  operations of the cut's function (`chip_smoke.cut_bounds`).
+  operations of the cut's function (`chip_smoke.cut_bounds`);
+- the CNN classifier (both kernels, one function) at 30 x 20 into 5
+  classes: each conv at the positions the VALID pool keeps (block 1 600,
+  block 2 140 of 150, block 3 12, block 4 8 of 12), 2 a multiply-add.
+  simple_cnn: 9 cin cout a position, 3,151,872 FLOP a window with the
+  dense layer (256 x 128) and the head (128 x 5); simple_cnn_lite in the
+  separable form, 9 cin + cin cout a position, 476,848.  f32 at 67
+  TFLOP/s on f32 features, bf16 at 989 TFLOP/s on bf16 features.
 
 The times are computed here in float64 and compared to 1e-9 relative.
 """
@@ -27,7 +34,7 @@ import os
 
 import pytest
 
-from tpu_speech_commands_torch.models.cnn import SimpleCNN
+from tpu_speech_commands_torch.models.cnn import SimpleCNN, SimpleCNNLite
 from tpu_speech_commands_torch.ops.cnn_kernel import CNNClassifier
 from tpu_speech_commands_torch.params import ListenerParams
 
@@ -39,6 +46,8 @@ CEPSTRUM = FRAMES * (4 * 513 + 2 * 927 + 2 * 20 * 20)
 DFT = FRAMES * 2 * 1024 * 1024
 CT_STAGE2 = FRAMES * 14 * 128 * 128 * 2
 CT_STAGE1 = FRAMES * 128 * 24
+CNN = 8192 * 3_151_872
+CNN_LITE = 8192 * 476_848
 
 EXPECTED = {  # name: (bound_by, ms)
     "mfcc_frontend": ("bytes", (AUDIO_B + FEATS_B) / 3.35e9),
@@ -56,6 +65,13 @@ EXPECTED = {  # name: (bound_by, ms)
                        (FRAMES * 2 * 3 * 48 * 68 + 8192 * 2 * 48 * 5) / 67e9),
     "lstm_classifier": ("operations",
                         (FRAMES * 2 * 4 * 48 * 68 + 8192 * 2 * 48 * 5) / 67e9),
+    "cnn_classifier": ("operations", CNN / 67e9),
+    "cnn_classifier_simt": ("operations", CNN / 67e9),
+    "cnn_classifier simple_cnn float32": ("operations", CNN / 67e9),
+    "cnn_classifier simple_cnn bfloat16": ("operations", CNN / 989e9),
+    "cnn_classifier simple_cnn_lite float32": ("operations", CNN_LITE / 67e9),
+    "cnn_classifier simple_cnn_lite bfloat16": ("operations",
+                                                CNN_LITE / 989e9),
 }
 
 
@@ -71,8 +87,15 @@ def chip_smoke():
 @pytest.fixture(scope="module")
 def bounds(chip_smoke):
     cnn = CNNClassifier(SimpleCNN(5, 30, 20)).consts
-    return chip_smoke.kernel_bounds(ListenerParams(), 8192, 16000,
-                                    (30, 20, 48, 5), cnn)
+    out = chip_smoke.kernel_bounds(ListenerParams(), 8192, 16000,
+                                   (30, 20, 48, 5), cnn)
+    for model in (SimpleCNN(5, 30, 20), SimpleCNNLite(5, 30, 20)):
+        lowered = CNNClassifier(model).consts.lowered
+        name = "simple_cnn_lite" if model.separable else "simple_cnn"
+        for dtype in ("float32", "bfloat16"):
+            out[f"cnn_classifier {name} {dtype}"] = chip_smoke.cnn_bound(
+                lowered, model.separable, 8192, dtype)
+    return out
 
 
 @pytest.mark.parametrize("name", sorted(EXPECTED))
@@ -153,3 +176,16 @@ def test_fft_frontend_operations_are_below_its_bytes(bounds):
     ops_ms = (FRAMES * 2.5 * 1024 * 10 + CEPSTRUM) / 67e9
     assert ops_ms == pytest.approx(0.1112, abs=1e-4)
     assert bounds["mfcc_frontend"][0] > ops_ms
+
+
+def test_cnn_bounds_count_the_kept_positions_and_the_separable_form(bounds):
+    """The old count took every conv position (3,833,856 FLOP a window,
+    0.4688 ms); the pool keeps fewer: 0.3854 ms f32, 0.0261 ms bf16.  The
+    lite model needs 6.6x less than the composed dense kernel does."""
+    assert bounds["cnn_classifier"][0] == pytest.approx(0.3854, abs=1e-4)
+    assert bounds["cnn_classifier simple_cnn bfloat16"][0] == pytest.approx(
+        0.0261, abs=1e-4)
+    assert bounds["cnn_classifier simple_cnn_lite float32"][0] == \
+        pytest.approx(0.0583, abs=1e-4)
+    assert 8192 * 3_833_856 / 67e9 == pytest.approx(0.4688, abs=1e-4)
+    assert CNN / CNN_LITE == pytest.approx(6.61, abs=1e-2)

@@ -283,7 +283,8 @@ def _cnn_features(batch, h, w, seed, device):
 @pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
 def test_cnn_classifier_kernel_matches_plain(cuda_device, shape, model_type,
                                              compute_dtype):
-    """B = 37: a ragged last tile."""
+    """B = 37: a ragged last tile (of 16 windows in bf16; of 8 in f32 at
+    30 x 20 and 29 x 21, of 6 at 30 x 40)."""
     model = _random_cnn(model_type, *shape, seed=sum(shape), device=cuda_device)
     x = _cnn_features(37, *shape, seed=3, device=cuda_device).to(compute_dtype)
     cls = cnn_kernel.CNNClassifier(model, compute_dtype)
@@ -299,6 +300,90 @@ def test_cnn_classifier_kernel_matches_plain(cuda_device, shape, model_type,
             torch.testing.assert_close(got, model(x), rtol=1e-5, atol=1e-4)
     else:
         torch.testing.assert_close(got, want, rtol=0, atol=5e-2)
+
+
+def _check_cnn_logits(got, want, compute_dtype):
+    assert torch.isfinite(got).all()
+    if compute_dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=5e-2)
+
+
+@pytest.mark.parametrize("shape", CNN_SHAPES)
+@pytest.mark.parametrize("model_type", ["simple_cnn", "simple_cnn_lite"])
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_cnn_classifier_simt_kernel_matches_plain(cuda_device, shape,
+                                                  model_type, compute_dtype):
+    """The SIMT kernel kept for the A/B (`_simt=True`), B = 37."""
+    model = _random_cnn(model_type, *shape, seed=sum(shape), device=cuda_device)
+    x = _cnn_features(37, *shape, seed=3, device=cuda_device).to(compute_dtype)
+    consts = cnn_kernel.CNNClassifier(model, compute_dtype).consts
+    simt, gemm = cnn_kernel.SIMT.launches, cnn_kernel.cnn_classifier_cuda.launches
+    got = cnn_kernel.cnn_classifier_cuda(x, consts, _simt=True)
+    torch.cuda.synchronize()
+    assert cnn_kernel.SIMT.launches == simt + 1
+    assert cnn_kernel.cnn_classifier_cuda.launches == gemm
+    assert got.shape == (37, 5) and got.dtype == torch.float32
+    _check_cnn_logits(got, cnn_kernel.cnn_classifier_plain(consts, x),
+                      compute_dtype)
+
+
+@pytest.mark.parametrize("batch", ["one", "many"])
+@pytest.mark.parametrize("model_type", ["simple_cnn", "simple_cnn_lite"])
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_cnn_classifier_ragged_batches(cuda_device, batch, model_type,
+                                       compute_dtype):
+    """B = 1, and a batch over several waves of blocks whose last tile is
+    ragged: both kernels against the plain version, each launch counted
+    where it belongs."""
+    model = _random_cnn(model_type, 30, 20, seed=21, device=cuda_device)
+    consts = cnn_kernel.CNNClassifier(model, compute_dtype).consts
+    n = 1
+    if batch == "many":
+        n = 3001
+        assert n % consts.plan.tile and consts.plan.tile > 1
+    x = _cnn_features(n, 30, 20, seed=6, device=cuda_device).to(compute_dtype)
+    want = cnn_kernel.cnn_classifier_plain(consts, x)
+    for simt in (False, True):
+        counter = cnn_kernel.SIMT if simt else cnn_kernel.cnn_classifier_cuda
+        before = counter.launches
+        got = cnn_kernel.cnn_classifier_cuda(x, consts, _simt=simt)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        _check_cnn_logits(got, want, compute_dtype)
+
+
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_cnn_classifier_takes_a_window_too_large_for_the_deep_ring(
+        cuda_device, compute_dtype):
+    """198 x 40 features (2 s at a 10 ms hop, with deltas), which the SIMT
+    kernel's shared memory took: in f32 the plan takes unpadded pixels and 2
+    weight slots.  Both kernels against the plain version, B = 5."""
+    model = _random_cnn("simple_cnn", 198, 40, seed=8, device=cuda_device)
+    consts = cnn_kernel.CNNClassifier(model, compute_dtype).consts
+    if compute_dtype == torch.float32:
+        assert consts.plan.ring == 2
+    x = _cnn_features(5, 198, 40, seed=9, device=cuda_device).to(compute_dtype)
+    want = cnn_kernel.cnn_classifier_plain(consts, x)
+    for simt in (False, True):
+        counter = cnn_kernel.SIMT if simt else cnn_kernel.cnn_classifier_cuda
+        before = counter.launches
+        got = cnn_kernel.cnn_classifier_cuda(x, consts, _simt=simt)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        _check_cnn_logits(got, want, compute_dtype)
+
+
+def test_cnn_classifier_refuses_a_config_its_plan_cannot_take(cuda_device):
+    """One 200 x 200 window's activations exceed a block's shared memory:
+    the GEMM kernel raises, by config, and does not run the SIMT kernel."""
+    model = _random_cnn("simple_cnn", 200, 200, seed=2, device=cuda_device)
+    cls = cnn_kernel.CNNClassifier(model)
+    simt = cnn_kernel.SIMT.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        cls(_cnn_features(2, 200, 200, seed=1, device=cuda_device))
+    assert cnn_kernel.SIMT.launches == simt
 
 
 @pytest.mark.parametrize("shape", CNN_SHAPES)

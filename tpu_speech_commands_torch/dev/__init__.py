@@ -18,7 +18,10 @@ package's `tools/dev/` scripts whose TPU kernels the port carries:
 - `ct_ablation`: the CT split kernel with one part of its source cut out at
   a time, built beside the shipped library;
 - `fft_ablation`: the FFT kernel's register body the same way, with one part
-  cut out or one design choice undone at a time.
+  cut out or one design choice undone at a time;
+- `cnn_ablation`: the CNN classifier kernels the same way (the SIMT kernel
+  without its L2 weight stream, the tiled implicit GEMM stopped after each
+  stage), and the GEMM kernel at other tiles.
 
 Each runs on the card and raises RuntimeError where CUDA is absent:
 
@@ -31,6 +34,7 @@ Each runs on the card and raises RuntimeError where CUDA is absent:
     python -m tpu_speech_commands_torch.dev.r3_omission --batch 8192
     python -m tpu_speech_commands_torch.dev.ct_ablation
     python -m tpu_speech_commands_torch.dev.fft_ablation
+    python -m tpu_speech_commands_torch.dev.cnn_ablation
 
 Their `make_*` functions take `device="cpu"` for the plain versions.
 """

@@ -1,16 +1,21 @@
 """The CNN kernels: wrappers, launch counts and plain versions.
 
-`csrc/cnn_classifier.cu` holds two entry points that share one conv-stage
-routine:
+`csrc/cnn_classifier.cu` holds three entry points:
 - `tsc_cnn_classifier` replaces the TPU kernel
   `tpu_speech_commands/ops/pallas_classifier.py::make_fused_cnn_classifier`:
   SimpleCNN / SimpleCNNLite features -> logits in one launch (four conv
-  blocks, the relu6 dense layer and the head);
+  blocks, the relu6 dense layer and the head), each conv and the dense
+  layer a tiled implicit GEMM with its weights staged through shared memory,
+  on the tensor cores in bf16 (`ops/cnn_plan.py` is its plan);
+- `tsc_cnn_classifier_simt`, the earlier design of the same function (a
+  thread a (window, position, 4 channels), weights from L2), kept for the
+  A/B: `cnn_classifier_cuda(..., _simt=True)`, counted in `SIMT.launches`;
 - `tsc_cnn_block1` replaces `tpu_speech_commands/ops/pallas_cnn.py::
   make_fused_conv_block1`: block 1 alone (conv, 2x2 pool, +bias, relu6),
-  which `make_fused_cnn_forward` feeds into the rest of the model.
+  which `make_fused_cnn_forward` feeds into the rest of the model; it
+  shares the SIMT kernel's conv-stage routine.
 
-Both run on constants lowered on the host (`ops/cnn_lowering.py`).
+All run on constants lowered on the host (`ops/cnn_lowering.py`).
 compute_dtype=torch.bfloat16 is the TPU kernels' bf16 mode: the matmul
 weights are rounded to bf16 once, here, after BatchNorm folding and the
 separable composition; every conv and dense input activation is rounded to
@@ -36,16 +41,22 @@ from ..models.cnn import SimpleCNN, relu6
 from ..models.rnn import _rounded
 from . import _build
 from .cnn_lowering import Lowered, Stage, lower_block1, lower_classifier
+from .cnn_plan import Plan, make_plan
+from .ct_kernel import LaunchCount
 
 SOURCE = "tpu_speech_commands_torch/csrc/cnn_classifier.cu"
 REPLACES = "tpu_speech_commands/ops/pallas_classifier.py:363"
 BLOCK1_REPLACES = "tpu_speech_commands/ops/pallas_cnn.py:156"
 
-# tsc_cnn_classifier(x, x_bf16, batch, n_stages, stage_ptrs, stage_dims,
+# tsc_cnn_classifier(x, x_bf16, batch, stage_ptrs, stage_dims, plan,
 #   dense_w, dense_b, head_w, head_b, hidden, classes, logits, bf16_math,
 #   stream)
 _N_ARGS = 15
-_INT_ARGS = (1, 2, 3, 10, 11, 13)
+_INT_ARGS = (1, 2, 10, 11, 13)
+# tsc_cnn_classifier_simt(x, x_bf16, batch, n_stages, stage_ptrs, stage_dims,
+#   dense_w, dense_b, head_w, head_b, hidden, classes, logits, bf16_math,
+#   stream)
+_SIMT_INT_ARGS = (1, 2, 3, 10, 11, 13)
 # tsc_cnn_block1(x, x_bf16, batch, w, bias, dims, out, bf16_math, stream)
 _BLOCK1_N_ARGS = 9
 _BLOCK1_INT_ARGS = (1, 2, 7)
@@ -96,6 +107,7 @@ class ClassifierTensors:
     the compute dtype, epilogue constants in float32."""
 
     def __init__(self, lowered: Lowered, device, compute_dtype=torch.float32):
+        self.lowered = lowered
         self.stages = [StageTensors(st, device, compute_dtype)
                        for st in lowered.stages]
         self.compute_dtype = compute_dtype
@@ -104,6 +116,17 @@ class ClassifierTensors:
         self.head_w = _tensor(lowered.head_w, device, compute_dtype)
         self.head_b = _tensor(lowered.head_b, device)
         self.device = self.dense_w.device
+        self._plan = None
+
+    @property
+    def plan(self) -> Plan:
+        """The GEMM kernel's plan, at the largest tile that fits; ValueError
+        for a config it cannot take (made at first use: the plain versions
+        take every config)."""
+        if self._plan is None:
+            self._plan = make_plan(self.lowered.stages, self.dense_w.shape[1],
+                                   self.compute_dtype)
+        return self._plan
 
     @property
     def input_shape(self) -> tuple[int, int]:
@@ -131,11 +154,13 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def cnn_classifier_cuda(x: torch.Tensor,
-                        consts: ClassifierTensors) -> torch.Tensor:
+def cnn_classifier_cuda(x: torch.Tensor, consts: ClassifierTensors,
+                        _simt: bool = False) -> torch.Tensor:
     """Launch the classifier kernel.  x (B, H, W) float32 or bfloat16 on
-    consts' CUDA device -> logits (B, C) float32.  Every launch adds one to
-    `.launches`."""
+    consts' CUDA device -> logits (B, C) float32.  The tiled implicit GEMM
+    (ValueError for a config its plan cannot take) adds one to `.launches`;
+    `_simt` runs the earlier SIMT kernel instead, for the A/B, and adds one
+    to `SIMT.launches`."""
     if not x.is_cuda:
         raise ValueError(f"x must be a CUDA tensor, got {x.device}")
     _check_features(x, consts.device, consts.input_shape)
@@ -146,29 +171,47 @@ def cnn_classifier_cuda(x: torch.Tensor,
     for name in ("dense_w", "dense_b", "head_w", "head_b"):
         _check_constant(name, getattr(consts, name), consts.device)
     batch = x.shape[0]
+    # ValueError for a config the GEMM kernel cannot take, at any batch
+    plan = None if _simt else consts.plan
     hidden, classes = consts.head_w.shape
     out = torch.empty((batch, classes), dtype=torch.float32, device=x.device)
     if batch == 0:
         return out
     n = len(consts.stages)
+    dims = (ctypes.c_int * (8 * n))(*[d for st in consts.stages
+                                      for d in st.dims()])
+    # an HWIO kernel is, as memory, the (9 cin, cout) K-major matrix the
+    # GEMM kernel's products read
     ptrs = (ctypes.c_void_p * (4 * n))(*[
         None if t is None else t.data_ptr()
         for st in consts.stages for t in st.tensors()])
-    dims = (ctypes.c_int * (8 * n))(*[d for st in consts.stages
-                                      for d in st.dims()])
-    fn = _build.bind("tsc_cnn_classifier", _N_ARGS, _INT_ARGS)
+    consts_args = (consts.dense_w.data_ptr(), consts.dense_b.data_ptr(),
+                   consts.head_w.data_ptr(), consts.head_b.data_ptr(), hidden,
+                   classes, out.data_ptr(),
+                   int(consts.compute_dtype == torch.bfloat16),
+                   _stream(x.device))
+    x_bf16 = int(x.dtype == torch.bfloat16)
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), batch, n, ptrs,
-                dims, consts.dense_w.data_ptr(), consts.dense_b.data_ptr(),
-                consts.head_w.data_ptr(), consts.head_b.data_ptr(), hidden,
-                classes, out.data_ptr(),
-                int(consts.compute_dtype == torch.bfloat16), _stream(x.device))
-    _build.check(rc, "tsc_cnn_classifier")
-    cnn_classifier_cuda.launches += 1
+        if _simt:
+            name = "tsc_cnn_classifier_simt"
+            fn = _build.bind(name, _N_ARGS, _SIMT_INT_ARGS)
+            rc = fn(x.data_ptr(), x_bf16, batch, n, ptrs, dims, *consts_args)
+        else:
+            name = "tsc_cnn_classifier"
+            ints = plan.ints()
+            fn = _build.bind(name, _N_ARGS, _INT_ARGS)
+            rc = fn(x.data_ptr(), x_bf16, batch, ptrs, dims,
+                    (ctypes.c_int * len(ints))(*ints), *consts_args)
+    _build.check(rc, name)
+    if _simt:
+        SIMT.launches += 1
+    else:
+        cnn_classifier_cuda.launches += 1
     return out
 
 
 cnn_classifier_cuda.launches = 0
+SIMT = LaunchCount()  # launches of the SIMT classifier kernel
 
 
 def cnn_block1_cuda(x: torch.Tensor, stage: StageTensors) -> torch.Tensor:
