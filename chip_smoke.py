@@ -9,6 +9,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build    compile tpu_speech_commands_torch/csrc/*.cu with nvcc (sm_90a)
 3. kernels  each kernel against its plain PyTorch version on the card, at
             B = 1000, over the configs and dtypes the slices can meet (the
+            GRU classifier's tile kernel and its SIMT kernel, `_simt=True`,
+            one layer pretrained and two random, f32 and bf16, and the tile
+            kernel's reciprocal against the true divide on every float of
+            [1, inf]; the
             CNN classifier's tiled implicit GEMM and its SIMT kernel,
             `_simt=True`, at four model x shape cases, f32 and bf16; the
             fast_math frontend also at K6 make_bf16_kernel's own settings;
@@ -31,8 +35,12 @@ Phases, in order; any failure raises and the script exits non-zero:
               direction_simple_lstm.npz, direction_simple_cnn.npz and
               direction_simple_cnn_lite.npz: top-1 must equal every file's
               label, `.paths` must name both kernels, both launch counts
-              must rise, and the scores must agree with the same scorer run
-              on the CPU (plain versions);
+              must rise (for simple_gru the tile kernel's, the SIMT GRU
+              kernel's staying at 0), and the scores must agree with the
+              same scorer run on the CPU (plain versions);
+            - the SIMT GRU classifier kept for the A/B (frontend kernel,
+              then GRUClassifier(..., _simt=True)): top-1 and its launch
+              count;
             - the fused-block-1 path (frontend kernel, then
               make_fused_cnn_forward) for both CNN checkpoints: top-1 and the
               block-1 launch count;
@@ -65,7 +73,11 @@ Phases, in order; any failure raises and the script exits non-zero:
             phase-3 tolerances; the FFT kernel's register body is timed
             against its radix-2 body in turns, radix-2, register, register,
             radix-2, the CT kernel's (F, F) instantiation against the
-            FFT kernel in turns, fft, ct, ct, fft, and the CNN classifier's
+            FFT kernel in turns, fft, ct, ct, fft, the GRU classifier's tile
+            kernel against its SIMT kernel in turns, simt, tile, tile, simt,
+            in f32 and bf16 (bf16 features), with a sweep of the tile
+            kernel's windows a warp and warps a block and the gate math's
+            SFU floor beside the bound, and the CNN classifier's
             tiled implicit GEMM against its SIMT kernel in turns, simt, gemm,
             gemm, simt, for both CNN checkpoints' models in f32 and bf16, each
             beside its own bound, `cnn_bound`): each
@@ -149,6 +161,9 @@ BLOCK1_BF16_ATOL = 5e-2
 LOAD_REL = 2e-6
 # Published peaks of one H100 SXM (dense, at 700 W), for the kernels' bounds
 PEAK_F32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
+# The special-function units: 16 results a clock an SM, 132 SMs, at the
+# 1.98 GHz boost clock (the least time); information beside the RNN bounds
+SFU_RATE = 16 * 132 * 1.98e9
 # The plain versions' convs run through cuDNN, which takes float32 convs in
 # TF32 unless torch.backends.cudnn.allow_tf32 is False: main() sets it (and
 # the matmul flag) False, so every float32 reference here is float32.
@@ -270,12 +285,9 @@ def kernel_bounds(p, batch, n_samples, rnn_dims, cnn_consts):
     # a real-input FFT of n_fft points: half a complex one's 5 n log2 n (the
     # nominal count of a mixed-radix one where n_fft is not a power of two)
     fft = frames * 2.5 * p.n_fft * math.log2(p.n_fft)
-    steps, d_in, units, classes = rnn_dims
-    rnn = {g: batch * steps * 2.0 * g * units * (d_in + units)
-           + batch * 2.0 * units * classes for g in (3, 4)}
     b1 = cnn_consts.stages[0].stage
     block1_out = 4.0 * batch * b1.h_out * b1.w_out * b1.cout
-    rnn_b = feats_b + 4.0 * batch * classes
+    gru = rnn_bound(batch, rnn_dims, 3, "float32")
     cnn = cnn_bound(cnn_consts.lowered, False, batch, "float32")
     # the FFT kernel's two bodies and the CT split kernel compute one
     # function: one bound (the CT split's own algorithm's floor is
@@ -286,8 +298,9 @@ def kernel_bounds(p, batch, n_samples, rnn_dims, cnn_consts):
         "mfcc_frontend": frontend,
         "mfcc_frontend_radix2": frontend,
         "dft_frontend_bf16": bound_ms(cepstrum, dft, audio_b + feats_b),
-        "gru_classifier": bound_ms(rnn[3], 0, rnn_b),
-        "lstm_classifier": bound_ms(rnn[4], 0, rnn_b),
+        "gru_classifier": gru,
+        "gru_classifier_simt": gru,
+        "lstm_classifier": rnn_bound(batch, rnn_dims, 4, "float32"),
         "cnn_classifier": cnn,
         "cnn_classifier_simt": cnn,
         "cnn_block1": bound_ms(
@@ -300,6 +313,32 @@ def kernel_bounds(p, batch, n_samples, rnn_dims, cnn_consts):
         "load_broadcast": bound_ms(2.0 * batch * n_samples, 0,
                                    audio_b + 4.0 * batch * p.n_features * n_mfcc),
     }
+
+
+def rnn_bound(batch, rnn_dims, gates: int, dtype: str):
+    """A GRU (3 gates) or LSTM (4) layer with its head, (T, D, U, C) =
+    rnn_dims, in a compute dtype: [x_t | h] @ [W; U] over the steps and the
+    head, 2 a multiply-add; "float32" at the f32 peak on f32 features,
+    "bfloat16" at the bf16 tensor-core peak on bf16 features (as the bf16
+    scorer hands them over); logits f32.  The gate math is left out (its
+    SFU floor is `sfu_floor_ms`)."""
+    steps, d_in, units, classes = rnn_dims
+    ops = (batch * steps * 2.0 * gates * units * (d_in + units)
+           + batch * 2.0 * units * classes)
+    nbytes = batch * (steps * d_in * (4 if dtype == "float32" else 2)
+                      + 4 * classes)
+    if dtype == "float32":
+        return bound_ms(ops, 0, nbytes)
+    return bound_ms(0, ops, nbytes)
+
+
+def sfu_floor_ms(batch, rnn_dims, per_unit_step: int) -> float:
+    """The special-function results an RNN's gate math needs (an exp and a
+    reciprocal a sigmoid or tanh: 4 a unit a step for the GRU's two
+    sigmoids, 10 for the LSTM's three sigmoids and two tanh), at SFU_RATE:
+    information, not part of the bound."""
+    steps, _, units, _ = rnn_dims
+    return batch * steps * units * per_unit_step / SFU_RATE * 1e3
 
 
 def cnn_flops(lowered, separable: bool) -> float:
@@ -459,12 +498,12 @@ def main() -> int:
     from tpu_speech_commands_torch.models.cnn import SimpleCNN, SimpleCNNLite
     from tpu_speech_commands_torch.models.rnn import SimpleGRU, SimpleLSTM
     from tpu_speech_commands_torch.dev import (
-        FEAT_ATOL, FEAT_RTOL, card_line, pallas_experiments, r3_experiments,
-        r3_frontend_variants, r3_omission, r3_stage2, r3_widecell,
-        r4_mxu_stage1)
+        FEAT_ATOL, FEAT_RTOL, card_line, graph_ms, pallas_experiments,
+        r3_experiments, r3_frontend_variants, r3_omission, r3_stage2,
+        r3_widecell, r4_mxu_stage1)
     from tpu_speech_commands_torch.ops import (
         _build, cnn_kernel, ct_kernel, dense_dft_kernel, frontend_kernel,
-        load_kernel, omission_kernel, rnn_kernel)
+        gru_plan, load_kernel, omission_kernel, rnn_kernel)
     from tpu_speech_commands_torch.ops.cnn_kernel import (
         CNNClassifier, make_fused_cnn_forward)
     from tpu_speech_commands_torch.ops.cnn_lowering import lower_block1
@@ -555,10 +594,23 @@ def main() -> int:
                     dtype=torch.float32))
         return model
 
-    rnn_errs = {"gru": [], "lstm": []}
+    # the tile kernel's sigmoid takes a reciprocal without the division's
+    # branch: it must be the true divide on each float of [1, inf]
+    mismatches = rnn_kernel.gru_rcp_mismatches(dev)
+    log(f"  gru tile kernel's reciprocal vs 1.0f / d on every float of "
+        f"[1, inf]: {mismatches} differ")
+    if mismatches:
+        raise AssertionError("the GRU tile kernel's reciprocal is not the "
+                             "true divide")
+    # the GRU's tile kernel (what GRUClassifier launches) and the SIMT
+    # kernel kept for the A/B, each held to the plain version
+    gru_models = (("1 layer, pretrained", pretrained),
+                  ("2 layers, random", random_rnn(SimpleGRU)))
+    rnn_errs = {"gru": [], "gru_simt": [], "lstm": []}
     for rnn, rnn_cls, models in (
-            ("gru", GRUClassifier, (("1 layer, pretrained", pretrained),
-                                    ("2 layers, random", random_rnn(SimpleGRU)))),
+            ("gru", GRUClassifier, gru_models),
+            ("gru_simt", lambda m, dt: GRUClassifier(m, dt, _simt=True),
+             gru_models),
             ("lstm", LSTMClassifier,
              (("1 layer, pretrained", lstm_pretrained),
               ("2 layers, random", random_rnn(SimpleLSTM))))):
@@ -778,6 +830,7 @@ def main() -> int:
         "mfcc_frontend_radix2": frontend_kernel.RADIX2,
         "dft_frontend_bf16": frontend_kernel.dft_frontend_bf16_cuda,
         "gru_classifier": rnn_kernel.gru_layer_cuda,
+        "gru_classifier_simt": rnn_kernel.GRU_SIMT,
         "lstm_classifier": rnn_kernel.lstm_layer_cuda,
         "cnn_classifier": cnn_kernel.cnn_classifier_cuda,
         "cnn_classifier_simt": cnn_kernel.SIMT,
@@ -791,9 +844,10 @@ def main() -> int:
     }
     launches = dict.fromkeys(counters, 0)
 
-    def drive(label, run, need):
+    def drive(label, run, need, forbid=()):
         """Run one path with every launch count at 0; fail unless each
-        kernel in `need` was launched; add the counts to `launches`."""
+        kernel in `need` was launched and none in `forbid` was; add the
+        counts to `launches`."""
         for fn in counters.values():
             fn.launches = 0
         out = run()
@@ -803,19 +857,22 @@ def main() -> int:
         for name in need:
             if counts[name] < 1:
                 raise AssertionError(f"{name} kernel was not launched by {label}")
+        for name in forbid:
+            if counts[name]:
+                raise AssertionError(f"{name} kernel was launched by {label}")
         for name, count in counts.items():
             launches[name] += count
         return out
 
     clips_dev = torch.tensor(clips, device=dev)
     scorer_paths = (
-        (CHECKPOINT, "cuda-gru", "gru_classifier"),
-        (LSTM_CHECKPOINT, "cuda-lstm", "lstm_classifier"),
-        (CNN_CHECKPOINTS["simple_cnn"], "cuda-cnn", "cnn_classifier"),
-        (CNN_CHECKPOINTS["simple_cnn_lite"], "cuda-cnn", "cnn_classifier"),
+        (CHECKPOINT, "cuda-gru", "gru_classifier", ("gru_classifier_simt",)),
+        (LSTM_CHECKPOINT, "cuda-lstm", "lstm_classifier", ()),
+        (CNN_CHECKPOINTS["simple_cnn"], "cuda-cnn", "cnn_classifier", ()),
+        (CNN_CHECKPOINTS["simple_cnn_lite"], "cuda-cnn", "cnn_classifier", ()),
     )
     scorers_by_path = {}
-    for path, classifier_path, kernel_name in scorer_paths:
+    for path, classifier_path, kernel_name, forbid in scorer_paths:
         scorers = {dt: make_batch_scorer(path, "cuda", dt)
                    for dt in (torch.float32, torch.bfloat16)}
         scorers_by_path[path] = scorers
@@ -823,7 +880,7 @@ def main() -> int:
             f"make_batch_scorer({os.path.relpath(path, REPO)}) on 8 clips, "
             "f32 and bf16",
             lambda: {dt: s(clips_dev) for dt, s in scorers.items()},
-            ("mfcc_frontend", kernel_name))
+            ("mfcc_frontend", kernel_name), forbid)
         for dt, s in scorers.items():
             if s.paths["frontend"].split("(")[0] != "cuda-mfcc" or \
                     s.paths["classifier"] != classifier_path:
@@ -884,7 +941,22 @@ def main() -> int:
             if not torch.isfinite(sc).all() or top1 != labels:
                 raise AssertionError(f"top-1 {top1} != labels {labels}")
 
-    # the SIMT classifier kept for the A/B, behind the frontend kernel
+    # the SIMT classifiers kept for the A/B, behind the frontend kernel
+    gru_predictor = load_native(CHECKPOINT, dev)
+    fe = MfccFrontend(None, gru_predictor.meta.get("feature_type", "mfcc"), dev)
+    simt_gru = {dt: GRUClassifier(gru_predictor.model, dt, _simt=True)
+                for dt in (torch.float32, torch.bfloat16)}
+    scores = drive(
+        "frontend kernel + GRUClassifier(direction_simple_gru.npz, _simt=True)"
+        " on 8 clips, f32 and bf16",
+        lambda: {dt: score_fn(c(fe(clips_dev).to(dt)))
+                 for dt, c in simt_gru.items()},
+        ("mfcc_frontend", "gru_classifier_simt"), ("gru_classifier",))
+    for dt, sc in scores.items():
+        top1 = [gru_predictor.classes[i] for i in sc.argmax(-1).tolist()]
+        log(f"  {str(dt)[6:]:8s} top-1 {sum(a == b for a, b in zip(top1, labels))}/8")
+        if not torch.isfinite(sc).all() or top1 != labels:
+            raise AssertionError(f"top-1 {top1} != labels {labels}")
     for name, path in CNN_CHECKPOINTS.items():
         predictor = load_native(path, dev)
         fe = MfccFrontend(None, predictor.meta.get("feature_type", "mfcc"), dev)
@@ -957,7 +1029,6 @@ def main() -> int:
     big = torch.tensor(big_np, device=dev)
     fe = MfccFrontend(ListenerParams(), "mfcc", dev)
     big_feats = fe(big)
-    cls = GRUClassifier(pretrained, torch.float32)
     cnn = cnn_models["simple_cnn"]
     cnn_cls = CNNClassifier(cnn, torch.float32)
     stage = cnn_kernel.StageTensors(lower_block1(cnn.variables(), False, 30, 20),
@@ -997,8 +1068,6 @@ def main() -> int:
         "mfcc_frontend_radix2": (cuda_ms(radix2, 10), fe_plain_ms),
         "dft_frontend_bf16": (cuda_ms(lambda: fast_fe(big), 20),
                               cuda_ms(lambda: fast_fe.plain(big), 5)),
-        "gru_classifier": (cuda_ms(lambda: cls(big_feats), 20),
-                           cuda_ms(lambda: pretrained(big_feats), 5)),
         "lstm_classifier": (cuda_ms(lambda: lstm_cls(big_feats), 20),
                             cuda_ms(lambda: lstm_pretrained(big_feats), 5)),
         "cnn_classifier": (
@@ -1081,25 +1150,83 @@ def main() -> int:
     check_close("cuDNN nn.LSTM (library yardstick) vs the LSTM kernel",
                 lstm_cls(big_feats), lib_logits, GRU_ATOL, GRU_RTOL)
     library["lstm_classifier"] = cuda_ms(lambda: lstm_lib(big_feats), 20)
-    bounds = kernel_bounds(ListenerParams(), B_TIME, big.shape[1],
-                           (big_feats.shape[1], big_feats.shape[2],
-                            lstm_pretrained.backbone.lstm_unit_0.units,
-                            lstm_pretrained.num_classes), cnn_cls.consts)
+    # (T, D, U, C), the same for both RNN checkpoints
+    rnn_dims = (big_feats.shape[1], big_feats.shape[2],
+                lstm_pretrained.backbone.lstm_unit_0.units,
+                lstm_pretrained.num_classes)
+    bounds = kernel_bounds(ListenerParams(), B_TIME, big.shape[1], rnn_dims,
+                           cnn_cls.consts)
+    # the GRU classifier: the tile kernel against the SIMT kernel in turns,
+    # simt, tile, tile, simt, in each compute dtype (bf16 on bf16 features,
+    # as the bf16 scorer hands them over), both first held to the plain
+    # version at this batch; then the tile kernel's work splits.  Device
+    # times, from CUDA graphs: the tile kernel is shorter than a call's host
+    # work, whose share back-to-back calls show beside it
+    gru_ab = {}
+    gru_cell, gru_head = pretrained.backbone.gru_unit_0, pretrained.score_predict
+    for dt in (torch.float32, torch.bfloat16):
+        x = big_feats.to(dt)
+        dname = str(dt)[6:]
+        runs = {"tile": GRUClassifier(pretrained, dt),
+                "simt": GRUClassifier(pretrained, dt, _simt=True)}
+        with torch.inference_mode():
+            want = pretrained(x.float(), dt)
+        tol = (GRU_ATOL, GRU_RTOL) if dt == torch.float32 else (GRU_BF16_ATOL, 0.0)
+        for which, run in runs.items():
+            err = check_close(f"gru_classifier ({which}) {dname} B = {B_TIME}",
+                              run(x), want, *tol)
+            if dt == torch.float32:
+                rnn_errs["gru" if which == "tile" else "gru_simt"].append(err)
+        ab = {"simt": [], "tile": []}
+        for which in ("simt", "tile", "tile", "simt"):
+            ab[which].append(graph_ms(lambda: runs[which](x)))
+        host_ms = cuda_ms(lambda: runs["tile"](x), 20)
+        plain_ms = cuda_ms(lambda: pretrained(x.float(), dt), 5)
+        bound = rnn_bound(B_TIME, rnn_dims, 3, dname)
+        gru_ab[dname] = (ab, plain_ms, bound)
+        if dt == torch.float32:
+            times["gru_classifier"] = (ab["tile"][0], plain_ms)
+            times["gru_classifier_simt"] = (ab["simt"][0], plain_ms)
+            library["gru_classifier"] = library["gru_classifier_simt"] = None
+        log(f"  gru_classifier {dname}: A/B in turns simt, tile, tile, simt: "
+            f"tile (gru_classifier) {ab['tile'][0]:.4f}, {ab['tile'][1]:.4f} "
+            f"ms; simt (gru_classifier_simt) {ab['simt'][0]:.4f}, "
+            f"{ab['simt'][1]:.4f} ms = {sum(ab['simt']) / sum(ab['tile']):.2f}x"
+            f" (device times); tile in back-to-back calls {host_ms:.4f} ms; "
+            f"plain {plain_ms:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}); "
+            f"the gate math's SFU floor {sfu_floor_ms(B_TIME, rnn_dims, 4):.4f}"
+            f" ms (information)  ({card})")
+        pack = runs["tile"].packs[gru_cell]
+        for split in gru_plan.SWEEP:
+            def run_split(split=split):
+                return rnn_kernel.gru_layer_cuda(
+                    x, gru_cell.kernel, gru_cell.recurrent_kernel,
+                    gru_cell.bias_input, gru_cell.bias_recurrent,
+                    gru_head.kernel, gru_head.bias, dt, pack, _split=split)
+
+            err = check_close(f"gru_classifier {dname} split {split}",
+                              run_split(), want, *tol)
+            if dt == torch.float32:
+                rnn_errs["gru"].append(err)
+            default = split == (gru_plan.ROWS, gru_plan.WARPS)
+            log(f"    {dname} {split[0]} windows a warp, {split[1]} warps a "
+                f"block{' (default)' if default else ''}: "
+                f"{graph_ms(run_split):.4f} ms (device time)  ({card})")
     for name, (k_ms, p_ms) in times.items():
         lib = library[name]
         log(f"  {name:18s} kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  "
             f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})  library "
             f"{'none' if lib is None else f'{lib:.4f} ms'}  (f32, {card})")
-    cls16 = GRUClassifier(pretrained, torch.bfloat16)
     feats16 = big_feats.to(torch.bfloat16)
-    for name, model, c16 in (
-            ("gru_classifier", pretrained, cls16),
-            ("lstm_classifier", lstm_pretrained,
-             LSTMClassifier(lstm_pretrained, torch.bfloat16))):
-        log(f"  {name:16s} kernel bf16 {cuda_ms(lambda: c16(feats16), 20):.4f}"
-            f" ms  plain bf16 "
-            f"{cuda_ms(lambda: model(feats16.float(), torch.bfloat16), 5):.4f}"
-            f" ms  ({card})")
+    lstm16 = LSTMClassifier(lstm_pretrained, torch.bfloat16)
+    lstm16_ms = cuda_ms(lambda: lstm16(feats16), 20)
+    lstm16_plain_ms = cuda_ms(
+        lambda: lstm_pretrained(feats16.float(), torch.bfloat16), 5)
+    log(f"  lstm_classifier  kernel bf16 {lstm16_ms:.4f} ms  plain bf16 "
+        f"{lstm16_plain_ms:.4f} ms  bound bf16 "
+        f"{rnn_bound(B_TIME, rnn_dims, 4, 'bfloat16')[0]:.4f} ms; the gate "
+        f"math's SFU floor {sfu_floor_ms(B_TIME, rnn_dims, 10):.4f} ms "
+        f"(information)  ({card})")
     log(f"  dft_frontend_bf16 kernel {times['dft_frontend_bf16'][0]:.4f} ms vs "
         f"FFT kernel (mfcc_frontend) {cuda_ms(lambda: fe(big), 20):.4f} ms, "
         f"same call, f32 audio and output  ({card})")
@@ -1219,6 +1346,8 @@ def main() -> int:
              frontend_kernel.DFT_REPLACES, fast_errs),
             ("gru_classifier", rnn_kernel.SOURCE, rnn_kernel.REPLACES,
              rnn_errs["gru"]),
+            ("gru_classifier_simt", rnn_kernel.SOURCE, rnn_kernel.REPLACES,
+             rnn_errs["gru_simt"]),
             ("lstm_classifier", rnn_kernel.LSTM_SOURCE,
              rnn_kernel.LSTM_REPLACES, rnn_errs["lstm"]),
             ("cnn_classifier", cnn_kernel.SOURCE, cnn_kernel.REPLACES,
@@ -1244,6 +1373,18 @@ def main() -> int:
             "plain_ms": times[name][1], "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1], "library_ms": library[name],
         })
+        if name.startswith("gru_classifier"):
+            # in bf16 (bf16 features), from the A/B above
+            ab, plain_ms, bound = gru_ab["bfloat16"]
+            kernels[-1].update({
+                "bf16_ms": ab["simt" if name.endswith("simt") else "tile"][0],
+                "bf16_plain_ms": plain_ms, "bf16_bound_ms": bound[0],
+                "bf16_bound_by": bound[1]})
+        if name == "lstm_classifier":
+            bound = rnn_bound(B_TIME, rnn_dims, 4, "bfloat16")
+            kernels[-1].update({
+                "bf16_ms": lstm16_ms, "bf16_plain_ms": lstm16_plain_ms,
+                "bf16_bound_ms": bound[0], "bf16_bound_by": bound[1]})
         if name.startswith("cnn_classifier"):
             # simple_cnn in bf16 (bf16 features), from the A/B above
             ab, plain_ms, bound = cnn_ab["simple_cnn", "bfloat16"]

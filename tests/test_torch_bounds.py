@@ -19,6 +19,13 @@ classes.  Peaks: 67 TFLOP/s f32, 989 TFLOP/s bf16, 3.35 TB/s.
 - the stage cuts (ops/omission_kernel.py): the audio read (or, with a
   constant block, block 0's 16 rows) and a (B, 128) f32 output; the
   operations of the cut's function (`chip_smoke.cut_bounds`);
+- the GRU and LSTM classifiers (the GRU's tile and SIMT kernels, one
+  function): [x_t | h] @ [W; U] over 30 steps, 2 x gates x 48 x 68 a frame,
+  and the head; f32 at 67 TFLOP/s on f32 features, bf16 at 989 TFLOP/s on
+  bf16 features (4.82 and 6.42 GFLOP: 0.0049 and 0.0065 ms of bf16, above
+  the 9.8 MB of bf16 features' 0.0029 ms).  The gate math's SFU floor is
+  information beside it: 4 results a unit a step for the GRU at 16 a clock
+  on 132 SMs at 1.98 GHz;
 - the CNN classifier (both kernels, one function) at 30 x 20 into 5
   classes: each conv at the positions the VALID pool keeps (block 1 600,
   block 2 140 of 150, block 3 12, block 4 8 of 12), 2 a multiply-add.
@@ -46,6 +53,10 @@ CEPSTRUM = FRAMES * (4 * 513 + 2 * 927 + 2 * 20 * 20)
 DFT = FRAMES * 2 * 1024 * 1024
 CT_STAGE2 = FRAMES * 14 * 128 * 128 * 2
 CT_STAGE1 = FRAMES * 128 * 24
+# [x_t | h] @ [W; U] over 30 steps, 68 = D 20 + U 48 rows, 3 or 4 gates of
+# 48 columns, 2 a multiply-add; the head 48 x 5
+GRU = FRAMES * 2 * 3 * 48 * 68 + 8192 * 2 * 48 * 5
+LSTM = FRAMES * 2 * 4 * 48 * 68 + 8192 * 2 * 48 * 5
 CNN = 8192 * 3_151_872
 CNN_LITE = 8192 * 476_848
 
@@ -61,10 +72,11 @@ EXPECTED = {  # name: (bound_by, ms)
     "dense_dft_halves": ("operations", (DFT + CEPSTRUM) / 67e9),
     "load_rowsum": ("bytes", (AUDIO_B + 4 * 8192) / 3.35e9),
     "load_broadcast": ("bytes", (AUDIO_B + 4 * 8192 * 600) / 3.35e9),
-    "gru_classifier": ("operations",
-                       (FRAMES * 2 * 3 * 48 * 68 + 8192 * 2 * 48 * 5) / 67e9),
-    "lstm_classifier": ("operations",
-                        (FRAMES * 2 * 4 * 48 * 68 + 8192 * 2 * 48 * 5) / 67e9),
+    "gru_classifier": ("operations", GRU / 67e9),
+    "gru_classifier_simt": ("operations", GRU / 67e9),
+    "gru_classifier bfloat16": ("operations", GRU / 989e9),
+    "lstm_classifier": ("operations", LSTM / 67e9),
+    "lstm_classifier bfloat16": ("operations", LSTM / 989e9),
     "cnn_classifier": ("operations", CNN / 67e9),
     "cnn_classifier_simt": ("operations", CNN / 67e9),
     "cnn_classifier simple_cnn float32": ("operations", CNN / 67e9),
@@ -95,6 +107,9 @@ def bounds(chip_smoke):
         for dtype in ("float32", "bfloat16"):
             out[f"cnn_classifier {name} {dtype}"] = chip_smoke.cnn_bound(
                 lowered, model.separable, 8192, dtype)
+    for name, gates in (("gru_classifier", 3), ("lstm_classifier", 4)):
+        out[f"{name} bfloat16"] = chip_smoke.rnn_bound(8192, (30, 20, 48, 5),
+                                                       gates, "bfloat16")
     return out
 
 
@@ -176,6 +191,25 @@ def test_fft_frontend_operations_are_below_its_bytes(bounds):
     ops_ms = (FRAMES * 2.5 * 1024 * 10 + CEPSTRUM) / 67e9
     assert ops_ms == pytest.approx(0.1112, abs=1e-4)
     assert bounds["mfcc_frontend"][0] > ops_ms
+
+
+def test_rnn_bf16_bounds_are_operations_above_the_bf16_features(chip_smoke,
+                                                                bounds):
+    """bf16: 0.0049 ms (GRU) and 0.0065 ms (LSTM) of tensor-core work, above
+    the 0.0029 ms the bf16 features and f32 logits take to read and write.
+    The GRU's gate math needs 47.2 M special-function results, 0.0112 ms at
+    the SFU rate: information, not part of the bound."""
+    assert bounds["gru_classifier bfloat16"][0] == pytest.approx(0.00487,
+                                                                 abs=1e-5)
+    assert bounds["lstm_classifier bfloat16"][0] == pytest.approx(0.00649,
+                                                                  abs=1e-5)
+    feats_bf16 = (2 * FRAMES * 20 + 4 * 8192 * 5) / 3.35e9
+    assert feats_bf16 == pytest.approx(0.00298, abs=1e-5)
+    sfu = chip_smoke.sfu_floor_ms(8192, (30, 20, 48, 5), 4)
+    assert sfu == pytest.approx(8192 * 30 * 48 * 4 / (16 * 132 * 1.98e9) * 1e3,
+                                rel=1e-12)
+    assert sfu == pytest.approx(0.0113, abs=1e-4)
+    assert bounds["gru_classifier"] == bounds["gru_classifier_simt"]
 
 
 def test_cnn_bounds_count_the_kept_positions_and_the_separable_form(bounds):

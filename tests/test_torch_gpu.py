@@ -11,7 +11,8 @@ Tolerances, each with its reason:
   dense-DFT matmul sum in another order, magnified by the log (the bound
   tests/test_frontend_jax.py holds JAX f32 features to);
 - features bf16: the same plus one bf16 rounding step (2^-7 relative);
-- GRU logits f32: atol 1e-4 / rtol 1e-5 (same math, other summation order);
+- GRU logits f32 (the tile and the SIMT kernel): atol 1e-4 / rtol 1e-5
+  (same math, other summation order);
 - GRU logits and scores bf16: atol 5e-2 (bf16 rounding can flip at a
   boundary and grow over 30 steps; the bound tests/test_serving.py allows);
 - scores f32, card vs CPU: atol 1e-3 (the feature bound through the GRU);
@@ -213,27 +214,115 @@ def test_frontend_kernel_rejects_what_it_cannot_take(cuda_device):
     assert fe(torch.zeros(0, 16000, device=cuda_device)).shape == (0, 30, 20)
 
 
-@pytest.mark.parametrize("num_layers", [1, 2])
-@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
-def test_gru_kernel_matches_plain(cuda_device, num_layers, compute_dtype):
-    """B = 37: a ragged last tile.  Weights from a numpy seed."""
-    model = SimpleGRU(5, 20, 48, num_layers)
-    rng = np.random.default_rng(num_layers)
+def _random_gru(d_in, units, num_layers, seed, device):
+    model = SimpleGRU(5, d_in, units, num_layers)
+    rng = np.random.default_rng(seed)
     with torch.no_grad():
         for prm in model.parameters():
             prm.copy_(torch.tensor(0.1 * rng.standard_normal(tuple(prm.shape)),
                                    dtype=torch.float32))
-    model = model.to(cuda_device).eval()
-    x = torch.tensor(rng.standard_normal((37, 30, 20)), dtype=torch.float32,
-                     device=cuda_device).to(compute_dtype)
-    before = rnn_kernel.gru_layer_cuda.launches
-    got = GRUClassifier(model, compute_dtype)(x)
-    torch.cuda.synchronize()
-    assert rnn_kernel.gru_layer_cuda.launches == before + num_layers
-    with torch.no_grad():
-        want = model(x.float(), compute_dtype)
+    return model.to(device).eval()
+
+
+def _gru_close(got, want, compute_dtype):
+    assert torch.isfinite(got).all()
     atol = 1e-4 if compute_dtype == torch.float32 else 5e-2
     torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("num_layers", [1, 2])
+@pytest.mark.parametrize("batch", [1, 16, 17, 37, 8192])
+@pytest.mark.parametrize("d_in", [3, 20, 40])
+@pytest.mark.parametrize("units", [4, 16, 48, 64])
+def test_gru_kernel_matches_plain(cuda_device, units, d_in, batch, num_layers,
+                                  compute_dtype, x_dtype):
+    """The tile kernel at every width up to its cap (64: U 4 and 16 run on
+    padded units), ragged batches (17, 37: a warp with idle rows), both
+    modes and both feature types.  Weights from a numpy seed."""
+    model = _random_gru(d_in, units, num_layers, units + d_in, cuda_device)
+    rng = np.random.default_rng(batch)
+    x = torch.tensor(rng.standard_normal((batch, 30, d_in)),
+                     dtype=torch.float32, device=cuda_device).to(x_dtype)
+    before = (rnn_kernel.gru_layer_cuda.launches, rnn_kernel.GRU_SIMT.launches)
+    got = GRUClassifier(model, compute_dtype)(x)
+    torch.cuda.synchronize()
+    assert (rnn_kernel.gru_layer_cuda.launches,
+            rnn_kernel.GRU_SIMT.launches) == (before[0] + num_layers, before[1])
+    assert got.shape == (batch, 5) and got.dtype == torch.float32
+    with torch.no_grad():
+        want = model(x.float(), compute_dtype)
+    _gru_close(got, want, compute_dtype)
+
+
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_gru_over_the_cap_runs_the_simt_kernel(cuda_device, compute_dtype):
+    """U = 80 pads past the tile kernel's 64: the SIMT kernel serves it and
+    counts, the tile kernel does not."""
+    from tpu_speech_commands_torch.ops import gru_plan
+
+    assert gru_plan.gru_kernel_for(20, 80) == "simt"
+    model = _random_gru(20, 80, 1, 3, cuda_device)
+    x = torch.tensor(np.random.default_rng(0).standard_normal((37, 30, 20)),
+                     dtype=torch.float32, device=cuda_device)
+    before = (rnn_kernel.gru_layer_cuda.launches, rnn_kernel.GRU_SIMT.launches)
+    got = GRUClassifier(model, compute_dtype)(x)
+    torch.cuda.synchronize()
+    assert (rnn_kernel.gru_layer_cuda.launches,
+            rnn_kernel.GRU_SIMT.launches) == (before[0], before[1] + 1)
+    with torch.no_grad():
+        want = model(x, compute_dtype)
+    _gru_close(got, want, compute_dtype)
+
+
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_gru_simt_kernel_matches_the_tile_kernel(cuda_device, compute_dtype):
+    """The A/B pair at the shipped shape (D 20, U 48), B = 1000: the SIMT
+    kernel through `_simt=True`, each against the plain version."""
+    model = _random_gru(20, 48, 1, 5, cuda_device)
+    cell, head = model.backbone.gru_unit_0, model.score_predict
+    x = torch.tensor(np.random.default_rng(1).standard_normal((1000, 30, 20)),
+                     dtype=torch.float32, device=cuda_device).to(compute_dtype)
+    args = (x, cell.kernel, cell.recurrent_kernel, cell.bias_input,
+            cell.bias_recurrent, head.kernel, head.bias, compute_dtype)
+    before = (rnn_kernel.gru_layer_cuda.launches, rnn_kernel.GRU_SIMT.launches)
+    tile = rnn_kernel.gru_layer_cuda(*args)
+    simt = rnn_kernel.gru_layer_cuda(*args, _simt=True)
+    torch.cuda.synchronize()
+    assert (rnn_kernel.gru_layer_cuda.launches,
+            rnn_kernel.GRU_SIMT.launches) == (before[0] + 1, before[1] + 1)
+    with torch.no_grad():
+        want = model(x.float(), compute_dtype)
+    _gru_close(tile, want, compute_dtype)
+    _gru_close(simt, want, compute_dtype)
+
+
+def test_gru_reciprocal_is_the_true_divide(cuda_device):
+    """The tile kernel's sigmoid takes a reciprocal without the division's
+    branch: bit for bit 1.0f / d on every float of [1, inf], the range of
+    its denominators 1 + exp(-v)."""
+    assert rnn_kernel.gru_rcp_mismatches(cuda_device) == 0
+
+
+def test_gru_wrapper_rejects_what_it_cannot_take(cuda_device):
+    from tpu_speech_commands_torch.ops import gru_plan
+
+    model = _random_gru(20, 48, 1, 6, cuda_device)
+    cell = model.backbone.gru_unit_0
+    x = torch.zeros(4, 30, 20, device=cuda_device)
+    weights = (cell.kernel, cell.recurrent_kernel, cell.bias_input,
+               cell.bias_recurrent)
+    pack16 = gru_plan.pack_gru_weights(*weights, torch.bfloat16)
+    with pytest.raises(ValueError, match="pack"):  # packed for bf16
+        rnn_kernel.gru_layer_cuda(x, *weights, pack=pack16)
+    with pytest.raises(TypeError):
+        rnn_kernel.gru_layer_cuda(x.double(), *weights)
+    with pytest.raises(ValueError):
+        rnn_kernel.gru_layer_cuda(x[:, :, :19], *weights)
+    with pytest.raises(RuntimeError, match="CUDA error"):  # no such split
+        rnn_kernel.gru_layer_cuda(x, *weights, _split=(16, 9))
+    assert rnn_kernel.gru_layer_cuda(x[:0], *weights).shape == (0, 30, 48)
 
 
 @pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
@@ -244,9 +333,13 @@ def test_scorer_runs_both_kernels(cuda_device, compute_dtype):
     assert scorer.paths["classifier"] == "cuda-gru"
     frontend_kernel.mfcc_frontend_cuda.launches = 0
     rnn_kernel.gru_layer_cuda.launches = 0
+    rnn_kernel.GRU_SIMT.launches = 0
     got = scorer(torch.tensor(audio, device=cuda_device)).cpu()
     assert frontend_kernel.mfcc_frontend_cuda.launches == 1
+    # the tile kernel served the scorer, not the SIMT one
     assert rnn_kernel.gru_layer_cuda.launches == 1
+    assert rnn_kernel.GRU_SIMT.launches == 0
+    assert torch.isfinite(got).all()
     assert [scorer.classes[i] for i in got.argmax(-1)] == labels
     want = make_batch_scorer(GRU_CKPT, "cpu", compute_dtype)(audio)
     atol = 1e-3 if compute_dtype == torch.float32 else 5e-2

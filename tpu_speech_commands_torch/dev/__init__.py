@@ -21,7 +21,10 @@ package's `tools/dev/` scripts whose TPU kernels the port carries:
   cut out or one design choice undone at a time;
 - `cnn_ablation`: the CNN classifier kernels the same way (the SIMT kernel
   without its L2 weight stream, the tiled implicit GEMM stopped after each
-  stage), and the GEMM kernel at other tiles.
+  stage), and the GEMM kernel at other tiles;
+- `gru_ablation`: the GRU tile kernel with one design choice undone at a
+  time (the gate math's reciprocal, the products' pipeline, the launch
+  bounds, the f32 input rows), device times from CUDA graphs.
 
 Each runs on the card and raises RuntimeError where CUDA is absent:
 
@@ -35,6 +38,7 @@ Each runs on the card and raises RuntimeError where CUDA is absent:
     python -m tpu_speech_commands_torch.dev.ct_ablation
     python -m tpu_speech_commands_torch.dev.fft_ablation
     python -m tpu_speech_commands_torch.dev.cnn_ablation
+    python -m tpu_speech_commands_torch.dev.gru_ablation
 
 Their `make_*` functions take `device="cpu"` for the plain versions.
 """
@@ -46,6 +50,32 @@ import numpy as np
 import torch
 
 from ..ops.ct_kernel import CtConstants, ct_frontend
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """The device time of one call of fn: `iters` calls captured in a CUDA
+    graph and replayed between two events.  Back-to-back calls time the
+    host instead where a call's host work outlasts its kernel."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def card_line() -> str:

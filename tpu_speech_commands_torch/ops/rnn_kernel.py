@@ -8,6 +8,13 @@ candidate) or LSTM layer (gates [i, f, c, o], one bias) over the whole
 sequence, with the dense head fused into the last layer's launch.  A
 stacked model runs one launch per layer.
 
+The GRU runs the tile kernel (`tsc_gru_layer`: one warp for 16 windows,
+bf16 `mma.sync` or f32 register tiles in its layout; plan, weight pack and
+CPU emulation in `ops/gru_plan.py`) wherever `gru_plan.gru_kernel_for`
+takes the layer's widths, and the first, SIMT kernel (`tsc_gru_layer_simt`)
+for wider layers or with `_simt=True` (the A/B baseline); neither stands in
+for the other on an error.
+
 `GRUClassifier` and `LSTMClassifier` dispatch on the tensor they are given:
 a CPU tensor goes through the plain module loop (`models/rnn.py::SimpleGRU`,
 `SimpleLSTM`), a CUDA tensor launches the kernel or raises.
@@ -17,17 +24,23 @@ from __future__ import annotations
 import torch
 
 from ..models.rnn import SimpleGRU, SimpleLSTM
-from . import _build
+from . import _build, gru_plan
+from .ct_kernel import LaunchCount
+from .gru_plan import GRUPack, gru_kernel_for, pack_gru_weights
 
 SOURCE = "tpu_speech_commands_torch/csrc/gru_classifier.cu"
 REPLACES = "tpu_speech_commands/ops/pallas_rnn.py:223"
 LSTM_SOURCE = "tpu_speech_commands_torch/csrc/lstm_classifier.cu"
 LSTM_REPLACES = REPLACES
 
-# tsc_gru_layer(x, x_bf16, batch, T, D, U, w, u, b_in, b_rec, head_w,
-#   head_b, C, seq_out, logits, bf16_math, stream)
+# tsc_gru_layer(x, x_bf16, batch, T, D, U, wpack, bias, head_w, head_b, C,
+#   seq_out, logits, bf16_math, rows, warps, stream)
 _N_ARGS = 17
-_INT_ARGS = (1, 2, 3, 4, 5, 12, 15)
+_INT_ARGS = (1, 2, 3, 4, 5, 10, 13, 14, 15)
+# tsc_gru_layer_simt(x, x_bf16, batch, T, D, U, w, u, b_in, b_rec, head_w,
+#   head_b, C, seq_out, logits, bf16_math, stream)
+_SIMT_N_ARGS = 17
+_SIMT_INT_ARGS = (1, 2, 3, 4, 5, 12, 15)
 # tsc_lstm_layer(x, x_bf16, batch, T, D, U, w, u, bias, head_w, head_b, C,
 #   seq_out, logits, bf16_math, stream)
 _LSTM_N_ARGS = 16
@@ -79,7 +92,7 @@ def _outputs(x, units, head_kernel, head_bias):
 
 
 def _launch(name, n_args, int_args, x, weights, units, head_args,
-            compute_dtype):
+            compute_dtype, split=()):
     batch, steps, d_in = x.shape
     fn = _build.bind(name, n_args, int_args)
     with torch.cuda.device(x.device):
@@ -87,19 +100,42 @@ def _launch(name, n_args, int_args, x, weights, units, head_args,
         rc = fn(
             x.data_ptr(), int(x.dtype == torch.bfloat16), batch, steps, d_in,
             units, *(t.data_ptr() for t in weights), *head_args,
-            int(compute_dtype == torch.bfloat16), stream,
+            int(compute_dtype == torch.bfloat16), *split, stream,
         )
     _build.check(rc, name)
+
+
+def _check_pack(pack: GRUPack, d_in, units, compute_dtype, device):
+    if (pack.d_in, pack.units, pack.compute_dtype) != (d_in, units,
+                                                       compute_dtype):
+        raise ValueError(
+            f"pack of a ({pack.d_in}, {pack.units}) layer for "
+            f"{pack.compute_dtype}, launch of a ({d_in}, {units}) layer for "
+            f"{compute_dtype}")
+    for name, t in (("weights", pack.weights), ("bias", pack.bias)):
+        # the kernel stages them with 16-byte loads
+        if t.device != device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"pack {name}: need a contiguous, 16-byte aligned "
+                             f"tensor on {device}, got one on {t.device}")
 
 
 def gru_layer_cuda(x: torch.Tensor, kernel: torch.Tensor,
                    recurrent_kernel: torch.Tensor, bias_input: torch.Tensor,
                    bias_recurrent: torch.Tensor, head_kernel=None,
-                   head_bias=None, compute_dtype=torch.float32) -> torch.Tensor:
-    """Launch the GRU kernel for one layer.  x (B, T, D) float32 or bfloat16
+                   head_bias=None, compute_dtype=torch.float32,
+                   pack: GRUPack | None = None, _simt: bool = False,
+                   _split: tuple[int, int] | None = None) -> torch.Tensor:
+    """Launch a GRU kernel for one layer.  x (B, T, D) float32 or bfloat16
     on a CUDA device, weights in the Keras layout (float32).  With a head:
     returns logits (B, C) float32; without: the layer's h sequence (B, T, U)
-    float32.  Every launch adds one to `.launches`."""
+    float32.
+
+    The tile kernel where `gru_plan.gru_kernel_for(D, U)` is "tile", on
+    `pack` (`pack_gru_weights` of these weights for compute_dtype; packed
+    here when None): adds one to `.launches`.  `_split` (windows a warp,
+    warps a block; `gru_plan.SWEEP`) overrides its work split.  The SIMT
+    kernel for wider layers, or with `_simt=True` (the A/B): adds one to
+    `GRU_SIMT.launches`."""
     units = recurrent_kernel.shape[0]
     _check_input(x, compute_dtype, units, "GRU")
     d_in = x.shape[2]
@@ -111,14 +147,38 @@ def gru_layer_cuda(x: torch.Tensor, kernel: torch.Tensor,
     out, head_args = _outputs(x, units, head_kernel, head_bias)
     if x.shape[0] == 0:
         return out
-    _launch("tsc_gru_layer", _N_ARGS, _INT_ARGS, x,
-            (kernel, recurrent_kernel, bias_input, bias_recurrent), units,
-            head_args, compute_dtype)
+    if _simt or gru_kernel_for(d_in, units) == "simt":
+        _launch("tsc_gru_layer_simt", _SIMT_N_ARGS, _SIMT_INT_ARGS, x,
+                (kernel, recurrent_kernel, bias_input, bias_recurrent), units,
+                head_args, compute_dtype)
+        GRU_SIMT.launches += 1
+        return out
+    if pack is None:
+        pack = pack_gru_weights(kernel, recurrent_kernel, bias_input,
+                                bias_recurrent, compute_dtype)
+    _check_pack(pack, d_in, units, compute_dtype, x.device)
+    split = _split or (gru_plan.ROWS, gru_plan.WARPS)
+    _launch("tsc_gru_layer", _N_ARGS, _INT_ARGS, x, (pack.weights, pack.bias),
+            units, head_args, compute_dtype, split)
     gru_layer_cuda.launches += 1
     return out
 
 
 gru_layer_cuda.launches = 0
+GRU_SIMT = LaunchCount()  # launches of the SIMT GRU kernel
+
+
+def gru_rcp_mismatches(device) -> int:
+    """How many floats d of [1, inf] the tile kernel's sigmoid reciprocal
+    rounds otherwise than the true divide 1.0f / d: the claim is 0."""
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    fn = _build.bind("tsc_gru_rcp_check", 4, (0, 1))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        # bit patterns [1.0f, +inf]
+        rc = fn(0x3F800000, 0x7F800001, bad.data_ptr(), stream)
+    _build.check(rc, "tsc_gru_rcp_check")
+    return int(bad.item())
 
 
 def lstm_layer_cuda(x: torch.Tensor, kernel: torch.Tensor,
@@ -183,15 +243,31 @@ class _RNNClassifier:
 
 
 class GRUClassifier(_RNNClassifier):
-    """A SimpleGRU through the GRU kernel (`csrc/gru_classifier.cu`)."""
+    """A SimpleGRU through the GRU kernels (`csrc/gru_classifier.cu`).  For
+    a model on the card, each layer the tile kernel takes has its weights
+    packed once, here (`pack_gru_weights`): a later change to the model's
+    weights needs a new GRUClassifier.  `_simt` runs every layer on the SIMT
+    kernel instead, for the A/B."""
 
     model_cls = SimpleGRU
 
-    @staticmethod
-    def _layer(seq, cell, head_kernel, head_bias, compute_dtype):
+    def __init__(self, model, compute_dtype=torch.float32, _simt=False):
+        super().__init__(model, compute_dtype)
+        self.simt = _simt
+        on_card = next(model.parameters()).is_cuda
+        self.packs = {
+            cell: pack_gru_weights(cell.kernel, cell.recurrent_kernel,
+                                   cell.bias_input, cell.bias_recurrent,
+                                   compute_dtype)
+            for cell in model.backbone.cells()
+            if on_card and not _simt
+            and gru_kernel_for(cell.kernel.shape[0], cell.units) == "tile"}
+
+    def _layer(self, seq, cell, head_kernel, head_bias, compute_dtype):
         return gru_layer_cuda(seq, cell.kernel, cell.recurrent_kernel,
                               cell.bias_input, cell.bias_recurrent,
-                              head_kernel, head_bias, compute_dtype)
+                              head_kernel, head_bias, compute_dtype,
+                              self.packs.get(cell), _simt=self.simt)
 
 
 class LSTMClassifier(_RNNClassifier):
