@@ -9,10 +9,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build    compile tpu_speech_commands_torch/csrc/*.cu with nvcc (sm_90a)
 3. kernels  each kernel against its plain PyTorch version on the card, at
             B = 1000, over the configs and dtypes the slices can meet (the
-            GRU classifier's tile kernel and its SIMT kernel, `_simt=True`,
-            one layer pretrained and two random, f32 and bf16, and the tile
-            kernel's reciprocal against the true divide on every float of
-            [1, inf]; the
+            GRU and LSTM classifiers' tile kernels and their SIMT kernels,
+            `_simt=True`, one layer pretrained and two random, f32 and bf16,
+            and the tile kernels' reciprocal against the true divide on
+            every float of [1, inf]; the
             CNN classifier's tiled implicit GEMM and its SIMT kernel,
             `_simt=True`, at four model x shape cases, f32 and bf16; the
             fast_math frontend also at K6 make_bf16_kernel's own settings;
@@ -35,12 +35,12 @@ Phases, in order; any failure raises and the script exits non-zero:
               direction_simple_lstm.npz, direction_simple_cnn.npz and
               direction_simple_cnn_lite.npz: top-1 must equal every file's
               label, `.paths` must name both kernels, both launch counts
-              must rise (for simple_gru the tile kernel's, the SIMT GRU
-              kernel's staying at 0), and the scores must agree with the
-              same scorer run on the CPU (plain versions);
-            - the SIMT GRU classifier kept for the A/B (frontend kernel,
-              then GRUClassifier(..., _simt=True)): top-1 and its launch
-              count;
+              must rise (for simple_gru and simple_lstm the tile kernel's,
+              the SIMT kernel's staying at 0), and the scores must agree
+              with the same scorer run on the CPU (plain versions);
+            - the SIMT GRU and LSTM classifiers kept for the A/B (frontend
+              kernel, then GRUClassifier / LSTMClassifier(..., _simt=True)):
+              top-1 and its launch count;
             - the fused-block-1 path (frontend kernel, then
               make_fused_cnn_forward) for both CNN checkpoints: top-1 and the
               block-1 launch count;
@@ -77,7 +77,10 @@ Phases, in order; any failure raises and the script exits non-zero:
             kernel against its SIMT kernel in turns, simt, tile, tile, simt,
             in f32 and bf16 (bf16 features), with a sweep of the tile
             kernel's windows a warp and warps a block and the gate math's
-            SFU floor beside the bound, and the CNN classifier's
+            SFU floor beside the bound, the LSTM classifier's tile kernel
+            against its SIMT kernel the same way (device times, f32 and
+            bf16, each beside its bound, the SFU floor and cuDNN's
+            nn.LSTM in the same dtype), and the CNN classifier's
             tiled implicit GEMM against its SIMT kernel in turns, simt, gemm,
             gemm, simt, for both CNN checkpoints' models in f32 and bf16, each
             beside its own bound, `cnn_bound`): each
@@ -136,11 +139,12 @@ BF16_STEP = 2.0 ** -7
 # (the fast_math frontend kernel is held to the same two bounds: its frames
 # and DFT matrix are the plain version's bf16 values bit for bit, and only
 # the f32 sums run in another order)
-# - GRU and LSTM logits f32: same math, f32 sums in another order over 30
-#   steps
+# - GRU and LSTM logits f32 (tile and SIMT kernels): same math, f32 sums
+#   in another order over 30 steps
 GRU_ATOL, GRU_RTOL = 1e-4, 1e-5
-# - GRU logits bf16: rounding of bf16 products can flip at a boundary and
-#   grow over the recurrence; the bound tests/test_serving.py allows bf16
+# - GRU and LSTM logits bf16: rounding of bf16 products can flip at a
+#   boundary and grow over the recurrence; the bound tests/test_serving.py
+#   allows bf16
 GRU_BF16_ATOL = 5e-2
 # - scores f32, card vs CPU: the feature bound carried through the GRU
 SCORE_ATOL = 1e-3
@@ -288,6 +292,7 @@ def kernel_bounds(p, batch, n_samples, rnn_dims, cnn_consts):
     b1 = cnn_consts.stages[0].stage
     block1_out = 4.0 * batch * b1.h_out * b1.w_out * b1.cout
     gru = rnn_bound(batch, rnn_dims, 3, "float32")
+    lstm = rnn_bound(batch, rnn_dims, 4, "float32")
     cnn = cnn_bound(cnn_consts.lowered, False, batch, "float32")
     # the FFT kernel's two bodies and the CT split kernel compute one
     # function: one bound (the CT split's own algorithm's floor is
@@ -300,7 +305,8 @@ def kernel_bounds(p, batch, n_samples, rnn_dims, cnn_consts):
         "dft_frontend_bf16": bound_ms(cepstrum, dft, audio_b + feats_b),
         "gru_classifier": gru,
         "gru_classifier_simt": gru,
-        "lstm_classifier": rnn_bound(batch, rnn_dims, 4, "float32"),
+        "lstm_classifier": lstm,
+        "lstm_classifier_simt": lstm,
         "cnn_classifier": cnn,
         "cnn_classifier_simt": cnn,
         "cnn_block1": bound_ms(
@@ -431,10 +437,11 @@ def ct_split_flops(p, batch, per_piece_mel=False) -> float:
     return stage2 + stage1 + ceps
 
 
-def cudnn_lstm(model, device):
+def cudnn_lstm(model, device, dtype=None):
     """The library yardstick of the LSTM kernel: torch.nn.LSTM (cuDNN) with
     the one-layer Keras LSTM's weights (same gate order; the single Keras
-    bias as bias_ih).  Timed here only; the port never calls it."""
+    bias as bias_ih), in `dtype` (float32 by default).  Timed here only; the
+    port never calls it."""
     import torch
 
     cell = model.backbone.lstm_unit_0
@@ -444,7 +451,9 @@ def cudnn_lstm(model, device):
         lstm.weight_hh_l0.copy_(cell.recurrent_kernel.T)
         lstm.bias_ih_l0.copy_(cell.bias)
         lstm.bias_hh_l0.zero_()
-    return lstm.to(device).eval()
+    lstm = lstm.to(device, dtype).eval()
+    lstm.flatten_parameters()  # one weight buffer, as cuDNN wants it
+    return lstm
 
 
 def random_cnn(cls, h: int, w: int, seed: int, device):
@@ -602,18 +611,21 @@ def main() -> int:
     if mismatches:
         raise AssertionError("the GRU tile kernel's reciprocal is not the "
                              "true divide")
-    # the GRU's tile kernel (what GRUClassifier launches) and the SIMT
-    # kernel kept for the A/B, each held to the plain version
+    # the GRU's and the LSTM's tile kernels (what GRUClassifier and
+    # LSTMClassifier launch) and the SIMT kernels kept for the A/B, each held
+    # to the plain version
     gru_models = (("1 layer, pretrained", pretrained),
                   ("2 layers, random", random_rnn(SimpleGRU)))
-    rnn_errs = {"gru": [], "gru_simt": [], "lstm": []}
+    rnn_errs = {"gru": [], "gru_simt": [], "lstm": [], "lstm_simt": []}
+    lstm_models = (("1 layer, pretrained", lstm_pretrained),
+                   ("2 layers, random", random_rnn(SimpleLSTM)))
     for rnn, rnn_cls, models in (
             ("gru", GRUClassifier, gru_models),
             ("gru_simt", lambda m, dt: GRUClassifier(m, dt, _simt=True),
              gru_models),
-            ("lstm", LSTMClassifier,
-             (("1 layer, pretrained", lstm_pretrained),
-              ("2 layers, random", random_rnn(SimpleLSTM))))):
+            ("lstm", LSTMClassifier, lstm_models),
+            ("lstm_simt", lambda m, dt: LSTMClassifier(m, dt, _simt=True),
+             lstm_models)):
         for label, model in models:
             for dtype in (torch.float32, torch.bfloat16):
                 x = feats.to(dtype)
@@ -832,6 +844,7 @@ def main() -> int:
         "gru_classifier": rnn_kernel.gru_layer_cuda,
         "gru_classifier_simt": rnn_kernel.GRU_SIMT,
         "lstm_classifier": rnn_kernel.lstm_layer_cuda,
+        "lstm_classifier_simt": rnn_kernel.LSTM_SIMT,
         "cnn_classifier": cnn_kernel.cnn_classifier_cuda,
         "cnn_classifier_simt": cnn_kernel.SIMT,
         "cnn_block1": cnn_kernel.cnn_block1_cuda,
@@ -867,7 +880,8 @@ def main() -> int:
     clips_dev = torch.tensor(clips, device=dev)
     scorer_paths = (
         (CHECKPOINT, "cuda-gru", "gru_classifier", ("gru_classifier_simt",)),
-        (LSTM_CHECKPOINT, "cuda-lstm", "lstm_classifier", ()),
+        (LSTM_CHECKPOINT, "cuda-lstm", "lstm_classifier",
+         ("lstm_classifier_simt",)),
         (CNN_CHECKPOINTS["simple_cnn"], "cuda-cnn", "cnn_classifier", ()),
         (CNN_CHECKPOINTS["simple_cnn_lite"], "cuda-cnn", "cnn_classifier", ()),
     )
@@ -942,21 +956,24 @@ def main() -> int:
                 raise AssertionError(f"top-1 {top1} != labels {labels}")
 
     # the SIMT classifiers kept for the A/B, behind the frontend kernel
-    gru_predictor = load_native(CHECKPOINT, dev)
-    fe = MfccFrontend(None, gru_predictor.meta.get("feature_type", "mfcc"), dev)
-    simt_gru = {dt: GRUClassifier(gru_predictor.model, dt, _simt=True)
+    for path, cls, name in ((CHECKPOINT, GRUClassifier, "gru_classifier"),
+                            (LSTM_CHECKPOINT, LSTMClassifier,
+                             "lstm_classifier")):
+        predictor = load_native(path, dev)
+        fe = MfccFrontend(None, predictor.meta.get("feature_type", "mfcc"), dev)
+        simt = {dt: cls(predictor.model, dt, _simt=True)
                 for dt in (torch.float32, torch.bfloat16)}
-    scores = drive(
-        "frontend kernel + GRUClassifier(direction_simple_gru.npz, _simt=True)"
-        " on 8 clips, f32 and bf16",
-        lambda: {dt: score_fn(c(fe(clips_dev).to(dt)))
-                 for dt, c in simt_gru.items()},
-        ("mfcc_frontend", "gru_classifier_simt"), ("gru_classifier",))
-    for dt, sc in scores.items():
-        top1 = [gru_predictor.classes[i] for i in sc.argmax(-1).tolist()]
-        log(f"  {str(dt)[6:]:8s} top-1 {sum(a == b for a, b in zip(top1, labels))}/8")
-        if not torch.isfinite(sc).all() or top1 != labels:
-            raise AssertionError(f"top-1 {top1} != labels {labels}")
+        scores = drive(
+            f"frontend kernel + {cls.__name__}({os.path.basename(path)}, "
+            "_simt=True) on 8 clips, f32 and bf16",
+            lambda: {dt: score_fn(c(fe(clips_dev).to(dt)))
+                     for dt, c in simt.items()},
+            ("mfcc_frontend", name + "_simt"), (name,))
+        for dt, sc in scores.items():
+            top1 = [predictor.classes[i] for i in sc.argmax(-1).tolist()]
+            log(f"  {str(dt)[6:]:8s} top-1 {sum(a == b for a, b in zip(top1, labels))}/8")
+            if not torch.isfinite(sc).all() or top1 != labels:
+                raise AssertionError(f"top-1 {top1} != labels {labels}")
     for name, path in CNN_CHECKPOINTS.items():
         predictor = load_native(path, dev)
         fe = MfccFrontend(None, predictor.meta.get("feature_type", "mfcc"), dev)
@@ -1034,7 +1051,6 @@ def main() -> int:
     stage = cnn_kernel.StageTensors(lower_block1(cnn.variables(), False, 30, 20),
                                     dev)
     fast_fe = MfccFrontend(ListenerParams(), "mfcc", dev, fast_math=True)
-    lstm_cls = LSTMClassifier(lstm_pretrained, torch.float32)
     p0 = ListenerParams()
     unit_gain = torch.ones(1, dtype=torch.float32, device=dev)
 
@@ -1068,8 +1084,6 @@ def main() -> int:
         "mfcc_frontend_radix2": (cuda_ms(radix2, 10), fe_plain_ms),
         "dft_frontend_bf16": (cuda_ms(lambda: fast_fe(big), 20),
                               cuda_ms(lambda: fast_fe.plain(big), 5)),
-        "lstm_classifier": (cuda_ms(lambda: lstm_cls(big_feats), 20),
-                            cuda_ms(lambda: lstm_pretrained(big_feats), 5)),
         "cnn_classifier": (
             cuda_ms(lambda: cnn_cls(big_feats), 20),
             cuda_ms(lambda: cnn_kernel.cnn_classifier_plain(cnn_cls.consts,
@@ -1141,15 +1155,10 @@ def main() -> int:
     # one PyTorch call computing the same function, where there is one; the
     # broadcast has none (a sum, then a copy), nor has any frontend (no
     # library call gives an MFCC), the GRU (a linear candidate is not
-    # nn.GRU) or the fused CNNs
+    # nn.GRU) or the fused CNNs; the LSTM's, cuDNN's nn.LSTM, is timed with
+    # its A/B below
     library = dict.fromkeys(times)
     library["load_rowsum"] = cuda_ms(lambda: torch.sum(big, 1), 50)
-    lstm_lib = cudnn_lstm(lstm_pretrained, dev)
-    head = lstm_pretrained.score_predict
-    lib_logits = lstm_lib(big_feats)[0][:, -1] @ head.kernel + head.bias
-    check_close("cuDNN nn.LSTM (library yardstick) vs the LSTM kernel",
-                lstm_cls(big_feats), lib_logits, GRU_ATOL, GRU_RTOL)
-    library["lstm_classifier"] = cuda_ms(lambda: lstm_lib(big_feats), 20)
     # (T, D, U, C), the same for both RNN checkpoints
     rnn_dims = (big_feats.shape[1], big_feats.shape[2],
                 lstm_pretrained.backbone.lstm_unit_0.units,
@@ -1212,21 +1221,57 @@ def main() -> int:
             log(f"    {dname} {split[0]} windows a warp, {split[1]} warps a "
                 f"block{' (default)' if default else ''}: "
                 f"{graph_ms(run_split):.4f} ms (device time)  ({card})")
+    # the LSTM classifier the same way (the scorer runs it in f32), each
+    # dtype beside cuDNN's nn.LSTM in that dtype (f32 held to the kernel;
+    # bf16 keeps h and c in bf16 between steps, so its error is printed)
+    lstm_ab = {}
+    lstm_head = lstm_pretrained.score_predict
+    for dt in (torch.float32, torch.bfloat16):
+        x = big_feats.to(dt)
+        dname = str(dt)[6:]
+        runs = {"tile": LSTMClassifier(lstm_pretrained, dt),
+                "simt": LSTMClassifier(lstm_pretrained, dt, _simt=True)}
+        with torch.inference_mode():
+            want = lstm_pretrained(x.float(), dt)
+        tol = (GRU_ATOL, GRU_RTOL) if dt == torch.float32 else (GRU_BF16_ATOL, 0.0)
+        for which, run in runs.items():
+            err = check_close(f"lstm_classifier ({which}) {dname} B = {B_TIME}",
+                              run(x), want, *tol)
+            if dt == torch.float32:
+                rnn_errs["lstm" if which == "tile" else "lstm_simt"].append(err)
+        ab = {"simt": [], "tile": []}
+        for which in ("simt", "tile", "tile", "simt"):
+            ab[which].append(graph_ms(lambda: runs[which](x)))
+        plain_ms = cuda_ms(lambda: lstm_pretrained(x.float(), dt), 5)
+        bound = rnn_bound(B_TIME, rnn_dims, 4, dname)
+        lstm_lib = cudnn_lstm(lstm_pretrained, dev, dt)
+        with torch.inference_mode():
+            lib_logits = (lstm_lib(x)[0][:, -1].float() @ lstm_head.kernel
+                          + lstm_head.bias)
+            lib_err = float((lib_logits - runs["tile"](x)).abs().max())
+        if dt == torch.float32:
+            check_close("cuDNN nn.LSTM (library yardstick) vs the LSTM kernel",
+                        runs["tile"](x), lib_logits, GRU_ATOL, GRU_RTOL)
+        lib_ms = cuda_ms(lambda: lstm_lib(x), 20)
+        lstm_ab[dname] = (ab, plain_ms, bound, lib_ms)
+        if dt == torch.float32:
+            times["lstm_classifier"] = (ab["tile"][0], plain_ms)
+            times["lstm_classifier_simt"] = (ab["simt"][0], plain_ms)
+            library["lstm_classifier"] = library["lstm_classifier_simt"] = lib_ms
+        log(f"  lstm_classifier {dname}: A/B in turns simt, tile, tile, simt: "
+            f"tile (lstm_classifier) {ab['tile'][0]:.4f}, {ab['tile'][1]:.4f} "
+            f"ms; simt (lstm_classifier_simt) {ab['simt'][0]:.4f}, "
+            f"{ab['simt'][1]:.4f} ms = {sum(ab['simt']) / sum(ab['tile']):.2f}x"
+            f" (device times); plain {plain_ms:.4f} ms; bound {bound[0]:.4f} ms"
+            f" ({bound[1]}); the gate math's SFU floor "
+            f"{sfu_floor_ms(B_TIME, rnn_dims, 10):.4f} ms (information); "
+            f"cuDNN nn.LSTM {dname} {lib_ms:.4f} ms (back-to-back calls; "
+            f"logits vs the tile kernel {lib_err:.1e})  ({card})")
     for name, (k_ms, p_ms) in times.items():
         lib = library[name]
         log(f"  {name:18s} kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  "
             f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})  library "
             f"{'none' if lib is None else f'{lib:.4f} ms'}  (f32, {card})")
-    feats16 = big_feats.to(torch.bfloat16)
-    lstm16 = LSTMClassifier(lstm_pretrained, torch.bfloat16)
-    lstm16_ms = cuda_ms(lambda: lstm16(feats16), 20)
-    lstm16_plain_ms = cuda_ms(
-        lambda: lstm_pretrained(feats16.float(), torch.bfloat16), 5)
-    log(f"  lstm_classifier  kernel bf16 {lstm16_ms:.4f} ms  plain bf16 "
-        f"{lstm16_plain_ms:.4f} ms  bound bf16 "
-        f"{rnn_bound(B_TIME, rnn_dims, 4, 'bfloat16')[0]:.4f} ms; the gate "
-        f"math's SFU floor {sfu_floor_ms(B_TIME, rnn_dims, 10):.4f} ms "
-        f"(information)  ({card})")
     log(f"  dft_frontend_bf16 kernel {times['dft_frontend_bf16'][0]:.4f} ms vs "
         f"FFT kernel (mfcc_frontend) {cuda_ms(lambda: fe(big), 20):.4f} ms, "
         f"same call, f32 audio and output  ({card})")
@@ -1350,6 +1395,8 @@ def main() -> int:
              rnn_errs["gru_simt"]),
             ("lstm_classifier", rnn_kernel.LSTM_SOURCE,
              rnn_kernel.LSTM_REPLACES, rnn_errs["lstm"]),
+            ("lstm_classifier_simt", rnn_kernel.LSTM_SOURCE,
+             rnn_kernel.LSTM_REPLACES, rnn_errs["lstm_simt"]),
             ("cnn_classifier", cnn_kernel.SOURCE, cnn_kernel.REPLACES,
              cnn_errs["cnn_classifier"]),
             ("cnn_classifier_simt", cnn_kernel.SOURCE, cnn_kernel.REPLACES,
@@ -1380,11 +1427,13 @@ def main() -> int:
                 "bf16_ms": ab["simt" if name.endswith("simt") else "tile"][0],
                 "bf16_plain_ms": plain_ms, "bf16_bound_ms": bound[0],
                 "bf16_bound_by": bound[1]})
-        if name == "lstm_classifier":
-            bound = rnn_bound(B_TIME, rnn_dims, 4, "bfloat16")
+        if name.startswith("lstm_classifier"):
+            # in bf16 (bf16 features), from the A/B above
+            ab, plain_ms, bound, lib_ms = lstm_ab["bfloat16"]
             kernels[-1].update({
-                "bf16_ms": lstm16_ms, "bf16_plain_ms": lstm16_plain_ms,
-                "bf16_bound_ms": bound[0], "bf16_bound_by": bound[1]})
+                "bf16_ms": ab["simt" if name.endswith("simt") else "tile"][0],
+                "bf16_plain_ms": plain_ms, "bf16_bound_ms": bound[0],
+                "bf16_bound_by": bound[1], "bf16_library_ms": lib_ms})
         if name.startswith("cnn_classifier"):
             # simple_cnn in bf16 (bf16 features), from the A/B above
             ab, plain_ms, bound = cnn_ab["simple_cnn", "bfloat16"]

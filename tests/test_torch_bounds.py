@@ -76,6 +76,7 @@ EXPECTED = {  # name: (bound_by, ms)
     "gru_classifier_simt": ("operations", GRU / 67e9),
     "gru_classifier bfloat16": ("operations", GRU / 989e9),
     "lstm_classifier": ("operations", LSTM / 67e9),
+    "lstm_classifier_simt": ("operations", LSTM / 67e9),
     "lstm_classifier bfloat16": ("operations", LSTM / 989e9),
     "cnn_classifier": ("operations", CNN / 67e9),
     "cnn_classifier_simt": ("operations", CNN / 67e9),

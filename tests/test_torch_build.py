@@ -60,7 +60,7 @@ def test_digest_follows_sources(tmp_path, monkeypatch):
     assert first == _build.source_digest()
     csrc = tmp_path / "csrc"
     csrc.mkdir()
-    for path in _build.CSRC_DIR.glob("*.cu"):
+    for path in [*_build.CSRC_DIR.glob("*.cu"), *_build.CSRC_DIR.glob("*.cuh")]:
         (csrc / path.name).write_bytes(path.read_bytes())
     monkeypatch.setattr(_build, "CSRC_DIR", csrc)
     assert _build.source_digest() == first

@@ -22,7 +22,8 @@ Tolerances, each with its reason:
 - fast_math features: the bounds of the f32 features above (the kernel's
   bf16 frames and DFT matrix are the plain version's values bit for bit;
   only the f32 sums run in another order);
-- LSTM logits f32: atol 1e-4 / rtol 1e-5; bf16: atol 5e-2 (as the GRU);
+- LSTM logits f32 (the tile and the SIMT kernel): atol 1e-4 / rtol 1e-5;
+  bf16: atol 5e-2 (as the GRU);
 - dense-DFT features: the bounds of the f32 features above (the same f32
   math in another summation order, magnified by the log);
 - load-floor row sums: per row |err| <= 2e-6 * sum |gain * x| (16,000 f32
@@ -592,30 +593,89 @@ def test_fast_math_kernel_rejects_what_it_cannot_take(cuda_device):
     assert fe(torch.zeros(0, 16000, device=cuda_device)).shape == (0, 30, 20)
 
 
-@pytest.mark.parametrize("num_layers", [1, 2])
-@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
-def test_lstm_kernel_matches_plain(cuda_device, num_layers, compute_dtype):
-    """B = 37: a ragged last tile.  Weights from a numpy seed."""
-    model = SimpleLSTM(5, 20, 48, num_layers)
-    rng = np.random.default_rng(10 + num_layers)
+def _random_lstm(d_in, units, num_layers, seed, device):
+    model = SimpleLSTM(5, d_in, units, num_layers)
+    rng = np.random.default_rng(seed)
     with torch.no_grad():
         for prm in model.parameters():
             prm.copy_(torch.tensor(0.1 * rng.standard_normal(tuple(prm.shape)),
                                    dtype=torch.float32))
-    model = model.to(cuda_device).eval()
-    x = torch.tensor(rng.standard_normal((37, 30, 20)), dtype=torch.float32,
-                     device=cuda_device).to(compute_dtype)
-    before = rnn_kernel.lstm_layer_cuda.launches
+    return model.to(device).eval()
+
+
+def _lstm_counts():
+    return rnn_kernel.lstm_layer_cuda.launches, rnn_kernel.LSTM_SIMT.launches
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("num_layers", [1, 2])
+@pytest.mark.parametrize("batch", [1, 16, 17, 37, 8192])
+@pytest.mark.parametrize("d_in", [3, 20, 40])
+@pytest.mark.parametrize("units", [4, 16, 48, 64])
+def test_lstm_kernel_matches_plain(cuda_device, units, d_in, batch, num_layers,
+                                   compute_dtype, x_dtype):
+    """The tile kernel at every width up to its cap (64: U 4 and 16 run on
+    padded units), ragged batches (17, 37: a warp with idle rows), both
+    modes and both feature types.  Weights from a numpy seed."""
+    model = _random_lstm(d_in, units, num_layers, 10 + units + d_in,
+                         cuda_device)
+    rng = np.random.default_rng(batch)
+    x = torch.tensor(rng.standard_normal((batch, 30, d_in)),
+                     dtype=torch.float32, device=cuda_device).to(x_dtype)
+    before = _lstm_counts()
     got = LSTMClassifier(model, compute_dtype)(x)
     torch.cuda.synchronize()
-    assert rnn_kernel.lstm_layer_cuda.launches == before + num_layers
+    assert _lstm_counts() == (before[0] + num_layers, before[1])
+    assert got.shape == (batch, 5) and got.dtype == torch.float32
     with torch.no_grad():
         want = model(x.float(), compute_dtype)
-    atol = 1e-4 if compute_dtype == torch.float32 else 5e-2
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+    _gru_close(got, want, compute_dtype)
+
+
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_lstm_over_the_cap_runs_the_simt_kernel(cuda_device, compute_dtype):
+    """U = 80 pads past the tile kernel's 64: the SIMT kernel serves it and
+    counts, the tile kernel does not."""
+    from tpu_speech_commands_torch.ops import lstm_plan
+
+    assert lstm_plan.lstm_kernel_for(20, 80) == "simt"
+    model = _random_lstm(20, 80, 1, 3, cuda_device)
+    x = torch.tensor(np.random.default_rng(0).standard_normal((37, 30, 20)),
+                     dtype=torch.float32, device=cuda_device)
+    before = _lstm_counts()
+    got = LSTMClassifier(model, compute_dtype)(x)
+    torch.cuda.synchronize()
+    assert _lstm_counts() == (before[0], before[1] + 1)
+    with torch.no_grad():
+        want = model(x, compute_dtype)
+    _gru_close(got, want, compute_dtype)
+
+
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_lstm_simt_kernel_matches_the_tile_kernel(cuda_device, compute_dtype):
+    """The A/B pair at the shipped shape (D 20, U 48), B = 1000: the SIMT
+    kernel through `_simt=True`, each against the plain version."""
+    model = _random_lstm(20, 48, 1, 5, cuda_device)
+    cell, head = model.backbone.lstm_unit_0, model.score_predict
+    x = torch.tensor(np.random.default_rng(1).standard_normal((1000, 30, 20)),
+                     dtype=torch.float32, device=cuda_device).to(compute_dtype)
+    args = (x, cell.kernel, cell.recurrent_kernel, cell.bias, head.kernel,
+            head.bias, compute_dtype)
+    before = _lstm_counts()
+    with torch.no_grad():
+        tile = rnn_kernel.lstm_layer_cuda(*args)
+        simt = rnn_kernel.lstm_layer_cuda(*args, _simt=True)
+        torch.cuda.synchronize()
+        want = model(x.float(), compute_dtype)
+    assert _lstm_counts() == (before[0] + 1, before[1] + 1)
+    _gru_close(tile, want, compute_dtype)
+    _gru_close(simt, want, compute_dtype)
 
 
 def test_lstm_wrapper_rejects_what_it_cannot_take(cuda_device):
+    from tpu_speech_commands_torch.ops import lstm_plan
+
     cell = SimpleLSTM(5, 20, 48).to(cuda_device).backbone.lstm_unit_0
     weights = (cell.kernel.detach(), cell.recurrent_kernel.detach(),
                cell.bias.detach())
@@ -630,6 +690,9 @@ def test_lstm_wrapper_rejects_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="kernel"):
         rnn_kernel.lstm_layer_cuda(torch.zeros(2, 30, 21, device=cuda_device),
                                    *weights)
+    pack16 = lstm_plan.pack_lstm_weights(*weights, torch.bfloat16)
+    with pytest.raises(ValueError, match="pack"):  # packed for bf16
+        rnn_kernel.lstm_layer_cuda(good, *weights, pack=pack16)
     assert rnn_kernel.lstm_layer_cuda(good[:0], *weights).shape == (0, 30, 48)
 
 
@@ -639,10 +702,10 @@ def test_lstm_scorer_runs_both_kernels(cuda_device, compute_dtype):
     scorer = make_batch_scorer(LSTM_CKPT, cuda_device, compute_dtype)
     assert scorer.paths == {"frontend": "cuda-mfcc", "classifier": "cuda-lstm"}
     frontend_kernel.mfcc_frontend_cuda.launches = 0
-    rnn_kernel.lstm_layer_cuda.launches = 0
+    rnn_kernel.lstm_layer_cuda.launches = rnn_kernel.LSTM_SIMT.launches = 0
     got = scorer(torch.tensor(audio, device=cuda_device)).cpu()
     assert frontend_kernel.mfcc_frontend_cuda.launches == 1
-    assert rnn_kernel.lstm_layer_cuda.launches == 1
+    assert _lstm_counts() == (1, 0)
     assert [scorer.classes[i] for i in got.argmax(-1)] == labels
     want = make_batch_scorer(LSTM_CKPT, "cpu", compute_dtype)(audio)
     atol = 1e-3 if compute_dtype == torch.float32 else 5e-2

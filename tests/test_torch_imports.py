@@ -39,7 +39,9 @@ def test_port_imports_no_jax():
         "tpu_speech_commands_torch.ops.frontend_kernel",
         "tpu_speech_commands_torch.ops.rnn_kernel",
         "tpu_speech_commands_torch.ops.gru_plan",
+        "tpu_speech_commands_torch.ops.lstm_plan",
         "tpu_speech_commands_torch.dev.gru_ablation",
+        "tpu_speech_commands_torch.dev.lstm_ablation",
         "tpu_speech_commands_torch.ops._build",
         "tpu_speech_commands_torch.export.inference_loader",
         "tpu_speech_commands_torch.frontend.dsp",

@@ -1,5 +1,7 @@
 // LSTM classifier (one Keras LSTM layer per launch, dense head fused into the
-// last), hand-written for Hopper (sm_90a).
+// last), hand-written for Hopper (sm_90a): the tile kernel (tsc_lstm_layer)
+// and the first, SIMT design (tsc_lstm_layer_simt), kept for the A/B and for
+// widths past the tile kernel's instantiations.
 //
 // Replaces the TPU kernel tpu_speech_commands/ops/pallas_rnn.py::
 // make_fused_rnn_classifier (pallas_call at :223) for cell_type='lstm':
@@ -22,11 +24,42 @@
 // C 5) a window costs 30 x 2 x (20 + 48) x 192 = 0.78 MFLOP against 2.4 KB
 // of f32 features read: ~330 FLOP per byte, far above any ridge, and the 30
 // steps are serial.  So it is bound by arithmetic and by the latency of one
-// step (68 dependent FMAs per gate, then a barrier).
+// step, whose gate math needs 10 special-function results a unit (three
+// sigmoids and two tanh, an exp and a reciprocal each).
 //
-// Design: the GRU kernel's (csrc/gru_classifier.cu).  A block owns a tile
-// of windows and one thread owns one (window, unit) pair, with its h and c
-// in registers.  W, U and the bias (rounded to bf16 there in bf16 mode) and
+// The tile kernel (lstm_tile_kernel; plan, weight pack and CPU emulation in
+// ops/lstm_plan.py, on the fragment maps of ops/gru_plan.py), the GRU tile
+// kernel's design (csrc/gru_classifier.cu) with four gates; its
+// gate-agnostic pieces are csrc/rnn_tile.cuh's.  One warp owns kRows = 16
+// windows (the rows of an mma tile) for all T steps; kWarps = 4 warps a
+// block share only the weights and the bias, staged once into shared memory
+// before the time loop, so the loop has no block barrier.  D and U are
+// padded to D_p and U_p, multiples of 16, with zero weights and biases: a
+// padded unit stays 0 (i = f = o = 1/2, tanh(0) = 0).  A lane holds rows g
+// and g + 8, columns 2t and 2t + 1 of every 8-column n-tile (the C layout of
+// mma.sync m16n8k16), and c as one f32 register a C element.
+//  - bf16 mode: each step runs [x_t | h] @ [W; U] on the tensor cores, one
+//    accumulator a gate, one 8-column group of units at a time, the next
+//    group's products issued before this group's gate math.  h lives only
+//    as bf16 A fragments: group j's new h, packed to bf16x2, is half of
+//    k-block j / 2 of the next step's A operand (n-tiles 2k and 2k + 1 form
+//    k-block k), and in f32 only as long as its store takes.  x_t's A
+//    fragment is loaded from global one step ahead.  The B fragments are
+//    packed once in fragment order, one 8-byte word a lane a (k-block,
+//    n-tile).
+//  - f32 mode, on the CUDA cores in the same C layout: each step the warp
+//    writes x_t and h into its own shared buffer, k-major with rows g and
+//    g + 8 side by side, and a lane reads per k that float2 and the float2
+//    weights of every n-tile it owns ([k][n][t]), four FMAs a weight load;
+//    a pass over k covers a group of units, all four gates of it.
+//    __syncwarp orders the buffer, nothing else.
+// Gate math (f32: expf and the true divide's quotient, rcp_sigmoid, with
+// one branch a group for the rare tail; tanhf) and the stores are one code
+// path.
+//
+// The SIMT kernel (lstm_layer_kernel, tsc_lstm_layer_simt): the GRU's first
+// design.  A block owns a tile of windows and one thread owns one (window,
+// unit) pair, with its h and c in registers.  W, U and the bias (rounded to bf16 there in bf16 mode) and
 // the tile's whole feature sequence are staged once in shared memory; at
 // U 48 and 10 windows a tile that is ~81 KB for 480 threads.  Threads of a
 // window read h of the previous step from a shared double buffer, so a
@@ -36,6 +69,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "rnn_tile.cuh"
 
 namespace {
 
@@ -167,11 +202,12 @@ cudaError_t launch(const void* x, int batch, int T, int D, int U,
 // another), and logits (batch, C) f32 through head_w (U, C) and head_b
 // (C,) when logits is not null (the last layer).  bf16_math selects bf16
 // products with f32 accumulation.  Returns the launch's cudaError_t.
-extern "C" int tsc_lstm_layer(const void* x, int x_bf16, int batch, int T,
-                              int D, int U, const void* w, const void* u,
-                              const void* bias, const void* head_w,
-                              const void* head_b, int C, void* seq_out,
-                              void* logits, int bf16_math, void* stream) {
+extern "C" int tsc_lstm_layer_simt(const void* x, int x_bf16, int batch,
+                                   int T, int D, int U, const void* w,
+                                   const void* u, const void* bias,
+                                   const void* head_w, const void* head_b,
+                                   int C, void* seq_out, void* logits,
+                                   int bf16_math, void* stream) {
   if (batch <= 0 || T <= 0 || D <= 0 || U <= 0 || U > 1024 ||
       (logits && C <= 0))
     return cudaErrorInvalidValue;
@@ -192,5 +228,353 @@ extern "C" int tsc_lstm_layer(const void* x, int x_bf16, int batch, int T,
     err = bf16_math
               ? launch<float, true>(x, batch, T, D, U, fw, fu, fb, hw, hb, C, so, lo, s)
               : launch<float, false>(x, batch, T, D, U, fw, fu, fb, hw, hb, C, so, lo, s);
+  return static_cast<int>(err);
+}
+
+// ---------------------------------------------------------------------------
+// The tile kernel.  Its constants are ops/lstm_plan.py's and, through it,
+// ops/gru_plan.py's (ROWS, WARPS, CAP_D, CAP_U, X_PITCH;
+// tests/test_torch_lstm_plan.py holds them together).
+
+namespace {
+
+constexpr int kRows = 16;     // windows a warp: the rows of an mma tile
+constexpr int kWarps = 4;     // warps a block: 128 blocks at B = 8192
+constexpr int kMaxWarps = 8;  // the block size __launch_bounds__ is given
+constexpr int kCapD = 64;     // the largest padded widths instantiated
+constexpr int kCapU = 64;
+constexpr int kXPitch = 20;   // f32 mode: floats a k-row of the warp's buffer
+
+// One 8-column group of units: the gate math on its four C fragments, c and
+// h updated in place.  f32 throughout: sigmoid = 1 / (1 + expf(-v)) with
+// the quotient of a true divide, one branch a group, taken only when some
+// denominator is out of rcp_rn's range (rcp_tail then, for all of them);
+// tanhf on the candidate and on the cell.
+__device__ __forceinline__ void gate(float (&h)[4], float (&c)[4],
+                                     const float (&gi)[4], const float (&gf)[4],
+                                     const float (&gc)[4], const float (&go)[4]) {
+  float di[4], df[4], dq[4], si[4], sf[4], so[4];
+  bool in_range = true;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    di[e] = 1.0f + expf(-gi[e]);
+    df[e] = 1.0f + expf(-gf[e]);
+    dq[e] = 1.0f + expf(-go[e]);
+    in_range = in_range && di[e] < kRcpMax && df[e] < kRcpMax && dq[e] < kRcpMax;
+    si[e] = rcp_rn(di[e]);
+    sf[e] = rcp_rn(df[e]);
+    so[e] = rcp_rn(dq[e]);
+  }
+  if (!in_range) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      si[e] = rcp_sigmoid(di[e]);
+      sf[e] = rcp_sigmoid(df[e]);
+      so[e] = rcp_sigmoid(dq[e]);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    c[e] = sf[e] * c[e] + si[e] * tanhf(gc[e]);
+    h[e] = so[e] * tanhf(c[e]);
+  }
+}
+
+// bf16 mode: the four accumulators of group j (i, f, c, o: n-tiles j,
+// NU + j, 2 NU + j, 3 NU + j), from the bias and [x_t | h] @ [W; U] on the
+// tensor cores
+template <int KBX, int KBH, int NU>
+__device__ __forceinline__ void products(float (&acc)[4][4],
+                                         const uint32_t (&xa)[KBX][4],
+                                         const uint32_t (&ha)[KBH][4],
+                                         const uint2* s_b, const float* s_bias,
+                                         int j, int t4) {
+  constexpr int UP = 8 * NU, NT = 4 * NU;
+  const int col = 8 * j + 2 * t4;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) bias4(acc[q], s_bias, q * UP + col);
+#pragma unroll
+  for (int kb = 0; kb < KBX; ++kb)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) mma(acc[q], xa[kb], s_b[(kb * NT + q * NU + j) * 32]);
+#pragma unroll
+  for (int kb = 0; kb < KBH; ++kb)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      mma(acc[q], ha[kb], s_b[((KBX + kb) * NT + q * NU + j) * 32]);
+}
+
+template <bool kBf16>
+constexpr size_t tile_smem(int DP, int UP) {
+  return 16 * (size_t)UP +
+         (kBf16 ? (size_t)(DP + UP) / 16 * (UP / 2) * 256
+                : (size_t)(DP + UP) * 4 * UP * 4 +
+                      (size_t)kWarps * (DP + UP) * kXPitch * 4);
+}
+
+// __launch_bounds__ with a minimum of one block an SM, as the GRU's tile
+// kernel: ptxas then takes the registers it wants rather than spill.
+// x (batch, T, D) f32 or bf16; wpack the pack's weights (bf16: B fragments
+// [k-block][n-tile][lane] x 4 bf16; f32: the padded [W; U], row-major),
+// bias (4, U_p) f32 [b_i, b_f, b_c, b_o].  A warp's rows past the batch load
+// zeros and store nothing; a warp wholly past it leaves after the staging.
+template <typename InT, bool kBf16, int DP, int UP>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1)
+lstm_tile_kernel(const InT* __restrict__ x, int batch, int T, int D, int U,
+                 const void* __restrict__ wpack,
+                 const float* __restrict__ bias,
+                 const float* __restrict__ head_w,
+                 const float* __restrict__ head_b, int C,
+                 float* __restrict__ seq_out, float* __restrict__ logits) {
+  constexpr int KBX = DP / 16, KBH = UP / 16, KB = KBX + KBH;
+  constexpr int NU = UP / 8, NT = 4 * NU, K = DP + UP;
+  constexpr int kWBytes = kBf16 ? KB * NT * 256 : K * 4 * UP * 4;
+  // f32: groups of units a pass over k (the accumulators of a pass, four
+  // gates of kPass n-tiles, stay at 96 registers or fewer)
+  constexpr int kPass = NU <= 6 ? NU : NU / 2;
+  extern __shared__ __align__(16) unsigned char lstm_smem_bytes[];
+  float* s_bias = reinterpret_cast<float*>(lstm_smem_bytes);
+  unsigned char* s_w = lstm_smem_bytes + 16 * UP;
+  for (int i = threadIdx.x; i < kWBytes / 16; i += blockDim.x)
+    reinterpret_cast<uint4*>(s_w)[i] =
+        __ldg(reinterpret_cast<const uint4*>(wpack) + i);
+  for (int i = threadIdx.x; i < 4 * UP; i += blockDim.x) s_bias[i] = __ldg(bias + i);
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int b0 = (blockIdx.x * kWarps + warp) * kRows;
+  if (b0 >= batch) return;
+  const bool v0 = b0 + g < batch;
+  const bool v1 = b0 + g + 8 < batch;
+  const InT* x0 = x + (size_t)(v0 ? b0 + g : 0) * T * D;
+  const InT* x1 = x + (size_t)(v1 ? b0 + g + 8 : 0) * T * D;
+  // row g's (step 0, unit 0) element of seq_out; row g + 8's is row8 on
+  float* so = seq_out ? seq_out + (size_t)(b0 + g) * T * U : nullptr;
+  const size_t row8 = (size_t)8 * T * U;
+
+  float h[NU][4], c[NU][4];
+#pragma unroll
+  for (int j = 0; j < NU; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) h[j][e] = c[j][e] = 0.0f;
+  InT xr[KBX][8];
+  load_x<InT, KBX>(xr, x0, x1, v0, v1, 0, D, t4);
+
+  if constexpr (kBf16) {
+    const uint2* s_b = reinterpret_cast<const uint2*>(s_w) + lane;
+    // h as the A operand, bf16: n-tiles 2k, 2k + 1 of the C layout are
+    // k-block k (zeros are bf16 zeros)
+    uint32_t ha[KBH][4];
+#pragma unroll
+    for (int kb = 0; kb < KBH; ++kb)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) ha[kb][q] = 0u;
+    for (int step = 0; step < T; ++step) {
+      uint32_t xa[KBX][4];
+#pragma unroll
+      for (int kb = 0; kb < KBX; ++kb)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) xa[kb][q] = pack2(xr[kb][2 * q], xr[kb][2 * q + 1]);
+      if (step + 1 < T) load_x<InT, KBX>(xr, x0, x1, v0, v1, step + 1, D, t4);
+      // group j + 1's products issue before group j's gate math: the
+      // tensor cores run while the gates wait on the special-function units
+      uint32_t hn[KBH][4];
+      float acc[2][4][4];  // i, f, c, o of two groups
+      products<KBX, KBH, NU>(acc[0], xa, ha, s_b, s_bias, 0, t4);
+#pragma unroll
+      for (int j = 0; j < NU; ++j) {
+        if (j + 1 < NU)
+          products<KBX, KBH, NU>(acc[(j + 1) & 1], xa, ha, s_b, s_bias, j + 1, t4);
+        const auto& a = acc[j & 1];
+        float hj[1][4];
+        gate(hj[0], c[j], a[0], a[1], a[2], a[3]);
+        hn[j >> 1][2 * (j & 1)] = pack2(hj[0][0], hj[0][1]);
+        hn[j >> 1][2 * (j & 1) + 1] = pack2(hj[0][2], hj[0][3]);
+        if (so)
+          store_seq<kRows, 1>(hj, so + (size_t)step * U + 8 * j, row8, t4, v0,
+                              v1, U - 8 * j);
+      }
+#pragma unroll
+      for (int kb = 0; kb < KBH; ++kb)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) ha[kb][q] = hn[kb][q];
+    }
+    // h_T for the head: the A fragments back in the C layout (the head
+    // rounds h_T to bf16 in this mode anyway)
+#pragma unroll
+    for (int j = 0; j < NU; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t w = ha[j >> 1][2 * (j & 1) + (e >> 1)];
+        h[j][e] = __uint_as_float(e & 1 ? w & 0xffff0000u : w << 16);
+      }
+  } else {
+    const float2* s_w2 = reinterpret_cast<const float2*>(s_w) + t4;
+    // the warp's buffer, K k-rows of kXPitch floats; h starts at 0
+    float* wbuf = reinterpret_cast<float*>(s_w + kWBytes) + (size_t)warp * K * kXPitch;
+    for (int i = lane; i < UP * kXPitch; i += 32) wbuf[DP * kXPitch + i] = 0.0f;
+    float2* buf = reinterpret_cast<float2*>(wbuf) + g;
+    const int dx = (D + 3) & ~3;
+    for (int step = 0; step < T; ++step) {
+      // x_t into k-rows [0, DP): the float2 (row g, row g + 8) of a column
+#pragma unroll
+      for (int kb = 0; kb < KBX; ++kb)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i = (q & 1) + 4 * (q >> 1);
+          const int col = 16 * kb + 2 * t4 + (q & 1) + 8 * (q >> 1);
+          buf[col * (kXPitch / 2)] =
+              make_float2(to_float(xr[kb][i]), to_float(xr[kb][i + 2]));
+        }
+      __syncwarp();
+      if (step + 1 < T) load_x<InT, KBX>(xr, x0, x1, v0, v1, step + 1, D, t4);
+#pragma unroll
+      for (int j0 = 0; j0 < NU; j0 += kPass) {
+        float acc[4][kPass][4];  // i, f, c, o
+#pragma unroll
+        for (int jj = 0; jj < kPass; ++jj) {
+          const int col = 8 * (j0 + jj) + 2 * t4;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) bias4(acc[q][jj], s_bias, q * UP + col);
+        }
+        // the input rows up to D rounded to 4, not to DP: the padding rows
+        // past them are zero in x and in W
+#pragma unroll 4
+        for (int k = 0; k < dx; ++k) {
+          const float2 a = buf[k * (kXPitch / 2)];
+          const float2* wk = s_w2 + (size_t)k * NT * 4;
+#pragma unroll
+          for (int jj = 0; jj < kPass; ++jj)
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              fma4<kRows>(acc[q][jj], a, wk[(q * NU + j0 + jj) * 4]);
+        }
+#pragma unroll 4
+        for (int k = DP; k < K; ++k) {
+          const float2 a = buf[k * (kXPitch / 2)];
+          const float2* wk = s_w2 + (size_t)k * NT * 4;
+#pragma unroll
+          for (int jj = 0; jj < kPass; ++jj)
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              fma4<kRows>(acc[q][jj], a, wk[(q * NU + j0 + jj) * 4]);
+        }
+#pragma unroll
+        for (int jj = 0; jj < kPass; ++jj)
+          gate(h[j0 + jj], c[j0 + jj], acc[0][jj], acc[1][jj], acc[2][jj],
+               acc[3][jj]);
+      }
+      if (so) store_seq<kRows, NU>(h, so + (size_t)step * U, row8, t4, v0, v1, U);
+      // every lane has read the old h: the new one into k-rows [DP, K)
+      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < NU; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          buf[(DP + 8 * j + 2 * t4 + e) * (kXPitch / 2)] =
+              make_float2(h[j][e], h[j][e + 2]);
+    }
+  }
+
+  if (logits) {
+    // each lane's columns, then a sum over the four lanes of a row
+    for (int cl = 0; cl < C; ++cl) {
+      float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NU; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int u = 8 * j + 2 * t4 + e;
+          if (u < U) {
+            const float w = rnd<kBf16>(__ldg(head_w + (size_t)u * C + cl));
+            s0 = fmaf(rnd<kBf16>(h[j][e]), w, s0);
+            s1 = fmaf(rnd<kBf16>(h[j][e + 2]), w, s1);
+          }
+        }
+      s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+      s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+      if (t4 == 0) {
+        if (v0) logits[(size_t)(b0 + g) * C + cl] = s0 + __ldg(&head_b[cl]);
+        if (v1) logits[(size_t)(b0 + g + 8) * C + cl] = s1 + __ldg(&head_b[cl]);
+      }
+    }
+  }
+}
+
+template <typename InT, bool kBf16, int DP, int UP>
+cudaError_t launch_tile(const void* x, int batch, int T, int D, int U,
+                        const void* w, const float* bias, const float* head_w,
+                        const float* head_b, int C, float* seq_out,
+                        float* logits, cudaStream_t stream) {
+  const size_t smem = tile_smem<kBf16>(DP, UP);
+  auto kernel = lstm_tile_kernel<InT, kBf16, DP, UP>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int per_block = kWarps * kRows;
+  kernel<<<(batch + per_block - 1) / per_block, kWarps * 32, smem, stream>>>(
+      static_cast<const InT*>(x), batch, T, D, U, w, bias, head_w, head_b, C,
+      seq_out, logits);
+  return cudaGetLastError();
+}
+
+// The (D_p, U_p) instantiated: every pair up to kCapD x kCapU.
+#define TSC_LSTM_TILE_SHAPES(X)                                       \
+  X(16, 16) X(16, 32) X(16, 48) X(16, 64) X(32, 16) X(32, 32)         \
+  X(32, 48) X(32, 64) X(48, 16) X(48, 32) X(48, 48) X(48, 64)         \
+  X(64, 16) X(64, 32) X(64, 48) X(64, 64)
+
+template <typename InT, bool kBf16>
+cudaError_t dispatch_tile(int DP, int UP, const void* x, int batch, int T,
+                          int D, int U, const void* w, const float* bias,
+                          const float* head_w, const float* head_b, int C,
+                          float* seq_out, float* logits, cudaStream_t stream) {
+#define TSC_LSTM_TILE_CASE(dp, up)                                         \
+  if (DP == dp && UP == up)                                                \
+    return launch_tile<InT, kBf16, dp, up>(x, batch, T, D, U, w, bias,     \
+                                           head_w, head_b, C, seq_out,     \
+                                           logits, stream);
+  TSC_LSTM_TILE_SHAPES(TSC_LSTM_TILE_CASE)
+#undef TSC_LSTM_TILE_CASE
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// The tile kernel.  x (batch, T, D) f32 or bf16; wpack and bias as
+// ops/lstm_plan.py::pack_lstm_weights packs them for bf16_math (16-byte
+// aligned); head_w (U, C), head_b (C,) f32.  Writes seq_out (batch, T, U)
+// f32 when it is not null, logits (batch, C) f32 when logits is not null.
+// Returns the launch's cudaError_t; cudaErrorInvalidValue for a shape
+// without an instantiation.
+extern "C" int tsc_lstm_layer(const void* x, int x_bf16, int batch, int T,
+                              int D, int U, const void* wpack,
+                              const void* bias, const void* head_w,
+                              const void* head_b, int C, void* seq_out,
+                              void* logits, int bf16_math, void* stream) {
+  if (batch <= 0 || T <= 0 || D <= 0 || U <= 0 || (logits && C <= 0))
+    return cudaErrorInvalidValue;
+  const int DP = (D + 15) / 16 * 16, UP = (U + 15) / 16 * 16;
+  if (DP > kCapD || UP > kCapU) return cudaErrorInvalidValue;
+  const float* fb = static_cast<const float*>(bias);
+  const float* hw = static_cast<const float*>(head_w);
+  const float* hb = static_cast<const float*>(head_b);
+  float* so = static_cast<float*>(seq_out);
+  float* lo = static_cast<float*>(logits);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (x_bf16)
+    err = bf16_math
+              ? dispatch_tile<__nv_bfloat16, true>(DP, UP, x, batch, T, D, U, wpack, fb, hw, hb, C, so, lo, s)
+              : dispatch_tile<__nv_bfloat16, false>(DP, UP, x, batch, T, D, U, wpack, fb, hw, hb, C, so, lo, s);
+  else
+    err = bf16_math
+              ? dispatch_tile<float, true>(DP, UP, x, batch, T, D, U, wpack, fb, hw, hb, C, so, lo, s)
+              : dispatch_tile<float, false>(DP, UP, x, batch, T, D, U, wpack, fb, hw, hb, C, so, lo, s);
   return static_cast<int>(err);
 }

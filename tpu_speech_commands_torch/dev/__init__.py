@@ -24,7 +24,9 @@ package's `tools/dev/` scripts whose TPU kernels the port carries:
   stage), and the GEMM kernel at other tiles;
 - `gru_ablation`: the GRU tile kernel with one design choice undone at a
   time (the gate math's reciprocal, the products' pipeline, the launch
-  bounds, the f32 input rows), device times from CUDA graphs.
+  bounds, the f32 input rows), device times from CUDA graphs;
+- `lstm_ablation`: the LSTM tile kernel the same way, and with two passes
+  over k a step in f32.
 
 Each runs on the card and raises RuntimeError where CUDA is absent:
 
@@ -39,6 +41,7 @@ Each runs on the card and raises RuntimeError where CUDA is absent:
     python -m tpu_speech_commands_torch.dev.fft_ablation
     python -m tpu_speech_commands_torch.dev.cnn_ablation
     python -m tpu_speech_commands_torch.dev.gru_ablation
+    python -m tpu_speech_commands_torch.dev.lstm_ablation
 
 Their `make_*` functions take `device="cpu"` for the plain versions.
 """

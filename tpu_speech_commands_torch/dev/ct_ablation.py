@@ -61,7 +61,8 @@ def variant_sources() -> dict:
 
 def build(sources: dict, stem: str = "ct") -> dict:
     """Compile each source into its own library (one nvcc each, all started
-    together) in a temporary directory under the build directory."""
+    together) in a temporary directory under the build directory; the
+    copies include csrc/'s headers from there."""
     nvcc = _build.find_nvcc()
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=_build.BUILD_DIR)
@@ -71,7 +72,8 @@ def build(sources: dict, stem: str = "ct") -> dict:
         with open(cu, "w") as f:
             f.write(src)
         procs[name] = subprocess.Popen(
-            [nvcc, *_build.COMPILE_FLAGS, "-shared", "-o", cu[:-3] + ".so", cu],
+            [nvcc, *_build.COMPILE_FLAGS, "-I", str(_build.CSRC_DIR), "-shared",
+             "-o", cu[:-3] + ".so", cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():

@@ -74,21 +74,46 @@ CHOICES["all_undone"] = [edit for name in ("true_divide", "no_pipeline",
                          for edit in CHOICES[name]]
 
 
-def variant_sources() -> dict:
-    """name -> the kernel source with that choice undone ("base": as
+def edited_sources(filename: str, choices: dict) -> dict:
+    """name -> csrc/`filename` with that choice's edits made ("base": as
     shipped); ValueError if a text an edit replaces is not in the source
     exactly once."""
-    src = (_build.CSRC_DIR / "gru_classifier.cu").read_text()
+    src = (_build.CSRC_DIR / filename).read_text()
     out = {"base": src}
-    for name, edits in CHOICES.items():
+    for name, edits in choices.items():
         variant = src
         for old, new in edits:
             if src.count(old) != 1:
                 raise ValueError(f"variant {name}: its text is not in "
-                                 "gru_classifier.cu once")
+                                 f"{filename} once")
             variant = variant.replace(old, new)
         out[name] = variant
     return out
+
+
+def variant_sources() -> dict:
+    """name -> the kernel source with that choice undone ("base": as
+    shipped)."""
+    return edited_sources("gru_classifier.cu", CHOICES)
+
+
+def time_variants(libs: dict, run_for, iters: int):
+    """Device times (`graph_ms`) and outputs of run_for(dtype)() with each
+    library in turn standing in for the shipped one, f32 then bf16, in the
+    order base, variants, then reversed: ({(dtype, name): [ms, ms]},
+    {(dtype, name): output})."""
+    shipped = _build.load_library
+    times, outs = {}, {}
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            run = run_for(dtype)
+            for name in list(libs) + list(libs)[::-1]:
+                _build.load_library = lambda lib=libs[name]: lib
+                times.setdefault((dtype, name), []).append(graph_ms(run, iters))
+                outs[dtype, name] = run()
+    finally:
+        _build.load_library = shipped
+    return times, outs
 
 
 def main(argv=None) -> dict:
@@ -110,26 +135,16 @@ def main(argv=None) -> dict:
     cell, head = model.backbone.gru_unit_0, model.score_predict
     x32 = torch.tensor(rng.standard_normal((args.batch, 30, 20)),
                        dtype=torch.float32, device=dev)
-    shipped = _build.load_library
-    times, outs = {}, {}
-    try:
-        for dtype in (torch.float32, torch.bfloat16):
-            x = x32.to(dtype)
-            pack = pack_gru_weights(cell.kernel, cell.recurrent_kernel,
-                                    cell.bias_input, cell.bias_recurrent, dtype)
 
-            def run():
-                return rnn_kernel.gru_layer_cuda(
-                    x, cell.kernel, cell.recurrent_kernel, cell.bias_input,
-                    cell.bias_recurrent, head.kernel, head.bias, dtype, pack)
+    def run_for(dtype):
+        x = x32.to(dtype)
+        pack = pack_gru_weights(cell.kernel, cell.recurrent_kernel,
+                                cell.bias_input, cell.bias_recurrent, dtype)
+        return lambda: rnn_kernel.gru_layer_cuda(
+            x, cell.kernel, cell.recurrent_kernel, cell.bias_input,
+            cell.bias_recurrent, head.kernel, head.bias, dtype, pack)
 
-            for name in list(libs) + list(libs)[::-1]:
-                _build.load_library = lambda lib=libs[name]: lib
-                times.setdefault((dtype, name), []).append(
-                    graph_ms(run, args.iters))
-                outs[dtype, name] = run()
-    finally:
-        _build.load_library = shipped
+    times, outs = time_variants(libs, run_for, args.iters)
     for (dtype, name), ms in times.items():
         diff = float((outs[dtype, name] - outs[dtype, "base"]).abs().max())
         print(f"gru_classifier {str(dtype)[6:]:8s} {name:14s} "

@@ -8,12 +8,14 @@ candidate) or LSTM layer (gates [i, f, c, o], one bias) over the whole
 sequence, with the dense head fused into the last layer's launch.  A
 stacked model runs one launch per layer.
 
-The GRU runs the tile kernel (`tsc_gru_layer`: one warp for 16 windows,
-bf16 `mma.sync` or f32 register tiles in its layout; plan, weight pack and
-CPU emulation in `ops/gru_plan.py`) wherever `gru_plan.gru_kernel_for`
-takes the layer's widths, and the first, SIMT kernel (`tsc_gru_layer_simt`)
-for wider layers or with `_simt=True` (the A/B baseline); neither stands in
-for the other on an error.
+Each runs a tile kernel (`tsc_gru_layer`, `tsc_lstm_layer`: one warp for
+16 windows, bf16 `mma.sync` or f32 register tiles in its layout, the
+shared pieces in `csrc/rnn_tile.cuh`; plan, weight pack and CPU emulation
+in `ops/gru_plan.py` and `ops/lstm_plan.py`) wherever
+`gru_plan.gru_kernel_for` / `lstm_plan.lstm_kernel_for` takes the layer's
+widths, and the first, SIMT kernel (`tsc_gru_layer_simt`,
+`tsc_lstm_layer_simt`) for wider layers or with `_simt=True` (the A/B
+baseline); neither stands in for the other on an error.
 
 `GRUClassifier` and `LSTMClassifier` dispatch on the tensor they are given:
 a CPU tensor goes through the plain module loop (`models/rnn.py::SimpleGRU`,
@@ -26,7 +28,8 @@ import torch
 from ..models.rnn import SimpleGRU, SimpleLSTM
 from . import _build, gru_plan
 from .ct_kernel import LaunchCount
-from .gru_plan import GRUPack, gru_kernel_for, pack_gru_weights
+from .gru_plan import TilePack, gru_kernel_for, pack_gru_weights
+from .lstm_plan import lstm_kernel_for, pack_lstm_weights
 
 SOURCE = "tpu_speech_commands_torch/csrc/gru_classifier.cu"
 REPLACES = "tpu_speech_commands/ops/pallas_rnn.py:223"
@@ -41,10 +44,14 @@ _INT_ARGS = (1, 2, 3, 4, 5, 10, 13, 14, 15)
 #   head_b, C, seq_out, logits, bf16_math, stream)
 _SIMT_N_ARGS = 17
 _SIMT_INT_ARGS = (1, 2, 3, 4, 5, 12, 15)
-# tsc_lstm_layer(x, x_bf16, batch, T, D, U, w, u, bias, head_w, head_b, C,
+# tsc_lstm_layer(x, x_bf16, batch, T, D, U, wpack, bias, head_w, head_b, C,
 #   seq_out, logits, bf16_math, stream)
-_LSTM_N_ARGS = 16
-_LSTM_INT_ARGS = (1, 2, 3, 4, 5, 11, 14)
+_LSTM_N_ARGS = 15
+_LSTM_INT_ARGS = (1, 2, 3, 4, 5, 10, 13)
+# tsc_lstm_layer_simt(x, x_bf16, batch, T, D, U, w, u, bias, head_w, head_b,
+#   C, seq_out, logits, bf16_math, stream)
+_LSTM_SIMT_N_ARGS = 16
+_LSTM_SIMT_INT_ARGS = (1, 2, 3, 4, 5, 11, 14)
 _COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -105,7 +112,7 @@ def _launch(name, n_args, int_args, x, weights, units, head_args,
     _build.check(rc, name)
 
 
-def _check_pack(pack: GRUPack, d_in, units, compute_dtype, device):
+def _check_pack(pack: TilePack, d_in, units, compute_dtype, device):
     if (pack.d_in, pack.units, pack.compute_dtype) != (d_in, units,
                                                        compute_dtype):
         raise ValueError(
@@ -123,7 +130,7 @@ def gru_layer_cuda(x: torch.Tensor, kernel: torch.Tensor,
                    recurrent_kernel: torch.Tensor, bias_input: torch.Tensor,
                    bias_recurrent: torch.Tensor, head_kernel=None,
                    head_bias=None, compute_dtype=torch.float32,
-                   pack: GRUPack | None = None, _simt: bool = False,
+                   pack: TilePack | None = None, _simt: bool = False,
                    _split: tuple[int, int] | None = None) -> torch.Tensor:
     """Launch a GRU kernel for one layer.  x (B, T, D) float32 or bfloat16
     on a CUDA device, weights in the Keras layout (float32).  With a head:
@@ -184,12 +191,19 @@ def gru_rcp_mismatches(device) -> int:
 def lstm_layer_cuda(x: torch.Tensor, kernel: torch.Tensor,
                     recurrent_kernel: torch.Tensor, bias: torch.Tensor,
                     head_kernel=None, head_bias=None,
-                    compute_dtype=torch.float32) -> torch.Tensor:
-    """Launch the LSTM kernel for one layer.  x (B, T, D) float32 or
+                    compute_dtype=torch.float32,
+                    pack: TilePack | None = None,
+                    _simt: bool = False) -> torch.Tensor:
+    """Launch an LSTM kernel for one layer.  x (B, T, D) float32 or
     bfloat16 on a CUDA device, weights in the Keras layout (float32, gates
     [i, f, c, o]).  With a head: returns logits (B, C) float32; without: the
-    layer's h sequence (B, T, U) float32.  Every launch adds one to
-    `.launches`."""
+    layer's h sequence (B, T, U) float32.
+
+    The tile kernel where `lstm_plan.lstm_kernel_for(D, U)` is "tile", on
+    `pack` (`pack_lstm_weights` of these weights for compute_dtype; packed
+    here when None): adds one to `.launches`.  The SIMT kernel for wider
+    layers, or with `_simt=True` (the A/B): adds one to
+    `LSTM_SIMT.launches`."""
     units = recurrent_kernel.shape[0]
     _check_input(x, compute_dtype, units, "LSTM")
     d_in = x.shape[2]
@@ -200,23 +214,35 @@ def lstm_layer_cuda(x: torch.Tensor, kernel: torch.Tensor,
     out, head_args = _outputs(x, units, head_kernel, head_bias)
     if x.shape[0] == 0:
         return out
+    if _simt or lstm_kernel_for(d_in, units) == "simt":
+        _launch("tsc_lstm_layer_simt", _LSTM_SIMT_N_ARGS, _LSTM_SIMT_INT_ARGS,
+                x, (kernel, recurrent_kernel, bias), units, head_args,
+                compute_dtype)
+        LSTM_SIMT.launches += 1
+        return out
+    if pack is None:
+        pack = pack_lstm_weights(kernel, recurrent_kernel, bias, compute_dtype)
+    _check_pack(pack, d_in, units, compute_dtype, x.device)
     _launch("tsc_lstm_layer", _LSTM_N_ARGS, _LSTM_INT_ARGS, x,
-            (kernel, recurrent_kernel, bias), units, head_args,
-            compute_dtype)
+            (pack.weights, pack.bias), units, head_args, compute_dtype)
     lstm_layer_cuda.launches += 1
     return out
 
 
 lstm_layer_cuda.launches = 0
+LSTM_SIMT = LaunchCount()  # launches of the SIMT LSTM kernel
 
 
 class _RNNClassifier:
     """(B, T, D) features -> (B, C) float32 logits.  CPU tensors run the
     module's own loop; CUDA tensors launch the kernel once per layer, the
-    last launch with the head.  Subclasses name the model class and the
-    per-layer launch."""
+    last launch with the head.  For a model on the card, each layer the
+    tile kernel takes has its weights packed once, here: a later change to
+    the model's weights needs a new classifier.  `_simt` runs every layer
+    on the SIMT kernel instead, for the A/B.  Subclasses name the model
+    class, the route, the pack and the per-layer launch."""
 
-    def __init__(self, model, compute_dtype=torch.float32):
+    def __init__(self, model, compute_dtype=torch.float32, _simt=False):
         if not isinstance(model, self.model_cls):
             raise TypeError(f"need a {self.model_cls.__name__}, got "
                             f"{type(model).__name__}")
@@ -225,6 +251,13 @@ class _RNNClassifier:
                             f"{compute_dtype}")
         self.model = model
         self.compute_dtype = compute_dtype
+        self.simt = _simt
+        on_card = next(model.parameters()).is_cuda
+        self.packs = {
+            cell: self._pack(cell, compute_dtype)
+            for cell in model.backbone.cells()
+            if on_card and not _simt
+            and self._kernel_for(cell.kernel.shape[0], cell.units) == "tile"}
 
     @torch.inference_mode()
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
@@ -238,45 +271,42 @@ class _RNNClassifier:
         for i, cell in enumerate(cells):
             last = i == len(cells) - 1
             seq = self._layer(seq, cell, head.kernel if last else None,
-                              head.bias if last else None, self.compute_dtype)
+                              head.bias if last else None)
         return seq
 
 
 class GRUClassifier(_RNNClassifier):
-    """A SimpleGRU through the GRU kernels (`csrc/gru_classifier.cu`).  For
-    a model on the card, each layer the tile kernel takes has its weights
-    packed once, here (`pack_gru_weights`): a later change to the model's
-    weights needs a new GRUClassifier.  `_simt` runs every layer on the SIMT
-    kernel instead, for the A/B."""
+    """A SimpleGRU through the GRU kernels (`csrc/gru_classifier.cu`)."""
 
     model_cls = SimpleGRU
+    _kernel_for = staticmethod(gru_kernel_for)
 
-    def __init__(self, model, compute_dtype=torch.float32, _simt=False):
-        super().__init__(model, compute_dtype)
-        self.simt = _simt
-        on_card = next(model.parameters()).is_cuda
-        self.packs = {
-            cell: pack_gru_weights(cell.kernel, cell.recurrent_kernel,
-                                   cell.bias_input, cell.bias_recurrent,
-                                   compute_dtype)
-            for cell in model.backbone.cells()
-            if on_card and not _simt
-            and gru_kernel_for(cell.kernel.shape[0], cell.units) == "tile"}
+    @staticmethod
+    def _pack(cell, compute_dtype):
+        return pack_gru_weights(cell.kernel, cell.recurrent_kernel,
+                                cell.bias_input, cell.bias_recurrent,
+                                compute_dtype)
 
-    def _layer(self, seq, cell, head_kernel, head_bias, compute_dtype):
+    def _layer(self, seq, cell, head_kernel, head_bias):
         return gru_layer_cuda(seq, cell.kernel, cell.recurrent_kernel,
                               cell.bias_input, cell.bias_recurrent,
-                              head_kernel, head_bias, compute_dtype,
+                              head_kernel, head_bias, self.compute_dtype,
                               self.packs.get(cell), _simt=self.simt)
 
 
 class LSTMClassifier(_RNNClassifier):
-    """A SimpleLSTM through the LSTM kernel (`csrc/lstm_classifier.cu`)."""
+    """A SimpleLSTM through the LSTM kernels (`csrc/lstm_classifier.cu`)."""
 
     model_cls = SimpleLSTM
+    _kernel_for = staticmethod(lstm_kernel_for)
 
     @staticmethod
-    def _layer(seq, cell, head_kernel, head_bias, compute_dtype):
+    def _pack(cell, compute_dtype):
+        return pack_lstm_weights(cell.kernel, cell.recurrent_kernel,
+                                 cell.bias, compute_dtype)
+
+    def _layer(self, seq, cell, head_kernel, head_bias):
         return lstm_layer_cuda(seq, cell.kernel, cell.recurrent_kernel,
                                cell.bias, head_kernel, head_bias,
-                               compute_dtype)
+                               self.compute_dtype, self.packs.get(cell),
+                               _simt=self.simt)
