@@ -19,9 +19,13 @@ Phases, in order; any failure raises and the script exits non-zero:
             the f32 dense-DFT kernels at the default config and at W 800,
             combined, or W = 2 hop = 800, halves, and combined with a gain
             and a first frame; the load-floor kernels at gains 1 and 1.5;
-            the CT split kernel's four instantiations at the default config,
-            batch- and time-major, and at n_fft = window = 768 with deltas,
-            int16 in and bf16 out; the FFT kernel at window 1200 > n_fft,
+            the CT split kernel's four instantiations (`_split=True`) at the
+            default config, batch- and time-major, and at n_fft = window =
+            768 with deltas, int16 in and bf16 out; route ct's mixed-radix
+            FFT at every n_fft it takes (768 .. 3840), f32 and int16 in,
+            f32 and bf16 out, batch- and time-major, with and without
+            deltas, against the CT plain version; the FFT kernel at window
+            1200 > n_fft,
             at alt_512 and an odd hop of 481, at every n_fft its register
             body takes (128 .. 4096) and at 8192 (its radix-2 body), f32
             and int16 in, f32 and bf16 out, and its radix-2 body at the
@@ -52,7 +56,8 @@ Phases, in order; any failure raises and the script exits non-zero:
               launch counts;
             - make_batch_scorer for direction_simple_gru.npz with its params
               set to the classes of config the route choice covers:
-              n_fft = window = 768 (route cuda-ct, the CT kernel), window
+              n_fft = window = 768 (route cuda-ct, the mixed-radix FFT; the
+              CT split's launch counts must stay at 0), window
               1200 > n_fft 1024 (cuda-mfcc, the FFT kernel's register
               body), n_fft 8192 (cuda-mfcc, its radix-2 body) and n_fft 400
               (torch(xla-route), the plain chain): `.paths` must name the
@@ -73,7 +78,11 @@ Phases, in order; any failure raises and the script exits non-zero:
             phase-3 tolerances; the FFT kernel's register body is timed
             against its radix-2 body in turns, radix-2, register, register,
             radix-2, the CT kernel's (F, F) instantiation against the
-            FFT kernel in turns, fft, ct, ct, fft, the GRU classifier's tile
+            FFT kernel in turns, fft, ct, ct, fft, route ct's mixed-radix FFT
+            against the CT split's (F, F) in turns, new, split, split, new,
+            at n_fft = window = 768 (hop 512) and 1536 (hop 256), and against
+            its plain version alone at 2816 (hop 256: the split refuses it),
+            each beside its bound, the GRU classifier's tile
             kernel against its SIMT kernel in turns, simt, tile, tile, simt,
             in f32 and bf16 (bf16 features), with a sweep of the tile
             kernel's windows a warp and warps a block and the gate math's
@@ -92,10 +101,13 @@ Phases, in order; any failure raises and the script exits non-zero:
             peak rate for their type and its bytes over 3.35 TB/s; a
             frontend's FFT counted as a real-input transform, its
             filterbank over the packed nonzero weights; the CT split
-            kernels take the FFT kernel's bound, as they compute its
+            kernels and the mixed-radix FFT take the FFT kernel's bound at
+            their config (`frontend_bound`), as they compute its
             function, and the CT split's own operations are printed apart
             as that algorithm's floor), end-to-end windows/s for every
-            scorer (information only), and every stage cut of both
+            scorer and for the simple_gru scorer at n_fft = window = 768
+            (first held to the CPU scorer on the clips), f32 and bf16
+            (information only), and every stage cut of both
             frontend kernels, streamed and constant-block, held to its
             plain version and timed beside it and its bound (`cut_bounds`),
             with the per-stage deltas: the streamed `load` cuts must take at
@@ -126,6 +138,13 @@ CNN_CHECKPOINTS = {m: os.path.join(REPO, "pretrained", f"direction_{m}.npz")
 B_CHECK = 1000   # not a multiple of any tile either kernel uses
 B_CUT = 1008     # the stage cuts take multiples of 16: a multiple of no other tile
 B_TIME = 8192    # the serving batch the JAX benchmark measured
+# route ct's config on the main path: n_fft = window = 768, the smallest the
+# JAX scorer runs on its CT kernel (the mixed-radix FFT takes it on the card)
+CT_ROUTE = {"n_fft": 768, "window_t": 0.048}
+# the A/B configs of the mixed-radix FFT against the CT split and its plain
+# version: at hop 512 n_fft 1536 and 2816 give 29 and 26 frames, so these
+# run at hop 256 (57 and 52 frames); the split refuses 2816
+CT_AB = ((768, 0.032), (1536, 0.016), (2816, 0.016))
 
 # Tolerances, each with its reason:
 # - features f32: the kernel's radix-2 FFT and the plain dense-DFT matmul
@@ -263,32 +282,58 @@ def bound_ms(flops_f32=0.0, flops_bf16=0.0, nbytes=0.0):
     return max(ops, mem) * 1e3, ("operations" if ops >= mem else "bytes")
 
 
-def kernel_bounds(p, batch, n_samples, rnn_dims, cnn_consts):
-    """Each timed kernel's bound at the phase-5 shapes: f32 audio (batch,
-    n_samples) into the frontends and the load floor; (batch, T, F) f32
-    features into the classifiers (times are f32)."""
+def frontend_ops(p, frames):
+    """(FFT, cepstrum) operations of the exact frontend over `frames` frames
+    at config p: a real-input FFT of n_fft points is half a complex one's 5
+    n log2 n (the nominal count of a mixed-radix one where n_fft is not a
+    power of two); the cepstrum is the power and energy (4 a bin), the
+    filterbank over its packed nonzero weights (as every frontend kernel
+    applies it) and the DCT, f32 on the CUDA cores."""
     import math
 
     from tpu_speech_commands_torch.frontend.filterbanks import filterbank_matrix
-    from tpu_speech_commands_torch.models.cnn import conv_out
-    from tpu_speech_commands_torch.ops.ct_kernel import VARIANTS
     from tpu_speech_commands_torch.ops.frontend_kernel import pack_filterbank
 
-    frames = batch * p.n_features
-    bins, n_filt, n_mfcc = p.n_fft_bins, p.n_filt, p.n_mfcc
     n_packed = len(pack_filterbank(filterbank_matrix(p, "mfcc").T)[0])
-    audio_b = 4.0 * batch * n_samples
+    fft = frames * 2.5 * p.n_fft * math.log2(p.n_fft)
+    return fft, frames * (4 * p.n_fft_bins + 2 * n_packed
+                          + 2 * p.n_filt * p.n_mfcc)
+
+
+def audio_span(p):
+    """The samples of a window that the frontend's function reads at config
+    p: the kept frames' span, (n_features - 1) hops and one frame's window
+    (cut to n_fft).  The samples before the first kept frame and after the
+    last are not needed."""
+    return (p.n_features - 1) * p.hop_samples + min(p.window_samples, p.n_fft)
+
+
+def frontend_bound(p, batch):
+    """The exact frontend's bound at config p on `batch` windows of f32
+    audio: the larger of its operations (`frontend_ops`) at the f32 peak and
+    its bytes (the kept frames' span of audio read once, `audio_span`, the
+    features written once)."""
+    frames = batch * p.n_features
+    return bound_ms(sum(frontend_ops(p, frames)), 0,
+                    4.0 * batch * audio_span(p) + 4.0 * frames * p.feature_size)
+
+
+def kernel_bounds(p, batch, n_samples, rnn_dims, cnn_consts):
+    """Each timed kernel's bound at the phase-5 shapes: f32 audio (batch,
+    n_samples) into the frontends and the load floor (route ct's kernel at
+    CT_ROUTE, the others at p); (batch, T, F) f32 features into the
+    classifiers (times are f32)."""
+    from tpu_speech_commands_torch.models.cnn import conv_out
+    from tpu_speech_commands_torch.ops.ct_kernel import VARIANTS
+
+    frames = batch * p.n_features
+    audio_b = 4.0 * batch * n_samples  # the load kernels read whole rows
+    span_b = 4.0 * batch * audio_span(p)  # the frontends, the kept frames
     feats_b = 4.0 * frames * p.feature_size
-    # power and energy (4 a bin), the filterbank over its packed nonzero
-    # weights (as every frontend kernel applies it) and the DCT, f32 on the
-    # CUDA cores
-    cepstrum = frames * (4 * bins + 2 * n_packed + 2 * n_filt * n_mfcc)
+    cepstrum = frontend_ops(p, frames)[1]
     # the DFT's nonzero columns: cos of every bin and sin of all but bin 0
     # and the Nyquist bin, n_fft in all
     dft = frames * 2.0 * min(p.window_samples, p.n_fft) * p.n_fft
-    # a real-input FFT of n_fft points: half a complex one's 5 n log2 n (the
-    # nominal count of a mixed-radix one where n_fft is not a power of two)
-    fft = frames * 2.5 * p.n_fft * math.log2(p.n_fft)
     b1 = cnn_consts.stages[0].stage
     block1_out = 4.0 * batch * b1.h_out * b1.w_out * b1.cout
     gru = rnn_bound(batch, rnn_dims, 3, "float32")
@@ -297,12 +342,13 @@ def kernel_bounds(p, batch, n_samples, rnn_dims, cnn_consts):
     # the FFT kernel's two bodies and the CT split kernel compute one
     # function: one bound (the CT split's own algorithm's floor is
     # ct_split_flops, information only)
-    frontend = bound_ms(fft + cepstrum, 0, audio_b + feats_b)
+    frontend = frontend_bound(p, batch)
     return {
         **dict.fromkeys(VARIANTS, frontend),
+        "mixed_fft_frontend": frontend_bound(p.replace(**CT_ROUTE), batch),
         "mfcc_frontend": frontend,
         "mfcc_frontend_radix2": frontend,
-        "dft_frontend_bf16": bound_ms(cepstrum, dft, audio_b + feats_b),
+        "dft_frontend_bf16": bound_ms(cepstrum, dft, span_b + feats_b),
         "gru_classifier": gru,
         "gru_classifier_simt": gru,
         "lstm_classifier": lstm,
@@ -312,12 +358,13 @@ def kernel_bounds(p, batch, n_samples, rnn_dims, cnn_consts):
         "cnn_block1": bound_ms(
             batch * 2.0 * 9 * b1.cin * b1.cout * conv_out(b1.h_in, b1.stride)
             * conv_out(b1.w_in, b1.stride), 0, feats_b + block1_out),
-        "dense_dft_combined": bound_ms(dft + cepstrum, 0, audio_b + feats_b),
-        "dense_dft_halves": bound_ms(dft + cepstrum, 0, audio_b + feats_b),
+        "dense_dft_combined": bound_ms(dft + cepstrum, 0, span_b + feats_b),
+        "dense_dft_halves": bound_ms(dft + cepstrum, 0, span_b + feats_b),
         "load_rowsum": bound_ms(2.0 * batch * n_samples, 0,
                                 audio_b + 4.0 * batch),
-        "load_broadcast": bound_ms(2.0 * batch * n_samples, 0,
-                                   audio_b + 4.0 * batch * p.n_features * n_mfcc),
+        "load_broadcast": bound_ms(
+            2.0 * batch * n_samples, 0,
+            audio_b + 4.0 * batch * p.n_features * p.n_mfcc),
     }
 
 
@@ -511,8 +558,8 @@ def main() -> int:
         r3_experiments, r3_frontend_variants, r3_omission, r3_stage2,
         r3_widecell, r4_mxu_stage1)
     from tpu_speech_commands_torch.ops import (
-        _build, cnn_kernel, ct_kernel, dense_dft_kernel, frontend_kernel,
-        gru_plan, load_kernel, omission_kernel, rnn_kernel)
+        _build, cnn_kernel, ct_kernel, dense_dft_kernel, fft_plan,
+        frontend_kernel, gru_plan, load_kernel, omission_kernel, rnn_kernel)
     from tpu_speech_commands_torch.ops.cnn_kernel import (
         CNNClassifier, make_fused_cnn_forward)
     from tpu_speech_commands_torch.ops.cnn_lowering import lower_block1
@@ -776,7 +823,8 @@ def main() -> int:
         dense_dft_kernel.dense_dft_combined_cuda(audio_f32, consts, gain_t, 1),
         dense_dft_kernel.dense_dft_combined_plain(audio_f32, consts, gain_t, 1),
         FEAT_ATOL, FEAT_RTOL))
-    # the CT split kernel, every instantiation
+    # the CT split kernel, every instantiation (forced: route ct takes the
+    # mixed-radix FFT at n_fft 768)
     ct_errs = {name: [] for name in ct_kernel.VARIANTS}
     ct_cases = (
         ("default", {}, audio_f32, torch.float32, 0.8, (False, True)),
@@ -792,7 +840,7 @@ def main() -> int:
             for time_major in layouts:
                 got = ct_kernel.ct_frontend_cuda(audio, gain_t, consts, p,
                                                  paired, per_piece, time_major,
-                                                 out_dtype)
+                                                 out_dtype, _split=True)
                 torch.cuda.synchronize()
                 want = ct_kernel.ct_frontend_plain(audio, gain, consts, p,
                                                    paired, per_piece,
@@ -804,6 +852,36 @@ def main() -> int:
                                                      FEAT_ATOL, FEAT_RTOL))
                 else:
                     check_close(what, got, want, FEAT_BF16_ATOL, FEAT_BF16_RTOL)
+    # route ct's mixed-radix FFT at every n_fft it takes, in both input and
+    # output types, batch- and time-major, with and without deltas, held to
+    # the CT plain version
+    mixed_errs = []
+    mixed_cases = ((audio_f32, torch.float32, 0.8, False, False),
+                   (audio_i16, torch.bfloat16, 1.25, True, True),
+                   (audio_i16, torch.float32, 1.0, False, True),
+                   (audio_f32, torch.bfloat16, 1.1, True, False))
+    for n_fft in sorted(fft_plan.MIXED_PLANS):
+        for audio, out_dtype, gain, time_major, delta in mixed_cases:
+            p = ListenerParams(n_fft=n_fft, window_t=n_fft / 16000,
+                               use_delta=delta)
+            consts = ct_kernel.CtConstants(p, "mfcc", dev)
+            gain_t = torch.full((1,), gain, dtype=torch.float32, device=dev)
+            got = ct_kernel.ct_frontend_cuda(audio, gain_t, consts, p,
+                                             time_major=time_major,
+                                             out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            want = ct_kernel.ct_frontend_plain(audio, gain, consts, p,
+                                               time_major=time_major,
+                                               out_dtype=out_dtype)
+            what = (f"mixed_fft_frontend n_fft {n_fft} "
+                    f"{'time' if time_major else 'batch'}-major"
+                    f"{' deltas' if delta else ''} {str(audio.dtype)[6:]}->"
+                    f"{str(out_dtype)[6:]} ({consts.layout.warps} warps)")
+            if out_dtype == torch.float32:
+                mixed_errs.append(check_close(what, got, want, FEAT_ATOL,
+                                              FEAT_RTOL))
+            else:
+                check_close(what, got, want, FEAT_BF16_ATOL, FEAT_BF16_RTOL)
     # the stage cuts of both frontend kernels (K8 r3_omission :164), each
     # held to the one plain version with its stage's bound
     cut_consts = omission_kernel.TruncatedConstants(ListenerParams(), dev)
@@ -852,6 +930,7 @@ def main() -> int:
         "dense_dft_halves": dense_dft_kernel.dense_dft_halves_cuda,
         "load_rowsum": load_kernel.load_rowsum_cuda,
         "load_broadcast": load_kernel.load_broadcast_cuda,
+        "mixed_fft_frontend": ct_kernel.MIXED,
         **ct_kernel.counters,
         **omission_kernel.counters,
     }
@@ -916,20 +995,20 @@ def main() -> int:
     route_dir = os.path.join(REPO, "build", "chip_smoke")
     os.makedirs(route_dir, exist_ok=True)
     route_cases = (
-        ("n_fft = window = 768", {"n_fft": 768, "window_t": 0.048}, "cuda-ct",
-         ("ct_frontend", "gru_classifier")),
+        ("n_fft = window = 768", CT_ROUTE, "cuda-ct",
+         ("mixed_fft_frontend", "gru_classifier"), tuple(ct_kernel.counters)),
         ("window 1200 > n_fft 1024", {"window_t": 0.075}, "cuda-mfcc",
-         ("mfcc_frontend", "gru_classifier")),
+         ("mfcc_frontend", "gru_classifier"), ()),
         ("n_fft 8192 (the radix-2 body)", {"n_fft": 8192}, "cuda-mfcc",
-         ("mfcc_frontend_radix2", "gru_classifier")),
+         ("mfcc_frontend_radix2", "gru_classifier"), ()),
         ("n_fft 400", {"n_fft": 400, "window_t": 0.025}, "torch(xla-route)",
-         ("gru_classifier",)),
+         ("gru_classifier",), ()),
     )
-    for label, overrides, route, need in route_cases:
+    for label, overrides, route, need, forbid in route_cases:
         path = with_params(CHECKPOINT, overrides, route_dir)
         scorer = make_batch_scorer(path, "cuda")
         sc = drive(f"make_batch_scorer(direction_simple_gru.npz, {label}) on "
-                   "8 clips", lambda: scorer(clips_dev), need)
+                   "8 clips", lambda: scorer(clips_dev), need, forbid)
         log(f"  paths {scorer.paths}")
         if scorer.paths["frontend"] != route:
             raise AssertionError(f"{label}: frontend {scorer.paths['frontend']}"
@@ -1124,7 +1203,7 @@ def main() -> int:
     for name, (paired, per_piece, _) in ct_kernel.VARIANTS.items():
         def ct_launch(paired=paired, per_piece=per_piece):
             return ct_kernel.ct_frontend_cuda(big, unit_gain, ct_consts, p0,
-                                              paired, per_piece)
+                                              paired, per_piece, _split=True)
 
         def ct_plain(paired=paired, per_piece=per_piece):
             return ct_kernel.ct_frontend_plain(big, None, ct_consts, p0,
@@ -1138,7 +1217,8 @@ def main() -> int:
     for which in ("fft", "ct_frontend", "ct_frontend", "fft"):
         ab[which].append(cuda_ms(
             (lambda: fe(big)) if which == "fft" else
-            (lambda: ct_kernel.ct_frontend_cuda(big, unit_gain, ct_consts, p0)),
+            (lambda: ct_kernel.ct_frontend_cuda(big, unit_gain, ct_consts, p0,
+                                                _split=True)),
             20))
     log(f"  A/B at B = {B_TIME}, default config, f32 audio and output, in "
         f"turns fft, ct, ct, fft: FFT kernel (mfcc_frontend) "
@@ -1152,6 +1232,46 @@ def main() -> int:
             f"{floor / PEAK_F32 * 1e3:.4f} ms at the f32 peak; kernel "
             f"{times[name][0]:.4f} ms = {floor / times[name][0] / 1e9:.2f} "
             f"TFLOP/s")
+    # route ct's mixed-radix FFT against the CT split (F, F), in turns new,
+    # split, split, new (the split refuses 2816), both first held to the
+    # plain version at this batch, beside the bound and the plain version
+    mixed_ab = {}
+    for n_fft, hop_t in CT_AB:
+        p = ListenerParams(n_fft=n_fft, window_t=n_fft / 16000, hop_t=hop_t)
+        consts = ct_kernel.CtConstants(p, "mfcc", dev)
+        runs = {"new": lambda: ct_kernel.ct_frontend_cuda(big, unit_gain,
+                                                          consts, p)}
+        if ct_kernel.split_fits(p):
+            runs["split"] = lambda: ct_kernel.ct_frontend_cuda(
+                big, unit_gain, consts, p, _split=True)
+        want = ct_kernel.ct_frontend_plain(big, None, consts, p)
+        for which, run in runs.items():
+            name = "mixed_fft_frontend" if which == "new" else "ct_frontend"
+            err = check_close(f"{name} n_fft {n_fft} hop_t {hop_t} B = "
+                              f"{B_TIME}", run(), want, FEAT_ATOL, FEAT_RTOL)
+            (mixed_errs if which == "new" else ct_errs[name]).append(err)
+        del want
+        ab = {which: [] for which in runs}
+        for which in ("new", "split", "split", "new"):
+            if which in runs:
+                ab[which].append(cuda_ms(runs[which], 20))
+        plain_ms = cuda_ms(lambda: ct_kernel.ct_frontend_plain(big, None,
+                                                               consts, p), 3)
+        bound = frontend_bound(p, B_TIME)
+        mixed_ab[n_fft] = (ab, plain_ms, bound)
+        split = (f"; CT split (ct_frontend, _split=True) {ab['split'][0]:.4f},"
+                 f" {ab['split'][1]:.4f} ms = "
+                 f"{sum(ab['split']) / sum(ab['new']):.2f}x"
+                 if "split" in ab else "; the CT split refuses it")
+        log(f"  route ct at n_fft = window = {n_fft}, hop_t {hop_t} "
+            f"({p.n_features} frames), B = {B_TIME}, f32 audio and output, in "
+            f"turns new, split, split, new: mixed-radix FFT "
+            f"(mixed_fft_frontend, {consts.layout.warps} warps a block) "
+            f"{ab['new'][0]:.4f}, {ab['new'][1]:.4f} ms{split}; plain "
+            f"{plain_ms:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]})  "
+            f"({card})")
+    ab, plain_ms, _ = mixed_ab[CT_ROUTE["n_fft"]]
+    times["mixed_fft_frontend"] = (ab["new"][0], plain_ms)
     # one PyTorch call computing the same function, where there is one; the
     # broadcast has none (a sum, then a copy), nor has any frontend (no
     # library call gives an MFCC), the GRU (a linear candidate is not
@@ -1323,6 +1443,27 @@ def main() -> int:
             ms = cuda_ms(lambda: s(big), 10)
             log(f"  end to end {os.path.basename(path)} {str(dt)[6:]:8s} "
                 f"{ms:.4f} ms/batch  {B_TIME / ms * 1e3:.0f} windows/s  ({card})")
+    # the GRU checkpoint at route ct's config, f32 and bf16: card against
+    # CPU on the clips, then timed end to end
+    ct_path = with_params(CHECKPOINT, CT_ROUTE, route_dir)
+    for dt in (torch.float32, torch.bfloat16):
+        s = make_batch_scorer(ct_path, "cuda", dt)
+        if s.paths["frontend"].split("(")[0] != "cuda-ct":
+            raise AssertionError(f"paths {s.paths} do not name route ct")
+        sc = s(clips_dev)
+        cpu = make_batch_scorer(ct_path, "cpu", dt)(clips)
+        top1 = [s.classes[i] for i in sc.argmax(-1).tolist()]
+        top1_cpu = [s.classes[i] for i in cpu.argmax(-1).tolist()]
+        log(f"  {str(dt)[6:]:8s} n_fft = window = 768 paths {s.paths}  top-1 "
+            f"{sum(a == b for a, b in zip(top1, labels))}/8 {top1} (CPU "
+            f"{top1_cpu})")
+        atol = SCORE_ATOL if dt == torch.float32 else SCORE_BF16_ATOL
+        check_close(f"scores card vs CPU, n_fft = window = 768 {str(dt)[6:]}",
+                    sc.cpu(), cpu, atol, 0.0)
+        ms = cuda_ms(lambda: s(big), 10)
+        log(f"  end to end direction_simple_gru.npz at n_fft = window = 768 "
+            f"{str(dt)[6:]:8s} {ms:.4f} ms/batch  {B_TIME / ms * 1e3:.0f} "
+            f"windows/s  ({card})")
 
     # the stage cuts at this batch: each held to the plain version, then
     # timed with it and beside its bound; the deltas give each stage's cost
@@ -1366,7 +1507,8 @@ def main() -> int:
     # each `full` cut against its shipped kernel, in turns
     shipped = {"fft": lambda: fe(big),
                "ct": lambda: ct_kernel.ct_frontend_cuda(big, unit_gain,
-                                                        ct_consts, p0)}
+                                                        ct_consts, p0,
+                                                        _split=True)}
     for kernel, run_shipped in shipped.items():
         name = omission_kernel.counter_name(kernel, "full")
         full_ab = {"shipped": [], "cut": []}
@@ -1411,6 +1553,8 @@ def main() -> int:
              load_errs["load_rowsum"]),
             ("load_broadcast", load_kernel.SOURCE,
              load_kernel.BROADCAST_REPLACES, load_errs["load_broadcast"]),
+            ("mixed_fft_frontend", ct_kernel.MIXED_SOURCE,
+             frontend_kernel.REPLACES, mixed_errs),
             *((name, ct_kernel.SOURCE, replaces, ct_errs[name])
               for name, (_, _, replaces) in ct_kernel.VARIANTS.items())):
         kernels.append({
@@ -1434,6 +1578,17 @@ def main() -> int:
                 "bf16_ms": ab["simt" if name.endswith("simt") else "tile"][0],
                 "bf16_plain_ms": plain_ms, "bf16_bound_ms": bound[0],
                 "bf16_bound_by": bound[1], "bf16_library_ms": lib_ms})
+        if name == "mixed_fft_frontend":
+            # the A/B above: the split in the same call, and n_fft 1536 and
+            # 2816 at hop 256
+            ab, _, _ = mixed_ab[CT_ROUTE["n_fft"]]
+            kernels[-1]["split_ms"] = ab["split"][0]
+            for n_fft, _ in CT_AB[1:]:
+                ab, plain_ms, bound = mixed_ab[n_fft]
+                split = ab["split"][0] if "split" in ab else None
+                kernels[-1][f"n_fft_{n_fft}"] = {
+                    "ms": ab["new"][0], "split_ms": split, "plain_ms": plain_ms,
+                    "bound_ms": bound[0], "bound_by": bound[1]}
         if name.startswith("cnn_classifier"):
             # simple_cnn in bf16 (bf16 features), from the A/B above
             ab, plain_ms, bound = cnn_ab["simple_cnn", "bfloat16"]

@@ -8,9 +8,14 @@ classes.  Peaks: 67 TFLOP/s f32, 989 TFLOP/s bf16, 3.35 TB/s.
 - FFT frontend: a real-input 1024-point FFT is 2.5 n log2 n = 25,600
   FLOP a frame (6.29 GFLOP), with the cepstrum (4 a bin, 2 a packed
   weight, a 20 x 20 DCT: 4,706 a frame, 1.16 GFLOP) 0.111 ms of f32;
-  its bytes, 524.3 MB of audio and 19.7 MB of features, take 0.1624 ms;
-- the dense DFT: 1,024 samples x 1,024 nonzero columns x 2 a frame;
-- the load floor: the audio read, and 32.8 KB or 19.7 MB written;
+  its bytes, the kept frames' span of audio (29 hops of 512 and one frame
+  of 1,024: 15,872 of the 16,000 samples, 520.1 MB) and 19.7 MB of
+  features, take 0.1611 ms; route ct's kernel at n_fft = window = 768
+  reads 15,616 samples a window (511.7 MB): 0.1586 ms;
+- the dense DFT: 1,024 samples x 1,024 nonzero columns x 2 a frame, on
+  the same span of audio;
+- the load floor: the whole rows read (524.3 MB), and 32.8 KB or 19.7 MB
+  written;
 - the FFT kernel's radix-2 body and the CT split kernels compute the FFT
   frontend's function, so they share its bound.  The CT split's own operations are a floor of that algorithm,
   reported apart: stage 2, 14 products of 128 x 128 x 2 a frame (112.7
@@ -48,6 +53,9 @@ from tpu_speech_commands_torch.params import ListenerParams
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FRAMES = 8192 * 30
 AUDIO_B = 4 * 8192 * 16000
+# the kept frames' span a frontend reads: 29 hops of 512 and one frame
+SPAN_B = 4 * 8192 * (29 * 512 + 1024)
+SPAN_768_B = 4 * 8192 * (29 * 512 + 768)
 FEATS_B = 4 * FRAMES * 20
 CEPSTRUM = FRAMES * (4 * 513 + 2 * 927 + 2 * 20 * 20)
 DFT = FRAMES * 2 * 1024 * 1024
@@ -61,13 +69,16 @@ CNN = 8192 * 3_151_872
 CNN_LITE = 8192 * 476_848
 
 EXPECTED = {  # name: (bound_by, ms)
-    "mfcc_frontend": ("bytes", (AUDIO_B + FEATS_B) / 3.35e9),
-    "mfcc_frontend_radix2": ("bytes", (AUDIO_B + FEATS_B) / 3.35e9),
+    "mfcc_frontend": ("bytes", (SPAN_B + FEATS_B) / 3.35e9),
+    "mfcc_frontend_radix2": ("bytes", (SPAN_B + FEATS_B) / 3.35e9),
     "dft_frontend_bf16": ("operations", DFT / 989e9 + CEPSTRUM / 67e9),
-    "ct_frontend": ("bytes", (AUDIO_B + FEATS_B) / 3.35e9),
-    "ct_frontend_paired": ("bytes", (AUDIO_B + FEATS_B) / 3.35e9),
-    "ct_frontend_ppmel": ("bytes", (AUDIO_B + FEATS_B) / 3.35e9),
-    "ct_frontend_dup": ("bytes", (AUDIO_B + FEATS_B) / 3.35e9),
+    "ct_frontend": ("bytes", (SPAN_B + FEATS_B) / 3.35e9),
+    "ct_frontend_paired": ("bytes", (SPAN_B + FEATS_B) / 3.35e9),
+    "ct_frontend_ppmel": ("bytes", (SPAN_B + FEATS_B) / 3.35e9),
+    "ct_frontend_dup": ("bytes", (SPAN_B + FEATS_B) / 3.35e9),
+    # route ct's kernel at n_fft = window = 768: 30 frames of 20 features
+    # over a span of 15,616 samples
+    "mixed_fft_frontend": ("bytes", (SPAN_768_B + FEATS_B) / 3.35e9),
     "dense_dft_combined": ("operations", (DFT + CEPSTRUM) / 67e9),
     "dense_dft_halves": ("operations", (DFT + CEPSTRUM) / 67e9),
     "load_rowsum": ("bytes", (AUDIO_B + 4 * 8192) / 3.35e9),
@@ -124,7 +135,7 @@ def test_kernel_bound_matches_the_hand_count(bounds, name):
 def test_ct_stage2_count(chip_smoke, bounds):
     """112.7 GFLOP of stage 2 at B = 8192, 1.68 ms of the CT split's ~1.71
     ms floor; the per-piece mel doubles the filterbank term.  The kernel's
-    bound is the function's, 0.1624 ms of bytes."""
+    bound is the function's, 0.1611 ms of bytes."""
     assert CT_STAGE2 == pytest.approx(112.7e9, rel=1e-3)
     assert CT_STAGE2 / 67e9 == pytest.approx(1.682, abs=1e-3)
     p = ListenerParams()
@@ -134,7 +145,8 @@ def test_ct_stage2_count(chip_smoke, bounds):
     assert chip_smoke.ct_split_flops(p, 8192, True) == pytest.approx(
         floor + FRAMES * 2 * 927, rel=1e-12)
     assert bounds["ct_frontend"] == bounds["mfcc_frontend"]
-    assert bounds["ct_frontend"][0] == pytest.approx(0.1624, abs=1e-4)
+    assert bounds["ct_frontend"][0] == pytest.approx(0.1611, abs=1e-4)
+    assert bounds["mixed_fft_frontend"][0] == pytest.approx(0.1586, abs=1e-4)
 
 
 CUT_BYTES = {False: AUDIO_B + 4 * 8192 * 128,            # 528.5 MB
@@ -184,6 +196,34 @@ def test_streamed_cuts_are_bound_by_bytes_and_constant_ones_by_operations(
         assert by == "bytes" and ms == pytest.approx(0.1578, abs=1e-4)
         assert constant[name][1] == "operations"
     assert constant["fft_truncated_full"][0] == pytest.approx(0.1112, abs=1e-3)
+
+
+@pytest.mark.parametrize("n_fft,hop_t,frames,bins,packed,by", [
+    (768, 0.032, 30, 385, 691, "bytes"),
+    (1536, 0.016, 57, 769, 1400, "operations"),
+    (2816, 0.016, 52, 1409, 2581, "operations"),
+])
+def test_mixed_fft_bound_at_each_timed_config(chip_smoke, n_fft, hop_t, frames,
+                                              bins, packed, by):
+    """Route ct's kernel where chip_smoke.py times it: a real FFT of n_fft
+    points, 2.5 n log2 n a frame (the nominal count for a mixed radix), and
+    the cepstrum over the packed filterbank (691, 1400, 2581 nonzero
+    weights), against the kept frames' span of audio (15,872 samples at
+    both hop-256 configs, 15,616 at 768) and the features.  At hop 256 the
+    operations bind: 0.330 ms at 1536, 0.587 ms at 2816."""
+    import math
+
+    p = ListenerParams(n_fft=n_fft, window_t=n_fft / 16000, hop_t=hop_t)
+    assert (p.n_features, p.n_fft_bins) == (frames, bins)
+    f = 8192 * frames
+    ops = f * (2.5 * n_fft * math.log2(n_fft) + 4 * bins + 2 * packed
+               + 2 * 20 * 20)
+    span = (frames - 1) * p.hop_samples + n_fft
+    assert span == {768: 15616, 1536: 15872, 2816: 15872}[n_fft]
+    nbytes = 4 * 8192 * span + 4 * f * 20
+    want = max(ops / 67e9, nbytes / 3.35e9)
+    got = chip_smoke.frontend_bound(p, 8192)
+    assert got[1] == by and got[0] == pytest.approx(want, rel=1e-9)
 
 
 def test_fft_frontend_operations_are_below_its_bytes(bounds):

@@ -42,7 +42,8 @@ def test_build_passes_hopper_flags_and_every_source(tmp_path, monkeypatch):
     assert "arch=compute_90a,code=sm_90a" in args
     for src in ("mfcc_frontend.cu", "gru_classifier.cu", "cnn_classifier.cu",
                 "lstm_classifier.cu", "dft_frontend.cu", "audio_load.cu",
-                "dense_dft_frontend.cu"):
+                "dense_dft_frontend.cu", "ct_frontend.cu",
+                "mixed_fft_frontend.cu"):
         assert src in args
 
 
@@ -65,4 +66,8 @@ def test_digest_follows_sources(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC_DIR", csrc)
     assert _build.source_digest() == first
     (csrc / "mfcc_frontend.cu").write_text("// edited\n")
-    assert _build.source_digest() != first
+    edited = _build.source_digest()
+    assert edited != first
+    # a header both FFT kernels include counts too
+    (csrc / "register_fft.cuh").write_text("// edited\n")
+    assert _build.source_digest() != edited

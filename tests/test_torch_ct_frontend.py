@@ -203,10 +203,14 @@ def test_piece_ranges_cover_every_weight():
 
 
 def test_host_refusals():
-    """The host refuses configs only; shared memory is the kernel's to
-    judge, at launch (test_torch_gpu.py)."""
+    """The host refuses from the config, before any launch: outside the
+    contract, or where neither kernel of route ct has a block that fits
+    (n_fft 4352: above the mixed-radix FFT's plans, and the split's power
+    rows fit no block)."""
     assert ct_config_error(ListenerParams(n_fft=768, window_t=0.048)) is None
     assert ct_config_error(ListenerParams(n_fft=3072, window_t=0.192)) is None
+    assert "no CUDA kernel of route ct" in ct_config_error(
+        ListenerParams(n_fft=4352, window_t=0.272))
     assert "n2 even" in ct_config_error(ListenerParams(window_t=0.05))
     assert "n2 even" in ct_config_error(ListenerParams(n_fft=640,
                                                        window_t=0.04))
@@ -251,3 +255,83 @@ def test_ablation_cuts_each_match_the_kernel_source_once():
     assert set(sources) == {"base", *ct_ablation.CUTS}
     assert all(src != sources["base"] for name, src in sources.items()
                if name != "base")
+
+
+def _c_to_python(expr: str) -> str:
+    """A C integer expression of csrc/ct_frontend.cu as Python: casts
+    dropped, `/` as floor division (every operand is a nonnegative int), and
+    each `a ? b : c` (innermost parentheses first) as `(b if a else c)`."""
+    import re
+
+    expr = re.sub(r"\((?:size_t|int)\)", "", " ".join(expr.split()))
+    expr = expr.replace(" / ", " // ").replace("true", "True").replace(
+        "false", "False")
+
+    def ternary(text):
+        if "?" not in text:
+            return text
+        cond, rest = text.split("?", 1)
+        depth = 0
+        for i, ch in enumerate(rest):
+            depth += ch == "?"
+            if ch == ":" and depth == 0:
+                return (f"(({ternary(rest[:i])}) if ({cond}) else "
+                        f"({ternary(rest[i + 1:])}))")
+            depth -= ch == ":" and depth > 0
+        raise ValueError(f"no ':' for the '?' in {text!r}")
+
+    inner = re.compile(r"\(([^()]*\?[^()]*)\)")
+    while inner.search(expr):
+        expr = inner.sub(lambda m: "(" + ternary(m.group(1)) + ")", expr)
+    return ternary(expr)
+
+
+def _split_source_functions():
+    """csrc/ct_frontend.cu's tile constants and its shared-memory functions
+    (smem_floats, sq_pitch, mel_pitch), evaluated from the source's text."""
+    import re
+
+    from tpu_speech_commands_torch.ops import _build
+
+    src = (_build.CSRC_DIR / "ct_frontend.cu").read_text()
+    env = {name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+           for name in ("kLanes", "kBK", "kStages")}
+    bms = re.search(r"constexpr int kBms\[\] = \{([\d, ]+)\};", src).group(1)
+    env["kBms"] = tuple(int(x) for x in bms.split(","))
+    for name in ("mel_pitch", "sq_pitch", "smem_floats"):
+        m = re.search(rf"inline \w+ {name}\(([^)]*)\) \{{\s*(.*?)\}}\n", src,
+                      re.S)
+        params = [a.split()[-1] for a in m.group(1).split(",")]
+        lines = [ln.strip() for ln in m.group(2).strip().rstrip(";").split(";")]
+        body = [f"    {ln.split('=', 1)[0].split()[-1]} = "
+                f"{_c_to_python(ln.split('=', 1)[1])}"
+                for ln in lines[:-1]]
+        body.append(f"    return {_c_to_python(lines[-1][len('return '):])}")
+        exec(f"def {name}({', '.join(params)}):\n" + "\n".join(body), env)
+    return env
+
+
+def test_split_shared_memory_mirror_is_the_kernel_source():
+    """`ct_kernel.split_smem_bytes` and `split_fits` route configs from a
+    Python copy of csrc/ct_frontend.cu's shared-memory sizes: its kStages,
+    kBK and kBms, and smem_floats (with sq_pitch and mel_pitch) evaluated
+    from the source's text, agree with the copy at every block size, every
+    CT-eligible n_fft up to 8192 and 1 to 256 filters; and the split fits no
+    block above n_fft 4096 at any filter count."""
+    src = _split_source_functions()
+    assert (src["kStages"], src["kBK"], src["kLanes"], src["kBms"]) == (
+        ct_kernel._SPLIT_STAGES, ct_kernel._SPLIT_BK, LANES,
+        ct_kernel._SPLIT_BMS)
+    for n_fft in range(256, 8192 + 1, 256):
+        for n_filt in (1, 13, 20, 40, 64, 128, 230, 256):
+            for bm in src["kBms"]:
+                assert 4 * src["smem_floats"](bm, n_fft, n_filt, False,
+                                              False) == \
+                    ct_kernel.split_smem_bytes(bm, n_fft, n_filt)
+            p = ListenerParams(n_fft=n_fft, window_t=n_fft / 16000,
+                               n_filt=n_filt, n_mfcc=min(n_filt, 13))
+            if n_fft > 4096:
+                assert not ct_kernel.split_fits(p)
+    # the paired and per-piece-mel forms, which no route sizes, parse too
+    assert src["smem_floats"](64, 1024, 20, True, True) == (
+        2 * 64 + 2 * 128 * 68 + 3 * 8 * 256 + 64 * 257 + 64 * 21 + 64)

@@ -42,30 +42,6 @@ def _tw(consts: KernelConstants, dtype=np.complex64):
     return (t[:, 0] + 1j * t[:, 1]).astype(dtype)
 
 
-def emulate_rfft(frames: np.ndarray, plan: fp.FftPlan, tw: np.ndarray):
-    """(F, n_fft) real frames -> (F, n_fft / 2 + 1) bins, through the
-    kernel's passes and untangle (its DFT-R in registers is np.fft.fft of
-    the R values), in tw's precision."""
-    dt = tw.dtype
-    n = plan.n
-    buf = (frames[:, 0::2] + 1j * frames[:, 1::2]).astype(dt)
-    for p in range(len(plan.radices)):
-        reads, writes, tws = fp.pass_maps(plan, p)
-        v = buf[:, reads]
-        v = v * np.where(tws >= 0, tw[np.maximum(tws, 0)], 1).astype(dt)
-        new = np.empty_like(buf)
-        new[:, writes] = np.fft.fft(v, axis=-1).astype(dt)
-        buf = new
-    k = np.arange(n // 2 + 1)
-    a, b = buf[:, k], buf[:, (n - k) % n].conj()
-    e, o = (a + b) / 2, -1j * (a - b) / 2
-    wo = tw[plan.untangle_offset + k] * o
-    x = np.empty((len(frames), n + 1), dt)
-    x[:, k] = e + wo
-    x[:, n - k] = (e - wo).conj()
-    return x
-
-
 def _frames(audio, gain, p: ListenerParams):
     """The kernel's frames: x = pcm * (gain / 32768) or audio * gain, the
     last n_features frames, each cut or zero-padded to n_fft."""
@@ -90,7 +66,7 @@ def emulate_frontend(audio, gain, p: ListenerParams, feature_type: str,
     fb = consts.fb
     frames = _frames(audio, gain, p)
     b, t = frames.shape[:2]
-    x = emulate_rfft(frames.reshape(b * t, -1), consts.plan, _tw(consts))
+    x = fp.emulate_rfft(frames.reshape(b * t, -1), consts.plan, _tw(consts))
     power = ((x.real ** 2 + x.imag ** 2) / np.float32(p.n_fft)).astype(np.float32)
     energy = power.sum(-1)
     partial = np.stack([
@@ -158,12 +134,12 @@ def test_emulated_passes_equal_rfft(n_fft):
     frames[2, n_fft // 3:] = 0.0  # a zero-padded window
     want = np.fft.rfft(frames.astype(np.float64), axis=-1)
     c = KernelConstants(ListenerParams(n_fft=n_fft), "mfcc", "cpu")
-    got32 = emulate_rfft(frames, c.plan, _tw(c))
+    got32 = fp.emulate_rfft(frames, c.plan, _tw(c))
     scale = np.abs(want).max(-1, keepdims=True)
     assert (np.abs(got32 - want) <= 1e-4 * scale).all()
     plan64 = fp.fft_plan(n_fft)
     tw64 = plan64.twiddle[:, 0] + 1j * plan64.twiddle[:, 1]
-    got64 = emulate_rfft(frames.astype(np.float64), plan64, tw64)
+    got64 = fp.emulate_rfft(frames.astype(np.float64), plan64, tw64)
     np.testing.assert_allclose(got64, want, atol=1e-9 * scale.max(), rtol=0)
 
 
@@ -218,7 +194,7 @@ def test_cut_lane_maps_match_truncated_plain(audio, stage):
                 row[..., 2 * lane + 1 + 64 * (r & 1)] += v.imag
     elif stage == "power":
         c = KernelConstants(p, "mfcc", "cpu")
-        xb = emulate_rfft(frames.reshape(b * t, -1), plan, _tw(c))
+        xb = fp.emulate_rfft(frames.reshape(b * t, -1), plan, _tw(c))
         power = (np.abs(xb) ** 2 / p.n_fft).astype(np.float32)
         xnyq = xb[:, plan.n].real / np.sqrt(np.float32(p.n_fft))
         row = np.zeros((b * t, 128), np.float32)
@@ -368,10 +344,46 @@ def test_filterbank_plan_covers_each_weight_once(case):
 
 
 def test_ablation_variants_each_match_the_kernel_source_once():
-    """dev/fft_ablation.py edits csrc/mfcc_frontend.cu by text: each
+    """dev/fft_ablation.py edits csrc/mfcc_frontend.cu (its header inlined)
+    by text: each
     variant's text is in the source once, and each variant differs."""
     from tpu_speech_commands_torch.dev import fft_ablation
 
     sources = fft_ablation.variant_sources()
     assert set(sources) == {"base", *fft_ablation.VARIANTS}
     assert len(set(sources.values())) == len(sources)
+
+
+@pytest.mark.parametrize("n_fft", SIZES)
+def test_source_plan_alias_is_the_python_plan(n_fft):
+    """csrc/mfcc_frontend.cu's `Plan<N>` (values a lane, launch-bounds
+    blocks, the radices of its RegisterPlan), evaluated from the source's
+    text at N = n_fft / 2, is `fft_plan(n_fft)`."""
+    import re
+
+    from tpu_speech_commands_torch.ops import _build
+
+    src = (_build.CSRC_DIR / "mfcc_frontend.cu").read_text()
+    m = re.search(r"template <int N, int V = \((.*?)\),\s*int B = \((.*?)\)>\s*"
+                  r"using Plan = std::conditional_t<\((.*?)\), "
+                  r"RegisterPlan<N, V, B, ([^>]*)>,\s*RegisterPlan<N, V, B, "
+                  r"([^>]*)>>;", src, re.S)
+    assert m, "Plan<N> moved in csrc/mfcc_frontend.cu"
+
+    def ternary(expr):  # a ? b : c ? d : e, right to left
+        if " ? " not in expr:
+            return expr
+        cond, rest = expr.split(" ? ", 1)
+        then, other = rest.split(" : ", 1)
+        return f"({then}) if ({cond}) else ({ternary(other)})"
+
+    def c_eval(expr, **names):
+        return eval(ternary(expr.replace("/", "//")), {}, names)
+
+    n = n_fft // 2
+    v = c_eval(m.group(1), N=n)
+    b = c_eval(m.group(2).replace("(", "").replace(")", ""), V=v)
+    radices = m.group(4) if c_eval(m.group(3), N=n) else m.group(5)
+    radices = tuple(c_eval(r.strip(), N=n) for r in radices.split(","))
+    plan = fp.fft_plan(n_fft)
+    assert (v, b, radices) == (plan.values, plan.min_blocks, plan.radices)

@@ -28,8 +28,9 @@ Tolerances, each with its reason:
   math in another summation order, magnified by the log);
 - load-floor row sums: per row |err| <= 2e-6 * sum |gain * x| (16,000 f32
   terms summed in another order; the sums reach the hundreds);
-- CT split kernel features: the bounds of the f32 (and bf16) features above
-  (the same f32 math as its plain version in another summation order);
+- CT split kernel and route ct's mixed-radix FFT features: the bounds of
+  the f32 (and bf16) features above (the same function as the CT plain
+  version, summed in another order);
 - the stage cuts of the CT and FFT kernels (B, 128): `dev.r3_omission.
   TOLERANCES`, each stage's bound with its reason (f32 sums in another
   order; from the log on, the f32 feature bound summed over 30 frames).
@@ -51,9 +52,9 @@ from tpu_speech_commands_torch.dev import (pallas_experiments, r3_experiments,
                                            r3_stage2, r3_widecell,
                                            r4_mxu_stage1)
 from tpu_speech_commands_torch.ops import (cnn_kernel, ct_kernel,
-                                           dense_dft_kernel, frontend_kernel,
-                                           load_kernel, omission_kernel,
-                                           rnn_kernel)
+                                           dense_dft_kernel, fft_plan,
+                                           frontend_kernel, load_kernel,
+                                           omission_kernel, rnn_kernel)
 from tpu_speech_commands_torch.ops.cnn_lowering import lower_block1
 from tpu_speech_commands_torch.ops.frontend_kernel import MfccFrontend
 from tpu_speech_commands_torch.ops.rnn_kernel import GRUClassifier, LSTMClassifier
@@ -875,7 +876,8 @@ def _ct_audio(audio_dtype, batch=13):
 @pytest.mark.parametrize("time_major", [False, True])
 def test_ct_kernel_matches_plain(cuda_device, variant, name, audio_dtype,
                                  time_major):
-    """B = 13: a ragged last block of windows."""
+    """B = 13: a ragged last block of windows; the split forced where route
+    ct takes the mixed-radix FFT."""
     p = ListenerParams(**CT_CONFIGS[name])
     paired, per_piece, _ = ct_kernel.VARIANTS[variant]
     audio = torch.tensor(_ct_audio(audio_dtype), device=cuda_device)
@@ -883,7 +885,7 @@ def test_ct_kernel_matches_plain(cuda_device, variant, name, audio_dtype,
     gain = torch.full((1,), 0.8, dtype=torch.float32, device=cuda_device)
     before = ct_kernel.counters[variant].launches
     got = ct_kernel.ct_frontend(audio, gain, consts, p, paired, per_piece,
-                                time_major)
+                                time_major, _split=True)
     torch.cuda.synchronize()
     assert ct_kernel.counters[variant].launches == before + 1
     want = ct_kernel.ct_frontend_plain(audio, 0.8, consts, p, paired,
@@ -894,12 +896,12 @@ def test_ct_kernel_matches_plain(cuda_device, variant, name, audio_dtype,
 
 
 def test_ct_kernel_bark_bf16(cuda_device):
-    """bf16 out and the bark filterbank."""
+    """bf16 out and the bark filterbank, the split forced."""
     p = ListenerParams(n_fft=768, window_t=0.048, use_delta=True)
     consts = ct_kernel.CtConstants(p, "bark", cuda_device)
     audio = torch.tensor(_ct_audio("float32"), device=cuda_device)
     got = ct_kernel.ct_frontend(audio, None, consts, p,
-                                out_dtype=torch.bfloat16)
+                                out_dtype=torch.bfloat16, _split=True)
     want = ct_kernel.ct_frontend_plain(audio, None, consts, p,
                                        out_dtype=torch.bfloat16)
     assert got.dtype == torch.bfloat16
@@ -909,9 +911,9 @@ def test_ct_kernel_bark_bf16(cuda_device):
 
 def test_ct_kernel_where_the_power_rows_fit_no_block(cuda_device):
     """n_fft = window = 3072 (n2 = 24): a block's 1537-float power rows fit
-    in no shared memory, so the (F, F) and (T, F) launches, and route ct of
-    MfccFrontend, raise ValueError; the per-piece-mel instantiations keep no
-    power row and match the plain version."""
+    in no shared memory, so the split's (F, F) and (T, F) launches raise
+    ValueError; the per-piece-mel instantiations keep no power row and match
+    the plain version; route ct of MfccFrontend runs the mixed-radix FFT."""
     p = ListenerParams(n_fft=3072, window_t=0.192, hop_t=0.016)
     consts = ct_kernel.CtConstants(p, "mfcc", cuda_device)
     audio = torch.tensor(_ct_audio("int16"), device=cuda_device)
@@ -919,15 +921,18 @@ def test_ct_kernel_where_the_power_rows_fit_no_block(cuda_device):
     for variant, (paired, per_piece, _) in ct_kernel.VARIANTS.items():
         if not per_piece:
             with pytest.raises(ValueError, match="shared memory"):
-                ct_kernel.ct_frontend_cuda(audio, gain, consts, p, paired)
+                ct_kernel.ct_frontend_cuda(audio, gain, consts, p, paired,
+                                           _split=True)
             continue
         got = ct_kernel.ct_frontend_cuda(audio, gain, consts, p, paired, True)
         want = ct_kernel.ct_frontend_plain(audio, 0.8, consts, p, paired, True)
         torch.testing.assert_close(got, want, rtol=1e-3, atol=2e-3)
     fe = MfccFrontend(p, "mfcc", cuda_device)
-    assert fe.route == "ct"
-    with pytest.raises(ValueError, match="shared memory"):
-        fe(audio, 0.8)
+    assert fe.route == "ct" and fe.consts.body == "register"
+    before = ct_kernel.MIXED.launches
+    got = fe(audio, 0.8)
+    assert ct_kernel.MIXED.launches == before + 1
+    torch.testing.assert_close(got, fe.plain(audio, 0.8), rtol=1e-3, atol=2e-3)
 
 
 def test_ct_kernel_rejects_what_it_cannot_take(cuda_device):
@@ -947,6 +952,97 @@ def test_ct_kernel_rejects_what_it_cannot_take(cuda_device):
     assert ct_kernel.ct_frontend_cuda(
         torch.zeros(0, 16000, device=cuda_device), one, consts,
         p).shape == (0, 30, 20)
+
+
+# route ct's mixed-radix FFT: (audio dtype, out dtype, time_major, deltas,
+# hop_t), each at every n_fft it takes
+MIXED_CASES = {
+    "f32->f32": ("float32", torch.float32, False, False, 0.032),
+    "int16->bf16 time-major deltas": ("int16", torch.bfloat16, True, True,
+                                      0.032),
+    "int16->f32 deltas hop 256": ("int16", torch.float32, False, True, 0.016),
+    "f32->bf16 time-major odd hop 481": ("float32", torch.bfloat16, True,
+                                         False, 481 / 16000),
+}
+
+
+def _check_mixed(device, n_fft, case, batch):
+    audio_dtype, out_dtype, time_major, delta, hop_t = MIXED_CASES[case]
+    p = ListenerParams(n_fft=n_fft, window_t=n_fft / 16000, hop_t=hop_t,
+                       use_delta=delta)
+    consts = ct_kernel.CtConstants(p, "mfcc", device)
+    assert consts.body == "register"
+    audio = torch.tensor(_ct_audio(audio_dtype, batch), device=device)
+    gain = torch.full((1,), 0.8, dtype=torch.float32, device=device)
+    before = (ct_kernel.MIXED.launches,
+              ct_kernel.counters["ct_frontend"].launches)
+    got = ct_kernel.ct_frontend(audio, gain, consts, p, time_major=time_major,
+                                out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert (ct_kernel.MIXED.launches,
+            ct_kernel.counters["ct_frontend"].launches) == (before[0] + 1,
+                                                            before[1])
+    want = ct_kernel.ct_frontend_plain(audio, 0.8, consts, p,
+                                       time_major=time_major,
+                                       out_dtype=out_dtype)
+    shape = (p.n_features, batch) if time_major else (batch, p.n_features)
+    assert got.shape == shape + (p.feature_size,) and got.dtype == out_dtype
+    assert torch.isfinite(got.float()).all()
+    bf16 = 2.0 ** -7 if out_dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-3 + bf16,
+                               atol=2e-3)
+
+
+@pytest.mark.parametrize("batch", [1, 13])
+@pytest.mark.parametrize("case", sorted(MIXED_CASES))
+@pytest.mark.parametrize("n_fft", sorted(fft_plan.MIXED_PLANS))
+def test_mixed_fft_matches_plain(cuda_device, n_fft, case, batch):
+    """Every n_fft the mixed-radix FFT takes, f32 and int16 in, f32 and bf16
+    out, batch- and time-major, with deltas, at hops 512, 256 and 481 (odd
+    frame starts: scalar loads), one window and a ragged 13."""
+    _check_mixed(cuda_device, n_fft, case, batch)
+
+
+@pytest.mark.parametrize("n_fft", [768, 1536, 2816, 3840])
+def test_mixed_fft_matches_plain_at_the_serving_batch(cuda_device, n_fft):
+    _check_mixed(cuda_device, n_fft, "f32->f32", 8192)
+
+
+@pytest.mark.parametrize("n_fft", [2816, 3840])
+def test_mixed_fft_runs_what_the_split_refused(cuda_device, n_fft):
+    """n_fft 2816 and 3840: the split's (F, F) launch refuses (its power rows
+    fit no block); route ct of MfccFrontend and the scorer's frontend run
+    the mixed-radix FFT, bark and bf16 out too."""
+    p = ListenerParams(n_fft=n_fft, window_t=n_fft / 16000)
+    audio = torch.tensor(_ct_audio("int16"), device=cuda_device)
+    consts = ct_kernel.CtConstants(p, "bark", cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        ct_kernel.ct_frontend_cuda(audio, torch.ones(1, device=cuda_device),
+                                   consts, p, _split=True)
+    fe = MfccFrontend(p, "bark", cuda_device, out_dtype=torch.bfloat16)
+    before = ct_kernel.MIXED.launches
+    got = fe(audio, 0.8)
+    assert ct_kernel.MIXED.launches == before + 1
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), fe.plain(audio, 0.8).float(),
+                               rtol=1e-3 + 2.0 ** -7, atol=2e-3)
+
+
+def test_mixed_fft_and_the_forced_split_agree(cuda_device):
+    """n_fft 768: `_split=True` launches the split, the default the
+    mixed-radix FFT; the two compute one function."""
+    p = ListenerParams(n_fft=768, window_t=0.048, use_delta=True)
+    consts = ct_kernel.CtConstants(p, "mfcc", cuda_device)
+    audio = torch.tensor(_ct_audio("float32", 37), device=cuda_device)
+    gain = torch.full((1,), 1.2, dtype=torch.float32, device=cuda_device)
+    counts = (ct_kernel.MIXED.launches,
+              ct_kernel.counters["ct_frontend"].launches)
+    new = ct_kernel.ct_frontend_cuda(audio, gain, consts, p)
+    old = ct_kernel.ct_frontend_cuda(audio, gain, consts, p, _split=True)
+    assert (ct_kernel.MIXED.launches,
+            ct_kernel.counters["ct_frontend"].launches) == (counts[0] + 1,
+                                                            counts[1] + 1)
+    torch.testing.assert_close(new, old, rtol=1e-3, atol=2e-3)
 
 
 def test_fft_kernel_takes_a_window_longer_than_n_fft(cuda_device):
@@ -1002,8 +1098,7 @@ def test_ct_dev_entry_points_run_their_kernels(cuda_device):
 
 
 @pytest.mark.parametrize("kw,route,counter", [
-    ({"n_fft": 768, "window_t": 0.048}, "cuda-ct",
-     ct_kernel.counters["ct_frontend"]),
+    ({"n_fft": 768, "window_t": 0.048}, "cuda-ct", ct_kernel.MIXED),
     ({"window_t": 0.075}, "cuda-mfcc", frontend_kernel.mfcc_frontend_cuda),
     ({"n_fft": 400, "window_t": 0.025}, "torch(xla-route)", None),
 ])
@@ -1023,12 +1118,12 @@ def test_scorer_route_of_each_config_class(cuda_device, tmp_path, kw, route,
     clips, _ = _clips()
     scorer = make_batch_scorer(path, cuda_device)
     assert scorer.paths == {"frontend": route, "classifier": "cuda-gru"}
-    launches = {id(c): c.launches for c in (
-        ct_kernel.counters["ct_frontend"], frontend_kernel.mfcc_frontend_cuda)}
+    watched = (ct_kernel.MIXED, ct_kernel.counters["ct_frontend"],
+               frontend_kernel.mfcc_frontend_cuda)
+    launches = {id(c): c.launches for c in watched}
     got = scorer(torch.tensor(clips, device=cuda_device), 0.9)
     torch.cuda.synchronize()
-    for c in (ct_kernel.counters["ct_frontend"],
-              frontend_kernel.mfcc_frontend_cuda):
+    for c in watched:
         assert c.launches == launches[id(c)] + (c is counter)
     want = make_batch_scorer(path, "cpu")(clips, 0.9)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-3)

@@ -3,7 +3,8 @@ port's scorer against the JAX scorer at a config of each route's class.
 
 - "fft": n_fft a power of two, also with a window longer than n_fft;
 - "ct": the JAX CT kernel's configs (`_ct_eligible`) whose n_fft is not a
-  power of two;
+  power of two, on the mixed-radix FFT up to n_fft 4096 (`ct_body`), and
+  refused from the config where no kernel of the route takes it;
 - "torch": every other config, where the JAX scorer, too, runs no Pallas
   kernel (its "xla" frontend).
 
@@ -26,6 +27,7 @@ import jax.numpy as jnp
 from tpu_speech_commands.ops.pallas_frontend import _ct_eligible
 from tpu_speech_commands.params import ListenerParams as JaxParams
 from tpu_speech_commands.serving import make_batch_scorer as jax_scorer
+from tpu_speech_commands_torch.ops import ct_kernel
 from tpu_speech_commands_torch.ops.ct_constants import ct_eligible
 from tpu_speech_commands_torch.ops.frontend_kernel import (MfccFrontend,
                                                            frontend_route)
@@ -94,6 +96,50 @@ def test_cuda_frontend_refuses_only_what_its_route_cannot_take(monkeypatch):
     for kw, _, _ in ROUTE_CASES.values():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             MfccFrontend(ListenerParams(**kw), "mfcc", "cuda")
+
+
+CT_SIZES = [n for n in range(768, 5121, 256) if n & (n - 1)]
+
+
+@pytest.mark.parametrize("n_fft", CT_SIZES)
+def test_ct_body_each_n_fft_takes(n_fft):
+    """Route ct's kernel from the config: the mixed-radix FFT for every
+    CT-eligible n_fft up to 4096 that is not a power of two (2816 .. 3840
+    too, which the CT split refused at launch); above it the split's frame
+    rows fit no block, so nothing takes the config."""
+    p = ListenerParams(n_fft=n_fft, window_t=n_fft / 16000)
+    assert frontend_route(p) == "ct"
+    body = ct_kernel.ct_body(p)
+    assert body == ("register" if n_fft <= 4096 else None)
+    assert (ct_kernel.ct_config_error(p) is None) == (body is not None)
+    if body is None:
+        assert "no CUDA kernel of route ct" in ct_kernel.ct_config_error(p)
+
+
+def test_ct_body_takes_the_split_where_the_register_block_does_not_fit():
+    """230 filters at n_fft 768: the 230 x 230 DCT leaves the mixed-radix
+    block no room, the split's rows of 32 frames still fit."""
+    p = ListenerParams(n_fft=768, window_t=0.048, n_filt=230)
+    assert ct_kernel.ct_body(p) == "split" and ct_kernel.split_fits(p)
+    assert ct_kernel.ct_body(ListenerParams(n_fft=768, window_t=0.048,
+                                            n_filt=200)) == "register"
+
+
+def test_ct_refuses_from_the_config_before_any_launch(monkeypatch):
+    """A config neither kernel of route ct takes raises ValueError when the
+    frontend is built for CUDA, before the device is looked at; on the CPU
+    it runs the plain chain."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    p = ListenerParams(n_fft=4352, window_t=0.272)
+    with pytest.raises(ValueError, match="no CUDA kernel of route ct"):
+        MfccFrontend(p, "mfcc", "cuda")
+    for n_fft in (2816, 3840):  # refused at launch before, taken now
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            MfccFrontend(ListenerParams(n_fft=n_fft, window_t=n_fft / 16000),
+                         "mfcc", "cuda")
+    fe = MfccFrontend(p, "mfcc", "cpu")
+    assert fe.route == "ct"
+    assert fe(torch.zeros(2, 16000)).shape == (2, p.n_features, p.n_mfcc)
 
 
 @pytest.fixture(scope="module")

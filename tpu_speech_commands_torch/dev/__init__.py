@@ -19,6 +19,12 @@ package's `tools/dev/` scripts whose TPU kernels the port carries:
   a time, built beside the shipped library;
 - `fft_ablation`: the FFT kernel's register body the same way, with one part
   cut out or one design choice undone at a time;
+- `mixed_ablation`: route ct's mixed-radix FFT with one design choice undone
+  at a time (launch bounds, block size, the exchange's swizzle), and a
+  sweep of launch bounds x block size at every plan;
+- `source_ab`: the two register-resident FFT kernels (the register body,
+  route ct's mixed-radix FFT) built from another checkout's csrc/ against
+  this one's, held to the plain version and timed in turns;
 - `cnn_ablation`: the CNN classifier kernels the same way (the SIMT kernel
   without its L2 weight stream, the tiled implicit GEMM stopped after each
   stage), and the GEMM kernel at other tiles;
@@ -39,6 +45,8 @@ Each runs on the card and raises RuntimeError where CUDA is absent:
     python -m tpu_speech_commands_torch.dev.r3_omission --batch 8192
     python -m tpu_speech_commands_torch.dev.ct_ablation
     python -m tpu_speech_commands_torch.dev.fft_ablation
+    python -m tpu_speech_commands_torch.dev.mixed_ablation
+    python -m tpu_speech_commands_torch.dev.source_ab --other DIR/csrc
     python -m tpu_speech_commands_torch.dev.cnn_ablation
     python -m tpu_speech_commands_torch.dev.gru_ablation
     python -m tpu_speech_commands_torch.dev.lstm_ablation
@@ -148,7 +156,8 @@ def check_features(label: str, got: torch.Tensor, want: torch.Tensor,
 def ct_variant(p, device, paired: bool, per_piece_mel: bool,
                time_major: bool):
     """fn(audio, gain) -> features: one instantiation of the CT split kernel
+    (forced: route ct runs the mixed-radix FFT where it takes the config)
     for config `p` on `device` (the plain version on the CPU)."""
     consts = CtConstants(p, "mfcc", device)
     return lambda audio, gain=None: ct_frontend(
-        audio, gain, consts, p, paired, per_piece_mel, time_major)
+        audio, gain, consts, p, paired, per_piece_mel, time_major, _split=True)

@@ -26,6 +26,7 @@ import argparse
 import ctypes
 import subprocess
 import tempfile
+from pathlib import Path
 
 import torch
 
@@ -59,10 +60,24 @@ def variant_sources() -> dict:
     return out
 
 
-def build(sources: dict, stem: str = "ct") -> dict:
+def inlined_source(filename: str, csrc=None) -> str:
+    """csrc/<filename> (or that of another `csrc` directory) with each
+    `#include "X.cuh"` of its directory replaced by that header's text, so
+    that a text edit reaches the code a kernel shares with another and the
+    edited copy builds on its own."""
+    csrc = Path(csrc) if csrc else _build.CSRC_DIR
+    src = (csrc / filename).read_text()
+    for header in sorted(csrc.glob("*.cuh")):
+        text = header.read_text().replace("#pragma once\n", "")
+        src = src.replace(f'#include "{header.name}"\n', text)
+    return src
+
+
+def build(sources: dict, stem: str = "ct", logs: dict | None = None) -> dict:
     """Compile each source into its own library (one nvcc each, all started
     together) in a temporary directory under the build directory; the
-    copies include csrc/'s headers from there."""
+    copies include csrc/'s headers from there.  nvcc's output (with
+    `-Xptxas -v`) goes to `logs[name]` when `logs` is given."""
     nvcc = _build.find_nvcc()
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=_build.BUILD_DIR)
@@ -78,6 +93,8 @@ def build(sources: dict, stem: str = "ct") -> dict:
     libs = {}
     for name, proc in procs.items():
         log = proc.communicate()[0]
+        if logs is not None:
+            logs[name] = log
         if proc.returncode:
             raise _build.KernelBuildError(f"nvcc failed on variant {name}:\n{log}")
         libs[name] = ctypes.CDLL(f"{tmp}/{stem}_{name}.so")
@@ -101,7 +118,8 @@ def main(argv=None) -> dict:
     try:
         for paired in (False, True):
             def launch():
-                return ct_kernel.ct_frontend_cuda(audio, gain, consts, p, paired)
+                return ct_kernel.ct_frontend_cuda(audio, gain, consts, p,
+                                                  paired, _split=True)
 
             for name in list(libs) + list(libs)[::-1]:
                 _build.load_library = lambda lib=libs[name]: lib

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Where the FFT kernel's register body spends its time, and what its
-design choices are worth: csrc/mfcc_frontend.cu with one part cut out or
+design choices are worth: csrc/mfcc_frontend.cu (with csrc/register_fft.cuh,
+the body it shares with route ct's kernel, inlined) with one part cut out or
 one choice undone at a time, each built beside the shipped library and
 timed in turns on the card.
 
@@ -33,7 +34,7 @@ from ..device import resolve_device
 from ..ops import _build, frontend_kernel
 from ..params import ListenerParams
 from . import card_line, device_audio
-from .ct_ablation import build
+from .ct_ablation import build, inlined_source
 
 VARIANTS = {
     "no_filterbank": ("      if (s < s_end) {\n        int k = segs[3 * s]",
@@ -60,27 +61,28 @@ VARIANTS = {
         partial[s] = acc;
       }"""),
     "guarded_loads": (
-        "if (active && vec && 2 * (l + L * (V / 16 - 1) + 15 * (N / 16)) + 1 < w_eff) {",
+        "if (active && vec && 2 * (l + L * (V / R0 - 1) + (R0 - 1) * (N / R0)) + 1 < w_eff) {",
         "if (false) {"),
-    "six_warps": ("constexpr int kThreads = 256;", "constexpr int kThreads = 192;"),
+    "six_warps": ("constexpr int kMaxThreads = 256;",
+                  "constexpr int kMaxThreads = 192;"),
 }
 
 
 def variant_sources() -> dict:
     """name -> the kernel source with that variant ("base": as shipped);
     ValueError if a variant's text is not in the source exactly once."""
-    src = (_build.CSRC_DIR / "mfcc_frontend.cu").read_text()
+    src = inlined_source("mfcc_frontend.cu")
     out = {"base": src}
     for name, (old, new) in VARIANTS.items():
         if src.count(old) != 1:
             raise ValueError(f"variant {name}: its text is not in "
                              "mfcc_frontend.cu once")
         out[name] = src.replace(old, new)
-    six = "static constexpr int kMinBlocks = kV == 16 ? 4 :"
+    six = "int B = (V == 16 ? 4 :"
     if out["six_warps"].count(six) != 1:
         raise ValueError("variant six_warps: the launch bounds moved")
     out["six_warps"] = out["six_warps"].replace(
-        six, "static constexpr int kMinBlocks = kV == 16 ? 5 :")
+        six, "int B = (V == 16 ? 5 :")
     return out
 
 

@@ -20,10 +20,21 @@ The TPU variants that differ only in how vregs and lanes are laid out
 (framing concat / reshape, wide cells, batch_tile) compute the same function
 the same way here, and map onto these four.
 
-`MfccFrontend` takes route "ct" (the (F, F) instantiation) for the configs
-the JAX scorer runs through its CT kernel and the FFT kernel cannot take.
-`ct_frontend` dispatches on the tensor it is given: a CPU tensor takes
-`ct_frontend_plain`, a CUDA tensor launches the kernel or raises.
+`MfccFrontend` takes route "ct" for the configs the JAX scorer runs through
+its CT kernel and the FFT kernel cannot take.  Route ct's function, the
+(F, F) contract, has two kernels, chosen from the config (`ct_body`):
+- "register", `csrc/mixed_fft_frontend.cu`: a mixed-radix register-resident
+  real-input FFT (the plan `fft_plan.mixed_plan`) for every n_fft up to
+  4096 that has a plan whose block fits the card's shared memory;
+- "split", the CT split kernel's (F, F) instantiation, only for a config
+  whose mixed block does not fit but whose split rows do (many filters:
+  e.g. 230 at n_fft 768), and through `_split=True` for any config it fits
+  (the A/B baseline; the `dev/` variants measure the split this way).
+A config neither takes raises ValueError from the config, before any
+launch (`ct_config_error`): every n_fft above 4096, where the split's
+power rows alone (32 rows of n_fft / 2 + 1 floats) exceed SMEM_OPTIN.  `ct_frontend` dispatches on the tensor it is
+given: a CPU tensor takes `ct_frontend_plain`, a CUDA tensor launches a
+kernel or raises.
 """
 from __future__ import annotations
 
@@ -31,12 +42,16 @@ import numpy as np
 import torch
 
 from ..frontend.dsp import add_deltas, decode_audio, frame_signal, safe_log
+from ..frontend.filterbanks import filterbank_matrix
 from ..params import ListenerParams
 from . import _build
 from ._checks import OUT_DTYPES, check_launch, check_row_major, row_major
 from .ct_constants import CT_J, LANES, ct_eligible, ct_matrices
+from .fft_plan import (SMEM_OPTIN, fft_layout, filterbank_plan, mixed_plan,
+                       takes_mixed_fft)
 
 SOURCE = "tpu_speech_commands_torch/csrc/ct_frontend.cu"
+MIXED_SOURCE = "tpu_speech_commands_torch/csrc/mixed_fft_frontend.cu"
 _K1 = "tpu_speech_commands/ops/pallas_frontend.py:745"
 _VARIANTS_PY = "tools/dev/r3_frontend_variants.py:171"
 _STAGE2 = "tools/dev/r3_stage2.py:182"
@@ -60,7 +75,17 @@ VARIANTS = {
 #   out_bf16, stream).  The kernel picks its block rows and tiling itself.
 _N_ARGS = 24
 _INT_ARGS = (1, 3, 4, 5, 6, 7, 8, 9, 10, 17, 18, 19, 20, 22)
+# tsc_mixed_fft_frontend(audio, audio_int16, gain, batch, n_samples, hop,
+#   n_fft, first_frame, n_features, plan_twiddle, filt_packed, fb_table,
+#   n_packed, n_seg, dct_t, n_filt, n_mfcc, emit_deltas, time_major, n_warps,
+#   out, out_bf16, stream)
+_MIXED_N_ARGS = 23
+_MIXED_INT_ARGS = (1, 3, 4, 5, 6, 7, 8, 12, 13, 15, 16, 17, 18, 19, 21)
 _CUDA_ERROR_INVALID_VALUE = 1
+# csrc/ct_frontend.cu's kStages, kBK and kBms: the K-slice ring's stages and
+# depth, and the block rows it tries, largest first
+# (tests/test_torch_ct_frontend.py holds them to the source)
+_SPLIT_STAGES, _SPLIT_BK, _SPLIT_BMS = 3, 8, (64, 32)
 
 
 class LaunchCount:
@@ -71,6 +96,7 @@ class LaunchCount:
 
 
 counters = {name: LaunchCount() for name in VARIANTS}
+MIXED = LaunchCount()  # launches of the mixed-radix register FFT
 
 
 def variant_name(paired: bool, per_piece_mel: bool) -> str:
@@ -78,10 +104,45 @@ def variant_name(paired: bool, per_piece_mel: bool) -> str:
                 if (pa, pp) == (bool(paired), bool(per_piece_mel)))
 
 
-def ct_config_error(p: ListenerParams) -> str | None:
-    """Why the CT kernel cannot take config `p`, or None when it can.  The
-    kernel itself refuses, at launch, a config whose block fits in no shared
-    memory the card offers (ValueError from `ct_frontend_cuda`)."""
+def split_smem_bytes(bm: int, n_fft: int, n_filt: int) -> int:
+    """The CT split (F, F) instantiation's shared memory for a block of bm
+    frame rows: smem_floats(bm, n_fft, n_filt, false, false) of
+    csrc/ct_frontend.cu, in bytes."""
+    return 4 * (2 * bm + 2 * LANES * (bm + 4) + _SPLIT_STAGES * _SPLIT_BK * LANES
+                + bm * (n_fft // 2 + 1) + bm * ((n_filt + 1) | 1) + bm)
+
+
+def split_fits(p: ListenerParams) -> bool:
+    """Whether tsc_ct_frontend launches the (F, F) instantiation at config
+    p: it takes the first of 64 and 32 frame rows whose block fits
+    SMEM_OPTIN, and refuses unless that block's T space holds the
+    coefficients."""
+    bm = next((bm for bm in _SPLIT_BMS
+               if split_smem_bytes(bm, p.n_fft, p.n_filt) <= SMEM_OPTIN), 0)
+    return bm > 0 and 2 * LANES * (bm + 4) >= bm * p.n_mfcc
+
+
+def _mixed(p: ListenerParams, feature_type: str):
+    """The mixed-radix plan, its filterbank plan and its block's layout for
+    config `p`."""
+    plan = mixed_plan(p.n_fft)
+    fb = filterbank_plan(filterbank_matrix(p, feature_type).T, plan.lanes)
+    return plan, fb, fft_layout(plan, fb, p.n_filt, p.n_mfcc, p.n_features)
+
+
+def ct_body(p: ListenerParams, feature_type: str = "mfcc") -> str | None:
+    """Which kernel serves route ct's config `p` on CUDA: "register" (the
+    mixed-radix FFT) where it has a plan whose block fits SMEM_OPTIN,
+    "split" where only the split's (F, F) instantiation fits, None where
+    neither does.  Chosen from the config, never from a failed launch."""
+    if takes_mixed_fft(p.n_fft) and \
+            _mixed(p, feature_type)[2].smem_bytes <= SMEM_OPTIN:
+        return "register"
+    return "split" if split_fits(p) else None
+
+
+def _contract_error(p: ListenerParams) -> str | None:
+    """Why config `p` is outside route ct's contract, or None."""
     if not ct_eligible(p):
         return (f"the CUDA CT frontend kernel needs n_fft = 128 n2 with n2 "
                 f"even and window == n_fft, got n_fft {p.n_fft}, window "
@@ -92,11 +153,33 @@ def ct_config_error(p: ListenerParams) -> str | None:
     return None
 
 
+def ct_config_error(p: ListenerParams,
+                    feature_type: str = "mfcc") -> str | None:
+    """Why route ct's kernels cannot take config `p`, or None when one can."""
+    err = _contract_error(p)
+    if err:
+        return err
+    if ct_body(p, feature_type) is None:
+        why = (f"its block does not fit in {SMEM_OPTIN} bytes of shared "
+               f"memory" if takes_mixed_fft(p.n_fft) else
+               "it has plans for n_fft <= 4096 only")
+        return (f"no CUDA kernel of route ct takes n_fft {p.n_fft} with "
+                f"{p.n_filt} filters: not the mixed-radix FFT ({why}), nor "
+                f"the CT split (no block of 64 or 32 frame rows fits in "
+                f"{SMEM_OPTIN} bytes of shared memory with room for its "
+                f"coefficients)")
+    return None
+
+
 class CtConstants:
-    """Device-resident constants of the CT kernel and its plain version for
-    one config (`ct_constants.ct_matrices`): the stage-1 tables, the unpaired
-    and paired stage-2 packs, the permuted filterbank, its per-piece ranges
-    and duplicated-row form, the Nyquist row and the transposed DCT."""
+    """Device-resident constants of route ct's kernels and the plain version
+    for one config.  The CT split's (`ct_constants.ct_matrices`): the stage-1
+    tables, the unpaired and paired stage-2 packs, the permuted filterbank,
+    its per-piece ranges and duplicated-row form, the Nyquist row and the
+    transposed DCT.  `body` is `ct_body`'s; where it is "register", the
+    mixed-radix FFT's too: `plan.twiddle` as float32 rows, the packed
+    filterbank and its int32 lane / filter / segment table over the plan's
+    lanes, and `layout`, its block."""
 
     def __init__(self, p: ListenerParams, feature_type: str, device):
         if not ct_eligible(p):
@@ -119,6 +202,18 @@ class CtConstants:
             ((2, n2, n2), (n2, 2 * LANES, LANES),
              (half + 1, 2 * LANES, 2 * LANES), (n2 * CT_J, nf1),
              (n2, LANES, nf1), (nf1,), (nf1, n2, 2), (p.n_filt, p.n_filt)))
+        self.feature_type = feature_type
+        self.body = ct_body(p, feature_type)
+        self.plan = self.fb = self.layout = None
+        self.plan_twiddle = self.filt_packed = self.fb_table = None
+        if self.body == "register":
+            self.plan, self.fb, self.layout = _mixed(p, feature_type)
+            self.plan_twiddle = row_major(self.plan.twiddle, device)
+            self.filt_packed = row_major(self.fb.packed, device)
+            self.fb_table = row_major(self.fb.table, device, np.int32)
+            check_row_major(
+                (self.plan_twiddle, self.fb_table),
+                ((len(self.plan.twiddle), 2), (len(self.fb.table),)))
 
 
 def ct_frontend_plain(audio: torch.Tensor, gain, consts: CtConstants,
@@ -199,15 +294,23 @@ def ct_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
                      consts: CtConstants, p: ListenerParams,
                      paired: bool = False, per_piece_mel: bool = False,
                      time_major: bool = False,
-                     out_dtype=torch.float32) -> torch.Tensor:
-    """Launch one instantiation of the CT kernel.  audio (B, S) float32 or
+                     out_dtype=torch.float32, *,
+                     _split: bool = False) -> torch.Tensor:
+    """Launch route ct's kernel for config `p`.  audio (B, S) float32 or
     int16 and gain (1,) float32, both on consts' CUDA device -> (B,
     n_features, F), or (n_features, B, F) when time_major, in out_dtype.
-    Every launch adds one to `counters[variant_name(paired,
-    per_piece_mel)].launches`."""
-    err = ct_config_error(p)
+
+    The (F, F) contract runs `consts.body`'s kernel: the mixed-radix FFT
+    (its launches add one to `MIXED.launches`) or the split.  paired or
+    per_piece_mel, or `_split` (the same-call A/B of the two kernels),
+    launch that instantiation of the CT split kernel; each launch adds one
+    to `counters[variant_name(paired, per_piece_mel)].launches`."""
+    err = _contract_error(p)
+    if not err and consts.body is None and not (paired or per_piece_mel):
+        err = ct_config_error(p, consts.feature_type)
     if err:
         raise ValueError(err)
+    split = _split or paired or per_piece_mel or consts.body == "split"
     n_frames = check_launch(audio, gain, consts.device, p, out_dtype)
     batch, n_samples = audio.shape
     shape = ((p.n_features, batch, p.feature_size) if time_major
@@ -215,12 +318,17 @@ def ct_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
     out = torch.empty(shape, dtype=out_dtype, device=audio.device)
     if batch == 0:
         return out
+    first_frame = n_frames - p.n_features
+    if not split:
+        _launch_mixed(audio, gain, consts, p, first_frame, time_major, out)
+        MIXED.launches += 1
+        return out
     fn = _build.bind("tsc_ct_frontend", _N_ARGS, _INT_ARGS)
     with torch.cuda.device(audio.device):
         stream = torch.cuda.current_stream(audio.device).cuda_stream
         rc = fn(
             audio.data_ptr(), int(audio.dtype == torch.int16), gain.data_ptr(),
-            batch, n_samples, p.hop_samples, p.n_fft, n_frames - p.n_features,
+            batch, n_samples, p.hop_samples, p.n_fft, first_frame,
             p.n_features, int(paired), int(per_piece_mel),
             consts.stage1.data_ptr(), consts.e2[bool(paired)].data_ptr(),
             consts.filt.data_ptr(), consts.filt_nyq.data_ptr(),
@@ -239,10 +347,30 @@ def ct_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
     return out
 
 
+def _launch_mixed(audio, gain, consts: CtConstants, p: ListenerParams,
+                  first_frame: int, time_major: bool, out: torch.Tensor):
+    """One launch of csrc/mixed_fft_frontend.cu into `out`."""
+    fn = _build.bind("tsc_mixed_fft_frontend", _MIXED_N_ARGS, _MIXED_INT_ARGS)
+    with torch.cuda.device(audio.device):
+        stream = torch.cuda.current_stream(audio.device).cuda_stream
+        rc = fn(
+            audio.data_ptr(), int(audio.dtype == torch.int16), gain.data_ptr(),
+            audio.shape[0], audio.shape[1], p.hop_samples, p.n_fft,
+            first_frame, p.n_features, consts.plan_twiddle.data_ptr(),
+            consts.filt_packed.data_ptr(), consts.fb_table.data_ptr(),
+            len(consts.fb.packed), consts.fb.n_seg, consts.dct_t.data_ptr(),
+            p.n_filt, p.n_mfcc, int(p.use_delta), int(time_major),
+            consts.layout.warps, out.data_ptr(),
+            int(out.dtype == torch.bfloat16), stream,
+        )
+    _build.check(rc, "tsc_mixed_fft_frontend")
+
+
 def ct_frontend(audio: torch.Tensor, gain, consts: CtConstants,
                 p: ListenerParams, paired: bool = False,
                 per_piece_mel: bool = False, time_major: bool = False,
-                out_dtype=torch.float32) -> torch.Tensor:
+                out_dtype=torch.float32, *,
+                _split: bool = False) -> torch.Tensor:
     """The plain version for a CPU tensor, the kernel for a CUDA one (gain
     a float, None or a (1,) tensor; the kernel takes it as a device
     tensor)."""
@@ -255,4 +383,4 @@ def ct_frontend(audio: torch.Tensor, gain, consts: CtConstants,
         gain = torch.full((1,), 1.0 if gain is None else float(gain),
                           dtype=torch.float32, device=audio.device)
     return ct_frontend_cuda(audio, gain, consts, p, paired, per_piece_mel,
-                            time_major, out_dtype)
+                            time_major, out_dtype, _split=_split)

@@ -1,11 +1,15 @@
-"""The plan `csrc/mfcc_frontend.cu`'s register-resident real-input FFT
-follows, built in float64 numpy: its passes, their index maps and twiddle
+"""The plans the register-resident real-input FFTs follow, built in float64
+numpy: `csrc/mfcc_frontend.cu`'s register body (`fft_plan`, n_fft a power
+of two) and route ct's mixed-radix kernel `csrc/mixed_fft_frontend.cu`
+(`mixed_plan`, `MIXED_PLANS`): the passes, their index maps and twiddle
 tables, the untangle twiddles, the shared-memory layout, and the packed
 filterbank's work split over the lanes.
 
-The kernel mirrors these; tests/test_torch_fft_plan.py runs a numpy
-emulation of the same passes on the same tables against np.fft.rfft and the
-plain frontend.  For n_fft a power of two in [FFT_MIN, FFT_MAX]:
+The kernels mirror these; tests/test_torch_fft_plan.py and
+tests/test_torch_mixed_fft.py run a numpy emulation of the same passes on
+the same tables (`emulate_rfft`) against np.fft.rfft and the plain
+frontends.  The mixed-radix plans keep the layout below with other radices
+and lane counts.  For n_fft a power of two in [FFT_MIN, FFT_MAX]:
 
 - a real frame x of n_fft samples is the complex sequence z[n] = x[2n] + i
   x[2n + 1] of N = n_fft / 2 points;
@@ -64,6 +68,7 @@ class FftPlan:
     untangle_offset: int  # the untangle's first row in `twiddle`
     pitch: int            # float2 from one frame's buffer to the next
     min_blocks: int       # the kernel's __launch_bounds__ blocks an SM
+    warps: int            # a block's, before fft_layout halves them to fit
     twiddle: np.ndarray   # (n_tw, 2) float64 cos, sin rows
 
     @property
@@ -81,11 +86,19 @@ def fft_plan(n_fft: int) -> FftPlan:
                          f"[{FFT_MIN}, {FFT_MAX}], got {n_fft}")
     n = n_fft // 2
     values = max(RADIX, n // 32)
-    lanes = n // values
     radices, rest = [], n
     while rest > 1:
         radices.append(min(RADIX, rest))
         rest //= radices[-1]
+    return build_plan(n_fft, values, tuple(radices),
+                      {16: 4, 32: 2}.get(values, 1), WARPS)
+
+
+def build_plan(n_fft: int, values: int, radices: tuple, min_blocks: int,
+               warps: int) -> FftPlan:
+    """The plan of n_fft / 2 complex points, `values` a lane, in Stockham
+    passes of `radices` (in order), with its float64-built twiddle rows."""
+    n = n_fft // 2
     strides = tuple(int(np.prod(radices[:p])) for p in range(len(radices)))
     rows, offsets = [], []
     for radix, ns in zip(radices, strides):
@@ -99,12 +112,57 @@ def fft_plan(n_fft: int) -> FftPlan:
     untangle = sum(len(r) for r in rows)
     rows.append(-np.pi * np.arange(n // 2 + 1, dtype=np.float64) / n)
     ang = np.concatenate(rows)
+    lanes = n // values
     return FftPlan(
         n_fft=n_fft, n=n, lanes=lanes, values=values, radices=tuple(radices),
         strides=strides, pass_offsets=tuple(offsets), untangle_offset=untangle,
-        pitch=n + (lanes if lanes < 16 else 0),
-        min_blocks={16: 4, 32: 2}.get(values, 1),
-        twiddle=np.stack([np.cos(ang), np.sin(ang)], axis=-1))
+        pitch=n + (lanes if lanes < 16 else 0), min_blocks=min_blocks,
+        warps=warps, twiddle=np.stack([np.cos(ang), np.sin(ang)], axis=-1))
+
+
+# The mixed-radix plans of csrc/mixed_fft_frontend.cu (its TSC_MIXED_PLANS
+# table): n_fft -> (values a lane, the passes' radices, the launch bounds'
+# blocks an SM, warps a block).  n_fft = 256 m, m in 3 .. 15 not a power of
+# two: the CT-eligible sizes (n_fft = 128 n2, n2 even) up to FFT_MAX that
+# are not powers of two.  V is the largest 2^k q <= 64 (q the odd part of
+# m), so that a lane holds whole butterflies of every pass and L = N / V <=
+# 32 lanes hold a frame; the power-of-two part runs in as few passes as
+# radices dividing V allow, in the order with the fewest shared-memory
+# wavefronts (tests/test_torch_mixed_fft.py counts them), then one pass for
+# each odd prime factor of m.  The bounds and the block are the fastest of
+# 1 or 2 blocks x 2, 4 or 8 warps on an H100 (dev/mixed_ablation.py
+# --sweep, PERF.md): 2 blocks (128 registers; 1280, 1536 and 2304 spill
+# 32-76 bytes) where the frame slots leave room for 3 or more blocks of 4
+# warps, else 1.  A config
+# whose block does not fit SMEM_OPTIN takes fewer warps (fft_layout).
+MIXED_PLANS = {
+    768: (48, (16, 8, 3), 2, 4),
+    1280: (40, (8, 2, 8, 5), 2, 8),
+    1536: (48, (16, 16, 3), 2, 4),
+    1792: (56, (8, 2, 8, 7), 1, 2),
+    2304: (36, (2, 4, 4, 4, 3, 3), 2, 4),
+    2560: (40, (4, 8, 8, 5), 2, 4),
+    2816: (44, (2, 4, 4, 4, 11), 1, 2),
+    3072: (48, (4, 16, 8, 3), 1, 4),
+    3328: (52, (2, 4, 4, 4, 13), 1, 4),
+    3584: (56, (4, 8, 8, 7), 1, 4),
+    3840: (60, (2, 4, 4, 4, 3, 5), 1, 4),
+}
+
+
+def takes_mixed_fft(n_fft: int) -> bool:
+    """Whether the mixed-radix register FFT has a plan for n_fft."""
+    return n_fft in MIXED_PLANS
+
+
+@functools.lru_cache()
+def mixed_plan(n_fft: int) -> FftPlan:
+    """The mixed-radix plan for n_fft (`MIXED_PLANS`), with the register
+    body's frame-slot pad below 16 lanes."""
+    if not takes_mixed_fft(n_fft):
+        raise ValueError(f"the mixed-radix register FFT takes n_fft in "
+                         f"{sorted(MIXED_PLANS)}, got {n_fft}")
+    return build_plan(n_fft, *MIXED_PLANS[n_fft])
 
 
 def swizzle(i):
@@ -125,6 +183,33 @@ def pass_maps(plan: FftPlan, p: int):
     writes = (j - c) * radix + c + r * ns
     tw = np.where(r > 0, plan.pass_offsets[p] + (r - 1) * ns + c, -1)
     return reads, writes, tw if ns > 1 else np.full_like(reads, -1)
+
+
+def emulate_rfft(frames: np.ndarray, plan: FftPlan, tw: np.ndarray,
+                 dft=None) -> np.ndarray:
+    """(F, n_fft) real frames -> (F, n_fft / 2 + 1) bins through the
+    kernel's passes (`pass_maps`) and untangle, in tw's precision (tw: the
+    plan's twiddle rows as complex); `dft(v)` is the in-register DFT over
+    the last axis (np.fft.fft by default)."""
+    dt = tw.dtype
+    dft = dft or (lambda v: np.fft.fft(v, axis=-1))
+    n = plan.n
+    buf = (frames[:, 0::2] + 1j * frames[:, 1::2]).astype(dt)
+    for p in range(len(plan.radices)):
+        reads, writes, tws = pass_maps(plan, p)
+        v = buf[:, reads]
+        v = v * np.where(tws >= 0, tw[np.maximum(tws, 0)], 1).astype(dt)
+        new = np.empty_like(buf)
+        new[:, writes] = dft(v).astype(dt)
+        buf = new
+    k = np.arange(n // 2 + 1)
+    a, b = buf[:, k], buf[:, (n - k) % n].conj()
+    e, o = (a + b) / 2, -1j * (a - b) / 2
+    wo = tw[plan.untangle_offset + k] * o
+    x = np.empty((len(frames), n + 1), dt)
+    x[:, k] = e + wo
+    x[:, n - k] = (e - wo).conj()
+    return x
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,25 +303,27 @@ class FftLayout:
 
 
 def fft_layout(plan: FftPlan, fb: FilterbankPlan, n_filt: int, n_mfcc: int,
-               n_features: int) -> FftLayout:
-    """Mirrors smem_layout() and launch_fft() in csrc/mfcc_frontend.cu: the
-    twiddles, the packed weights, the filterbank table, the DCT, one buffer
-    a frame slot (warps x frames_per_warp slots of `pitch` float2), one
-    scratch row a slot (its partial sums, then n_filt + 1 log-mel and energy
-    values), and the window's (n_features, n_mfcc) coefficients; WARPS
-    warps a block, halved while that exceeds SMEM_OPTIN.  Blocks an SM: the
-    least of shared memory, the warp limit and the launch bounds'
-    registers."""
-    warps = WARPS
-    while True:
+               n_features: int, warps: int | None = None) -> FftLayout:
+    """Mirrors smem_layout() and launch_fft() in csrc/mfcc_frontend.cu (and
+    smem_layout() in csrc/mixed_fft_frontend.cu, whose launch takes the
+    warps from here): the twiddles, the packed weights, the filterbank
+    table, the DCT, one buffer a frame slot (warps x frames_per_warp slots
+    of `pitch` float2), one scratch row a slot (its partial sums, then
+    n_filt + 1 log-mel and energy values), and the window's (n_features,
+    n_mfcc) coefficients; `warps` (the plan's by default) a block, halved
+    while that exceeds SMEM_OPTIN.  Blocks an SM: the least of shared
+    memory, the warp limit and the launch bounds' registers."""
+    def regions_of(warps):
         slots = warps * plan.frames_per_warp
-        regions = tuple(_align16(r) for r in (
+        return tuple(_align16(r) for r in (
             8 * len(plan.twiddle), 4 * len(fb.packed), 4 * len(fb.table),
             4 * n_filt * n_filt, 8 * slots * plan.pitch,
             4 * slots * (fb.n_seg + n_filt + 1), 4 * n_features * n_mfcc))
-        if sum(regions) <= SMEM_OPTIN or warps == 1:
-            break
+
+    warps = warps or plan.warps
+    while sum(regions_of(warps)) > SMEM_OPTIN and warps > 1:
         warps //= 2
+    regions = regions_of(warps)
     smem = sum(regions)
     # the launch bounds cap a thread's registers at 65,536 / (32 WARPS x
     # min_blocks): that many blocks of WARPS warps fit whatever nvcc allocates
@@ -244,3 +331,4 @@ def fft_layout(plan: FftPlan, fb: FilterbankPlan, n_filt: int, n_mfcc: int,
                  MAX_WARPS_PER_SM // warps, plan.min_blocks * WARPS // warps)
     return FftLayout(warps, *regions, smem_bytes=smem, blocks_per_sm=blocks,
                      warps_per_sm=blocks * warps)
+

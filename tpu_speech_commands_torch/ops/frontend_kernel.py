@@ -26,8 +26,11 @@ config when the frontend was built:
   is cut to its first n_fft samples, as np.fft.rfft(frame, n=n_fft) does),
   its register body for n_fft 128 .. 4096 and its radix-2 body otherwise;
 - "ct": the configs the JAX package's CT kernel takes and the FFT kernel
-  cannot, n_fft = 128 n2 (n2 even, not a power of two) == window: the CT
-  split kernel (`ct_kernel.py`, csrc/ct_frontend.cu);
+  cannot, n_fft = 128 n2 (n2 even, not a power of two) == window: the
+  mixed-radix register FFT (csrc/mixed_fft_frontend.cu) up to n_fft 4096,
+  the CT split kernel (csrc/ct_frontend.cu) only where the mixed block does
+  not fit and the split's rows do (many filters); above 4096 neither fits
+  and the config is refused (`ct_kernel.ct_body`);
 - "torch": every other config, which the JAX scorer, too, serves with plain
   XLA products outside any Pallas kernel: the plain chain on the card.
 The fast_math DFT kernel needs a hop that is a multiple of 8 samples and at
@@ -363,10 +366,8 @@ class MfccFrontend:
     the card), or with fast_math=True the bf16 tensor-core DFT kernel (the
     counterpart of `make_fused_frontend(fast_math=True)`); `.route` names it.
     The device is the card unless the caller passes "cpu".  Constructing it
-    for a CUDA device raises ValueError when the route's kernel cannot take
-    the config, and RuntimeError without CUDA; the CT kernel refuses with
-    ValueError at its launch a config whose power rows fit no block of the
-    card's shared memory."""
+    for a CUDA device raises ValueError when the route's kernels cannot take
+    the config, and RuntimeError without CUDA."""
 
     def __init__(self, params: ListenerParams | None = None,
                  feature_type: str = "mfcc", device=DEFAULT_DEVICE,
@@ -383,7 +384,7 @@ class MfccFrontend:
         elif self.route == "fft":
             err = kernel_config_error(p)
         elif self.route == "ct":
-            err = ct_config_error(p)
+            err = ct_config_error(p, feature_type)
         else:
             err = None
         if err and self.device.type == "cuda":

@@ -8,9 +8,10 @@ config takes the plain frontend route):
       -> MFCC frontend, by the route `frontend_route` picks for the config:
          FFT kernel    (ops/frontend_kernel.py, csrc/mfcc_frontend.cu),
                        n_fft a power of two ("cuda-mfcc");
-         CT kernel     (ops/ct_kernel.py, csrc/ct_frontend.cu), the configs
-                       the JAX scorer runs on its CT kernel, n_fft = 128 n2
-                       (n2 even) = window, not a power of two ("cuda-ct");
+         CT route      (ops/ct_kernel.py), the configs the JAX scorer runs
+                       on its CT kernel, n_fft = 128 n2 (n2 even) = window,
+                       not a power of two ("cuda-ct"): the mixed-radix FFT
+                       (csrc/mixed_fft_frontend.cu) up to n_fft 4096;
          plain chain   every other config, which the JAX scorer, too, runs
                        on plain XLA products ("torch(xla-route)")
       -> GRU classifier kernel   (ops/rnn_kernel.py, csrc/gru_classifier.cu),
