@@ -15,7 +15,9 @@ Phases, in order; any failure raises and the script exits non-zero:
             every float of [1, inf]; the
             CNN classifier's tiled implicit GEMM and its SIMT kernel,
             `_simt=True`, at four model x shape cases, f32 and bf16; the
-            fast_math frontend also at K6 make_bf16_kernel's own settings;
+            fast_math frontend's wgmma kernel and its first design
+            (`_mma_sync=True`) at every frontend case, and at K6
+            make_bf16_kernel's own settings;
             the f32 dense-DFT kernels at the default config and at W 800,
             combined, or W = 2 hop = 800, halves, and combined with a gain
             and a first frame; the load-floor kernels at gains 1 and 1.5;
@@ -24,7 +26,9 @@ Phases, in order; any failure raises and the script exits non-zero:
             768 with deltas, int16 in and bf16 out; route ct's mixed-radix
             FFT at every n_fft it takes (768 .. 3840), f32 and int16 in,
             f32 and bf16 out, batch- and time-major, with and without
-            deltas, against the CT plain version; the FFT kernel at window
+            deltas, against the CT plain version; route ct's split-dup
+            body (the split's (F, T) instantiation) at n_fft 4352, 10240
+            and 15872 in the same four cases; the FFT kernel at window
             1200 > n_fft,
             at alt_512 and an odd hop of 481, at every n_fft its register
             body takes (128 .. 4096) and at 8192 (its radix-2 body), f32
@@ -53,14 +57,17 @@ Phases, in order; any failure raises and the script exits non-zero:
               top-1 and its launch count;
             - MfccFrontend(fast_math=True) into the GRU, LSTM and CNN
               classifier kernels for all four checkpoints: top-1 and both
-              launch counts;
+              launch counts (the first fast_math design's at 0); that
+              design (`_mma_sync=True`) into the GRU kernel: top-1 and its
+              count;
             - make_batch_scorer for direction_simple_gru.npz with its params
               set to the classes of config the route choice covers:
               n_fft = window = 768 (route cuda-ct, the mixed-radix FFT; the
               CT split's launch counts must stay at 0), window
               1200 > n_fft 1024 (cuda-mfcc, the FFT kernel's register
-              body), n_fft 8192 (cuda-mfcc, its radix-2 body) and n_fft 400
-              (torch(xla-route), the plain chain): `.paths` must name the
+              body), n_fft 8192 (cuda-mfcc, its radix-2 body), n_fft 400
+              (torch(xla-route), the plain chain) and n_fft = window = 4352
+              (cuda-ct(split-dup)): `.paths` must name the
               route, its kernels' launch counts must rise, and the scores
               must agree with the same scorer on the CPU;
             - the seven measurement entry points of tpu_speech_commands_torch
@@ -82,7 +89,11 @@ Phases, in order; any failure raises and the script exits non-zero:
             against the CT split's (F, F) in turns, new, split, split, new,
             at n_fft = window = 768 (hop 512) and 1536 (hop 256), and against
             its plain version alone at 2816 (hop 256: the split refuses it),
-            each beside its bound, the GRU classifier's tile
+            each beside its bound, the fast_math wgmma kernel against
+            its first design in turns, mma_sync, wgmma, wgmma, mma_sync,
+            beside the bound, the plain version and the DFT product alone
+            through cuBLAS (a yardstick), route ct's split-dup body at
+            n_fft 4352 beside its bound and the CT plain version, the GRU classifier's tile
             kernel against its SIMT kernel in turns, simt, tile, tile, simt,
             in f32 and bf16 (bf16 features), with a sweep of the tile
             kernel's windows a warp and warps a block and the gate math's
@@ -145,6 +156,11 @@ CT_ROUTE = {"n_fft": 768, "window_t": 0.048}
 # version: at hop 512 n_fft 1536 and 2816 give 29 and 26 frames, so these
 # run at hop 256 (57 and 52 frames); the split refuses 2816
 CT_AB = ((768, 0.032), (1536, 0.016), (2816, 0.016))
+# route ct above n_fft 4096 (the CT split's (F, T) instantiation): the first
+# size, one between and the longest window a 1 s buffer holds (one frame);
+# the simple_gru scorer and the timing at the first
+SPLIT_DUP = (4352, 10240, 15872)
+SPLIT_DUP_ROUTE = {"n_fft": 4352, "window_t": 0.272}
 
 # Tolerances, each with its reason:
 # - features f32: the kernel's radix-2 FFT and the plain dense-DFT matmul
@@ -318,6 +334,18 @@ def frontend_bound(p, batch):
                     4.0 * batch * audio_span(p) + 4.0 * frames * p.feature_size)
 
 
+def dft_bound(p, batch):
+    """The fast_math frontend's bound at config p on `batch` windows of f32
+    audio: the DFT's nonzero columns (cos of every bin and sin of all but
+    bin 0 and the Nyquist bin, n_fft in all) over the kept frames at the
+    bf16 peak, the cepstrum at the f32 peak, against the kept frames' span
+    of audio read once and the features written once."""
+    frames = batch * p.n_features
+    dft = frames * 2.0 * min(p.window_samples, p.n_fft) * p.n_fft
+    return bound_ms(frontend_ops(p, frames)[1], dft,
+                    4.0 * batch * audio_span(p) + 4.0 * frames * p.feature_size)
+
+
 def kernel_bounds(p, batch, n_samples, rnn_dims, cnn_consts):
     """Each timed kernel's bound at the phase-5 shapes: f32 audio (batch,
     n_samples) into the frontends and the load floor (route ct's kernel at
@@ -348,7 +376,8 @@ def kernel_bounds(p, batch, n_samples, rnn_dims, cnn_consts):
         "mixed_fft_frontend": frontend_bound(p.replace(**CT_ROUTE), batch),
         "mfcc_frontend": frontend,
         "mfcc_frontend_radix2": frontend,
-        "dft_frontend_bf16": bound_ms(cepstrum, dft, span_b + feats_b),
+        "dft_frontend_bf16": dft_bound(p, batch),
+        "dft_frontend_mma_sync": dft_bound(p, batch),
         "gru_classifier": gru,
         "gru_classifier_simt": gru,
         "lstm_classifier": lstm,
@@ -549,7 +578,7 @@ def main() -> int:
               "needs one NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from tpu_speech_commands_torch.frontend.dsp import Frontend
+    from tpu_speech_commands_torch.frontend.dsp import Frontend, frame_signal
     from tpu_speech_commands_torch.models import score_fn
     from tpu_speech_commands_torch.models.cnn import SimpleCNN, SimpleCNNLite
     from tpu_speech_commands_torch.models.rnn import SimpleGRU, SimpleLSTM
@@ -612,29 +641,44 @@ def main() -> int:
         ("bark", {}, "bark", audio_f32, torch.float32, 0.8),
         ("bark", {}, "bark", audio_i16, torch.bfloat16, 1.25),
     ]
-    frontend_errs, fast_errs = [], []
+    frontend_errs, fast_errs, mma_sync_errs = [], [], []
     for name, kw, ftype, audio, out_dtype, gain in cases:
         p = ListenerParams(**kw)
         for fast_math, errs in ((False, frontend_errs), (True, fast_errs)):
             fe = MfccFrontend(p, ftype, dev, out_dtype=out_dtype,
                               fast_math=fast_math)
-            got = fe(audio, gain)
-            torch.cuda.synchronize()
+            runs = {"": lambda: fe(audio, gain)}
+            if fast_math:  # the first design too, the wgmma kernel's A/B
+                runs[" (mma_sync)"] = lambda: frontend_kernel.\
+                    dft_frontend_bf16_cuda(
+                        audio, torch.full((1,), gain, device=dev), fe.consts,
+                        p, out_dtype, _mma_sync=True)
             want = fe.plain(audio, gain).to(out_dtype)
-            assert got.dtype == out_dtype
-            what = (f"{'fast_math' if fast_math else 'frontend'} {name} "
-                    f"{ftype} {str(audio.dtype)[6:]}->{str(out_dtype)[6:]} "
-                    f"gain {gain}")
-            if out_dtype == torch.float32:
-                errs.append(check_close(what, got, want, FEAT_ATOL, FEAT_RTOL))
-            else:
-                check_close(what, got, want, FEAT_BF16_ATOL, FEAT_BF16_RTOL)
+            for which, run in runs.items():
+                got = run()
+                torch.cuda.synchronize()
+                assert got.dtype == out_dtype
+                what = (f"{'fast_math' if fast_math else 'frontend'}{which} "
+                        f"{name} {ftype} {str(audio.dtype)[6:]}->"
+                        f"{str(out_dtype)[6:]} gain {gain}")
+                if out_dtype == torch.float32:
+                    (mma_sync_errs if which else errs).append(
+                        check_close(what, got, want, FEAT_ATOL, FEAT_RTOL))
+                else:
+                    check_close(what, got, want, FEAT_BF16_ATOL,
+                                FEAT_BF16_RTOL)
     # K6 make_bf16_kernel's own settings: default params, f32 audio at
-    # gain 1, f32 output over all 30 frames
+    # gain 1, f32 output over all 30 frames; both fast_math kernels
     fe = MfccFrontend(ListenerParams(), "mfcc", dev, fast_math=True)
+    want = fe.plain(audio_f32)
     fast_errs.append(check_close(
-        "fast_math at K6 make_bf16_kernel's settings", fe(audio_f32),
-        fe.plain(audio_f32), FEAT_ATOL, FEAT_RTOL))
+        "fast_math at K6 make_bf16_kernel's settings", fe(audio_f32), want,
+        FEAT_ATOL, FEAT_RTOL))
+    mma_sync_errs.append(check_close(
+        "fast_math (mma_sync) at K6 make_bf16_kernel's settings",
+        frontend_kernel.dft_frontend_bf16_cuda(
+            audio_f32, torch.ones(1, device=dev), fe.consts, ListenerParams(),
+            _mma_sync=True), want, FEAT_ATOL, FEAT_RTOL))
 
     feats = Frontend(ListenerParams(), "mfcc", dev)(audio_f32)
     pretrained = load_native(CHECKPOINT, dev).model
@@ -882,6 +926,36 @@ def main() -> int:
                                               FEAT_RTOL))
             else:
                 check_close(what, got, want, FEAT_BF16_ATOL, FEAT_BF16_RTOL)
+    # route ct above n_fft 4096: the CT split's (F, T) instantiation
+    # ("split-dup"), chosen from the config, at both ends of its sizes and
+    # one between, in the mixed FFT's four cases, held to the CT plain
+    # version (its per-piece-mel form)
+    for n_fft in SPLIT_DUP:
+        for audio, out_dtype, gain, time_major, delta in mixed_cases:
+            p = ListenerParams(n_fft=n_fft, window_t=n_fft / 16000,
+                               use_delta=delta)
+            consts = ct_kernel.CtConstants(p, "mfcc", dev)
+            if consts.body != "split-dup":
+                raise AssertionError(f"n_fft {n_fft}: route ct's body is "
+                                     f"{consts.body}, not split-dup")
+            gain_t = torch.full((1,), gain, dtype=torch.float32, device=dev)
+            got = ct_kernel.ct_frontend_cuda(audio, gain_t, consts, p,
+                                             time_major=time_major,
+                                             out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            want = ct_kernel.ct_frontend_plain(audio, gain, consts, p,
+                                               per_piece_mel=True,
+                                               time_major=time_major,
+                                               out_dtype=out_dtype)
+            what = (f"ct_frontend_dup (split-dup) n_fft {n_fft} "
+                    f"{'time' if time_major else 'batch'}-major"
+                    f"{' deltas' if delta else ''} {str(audio.dtype)[6:]}->"
+                    f"{str(out_dtype)[6:]}")
+            if out_dtype == torch.float32:
+                ct_errs["ct_frontend_dup"].append(check_close(
+                    what, got, want, FEAT_ATOL, FEAT_RTOL))
+            else:
+                check_close(what, got, want, FEAT_BF16_ATOL, FEAT_BF16_RTOL)
     # the stage cuts of both frontend kernels (K8 r3_omission :164), each
     # held to the one plain version with its stage's bound
     cut_consts = omission_kernel.TruncatedConstants(ListenerParams(), dev)
@@ -919,6 +993,7 @@ def main() -> int:
         "mfcc_frontend": frontend_kernel.mfcc_frontend_cuda,
         "mfcc_frontend_radix2": frontend_kernel.RADIX2,
         "dft_frontend_bf16": frontend_kernel.dft_frontend_bf16_cuda,
+        "dft_frontend_mma_sync": frontend_kernel.MMA_SYNC,
         "gru_classifier": rnn_kernel.gru_layer_cuda,
         "gru_classifier_simt": rnn_kernel.GRU_SIMT,
         "lstm_classifier": rnn_kernel.lstm_layer_cuda,
@@ -1003,6 +1078,10 @@ def main() -> int:
          ("mfcc_frontend_radix2", "gru_classifier"), ()),
         ("n_fft 400", {"n_fft": 400, "window_t": 0.025}, "torch(xla-route)",
          ("gru_classifier",), ()),
+        ("n_fft = window = 4352 (route ct's split-dup body)", SPLIT_DUP_ROUTE,
+         "cuda-ct(split-dup)", ("ct_frontend_dup", "gru_classifier"),
+         ("mixed_fft_frontend", "ct_frontend", "ct_frontend_paired",
+          "ct_frontend_ppmel")),
     )
     for label, overrides, route, need, forbid in route_cases:
         path = with_params(CHECKPOINT, overrides, route_dir)
@@ -1087,12 +1166,31 @@ def main() -> int:
             f"{os.path.basename(path)}) on 8 clips, f32 and bf16",
             lambda: {dt: score_fn(c(fe(clips_dev)))
                      for dt, c in classifiers.items()},
-            ("dft_frontend_bf16", kernel_name))
+            ("dft_frontend_bf16", kernel_name), ("dft_frontend_mma_sync",))
         for dt, sc in scores.items():
             top1 = [predictor.classes[i] for i in sc.argmax(-1).tolist()]
             log(f"  {str(dt)[6:]:8s} top-1 {sum(a == b for a, b in zip(top1, labels))}/8")
             if not torch.isfinite(sc).all() or top1 != labels:
                 raise AssertionError(f"top-1 {top1} != labels {labels}")
+
+    # the first fast_math design kept for the A/B (`_mma_sync=True`) into
+    # the GRU classifier kernel
+    predictor = load_native(CHECKPOINT, dev)
+    fe = MfccFrontend(None, "mfcc", dev, fast_math=True)
+    classifiers = {dt: GRUClassifier(predictor.model, dt)
+                   for dt in (torch.float32, torch.bfloat16)}
+    scores = drive(
+        "fast_math constants + dft_frontend_bf16_cuda(_mma_sync=True) + "
+        "GRUClassifier(direction_simple_gru.npz) on 8 clips, f32 and bf16",
+        lambda: {dt: score_fn(c(frontend_kernel.dft_frontend_bf16_cuda(
+            clips_dev, fe._unit_gain, fe.consts, fe.params, _mma_sync=True)))
+            for dt, c in classifiers.items()},
+        ("dft_frontend_mma_sync", "gru_classifier"), ("dft_frontend_bf16",))
+    for dt, sc in scores.items():
+        top1 = [predictor.classes[i] for i in sc.argmax(-1).tolist()]
+        log(f"  {str(dt)[6:]:8s} top-1 {sum(a == b for a, b in zip(top1, labels))}/8")
+        if not torch.isfinite(sc).all() or top1 != labels:
+            raise AssertionError(f"top-1 {top1} != labels {labels}")
 
     # the measurement entry points, at their own batch, a few iterations each
     drive("dev.pallas_experiments.main(): every variant, B = 16384",
@@ -1158,11 +1256,69 @@ def main() -> int:
         f"{body_ab['radix2'][1]:.4f} ms = "
         f"{sum(body_ab['radix2']) / sum(body_ab['register']):.2f}x  ({card})")
     fe_plain_ms = cuda_ms(lambda: fe.plain(big), 5)  # both bodies' function
+    # the fast_math kernels: the wgmma one against the first design in
+    # turns, mma_sync, wgmma, wgmma, mma_sync, both first held to the plain
+    # version at this batch; beside them the bound, the plain version and,
+    # as a yardstick only (the port never calls it), the DFT product alone
+    # through cuBLAS: torch.matmul of the bf16 frames and the bf16 matrix
+    def mma_sync(x=big):
+        return frontend_kernel.dft_frontend_bf16_cuda(
+            x, unit_gain, fast_fe.consts, p0, _mma_sync=True)
+
+    fast_plain = fast_fe.plain(big)
+    fast_errs.append(check_close(f"fast_math default B = {B_TIME}",
+                                 fast_fe(big), fast_plain, FEAT_ATOL,
+                                 FEAT_RTOL))
+    mma_sync_errs.append(check_close(f"fast_math (mma_sync) default B = "
+                                     f"{B_TIME}", mma_sync(), fast_plain,
+                                     FEAT_ATOL, FEAT_RTOL))
+    del fast_plain
+    fast_ab = {"mma_sync": [], "wgmma": []}
+    for which in ("mma_sync", "wgmma", "wgmma", "mma_sync"):
+        fast_ab[which].append(cuda_ms(mma_sync if which == "mma_sync" else
+                                      (lambda: fast_fe(big)), 20))
+    frames = frame_signal(big, p0.window_samples, p0.hop_samples)[
+        :, -p0.n_features:].reshape(-1, p0.window_samples).to(torch.bfloat16)
+    dft_t = fast_fe.consts.dft[:, :p0.window_samples].t()
+    cublas_ms = cuda_ms(lambda: torch.matmul(frames, dft_t), 20)
+    del frames
+    fast_plain_ms = cuda_ms(lambda: fast_fe.plain(big), 5)
+    log(f"  fast_math A/B at B = {B_TIME}, default config, f32 audio and "
+        f"output, in turns mma_sync, wgmma, wgmma, mma_sync: wgmma "
+        f"(dft_frontend_bf16) {fast_ab['wgmma'][0]:.4f}, "
+        f"{fast_ab['wgmma'][1]:.4f} ms; mma_sync (dft_frontend_mma_sync) "
+        f"{fast_ab['mma_sync'][0]:.4f}, {fast_ab['mma_sync'][1]:.4f} ms = "
+        f"{sum(fast_ab['mma_sync']) / sum(fast_ab['wgmma']):.2f}x; bound "
+        f"{dft_bound(p0, B_TIME)[0]:.4f} ms ({dft_bound(p0, B_TIME)[1]}); "
+        f"plain {fast_plain_ms:.4f} "
+        f"ms; the DFT product alone through cuBLAS (torch.matmul, bf16 "
+        f"(245,760 x 1024) @ (1024 x 1040), a yardstick) {cublas_ms:.4f} ms  "
+        f"({card})")
+    # route ct's split-dup body at n_fft 4352: held to the CT plain version
+    # at this batch, timed beside its bound and the plain version
+    p_dup = ListenerParams(**SPLIT_DUP_ROUTE)
+    dup_consts = ct_kernel.CtConstants(p_dup, "mfcc", dev)
+    dup_want = ct_kernel.ct_frontend_plain(big, None, dup_consts, p_dup,
+                                           per_piece_mel=True)
+    ct_errs["ct_frontend_dup"].append(check_close(
+        f"ct_frontend_dup (split-dup) n_fft 4352 B = {B_TIME}",
+        ct_kernel.ct_frontend_cuda(big, unit_gain, dup_consts, p_dup),
+        dup_want, FEAT_ATOL, FEAT_RTOL))
+    del dup_want
+    dup_ms = cuda_ms(lambda: ct_kernel.ct_frontend_cuda(big, unit_gain,
+                                                        dup_consts, p_dup), 5)
+    dup_plain_ms = cuda_ms(lambda: ct_kernel.ct_frontend_plain(
+        big, None, dup_consts, p_dup, per_piece_mel=True), 2)
+    dup_bound = frontend_bound(p_dup, B_TIME)
+    log(f"  route ct's split-dup body (ct_frontend_dup) at n_fft = window = "
+        f"4352 ({p_dup.n_features} frames), B = {B_TIME}, f32 audio and "
+        f"output: {dup_ms:.4f} ms; CT plain {dup_plain_ms:.4f} ms; bound "
+        f"{dup_bound[0]:.4f} ms ({dup_bound[1]})  ({card})")
     times = {
         "mfcc_frontend": (cuda_ms(lambda: fe(big), 20), fe_plain_ms),
         "mfcc_frontend_radix2": (cuda_ms(radix2, 10), fe_plain_ms),
-        "dft_frontend_bf16": (cuda_ms(lambda: fast_fe(big), 20),
-                              cuda_ms(lambda: fast_fe.plain(big), 5)),
+        "dft_frontend_bf16": (fast_ab["wgmma"][0], fast_plain_ms),
+        "dft_frontend_mma_sync": (fast_ab["mma_sync"][0], fast_plain_ms),
         "cnn_classifier": (
             cuda_ms(lambda: cnn_cls(big_feats), 20),
             cuda_ms(lambda: cnn_kernel.cnn_classifier_plain(cnn_cls.consts,
@@ -1531,6 +1687,8 @@ def main() -> int:
              frontend_kernel.REPLACES, radix2_errs),
             ("dft_frontend_bf16", frontend_kernel.DFT_SOURCE,
              frontend_kernel.DFT_REPLACES, fast_errs),
+            ("dft_frontend_mma_sync", frontend_kernel.DFT_MMA_SYNC_SOURCE,
+             frontend_kernel.DFT_REPLACES, mma_sync_errs),
             ("gru_classifier", rnn_kernel.SOURCE, rnn_kernel.REPLACES,
              rnn_errs["gru"]),
             ("gru_classifier_simt", rnn_kernel.SOURCE, rnn_kernel.REPLACES,
@@ -1589,6 +1747,16 @@ def main() -> int:
                 kernels[-1][f"n_fft_{n_fft}"] = {
                     "ms": ab["new"][0], "split_ms": split, "plain_ms": plain_ms,
                     "bound_ms": bound[0], "bound_by": bound[1]}
+        if name == "dft_frontend_bf16":
+            # the A/B above: the first design in the same call; the DFT
+            # product alone through cuBLAS, a yardstick (not the function)
+            kernels[-1]["mma_sync_ms"] = fast_ab["mma_sync"][0]
+            kernels[-1]["cublas_product_ms"] = cublas_ms
+        if name == "ct_frontend_dup":
+            # route ct's split-dup body at n_fft 4352
+            kernels[-1]["n_fft_4352"] = {
+                "ms": dup_ms, "plain_ms": dup_plain_ms,
+                "bound_ms": dup_bound[0], "bound_by": dup_bound[1]}
         if name.startswith("cnn_classifier"):
             # simple_cnn in bf16 (bf16 features), from the A/B above
             ab, plain_ms, bound = cnn_ab["simple_cnn", "bfloat16"]

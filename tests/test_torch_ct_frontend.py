@@ -204,13 +204,16 @@ def test_piece_ranges_cover_every_weight():
 
 def test_host_refusals():
     """The host refuses from the config, before any launch: outside the
-    contract, or where neither kernel of route ct has a block that fits
-    (n_fft 4352: above the mixed-radix FFT's plans, and the split's power
-    rows fit no block)."""
+    contract, or where no kernel of route ct has a block that fits.  Above
+    n_fft 4096 the split's (F, T) instantiation takes the config (n_fft
+    4352 and 15872 at the default 20 filters); a config whose coefficients
+    fit no block's T space (300 of them) is still refused."""
     assert ct_config_error(ListenerParams(n_fft=768, window_t=0.048)) is None
     assert ct_config_error(ListenerParams(n_fft=3072, window_t=0.192)) is None
+    assert ct_config_error(ListenerParams(n_fft=4352, window_t=0.272)) is None
+    assert ct_config_error(ListenerParams(n_fft=15872, window_t=0.992)) is None
     assert "no CUDA kernel of route ct" in ct_config_error(
-        ListenerParams(n_fft=4352, window_t=0.272))
+        ListenerParams(n_fft=4352, window_t=0.272, n_filt=300, n_mfcc=300))
     assert "n2 even" in ct_config_error(ListenerParams(window_t=0.05))
     assert "n2 even" in ct_config_error(ListenerParams(n_fft=640,
                                                        window_t=0.04))
@@ -316,8 +319,9 @@ def test_split_shared_memory_mirror_is_the_kernel_source():
     Python copy of csrc/ct_frontend.cu's shared-memory sizes: its kStages,
     kBK and kBms, and smem_floats (with sq_pitch and mel_pitch) evaluated
     from the source's text, agree with the copy at every block size, every
-    CT-eligible n_fft up to 8192 and 1 to 256 filters; and the split fits no
-    block above n_fft 4096 at any filter count."""
+    CT-eligible n_fft up to 8192 and 1 to 256 filters, without and with the
+    per-piece mel; and above n_fft 4096 the (F, F) instantiation fits no
+    block at any filter count while the (F, T) one fits at every one."""
     src = _split_source_functions()
     assert (src["kStages"], src["kBK"], src["kLanes"], src["kBms"]) == (
         ct_kernel._SPLIT_STAGES, ct_kernel._SPLIT_BK, LANES,
@@ -325,13 +329,37 @@ def test_split_shared_memory_mirror_is_the_kernel_source():
     for n_fft in range(256, 8192 + 1, 256):
         for n_filt in (1, 13, 20, 40, 64, 128, 230, 256):
             for bm in src["kBms"]:
-                assert 4 * src["smem_floats"](bm, n_fft, n_filt, False,
-                                              False) == \
-                    ct_kernel.split_smem_bytes(bm, n_fft, n_filt)
+                for ppmel in (False, True):
+                    assert 4 * src["smem_floats"](bm, n_fft, n_filt, False,
+                                                  ppmel) == \
+                        ct_kernel.split_smem_bytes(bm, n_fft, n_filt, ppmel)
             p = ListenerParams(n_fft=n_fft, window_t=n_fft / 16000,
                                n_filt=n_filt, n_mfcc=min(n_filt, 13))
             if n_fft > 4096:
                 assert not ct_kernel.split_fits(p)
-    # the paired and per-piece-mel forms, which no route sizes, parse too
+                assert ct_kernel.split_fits(p, per_piece_mel=True)
+    # the paired form, which no route sizes, parses too
     assert src["smem_floats"](64, 1024, 20, True, True) == (
         2 * 64 + 2 * 128 * 68 + 3 * 8 * 256 + 64 * 257 + 64 * 21 + 64)
+
+
+def test_split_dup_plain_matches_jax_k1_above_4096():
+    """n_fft = window = 4352 (n2 = 34, 23 frames), above the mixed-radix
+    FFT's plans: route ct's body is the split's (F, T) instantiation
+    ("split-dup"), whose plain version holds to JAX K1 (dft_mode="ct",
+    interpret mode) on two windows of int16 PCM with deltas, at the file's
+    RTOL / ATOL."""
+    kw = {"n_fft": 4352, "window_t": 0.272, "use_delta": True}
+    p = ListenerParams(**kw)
+    assert ct_kernel.ct_body(p) == "split-dup"
+    rng = np.random.default_rng(13)
+    pcm = np.clip(rng.standard_normal((2, 16000)) * 6000, -32768,
+                  32767).astype(np.int16)
+    fused = make_fused_frontend(JaxParams(**kw), batch_tile=2, interpret=True,
+                                dft_mode="ct", emit_deltas=True)
+    want = np.asarray(fused(jnp.asarray(pcm), GAIN))
+    got = ct_frontend_plain(torch.tensor(pcm), GAIN,
+                            CtConstants(p, "mfcc", "cpu"), p,
+                            per_piece_mel=True).numpy()
+    assert got.shape == want.shape == (2, 23, 2 * p.n_mfcc)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)

@@ -556,28 +556,56 @@ def test_cnn_scorer_runs_both_kernels(cuda_device, model_type, compute_dtype):
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 @pytest.mark.parametrize("audio_dtype", ["float32", "int16"])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1, 13, 1000, 8192])
+@pytest.mark.parametrize("mma_sync", [False, True])
 def test_fast_math_kernel_matches_plain(cuda_device, name, audio_dtype,
-                                        out_dtype):
-    """B = 13: a ragged last tile of windows."""
+                                        out_dtype, batch, mma_sync):
+    """Both fast_math kernels: the wgmma one (the default) and the first
+    design (`_mma_sync=True`), each counted apart.  B = 1 (one block of a
+    cluster idle), 13 (a ragged last tile of windows), 1000 and 8192."""
     kw, feature_type = CONFIGS[name]
     p = ListenerParams(**kw)
     clips, _ = _clips()
-    rows = clips[np.arange(13) % 8].astype(np.float32) / 32768.0
-    audio = rows * np.linspace(0.3, 1.5, 13, dtype=np.float32)[:, None]
+    rows = clips[np.arange(batch) % 8].astype(np.float32) / 32768.0
+    audio = rows * np.linspace(0.3, 1.5, batch, dtype=np.float32)[:, None]
     if audio_dtype == "int16":
         audio = np.clip(audio * 32768.0, -32768, 32767).astype(np.int16)
     audio = torch.tensor(audio, device=cuda_device)
     fe = MfccFrontend(p, feature_type, cuda_device, out_dtype=out_dtype,
                       fast_math=True)
-    before = frontend_kernel.dft_frontend_bf16_cuda.launches
-    got = fe(audio, 0.8)
+    gain = torch.full((1,), 0.8, dtype=torch.float32, device=cuda_device)
+    counters = (frontend_kernel.dft_frontend_bf16_cuda, frontend_kernel.MMA_SYNC)
+    before = [c.launches for c in counters]
+    got = frontend_kernel.dft_frontend_bf16_cuda(
+        audio, gain, fe.consts, p, out_dtype, _mma_sync=mma_sync)
     torch.cuda.synchronize()
-    assert frontend_kernel.dft_frontend_bf16_cuda.launches == before + 1
-    assert got.shape == (13, p.n_features, p.feature_size)
+    assert [c.launches for c in counters] == [
+        before[0] + (not mma_sync), before[1] + mma_sync]
+    assert got.shape == (batch, p.n_features, p.feature_size)
     assert got.dtype == out_dtype
+    assert torch.isfinite(got.float()).all()
     want = fe.plain(audio, 0.8).to(out_dtype)
     rtol = 1e-3 if out_dtype == torch.float32 else 1e-3 + 2.0 ** -7
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=2e-3)
+
+
+@pytest.mark.parametrize("n_samples", [16001, 16004])
+@pytest.mark.parametrize("audio_dtype", ["float32", "int16"])
+def test_fast_math_kernel_takes_rows_of_any_length(cuda_device, n_samples,
+                                                   audio_dtype):
+    """Rows whose length leaves them unaligned to 16 bytes (16001 samples,
+    and 16004 int16): the wgmma kernel stages them by plain loads, not by
+    bulk copies, and holds to the plain version as at 16000."""
+    p = ListenerParams()
+    rng = np.random.default_rng(7)
+    audio = 0.3 * rng.standard_normal((13, n_samples)).astype(np.float32)
+    if audio_dtype == "int16":
+        audio = np.clip(audio * 32768.0, -32768, 32767).astype(np.int16)
+    audio = torch.tensor(audio, device=cuda_device)
+    fe = MfccFrontend(p, "mfcc", cuda_device, fast_math=True)
+    got = fe(audio, 0.8)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, fe.plain(audio, 0.8), rtol=1e-3, atol=2e-3)
 
 
 def test_fast_math_kernel_rejects_what_it_cannot_take(cuda_device):
@@ -1045,6 +1073,50 @@ def test_mixed_fft_and_the_forced_split_agree(cuda_device):
     torch.testing.assert_close(new, old, rtol=1e-3, atol=2e-3)
 
 
+# route ct above n_fft 4096: the CT split's (F, T) instantiation
+# ("split-dup"); (audio dtype, out dtype, time_major, deltas)
+SPLIT_DUP_CASES = {
+    "f32->f32": ("float32", torch.float32, False, False),
+    "int16->bf16 time-major deltas": ("int16", torch.bfloat16, True, True),
+    "int16->f32 deltas": ("int16", torch.float32, False, True),
+    "f32->bf16 time-major": ("float32", torch.bfloat16, True, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_DUP_CASES))
+@pytest.mark.parametrize("n_fft", [4352, 10240, 15872])
+def test_split_dup_body_matches_plain(cuda_device, n_fft, case):
+    """n_fft = window 4352 (23 frames), 10240 (12) and 15872 (1): route ct
+    takes the split's (F, T) instantiation from the config and holds to
+    ct_frontend_plain, its launch counted apart from the (F, F) one's and
+    the mixed FFT's."""
+    audio_dtype, out_dtype, time_major, delta = SPLIT_DUP_CASES[case]
+    p = ListenerParams(n_fft=n_fft, window_t=n_fft / 16000, use_delta=delta)
+    consts = ct_kernel.CtConstants(p, "mfcc", cuda_device)
+    assert consts.body == "split-dup"
+    audio = torch.tensor(_ct_audio(audio_dtype), device=cuda_device)
+    gain = torch.full((1,), 0.8, dtype=torch.float32, device=cuda_device)
+    watched = (ct_kernel.counters["ct_frontend_dup"],
+               ct_kernel.counters["ct_frontend"], ct_kernel.MIXED)
+    before = [c.launches for c in watched]
+    got = ct_kernel.ct_frontend(audio, gain, consts, p, time_major=time_major,
+                                out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert [c.launches for c in watched] == [before[0] + 1] + before[1:]
+    want = ct_kernel.ct_frontend_plain(audio, 0.8, consts, p,
+                                       per_piece_mel=True,
+                                       time_major=time_major,
+                                       out_dtype=out_dtype)
+    shape = (p.n_features, 13) if time_major else (13, p.n_features)
+    assert got.shape == shape + (p.feature_size,) and got.dtype == out_dtype
+    assert torch.isfinite(got.float()).all()
+    bf16 = 2.0 ** -7 if out_dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-3 + bf16,
+                               atol=2e-3)
+    fe = MfccFrontend(p, "mfcc", cuda_device, out_dtype=out_dtype)
+    assert fe.route == "ct" and fe.body == "split-dup"
+
+
 def test_fft_kernel_takes_a_window_longer_than_n_fft(cuda_device):
     """window 1200 > n_fft 1024: the kernel reads a frame's first 1024
     samples, as the plain chain's DFT matrices do."""
@@ -1099,6 +1171,8 @@ def test_ct_dev_entry_points_run_their_kernels(cuda_device):
 
 @pytest.mark.parametrize("kw,route,counter", [
     ({"n_fft": 768, "window_t": 0.048}, "cuda-ct", ct_kernel.MIXED),
+    ({"n_fft": 4352, "window_t": 0.272}, "cuda-ct(split-dup)",
+     ct_kernel.counters["ct_frontend_dup"]),
     ({"window_t": 0.075}, "cuda-mfcc", frontend_kernel.mfcc_frontend_cuda),
     ({"n_fft": 400, "window_t": 0.025}, "torch(xla-route)", None),
 ])
@@ -1119,6 +1193,7 @@ def test_scorer_route_of_each_config_class(cuda_device, tmp_path, kw, route,
     scorer = make_batch_scorer(path, cuda_device)
     assert scorer.paths == {"frontend": route, "classifier": "cuda-gru"}
     watched = (ct_kernel.MIXED, ct_kernel.counters["ct_frontend"],
+               ct_kernel.counters["ct_frontend_dup"],
                frontend_kernel.mfcc_frontend_cuda)
     launches = {id(c): c.launches for c in watched}
     got = scorer(torch.tensor(clips, device=cuda_device), 0.9)

@@ -3,8 +3,9 @@ port's scorer against the JAX scorer at a config of each route's class.
 
 - "fft": n_fft a power of two, also with a window longer than n_fft;
 - "ct": the JAX CT kernel's configs (`_ct_eligible`) whose n_fft is not a
-  power of two, on the mixed-radix FFT up to n_fft 4096 (`ct_body`), and
-  refused from the config where no kernel of the route takes it;
+  power of two, on the mixed-radix FFT up to n_fft 4096 and the CT split's
+  (F, T) instantiation above it (`ct_body`), and refused from the config
+  where no kernel of the route takes it;
 - "torch": every other config, where the JAX scorer, too, runs no Pallas
   kernel (its "xla" frontend).
 
@@ -98,22 +99,25 @@ def test_cuda_frontend_refuses_only_what_its_route_cannot_take(monkeypatch):
             MfccFrontend(ListenerParams(**kw), "mfcc", "cuda")
 
 
-CT_SIZES = [n for n in range(768, 5121, 256) if n & (n - 1)]
+# every CT-eligible n_fft that is not a power of two, up to the longest
+# window a 1 s buffer holds (15872, one frame)
+CT_SIZES = [n for n in range(768, 15873, 256) if n & (n - 1)]
 
 
 @pytest.mark.parametrize("n_fft", CT_SIZES)
 def test_ct_body_each_n_fft_takes(n_fft):
     """Route ct's kernel from the config: the mixed-radix FFT for every
     CT-eligible n_fft up to 4096 that is not a power of two (2816 .. 3840
-    too, which the CT split refused at launch); above it the split's frame
-    rows fit no block, so nothing takes the config."""
+    too, which the CT split's (F, F) instantiation refuses); above it,
+    where the mixed FFT has no plan and the (F, F) power rows fit no block,
+    the split's (F, T) instantiation, which keeps no power row."""
     p = ListenerParams(n_fft=n_fft, window_t=n_fft / 16000)
     assert frontend_route(p) == "ct"
     body = ct_kernel.ct_body(p)
-    assert body == ("register" if n_fft <= 4096 else None)
-    assert (ct_kernel.ct_config_error(p) is None) == (body is not None)
-    if body is None:
-        assert "no CUDA kernel of route ct" in ct_kernel.ct_config_error(p)
+    assert body == ("register" if n_fft <= 4096 else "split-dup")
+    assert ct_kernel.ct_config_error(p) is None
+    assert MfccFrontend(p, "mfcc", "cpu").body == body
+    assert not ct_kernel.split_fits(p) or n_fft <= 4096
 
 
 def test_ct_body_takes_the_split_where_the_register_block_does_not_fit():
@@ -126,19 +130,21 @@ def test_ct_body_takes_the_split_where_the_register_block_does_not_fit():
 
 
 def test_ct_refuses_from_the_config_before_any_launch(monkeypatch):
-    """A config neither kernel of route ct takes raises ValueError when the
+    """A config no kernel of route ct takes (300 coefficients at n_fft
+    4352: no block's T space holds them) raises ValueError when the
     frontend is built for CUDA, before the device is looked at; on the CPU
-    it runs the plain chain."""
+    it runs the plain chain.  n_fft 4352 and 15872 at 20 filters, refused
+    before the split-dup body, get as far as the device check."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    p = ListenerParams(n_fft=4352, window_t=0.272)
+    p = ListenerParams(n_fft=4352, window_t=0.272, n_filt=300, n_mfcc=300)
     with pytest.raises(ValueError, match="no CUDA kernel of route ct"):
         MfccFrontend(p, "mfcc", "cuda")
-    for n_fft in (2816, 3840):  # refused at launch before, taken now
+    for n_fft in (2816, 3840, 4352, 15872):  # taken from the config
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             MfccFrontend(ListenerParams(n_fft=n_fft, window_t=n_fft / 16000),
                          "mfcc", "cuda")
     fe = MfccFrontend(p, "mfcc", "cpu")
-    assert fe.route == "ct"
+    assert fe.route == "ct" and fe.body is None
     assert fe(torch.zeros(2, 16000)).shape == (2, p.n_features, p.n_mfcc)
 
 

@@ -54,7 +54,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dft_common.cuh"
+
 namespace {
+
+using namespace tsc_dft;
 
 constexpr int kBM = 128;  // GEMM rows (frames) a block
 constexpr int kBN = 128;  // DFT columns a chunk (64 bins)
@@ -67,44 +71,6 @@ constexpr int kWarpCols = kBN / kWarpsN;   // columns a warp
 constexpr int kNT = kWarpCols / 8;         // n8 tiles a warp
 constexpr int kThreads = 32 * kWarpsM * kWarpsN;
 constexpr int kPPitch = kBN / 2 + 1;  // power tile pitch (odd)
-
-// float64 eps, the reference's safe_log clamp; a normal float32 value
-constexpr float kLogEps = 2.220446049250313e-16f;
-
-__device__ __forceinline__ float safe_log(float x) {
-  return logf(fmaxf(x, kLogEps));
-}
-
-__device__ __forceinline__ float load_sample(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_sample(const int16_t* p) {
-  return static_cast<float>(__ldg(p));
-}
-
-__device__ __forceinline__ void load4(const float* p, float4& x) {
-  x = __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ void load4(const int16_t* p, float4& x) {
-  const short4 v = __ldg(reinterpret_cast<const short4*>(p));
-  x = make_float4(v.x, v.y, v.z, v.w);
-}
-
-__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t& r0,
-                                            uint32_t& r1, uint32_t& r2,
-                                            uint32_t& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
 
 // d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulators
 __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
@@ -145,7 +111,6 @@ struct DftArgs {
 };
 
 __host__ __device__ inline size_t align16(size_t v) { return (v + 15) & ~size_t(15); }
-__host__ __device__ inline int mel_pitch(int n_filt) { return (n_filt + 1) | 1; }
 __host__ __device__ inline int p_floats(int n_mfcc) {
   return kBM * (n_mfcc > kPPitch ? n_mfcc : kPPitch);
 }
@@ -374,43 +339,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   cp_async_wait<0>();
   __syncthreads();
 
-  // log of the filter sums and the energy, then the DCT
-  if (r_own < rows)
-    for (int m = m_first; m <= a.n_filt; m += kMStep)
-      smel[r_own * mp + m] = safe_log(smel[r_own * mp + m]);
-  __syncthreads();
-  float* feats = sp;  // (rows, n_mfcc)
-  if (r_own < rows) {
-    const float* mel = smel + r_own * mp;
-    for (int i = m_first; i < a.n_mfcc; i += kMStep) {
-      float v;
-      if (i == 0) {
-        v = mel[a.n_filt];
-      } else {
-        v = 0.0f;
-        for (int m = 0; m < a.n_filt; ++m) v += mel[m] * sdct[m * a.n_filt + i];
-      }
-      feats[r_own * a.n_mfcc + i] = v;
-    }
-  }
-  __syncthreads();
-
+  // log of the filter sums and the energy, the DCT, deltas and the store
   const int n_out = a.emit_deltas ? 2 * a.n_mfcc : a.n_mfcc;
-  OutT* dst = static_cast<OutT*>(a.out) + (size_t)b0 * a.n_features * n_out;
-  for (int i = tid; i < rows * n_out; i += kThreads) {
-    const int row = i / n_out;
-    const int c = i - row * n_out;
-    float v;
-    if (c < a.n_mfcc) {
-      v = feats[row * a.n_mfcc + c];
-    } else {
-      const int cc = c - a.n_mfcc;
-      v = row % a.n_features == 0
-              ? 0.0f
-              : feats[row * a.n_mfcc + cc] - feats[(row - 1) * a.n_mfcc + cc];
-    }
-    store_out(dst + i, v);
-  }
+  cepstrum_tail<kThreads, kBM>(
+      tid, rows, a.n_features, a.n_filt, a.n_mfcc, a.emit_deltas, smel, sdct,
+      sp, static_cast<OutT*>(a.out) + (size_t)b0 * a.n_features * n_out,
+      [] { __syncthreads(); });
 }
 
 template <typename InT, typename OutT>

@@ -73,11 +73,13 @@ def inlined_source(filename: str, csrc=None) -> str:
     return src
 
 
-def build(sources: dict, stem: str = "ct", logs: dict | None = None) -> dict:
+def build(sources: dict, stem: str = "ct", logs: dict | None = None,
+          flags: dict | None = None) -> dict:
     """Compile each source into its own library (one nvcc each, all started
     together) in a temporary directory under the build directory; the
     copies include csrc/'s headers from there.  nvcc's output (with
-    `-Xptxas -v`) goes to `logs[name]` when `logs` is given."""
+    `-Xptxas -v`) goes to `logs[name]` when `logs` is given; `flags[name]`,
+    where given, are more nvcc arguments for that source (-D switches)."""
     nvcc = _build.find_nvcc()
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=_build.BUILD_DIR)
@@ -87,8 +89,8 @@ def build(sources: dict, stem: str = "ct", logs: dict | None = None) -> dict:
         with open(cu, "w") as f:
             f.write(src)
         procs[name] = subprocess.Popen(
-            [nvcc, *_build.COMPILE_FLAGS, "-I", str(_build.CSRC_DIR), "-shared",
-             "-o", cu[:-3] + ".so", cu],
+            [nvcc, *_build.COMPILE_FLAGS, *(flags or {}).get(name, ()), "-I",
+             str(_build.CSRC_DIR), "-shared", "-o", cu[:-3] + ".so", cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():

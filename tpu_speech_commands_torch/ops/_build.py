@@ -147,10 +147,11 @@ def bind(name: str, n_args: int, int_args: tuple[int, ...]):
 def check(err: int, what: str) -> None:
     """Raise if a kernel entry point returned a CUDA error."""
     if err != 0:
-        describe = load_library().tsc_cuda_error_string
-        describe.argtypes = [ctypes.c_int]
-        describe.restype = ctypes.c_char_p
-        raise RuntimeError(
-            f"{what}: CUDA error {err} at launch "
-            f"({describe(err).decode(errors='replace')})"
-        )
+        # a library of one dev/ ablation variant has no describer
+        describe = getattr(load_library(), "tsc_cuda_error_string", None)
+        why = ""
+        if describe is not None:
+            describe.argtypes = [ctypes.c_int]
+            describe.restype = ctypes.c_char_p
+            why = f" ({describe(err).decode(errors='replace')})"
+        raise RuntimeError(f"{what}: CUDA error {err} at launch{why}")

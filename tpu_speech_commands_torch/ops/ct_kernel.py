@@ -22,19 +22,26 @@ the same way here, and map onto these four.
 
 `MfccFrontend` takes route "ct" for the configs the JAX scorer runs through
 its CT kernel and the FFT kernel cannot take.  Route ct's function, the
-(F, F) contract, has two kernels, chosen from the config (`ct_body`):
+(F, F) contract, has three bodies, chosen from the config (`ct_body`):
 - "register", `csrc/mixed_fft_frontend.cu`: a mixed-radix register-resident
   real-input FFT (the plan `fft_plan.mixed_plan`) for every n_fft up to
   4096 that has a plan whose block fits the card's shared memory;
 - "split", the CT split kernel's (F, F) instantiation, only for a config
   whose mixed block does not fit but whose split rows do (many filters:
   e.g. 230 at n_fft 768), and through `_split=True` for any config it fits
-  (the A/B baseline; the `dev/` variants measure the split this way).
-A config neither takes raises ValueError from the config, before any
-launch (`ct_config_error`): every n_fft above 4096, where the split's
-power rows alone (32 rows of n_fft / 2 + 1 floats) exceed SMEM_OPTIN.  `ct_frontend` dispatches on the tensor it is
-given: a CPU tensor takes `ct_frontend_plain`, a CUDA tensor launches a
-kernel or raises.
+  (the A/B baseline; the `dev/` variants measure the split this way);
+- "split-dup", the CT split kernel's (F, T) instantiation
+  (`ct_frontend_dup`, the per-piece mel), for a config neither of the two
+  takes: every n_fft above 4096 (4352 .. 15872 at a 1 s buffer, 8192 aside,
+  which route fft takes), where the mixed FFT has no plan and the (F, F)
+  instantiation's power rows (n_fft / 2 + 1 floats a frame) fit no block.
+  It keeps no power row: its block is about 126 KB at 64 rows whatever
+  n_fft is.
+A config none takes (a block whose T space cannot hold its coefficients,
+n_mfcc near 300) raises ValueError from the config, before any launch
+(`ct_config_error`).  `ct_frontend` dispatches on the tensor it is given: a
+CPU tensor takes `ct_frontend_plain`, a CUDA tensor launches a kernel or
+raises.
 """
 from __future__ import annotations
 
@@ -104,21 +111,26 @@ def variant_name(paired: bool, per_piece_mel: bool) -> str:
                 if (pa, pp) == (bool(paired), bool(per_piece_mel)))
 
 
-def split_smem_bytes(bm: int, n_fft: int, n_filt: int) -> int:
-    """The CT split (F, F) instantiation's shared memory for a block of bm
-    frame rows: smem_floats(bm, n_fft, n_filt, false, false) of
-    csrc/ct_frontend.cu, in bytes."""
+def split_smem_bytes(bm: int, n_fft: int, n_filt: int,
+                     per_piece_mel: bool = False) -> int:
+    """The CT split's unpaired instantiation's shared memory for a block of
+    bm frame rows, (F, F) or with per_piece_mel (F, T):
+    smem_floats(bm, n_fft, n_filt, false, per_piece_mel) of
+    csrc/ct_frontend.cu, in bytes.  (F, T) keeps one residue's squares
+    (pitch 129) where (F, F) keeps the power rows (n_fft / 2 + 1)."""
+    sq = LANES + 1 if per_piece_mel else n_fft // 2 + 1
     return 4 * (2 * bm + 2 * LANES * (bm + 4) + _SPLIT_STAGES * _SPLIT_BK * LANES
-                + bm * (n_fft // 2 + 1) + bm * ((n_filt + 1) | 1) + bm)
+                + bm * sq + bm * ((n_filt + 1) | 1) + bm)
 
 
-def split_fits(p: ListenerParams) -> bool:
-    """Whether tsc_ct_frontend launches the (F, F) instantiation at config
-    p: it takes the first of 64 and 32 frame rows whose block fits
-    SMEM_OPTIN, and refuses unless that block's T space holds the
-    coefficients."""
+def split_fits(p: ListenerParams, per_piece_mel: bool = False) -> bool:
+    """Whether tsc_ct_frontend launches the unpaired (F, F) instantiation,
+    or with per_piece_mel the (F, T) one, at config p: it takes the first of
+    64 and 32 frame rows whose block fits SMEM_OPTIN, and refuses unless
+    that block's T space holds the coefficients."""
     bm = next((bm for bm in _SPLIT_BMS
-               if split_smem_bytes(bm, p.n_fft, p.n_filt) <= SMEM_OPTIN), 0)
+               if split_smem_bytes(bm, p.n_fft, p.n_filt, per_piece_mel)
+               <= SMEM_OPTIN), 0)
     return bm > 0 and 2 * LANES * (bm + 4) >= bm * p.n_mfcc
 
 
@@ -133,12 +145,16 @@ def _mixed(p: ListenerParams, feature_type: str):
 def ct_body(p: ListenerParams, feature_type: str = "mfcc") -> str | None:
     """Which kernel serves route ct's config `p` on CUDA: "register" (the
     mixed-radix FFT) where it has a plan whose block fits SMEM_OPTIN,
-    "split" where only the split's (F, F) instantiation fits, None where
-    neither does.  Chosen from the config, never from a failed launch."""
+    "split" where only the split's (F, F) instantiation fits, "split-dup"
+    (its (F, T) instantiation, no power row) where neither does, None where
+    no block of the split holds its coefficients.  Chosen from the config,
+    never from a failed launch."""
     if takes_mixed_fft(p.n_fft) and \
             _mixed(p, feature_type)[2].smem_bytes <= SMEM_OPTIN:
         return "register"
-    return "split" if split_fits(p) else None
+    if split_fits(p):
+        return "split"
+    return "split-dup" if split_fits(p, per_piece_mel=True) else None
 
 
 def _contract_error(p: ListenerParams) -> str | None:
@@ -164,8 +180,9 @@ def ct_config_error(p: ListenerParams,
                f"memory" if takes_mixed_fft(p.n_fft) else
                "it has plans for n_fft <= 4096 only")
         return (f"no CUDA kernel of route ct takes n_fft {p.n_fft} with "
-                f"{p.n_filt} filters: not the mixed-radix FFT ({why}), nor "
-                f"the CT split (no block of 64 or 32 frame rows fits in "
+                f"{p.n_filt} filters and {p.n_mfcc} coefficients: not the "
+                f"mixed-radix FFT ({why}), nor the CT split with or without "
+                f"the per-piece mel (no block of 64 or 32 frame rows fits in "
                 f"{SMEM_OPTIN} bytes of shared memory with room for its "
                 f"coefficients)")
     return None
@@ -301,16 +318,20 @@ def ct_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
     n_features, F), or (n_features, B, F) when time_major, in out_dtype.
 
     The (F, F) contract runs `consts.body`'s kernel: the mixed-radix FFT
-    (its launches add one to `MIXED.launches`) or the split.  paired or
-    per_piece_mel, or `_split` (the same-call A/B of the two kernels),
-    launch that instantiation of the CT split kernel; each launch adds one
-    to `counters[variant_name(paired, per_piece_mel)].launches`."""
+    (its launches add one to `MIXED.launches`), the split, or the split's
+    (F, T) instantiation ("split-dup").  paired or per_piece_mel, or
+    `_split` (the same-call A/B of the mixed FFT and the split), launch
+    that instantiation of the CT split kernel; each launch adds one to
+    `counters[variant_name(paired, per_piece_mel)].launches`."""
     err = _contract_error(p)
     if not err and consts.body is None and not (paired or per_piece_mel):
         err = ct_config_error(p, consts.feature_type)
     if err:
         raise ValueError(err)
-    split = _split or paired or per_piece_mel or consts.body == "split"
+    if consts.body == "split-dup" and not (paired or _split):
+        per_piece_mel = True
+    split = (_split or paired or per_piece_mel
+             or consts.body in ("split", "split-dup"))
     n_frames = check_launch(audio, gain, consts.device, p, out_dtype)
     batch, n_samples = audio.shape
     shape = ((p.n_features, batch, p.feature_size) if time_major

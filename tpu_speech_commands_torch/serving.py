@@ -11,7 +11,9 @@ config takes the plain frontend route):
          CT route      (ops/ct_kernel.py), the configs the JAX scorer runs
                        on its CT kernel, n_fft = 128 n2 (n2 even) = window,
                        not a power of two ("cuda-ct"): the mixed-radix FFT
-                       (csrc/mixed_fft_frontend.cu) up to n_fft 4096;
+                       (csrc/mixed_fft_frontend.cu) up to n_fft 4096, the
+                       CT split's per-piece-mel instantiation above it
+                       ("cuda-ct(split-dup)", csrc/ct_frontend.cu);
          plain chain   every other config, which the JAX scorer, too, runs
                        on plain XLA products ("torch(xla-route)")
       -> GRU classifier kernel   (ops/rnn_kernel.py, csrc/gru_classifier.cu),
@@ -108,6 +110,8 @@ def make_batch_scorer(checkpoint_path: str, device=DEFAULT_DEVICE,
     frontend = MfccFrontend(p, feature_type, device, out_dtype=handoff)
     route = {"fft": "cuda-mfcc", "ct": "cuda-ct",
              "torch": "torch(xla-route)"}[frontend.route]
+    if frontend.body not in (None, "register"):  # route ct's other kernels
+        route += f"({frontend.body})"
     paths = {
         "frontend": (route + ("(bf16-handoff)"
                               if handoff != torch.float32 else ""))
