@@ -15,6 +15,9 @@ Phases, in order; any failure raises and the script exits non-zero:
             every float of [1, inf]; the
             CNN classifier's tiled implicit GEMM and its SIMT kernel,
             `_simt=True`, at four model x shape cases, f32 and bf16; the
+            CNN block-1 kernel and its first design (`_simt=True`) for both
+            CNN checkpoints, f32 and bf16 compute on f32 and bf16 features;
+            the
             fast_math frontend's wgmma kernel and its first design
             (`_mma_sync=True`) at every frontend case, and at K6
             make_bf16_kernel's own settings;
@@ -51,7 +54,10 @@ Phases, in order; any failure raises and the script exits non-zero:
               top-1 and its launch count;
             - the fused-block-1 path (frontend kernel, then
               make_fused_cnn_forward) for both CNN checkpoints: top-1 and the
-              block-1 launch count;
+              block-1 launch count (the SIMT block-1 kernel's at 0);
+            - the SIMT block-1 kernel kept for the A/B (frontend kernel,
+              cnn_block1_cuda(..., _simt=True), then the model's blocks 2-4)
+              for both CNN checkpoints: top-1 and its launch count;
             - the SIMT CNN classifier kept for the A/B (frontend kernel, then
               cnn_classifier_cuda(..., _simt=True)) for both CNN checkpoints:
               top-1 and its launch count;
@@ -103,7 +109,13 @@ Phases, in order; any failure raises and the script exits non-zero:
             nn.LSTM in the same dtype), and the CNN classifier's
             tiled implicit GEMM against its SIMT kernel in turns, simt, gemm,
             gemm, simt, for both CNN checkpoints' models in f32 and bf16, each
-            beside its own bound, `cnn_bound`): each
+            beside its own bound, `cnn_bound`; the CNN block-1 kernel
+            against its SIMT kernel in turns, simt, new, new, simt, f32 and
+            bf16 compute on f32 features, device times, beside the bound
+            (its bytes and operations parts), the plain version, F.conv2d
+            alone (cuDNN, TF32 off; a yardstick for part of the function)
+            and make_fused_cnn_forward end to end for simple_cnn, with the
+            block-1 kernel's share of it): each
             kernel against its plain version (the fast_math frontend also
             against the FFT kernel), the one PyTorch call that computes the
             same function where there is one (torch.sum for the load
@@ -346,12 +358,26 @@ def dft_bound(p, batch):
                     4.0 * batch * audio_span(p) + 4.0 * frames * p.feature_size)
 
 
+def block1_bound(batch, stage):
+    """CNN block 1's bound: (ms, by, bytes ms, operations ms).  Its f32
+    features read once and its f32 NHWC output written once; 2 FLOP a tap
+    and channel at every conv position (the 2x2 pool keeps them all at even
+    dimensions), at the f32 peak (bf16 mode runs its FMAs in f32 too)."""
+    from tpu_speech_commands_torch.models.cnn import conv_out
+
+    flops = (batch * 2.0 * 9 * stage.cin * stage.cout
+             * conv_out(stage.h_in, stage.stride) * conv_out(stage.w_in, stage.stride))
+    nbytes = 4.0 * batch * (stage.h_in * stage.w_in
+                            + stage.h_out * stage.w_out * stage.cout)
+    return (*bound_ms(flops, 0, nbytes), nbytes / PEAK_BYTES * 1e3,
+            flops / PEAK_F32 * 1e3)
+
+
 def kernel_bounds(p, batch, n_samples, rnn_dims, cnn_consts):
     """Each timed kernel's bound at the phase-5 shapes: f32 audio (batch,
     n_samples) into the frontends and the load floor (route ct's kernel at
     CT_ROUTE, the others at p); (batch, T, F) f32 features into the
     classifiers (times are f32)."""
-    from tpu_speech_commands_torch.models.cnn import conv_out
     from tpu_speech_commands_torch.ops.ct_kernel import VARIANTS
 
     frames = batch * p.n_features
@@ -362,8 +388,7 @@ def kernel_bounds(p, batch, n_samples, rnn_dims, cnn_consts):
     # the DFT's nonzero columns: cos of every bin and sin of all but bin 0
     # and the Nyquist bin, n_fft in all
     dft = frames * 2.0 * min(p.window_samples, p.n_fft) * p.n_fft
-    b1 = cnn_consts.stages[0].stage
-    block1_out = 4.0 * batch * b1.h_out * b1.w_out * b1.cout
+    block1 = block1_bound(batch, cnn_consts.stages[0].stage)[:2]
     gru = rnn_bound(batch, rnn_dims, 3, "float32")
     lstm = rnn_bound(batch, rnn_dims, 4, "float32")
     cnn = cnn_bound(cnn_consts.lowered, False, batch, "float32")
@@ -384,9 +409,8 @@ def kernel_bounds(p, batch, n_samples, rnn_dims, cnn_consts):
         "lstm_classifier_simt": lstm,
         "cnn_classifier": cnn,
         "cnn_classifier_simt": cnn,
-        "cnn_block1": bound_ms(
-            batch * 2.0 * 9 * b1.cin * b1.cout * conv_out(b1.h_in, b1.stride)
-            * conv_out(b1.w_in, b1.stride), 0, feats_b + block1_out),
+        "cnn_block1": block1,
+        "cnn_block1_simt": block1,
         "dense_dft_combined": bound_ms(dft + cepstrum, 0, span_b + feats_b),
         "dense_dft_halves": bound_ms(dft + cepstrum, 0, span_b + feats_b),
         "load_rowsum": bound_ms(2.0 * batch * n_samples, 0,
@@ -763,21 +787,28 @@ def main() -> int:
                                                       CNN_ATOL, CNN_RTOL))
                 else:
                     check_close(what, got, want, CNN_BF16_ATOL, 0.0)
-    block1_errs = []
+    # the block-1 kernel (what make_fused_cnn_forward launches) and the SIMT
+    # kernel kept for the A/B, each held to the plain version, on f32 and
+    # bf16 features
+    block1_errs = {"cnn_block1": [], "cnn_block1_simt": []}
     for name, model in cnn_models.items():
         for dtype in (torch.float32, torch.bfloat16):
             stage = cnn_kernel.StageTensors(
                 lower_block1(model.variables(), model.separable, 30, 20), dev,
                 dtype)
-            got = cnn_kernel.cnn_block1_cuda(feats, stage)
-            torch.cuda.synchronize()
-            want = cnn_kernel.cnn_block1_plain(stage, feats)
-            what = f"block1 {name} {str(dtype)[6:]}"
-            if dtype == torch.float32:
-                block1_errs.append(check_close(what, got, want, BLOCK1_ATOL,
-                                               BLOCK1_RTOL))
-            else:
-                check_close(what, got, want, BLOCK1_BF16_ATOL, 0.0)
+            for x in (feats, feats.to(torch.bfloat16)):
+                want = cnn_kernel.cnn_block1_plain(stage, x)
+                for kname, simt in (("cnn_block1", False),
+                                    ("cnn_block1_simt", True)):
+                    got = cnn_kernel.cnn_block1_cuda(x, stage, _simt=simt)
+                    torch.cuda.synchronize()
+                    what = (f"{kname} {name} {str(dtype)[6:]} on "
+                            f"{str(x.dtype)[6:]} features")
+                    if dtype == torch.float32:
+                        block1_errs[kname].append(check_close(
+                            what, got, want, BLOCK1_ATOL, BLOCK1_RTOL))
+                    else:
+                        check_close(what, got, want, BLOCK1_BF16_ATOL, 0.0)
         got = make_fused_cnn_forward(model)(feats)
         torch.cuda.synchronize()
         with torch.inference_mode():
@@ -1001,6 +1032,7 @@ def main() -> int:
         "cnn_classifier": cnn_kernel.cnn_classifier_cuda,
         "cnn_classifier_simt": cnn_kernel.SIMT,
         "cnn_block1": cnn_kernel.cnn_block1_cuda,
+        "cnn_block1_simt": cnn_kernel.BLOCK1_SIMT,
         "dense_dft_combined": dense_dft_kernel.dense_dft_combined_cuda,
         "dense_dft_halves": dense_dft_kernel.dense_dft_halves_cuda,
         "load_rowsum": load_kernel.load_rowsum_cuda,
@@ -1106,7 +1138,34 @@ def main() -> int:
             f"frontend kernel + make_fused_cnn_forward({name}) on 8 clips, "
             "f32 and bf16",
             lambda: {dt: score_fn(f(fe(clips_dev))) for dt, f in forwards.items()},
-            ("mfcc_frontend", "cnn_block1"))
+            ("mfcc_frontend", "cnn_block1"), ("cnn_block1_simt",))
+        for dt, sc in scores.items():
+            top1 = [predictor.classes[i] for i in sc.argmax(-1).tolist()]
+            log(f"  {str(dt)[6:]:8s} top-1 {sum(a == b for a, b in zip(top1, labels))}/8")
+            if not torch.isfinite(sc).all() or top1 != labels:
+                raise AssertionError(f"top-1 {top1} != labels {labels}")
+
+    # the SIMT block-1 kernel kept for the A/B, behind the frontend kernel,
+    # then the model's blocks 2-4
+    for name, path in CNN_CHECKPOINTS.items():
+        predictor = load_native(path, dev)
+        fe = MfccFrontend(None, predictor.meta.get("feature_type", "mfcc"), dev)
+        model = predictor.model
+        stages = {dt: cnn_kernel.StageTensors(
+            lower_block1(model.variables(), model.separable, model.n_features,
+                         model.feature_size), dev, dt)
+            for dt in (torch.float32, torch.bfloat16)}
+
+        def simt_forward(dt):
+            with torch.inference_mode():
+                return model(cnn_kernel.cnn_block1_cuda(
+                    fe(clips_dev), stages[dt], _simt=True), skip_block1=True)
+
+        scores = drive(
+            f"frontend kernel + cnn_block1_cuda({name}, _simt=True) + blocks "
+            "2-4 on 8 clips, f32 and bf16",
+            lambda: {dt: score_fn(simt_forward(dt)) for dt in stages},
+            ("mfcc_frontend", "cnn_block1_simt"), ("cnn_block1",))
         for dt, sc in scores.items():
             top1 = [predictor.classes[i] for i in sc.argmax(-1).tolist()]
             log(f"  {str(dt)[6:]:8s} top-1 {sum(a == b for a, b in zip(top1, labels))}/8")
@@ -1328,9 +1387,6 @@ def main() -> int:
                 big_feats, cnn_cls.consts, _simt=True), 20),
             cuda_ms(lambda: cnn_kernel.cnn_classifier_plain(cnn_cls.consts,
                                                             big_feats), 10)),
-        "cnn_block1": (
-            cuda_ms(lambda: cnn_kernel.cnn_block1_cuda(big_feats, stage), 20),
-            cuda_ms(lambda: cnn_kernel.cnn_block1_plain(stage, big_feats), 10)),
     }
     # the four measurement kernels are also held to their plain versions at
     # this batch, the one their entry points run (r3, r4: 8192)
@@ -1428,11 +1484,68 @@ def main() -> int:
             f"({card})")
     ab, plain_ms, _ = mixed_ab[CT_ROUTE["n_fft"]]
     times["mixed_fft_frontend"] = (ab["new"][0], plain_ms)
+    # the CNN block-1 kernel against its SIMT kernel in turns, simt, new,
+    # new, simt, f32 and bf16 compute on f32 features, both first held to
+    # the plain version at this batch; device times from CUDA graphs (the
+    # new kernel is shorter than a call's host work).  Beside them the
+    # bound, the plain version, F.conv2d alone through cuDNN (TF32 off: the
+    # conv with no pool, bias or relu6, a yardstick for part of the
+    # function, never called by the port) and make_fused_cnn_forward end to
+    # end for simple_cnn, with the block-1 kernel's share of it
+    import torch.nn.functional as F
+
+    block1_ab = {}
+    for dt in (torch.float32, torch.bfloat16):
+        st = stage if dt == torch.float32 else cnn_kernel.StageTensors(
+            lower_block1(cnn.variables(), False, 30, 20), dev, dt)
+        want = cnn_kernel.cnn_block1_plain(st, big_feats)
+        runs = {"new": lambda st=st: cnn_kernel.cnn_block1_cuda(big_feats, st),
+                "simt": lambda st=st: cnn_kernel.cnn_block1_cuda(
+                    big_feats, st, _simt=True)}
+        for which, run in runs.items():
+            kname = "cnn_block1" + ("_simt" if which == "simt" else "")
+            what = f"{kname} simple_cnn {str(dt)[6:]} B = {B_TIME}"
+            if dt == torch.float32:
+                block1_errs[kname].append(check_close(
+                    what, run(), want, BLOCK1_ATOL, BLOCK1_RTOL))
+            else:
+                check_close(what, run(), want, BLOCK1_BF16_ATOL, 0.0)
+        del want
+        ab = {"simt": [], "new": []}
+        for which in ("simt", "new", "new", "simt"):
+            ab[which].append(graph_ms(runs[which]))
+        plain_ms = cuda_ms(lambda st=st: cnn_kernel.cnn_block1_plain(
+            st, big_feats), 10)
+        block1_ab[str(dt)[6:]] = (ab, plain_ms)
+    conv_w = stage.kernel.permute(3, 2, 0, 1).contiguous()
+    conv_ms = graph_ms(lambda: F.conv2d(big_feats[:, None], conv_w, padding=1))
+    fused = make_fused_cnn_forward(cnn, torch.float32)
+    fused_ms = cuda_ms(lambda: fused(big_feats), 10)
+    b1_bound = block1_bound(B_TIME, stage.stage)
+    for dname, (ab, plain_ms) in block1_ab.items():
+        log(f"  cnn_block1 simple_cnn {dname} (f32 features): A/B in turns "
+            f"simt, new, new, simt: new (cnn_block1) {ab['new'][0]:.4f}, "
+            f"{ab['new'][1]:.4f} ms; simt (cnn_block1_simt) "
+            f"{ab['simt'][0]:.4f}, {ab['simt'][1]:.4f} ms = "
+            f"{sum(ab['simt']) / sum(ab['new']):.2f}x (device times); plain "
+            f"{plain_ms:.4f} ms; bound {b1_bound[0]:.4f} ms ({b1_bound[1]}: "
+            f"bytes {b1_bound[2]:.4f} ms, operations {b1_bound[3]:.4f} ms); "
+            f"F.conv2d alone (cuDNN, "
+            f"TF32 off, a yardstick) {conv_ms:.4f} ms  ({card})")
+    log(f"  make_fused_cnn_forward(simple_cnn) f32 end to end at B = {B_TIME}:"
+        f" {fused_ms:.4f} ms; the block-1 kernel "
+        f"{block1_ab['float32'][0]['new'][0]:.4f} ms of it = "
+        f"{block1_ab['float32'][0]['new'][0] / fused_ms:.1%}  ({card})")
+    times["cnn_block1"] = (block1_ab["float32"][0]["new"][0],
+                           block1_ab["float32"][1])
+    times["cnn_block1_simt"] = (block1_ab["float32"][0]["simt"][0],
+                                block1_ab["float32"][1])
     # one PyTorch call computing the same function, where there is one; the
     # broadcast has none (a sum, then a copy), nor has any frontend (no
     # library call gives an MFCC), the GRU (a linear candidate is not
-    # nn.GRU) or the fused CNNs; the LSTM's, cuDNN's nn.LSTM, is timed with
-    # its A/B below
+    # nn.GRU) or the fused CNNs (nor block 1: F.conv2d, timed above as a
+    # yardstick, has no pool, bias or relu6); the LSTM's, cuDNN's nn.LSTM,
+    # is timed with its A/B below
     library = dict.fromkeys(times)
     library["load_rowsum"] = cuda_ms(lambda: torch.sum(big, 1), 50)
     # (T, D, U, C), the same for both RNN checkpoints
@@ -1587,13 +1700,6 @@ def main() -> int:
                 f"{plain_ms:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}; "
                 f"{cnn_flops(consts.lowered, model.separable) / 1e3:.3f} "
                 f"kFLOP a window)  ({card})")
-    stage16 = cnn_kernel.StageTensors(
-        lower_block1(cnn.variables(), False, 30, 20), dev, torch.bfloat16)
-    log(f"  cnn_block1 simple_cnn bfloat16: kernel "
-        f"{cuda_ms(lambda: cnn_kernel.cnn_block1_cuda(big_feats, stage16), 20):.4f}"
-        f" ms  plain "
-        f"{cuda_ms(lambda: cnn_kernel.cnn_block1_plain(stage16, big_feats), 10):.4f}"
-        f" ms  ({card})")
     for path, scorers in scorers_by_path.items():
         for dt, s in scorers.items():
             ms = cuda_ms(lambda: s(big), 10)
@@ -1701,8 +1807,10 @@ def main() -> int:
              cnn_errs["cnn_classifier"]),
             ("cnn_classifier_simt", cnn_kernel.SOURCE, cnn_kernel.REPLACES,
              cnn_errs["cnn_classifier_simt"]),
-            ("cnn_block1", cnn_kernel.SOURCE, cnn_kernel.BLOCK1_REPLACES,
-             block1_errs),
+            ("cnn_block1", cnn_kernel.BLOCK1_SOURCE, cnn_kernel.BLOCK1_REPLACES,
+             block1_errs["cnn_block1"]),
+            ("cnn_block1_simt", cnn_kernel.SOURCE, cnn_kernel.BLOCK1_REPLACES,
+             block1_errs["cnn_block1_simt"]),
             ("dense_dft_combined", dense_dft_kernel.SOURCE,
              dense_dft_kernel.REPLACES, dense_errs["dense_dft_combined"]),
             ("dense_dft_halves", dense_dft_kernel.SOURCE,
@@ -1757,6 +1865,15 @@ def main() -> int:
             kernels[-1]["n_fft_4352"] = {
                 "ms": dup_ms, "plain_ms": dup_plain_ms,
                 "bound_ms": dup_bound[0], "bound_by": dup_bound[1]}
+        if name.startswith("cnn_block1"):
+            # bf16 compute on f32 features, from the A/B above
+            ab, plain_ms = block1_ab["bfloat16"]
+            kernels[-1].update({
+                "bf16_ms": ab["simt" if name.endswith("simt") else "new"][0],
+                "bf16_plain_ms": plain_ms, "bf16_bound_ms": b1_bound[0],
+                "bf16_bound_by": b1_bound[1],
+                # F.conv2d alone: a yardstick for the conv, not the function
+                "conv2d_ms": conv_ms, "fused_forward_ms": fused_ms})
         if name.startswith("cnn_classifier"):
             # simple_cnn in bf16 (bf16 features), from the A/B above
             ab, plain_ms, bound = cnn_ab["simple_cnn", "bfloat16"]

@@ -481,26 +481,84 @@ def test_cnn_classifier_refuses_a_config_its_plan_cannot_take(cuda_device):
     assert cnn_kernel.SIMT.launches == simt
 
 
-@pytest.mark.parametrize("shape", CNN_SHAPES)
-@pytest.mark.parametrize("model_type", ["simple_cnn", "simple_cnn_lite"])
-@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
-def test_cnn_block1_kernel_matches_plain(cuda_device, shape, model_type,
-                                         compute_dtype):
-    model = _random_cnn(model_type, *shape, seed=7, device=cuda_device)
-    x = _cnn_features(37, *shape, seed=4, device=cuda_device)
-    stage = cnn_kernel.StageTensors(
-        lower_block1(model.variables(), model.separable, *shape),
-        cuda_device, compute_dtype)
-    before = cnn_kernel.cnn_block1_cuda.launches
-    got = cnn_kernel.cnn_block1_cuda(x, stage)
-    torch.cuda.synchronize()
-    assert cnn_kernel.cnn_block1_cuda.launches == before + 1
-    assert got.shape == (37, shape[0] // 2, shape[1] // 2, 16)
-    want = cnn_kernel.cnn_block1_plain(stage, x)
+def _check_block1(got, want, compute_dtype):
+    assert torch.isfinite(got).all()
     if compute_dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     else:
         torch.testing.assert_close(got, want, rtol=0, atol=5e-2)
+
+
+@pytest.mark.parametrize("shape", CNN_SHAPES)
+@pytest.mark.parametrize("model_type", ["simple_cnn", "simple_cnn_lite"])
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1, 13, 37, 1000, 8192])
+@pytest.mark.parametrize("simt", [False, True])
+def test_cnn_block1_kernel_matches_plain(cuda_device, shape, model_type,
+                                         compute_dtype, x_dtype, batch, simt):
+    """The block-1 kernel and its SIMT kernel (`_simt=True`), each against
+    the plain version; B 1 .. 8192 covers the persistent loop's ragged last
+    tile and blocks with one tile or several.  Each launch counts where it
+    belongs."""
+    model = _random_cnn(model_type, *shape, seed=7, device=cuda_device)
+    x = _cnn_features(batch, *shape, seed=4, device=cuda_device).to(x_dtype)
+    stage = cnn_kernel.StageTensors(
+        lower_block1(model.variables(), model.separable, *shape),
+        cuda_device, compute_dtype)
+    assert cnn_kernel.block1_kernel_for(stage, x_dtype) == "cnn_block1"
+    new, old = cnn_kernel.cnn_block1_cuda.launches, cnn_kernel.BLOCK1_SIMT.launches
+    got = cnn_kernel.cnn_block1_cuda(x, stage, _simt=simt)
+    torch.cuda.synchronize()
+    assert cnn_kernel.cnn_block1_cuda.launches == new + (not simt)
+    assert cnn_kernel.BLOCK1_SIMT.launches == old + simt
+    assert got.shape == (batch, shape[0] // 2, shape[1] // 2, 16)
+    _check_block1(got, cnn_kernel.cnn_block1_plain(stage, x), compute_dtype)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_cnn_block1_kernel_takes_unaligned_features(cuda_device, x_dtype,
+                                                    compute_dtype):
+    """Features that start off a 16-byte boundary (a view one element into
+    a larger tensor) and windows whose bytes are no multiple of 16 (29 x
+    21): the ring's bulk copies take the aligned interior, plain loads the
+    rest."""
+    model = _random_cnn("simple_cnn", 29, 21, seed=12, device=cuda_device)
+    stage = cnn_kernel.StageTensors(
+        lower_block1(model.variables(), False, 29, 21), cuda_device,
+        compute_dtype)
+    flat = _cnn_features(1001, 29, 21, seed=8, device=cuda_device).to(x_dtype)
+    x = flat.reshape(-1)[1:1 + 1000 * 29 * 21].view(1000, 29, 21)
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    before = cnn_kernel.cnn_block1_cuda.launches
+    got = cnn_kernel.cnn_block1_cuda(x, stage)
+    torch.cuda.synchronize()
+    assert cnn_kernel.cnn_block1_cuda.launches == before + 1
+    _check_block1(got, cnn_kernel.cnn_block1_plain(stage, x), compute_dtype)
+
+
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw, kernel", [((200, 200), "cnn_block1_simt"),
+                                        ((100, 100), "cnn_block1")])
+def test_cnn_block1_window_too_large_for_the_ring(cuda_device, compute_dtype,
+                                                  hw, kernel):
+    """A 200 x 200 window's ring does not fit a block's shared memory: the
+    config sends it to the SIMT kernel (which takes one window up to the
+    opt-in limit) before any launch; 100 x 100 stays on the new kernel.
+    Both against the plain version, B = 5."""
+    model = _random_cnn("simple_cnn", *hw, seed=2, device=cuda_device)
+    stage = cnn_kernel.StageTensors(
+        lower_block1(model.variables(), False, *hw), cuda_device, compute_dtype)
+    x = _cnn_features(5, *hw, seed=1, device=cuda_device)
+    assert cnn_kernel.block1_kernel_for(stage, x.dtype) == kernel
+    new, old = cnn_kernel.cnn_block1_cuda.launches, cnn_kernel.BLOCK1_SIMT.launches
+    got = cnn_kernel.cnn_block1_cuda(x, stage)
+    torch.cuda.synchronize()
+    simt = kernel == "cnn_block1_simt"
+    assert cnn_kernel.cnn_block1_cuda.launches == new + (not simt)
+    assert cnn_kernel.BLOCK1_SIMT.launches == old + simt
+    _check_block1(got, cnn_kernel.cnn_block1_plain(stage, x), compute_dtype)
 
 
 @pytest.mark.parametrize("model_type", ["simple_cnn", "simple_cnn_lite"])
@@ -508,9 +566,11 @@ def test_fused_cnn_forward_matches_model(cuda_device, model_type):
     model = _random_cnn(model_type, 30, 20, seed=11, device=cuda_device)
     x = _cnn_features(37, 30, 20, seed=5, device=cuda_device)
     before = cnn_kernel.cnn_block1_cuda.launches
+    simt = cnn_kernel.BLOCK1_SIMT.launches
     got = cnn_kernel.make_fused_cnn_forward(model)(x[..., None])
     torch.cuda.synchronize()
     assert cnn_kernel.cnn_block1_cuda.launches == before + 1
+    assert cnn_kernel.BLOCK1_SIMT.launches == simt
     with torch.no_grad():
         torch.testing.assert_close(got, model(x), rtol=1e-5, atol=1e-4)
 

@@ -4,9 +4,12 @@
 // tsc_cnn_classifier replaces the TPU kernel tpu_speech_commands/ops/
 // pallas_classifier.py::make_fused_cnn_classifier (pallas_call at :363);
 // tsc_cnn_classifier_simt computes the same function by the first design.
-// tsc_cnn_block1 replaces tpu_speech_commands/ops/pallas_cnn.py::
-// make_fused_conv_block1 (pallas_call at :156).  All run on constants
-// lowered on the host (ops/cnn_lowering.py):
+// tsc_cnn_block1_simt computes the fused block 1 of tpu_speech_commands/
+// ops/pallas_cnn.py::make_fused_conv_block1 (pallas_call at :156) by the
+// SIMT stage routine: the first design, kept as the A/B baseline of
+// csrc/cnn_block1.cu (tsc_cnn_block1) and for windows whose ring does not
+// fit there.  All run on constants lowered on the host
+// (ops/cnn_lowering.py):
 //
 //   per stage, 3x3 conv over TF-SAME padding (low side pad_h / pad_w, the
 //   extra unit high), stride 1 or 2, then
@@ -63,7 +66,7 @@
 // or 4 pre-pool conv sums of its position for 4 channels in registers and
 // reads the (dy, dx, cin, cout) weights through the read-only path, once
 // per (window, position) warp.  Each pixel's channels sit at an odd pitch
-// in shared memory.  tsc_cnn_block1 runs its stage routine.
+// in shared memory.  tsc_cnn_block1_simt runs its stage routine.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1266,9 +1269,10 @@ extern "C" int tsc_cnn_classifier(const void* x, int x_bf16, int batch,
 // the 2x2 pool, +bias and relu6.  dims as for tsc_cnn_classifier; the stage
 // must have cin 1 and pool.  w is bf16 when bf16_math is set.  Returns the
 // launch's cudaError_t.
-extern "C" int tsc_cnn_block1(const void* x, int x_bf16, int batch,
-                              const void* w, const void* bias, const int* dims,
-                              void* out, int bf16_math, void* stream) {
+extern "C" int tsc_cnn_block1_simt(const void* x, int x_bf16, int batch,
+                                   const void* w, const void* bias,
+                                   const int* dims, void* out, int bf16_math,
+                                   void* stream) {
   if (batch <= 0 || !x || !out) return cudaErrorInvalidValue;
   StageArgs st = {};
   if (!fill_stage(st, w, bias, nullptr, nullptr, dims) || st.cin != 1 || !st.pool)

@@ -32,7 +32,10 @@ package's `tools/dev/` scripts whose TPU kernels the port carries:
   time (the gate math's reciprocal, the products' pipeline, the launch
   bounds, the f32 input rows), device times from CUDA graphs;
 - `lstm_ablation`: the LSTM tile kernel the same way, and with two passes
-  over k a step in f32.
+  over k a step in f32;
+- `block1_ablation`: the CNN block-1 kernel with one design choice undone
+  at a time (the ring, the stores, the tensor cores in bf16, the tile, the
+  blocks an SM) and a load-and-store cut against the K7 load floor.
 
 Each runs on the card and raises RuntimeError where CUDA is absent:
 
@@ -50,6 +53,7 @@ Each runs on the card and raises RuntimeError where CUDA is absent:
     python -m tpu_speech_commands_torch.dev.cnn_ablation
     python -m tpu_speech_commands_torch.dev.gru_ablation
     python -m tpu_speech_commands_torch.dev.lstm_ablation
+    python -m tpu_speech_commands_torch.dev.block1_ablation
 
 Their `make_*` functions take `device="cpu"` for the plain versions.
 """

@@ -1,6 +1,7 @@
 """The CNN kernels: wrappers, launch counts and plain versions.
 
-`csrc/cnn_classifier.cu` holds three entry points:
+`csrc/cnn_classifier.cu` holds three entry points and `csrc/cnn_block1.cu`
+a fourth:
 - `tsc_cnn_classifier` replaces the TPU kernel
   `tpu_speech_commands/ops/pallas_classifier.py::make_fused_cnn_classifier`:
   SimpleCNN / SimpleCNNLite features -> logits in one launch (four conv
@@ -10,10 +11,17 @@
 - `tsc_cnn_classifier_simt`, the earlier design of the same function (a
   thread a (window, position, 4 channels), weights from L2), kept for the
   A/B: `cnn_classifier_cuda(..., _simt=True)`, counted in `SIMT.launches`;
-- `tsc_cnn_block1` replaces `tpu_speech_commands/ops/pallas_cnn.py::
-  make_fused_conv_block1`: block 1 alone (conv, 2x2 pool, +bias, relu6),
-  which `make_fused_cnn_forward` feeds into the rest of the model; it
-  shares the SIMT kernel's conv-stage routine.
+- `tsc_cnn_block1` (`csrc/cnn_block1.cu`) replaces `tpu_speech_commands/
+  ops/pallas_cnn.py::make_fused_conv_block1`: block 1 alone (conv, 2x2
+  pool, +bias, relu6), which `make_fused_cnn_forward` feeds into the rest of
+  the model; a persistent kernel fed by a TMA input ring, two pooled
+  positions a lane, all 16 channels each (`ops/block1_plan.py` is its
+  plan);
+- `tsc_cnn_block1_simt`, the earlier design of block 1 (the SIMT kernel's
+  conv-stage routine), kept for the A/B (`cnn_block1_cuda(..., _simt=True)`,
+  counted in `BLOCK1_SIMT.launches`) and for a window whose ring does not fit
+  the new kernel's shared memory (`block1_plan.kernel_for`, chosen from the
+  config before any launch).
 
 All run on constants lowered on the host (`ops/cnn_lowering.py`).
 compute_dtype=torch.bfloat16 is the TPU kernels' bf16 mode: the matmul
@@ -39,12 +47,13 @@ import torch.nn.functional as F
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..models.cnn import SimpleCNN, relu6
 from ..models.rnn import _rounded
-from . import _build
+from . import _build, block1_plan
 from .cnn_lowering import Lowered, Stage, lower_block1, lower_classifier
 from .cnn_plan import Plan, make_plan
 from .ct_kernel import LaunchCount
 
 SOURCE = "tpu_speech_commands_torch/csrc/cnn_classifier.cu"
+BLOCK1_SOURCE = "tpu_speech_commands_torch/csrc/cnn_block1.cu"
 REPLACES = "tpu_speech_commands/ops/pallas_classifier.py:363"
 BLOCK1_REPLACES = "tpu_speech_commands/ops/pallas_cnn.py:156"
 
@@ -57,7 +66,8 @@ _INT_ARGS = (1, 2, 10, 11, 13)
 #   dense_w, dense_b, head_w, head_b, hidden, classes, logits, bf16_math,
 #   stream)
 _SIMT_INT_ARGS = (1, 2, 3, 10, 11, 13)
-# tsc_cnn_block1(x, x_bf16, batch, w, bias, dims, out, bf16_math, stream)
+# tsc_cnn_block1 and tsc_cnn_block1_simt(x, x_bf16, batch, w, bias, dims,
+#   out, bf16_math, stream)
 _BLOCK1_N_ARGS = 9
 _BLOCK1_INT_ARGS = (1, 2, 7)
 _COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
@@ -214,10 +224,22 @@ cnn_classifier_cuda.launches = 0
 SIMT = LaunchCount()  # launches of the SIMT classifier kernel
 
 
-def cnn_block1_cuda(x: torch.Tensor, stage: StageTensors) -> torch.Tensor:
+def block1_kernel_for(stage: StageTensors, x_dtype) -> str:
+    """The kernel `cnn_block1_cuda` launches for this stage and feature
+    dtype, chosen from the config: "cnn_block1" where the new kernel's ring
+    fits a block's shared memory, else "cnn_block1_simt"."""
+    st = stage.stage
+    return block1_plan.kernel_for(st.h_in, st.w_in,
+                                  2 if x_dtype == torch.bfloat16 else 4)
+
+
+def cnn_block1_cuda(x: torch.Tensor, stage: StageTensors,
+                    _simt: bool = False) -> torch.Tensor:
     """Launch the block-1 kernel.  x (B, H, W) float32 or bfloat16 on the
-    stage's CUDA device -> (B, H//2, W//2, C) float32 NHWC.  Every launch
-    adds one to `.launches`."""
+    stage's CUDA device -> (B, H//2, W//2, C) float32 NHWC.  The new kernel
+    (`tsc_cnn_block1`) adds one to `.launches`; the SIMT kernel, for a
+    window `block1_kernel_for` sends there or with `_simt=True` (the A/B),
+    adds one to `BLOCK1_SIMT.launches`."""
     st = stage.stage
     if st.cin != 1 or not st.pool or st.inline_relu:
         raise ValueError("the block-1 kernel takes one input channel, a pool "
@@ -232,18 +254,24 @@ def cnn_block1_cuda(x: torch.Tensor, stage: StageTensors) -> torch.Tensor:
                       dtype=torch.float32, device=x.device)
     if batch == 0:
         return out
-    fn = _build.bind("tsc_cnn_block1", _BLOCK1_N_ARGS, _BLOCK1_INT_ARGS)
+    name = ("cnn_block1_simt" if _simt
+            else block1_kernel_for(stage, x.dtype))
+    fn = _build.bind("tsc_" + name, _BLOCK1_N_ARGS, _BLOCK1_INT_ARGS)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), batch,
                 stage.kernel.data_ptr(), stage.bias.data_ptr(),
                 (ctypes.c_int * 8)(*stage.dims()), out.data_ptr(),
                 int(stage.compute_dtype == torch.bfloat16), _stream(x.device))
-    _build.check(rc, "tsc_cnn_block1")
-    cnn_block1_cuda.launches += 1
+    _build.check(rc, "tsc_" + name)
+    if name == "cnn_block1_simt":
+        BLOCK1_SIMT.launches += 1
+    else:
+        cnn_block1_cuda.launches += 1
     return out
 
 
 cnn_block1_cuda.launches = 0
+BLOCK1_SIMT = LaunchCount()  # launches of the SIMT block-1 kernel
 
 
 @contextlib.contextmanager
