@@ -31,7 +31,11 @@ Phases, in order; any failure raises and the script exits non-zero:
             f32 and bf16 out, batch- and time-major, with and without
             deltas, against the CT plain version; route ct's split-dup
             body (the split's (F, T) instantiation) at n_fft 4352, 10240
-            and 15872 in the same four cases; the FFT kernel at window
+            and 15872 in the same four cases, and at n_fft 4352 with 300,
+            512 and 600 filters and coefficients (blocks of 64, 32 and 32
+            rows; the coefficients in the idle T, ring and squares space,
+            at 600 in their own region), f32 and int16 in, f32
+            and bf16 out; the FFT kernel at window
             1200 > n_fft,
             at alt_512 and an odd hop of 481, at every n_fft its register
             body takes (128 .. 4096) and at 8192 (its radix-2 body), f32
@@ -76,6 +80,10 @@ Phases, in order; any failure raises and the script exits non-zero:
               (cuda-ct(split-dup)): `.paths` must name the
               route, its kernels' launch counts must rise, and the scores
               must agree with the same scorer on the CPU;
+            - MfccFrontend at n_fft 4352 with 300 coefficients (`.route`
+              ct, `.body` split-dup) into GRUClassifier on a random 48-unit
+              GRU of feature size 300 (its SIMT kernel): both launch counts
+              rise and the scores agree with the CPU's;
             - the seven measurement entry points of tpu_speech_commands_torch
               .dev at their own batch (pallas_experiments B = 16384, every
               variant; the others B = 8192), a few iterations each: every
@@ -84,7 +92,21 @@ Phases, in order; any failure raises and the script exits non-zero:
               float64 reference, the CT variants within the f32 feature
               bound of the FFT kernel, r3_omission's cuts within their
               stage's bound of the plain version, and the dense-DFT,
-              load-floor, CT and stage-cut launch counts must rise
+              load-floor, CT and stage-cut launch counts must rise;
+            - train: the port's `train.main` for simple_gru and simple_cnn
+              with --augment, batch 32, 3 epochs, on a synthetic corpus
+              (the 5 direction classes, 30 clips each, seed 1): the
+              frontend kernel's and the classifier kernel's launch counts
+              rise, the printed frontend names cuda-mfcc, every loss is
+              finite, ep*.npz, trained_final.npz, metrics.csv, params.json
+              and classes.txt exist; one train step on the card and one on
+              the CPU from the same init, batch and augmentation draws
+              (dropout 0) give losses and parameters within 1e-4;
+            - eval: the port's `eval.main` on the card and on the CPU for
+              the four shipped checkpoints on the example clips (accuracy
+              1.0) and for the two checkpoints just trained on the corpus:
+              the confusion matrices must be equal, and the frontend and
+              classifier kernels' launch counts rise
 5. times    CUDA-event times at B = 8192, audio resident on the card (the
             dense-DFT, load-floor and CT kernels are first held to their
             plain versions at this batch, their entry points' own, with the
@@ -135,7 +157,13 @@ Phases, in order; any failure raises and the script exits non-zero:
             plain version and timed beside it and its bound (`cut_bounds`),
             with the per-stage deltas: the streamed `load` cuts must take at
             least 0.9x the load floor's time (they read every sample), and
-            each `full` cut is timed in turns with its shipped kernel
+            each `full` cut is timed in turns with its shipped kernel;
+            route ct's split-dup body at n_fft 4352 with 300, 512 and 600
+            coefficients beside its bound; the train step of `train.py
+            --augment` at B = 512 for simple_gru and simple_cnn (ms a
+            step, samples/s, the frontend kernel's share) and
+            `evaluate_accuracy` at batch 512 (samples/s), printed as a
+            JSON line `{"train_eval": ...}`
 
 Two lines before the last: one JSON object describing each kernel, then the
 card's name and power limit; the last line is {"ok": true, "device":
@@ -144,9 +172,14 @@ result.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import glob
+import io
+import itertools
 import json
 import os
+import shutil
 import sys
 import time
 import wave
@@ -173,6 +206,14 @@ CT_AB = ((768, 0.032), (1536, 0.016), (2816, 0.016))
 # the simple_gru scorer and the timing at the first
 SPLIT_DUP = (4352, 10240, 15872)
 SPLIT_DUP_ROUTE = {"n_fft": 4352, "window_t": 0.272}
+# route ct with more coefficients than one residue's T holds (n_filt =
+# n_mfcc at n_fft 4352): blocks of 64 rows at 300 and of 32 at 512, both in
+# the block's idle space; at 600 (32 rows) in a region of their own
+MANY_COEFFS = (300, 512, 600)
+# the train and eval slice: train.py's default batch, the corpus of
+# .claude/skills/verify/SKILL.md step 1, the shipped class list
+TRAIN_BATCH = 512
+CLASSES_PATH = os.path.join(REPO, "configs", "direction_classes.txt")
 
 # Tolerances, each with its reason:
 # - features f32: the kernel's radix-2 FFT and the plain dense-DFT matmul
@@ -196,6 +237,10 @@ GRU_BF16_ATOL = 5e-2
 # - scores f32, card vs CPU: the feature bound carried through the GRU
 SCORE_ATOL = 1e-3
 SCORE_BF16_ATOL = 5e-2
+# - one train step, card vs CPU (the frontend kernel against the plain chain,
+#   then the same plain module, adam, from one init): the f32 feature bound
+#   carried through one step, loss and every parameter
+STEP_ATOL = 1e-4
 # - CNN logits f32: same math, f32 sums in another order over K <= 576
 CNN_ATOL, CNN_RTOL = 1e-4, 1e-5
 # - CNN logits bf16: a bf16 rounding of an activation can flip when two f32
@@ -577,6 +622,250 @@ def random_cnn(cls, h: int, w: int, seed: int, device):
     return model.to(device).eval()
 
 
+def train_step_for(model_type: str, device, noise_bank, seed: int = 0):
+    """One model from init_model's seed-0 weights on `device` (dropout 0),
+    adam, and the train step of `train.py --augment` over it: the
+    augmentation and the frontend (the frontend kernel on the card, the
+    plain chain on the CPU), then the plain module under autograd.  Returns
+    (step, model, frontend)."""
+    from tpu_speech_commands_torch.data.augment import make_audio_pipeline
+    from tpu_speech_commands_torch.losses import make_loss_fn
+    from tpu_speech_commands_torch.models import init_model
+    from tpu_speech_commands_torch.ops.training_frontend import (
+        select_training_frontend)
+    from tpu_speech_commands_torch.optim import get_optimizer
+    from tpu_speech_commands_torch.params import ListenerParams
+    from tpu_speech_commands_torch.training.trainer import make_train_step
+
+    model, _ = init_model(model_type, 5, seed=0, dropout_rate=0.0)
+    model.to(device)
+    frontend, kind = select_training_frontend(ListenerParams(), "mfcc",
+                                              TRAIN_BATCH, device,
+                                              verbose=False)
+    want = "cuda-mfcc" if str(device).startswith("cuda") else "torch"
+    if kind != want:
+        raise AssertionError(f"training frontend {kind} is not {want}")
+    pipe = make_audio_pipeline(frontend, model_type, noise_bank,
+                               device=device)
+    opt = get_optimizer("adam", 1e-3, decay_type=None, injectable=True,
+                        params=model.parameters())
+    return (make_train_step(model, make_loss_fn(5), opt, pipe, seed=seed),
+            model, frontend)
+
+
+def flat_variables(model) -> dict:
+    from tpu_speech_commands_torch.training.checkpoints import (
+        flatten_variables)
+
+    return flatten_variables(model.variables())
+
+
+def example_tree(root: str, class_names: list[str]) -> str:
+    """example/*.wav copied into <root>/sounds/<label>/, a dataset of the
+    eight clips (no background clip: that class is empty)."""
+    shutil.rmtree(root, ignore_errors=True)
+    for name in class_names:
+        os.makedirs(os.path.join(root, "sounds", name))
+    for path in sorted(glob.glob(os.path.join(REPO, "example", "*.wav"))):
+        label = os.path.basename(path).split("_")[0]
+        shutil.copy(path, os.path.join(root, "sounds", label))
+    return root
+
+
+def sounds_copy(src: str, dst: str) -> str:
+    """A dataset of `src`'s wavs only, so that the features it caches are
+    its own."""
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(os.path.join(src, "sounds"), os.path.join(dst, "sounds"))
+    return dst
+
+
+def drive_train_eval(dev, drive, clips, work: str) -> None:
+    """Phase 4's train and eval slice on `dev` (the card; the CPU for a dry
+    run), each path through `drive`: the port's train.main for simple_gru
+    and simple_cnn with --augment on a synthetic corpus, one train step on
+    `dev` against one on the CPU, and eval.main on `dev` and on the CPU for
+    the four shipped checkpoints and the two just trained."""
+    import torch
+
+    from tpu_speech_commands_torch import eval as port_eval
+    from tpu_speech_commands_torch import train as port_train
+    from tpu_speech_commands_torch.data.synthetic import make_synthetic_dataset
+    from tpu_speech_commands_torch.export.inference_loader import load_native
+    from tpu_speech_commands_torch.params import ListenerParams, pr
+    from tpu_speech_commands_torch.utils import get_classes
+
+    pr.override(ListenerParams().to_dict())  # the checkpoints above set pr
+    class_names = get_classes(CLASSES_PATH)
+    shutil.rmtree(work, ignore_errors=True)
+    on_card = dev.type == "cuda"
+    kind = "cuda-mfcc" if on_card else "torch"
+    corpus = make_synthetic_dataset(os.path.join(work, "ds"), class_names,
+                                    samples_per_class=30, seed=1)
+    eval_kernel = {"simple_gru": "gru_classifier",
+                   "simple_lstm": "lstm_classifier",
+                   "simple_cnn": "cnn_classifier",
+                   "simple_cnn_lite": "cnn_classifier"}
+    finals = {}
+    for mt in ("simple_gru", "simple_cnn"):
+        log_dir = os.path.join(work, f"logs_{mt}")
+        args = port_train.build_parser().parse_args([
+            "--model_type", mt, "--train_data_path", corpus,
+            "--classes_path", CLASSES_PATH, "--batch_size", "32",
+            "--epochs", "3", "--augment", "--log_dir", log_dir,
+            "--device", str(dev)])
+        printed = io.StringIO()
+
+        def run_train(args=args, printed=printed):
+            with contextlib.redirect_stdout(printed):
+                return port_train.main(args)
+
+        trainer = drive(f"train.main({mt}, --augment, batch 32, 3 epochs)",
+                        run_train, ("mfcc_frontend", eval_kernel[mt]))
+        for line in printed.getvalue().splitlines():
+            log(f"  | {line}")
+        if f"frontend: {kind} " not in printed.getvalue():
+            raise AssertionError(f"train.main({mt}) did not print the "
+                                 f"frontend's route {kind}")
+        metrics = [(h.loss, h.val_loss) for h in trainer.history]
+        if len(metrics) != 3 or not np.isfinite(metrics).all():
+            raise AssertionError(f"train.main({mt}) epochs {metrics}")
+        for name in ("trained_final.npz", "metrics.csv", "params.json",
+                     "classes.txt"):
+            if not os.path.exists(os.path.join(log_dir, name)):
+                raise AssertionError(f"train.main({mt}) wrote no {name}")
+        if not glob.glob(os.path.join(log_dir, "ep*.npz")):
+            raise AssertionError(f"train.main({mt}) wrote no ep*.npz")
+        finals[mt] = os.path.join(log_dir, "trained_final.npz")
+
+    # one train step, card against CPU: the same init, batch and
+    # augmentation draws, dropout 0
+    step_audio = test_audio(clips, 64, seed=6)
+    step_labels = np.arange(64) % 5
+    for mt in ("simple_gru", "simple_cnn"):
+        out = []
+        for d in (dev, torch.device("cpu")):
+            step, model, _ = train_step_for(mt, d, step_audio[step_labels == 0])
+            mask = torch.ones(64, device=d)
+            mask[-5:] = 0.0
+            loss, _ = step(torch.tensor(step_audio, device=d),
+                           torch.tensor(step_labels, device=d), mask, 0)
+            out.append((float(loss), flat_variables(model)))
+        (loss, got), (cpu_loss, want) = out
+        log(f"  one train step {mt}, card vs CPU: loss {loss:.6f} / "
+            f"{cpu_loss:.6f}")
+        if not abs(loss - cpu_loss) <= STEP_ATOL:
+            raise AssertionError(f"train step {mt}: loss {loss} vs CPU "
+                                 f"{cpu_loss}")
+        err = max(float(np.abs(got[k] - want[k]).max()) for k in want)
+        log(f"  one train step {mt}, card vs CPU: parameters max_abs_err "
+            f"{err:.3e}  (atol {STEP_ATOL:g})")
+        if not err <= STEP_ATOL:
+            raise AssertionError(f"train step {mt}: parameters {err:.3e} from "
+                                 "the CPU step's")
+
+    # eval.main on the card and on the CPU, each on its own copy of the
+    # data (the features it caches are its own): the four shipped
+    # checkpoints on the example clips (8/8), then the two just trained
+    evals = [(path, example_tree, "example clips") for path in
+             (CHECKPOINT, LSTM_CHECKPOINT, *CNN_CHECKPOINTS.values())]
+    evals += [(finals[mt], None, "the synthetic corpus") for mt in finals]
+    for path, tree, what in evals:
+        model_type = load_native(path, "cpu").model_type
+        results = []
+        for i, d in enumerate((str(dev), "cpu")):
+            tag = f"{os.path.basename(os.path.dirname(path))}_" \
+                  f"{os.path.basename(path)[:-4]}_{i}"
+            data = (tree(os.path.join(work, f"examples_{tag}"), class_names)
+                    if tree else sounds_copy(corpus,
+                                             os.path.join(work, f"ds_{tag}")))
+            args = port_eval.build_parser().parse_args([
+                "--model_path", path, "--dataset_path", data,
+                "--classes_path", CLASSES_PATH, "--output_path",
+                os.path.join(work, "result"), "--device", d])
+            label = (f"eval.main({os.path.relpath(path, REPO)}) on {what}, "
+                     f"{d}")
+            if i == 0:
+                results.append(drive(
+                    label, lambda args=args: port_eval.main(args),
+                    ("mfcc_frontend", eval_kernel[model_type])))
+            else:
+                results.append(port_eval.main(args))
+        (acc, conf), (cpu_acc, cpu_conf) = results
+        log(f"  accuracy {acc:.4f} (CPU {cpu_acc:.4f}), confusion "
+            f"{conf.astype(int).tolist()}")
+        if tree and acc != 1.0:
+            raise AssertionError(f"eval.main({path}): accuracy {acc} on the "
+                                 "example clips")
+        if not np.array_equal(conf, cpu_conf):
+            raise AssertionError(f"eval.main({path}): the card's confusion "
+                                 f"matrix {conf.tolist()} is not the CPU's "
+                                 f"{cpu_conf.tolist()}")
+    pr.override(ListenerParams().to_dict())
+
+
+def time_train_eval(dev, big, big_np, big_feats, labels, card) -> dict:
+    """Phase 5's train and eval times on `dev`: the train step at
+    TRAIN_BATCH and evaluate_accuracy over big_feats' windows (the rows of
+    `big`, clip i % 8's)."""
+    import torch
+
+    from tpu_speech_commands_torch.data.dataset import Dataset
+    from tpu_speech_commands_torch.evaluation import evaluate_accuracy
+    from tpu_speech_commands_torch.export.inference_loader import load_native
+    from tpu_speech_commands_torch.params import ListenerParams, pr
+    from tpu_speech_commands_torch.serving import make_classifier
+
+    # the train step of `train.py --augment` at its default batch (512) and
+    # config, simple_gru and simple_cnn, device times over 10 steps after 3
+    # of warm-up; beside it the frontend kernel alone on the same batch;
+    # then evaluate_accuracy at batch 512 on B_TIME windows' features,
+    # through the classifier kernels
+    train_eval_times = {}
+    step_audio = big[:TRAIN_BATCH]
+    step_labels = torch.tensor(np.arange(TRAIN_BATCH) % 5, device=dev)
+    step_mask = torch.ones(TRAIN_BATCH, device=dev)
+    for mt in ("simple_gru", "simple_cnn"):
+        step, _, frontend = train_step_for(mt, dev, big_np[-64:])
+        counter = itertools.count()
+        step_ms = cuda_ms(lambda: step(step_audio, step_labels, step_mask,
+                                       next(counter)), 10, warmup=3)
+        fe_ms = cuda_ms(lambda: frontend(step_audio), 20)
+        train_eval_times[mt] = {"step_ms": step_ms,
+                                "samples_per_s": TRAIN_BATCH / step_ms * 1e3,
+                                "frontend_ms": fe_ms,
+                                "frontend_share": fe_ms / step_ms}
+        log(f"  train step {mt} B = {TRAIN_BATCH} --augment: {step_ms:.4f} "
+            f"ms/step  {TRAIN_BATCH / step_ms * 1e3:.0f} samples/s; the "
+            f"frontend kernel {fe_ms:.4f} ms = {fe_ms / step_ms:.1%} of the "
+            f"step  ({card})")
+    n = len(big_feats)
+    eval_labels = np.arange(n) % 8
+    for mt, path in (("simple_gru", CHECKPOINT),
+                     ("simple_cnn", CNN_CHECKPOINTS["simple_cnn"])):
+        predictor = load_native(path, dev)
+        classifier, _ = make_classifier(predictor.model, mt)
+        ds = Dataset(big_feats.float().cpu().numpy(), np.array(
+            [predictor.classes.index(labels[i]) for i in eval_labels],
+            np.int32))
+
+        def run_eval():
+            return evaluate_accuracy(classifier, ds, mt, predictor.classes,
+                                     batch_size=TRAIN_BATCH, save_plot=False,
+                                     verbose=False)
+
+        run_eval()  # warm-up; each run ends on a read of the counts
+        t0 = time.perf_counter()
+        acc, _ = run_eval()
+        dt = time.perf_counter() - t0
+        train_eval_times[f"evaluate_accuracy {mt}"] = {
+            "samples_per_s": n / dt, "accuracy": acc}
+        log(f"  evaluate_accuracy {mt} B = {TRAIN_BATCH}, {n} windows: "
+            f"{n / dt:.0f} samples/s (accuracy {acc:.4f})  ({card})")
+    pr.override(ListenerParams().to_dict())
+    return train_eval_times
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     import torch
 
@@ -619,9 +908,17 @@ def main() -> int:
     from tpu_speech_commands_torch.ops.frontend_kernel import MfccFrontend
     from tpu_speech_commands_torch.ops.rnn_kernel import (
         GRUClassifier, LSTMClassifier)
-    from tpu_speech_commands_torch.params import ListenerParams
+    from tpu_speech_commands_torch import eval as port_eval
+    from tpu_speech_commands_torch import train as port_train
+    from tpu_speech_commands_torch.data.dataset import Dataset
+    from tpu_speech_commands_torch.data.synthetic import make_synthetic_dataset
+    from tpu_speech_commands_torch.evaluation import evaluate_accuracy
+    from tpu_speech_commands_torch.models import init_model
+    from tpu_speech_commands_torch.params import ListenerParams, pr
     from tpu_speech_commands_torch.export.inference_loader import load_native
-    from tpu_speech_commands_torch.serving import make_batch_scorer
+    from tpu_speech_commands_torch.serving import (make_batch_scorer,
+                                                   make_classifier)
+    from tpu_speech_commands_torch.utils import get_classes
 
     FEAT_BF16_ATOL, FEAT_BF16_RTOL = FEAT_ATOL, FEAT_RTOL + BF16_STEP
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -987,6 +1284,34 @@ def main() -> int:
                     what, got, want, FEAT_ATOL, FEAT_RTOL))
             else:
                 check_close(what, got, want, FEAT_BF16_ATOL, FEAT_BF16_RTOL)
+    # route ct with more coefficients than one residue's T holds: 300, 512
+    # and 600 filters and coefficients at n_fft 4352, split-dup from the
+    # config (the coefficients in the idle T, ring and squares space, at
+    # 600 in their own region), f32 and int16 in, f32 and bf16 out,
+    # held to the CT plain version
+    for n in MANY_COEFFS:
+        p = ListenerParams(n_fft=4352, window_t=0.272, n_filt=n, n_mfcc=n)
+        for audio, out_dtype in ((audio_f32, torch.float32),
+                                 (audio_i16, torch.float32),
+                                 (audio_f32, torch.bfloat16),
+                                 (audio_i16, torch.bfloat16)):
+            fe = MfccFrontend(p, "mfcc", dev, out_dtype=out_dtype)
+            if (fe.route, fe.body) != ("ct", "split-dup"):
+                raise AssertionError(f"{n} coefficients: route {fe.route}, "
+                                     f"body {fe.body}, not ct split-dup")
+            got = fe(audio, 0.9)
+            torch.cuda.synchronize()
+            want = ct_kernel.ct_frontend_plain(audio, 0.9, fe.consts, p,
+                                               per_piece_mel=True,
+                                               out_dtype=out_dtype)
+            what = (f"ct_frontend_dup n_fft 4352, {n} coefficients "
+                    f"({ct_kernel.split_rows(p, True)} rows) "
+                    f"{str(audio.dtype)[6:]}->{str(out_dtype)[6:]}")
+            if out_dtype == torch.float32:
+                ct_errs["ct_frontend_dup"].append(check_close(
+                    what, got, want, FEAT_ATOL, FEAT_RTOL))
+            else:
+                check_close(what, got, want, FEAT_BF16_ATOL, FEAT_BF16_RTOL)
     # the stage cuts of both frontend kernels (K8 r3_omission :164), each
     # held to the one plain version with its stage's bound
     cut_consts = omission_kernel.TruncatedConstants(ListenerParams(), dev)
@@ -1128,6 +1453,28 @@ def main() -> int:
             raise AssertionError(f"scores {tuple(sc.shape)} not finite (8, C)")
         check_close(f"scores card vs CPU, {label}", sc.cpu(),
                     make_batch_scorer(path, "cpu")(clips), SCORE_ATOL, 0.0)
+
+    # route ct with 300 coefficients (more than one residue's T holds)
+    # into the GRU classifier: a random 48-unit GRU of feature size 300
+    # (init_model, seed 1; no shipped checkpoint has this config), whose
+    # input width takes the GRU's SIMT kernel; card against CPU
+    p300 = ListenerParams(n_fft=4352, window_t=0.272, n_filt=300, n_mfcc=300)
+    gru300, _ = init_model("simple_gru", 5, seed=1, params=p300)
+    fe300 = MfccFrontend(p300, "mfcc", dev)
+    if (fe300.route, fe300.body, fe300.path) != ("ct", "split-dup",
+                                                 "cuda-ct(split-dup)"):
+        raise AssertionError(f"300 coefficients: route {fe300.route}, body "
+                             f"{fe300.body}, path {fe300.path}")
+    cls300 = GRUClassifier(copy.deepcopy(gru300).to(dev))
+    sc = drive("MfccFrontend (n_fft 4352, 300 coefficients) + GRUClassifier "
+               "(random, D 300) on 8 clips",
+               lambda: score_fn(cls300(fe300(clips_dev))),
+               ("ct_frontend_dup", "gru_classifier_simt"),
+               ("mixed_fft_frontend", "ct_frontend", "gru_classifier"))
+    cpu300 = score_fn(GRUClassifier(gru300)(
+        MfccFrontend(p300, "mfcc", "cpu")(torch.tensor(clips))))
+    check_close("scores card vs CPU, n_fft 4352, 300 coefficients", sc.cpu(),
+                cpu300, SCORE_ATOL, 0.0)
 
     for name, path in CNN_CHECKPOINTS.items():
         predictor = load_native(path, dev)
@@ -1276,6 +1623,10 @@ def main() -> int:
           lambda: r3_omission.main(["--iters", "2", "--outer", "1"]),
           tuple(omission_kernel.counters))
 
+    drive_train_eval(dev, drive, clips, os.path.join(
+        REPO, "build", "chip_smoke", "train_eval"))
+
+
     # -- 5. times (information only) -------------------------------------------
     log(f"times at B = {B_TIME}, audio resident on the card ({card}):")
     big_np = test_audio(clips, B_TIME, seed=2)
@@ -1373,6 +1724,20 @@ def main() -> int:
         f"4352 ({p_dup.n_features} frames), B = {B_TIME}, f32 audio and "
         f"output: {dup_ms:.4f} ms; CT plain {dup_plain_ms:.4f} ms; bound "
         f"{dup_bound[0]:.4f} ms ({dup_bound[1]})  ({card})")
+    # the same body with 300, 512 and 600 coefficients (blocks of 64, 32
+    # and 32 rows), beside its bound
+    many_ms = {}
+    for n in MANY_COEFFS:
+        p_many = ListenerParams(n_filt=n, n_mfcc=n, **SPLIT_DUP_ROUTE)
+        many_consts = ct_kernel.CtConstants(p_many, "mfcc", dev)
+        ms = cuda_ms(lambda: ct_kernel.ct_frontend_cuda(
+            big, unit_gain, many_consts, p_many), 3)
+        bound = frontend_bound(p_many, B_TIME)
+        many_ms[n] = {"ms": ms, "bound_ms": bound[0], "bound_by": bound[1]}
+        log(f"  split-dup at n_fft 4352 with {n} coefficients "
+            f"({ct_kernel.split_rows(p_many, True)} rows), B = {B_TIME}: "
+            f"{ms:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]})  ({card})")
+        del many_consts
     times = {
         "mfcc_frontend": (cuda_ms(lambda: fe(big), 20), fe_plain_ms),
         "mfcc_frontend_radix2": (cuda_ms(radix2, 10), fe_plain_ms),
@@ -1727,6 +2092,9 @@ def main() -> int:
             f"{str(dt)[6:]:8s} {ms:.4f} ms/batch  {B_TIME / ms * 1e3:.0f} "
             f"windows/s  ({card})")
 
+    log(json.dumps({"train_eval": time_train_eval(
+        dev, big, big_np, big_feats, labels, card), "card": card}))
+
     # the stage cuts at this batch: each held to the plain version, then
     # timed with it and beside its bound; the deltas give each stage's cost
     cut_times, cut_bound = {}, {}  # (name, constant_block) -> ...
@@ -1865,6 +2233,8 @@ def main() -> int:
             kernels[-1]["n_fft_4352"] = {
                 "ms": dup_ms, "plain_ms": dup_plain_ms,
                 "bound_ms": dup_bound[0], "bound_by": dup_bound[1]}
+            for n, entry in many_ms.items():
+                kernels[-1][f"n_fft_4352_{n}_coefficients"] = entry
         if name.startswith("cnn_block1"):
             # bf16 compute on f32 features, from the A/B above
             ab, plain_ms = block1_ab["bfloat16"]

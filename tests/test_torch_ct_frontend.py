@@ -206,14 +206,20 @@ def test_host_refusals():
     """The host refuses from the config, before any launch: outside the
     contract, or where no kernel of route ct has a block that fits.  Above
     n_fft 4096 the split's (F, T) instantiation takes the config (n_fft
-    4352 and 15872 at the default 20 filters); a config whose coefficients
-    fit no block's T space (300 of them) is still refused."""
+    4352 and 15872 at the default 20 filters), and with 300 or 512
+    coefficients too, which outnumber one residue's T and take the idle T,
+    ring and squares space after the last residue;
+    a config whose block of 32 rows fits nowhere (1000 filters) is still
+    refused."""
     assert ct_config_error(ListenerParams(n_fft=768, window_t=0.048)) is None
     assert ct_config_error(ListenerParams(n_fft=3072, window_t=0.192)) is None
     assert ct_config_error(ListenerParams(n_fft=4352, window_t=0.272)) is None
     assert ct_config_error(ListenerParams(n_fft=15872, window_t=0.992)) is None
+    for n in (300, 512):
+        assert ct_config_error(ListenerParams(
+            n_fft=4352, window_t=0.272, n_filt=n, n_mfcc=n)) is None
     assert "no CUDA kernel of route ct" in ct_config_error(
-        ListenerParams(n_fft=4352, window_t=0.272, n_filt=300, n_mfcc=300))
+        ListenerParams(n_fft=4352, window_t=0.272, n_filt=1000, n_mfcc=1000))
     assert "n2 even" in ct_config_error(ListenerParams(window_t=0.05))
     assert "n2 even" in ct_config_error(ListenerParams(n_fft=640,
                                                        window_t=0.04))
@@ -291,7 +297,8 @@ def _c_to_python(expr: str) -> str:
 
 def _split_source_functions():
     """csrc/ct_frontend.cu's tile constants and its shared-memory functions
-    (smem_floats, sq_pitch, mel_pitch), evaluated from the source's text."""
+    (smem_floats, coef_floats, sq_pitch, mel_pitch), evaluated from the
+    source's text."""
     import re
 
     from tpu_speech_commands_torch.ops import _build
@@ -301,7 +308,7 @@ def _split_source_functions():
            for name in ("kLanes", "kBK", "kStages")}
     bms = re.search(r"constexpr int kBms\[\] = \{([\d, ]+)\};", src).group(1)
     env["kBms"] = tuple(int(x) for x in bms.split(","))
-    for name in ("mel_pitch", "sq_pitch", "smem_floats"):
+    for name in ("mel_pitch", "sq_pitch", "coef_floats", "smem_floats"):
         m = re.search(rf"inline \w+ {name}\(([^)]*)\) \{{\s*(.*?)\}}\n", src,
                       re.S)
         params = [a.split()[-1] for a in m.group(1).split(",")]
@@ -320,26 +327,40 @@ def test_split_shared_memory_mirror_is_the_kernel_source():
     kBK and kBms, and smem_floats (with sq_pitch and mel_pitch) evaluated
     from the source's text, agree with the copy at every block size, every
     CT-eligible n_fft up to 8192 and 1 to 256 filters, without and with the
-    per-piece mel; and above n_fft 4096 the (F, F) instantiation fits no
-    block at any filter count while the (F, T) one fits at every one."""
+    per-piece mel, and with few or many coefficients (their own region
+    where they outnumber the idle T, ring and power space); above n_fft
+    4096 the (F, F) instantiation fits no block at any filter count while
+    the (F, T) one fits at every one up to 256; and at n_fft 4352 the (F,
+    T) one takes 64 rows with 300 filters and coefficients and 32 with 512,
+    both in the idle space, and 32 with 600, in a region of their own."""
     src = _split_source_functions()
     assert (src["kStages"], src["kBK"], src["kLanes"], src["kBms"]) == (
         ct_kernel._SPLIT_STAGES, ct_kernel._SPLIT_BK, LANES,
         ct_kernel._SPLIT_BMS)
     for n_fft in range(256, 8192 + 1, 256):
-        for n_filt in (1, 13, 20, 40, 64, 128, 230, 256):
-            for bm in src["kBms"]:
-                for ppmel in (False, True):
-                    assert 4 * src["smem_floats"](bm, n_fft, n_filt, False,
-                                                  ppmel) == \
-                        ct_kernel.split_smem_bytes(bm, n_fft, n_filt, ppmel)
+        for n_filt in (1, 13, 20, 40, 64, 128, 230, 256, 300, 512, 600):
+            for n_mfcc in sorted({1, min(n_filt, 13), n_filt}):
+                for bm in src["kBms"]:
+                    for ppmel in (False, True):
+                        assert 4 * src["smem_floats"](
+                            bm, n_fft, n_filt, n_mfcc, False, ppmel) == \
+                            ct_kernel.split_smem_bytes(bm, n_fft, n_filt,
+                                                       n_mfcc, ppmel)
             p = ListenerParams(n_fft=n_fft, window_t=n_fft / 16000,
                                n_filt=n_filt, n_mfcc=min(n_filt, 13))
-            if n_fft > 4096:
+            if n_fft > 4096 and n_filt <= 256:
                 assert not ct_kernel.split_fits(p)
                 assert ct_kernel.split_fits(p, per_piece_mel=True)
+    for n, bm, own in ((300, 64, False), (512, 32, False), (600, 32, True)):
+        p = ListenerParams(n_fft=4352, window_t=0.272, n_filt=n, n_mfcc=n)
+        assert ct_kernel.split_rows(p, per_piece_mel=True) == bm
+        assert ct_kernel.ct_body(p) == "split-dup"
+        assert bm * n > 2 * 128 * (bm + 4)  # more than T alone holds
+        assert src["coef_floats"](bm, 4352, n, False, True) == (
+            bm * n if own else 0)
+    assert src["coef_floats"](64, 1024, 20, False, False) == 0
     # the paired form, which no route sizes, parses too
-    assert src["smem_floats"](64, 1024, 20, True, True) == (
+    assert src["smem_floats"](64, 1024, 20, 20, True, True) == (
         2 * 64 + 2 * 128 * 68 + 3 * 8 * 256 + 64 * 257 + 64 * 21 + 64)
 
 
@@ -362,4 +383,26 @@ def test_split_dup_plain_matches_jax_k1_above_4096():
                             CtConstants(p, "mfcc", "cpu"), p,
                             per_piece_mel=True).numpy()
     assert got.shape == want.shape == (2, 23, 2 * p.n_mfcc)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_split_dup_plain_matches_jax_k1_with_300_coefficients():
+    """n_fft = window = 4352 with 300 filters and 300 coefficients (more
+    than one residue's T holds, where the coefficients were kept):
+    route ct's body is split-dup, whose plain version holds to JAX K1
+    (dft_mode="ct", interpret mode) on two windows of f32 audio, at the
+    file's RTOL / ATOL."""
+    kw = {"n_fft": 4352, "window_t": 0.272, "n_filt": 300, "n_mfcc": 300}
+    p = ListenerParams(**kw)
+    assert ct_kernel.ct_body(p) == "split-dup" and ct_config_error(p) is None
+    rng = np.random.default_rng(17)
+    audio = (0.2 * rng.standard_normal((2, 16000))).astype(np.float32)
+    fused = make_fused_frontend(JaxParams(**kw), batch_tile=2, interpret=True,
+                                dft_mode="ct")
+    want = np.asarray(fused(jnp.asarray(audio), GAIN))
+    got = ct_frontend_plain(torch.tensor(audio), GAIN,
+                            CtConstants(p, "mfcc", "cpu"), p,
+                            per_piece_mel=True).numpy()
+    assert got.shape == want.shape == (2, 23, 300)
+    assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)

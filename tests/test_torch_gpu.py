@@ -1177,6 +1177,41 @@ def test_split_dup_body_matches_plain(cuda_device, n_fft, case):
     assert fe.route == "ct" and fe.body == "split-dup"
 
 
+
+@pytest.mark.parametrize("audio_dtype", ["float32", "int16"])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_coeffs", [300, 512, 600])
+def test_split_dup_takes_many_coefficients(cuda_device, n_coeffs, audio_dtype,
+                                           out_dtype):
+    """n_fft = window = 4352 with n_filt = n_mfcc = 300 (blocks of 64 rows)
+    and 512 (32 rows): more coefficients than one residue's T holds, so
+    they take the idle T, ring and squares space; 600 (32 rows) outnumber
+    that and take a region of their own.  Route ct builds and takes
+    split-dup
+    from the config and holds to ct_frontend_plain."""
+    p = ListenerParams(n_fft=4352, window_t=0.272, n_filt=n_coeffs,
+                       n_mfcc=n_coeffs)
+    assert ct_kernel.split_rows(p, per_piece_mel=True) == (
+        64 if n_coeffs == 300 else 32)
+    grown = (ct_kernel.split_smem_bytes(32, 4352, n_coeffs, n_coeffs, True)
+             - ct_kernel.split_smem_bytes(32, 4352, n_coeffs, 1, True))
+    assert grown == (4 * 32 * n_coeffs if n_coeffs == 600 else 0)
+    fe = MfccFrontend(p, "mfcc", cuda_device, out_dtype=out_dtype)
+    assert fe.route == "ct" and fe.body == "split-dup"
+    audio = torch.tensor(_ct_audio(audio_dtype), device=cuda_device)
+    before = ct_kernel.counters["ct_frontend_dup"].launches
+    got = fe(audio, 0.8)
+    torch.cuda.synchronize()
+    assert ct_kernel.counters["ct_frontend_dup"].launches == before + 1
+    want = ct_kernel.ct_frontend_plain(audio, 0.8, fe.consts, p,
+                                       per_piece_mel=True,
+                                       out_dtype=out_dtype)
+    assert got.shape == (13, p.n_features, n_coeffs) and got.dtype == out_dtype
+    assert torch.isfinite(got.float()).all()
+    bf16 = 2.0 ** -7 if out_dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-3 + bf16,
+                               atol=2e-3)
+
 def test_fft_kernel_takes_a_window_longer_than_n_fft(cuda_device):
     """window 1200 > n_fft 1024: the kernel reads a frame's first 1024
     samples, as the plain chain's DFT matrices do."""
@@ -1328,3 +1363,107 @@ def test_omission_dev_entry_point_runs_every_cut(cuda_device):
     rates = r3_omission.main(["--batch", "64", "--iters", "2", "--outer", "1"])
     assert len(rates) == 2 * len(CUTS) and all(r > 0 for r in rates.values())
     assert all(c.launches > 0 for c in omission_kernel.counters.values())
+
+
+def _one_train_step(model_type, device, audio, labels):
+    """One train step with --augment's pipeline (the frontend kernel on the
+    card), adam, dropout 0, from init_model's seed-0 weights: (loss,
+    variables, frontend launches)."""
+    from tpu_speech_commands_torch.data.augment import make_audio_pipeline
+    from tpu_speech_commands_torch.losses import make_loss_fn
+    from tpu_speech_commands_torch.models import init_model
+    from tpu_speech_commands_torch.ops.training_frontend import (
+        select_training_frontend)
+    from tpu_speech_commands_torch.optim import get_optimizer
+    from tpu_speech_commands_torch.training.trainer import make_train_step
+
+    model, _ = init_model(model_type, 5, seed=0, dropout_rate=0.0)
+    model.to(device)
+    frontend, kind = select_training_frontend(ListenerParams(), "mfcc",
+                                              len(audio), device,
+                                              verbose=False)
+    assert kind == ("cuda-mfcc" if device.type == "cuda" else "torch")
+    pipe = make_audio_pipeline(frontend, model_type, audio[labels == 0],
+                               device=device)
+    opt = get_optimizer("adam", 1e-3, decay_type=None, injectable=True,
+                        params=model.parameters())
+    step = make_train_step(model, make_loss_fn(5), opt, pipe, seed=3)
+    before = frontend_kernel.mfcc_frontend_cuda.launches
+    mask = torch.ones(len(audio), device=device)
+    mask[-3:] = 0.0
+    loss, _ = step(torch.tensor(audio, device=device),
+                   torch.tensor(labels, dtype=torch.int64, device=device),
+                   mask, 0)
+    return (float(loss), model.variables(),
+            frontend_kernel.mfcc_frontend_cuda.launches - before)
+
+
+@pytest.mark.parametrize("model_type", ["simple_gru", "simple_cnn"])
+def test_train_step_card_matches_cpu(cuda_device, model_type):
+    """The same init, batch and augmentation draws: one step on the card
+    (the frontend kernel, the plain module under autograd) and one on the
+    CPU (the plain chain) give losses and parameters within 1e-4 (the
+    frontend's f32 tolerance carried through one adam step)."""
+    clips, names = _clips()
+    rows = np.arange(32) % 8
+    audio = clips[rows].astype(np.float32) / 32768.0
+    classes = ["background", "left", "right", "up", "down"]
+    labels = np.array([classes.index(names[r]) if names[r] in classes else 0
+                       for r in rows])
+    labels[::5] = 0  # a background share for the noise bank
+    got_loss, got, launches = _one_train_step(model_type, cuda_device, audio,
+                                              labels)
+    want_loss, want, _ = _one_train_step(model_type, torch.device("cpu"),
+                                         audio, labels)
+    assert launches == 1 and np.isfinite(got_loss)
+    assert abs(got_loss - want_loss) <= 1e-4
+    for section in want:
+        for group, tree in want[section].items():
+            flat_got, flat_want = [], []
+
+            def walk(a, b):
+                if isinstance(b, dict):
+                    for k in b:
+                        walk(a[k], b[k])
+                else:
+                    flat_got.append(a)
+                    flat_want.append(b)
+            walk(got[section][group], tree)
+            for a, b in zip(flat_got, flat_want):
+                np.testing.assert_allclose(a, b, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("ckpt", [GRU_CKPT, CNN_CKPTS["simple_cnn"],
+                                  LSTM_CKPT])
+def test_evaluate_accuracy_card_matches_cpu(cuda_device, ckpt):
+    """evaluate_accuracy through the classifier kernel on the card and the
+    plain module on the CPU, on the frontend kernel's features of the
+    example clips, in a ragged last batch: the same accuracy (8/8) and
+    confusion matrix; the classifier kernel's count rises."""
+    from tpu_speech_commands_torch.data.dataset import Dataset
+    from tpu_speech_commands_torch.evaluation import evaluate_accuracy
+    from tpu_speech_commands_torch.export.inference_loader import load_native
+    from tpu_speech_commands_torch.serving import make_classifier
+
+    clips, names = _clips()
+    results = []
+    for device in (cuda_device, torch.device("cpu")):
+        predictor = load_native(ckpt, device)
+        fe = MfccFrontend(pr, "mfcc", device)
+        feats = fe(torch.tensor(clips, device=device)).cpu().numpy()
+        ds = Dataset(feats, np.array([predictor.classes.index(n)
+                                      for n in names], np.int32))
+        classifier, path = make_classifier(predictor.model,
+                                           predictor.model_type)
+        counter = {"cuda-gru": rnn_kernel.gru_layer_cuda,
+                   "cuda-lstm": rnn_kernel.lstm_layer_cuda,
+                   "cuda-cnn": cnn_kernel.cnn_classifier_cuda}.get(path)
+        before = counter.launches if counter else 0
+        results.append(evaluate_accuracy(classifier, ds, predictor.model_type,
+                                         predictor.classes, batch_size=3,
+                                         save_plot=False, verbose=False))
+        if counter:
+            assert counter.launches == before + 3
+    (acc, conf), (cpu_acc, cpu_conf) = results
+    assert acc == cpu_acc == 1.0
+    np.testing.assert_array_equal(conf, cpu_conf)

@@ -72,6 +72,20 @@ def test_port_imports_no_jax():
         "tpu_speech_commands_torch.ops._checks",
         "tpu_speech_commands_torch.ops.omission_kernel",
         "tpu_speech_commands_torch.dev.r3_omission",
+        "tpu_speech_commands_torch.utils.common",
+        "tpu_speech_commands_torch.data.wav",
+        "tpu_speech_commands_torch.data.synthetic",
+        "tpu_speech_commands_torch.data.dataset",
+        "tpu_speech_commands_torch.data.augment",
+        "tpu_speech_commands_torch.evaluation.evaluate",
+        "tpu_speech_commands_torch.eval",
+        "tpu_speech_commands_torch.train",
+        "tpu_speech_commands_torch.losses",
+        "tpu_speech_commands_torch.optim",
+        "tpu_speech_commands_torch.ops.training_frontend",
+        "tpu_speech_commands_torch.training.checkpoints",
+        "tpu_speech_commands_torch.training.trainer",
+        "tpu_speech_commands_torch.training.averaging",
     }
     assert expected <= set(result["modules"])
     assert result["leaked"] == []

@@ -130,22 +130,34 @@ def test_ct_body_takes_the_split_where_the_register_block_does_not_fit():
 
 
 def test_ct_refuses_from_the_config_before_any_launch(monkeypatch):
-    """A config no kernel of route ct takes (300 coefficients at n_fft
-    4352: no block's T space holds them) raises ValueError when the
-    frontend is built for CUDA, before the device is looked at; on the CPU
-    it runs the plain chain.  n_fft 4352 and 15872 at 20 filters, refused
-    before the split-dup body, get as far as the device check."""
+    """A config no kernel of route ct takes raises ValueError when the
+    frontend is built for CUDA, before the device is looked at: 1000
+    filters and coefficients at n_fft 4352 (no block of the split fits),
+    or more coefficients than filters; on the CPU it runs the plain chain.
+    n_fft 4352 with 300 or 512 coefficients (more than one residue's T
+    holds: they take the idle T, ring and squares space), and n_fft 4352
+    and 15872
+    at 20 filters, get as far as the device check."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    p = ListenerParams(n_fft=4352, window_t=0.272, n_filt=300, n_mfcc=300)
+    p = ListenerParams(n_fft=4352, window_t=0.272, n_filt=1000, n_mfcc=1000)
     with pytest.raises(ValueError, match="no CUDA kernel of route ct"):
         MfccFrontend(p, "mfcc", "cuda")
-    for n_fft in (2816, 3840, 4352, 15872):  # taken from the config
+    with pytest.raises(ValueError, match="n_mfcc <= n_filt"):
+        MfccFrontend(ListenerParams(n_fft=4352, window_t=0.272, n_filt=300,
+                                    n_mfcc=301), "mfcc", "cuda")
+    for kw in ({"n_fft": 2816}, {"n_fft": 3840}, {"n_fft": 4352},
+               {"n_fft": 15872}, {"n_fft": 4352, "n_filt": 300, "n_mfcc": 300},
+               {"n_fft": 4352, "n_filt": 512, "n_mfcc": 512}):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
-            MfccFrontend(ListenerParams(n_fft=n_fft, window_t=n_fft / 16000),
+            MfccFrontend(ListenerParams(window_t=kw["n_fft"] / 16000, **kw),
                          "mfcc", "cuda")
     fe = MfccFrontend(p, "mfcc", "cpu")
     assert fe.route == "ct" and fe.body is None
     assert fe(torch.zeros(2, 16000)).shape == (2, p.n_features, p.n_mfcc)
+    p300 = ListenerParams(n_fft=4352, window_t=0.272, n_filt=300, n_mfcc=300)
+    fe = MfccFrontend(p300, "mfcc", "cpu")
+    assert fe.route == "ct" and fe.body == "split-dup"
+    assert fe(torch.zeros(2, 16000)).shape == (2, p300.n_features, 300)
 
 
 @pytest.fixture(scope="module")

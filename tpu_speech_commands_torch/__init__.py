@@ -10,6 +10,9 @@ entry points run on the card unless the caller asks for the CPU.
     from tpu_speech_commands_torch.serving import make_batch_scorer
     scorer = make_batch_scorer("pretrained/direction_simple_gru.npz", "cuda")
     scores = scorer(audio)                  # (B, 16000) -> (B, C)
+
+Training and evaluation: `python -m tpu_speech_commands_torch.train` and
+`python -m tpu_speech_commands_torch.eval`, with the root scripts' flags.
 """
 from .params import ListenerParams, inject_params, pr, save_params
 

@@ -64,7 +64,10 @@
 // or 162 KiB with it: one block an SM.  tsc_ct_frontend takes the largest BM
 // (64, then 32) that fits the card's opt-in shared memory and cuts the
 // frames to it; it refuses a config where neither fits (without
-// PER_PIECE_MEL, from n_fft 2816 up at 20 filters on an H100).
+// PER_PIECE_MEL, from n_fft 2816 up at 20 filters on an H100).  After the
+// last residue the DCT's coefficients take the idle T, ring and power
+// space, or a region of their own where they outnumber it (coef_floats), so
+// they never limit the block.
 //
 // A third switch, STOP, cuts the (F, F) kernel after one stage for the
 // stage-omission profile of tools/dev/r3_omission.py (pallas_call :164,
@@ -143,15 +146,32 @@ __host__ __device__ inline int sq_pitch(bool ppmel, bool paired, int n_fft) {
   return ppmel ? (paired ? 2 : 1) * kLanes + 1 : n_fft / 2 + 1;
 }
 
+// After the last residue the DCT's (BM, n_mfcc) coefficients go where one
+// residue's T, the K-slice ring and the power rows or squares were (one
+// run of shared memory, all idle by then); where they outnumber that run
+// (more than 513 at BM 32 with PER_PIECE_MEL), they get a region of their
+// own at the end, and the block grows by this many floats.
+__host__ __device__ inline size_t coef_floats(int bm, int n_fft, int n_mfcc,
+                                              bool paired, bool ppmel) {
+  const size_t c = (size_t)bm * n_mfcc;
+  const size_t room = 2 * (size_t)kLanes * (bm + 4) +
+                      (size_t)kStages * kBK * (paired ? 2 : 1) * kLanes +
+                      (size_t)bm * sq_pitch(ppmel, paired, n_fft);
+  return c <= room ? 0 : c;
+}
+
 // Shared memory, in floats: the rows' audio offsets (int64), one residue's
 // T k-major (2 x 128, pitch BM + 4), the K-slice ring, the power rows or
-// squares, the filter sums, the Nyquist powers.
+// squares, the filter sums, the Nyquist powers, and the coefficients where
+// they have a region of their own (coef_floats).
 __host__ __device__ inline size_t smem_floats(int bm, int n_fft, int n_filt,
-                                              bool paired, bool ppmel) {
+                                              int n_mfcc, bool paired,
+                                              bool ppmel) {
   const int nc = (paired ? 2 : 1) * kLanes;
   return 2 * (size_t)bm + 2 * (size_t)kLanes * (bm + 4) +
          (size_t)kStages * kBK * nc + (size_t)bm * sq_pitch(ppmel, paired, n_fft) +
-         (size_t)bm * mel_pitch(n_filt) + bm;
+         (size_t)bm * mel_pitch(n_filt) + bm +
+         coef_floats(bm, n_fft, n_mfcc, paired, ppmel);
 }
 
 // How a block of bm frame rows covers (batch, n_features): wpb whole windows
@@ -580,8 +600,9 @@ __global__ void __launch_bounds__(kThreads, 1) ct_frontend_kernel(const CtArgs a
     }
     __syncthreads();
   }
-  // ---- DCT and the energy swap, into ts (row, coefficient)
-  float* sc = ts;
+  // ---- DCT and the energy swap, into ts on (row, coefficient), or into
+  // the coefficients' own region after snyq
+  float* sc = coef_floats(BM, a.n_fft, a.n_mfcc, PAIRED, PPMEL) ? snyq + BM : ts;
   if constexpr (STOP >= kFull) {
     for (int idx = tid; idx < BM * a.n_mfcc; idx += kThreads) {
       const int r = idx / a.n_mfcc;
@@ -711,14 +732,14 @@ extern "C" int tsc_ct_frontend(
   int bm = 0;
   size_t smem = 0;
   for (const int cand : kBms) {
-    smem = sizeof(float) * smem_floats(cand, n_fft, n_filt, paired, per_piece_mel);
+    smem = sizeof(float) *
+           smem_floats(cand, n_fft, n_filt, n_mfcc, paired, per_piece_mel);
     if (smem <= (size_t)smem_max) {
       bm = cand;
       break;
     }
   }
-  // the DCT's coefficients go to T's space after the last residue
-  if (bm == 0 || 2 * kLanes * (bm + 4) < bm * n_mfcc) return cudaErrorInvalidValue;
+  if (bm == 0) return cudaErrorInvalidValue;
   CtArgs a;
   a.audio = audio;
   a.audio_int16 = audio_int16;
@@ -779,7 +800,8 @@ extern "C" int tsc_ct_truncated(
   err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = sizeof(float) * smem_floats(kBm, n_fft, n_filt, false, false);
+  const size_t smem =
+      sizeof(float) * smem_floats(kBm, n_fft, n_filt, n_mfcc, false, false);
   if (smem > (size_t)smem_max) return cudaErrorInvalidValue;
   CtArgs a;
   a.audio = audio;

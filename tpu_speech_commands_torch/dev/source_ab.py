@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
-"""The register-resident FFT kernels built from another checkout's sources
-against this one's, timed in turns on the card: the FFT kernel's register
-body (csrc/mfcc_frontend.cu) at the default config and route ct's
-mixed-radix FFT (csrc/mixed_fft_frontend.cu) at n_fft = window = 768 (hop
-512) and 1536 (hop 256), both on their shared csrc/register_fft.cuh.
+"""The frontend kernels built from another checkout's sources against this
+one's, timed in turns on the card: the FFT kernel's register body
+(csrc/mfcc_frontend.cu) at the default config and route ct's mixed-radix
+FFT (csrc/mixed_fft_frontend.cu) at n_fft = window = 768 (hop 512) and 1536
+(hop 256), both on their shared csrc/register_fft.cuh; and the CT split
+(csrc/ct_frontend.cu), its (F, F) instantiation at the default config
+(which `ct_body` sends to it) and route ct's split-dup body at n_fft =
+window = 4352.
 
     python -m tpu_speech_commands_torch.dev.source_ab --other DIR/csrc
         [--batch 8192] [--iters 20]
@@ -29,9 +32,12 @@ from ..params import ListenerParams
 from . import card_line, check_features, device_audio
 from .ct_ablation import build, inlined_source
 
-UNITS = ("mfcc_frontend.cu", "mixed_fft_frontend.cu")
+UNITS = ("mfcc_frontend.cu", "mixed_fft_frontend.cu", "ct_frontend.cu")
 # label: (the source, the config's keyword arguments)
 CONFIGS = {
+    "CT split (F, F), n_fft 1024": ("ct_frontend.cu", {}),
+    "CT split-dup, n_fft 4352": ("ct_frontend.cu",
+                                 {"n_fft": 4352, "window_t": 0.272}),
     "register body, n_fft 1024": ("mfcc_frontend.cu", {}),
     "mixed FFT, n_fft 768": ("mixed_fft_frontend.cu",
                              {"n_fft": 768, "window_t": 0.048}),
@@ -92,6 +98,8 @@ def main(argv=None) -> dict:
                     return frontend_kernel.mfcc_frontend_cuda(audio, gain,
                                                               consts, p)
             else:
+                # route ct's body by the config: the mixed FFT, the split's
+                # (F, F) instantiation at n_fft 1024, split-dup at 4352
                 def launch():
                     return ct_kernel.ct_frontend_cuda(audio, gain, ct_consts,
                                                       p)

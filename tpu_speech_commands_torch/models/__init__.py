@@ -3,6 +3,8 @@ from .factory import (
     MODEL_TYPES,
     features_to_input,
     get_model,
+    init_model,
+    input_shape,
     is_cnn,
     score_fn,
 )
@@ -11,6 +13,6 @@ from .rnn import GRUCellKeras, LSTMCellKeras, SimpleGRU, SimpleLSTM
 
 __all__ = [
     "CNN_MODEL_TYPES", "MODEL_TYPES", "features_to_input", "get_model",
-    "is_cnn", "score_fn", "GRUCellKeras", "LSTMCellKeras", "SimpleCNN",
-    "SimpleCNNLite", "SimpleGRU", "SimpleLSTM",
+    "init_model", "input_shape", "is_cnn", "score_fn", "GRUCellKeras",
+    "LSTMCellKeras", "SimpleCNN", "SimpleCNNLite", "SimpleGRU", "SimpleLSTM",
 ]

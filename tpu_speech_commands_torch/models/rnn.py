@@ -8,18 +8,23 @@ Keras semantics, as in the JAX package:
   cannot stand in.
 - LSTM: gate order [i, f, c, o], tanh, the unit forget bias already baked
   into the stored bias vector.
-- Dropout only acts in training; these modules are inference-only, so it
-  does not appear.
+- Dropout acts only in training mode (`model.train()`): one input mask per
+  sequence and layer, shared across all time steps (Keras RNN dropout), at
+  `dropout_rate` 0.2, drawn from the `generator` the caller passes.  A
+  model is built in eval mode, as the JAX model's `train` defaults to
+  False: the train step calls `.train()`.
 
 The time loop is a plain Python loop.  For the GRU it is the plain version
-of the GRU kernel (`ops/rnn_kernel.py`, `csrc/gru_classifier.cu`).
-`compute_dtype=torch.bfloat16` reproduces that kernel's bf16 mode: matmul
-inputs (x, h and the weights) rounded to bf16, products accumulated in f32,
-biases and gate math in f32.  Parameters start at zero: their values come
-from a checkpoint (`convert.py`).
+of the GRU kernel (`ops/rnn_kernel.py`, `csrc/gru_classifier.cu`), and the
+module the train step differentiates.  `compute_dtype=torch.bfloat16`
+reproduces that kernel's bf16 mode: matmul inputs (x, h and the weights)
+rounded to bf16, products accumulated in f32, biases and gate math in f32.
+Parameters start at zero: their values come from a checkpoint
+(`convert.py`) or from `models.factory.init_model`.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -35,6 +40,33 @@ def _rounded(t: torch.Tensor, compute_dtype) -> torch.Tensor:
 
 def _mm(x, w, compute_dtype):
     return torch.matmul(_rounded(x, compute_dtype), _rounded(w, compute_dtype))
+
+
+def dropout(x: torch.Tensor, rate: float, shape: tuple,
+            generator=None) -> torch.Tensor:
+    """flax Dropout: keep each element of a mask of `shape` (broadcast
+    over x) with probability 1 - rate and scale the kept by 1 / (1 - rate).
+    The mask is drawn from `generator` (on x's device)."""
+    keep = 1.0 - rate
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), device=x.device))
+
+
+def jax_variables(module: nn.Module) -> dict:
+    """A module's state as the JAX package's variables tree of numpy
+    arrays: {'params': {...}[, 'batch_stats': {...}]}, BatchNorm running
+    statistics (`bn.mean`, `bn.var`) under batch_stats."""
+    params: dict = {}
+    stats: dict = {}
+    for key, value in module.state_dict().items():
+        *path, leaf = key.split(".")
+        root = stats if path[-1] == "bn" and leaf in ("mean", "var") else params
+        node = root
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value.detach().cpu().numpy().astype(np.float32)
+    return {"params": params, "batch_stats": stats} if stats else \
+        {"params": params}
 
 
 class GRUCellKeras(nn.Module):
@@ -82,8 +114,9 @@ class RecurrentStack(nn.Module):
     """Stacked RNN over (B, T, D); returns the last layer's final h."""
 
     def __init__(self, cell_type: str, input_size: int, units: int = 48,
-                 num_layers: int = 1):
+                 num_layers: int = 1, dropout_rate: float = 0.2):
         super().__init__()
+        self.dropout_rate = dropout_rate
         if cell_type not in ("gru", "lstm"):
             raise ValueError(f"cell_type must be gru|lstm, got {cell_type!r}")
         cell_cls = GRUCellKeras if cell_type == "gru" else LSTMCellKeras
@@ -99,10 +132,13 @@ class RecurrentStack(nn.Module):
     def cells(self) -> list[nn.Module]:
         return [getattr(self, name) for name in self.layer_names]
 
-    def forward(self, x, compute_dtype=torch.float32):
+    def forward(self, x, compute_dtype=torch.float32, generator=None):
         x = x.to(torch.float32)
         batch = x.shape[0]
         for cell in self.cells():
+            if self.training and self.dropout_rate > 0.0:
+                x = dropout(x, self.dropout_rate, (batch, 1, x.shape[-1]),
+                            generator)
             h = x.new_zeros(batch, self.units)
             carry = (h, h) if self.cell_type == "lstm" else h
             outs = []
@@ -130,17 +166,25 @@ class _SimpleRNN(nn.Module):
     cell_type = ""
 
     def __init__(self, num_classes: int, feature_size: int = 20,
-                 recurrent_units: int = 48, num_layers: int = 1):
+                 recurrent_units: int = 48, num_layers: int = 1,
+                 dropout_rate: float = 0.2):
         super().__init__()
         self.num_classes = num_classes
         self.backbone = RecurrentStack(self.cell_type, feature_size,
-                                       recurrent_units, num_layers)
+                                       recurrent_units, num_layers,
+                                       dropout_rate)
         self.score_predict = Dense(recurrent_units, num_classes)
+        self.eval()  # inference unless asked, as the JAX model's train=False
 
-    def forward(self, x, compute_dtype=torch.float32):
-        """(B, T, D) features -> (B, num_classes) float32 logits."""
-        return self.score_predict(self.backbone(x, compute_dtype),
+    def forward(self, x, compute_dtype=torch.float32, generator=None):
+        """(B, T, D) features -> (B, num_classes) float32 logits; in
+        training mode the input dropout draws from `generator`."""
+        return self.score_predict(self.backbone(x, compute_dtype, generator),
                                   compute_dtype)
+
+    def variables(self) -> dict:
+        """The parameters as the JAX package's tree of numpy arrays."""
+        return jax_variables(self)
 
 
 class SimpleGRU(_SimpleRNN):

@@ -341,8 +341,8 @@ class CNNClassifier:
             raise TypeError(f"need a SimpleCNN, got {type(model).__name__}")
         lowered = lower_classifier(model.variables(), model.separable,
                                    model.n_features, model.feature_size)
-        self.consts = ClassifierTensors(lowered, _model_device(model),
-                                        compute_dtype)
+        self.device = _model_device(model)
+        self.consts = ClassifierTensors(lowered, self.device, compute_dtype)
 
     @torch.inference_mode()
     def __call__(self, x: torch.Tensor) -> torch.Tensor:

@@ -36,10 +36,11 @@ its CT kernel and the FFT kernel cannot take.  Route ct's function, the
   which route fft takes), where the mixed FFT has no plan and the (F, F)
   instantiation's power rows (n_fft / 2 + 1 floats a frame) fit no block.
   It keeps no power row: its block is about 126 KB at 64 rows whatever
-  n_fft is.
-A config none takes (a block whose T space cannot hold its coefficients,
-n_mfcc near 300) raises ValueError from the config, before any launch
-(`ct_config_error`).  `ct_frontend` dispatches on the tensor it is given: a
+  n_fft is, more with many filters or coefficients (300 of each at 4352:
+  64 rows, 189 KB; 512 of each: 32 rows, 129 KB).
+A config none takes (a block of 32 rows that does not fit) raises
+ValueError from the config, before any launch (`ct_config_error`).
+`ct_frontend` dispatches on the tensor it is given: a
 CPU tensor takes `ct_frontend_plain`, a CUDA tensor launches a kernel or
 raises.
 """
@@ -111,27 +112,35 @@ def variant_name(paired: bool, per_piece_mel: bool) -> str:
                 if (pa, pp) == (bool(paired), bool(per_piece_mel)))
 
 
-def split_smem_bytes(bm: int, n_fft: int, n_filt: int,
+def split_smem_bytes(bm: int, n_fft: int, n_filt: int, n_mfcc: int,
                      per_piece_mel: bool = False) -> int:
     """The CT split's unpaired instantiation's shared memory for a block of
     bm frame rows, (F, F) or with per_piece_mel (F, T):
-    smem_floats(bm, n_fft, n_filt, false, per_piece_mel) of
+    smem_floats(bm, n_fft, n_filt, n_mfcc, false, per_piece_mel) of
     csrc/ct_frontend.cu, in bytes.  (F, T) keeps one residue's squares
-    (pitch 129) where (F, F) keeps the power rows (n_fft / 2 + 1)."""
+    (pitch 129) where (F, F) keeps the power rows (n_fft / 2 + 1).  The
+    bm x n_mfcc coefficients take the idle T, ring and power space after
+    the last residue, or a region of their own where they outnumber it
+    (coef_floats)."""
     sq = LANES + 1 if per_piece_mel else n_fft // 2 + 1
-    return 4 * (2 * bm + 2 * LANES * (bm + 4) + _SPLIT_STAGES * _SPLIT_BK * LANES
-                + bm * sq + bm * ((n_filt + 1) | 1) + bm)
+    room = 2 * LANES * (bm + 4) + _SPLIT_STAGES * _SPLIT_BK * LANES + bm * sq
+    coef = 0 if bm * n_mfcc <= room else bm * n_mfcc
+    return 4 * (2 * bm + room + bm * ((n_filt + 1) | 1) + bm + coef)
+
+
+def split_rows(p: ListenerParams, per_piece_mel: bool = False) -> int:
+    """The frame rows a block of tsc_ct_frontend's unpaired (F, F)
+    instantiation, or with per_piece_mel its (F, T) one, takes at config p:
+    the first of 64 and 32 whose block fits SMEM_OPTIN, or 0 where neither
+    does and the launch refuses."""
+    return next((bm for bm in _SPLIT_BMS
+                 if split_smem_bytes(bm, p.n_fft, p.n_filt, p.n_mfcc,
+                                     per_piece_mel) <= SMEM_OPTIN), 0)
 
 
 def split_fits(p: ListenerParams, per_piece_mel: bool = False) -> bool:
-    """Whether tsc_ct_frontend launches the unpaired (F, F) instantiation,
-    or with per_piece_mel the (F, T) one, at config p: it takes the first of
-    64 and 32 frame rows whose block fits SMEM_OPTIN, and refuses unless
-    that block's T space holds the coefficients."""
-    bm = next((bm for bm in _SPLIT_BMS
-               if split_smem_bytes(bm, p.n_fft, p.n_filt, per_piece_mel)
-               <= SMEM_OPTIN), 0)
-    return bm > 0 and 2 * LANES * (bm + 4) >= bm * p.n_mfcc
+    """Whether tsc_ct_frontend launches that instantiation at config p."""
+    return split_rows(p, per_piece_mel) > 0
 
 
 def _mixed(p: ListenerParams, feature_type: str):
@@ -147,7 +156,7 @@ def ct_body(p: ListenerParams, feature_type: str = "mfcc") -> str | None:
     mixed-radix FFT) where it has a plan whose block fits SMEM_OPTIN,
     "split" where only the split's (F, F) instantiation fits, "split-dup"
     (its (F, T) instantiation, no power row) where neither does, None where
-    no block of the split holds its coefficients.  Chosen from the config,
+    not even a block of 32 rows of that fits.  Chosen from the config,
     never from a failed launch."""
     if takes_mixed_fft(p.n_fft) and \
             _mixed(p, feature_type)[2].smem_bytes <= SMEM_OPTIN:
@@ -183,8 +192,7 @@ def ct_config_error(p: ListenerParams,
                 f"{p.n_filt} filters and {p.n_mfcc} coefficients: not the "
                 f"mixed-radix FFT ({why}), nor the CT split with or without "
                 f"the per-piece mel (no block of 64 or 32 frame rows fits in "
-                f"{SMEM_OPTIN} bytes of shared memory with room for its "
-                f"coefficients)")
+                f"{SMEM_OPTIN} bytes of shared memory)")
     return None
 
 

@@ -491,6 +491,20 @@ class MfccFrontend:
             self._unit_gain = torch.ones(1, dtype=torch.float32,
                                          device=self.device)
 
+    @property
+    def path(self) -> str:
+        """The kernel a CUDA tensor takes, by name: "cuda-mfcc" (the FFT
+        kernel), "cuda-ct" or "cuda-ct(<body>)" for route ct's split
+        bodies, "torch(xla-route)" (the plain chain on the card) or
+        "cuda-fast_math"; "torch" (the plain chain) on the CPU."""
+        if self.device.type != "cuda":
+            return "torch"
+        name = {"fft": "cuda-mfcc", "ct": "cuda-ct", "torch": "torch(xla-route)",
+                "fast_math": "cuda-fast_math"}[self.route]
+        if self.body not in (None, "register"):  # route ct's split bodies
+            name += f"({self.body})"
+        return name
+
     def __call__(self, audio: torch.Tensor, gain=None) -> torch.Tensor:
         if audio.device.type == "cpu" or (
                 self.route == "torch" and audio.is_cuda

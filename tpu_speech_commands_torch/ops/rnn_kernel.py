@@ -252,7 +252,8 @@ class _RNNClassifier:
         self.model = model
         self.compute_dtype = compute_dtype
         self.simt = _simt
-        on_card = next(model.parameters()).is_cuda
+        self.device = next(model.parameters()).device
+        on_card = self.device.type == "cuda"
         self.packs = {
             cell: self._pack(cell, compute_dtype)
             for cell in model.backbone.cells()

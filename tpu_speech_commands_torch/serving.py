@@ -66,6 +66,23 @@ class BatchScorer:
         return score_fn(self.classifier(self.frontend(audio, gain)))
 
 
+def make_classifier(model, model_type: str, compute_dtype=torch.float32):
+    """(classifier, path) for a model on its device: the GRU, LSTM or CNN
+    classifier wrapper in compute_dtype, which launches its kernel on CUDA
+    features and runs the plain module on CPU ones; path names it
+    ("cuda-gru", "cuda-lstm", "cuda-cnn", or "torch" for a model on the
+    CPU).  The wrapper packs or lowers the weights once: a model whose
+    weights change later needs a new one."""
+    on_cuda = next(model.parameters()).is_cuda
+    if model_type == "simple_gru":
+        classifier, name = GRUClassifier(model, compute_dtype), "cuda-gru"
+    elif is_cnn(model_type):
+        classifier, name = CNNClassifier(model, compute_dtype), "cuda-cnn"
+    else:
+        classifier, name = LSTMClassifier(model, compute_dtype), "cuda-lstm"
+    return classifier, name if on_cuda else "torch"
+
+
 def make_batch_scorer(checkpoint_path: str, device=DEFAULT_DEVICE,
                       compute_dtype=torch.float32) -> BatchScorer:
     """Load a native `.npz` checkpoint onto `device` and build audio ->
@@ -91,31 +108,18 @@ def make_batch_scorer(checkpoint_path: str, device=DEFAULT_DEVICE,
     # snapshot NOW: load_native just put this checkpoint's params into the
     # global pr, and a later load must not rewire this scorer's frontend
     p = pr.replace()
-    on_cuda = device.type == "cuda"
-
-    model = predictor.model
-    if predictor.model_type == "simple_gru":
-        classifier = GRUClassifier(model, compute_dtype)
-        classifier_path = "cuda-gru" if on_cuda else "torch"
-    elif is_cnn(predictor.model_type):
-        classifier = CNNClassifier(model, compute_dtype)
-        classifier_path = "cuda-cnn" if on_cuda else "torch"
-    else:
-        classifier = LSTMClassifier(model, torch.float32)
-        classifier_path = "cuda-lstm" if on_cuda else "torch"
+    lstm = predictor.model_type == "simple_lstm"
+    classifier, classifier_path = make_classifier(
+        predictor.model, predictor.model_type,
+        torch.float32 if lstm else compute_dtype)
     # bf16 feature handoff only into the GRU and CNN kernels, which round
     # their matmul inputs to bf16 anyway; the LSTM stays f32
     handoff = (compute_dtype if classifier_path in ("cuda-gru", "cuda-cnn")
                else torch.float32)
     frontend = MfccFrontend(p, feature_type, device, out_dtype=handoff)
-    route = {"fft": "cuda-mfcc", "ct": "cuda-ct",
-             "torch": "torch(xla-route)"}[frontend.route]
-    if frontend.body not in (None, "register"):  # route ct's other kernels
-        route += f"({frontend.body})"
     paths = {
-        "frontend": (route + ("(bf16-handoff)"
-                              if handoff != torch.float32 else ""))
-        if on_cuda else "torch",
+        "frontend": frontend.path + ("(bf16-handoff)"
+                                     if handoff != torch.float32 else ""),
         "classifier": classifier_path,
     }
     return BatchScorer(frontend, classifier, predictor, p, paths)
