@@ -106,7 +106,16 @@ Phases, in order; any failure raises and the script exits non-zero:
               the four shipped checkpoints on the example clips (accuracy
               1.0) and for the two checkpoints just trained on the corpus:
               the confusion matrices must be equal, and the frontend and
-              classifier kernels' launch counts rise
+              classifier kernels' launch counts rise;
+            - streaming: `Listener.run_wav` for the four checkpoints on a
+              wav of the eight clips, on the card and on the CPU: scores
+              within the f32 card-vs-CPU bound, equal trigger events (at
+              least 6), one bar a chunk, the classifier kernel's launch
+              count rises (no SIMT kernel, no frontend kernel: the frame
+              features are plain products, as in the JAX streamer);
+              `python -m tpu_speech_commands_torch.listen` once, exit 0;
+              `stream_server.main` with 8 slots over the eight clips, its
+              events equal to its CPU run, one per clip
 5. times    CUDA-event times at B = 8192, audio resident on the card (the
             dense-DFT, load-floor and CT kernels are first held to their
             plain versions at this batch, their entry points' own, with the
@@ -163,7 +172,12 @@ Phases, in order; any failure raises and the script exits non-zero:
             --augment` at B = 512 for simple_gru and simple_cnn (ms a
             step, samples/s, the frontend kernel's share) and
             `evaluate_accuracy` at batch 512 (samples/s), printed as a
-            JSON line `{"train_eval": ...}`
+            JSON line `{"train_eval": ...}`; the streaming tick
+            (`dev.bench_streaming`: ring update, frame features, the
+            classifier kernel, softmax) at 1 and 1024 streams for
+            simple_gru and simple_cnn, p50 / p90 / p99 ms a tick between
+            two synchronizes and the headroom against the 64 ms chunk
+            cadence, printed as a JSON line `{"streaming": ...}`
 
 Two lines before the last: one JSON object describing each kernel, then the
 card's name and power limit; the last line is {"ok": true, "device":
@@ -864,6 +878,154 @@ def time_train_eval(dev, big, big_np, big_feats, labels, card) -> dict:
             f"{n / dt:.0f} samples/s (accuracy {acc:.4f})  ({card})")
     pr.override(ListenerParams().to_dict())
     return train_eval_times
+
+
+def listen_recorded(listener, wav: str):
+    """listener.run_wav(wav), recording each chunk's scores and each
+    trigger event (chunk index, class index); returns (scores, events,
+    printed lines)."""
+    scores, events = [], []
+    process, activate = listener.process_chunk, listener.on_activation
+
+    def record_chunk(chunk):
+        scores.append(process(chunk))
+        return scores[-1]
+
+    def record_event(index, play_activate=False):
+        events.append((len(scores) - 1, index))
+        activate(index, play_activate)
+
+    listener.process_chunk, listener.on_activation = record_chunk, record_event
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        listener.run_wav(wav)
+    return np.stack(scores), events, printed.getvalue().splitlines()
+
+
+def drive_streaming(dev, drive, work: str) -> None:
+    """Phase 4's streaming slice on `dev` (the card; the CPU for a dry run),
+    each path through `drive`: Listener.run_wav for the four checkpoints
+    on a wav of the eight example clips, held to the same Listener on the
+    CPU; `python -m tpu_speech_commands_torch.listen` once; stream_server
+    with 8 slots over the eight clips, held to its CPU run."""
+    import subprocess
+
+    import torch
+
+    from tpu_speech_commands_torch import stream_server
+    from tpu_speech_commands_torch.params import ListenerParams, pr
+    from tpu_speech_commands_torch.streaming import Listener
+
+    pr.override(ListenerParams().to_dict())
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    wavs = sorted(glob.glob(os.path.join(REPO, "example", "*.wav")))
+    pcm = []
+    for path in wavs:
+        with wave.open(path, "rb") as wf:
+            pcm.append(np.frombuffer(wf.readframes(wf.getnframes()), "<i2"))
+    long_wav = os.path.join(work, "eight_clips.wav")
+    with wave.open(long_wav, "wb") as wf:
+        wf.setnchannels(1)
+        wf.setsampwidth(2)
+        wf.setframerate(16000)
+        wf.writeframes(np.concatenate(pcm).tobytes())
+    labels = [os.path.basename(w).split("_")[0] for w in wavs]
+    kernel = {"simple_gru": "gru_classifier", "simple_lstm": "lstm_classifier",
+              "simple_cnn": "cnn_classifier", "simple_cnn_lite": "cnn_classifier"}
+    forbid = ("gru_classifier_simt", "lstm_classifier_simt",
+              "cnn_classifier_simt", "mfcc_frontend")
+    for path in (CHECKPOINT, LSTM_CHECKPOINT, *CNN_CHECKPOINTS.values()):
+        out = {}
+        for d in (dev, torch.device("cpu")):
+            listener = Listener(model_path=path, classes_path=CLASSES_PATH,
+                                device=d)
+            label = (f"Listener.run_wav({os.path.relpath(path, REPO)}) on the "
+                     f"eight clips, {d}")
+            run = (lambda listener=listener:
+                   listen_recorded(listener, long_wav))
+            out[d.type] = (drive(label, run, (kernel[listener.predictor
+                                                     .model_type],), forbid)
+                           if d.type == "cuda" else run())
+        (scores, events, lines), (cpu_scores, cpu_events, _) = (
+            out[dev.type], out["cpu"])
+        names = [listener.class_names[i] for _, i in events]
+        log(f"  {len(scores)} chunks, events {events} = {names}")
+        if scores.shape != (-(-len(np.concatenate(pcm)) // 1024), 5) or \
+                not np.isfinite(scores).all():
+            raise AssertionError(f"scores {scores.shape} not finite")
+        check_close("Listener scores card vs CPU", torch.tensor(scores),
+                    torch.tensor(cpu_scores), SCORE_ATOL, 0.0)
+        if events != cpu_events:
+            raise AssertionError(f"events {events} != CPU {cpu_events}")
+        if len(lines) != len(scores) + len(events):
+            raise AssertionError(f"{len(lines)} lines printed for "
+                                 f"{len(scores)} chunks, {len(events)} events")
+        if len(events) < 6 or not set(names) <= set(labels):
+            raise AssertionError(f"events {names} on the clips {labels}")
+
+    # the CLI once, in a process of its own, on the card (no launch
+    # counts: they live in that process)
+    cmd = [sys.executable, "-m", "tpu_speech_commands_torch.listen",
+           "--model_path", CHECKPOINT, "--classes_path", CLASSES_PATH,
+           "--input_wav", long_wav, "--device", str(dev)]
+    t0 = time.perf_counter()
+    done = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    detected = [ln for ln in done.stdout.splitlines() if "detected" in ln]
+    log(f"  python -m tpu_speech_commands_torch.listen: exit "
+        f"{done.returncode} in {time.perf_counter() - t0:.1f} s, "
+        f"{len(done.stdout.splitlines())} lines, {detected}")
+    if done.returncode != 0 or len(detected) < 6:
+        raise AssertionError(f"listen failed: {done.stderr[-2000:]}")
+
+    # the server: 8 slots over the eight clips, card and CPU
+    server = {}
+    for d in (str(dev), "cpu"):
+        argv = ["--model_path", CHECKPOINT, "--classes_path", CLASSES_PATH,
+                "--wavs", *wavs, "--slots", "8", "--device", d]
+        printed = io.StringIO()
+
+        def run(argv=argv, printed=printed):
+            with contextlib.redirect_stdout(printed):
+                return stream_server.main(argv)
+
+        server[d] = (drive("stream_server.main(8 slots, the eight clips)",
+                           run, ("gru_classifier",), forbid)
+                     if d != "cpu" else run())
+        if d != "cpu":
+            for line in printed.getvalue().splitlines():
+                log(f"  | {line}")
+    if server[str(dev)] != server["cpu"]:
+        raise AssertionError(f"server events {server[str(dev)]} != CPU "
+                             f"{server['cpu']}")
+    if sorted(e["command"] for e in server["cpu"]) != sorted(labels):
+        raise AssertionError(f"server events {server['cpu']} on {labels}")
+    pr.override(ListenerParams().to_dict())
+
+
+def time_streaming(card) -> dict:
+    """Phase 5's streaming ticks: dev.bench_streaming at 1 and 1024 streams
+    for simple_gru and simple_cnn, on the card."""
+    from tpu_speech_commands_torch.dev import bench_streaming
+
+    times = {}
+    for mt in ("simple_gru", "simple_cnn"):
+        for streams in (1, 1024):
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                r = bench_streaming.main(["--model_type", mt, "--streams",
+                                          str(streams), "--iters", "300"])
+            times[f"{mt} streams {streams}"] = r
+            log(f"  stream tick {mt} streams {streams}: p50 "
+                f"{r['p50_ms']:.4f} p90 {r['p90_ms']:.4f} p99 "
+                f"{r['p99_ms']:.4f} ms (device span p50 "
+                f"{r['device_span_p50_ms']:.4f}; alone: update "
+                f"{r['update_p50_ms']:.4f}, classifier "
+                f"{r['classifier_p50_ms']:.4f}), headroom "
+                f"{r['headroom_p50']:.1f}x / {r['headroom_p99']:.1f}x "
+                f"against {r['budget_ms']:.0f} ms  ({card})")
+    return times
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -1625,6 +1787,8 @@ def main() -> int:
 
     drive_train_eval(dev, drive, clips, os.path.join(
         REPO, "build", "chip_smoke", "train_eval"))
+    drive_streaming(dev, drive, os.path.join(REPO, "build", "chip_smoke",
+                                             "streaming"))
 
 
     # -- 5. times (information only) -------------------------------------------
@@ -2094,6 +2258,7 @@ def main() -> int:
 
     log(json.dumps({"train_eval": time_train_eval(
         dev, big, big_np, big_feats, labels, card), "card": card}))
+    log(json.dumps({"streaming": time_streaming(card), "card": card}))
 
     # the stage cuts at this batch: each held to the plain version, then
     # timed with it and beside its bound; the deltas give each stage's cost

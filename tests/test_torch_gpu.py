@@ -34,6 +34,10 @@ Tolerances, each with its reason:
 - the stage cuts of the CT and FFT kernels (B, 128): `dev.r3_omission.
   TOLERANCES`, each stage's bound with its reason (f32 sums in another
   order; from the log on, the f32 feature bound summed over 30 frames).
+- the stream tick and the Listener, card vs CPU: scores atol 1e-3 (the
+  scores f32 bound above), the feature buffer within the f32 feature bound
+  (the frame features are the plain chain's products on both devices),
+  the audio ring and fill equal.
 cuDNN runs float32 convs in TF32 unless told otherwise: the fixture turns
 TF32 off, so the plain versions' convs are float32.
 """
@@ -1467,3 +1471,129 @@ def test_evaluate_accuracy_card_matches_cpu(cuda_device, ckpt):
     (acc, conf), (cpu_acc, cpu_conf) = results
     assert acc == cpu_acc == 1.0
     np.testing.assert_array_equal(conf, cpu_conf)
+
+
+STREAM_CKPTS = {"simple_gru": GRU_CKPT, "simple_lstm": LSTM_CKPT, **CNN_CKPTS}
+# (kernel count, SIMT counts that must stay) of each classifier
+STREAM_COUNTERS = {
+    "simple_gru": (rnn_kernel.gru_layer_cuda,
+                   (rnn_kernel.GRU_SIMT, rnn_kernel.LSTM_SIMT)),
+    "simple_lstm": (rnn_kernel.lstm_layer_cuda,
+                    (rnn_kernel.LSTM_SIMT, rnn_kernel.GRU_SIMT)),
+    "simple_cnn": (cnn_kernel.cnn_classifier_cuda, (cnn_kernel.SIMT,)),
+    "simple_cnn_lite": (cnn_kernel.cnn_classifier_cuda, (cnn_kernel.SIMT,)),
+}
+
+
+def _stream_tick(ckpt, device, chunk_size):
+    """A fused stream tick for a checkpoint on `device`: (step, update,
+    params)."""
+    from tpu_speech_commands_torch.export.inference_loader import load_native
+    from tpu_speech_commands_torch.frontend.dsp import Frontend
+    from tpu_speech_commands_torch.serving import make_classifier
+    from tpu_speech_commands_torch.streaming import (make_stream_step,
+                                                     make_stream_update)
+
+    predictor = load_native(ckpt, device)
+    p = pr.replace()
+    update = make_stream_update(Frontend(p, device=device), chunk_size)
+    classifier, path = make_classifier(predictor.model, predictor.model_type)
+    assert path == ("torch" if device.type == "cpu" else
+                    {"simple_gru": "cuda-gru", "simple_lstm": "cuda-lstm"}
+                    .get(predictor.model_type, "cuda-cnn"))
+    return make_stream_step(update, classifier, predictor.model_type), p
+
+
+@pytest.mark.parametrize("n_slots", [None, 1, 3, 16, 1000],
+                         ids=["listener", "1", "3", "16", "1000"])
+@pytest.mark.parametrize("model_type", sorted(STREAM_CKPTS))
+def test_stream_tick_card_matches_cpu(cuda_device, model_type, n_slots):
+    """The fused stream tick (ring update, frame features, classifier,
+    softmax) on the card against the same tick on the CPU, over 7 ticks of
+    800-sample chunks of the example clips, slots joining at ticks 0-3
+    (reset_streams), so their fills differ: scores within the f32
+    card-vs-CPU bound, the ring and fill equal, features within the f32
+    feature bound; every tick launches the classifier kernel once, no SIMT
+    kernel and no frontend kernel.  `listener` is the single-stream state
+    (no stream axis)."""
+    from tpu_speech_commands_torch.streaming import (init_stream_state,
+                                                     reset_streams)
+
+    clips, _ = _clips()
+    n = 1 if n_slots is None else n_slots
+    audio = (clips[np.arange(n) % 8].astype(np.float32) / 32768.0
+             * np.linspace(0.5, 1.5, n, dtype=np.float32)[:, None])
+    chunk_size, ticks = 800, 7
+    joins = np.arange(n) % 4 if n_slots else np.zeros(1, int)
+    runs = []
+    for device in (cuda_device, torch.device("cpu")):
+        step, p = _stream_tick(STREAM_CKPTS[model_type], device, chunk_size)
+        state = init_stream_state(p, n_slots, device=device)
+        kernel, simt = STREAM_COUNTERS[model_type]
+        before = (kernel.launches, [c.launches for c in simt],
+                  frontend_kernel.mfcc_frontend_cuda.launches)
+        out = []
+        for t in range(ticks):
+            if n_slots:
+                state = reset_streams(state, joins == t)
+            local = np.clip(t - joins, 0, None)
+            chunk = np.stack([audio[s, local[s] * chunk_size:
+                                    (local[s] + 1) * chunk_size]
+                              for s in range(n)])
+            chunk = torch.tensor(chunk if n_slots else chunk[0], device=device)
+            state, scores = step(state, chunk)
+            out.append((scores.cpu(), {k: v.cpu() for k, v in state.items()}))
+        if device.type == "cuda":
+            assert kernel.launches == before[0] + ticks
+            assert [c.launches for c in simt] == before[1]
+            assert frontend_kernel.mfcc_frontend_cuda.launches == before[2]
+        runs.append(out)
+    if n > 1:
+        assert len(set(runs[1][-1][1]["fill"].tolist())) > 1
+    for t, ((got, g_state), (want, w_state)) in enumerate(zip(*runs)):
+        assert torch.isfinite(got).all()
+        assert got.shape == ((n, 5) if n_slots else (5,))
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-3,
+                                   msg=f"tick {t} scores")
+        assert torch.equal(g_state["audio"], w_state["audio"])
+        assert torch.equal(g_state["fill"], w_state["fill"])
+        torch.testing.assert_close(g_state["feats"], w_state["feats"],
+                                   rtol=1e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("model_type", sorted(STREAM_CKPTS))
+def test_listener_card_matches_cpu(cuda_device, model_type):
+    """`Listener.run_wav`'s loop over two example clips on the card and on
+    the CPU: scores within the f32 card-vs-CPU bound, the same argmax and
+    trigger events; the classifier kernel launches once a chunk."""
+    import contextlib
+    import io
+
+    from tpu_speech_commands_torch.streaming import Listener
+
+    clips, _ = _clips()
+    pcm = np.concatenate([clips[4], clips[7]])  # right_1, up_2
+    pcm = np.pad(pcm, (0, -len(pcm) % 1024))  # run_wav's zero-padded tail
+    chunks = [pcm[i:i + 1024].tobytes() for i in range(0, len(pcm), 1024)]
+    runs = []
+    for device in (cuda_device, torch.device("cpu")):
+        listener = Listener(model_path=STREAM_CKPTS[model_type],
+                            classes_path=os.path.join(
+                                REPO, "configs", "direction_classes.txt"),
+                            device=device)
+        kernel, _ = STREAM_COUNTERS[model_type]
+        before = kernel.launches
+        scores, events = [], []
+        with contextlib.redirect_stdout(io.StringIO()):
+            for c, data in enumerate(chunks):
+                s = listener.process_chunk(data)
+                listener.handle_scores(s, on_activation=lambda i, c=c:
+                                       events.append((c, i)))
+                scores.append(s)
+        if device.type == "cuda":
+            assert kernel.launches == before + len(chunks)
+        runs.append((np.stack(scores), events))
+    (got, events), (want, cpu_events) = runs
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+    assert events == cpu_events and [i for _, i in events] == [2, 3]

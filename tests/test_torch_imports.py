@@ -86,6 +86,14 @@ def test_port_imports_no_jax():
         "tpu_speech_commands_torch.training.checkpoints",
         "tpu_speech_commands_torch.training.trainer",
         "tpu_speech_commands_torch.training.averaging",
+        "tpu_speech_commands_torch.streaming",
+        "tpu_speech_commands_torch.streaming.decoder",
+        "tpu_speech_commands_torch.streaming.trigger",
+        "tpu_speech_commands_torch.streaming.feature_stream",
+        "tpu_speech_commands_torch.streaming.listener",
+        "tpu_speech_commands_torch.listen",
+        "tpu_speech_commands_torch.stream_server",
+        "tpu_speech_commands_torch.dev.bench_streaming",
     }
     assert expected <= set(result["modules"])
     assert result["leaked"] == []

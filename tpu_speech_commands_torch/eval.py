@@ -13,64 +13,22 @@ SavedModel, onnx, .tscm, .pb) are not ported yet: they raise ValueError.
 from __future__ import annotations
 
 import argparse
-import os
 import time
 
 from .data.dataset import get_dataset
 from .device import DEFAULT_DEVICE, resolve_device
 from .evaluation import evaluate_accuracy
-from .export.inference_loader import load_native
+from .export.inference_loader import (load_native, require_native,
+                                      resolve_feature_type)
 from .ops.frontend_kernel import MfccFrontend
 from .params import inject_params, pr
 from .serving import make_classifier
 from .utils import ensure_background_first, get_classes
 
-_EXTERNAL = ((".tflite", "TFLite"), (".h5", "Keras h5"), (".keras", "Keras"),
-             (".onnx", "ONNX"), (".tscm", "native .tscm"), (".pb", "frozen pb"),
-             (".mnn", "MNN"))
-
-
-def external_format(model_path: str) -> str | None:
-    """The name of a model format the port cannot load yet, or None for a
-    native `.npz`."""
-    if model_path.endswith(".npz"):
-        return None
-    for suffix, name in _EXTERNAL:
-        if model_path.endswith(suffix):
-            return name
-    return "SavedModel" if os.path.isdir(model_path) else "unknown"
-
-
-def resolve_feature_type(meta: dict, num_classes: int, class_names,
-                         feature_type: str | None, warn=print) -> str:
-    """The checkpoint contract of the JAX evaluator: the feature type from
-    the checkpoint unless the flag names one (a contradiction warns), and a
-    class count that must match the model's head."""
-    meta_ft = meta.get("feature_type")
-    if feature_type is None:
-        feature_type = meta_ft or "mfcc"
-    elif meta_ft and feature_type != meta_ft:
-        warn(f"WARNING: --feature_type {feature_type} overrides the "
-             f"checkpoint's stored feature_type={meta_ft}; scores will be "
-             "meaningless unless this is intentional.")
-    if num_classes is not None and num_classes != len(class_names):
-        raise ValueError(f"classes file has {len(class_names)} entries but the "
-                         f"model predicts {num_classes} classes")
-    stored = meta.get("classes")
-    if stored and list(stored) != list(class_names):
-        warn("WARNING: classes file differs from the checkpoint's stored "
-             f"class list {list(stored)}; labels may be misattributed.")
-    return feature_type
-
 
 def main(args):
     """Returns (accuracy, confusion matrix)."""
-    fmt = external_format(args.model_path)
-    if fmt is not None:
-        raise ValueError(
-            f"{args.model_path}: the {fmt} format is not ported to "
-            "tpu_speech_commands_torch yet (queued in ROADMAP.md); the port "
-            "evaluates native .npz checkpoints")
+    require_native(args.model_path)
     device = resolve_device(args.device)
     class_names = get_classes(args.classes_path)
     ensure_background_first(class_names)

@@ -2,9 +2,14 @@
 `tpu_speech_commands/export/inference_loader.py::load_native`).
 
 Only the native checkpoint is ported; the other formats of the JAX loader
-(TFLite, Keras, ONNX, `.tscm`) wait for the export slice (ROADMAP.md).
+(TFLite, Keras, ONNX, `.tscm`) wait for the export slice (ROADMAP.md):
+`require_native` names them in a ValueError.  `resolve_feature_type` is the
+checkpoint contract of the JAX package's `resolve_checkpoint_contract`,
+shared by `eval`, `listen` and `stream_server`.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -70,3 +75,53 @@ def load_native(model_path: str, device=DEFAULT_DEVICE) -> NativePredictor:
     model.to(device).eval()
     return NativePredictor(model, model_type, num_classes,
                            meta.get("classes"), meta, device)
+
+
+_EXTERNAL = ((".tflite", "TFLite"), (".h5", "Keras h5"), (".keras", "Keras"),
+             (".onnx", "ONNX"), (".tscm", "native .tscm"), (".pb", "frozen pb"),
+             (".mnn", "MNN"))
+
+
+def external_format(model_path: str) -> str | None:
+    """The name of a model format the port cannot load yet, or None for a
+    native `.npz`."""
+    if model_path.endswith(".npz"):
+        return None
+    for suffix, name in _EXTERNAL:
+        if model_path.endswith(suffix):
+            return name
+    return "SavedModel" if os.path.isdir(model_path) else "unknown"
+
+
+def require_native(model_path: str) -> None:
+    """ValueError naming the format unless `model_path` is a native `.npz`
+    checkpoint."""
+    fmt = external_format(model_path)
+    if fmt is not None:
+        raise ValueError(
+            f"{model_path}: the {fmt} format is not ported to "
+            "tpu_speech_commands_torch yet (queued in ROADMAP.md); the port "
+            "loads native .npz checkpoints")
+
+
+def resolve_feature_type(meta: dict, num_classes: int, class_names,
+                         feature_type: str | None, warn=print) -> str:
+    """The checkpoint contract of the JAX package's
+    `resolve_checkpoint_contract`: the feature type from the checkpoint
+    unless the flag names one (a contradiction warns), and a class count
+    that must match the model's head."""
+    meta_ft = meta.get("feature_type")
+    if feature_type is None:
+        feature_type = meta_ft or "mfcc"
+    elif meta_ft and feature_type != meta_ft:
+        warn(f"WARNING: --feature_type {feature_type} overrides the "
+             f"checkpoint's stored feature_type={meta_ft}; scores will be "
+             "meaningless unless this is intentional.")
+    if num_classes is not None and num_classes != len(class_names):
+        raise ValueError(f"classes file has {len(class_names)} entries but the "
+                         f"model predicts {num_classes} classes")
+    stored = meta.get("classes")
+    if stored and list(stored) != list(class_names):
+        warn("WARNING: classes file differs from the checkpoint's stored "
+             f"class list {list(stored)}; labels may be misattributed.")
+    return feature_type
