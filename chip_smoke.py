@@ -115,7 +115,21 @@ Phases, in order; any failure raises and the script exits non-zero:
               features are plain products, as in the JAX streamer);
               `python -m tpu_speech_commands_torch.listen` once, exit 0;
               `stream_server.main` with 8 slots over the eight clips, its
-              events equal to its CPU run, one per clip
+              events equal to its CPU run, one per clip;
+            - export: for the four checkpoints, `export_native` equals
+              pretrained/*.tscm byte for byte; the clips' features from the
+              frontend kernel into the classifier kernel in f32 (both
+              counts rise) are the reference that the `.onnx` (the numpy
+              executor) meets within rtol 1e-4 / atol 1e-5 and the f32
+              `.tscm` (the C++ runtime, built by g++) within rtol 1e-3 /
+              atol 1e-4, and the q8 `.tscm`'s top-1 equals every label;
+              `eval.main` on the `.onnx` and `.tscm` of simple_gru and
+              simple_cnn over the synthetic corpus (the frontend kernel's
+              count rises) within one sample of the `.npz` eval; a Listener
+              and `stream_server` (8 slots) on the simple_gru `.onnx`:
+              scores within 1e-4 of the `.npz` Listener's each chunk, and
+              the same events.  The h5, SavedModel, TFLite and pb formats
+              need TensorFlow: not run here
 5. times    CUDA-event times at B = 8192, audio resident on the card (the
             dense-DFT, load-floor and CT kernels are first held to their
             plain versions at this batch, their entry points' own, with the
@@ -1004,6 +1018,191 @@ def drive_streaming(dev, drive, work: str) -> None:
     pr.override(ListenerParams().to_dict())
 
 
+def host_ms(predict, feats) -> float:
+    """An exported model's host time a window: the best of 3 calls on
+    `feats`, host clock."""
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        predict(feats)
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e3 / len(feats)
+
+
+def drive_export(dev, drive, work: str) -> None:
+    """Phase 4's export slice on `dev` (the card; the CPU for a dry run),
+    each path through `drive`, for the four shipped checkpoints: the port's
+    `.tscm` equals the shipped one byte for byte; the eight clips'
+    features from the frontend kernel into the classifier kernel in f32 are
+    the reference scores, which the port's `.onnx` (the numpy executor) and
+    f32 `.tscm` (the C++ runtime, built by g++ here) must meet, and the q8
+    `.tscm` must keep each clip's label; eval.main on the `.onnx` and the
+    `.tscm` of simple_gru and simple_cnn over the synthetic corpus (the
+    frontend kernel for the features) within one sample of the native
+    eval; a Listener and stream_server on the simple_gru `.onnx` against
+    the native ones.  The `.onnx` runs on onnxruntime where it is
+    installed, else on the port's numpy executor.  Every run of an
+    exported file fails if a classifier kernel is launched in it, so its
+    scores are the file's, not the kernels'."""
+    import torch
+
+    from tpu_speech_commands_torch import eval as port_eval
+    from tpu_speech_commands_torch import stream_server
+    from tpu_speech_commands_torch.data.synthetic import make_synthetic_dataset
+    from tpu_speech_commands_torch.export.inference_loader import (
+        load_inference_model, load_native)
+    from tpu_speech_commands_torch.export.native_format import export_native
+    from tpu_speech_commands_torch.export.onnx_writer import export_onnx_model
+    from tpu_speech_commands_torch.models import features_to_input, score_fn
+    from tpu_speech_commands_torch.ops.frontend_kernel import MfccFrontend
+    from tpu_speech_commands_torch.params import ListenerParams, pr
+    from tpu_speech_commands_torch.serving import make_classifier
+    from tpu_speech_commands_torch.streaming import Listener
+    from tpu_speech_commands_torch.utils import get_classes
+
+    pr.override(ListenerParams().to_dict())
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    log("  not run by this script: the Keras h5, SavedModel, TFLite and pb "
+        "formats (they need TensorFlow and h5py; "
+        "tests/test_torch_export_tf.py holds them on the CPU); onnx runs "
+        "on onnxruntime where it is installed, else the port's numpy "
+        "executor")
+    clips, labels = load_clips()
+    clips_dev = torch.tensor(clips, device=dev)
+    kernel = {"simple_gru": "gru_classifier", "simple_lstm": "lstm_classifier",
+              "simple_cnn": "cnn_classifier", "simple_cnn_lite": "cnn_classifier"}
+    classifiers = ("gru_classifier", "gru_classifier_simt", "lstm_classifier",
+                   "lstm_classifier_simt", "cnn_classifier",
+                   "cnn_classifier_simt", "cnn_block1", "cnn_block1_simt")
+    exported = {}
+    for path in (CHECKPOINT, LSTM_CHECKPOINT, *CNN_CHECKPOINTS.values()):
+        name = os.path.basename(path)[:-len(".npz")]
+        tscm = export_native(path, os.path.join(work, name + ".tscm"))
+        with open(tscm, "rb") as a, open(path[:-4] + ".tscm", "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"export_native({name}) differs from "
+                                     f"pretrained/{name}.tscm")
+        log(f"  export_native({name}): {os.path.getsize(tscm)} bytes, equal "
+            f"to pretrained/{name}.tscm")
+
+        predictor = load_native(path, dev)
+        mt = predictor.model_type
+        frontend = MfccFrontend(pr.replace(),
+                                predictor.meta.get("feature_type", "mfcc"), dev)
+        classifier, _ = make_classifier(predictor.model, mt)
+
+        def reference(frontend=frontend, classifier=classifier, mt=mt):
+            feats = frontend(clips_dev)
+            return feats, score_fn(classifier(features_to_input(feats, mt)))
+
+        feats, ref = drive(f"reference scores of {name}: MfccFrontend, then "
+                           "make_classifier f32, 8 clips", reference,
+                           ("mfcc_frontend", kernel[mt]))
+        feats, ref = feats.cpu().numpy(), ref.cpu()
+        onnx = export_onnx_model(path, os.path.join(work, name + ".onnx"))
+        q8 = export_native(path, os.path.join(work, name + "_q8.tscm"),
+                           quantize=True)
+        exported[mt] = {"onnx": onnx, "tscm": tscm}
+        for model, (atol, rtol) in ((onnx, (1e-5, 1e-4)),
+                                    (tscm, (1e-4, 1e-3))):
+            predict, fmt = load_inference_model(model, dev)
+            scores = drive(f"{fmt} {name} on the reference features",
+                           lambda predict=predict: predict(feats), (),
+                           classifiers)
+            check_close(f"{fmt} {name} vs the kernels' scores",
+                        torch.tensor(scores), ref, atol, rtol)
+            log(f"  {fmt} {name} on the host: {host_ms(predict, feats):.4f} "
+                "ms a window (best of 3, 8 windows a call)")
+        predict, _ = load_inference_model(q8, dev)
+        top1 = [predictor.classes[i] for i in predict(feats).argmax(-1)]
+        log(f"  q8 .tscm {name}: {os.path.getsize(q8)} bytes, top-1 {top1}, "
+            f"{host_ms(predict, feats):.4f} ms a window on the host")
+        if top1 != labels:
+            raise AssertionError(f"q8 {name}: top-1 {top1} != {labels}")
+
+    # eval.main: each format on its own copy of the corpus, so the
+    # frontend kernel makes every copy's features
+    class_names = get_classes(CLASSES_PATH)
+    corpus = make_synthetic_dataset(os.path.join(work, "ds"), class_names,
+                                    samples_per_class=30, seed=1)
+    for mt, path in (("simple_gru", CHECKPOINT),
+                     ("simple_cnn", CNN_CHECKPOINTS["simple_cnn"])):
+        accs = {}
+        for fmt, model in (("npz", path), *exported[mt].items()):
+            args = port_eval.build_parser().parse_args([
+                "--model_path", model, "--dataset_path",
+                sounds_copy(corpus, os.path.join(work, f"ds_{mt}_{fmt}")),
+                "--classes_path", CLASSES_PATH, "--output_path",
+                os.path.join(work, "result"), "--device", str(dev)])
+            need, forbid = ((("mfcc_frontend", kernel[mt]), ())
+                            if fmt == "npz" else
+                            (("mfcc_frontend",), classifiers))
+            printed = io.StringIO()
+
+            def run(args=args, printed=printed):
+                with contextlib.redirect_stdout(printed):
+                    return port_eval.main(args)
+
+            accs[fmt], conf = drive(f"eval.main({mt} .{fmt}) on the synthetic "
+                                    "corpus", run, need, forbid)
+            log(f"  accuracy {accs[fmt]:.4f} over {int(conf.sum())} clips")
+        n = int(conf.sum())
+        for fmt in exported[mt]:
+            if abs(accs[fmt] - accs["npz"]) * n > 1 + 1e-9:
+                raise AssertionError(f"eval {mt} .{fmt}: accuracy "
+                                     f"{accs[fmt]} vs native {accs['npz']}")
+
+    # a Listener and the server on the simple_gru .onnx against the native
+    # .npz ones, over the eight clips
+    long_wav = os.path.join(work, "eight_clips.wav")
+    with wave.open(long_wav, "wb") as wf:
+        wf.setnchannels(1)
+        wf.setsampwidth(2)
+        wf.setframerate(16000)
+        pcm = []
+        for wav in sorted(glob.glob(os.path.join(REPO, "example", "*.wav"))):
+            with wave.open(wav, "rb") as rf:
+                pcm.append(rf.readframes(rf.getnframes()))
+        wf.writeframes(b"".join(pcm))
+    onnx = exported["simple_gru"]["onnx"]
+    runs = {}
+    paths = ((CHECKPOINT, ("gru_classifier",), ()), (onnx, (), classifiers))
+    for model, need, forbid in paths:
+        listener = Listener(model_path=model, classes_path=CLASSES_PATH,
+                            device=dev)
+        runs[model] = drive(f"Listener.run_wav({os.path.basename(model)}) on "
+                            "the eight clips",
+                            lambda listener=listener:
+                            listen_recorded(listener, long_wav), need, forbid)
+    (scores, events, _), (onnx_scores, onnx_events, _) = (runs[CHECKPOINT],
+                                                          runs[onnx])
+    check_close("Listener .onnx vs .npz scores, each chunk",
+                torch.tensor(onnx_scores), torch.tensor(scores), 1e-4, 0.0)
+    log(f"  Listener events .npz {events}, .onnx {onnx_events}")
+    if onnx_events != events or len(events) < 6:
+        raise AssertionError(f"Listener .onnx events {onnx_events} != .npz "
+                             f"{events}")
+    wavs = sorted(glob.glob(os.path.join(REPO, "example", "*.wav")))
+    served = {}
+    for model, need, forbid in paths:
+        argv = ["--model_path", model, "--classes_path", CLASSES_PATH,
+                "--wavs", *wavs, "--slots", "8", "--device", str(dev)]
+
+        def run(argv=argv):
+            with contextlib.redirect_stdout(io.StringIO()):
+                return stream_server.main(argv)
+
+        served[model] = drive(f"stream_server.main({os.path.basename(model)},"
+                              " 8 slots, the eight clips)", run, need,
+                              forbid)
+    log(f"  server events .onnx {[e['command'] for e in served[onnx]]}")
+    if served[onnx] != served[CHECKPOINT]:
+        raise AssertionError(f"server .onnx events {served[onnx]} != .npz "
+                             f"{served[CHECKPOINT]}")
+    pr.override(ListenerParams().to_dict())
+
+
 def time_streaming(card) -> dict:
     """Phase 5's streaming ticks: dev.bench_streaming at 1 and 1024 streams
     for simple_gru and simple_cnn, on the card."""
@@ -1789,6 +1988,8 @@ def main() -> int:
         REPO, "build", "chip_smoke", "train_eval"))
     drive_streaming(dev, drive, os.path.join(REPO, "build", "chip_smoke",
                                              "streaming"))
+    drive_export(dev, drive, os.path.join(REPO, "build", "chip_smoke",
+                                          "export"))
 
 
     # -- 5. times (information only) -------------------------------------------

@@ -1,9 +1,12 @@
 """The port imports no jax or flax, and nothing of the JAX package
-`tpu_speech_commands`, not even transitively.
+`tpu_speech_commands`, not even transitively; and importing it loads no
+TensorFlow, Keras, h5py or onnxruntime (the export layer imports them
+inside the functions that need them).
 
 Run in a fresh interpreter (this test process has jax loaded through
 conftest): import every module of tpu_speech_commands_torch and
-chip_smoke.py, then list what reached sys.modules.
+chip_smoke.py, run the `--help` of the export and statistics entry points,
+then list what reached sys.modules.
 """
 import json
 import os
@@ -19,10 +22,20 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
+import contextlib, io, runpy
+for entry in ("export_model", "model_statistics"):
+    sys.argv = [entry, "--help"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        try:
+            runpy.run_module("tpu_speech_commands_torch." + entry,
+                             run_name="__main__")
+        except SystemExit:
+            pass
 print(json.dumps({
     "modules": names,
     "leaked": sorted(m for m in sys.modules if m.split(".")[0] in (
-        "jax", "jaxlib", "flax", "optax", "tpu_speech_commands")),
+        "jax", "jaxlib", "flax", "optax", "tpu_speech_commands",
+        "tensorflow", "keras", "h5py", "onnxruntime")),
 }))
 """
 
@@ -94,6 +107,16 @@ def test_port_imports_no_jax():
         "tpu_speech_commands_torch.listen",
         "tpu_speech_commands_torch.stream_server",
         "tpu_speech_commands_torch.dev.bench_streaming",
+        "tpu_speech_commands_torch.export.native_format",
+        "tpu_speech_commands_torch.export.onnx_writer",
+        "tpu_speech_commands_torch.export.onnx_runtime_mini",
+        "tpu_speech_commands_torch.export.keras_interop",
+        "tpu_speech_commands_torch.export.saved_model",
+        "tpu_speech_commands_torch.native_binding",
+        "tpu_speech_commands_torch.utils.native_build",
+        "tpu_speech_commands_torch.evaluation.statistics",
+        "tpu_speech_commands_torch.export_model",
+        "tpu_speech_commands_torch.model_statistics",
     }
     assert expected <= set(result["modules"])
     assert result["leaked"] == []

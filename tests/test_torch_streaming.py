@@ -44,6 +44,7 @@ from tpu_speech_commands.streaming import reset_streams as jax_reset
 from tpu_speech_commands_torch import listen, stream_server
 from tpu_speech_commands_torch.checkpoints import load_checkpoint
 from tpu_speech_commands_torch.dev import bench_streaming
+from tpu_speech_commands_torch.export.onnx_writer import export_onnx_model
 from tpu_speech_commands_torch.frontend.dsp import Frontend
 from tpu_speech_commands_torch.params import ListenerParams, pr
 from tpu_speech_commands_torch.training.checkpoints import flatten_variables
@@ -358,10 +359,24 @@ def test_listener_int16_chunk_matches_bytes():
 
 
 def test_listener_refuses_external_formats_and_snapshots_params(tmp_path):
-    for name in ("m.tflite", "m.onnx", "m.tscm"):
-        with pytest.raises(ValueError, match="format is not ported"):
-            Listener(model_path=str(tmp_path / name),
-                     classes_path=CLASSES_PATH, device="cpu")
+    """An exported `.onnx` loads: the Listener on it scores each chunk as
+    the native Listener does (rtol 1e-4 / atol 1e-5).  An unknown suffix
+    is refused (ValueError), and so is a typo'd argument; a Listener's
+    params are a snapshot."""
+    onnx = export_onnx_model(CKPTS["simple_gru"], str(tmp_path / "gru.onnx"))
+    chunks = _chunks(_pcm("right_1.wav"))
+    want, want_events = _listen(Listener(model_path=CKPTS["simple_gru"],
+                                         classes_path=CLASSES_PATH,
+                                         device="cpu"), chunks)
+    external = Listener(model_path=onnx, classes_path=CLASSES_PATH,
+                        device="cpu")
+    assert external.model_format == "ONNX"
+    got, got_events = _listen(external, chunks)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    assert got_events == want_events
+    with pytest.raises(ValueError, match="invalid model file"):
+        Listener(model_path=str(tmp_path / "m.bin"),
+                 classes_path=CLASSES_PATH, device="cpu")
     with pytest.raises(TypeError, match="sensitivty"):
         Listener(model_path=CKPTS["simple_gru"], classes_path=CLASSES_PATH,
                  sensitivty=0.4, device="cpu")

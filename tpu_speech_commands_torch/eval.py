@@ -1,14 +1,17 @@
-"""Evaluate a native `.npz` speech-commands classifier on a test dataset
-(counterpart of the root `eval.py`, with the same flags and `--device`).
+"""Evaluate a speech-commands classifier (native `.npz`, `.tscm`, onnx,
+tflite, h5 / keras, SavedModel, pb) on a test dataset (counterpart of the
+root `eval.py`, with the same flags and `--device`).
 
     python -m tpu_speech_commands_torch.eval --model_path m.npz \\
         --dataset_path ds --classes_path classes.txt [--device cpu]
 
-On the card (the default) the features come from the frontend kernel and
-the scores from the classifier kernel that serving uses; accuracy and the
-confusion matrix accumulate on the card.  `--device cpu` runs the plain
-versions.  The external formats of the JAX evaluator (tflite, h5 / keras,
-SavedModel, onnx, .tscm, .pb) are not ported yet: they raise ValueError.
+On the card (the default) the features come from the frontend kernel for
+every format.  A native checkpoint's scores come from the classifier kernel
+that serving uses, with accuracy and the confusion matrix accumulated on
+the card; an exported model's come from its host runtime (the C++ runtime
+for `.tscm`, the numpy executor or onnxruntime for onnx, TensorFlow for
+the rest), counted on the host, as in the JAX evaluator.  `--device cpu`
+runs the plain versions.
 """
 from __future__ import annotations
 
@@ -17,9 +20,10 @@ import time
 
 from .data.dataset import get_dataset
 from .device import DEFAULT_DEVICE, resolve_device
-from .evaluation import evaluate_accuracy
-from .export.inference_loader import (load_native, require_native,
-                                      resolve_feature_type)
+from .evaluation import (evaluate_accuracy, evaluate_with_predict_fn,
+                         plot_confusion_matrix)
+from .export.inference_loader import (load_inference_model,
+                                      resolve_checkpoint_contract)
 from .ops.frontend_kernel import MfccFrontend
 from .params import inject_params, pr
 from .serving import make_classifier
@@ -28,29 +32,35 @@ from .utils import ensure_background_first, get_classes
 
 def main(args):
     """Returns (accuracy, confusion matrix)."""
-    require_native(args.model_path)
     device = resolve_device(args.device)
     class_names = get_classes(args.classes_path)
     ensure_background_first(class_names)
 
     # load FIRST (a native checkpoint restores its stored params), then an
     # explicit --params_path wins on top
-    predictor = load_native(args.model_path, device)
-    print(f"Loaded NATIVE model from {args.model_path}")
+    predictor, model_format = load_inference_model(args.model_path, device)
+    print(f"Loaded {model_format} model from {args.model_path}")
     if args.params_path:
         inject_params(args.params_path)
-    feature_type = resolve_feature_type(predictor.meta, predictor.num_classes,
-                                        class_names, args.feature_type)
+    feature_type = resolve_checkpoint_contract(
+        predictor, model_format, class_names=class_names,
+        feature_type=args.feature_type)
 
     frontend = MfccFrontend(pr, feature_type, device)
     ds = get_dataset(args.dataset_path, class_names, frontend=frontend,
                      device=device)
-    classifier, _ = make_classifier(predictor.model, predictor.model_type)
     start = time.time()
-    accuracy, confusion = evaluate_accuracy(
-        classifier, ds, predictor.model_type, class_names,
-        batch_size=args.batch_size, device=device,
-        output_path=args.output_path)
+    if model_format == "NATIVE":
+        classifier, _ = make_classifier(predictor.model, predictor.model_type)
+        accuracy, confusion = evaluate_accuracy(
+            classifier, ds, predictor.model_type, class_names,
+            batch_size=args.batch_size, device=device,
+            output_path=args.output_path)
+    else:
+        accuracy, confusion = evaluate_with_predict_fn(
+            predictor, ds, class_names, args.batch_size)
+        print(f"Eval on {len(ds)} samples: accuracy {accuracy:.4f}")
+        plot_confusion_matrix(confusion, class_names, args.output_path)
     print("Evaluation time cost: {:.6f}s".format(time.time() - start))
     return accuracy, confusion
 
@@ -64,7 +74,8 @@ def build_parser():
     parser.add_argument("--batch_size", type=int, default=512)
     parser.add_argument("--feature_type", type=str, default=None,
                         choices=["mfcc", "bark"],
-                        help="default: the checkpoint's stored frontend")
+                        help="default: the checkpoint's stored frontend "
+                             "(mfcc for external formats)")
     parser.add_argument("--output_path", type=str, default="result")
     parser.add_argument("--device", type=str, default=DEFAULT_DEVICE,
                         help="cuda (default) or cpu")

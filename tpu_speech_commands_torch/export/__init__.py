@@ -1,5 +1,6 @@
-from .inference_loader import (NativePredictor, external_format, load_native,
-                               require_native, resolve_feature_type)
+from .inference_loader import (NativePredictor, load_inference_model,
+                               load_native, resolve_checkpoint_contract,
+                               resolve_feature_type)
 
-__all__ = ["NativePredictor", "external_format", "load_native",
-           "require_native", "resolve_feature_type"]
+__all__ = ["NativePredictor", "load_inference_model", "load_native",
+           "resolve_checkpoint_contract", "resolve_feature_type"]

@@ -7,7 +7,9 @@
         --input_wav example/left_1.wav [--device cpu]
 
 Native `.npz` models run the fused chunk -> scores tick on the card (the
-classifier kernel in every tick); `--device cpu` runs the plain versions.
+classifier kernel in every tick); an exported model (`.tscm`, onnx,
+tflite, h5, SavedModel, pb) takes the tick's features and scores them on
+the host.  `--device cpu` runs the plain versions.
 --dump_model re-saves a training checkpoint to a new `.npz` file.
 """
 from __future__ import annotations

@@ -10,6 +10,10 @@ chunk on the device:
     (states, chunks) -> ring update -> incremental MFCC
                      -> classifier (its kernel on the card) -> scores
 
+for a native `.npz` model.  An exported model (`.tscm`, onnx, tflite, h5,
+SavedModel, pb) runs on the host: the tick's update runs on the device and
+the (slots, n_features, n_mfcc) features go to the model's runtime.
+
 Streams may join and leave at any tick — a freed slot is zeroed with
 reset_streams() on admission, so a new caller never sees the previous
 stream's audio — and the pool runs the reference post-processing
@@ -35,8 +39,8 @@ import torch
 
 from .data.wav import load_wav
 from .device import DEFAULT_DEVICE, resolve_device
-from .export.inference_loader import (load_native, require_native,
-                                      resolve_feature_type)
+from .export.inference_loader import (load_inference_model,
+                                      resolve_checkpoint_contract)
 from .frontend.dsp import Frontend
 from .params import inject_params, pr
 from .serving import make_classifier
@@ -80,17 +84,26 @@ def main(argv=None) -> list[dict]:
     # load FIRST (a native checkpoint restores its stored train-time
     # params), then --params_path wins on top — the same precedence as
     # listen and eval
-    require_native(args.model_path)
-    predictor = load_native(args.model_path, device)
+    predictor, model_format = load_inference_model(args.model_path, device)
     if args.params_path:
         inject_params(args.params_path)
     p = pr.replace()
-    feature_type = resolve_feature_type(predictor.meta, predictor.num_classes,
-                                        classes, None)
+    feature_type = resolve_checkpoint_contract(predictor, model_format,
+                                               class_names=classes)
     frontend = Frontend(p, feature_type=feature_type, device=device)
     update = make_stream_update(frontend, args.chunk_size)
-    classifier, _ = make_classifier(predictor.model, predictor.model_type)
-    tick_scores = make_stream_step(update, classifier, predictor.model_type)
+    if model_format == "NATIVE":
+        classifier, _ = make_classifier(predictor.model, predictor.model_type)
+        step = make_stream_step(update, classifier, predictor.model_type)
+
+        def tick_scores(states, chunks):
+            states, scores = step(states, chunks)
+            return states, scores.cpu().numpy()
+    else:
+        # the host runtime scores the features the device's update made
+        def tick_scores(states, chunks):
+            states, feats = update(states, chunks)
+            return states, np.asarray(predictor(feats.cpu().numpy()))
 
     n_slots = args.slots
     states = init_stream_state(p, n_streams=n_slots, device=device)
@@ -146,7 +159,6 @@ def main(argv=None) -> list[dict]:
 
         if active:
             states, scores = tick_scores(states, chunks_dev)
-            scores = scores.cpu().numpy()
             idx = scores.argmax(axis=1)
             conf = scores[np.arange(n_slots), idx].astype(np.float64)
             non_bg = idx != 0
@@ -174,7 +186,7 @@ def main(argv=None) -> list[dict]:
         tick += 1
 
     print(f"served {served} streams over {tick} ticks "
-          f"({n_slots} slots, NATIVE model)")
+          f"({n_slots} slots, {model_format} model)")
     return events
 
 

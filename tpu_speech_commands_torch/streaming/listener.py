@@ -1,21 +1,24 @@
 """Streaming keyword-spotting runtime (counterpart of
 `tpu_speech_commands/streaming/listener.py`; reference: listen.py:31-448).
 
-`Listener` ties together: params injection, the class list, the native
-`.npz` model, the incremental feature streamer, ThresholdDecoder
-calibration and TriggerDetector debouncing.
+`Listener` ties together: params injection, the class list, multi-format
+model loading (`export.inference_loader.load_inference_model`), the
+incremental feature streamer, ThresholdDecoder calibration and
+TriggerDetector debouncing.
 
-Each chunk runs one fused tick on the Listener's device (the card unless
-the caller passes device="cpu"): the ring update and the chunk's frame
-features (`streaming/feature_stream.py`), then the classifier through
-`serving.make_classifier` in float32, as the JAX Listener runs its model:
-on the card the GRU, LSTM or CNN classifier kernel, on the CPU the plain
-module; then the softmax.  A tick moves the chunk to the device and the
-(C,) scores back.
+Each chunk runs one tick on the Listener's device (the card unless the
+caller passes device="cpu"): the ring update and the chunk's frame
+features (`streaming/feature_stream.py`).  For a native `.npz` model the
+same tick then runs the classifier through `serving.make_classifier` in
+float32, as the JAX Listener runs its model: on the card the GRU, LSTM or
+CNN classifier kernel, on the CPU the plain module; then the softmax.  A
+tick moves the chunk to the device and the (C,) scores back.  An exported
+model (`.tscm`, onnx, tflite, h5, SavedModel, pb) runs on the host: the
+tick moves the (n_features, n_mfcc) features back and its runtime scores
+them (`update_vectors` returns those features).
 
 Modes: `run_wav` (deterministic wav replay, testable), `run_microphone`
-(PyAudio, gated on availability).  External model formats are not ported
-yet: they raise ValueError.
+(PyAudio, gated on availability).
 """
 from __future__ import annotations
 
@@ -29,8 +32,8 @@ import torch
 
 from ..data.wav import buffer_to_audio, save_audio
 from ..device import DEFAULT_DEVICE, resolve_device
-from ..export.inference_loader import (load_native, require_native,
-                                       resolve_feature_type)
+from ..export.inference_loader import (load_inference_model,
+                                       resolve_checkpoint_contract)
 from ..frontend.dsp import Frontend
 from ..params import inject_params, pr
 from ..serving import make_classifier
@@ -79,16 +82,16 @@ class Listener:
         # params into pr, then an explicit --params_path wins on top —
         # otherwise user decoder/threshold recalibration would be silently
         # clobbered by the checkpoint
-        require_native(self.model_path)
-        self.predictor = load_native(self.model_path, self.device)
+        self.predictor, self.model_format = load_inference_model(
+            self.model_path, self.device)
         if self.params_path:
             inject_params(self.params_path)
         # SNAPSHOT the params: a live alias to the mutable global would be
         # rewired in place by any later checkpoint load
         self.pr = pr.replace()
-        self.feature_type = resolve_feature_type(
-            self.predictor.meta, self.predictor.num_classes, self.class_names,
-            self.feature_type)
+        self.feature_type = resolve_checkpoint_contract(
+            self.predictor, self.model_format, class_names=self.class_names,
+            feature_type=self.feature_type)
 
         self.threshold_decoder = ThresholdDecoder(
             self.pr.threshold_config, self.pr.threshold_center
@@ -108,12 +111,31 @@ class Listener:
     def _setup_stream(self):
         update = make_stream_update(self.frontend, self.chunk_size)
         self.state = init_stream_state(self.pr, device=self.device)
-        # float32, as the JAX Listener runs its model; the wrapper packs
-        # the weights once
-        self.classifier, self.classifier_path = make_classifier(
-            self.predictor.model, self.predictor.model_type)
-        self._step = make_stream_step(update, self.classifier,
-                                      self.predictor.model_type)
+        if self.model_format == "NATIVE":
+            # float32, as the JAX Listener runs its model; the wrapper
+            # packs the weights once
+            self.classifier, self.classifier_path = make_classifier(
+                self.predictor.model, self.predictor.model_type)
+            self._step = make_stream_step(update, self.classifier,
+                                          self.predictor.model_type)
+            self._external = None
+        else:
+            # the update alone on the device; the host runtime scores
+            self._step = update
+            self._external = self.predictor
+
+    def update_vectors(self, chunk: bytes | np.ndarray) -> np.ndarray:
+        """Feed one chunk of audio; returns the (n_features, n_mfcc, 1)
+        feature tensor (the reference's update_vectors contract).  Only for
+        an external-format model; a native one runs the fused chunk ->
+        scores tick (process_chunk)."""
+        assert self._external is not None, (
+            "update_vectors is only meaningful for external-format models; "
+            "native models run the fused chunk->scores step (process_chunk)"
+        )
+        audio = torch.from_numpy(self._decode_chunk(chunk)).to(self.device)
+        self.state, feats = self._step(self.state, audio)
+        return feats.cpu().numpy()[..., None]
 
     @staticmethod
     def _decode_chunk(chunk: bytes | np.ndarray) -> np.ndarray:
@@ -130,10 +152,14 @@ class Listener:
         return chunk.astype(np.float32, copy=False)
 
     def process_chunk(self, chunk: bytes | np.ndarray) -> np.ndarray:
-        """Chunk -> class scores (softmax), one fused tick."""
+        """Chunk -> class scores (softmax): one fused tick for a native
+        model, the update then the host runtime for an external one."""
         audio = torch.from_numpy(self._decode_chunk(chunk)).to(self.device)
-        self.state, scores = self._step(self.state, audio)
-        return scores.cpu().numpy()
+        if self._external is None:
+            self.state, scores = self._step(self.state, audio)
+            return scores.cpu().numpy()
+        self.state, feats = self._step(self.state, audio)
+        return self._external(feats.cpu().numpy()[None])[0]
 
     # -- postprocess / UI ----------------------------------------------------
 
