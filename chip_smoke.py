@@ -129,7 +129,23 @@ Phases, in order; any failure raises and the script exits non-zero:
               and `stream_server` (8 slots) on the simple_gru `.onnx`:
               scores within 1e-4 of the `.npz` Listener's each chunk, and
               the same events.  The h5, SavedModel, TFLite and pb formats
-              need TensorFlow: not run here
+              need TensorFlow: not run here;
+            - parallel: `make_batch_scorer(..., mesh=)` with B = 8192 split
+              over two shards (distinct cards where there are two or more,
+              else two shards of cuda:0), simple_gru bf16 and simple_cnn
+              f32: the frontend's and the classifier's launch counts rise
+              once a shard, scores within 1e-6 of the one-device scorer's;
+              `dev.dryrun_multichip` on 4 ranks (NCCL on 4 cards, else gloo
+              with the ranks sharing cuda:0) at a global batch of 512: the
+              simple_cnn step at data x model 2 x 2, hybrid 2 x 1 x 2, flat
+              data 4 and replica x data 2 x 2 (each hybrid step bit-equal to
+              its flat one), the --augment step (frontend kernel in every
+              rank, dropout on) within 1e-5 of the one-device step, a
+              feature epoch, an --augment epoch and a GRU epoch with
+              validation, then evaluation and the scorer over a mesh of the
+              same devices; each rank's frontend, GRU and CNN classifier
+              launch counts (from its report) above 0, no JAX module in any
+              rank; the same through one NCCL rank
 5. times    CUDA-event times at B = 8192, audio resident on the card (the
             dense-DFT, load-floor and CT kernels are first held to their
             plain versions at this batch, their entry points' own, with the
@@ -191,7 +207,12 @@ Phases, in order; any failure raises and the script exits non-zero:
             classifier kernel, softmax) at 1 and 1024 streams for
             simple_gru and simple_cnn, p50 / p90 / p99 ms a tick between
             two synchronizes and the headroom against the 64 ms chunk
-            cadence, printed as a JSON line `{"streaming": ...}`
+            cadence, printed as a JSON line `{"streaming": ...}`; the
+            sharded scorer's windows/s a card (`dev.bench_multichip`, B =
+            8192 in all, simple_gru bf16 and simple_cnn f32: one shard and
+            two shards sharing cuda:0 in turns, and one shard a card where
+            there are two or more cards), printed as a JSON line
+            `{"parallel_serving": ...}`
 
 Two lines before the last: one JSON object describing each kernel, then the
 card's name and power limit; the last line is {"ok": true, "device":
@@ -892,6 +913,133 @@ def time_train_eval(dev, big, big_np, big_feats, labels, card) -> dict:
             f"{n / dt:.0f} samples/s (accuracy {acc:.4f})  ({card})")
     pr.override(ListenerParams().to_dict())
     return train_eval_times
+
+
+def drive_parallel(drive, launches: dict, work: str) -> dict:
+    """Phase 4's parallel slice, each path through `drive`: the sharded
+    scorer (`make_batch_scorer(..., mesh=)`, B = 8192 split over two shards:
+    distinct cards where there are two or more, else two shards of cuda:0)
+    against the one-device scorer for simple_gru in bf16 and simple_cnn in
+    f32; `dev.dryrun_multichip` on 4 ranks (NCCL on 4 cards, else gloo with
+    the 4 ranks sharing cuda:0) at a global batch of 512; and one NCCL rank
+    through the same launcher.  Each rank's frontend, GRU and CNN
+    classifier launch counts come from its report (the counters live in
+    that process): each must be above 0, and they add to `launches`."""
+    import torch
+
+    from tpu_speech_commands_torch.dev import dryrun_multichip
+    from tpu_speech_commands_torch.ops import (cnn_kernel, frontend_kernel,
+                                               rnn_kernel)
+    from tpu_speech_commands_torch.parallel import make_mesh
+    from tpu_speech_commands_torch.serving import make_batch_scorer
+
+    shutil.rmtree(work, ignore_errors=True)
+    cards = torch.cuda.device_count()
+    shards = ([f"cuda:{i}" for i in range(cards)] if cards >= 2
+              else ["cuda:0", "cuda:0"])
+    mesh = make_mesh(devices=shards)
+    clips, _ = load_clips()
+    audio = torch.tensor(test_audio(clips, B_TIME, seed=5), device="cuda:0")
+    result = {"scorer": {}}
+    for ckpt, dtype, kernel in (
+            (CHECKPOINT, torch.bfloat16, rnn_kernel.gru_layer_cuda),
+            (CNN_CHECKPOINTS["simple_cnn"], torch.float32,
+             cnn_kernel.cnn_classifier_cuda)):
+        name = os.path.basename(ckpt)
+        want = make_batch_scorer(ckpt, "cuda:0", dtype)(audio)
+        sharded = make_batch_scorer(ckpt, compute_dtype=dtype, mesh=mesh)
+        kernel_name = "gru_classifier" if dtype == torch.bfloat16 else \
+            "cnn_classifier"
+
+        def run(sharded=sharded, kernel=kernel):
+            got = sharded(audio)
+            return got, (frontend_kernel.mfcc_frontend_cuda.launches,
+                         kernel.launches)
+
+        got, counts = drive(f"make_batch_scorer({name}, {str(dtype)[6:]}, "
+                            f"mesh of {shards}), B = {B_TIME}", run,
+                            ("mfcc_frontend", kernel_name))
+        diff = float((got - want).abs().max())
+        log(f"  paths {sharded.paths}: scores max|sharded - one device| "
+            f"{diff:.3e}")
+        if counts != (len(shards), len(shards)):
+            raise AssertionError(f"launches {counts}: not one a shard")
+        if sharded.paths["parallel"] != f"shards x{len(shards)}" or \
+                not diff <= 1e-6:
+            raise AssertionError(f"sharded scorer {sharded.paths}: {diff}")
+        result["scorer"][name] = {"devices": shards, "dtype": str(dtype)[6:],
+                                  "max_abs_diff": diff}
+    four = ([f"cuda:{i}" for i in range(4)] if cards >= 4
+            else ["cuda:0"] * 4)
+    four_backend = "nccl" if cards >= 4 else "gloo"
+    for label, devices, backend in (
+            (f"4 ranks, {four_backend}", four, four_backend),
+            ("1 rank, nccl", ["cuda:0"], "nccl")):
+        out = os.path.join(work, f"dryrun_{len(devices)}")
+        printed = io.StringIO()
+
+        def run(devices=devices, backend=backend, out=out, printed=printed):
+            with contextlib.redirect_stdout(printed):
+                return dryrun_multichip.run(devices, backend, out, TRAIN_BATCH)
+
+        summary = drive(f"dev.dryrun_multichip({label}: {devices}), global "
+                        f"batch {TRAIN_BATCH}", run,
+                        ("mfcc_frontend", "gru_classifier", "cnn_classifier"))
+        for line in printed.getvalue().splitlines():
+            log(f"  | {line}")
+        for r, rank in enumerate(summary["ranks"]):
+            log(f"  rank {r} on {rank['device']} ({backend}): launches "
+                f"{rank['launches']}")
+            if rank["foreign_modules"]:
+                raise AssertionError(f"rank {r} loaded {rank['foreign_modules']}")
+            for name, count in rank["launches"].items():
+                if count < 1:
+                    raise AssertionError(f"{name} kernel was not launched by "
+                                         f"rank {r} of {label}")
+                launches[name] += count
+        log(f"  layouts {summary['layouts']}; --augment step on the ranks vs "
+            f"one device: max|d| {summary['augment_vs_one_device']:.3e}")
+        result[label] = {k: summary[k] for k in (
+            "backend", "batch", "layouts", "augment_vs_one_device", "loss",
+            "epoch_loss", "audio_pipeline_loss", "gru_loss",
+            "gru_eval_accuracy", "serving")}
+        result[label]["rank_launches"] = [r["launches"]
+                                          for r in summary["ranks"]]
+    return result
+
+
+def time_parallel(card) -> dict:
+    """The sharded scorer's windows/s (`dev.bench_multichip`), B = 8192 in
+    all, simple_gru bf16 and simple_cnn f32: one shard on cuda:0 against
+    two shards sharing it, in turns (one, two, two, one); with two or more
+    cards, also one shard a card."""
+    import torch
+
+    from tpu_speech_commands_torch.dev import bench_multichip
+
+    cases = [("one shard", "cuda:0", B_TIME),
+             ("two shards sharing cuda:0", "cuda:0,cuda:0", B_TIME // 2)]
+    order = (0, 1, 1, 0)
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        cases.append((f"one shard a card, {cards} cards", str(cards),
+                      B_TIME // cards))
+        order += (2,)
+    out = {}
+    for model_type, dtype in (("simple_gru", "bfloat16"),
+                              ("simple_cnn", "float32")):
+        for i in order:
+            label, devices, per_device = cases[i]
+            with contextlib.redirect_stdout(io.StringIO()):
+                r = bench_multichip.main([
+                    "--devices", devices, "--model_type", model_type,
+                    "--dtype", dtype, "--batch_per_device", str(per_device)])
+            out.setdefault(f"{model_type} {dtype}, {label}", []).append(
+                r["windows_per_s_per_card"])
+            log(f"  sharded scorer {model_type} {dtype}, {label}: "
+                f"{r['windows_per_s']:.0f} windows/s, "
+                f"{r['windows_per_s_per_card']:.0f} a card ({card})")
+    return out
 
 
 def listen_recorded(listener, wav: str):
@@ -1990,6 +2138,9 @@ def main() -> int:
                                              "streaming"))
     drive_export(dev, drive, os.path.join(REPO, "build", "chip_smoke",
                                           "export"))
+    log(json.dumps({"parallel": drive_parallel(
+        drive, launches, os.path.join(REPO, "build", "chip_smoke",
+                                      "parallel"))}))
 
 
     # -- 5. times (information only) -------------------------------------------
@@ -2460,6 +2611,7 @@ def main() -> int:
     log(json.dumps({"train_eval": time_train_eval(
         dev, big, big_np, big_feats, labels, card), "card": card}))
     log(json.dumps({"streaming": time_streaming(card), "card": card}))
+    log(json.dumps({"parallel_serving": time_parallel(card), "card": card}))
 
     # the stage cuts at this batch: each held to the plain version, then
     # timed with it and beside its bound; the deltas give each stage's cost

@@ -62,6 +62,7 @@ from tpu_speech_commands_torch.ops import (cnn_kernel, ct_kernel,
 from tpu_speech_commands_torch.ops.cnn_lowering import lower_block1
 from tpu_speech_commands_torch.ops.frontend_kernel import MfccFrontend
 from tpu_speech_commands_torch.ops.rnn_kernel import GRUClassifier, LSTMClassifier
+from tpu_speech_commands_torch.parallel import make_mesh
 from tpu_speech_commands_torch.params import ListenerParams, pr
 from tpu_speech_commands_torch.serving import make_batch_scorer
 
@@ -350,6 +351,30 @@ def test_scorer_runs_both_kernels(cuda_device, compute_dtype):
     want = make_batch_scorer(GRU_CKPT, "cpu", compute_dtype)(audio)
     atol = 1e-3 if compute_dtype == torch.float32 else 5e-2
     torch.testing.assert_close(got, want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("ckpt", [GRU_CKPT, CNN_CKPTS["simple_cnn"]])
+def test_scorer_split_over_two_shards_of_one_card(cuda_device, ckpt):
+    """make_batch_scorer(mesh=) with two batch shards on cuda:0: each kernel
+    launches once a shard, and the scores equal the one-device scorer's
+    (the kernels compute a row alone, whatever the batch)."""
+    audio, labels = _clips()
+    scorer = make_batch_scorer(ckpt, mesh=make_mesh(
+        devices=[cuda_device, cuda_device]))
+    assert scorer.paths["parallel"] == "shards x2"
+    classifier = {"cuda-gru": rnn_kernel.gru_layer_cuda,
+                  "cuda-cnn": cnn_kernel.cnn_classifier_cuda}[
+                      scorer.paths["classifier"]]
+    frontend_kernel.mfcc_frontend_cuda.launches = classifier.launches = 0
+    got = scorer(torch.tensor(audio, device=cuda_device))
+    assert frontend_kernel.mfcc_frontend_cuda.launches == 2
+    assert classifier.launches == 2
+    assert [scorer.classes[i] for i in got.argmax(-1)] == labels
+    want = make_batch_scorer(ckpt, cuda_device)(
+        torch.tensor(audio, device=cuda_device))
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="not divisible by the 2-device"):
+        scorer(torch.tensor(audio[:3], device=cuda_device))
 
 
 def _random_cnn(model_type, h, w, seed, device):

@@ -6,7 +6,9 @@ inside the functions that need them).
 Run in a fresh interpreter (this test process has jax loaded through
 conftest): import every module of tpu_speech_commands_torch and
 chip_smoke.py, run the `--help` of the export and statistics entry points,
-then list what reached sys.modules.
+then list what reached sys.modules; then start one rank through the port's
+launcher (`parallel.launch`, a spawned child on the CPU) and read the
+modules the child loaded from its report.
 """
 import json
 import os
@@ -31,7 +33,15 @@ for entry in ("export_model", "model_statistics"):
                              run_name="__main__")
         except SystemExit:
             pass
+import tempfile
+from tpu_speech_commands_torch.dev.dryrun_multichip import write_rank_report
+from tpu_speech_commands_torch.parallel.launch import launch
+with tempfile.TemporaryDirectory() as out:
+    launch(write_rank_report, ["cpu"], args=(out,))
+    with open(out + "/rank0.json") as f:
+        child = json.load(f)
 print(json.dumps({
+    "child": child["foreign_modules"],
     "modules": names,
     "leaked": sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "optax", "tpu_speech_commands",
@@ -117,6 +127,13 @@ def test_port_imports_no_jax():
         "tpu_speech_commands_torch.evaluation.statistics",
         "tpu_speech_commands_torch.export_model",
         "tpu_speech_commands_torch.model_statistics",
+        "tpu_speech_commands_torch.parallel",
+        "tpu_speech_commands_torch.parallel.mesh",
+        "tpu_speech_commands_torch.parallel.tensor_parallel",
+        "tpu_speech_commands_torch.parallel.launch",
+        "tpu_speech_commands_torch.dev.dryrun_multichip",
+        "tpu_speech_commands_torch.dev.bench_multichip",
     }
     assert expected <= set(result["modules"])
     assert result["leaked"] == []
+    assert result["child"] == []

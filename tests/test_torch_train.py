@@ -207,10 +207,11 @@ def test_checkpoint_round_trip_jax_to_port(tmp_path):
         restore_state(get_model("simple_gru", C), path, "simple_gru")
 
 
-def test_fit_writes_the_jax_file_set(tmp_path):
+def test_fit_writes_the_jax_file_set(tmp_path, monkeypatch):
     """train.main on the CPU, 2 epochs on raw audio with --augment: the
     epoch checkpoints, trained_final.npz, metrics.csv (the JAX columns),
-    params.json and classes.txt; the final checkpoint loads and scores."""
+    params.json and classes.txt; the final checkpoint loads and scores.
+    --num_devices beyond the visible cards raises the JAX mesh refusal."""
     data = str(tmp_path / "ds")
     make_synthetic_dataset(data, ["background", "left", "right"],
                            samples_per_class=6, seed=1)
@@ -241,10 +242,12 @@ def test_fit_writes_the_jax_file_set(tmp_path):
     assert predictor.classes == ["background", "left", "right"]
     scores = predictor(np.zeros((2, 30, 20), np.float32))
     assert scores.shape == (2, 3) and torch.isfinite(scores).all()
-    with pytest.raises(ValueError, match="one device"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="mesh 2x1 does not fit 1 devices"):
         train.main(train.build_parser().parse_args(
             ["--train_data_path", data, "--classes_path", str(classes),
-             "--num_devices", "2", "--device", "cpu"]))
+             "--num_devices", "2"]))
 
 
 @pytest.mark.parametrize("average_type", ["ema", "swa", "lookahead"])

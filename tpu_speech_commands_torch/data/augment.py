@@ -29,14 +29,16 @@ class AugmentConfig:
 
 
 def draw_augmentation(generator: torch.Generator, batch: int, n_samples: int,
-                      n_noise: int, config: AugmentConfig = AugmentConfig()
-                      ) -> dict:
+                      n_noise: int, config: AugmentConfig = AugmentConfig(),
+                      rows: slice | None = None) -> dict:
     """The draws of one batch, on the generator's device (the CPU for a
     host generator): gain (B, 1) in [gain_min, gain_max); shift (B,) int64
     in [-max_shift, max_shift], max_shift = int(shift_max * n_samples);
     pick (B,) in [0, n_noise), snr_db (B, 1) in [snr_db_min, snr_db_max)
     and apply (B, 1) uniform in [0, 1), noise where apply < noise_prob.
-    Keys without a stage (no shift, an empty bank) are absent."""
+    Keys without a stage (no shift, an empty bank) are absent.  `rows`: a
+    rank's rows of the global batch `batch`, whose draws it keeps (the
+    draws of a sharded step are the one-device step's)."""
     dev = generator.device
 
     def uniform(lo, hi, shape):
@@ -54,6 +56,8 @@ def draw_augmentation(generator: torch.Generator, batch: int, n_samples: int,
         draws["snr_db"] = uniform(config.snr_db_min, config.snr_db_max,
                                   (batch, 1))
         draws["apply"] = uniform(0.0, 1.0, (batch, 1))
+    if rows is not None:
+        draws = {k: v[rows] for k, v in draws.items()}
     return draws
 
 
@@ -82,21 +86,29 @@ def apply_augmentation(audio: torch.Tensor, noise_bank: torch.Tensor,
 
 def augment_batch(generator: torch.Generator, audio: torch.Tensor,
                   noise_bank: torch.Tensor,
-                  config: AugmentConfig = AugmentConfig()) -> torch.Tensor:
-    """Randomly gain-scale, time-shift and noise-mix a batch of clips."""
-    draws = draw_augmentation(generator, audio.shape[0], audio.shape[1],
-                              noise_bank.shape[0], config)
+                  config: AugmentConfig = AugmentConfig(),
+                  mesh=None) -> torch.Tensor:
+    """Randomly gain-scale, time-shift and noise-mix a batch of clips (under
+    a process `mesh`, this rank's rows of the global batch)."""
+    batch, rows = audio.shape[0], None
+    if mesh is not None:
+        batch *= mesh.n_batch
+        rows = mesh.batch_rows(batch)
+    draws = draw_augmentation(generator, batch, audio.shape[1],
+                              noise_bank.shape[0], config, rows)
     return apply_augmentation(audio, noise_bank, draws, config)
 
 
 def make_audio_pipeline(frontend, model_type: str, noise_bank,
                         config: AugmentConfig = AugmentConfig(),
-                        device=None):
+                        device=None, mesh=None):
     """The trainer's `device_pipeline`: raw audio -> (augmentation when
     training) -> frontend -> model input.  `pipeline(generator, audio,
     train)` draws from the host `generator` when training; the frontend
     runs without autograd (it has no parameters) and hands f32 features
-    over.  The noise bank lives on `device` (the frontend's by default)."""
+    over.  The noise bank lives on `device` (the frontend's by default).
+    Under a process `mesh` the audio is this rank's rows of the global
+    batch, and the draws are the global batch's rows."""
     device = device or getattr(frontend, "device", "cpu")
     noise_bank = torch.as_tensor(noise_bank, dtype=torch.float32).to(device)
     if config.noise_prob > 0 and noise_bank.shape[0] == 0:
@@ -108,7 +120,8 @@ def make_audio_pipeline(frontend, model_type: str, noise_bank,
     def pipeline(generator, audio: torch.Tensor, train: bool) -> torch.Tensor:
         with torch.no_grad():
             if train:
-                audio = augment_batch(generator, audio, noise_bank, config)
+                audio = augment_batch(generator, audio, noise_bank, config,
+                                      mesh)
             feats = frontend(audio).float()
         return features_to_input(feats, model_type)
 

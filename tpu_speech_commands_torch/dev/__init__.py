@@ -35,7 +35,13 @@ package's `tools/dev/` scripts whose TPU kernels the port carries:
   over k a step in f32;
 - `block1_ablation`: the CNN block-1 kernel with one design choice undone
   at a time (the ring, the stores, the tensor cores in bf16, the tile, the
-  blocks an SM) and a load-and-store cut against the K7 load floor.
+  blocks an SM) and a load-and-store cut against the K7 load floor;
+- `dryrun_multichip`: every sharded path once on a device list (one rank a
+  device: data x model, hybrid and flat train steps, an `--augment` step
+  against one device, epochs; then evaluation and the scorer on a mesh),
+  the counterpart of `__graft_entry__.py::dryrun_multichip`; it also runs
+  on the CPU (`--devices cpu,cpu,cpu,cpu`);
+- `bench_multichip`: the sharded scorer's windows/s a card.
 
 Each runs on the card and raises RuntimeError where CUDA is absent:
 
@@ -54,6 +60,8 @@ Each runs on the card and raises RuntimeError where CUDA is absent:
     python -m tpu_speech_commands_torch.dev.gru_ablation
     python -m tpu_speech_commands_torch.dev.lstm_ablation
     python -m tpu_speech_commands_torch.dev.block1_ablation
+    python -m tpu_speech_commands_torch.dev.dryrun_multichip --devices cuda:0,cuda:1
+    python -m tpu_speech_commands_torch.dev.bench_multichip --devices 2
 
 Their `make_*` functions take `device="cpu"` for the plain versions.
 """

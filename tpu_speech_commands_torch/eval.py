@@ -11,7 +11,10 @@ that serving uses, with accuracy and the confusion matrix accumulated on
 the card; an exported model's come from its host runtime (the C++ runtime
 for `.tscm`, the numpy executor or onnxruntime for onnx, TensorFlow for
 the rest), counted on the host, as in the JAX evaluator.  `--device cpu`
-runs the plain versions.
+runs the plain versions.  `--num_devices N` splits a native checkpoint's
+batches over N devices on the 'data' axis (`evaluate_accuracy(...,
+mesh=)`, one process): N visible cards (ValueError, the JAX one, when
+there are fewer), or N shards on the CPU with `--device cpu`.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from .export.inference_loader import (load_inference_model,
                                       resolve_checkpoint_contract)
 from .ops.frontend_kernel import MfccFrontend
 from .params import inject_params, pr
+from .parallel import make_mesh
 from .serving import make_classifier
 from .utils import ensure_background_first, get_classes
 
@@ -33,6 +37,12 @@ from .utils import ensure_background_first, get_classes
 def main(args):
     """Returns (accuracy, confusion matrix)."""
     device = resolve_device(args.device)
+    mesh = None
+    if args.num_devices is not None:
+        mesh = make_mesh(n_data=args.num_devices,
+                         devices=[device] * args.num_devices
+                         if device.type == "cpu" else None)
+        device = mesh.batch_devices()[0]
     class_names = get_classes(args.classes_path)
     ensure_background_first(class_names)
 
@@ -55,7 +65,7 @@ def main(args):
         accuracy, confusion = evaluate_accuracy(
             classifier, ds, predictor.model_type, class_names,
             batch_size=args.batch_size, device=device,
-            output_path=args.output_path)
+            output_path=args.output_path, mesh=mesh)
     else:
         accuracy, confusion = evaluate_with_predict_fn(
             predictor, ds, class_names, args.batch_size)
@@ -77,6 +87,9 @@ def build_parser():
                         help="default: the checkpoint's stored frontend "
                              "(mfcc for external formats)")
     parser.add_argument("--output_path", type=str, default="result")
+    parser.add_argument("--num_devices", type=int, default=None,
+                        help="split a native checkpoint's batches over this "
+                             "many devices (default: one)")
     parser.add_argument("--device", type=str, default=DEFAULT_DEVICE,
                         help="cuda (default) or cpu")
     return parser

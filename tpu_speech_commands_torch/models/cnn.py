@@ -15,8 +15,12 @@ Keras semantics, as in the JAX package, and where torch's defaults differ:
   (clipped at 0) both to normalise and in the running update
   `ra = m * ra + (1 - m) * batch`, m = bn_momentum (0.99).  `F.batch_norm`
   keeps the unbiased variance and takes 1 - m, so the update is written out.
+  Under a process mesh (`parallel.tensor_parallel.shard_model`) the batch is
+  the global one, its sums taken over the ranks, as the JAX step takes them
+  over its whole sharded batch (`nn.SyncBatchNorm` refuses CPU tensors).
 - Dropout(0.5) after the flatten acts only in training mode, drawn from the
-  `generator` the caller passes.  A model is built in eval mode, as the
+  `generator` the caller passes (under a process mesh, the global batch's
+  mask, of which each rank keeps its rows).  A model is built in eval mode, as the
   JAX model's `train` defaults to False: the train step calls `.train()`.
 - Padding is TF SAME: the low side gets total // 2 and the extra unit pads
   high, so a stride-2 conv over an even dimension pads 0 low and 1 high
@@ -43,6 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.tensor_parallel import sum_over_batch
 from .rnn import Dense, _rounded, dropout, jax_variables
 
 BN_EPSILON = 1e-3  # Keras BatchNormalization default
@@ -99,6 +104,8 @@ class BatchNormKeras(nn.Module):
     epsilon: running statistics in eval mode, the batch's (and the running
     update) in training mode."""
 
+    mesh = None  # a ProcessMesh: the statistics are the global batch's
+
     def __init__(self, features: int, momentum: float = 0.99):
         super().__init__()
         self.momentum = momentum
@@ -116,8 +123,11 @@ class BatchNormKeras(nn.Module):
 
     def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.float32)
-        mean = x.mean((0, 2, 3))
-        var = torch.clamp((x * x).mean((0, 2, 3)) - mean * mean, min=0.0)
+        if self.mesh is None:
+            mean = x.mean((0, 2, 3))
+            var = torch.clamp((x * x).mean((0, 2, 3)) - mean * mean, min=0.0)
+        else:
+            mean, var = self._global_moments(x)
         with torch.no_grad():
             m = self.momentum
             self.mean.copy_(m * self.mean + (1.0 - m) * mean)
@@ -125,6 +135,20 @@ class BatchNormKeras(nn.Module):
         mult = torch.rsqrt(var + BN_EPSILON) * self.scale
         return (x - mean[:, None, None]) * mult[:, None, None] + \
             self.bias[:, None, None]
+
+    def _global_moments(self, x: torch.Tensor):
+        """Mean and biased variance over the global batch, as the JAX step
+        takes them over its whole sharded batch: per-channel sums, sums of
+        squares and the count, summed over the batch group (a backward that
+        sums too: every rank's rows move every rank's statistics)."""
+        c = x.shape[1]
+        count = x.new_full((1,), x.numel() // c)
+        sums = sum_over_batch(torch.cat([x.sum((0, 2, 3)),
+                                         (x * x).sum((0, 2, 3)), count]),
+                              self.mesh)
+        mean = sums[:c] / sums[-1]
+        var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean, min=0.0)
+        return mean, var
 
 
 class ConvBlock(nn.Module):
@@ -176,6 +200,7 @@ class SimpleCNN(nn.Module):
     feeds)."""
 
     separable = False
+    mesh = None  # a ProcessMesh: dropout's mask is the global batch's
 
     def __init__(self, num_classes: int, n_features: int = 30,
                  feature_size: int = 20, dropout_rate: float = 0.5,
@@ -211,7 +236,7 @@ class SimpleCNN(nn.Module):
             x = block(x, compute_dtype)
         x = x.permute(0, 2, 3, 1).flatten(1)  # NHWC flatten, as Keras
         if self.training and self.dropout_rate > 0.0:
-            x = dropout(x, self.dropout_rate, x.shape, generator)
+            x = dropout(x, self.dropout_rate, x.shape, generator, self.mesh)
         x = relu6(self.feature_dense(x, compute_dtype))
         return self.score_predict(x)  # f32, as the JAX head
 

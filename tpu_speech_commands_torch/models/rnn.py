@@ -10,9 +10,10 @@ Keras semantics, as in the JAX package:
   into the stored bias vector.
 - Dropout acts only in training mode (`model.train()`): one input mask per
   sequence and layer, shared across all time steps (Keras RNN dropout), at
-  `dropout_rate` 0.2, drawn from the `generator` the caller passes.  A
-  model is built in eval mode, as the JAX model's `train` defaults to
-  False: the train step calls `.train()`.
+  `dropout_rate` 0.2, drawn from the `generator` the caller passes (under a
+  process mesh, the global batch's mask, of which each rank keeps its
+  rows).  A model is built in eval mode, as the JAX model's `train`
+  defaults to False: the train step calls `.train()`.
 
 The time loop is a plain Python loop.  For the GRU it is the plain version
 of the GRU kernel (`ops/rnn_kernel.py`, `csrc/gru_classifier.cu`), and the
@@ -27,6 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+
+from ..parallel.tensor_parallel import parallel_dense
 
 
 def _rounded(t: torch.Tensor, compute_dtype) -> torch.Tensor:
@@ -43,12 +46,21 @@ def _mm(x, w, compute_dtype):
 
 
 def dropout(x: torch.Tensor, rate: float, shape: tuple,
-            generator=None) -> torch.Tensor:
+            generator=None, mesh=None) -> torch.Tensor:
     """flax Dropout: keep each element of a mask of `shape` (broadcast
     over x) with probability 1 - rate and scale the kept by 1 / (1 - rate).
-    The mask is drawn from `generator` (on x's device)."""
+    The mask is drawn from `generator` (on x's device).  Under a process
+    `mesh`, x holds this rank's rows of the global batch: the mask is drawn
+    for the global batch and the rank keeps its rows, so a sharded step
+    draws what the one-device step draws."""
     keep = 1.0 - rate
+    rows = None
+    if mesh is not None:
+        rows = mesh.batch_rows(shape[0] * mesh.n_batch)
+        shape = (shape[0] * mesh.n_batch,) + tuple(shape[1:])
     mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if rows is not None:
+        mask = mask[rows]
     return torch.where(mask, x / keep, torch.zeros((), device=x.device))
 
 
@@ -113,6 +125,8 @@ class LSTMCellKeras(nn.Module):
 class RecurrentStack(nn.Module):
     """Stacked RNN over (B, T, D); returns the last layer's final h."""
 
+    mesh = None  # a ProcessMesh: dropout's mask is the global batch's
+
     def __init__(self, cell_type: str, input_size: int, units: int = 48,
                  num_layers: int = 1, dropout_rate: float = 0.2):
         super().__init__()
@@ -138,7 +152,7 @@ class RecurrentStack(nn.Module):
         for cell in self.cells():
             if self.training and self.dropout_rate > 0.0:
                 x = dropout(x, self.dropout_rate, (batch, 1, x.shape[-1]),
-                            generator)
+                            generator, self.mesh)
             h = x.new_zeros(batch, self.units)
             carry = (h, h) if self.cell_type == "lstm" else h
             outs = []
@@ -151,7 +165,13 @@ class RecurrentStack(nn.Module):
 
 
 class Dense(nn.Module):
-    """Keras Dense layer: kernel (in, out), bias (out,)."""
+    """Keras Dense layer: kernel (in, out), bias (out,).  Under tensor
+    parallelism (`parallel.tensor_parallel.shard_model`) it holds this
+    rank's shard: `parallel` "column" or "row", the collectives from
+    `mesh`."""
+
+    mesh = None
+    parallel = None
 
     def __init__(self, in_features: int, out_features: int):
         super().__init__()
@@ -159,6 +179,8 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_features))
 
     def forward(self, x, compute_dtype=torch.float32):
+        if self.parallel is not None:
+            return parallel_dense(self, x, _mm, compute_dtype)
         return _mm(x, self.kernel, compute_dtype) + self.bias
 
 

@@ -341,6 +341,8 @@ class CNNClassifier:
             raise TypeError(f"need a SimpleCNN, got {type(model).__name__}")
         lowered = lower_classifier(model.variables(), model.separable,
                                    model.n_features, model.feature_size)
+        self.model = model
+        self.compute_dtype = compute_dtype
         self.device = _model_device(model)
         self.consts = ClassifierTensors(lowered, self.device, compute_dtype)
 

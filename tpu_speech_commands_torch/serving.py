@@ -21,6 +21,14 @@ config takes the plain frontend route):
          or CNN classifier kernel (ops/cnn_kernel.py, csrc/cnn_classifier.cu)
       -> softmax scores (B, C)
 
+With `mesh=` (a `parallel.Mesh`) the batch splits over the mesh's batch
+axes: each shard's frontend and classifier kernels run on its device, from
+a copy of the weights and the kernel constants there, on that device's
+current stream with no host sync between shards: the inputs are copied
+to every device first, and the scores gathered on the first device last
+(the JAX scorer's collective-free `shard_map`; `.paths["parallel"]` is
+"shards x<n>").
+
 simple_lstm runs its kernel in float32 for either compute_dtype, with an
 f32 feature handoff: the numerics of the JAX scorer, which keeps the LSTM
 in f32.  (The JAX scorer runs it on the XLA scan because that was faster on
@@ -34,6 +42,8 @@ each stage runs.
 """
 from __future__ import annotations
 
+import copy
+
 import torch
 
 from .device import DEFAULT_DEVICE, resolve_device
@@ -43,16 +53,77 @@ from .ops.cnn_kernel import CNNClassifier
 from .ops.frontend_kernel import MfccFrontend
 from .ops.rnn_kernel import GRUClassifier, LSTMClassifier
 from .params import pr
+from .parallel import batch_shards
+
+
+def split_rows(x: torch.Tensor, n: int) -> tuple[torch.Tensor, ...]:
+    """x's rows in n equal blocks, one a batch shard; ValueError (the JAX
+    scorer's) when they do not divide."""
+    if x.shape[0] % n:
+        raise ValueError(f"batch {x.shape[0]} not divisible by the "
+                         f"{n}-device data axis")
+    return x.tensor_split(n)
+
+
+def scatter(tensors: list, devices: list) -> list:
+    """Each tensor (or None / a number, kept) on its shard's device, before
+    any shard's work is launched: a copy between cards makes the streams of
+    both wait for each other, and between launches it would run the shards
+    one after another."""
+    return [t.to(d) if isinstance(t, torch.Tensor) else t
+            for t, d in zip(tensors, devices)]
+
+
+def gather(outs: list, device) -> torch.Tensor:
+    """Concatenate the shards' outputs on `device`, once every shard's work
+    is launched (as `scatter`, for the same reason)."""
+    return torch.cat([out.to(device) for out in outs])
+
+
+class ShardedClassifier:
+    """A classifier wrapper per batch shard, each on its device: (B, ...)
+    features -> (B, C) logits, row block i through shards[i] on its device,
+    gathered on the first shard's device (`.device`)."""
+
+    def __init__(self, shards: list):
+        self.shards = shards
+        self.device = shards[0].device
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        parts = scatter(split_rows(x, len(self.shards)),
+                        [c.device for c in self.shards])
+        return gather([c(part) for c, part in zip(self.shards, parts)],
+                      self.device)
+
+
+def shard_classifier(classifier, mesh) -> ShardedClassifier:
+    """`classifier` (a `make_classifier` wrapper) on every batch shard of
+    `mesh` (a `parallel.Mesh`): a copy of its model and packed weights on
+    each other device, one wrapper a device shared by its shards."""
+    by_device = {classifier.device: classifier}
+    for device in mesh.batch_devices():
+        device = torch.device(device)
+        if device not in by_device:
+            model = copy.deepcopy(classifier.model).to(device)
+            by_device[device] = type(classifier)(model,
+                                                 classifier.compute_dtype)
+    return ShardedClassifier([by_device[torch.device(d)]
+                              for d in mesh.batch_devices()])
 
 
 class BatchScorer:
-    """(B, max_samples) float32 or int16 audio for any B [, scalar gain]
-    -> (B, C) float32 softmax scores.  Attributes: `.classes`,
-    `.num_classes`, `.model_type`, `.paths`, `.device`, `.params`."""
+    """(B, max_samples) float32 or int16 audio for any B (a multiple of the
+    shards on a mesh; or there a list of one block of rows a shard, each
+    already on its shard's device) [, scalar gain] -> (B, C) float32
+    softmax scores.
+    Attributes: `.classes`, `.num_classes`, `.model_type`, `.paths`,
+    `.device` (the first shard's, where the scores land), `.params`,
+    `.shards` ((frontend, classifier) a batch shard), `.frontend` and
+    `.classifier` (the first shard's)."""
 
-    def __init__(self, frontend, classifier, predictor, params, paths):
-        self.frontend = frontend
-        self.classifier = classifier
+    def __init__(self, shards, predictor, params, paths):
+        self.shards = shards
+        self.frontend, self.classifier = shards[0]
         self.classes = predictor.classes
         self.num_classes = predictor.num_classes
         self.model_type = predictor.model_type
@@ -62,8 +133,19 @@ class BatchScorer:
 
     @torch.inference_mode()
     def __call__(self, audio, gain=None) -> torch.Tensor:
-        audio = torch.as_tensor(audio, device=self.device).contiguous()
-        return score_fn(self.classifier(self.frontend(audio, gain)))
+        if len(self.shards) == 1:
+            audio = torch.as_tensor(audio, device=self.device).contiguous()
+            return score_fn(self.classifier(self.frontend(audio, gain)))
+        parts = audio if isinstance(audio, (list, tuple)) else \
+            split_rows(torch.as_tensor(audio), len(self.shards))
+        devices = [classifier.device for _, classifier in self.shards]
+        parts = scatter(parts, devices)
+        gains = scatter([gain] * len(devices), devices)
+        return gather([
+            score_fn(classifier(frontend(part.contiguous(), g)))
+            for (frontend, classifier), part, g in zip(self.shards, parts,
+                                                       gains)],
+            self.device)
 
 
 def make_classifier(model, model_type: str, compute_dtype=torch.float32):
@@ -84,9 +166,11 @@ def make_classifier(model, model_type: str, compute_dtype=torch.float32):
 
 
 def make_batch_scorer(checkpoint_path: str, device=DEFAULT_DEVICE,
-                      compute_dtype=torch.float32) -> BatchScorer:
+                      compute_dtype=torch.float32, mesh=None) -> BatchScorer:
     """Load a native `.npz` checkpoint onto `device` and build audio ->
-    scores.
+    scores; with `mesh` (a `parallel.Mesh`), onto each of its batch
+    shards' devices instead (the first shard's is `.device`), the batch
+    split over them.
 
     compute_dtype=torch.bfloat16 runs the GRU or CNN kernel's matmuls on
     bf16 inputs with f32 accumulation, and the frontend kernel then hands
@@ -99,6 +183,8 @@ def make_batch_scorer(checkpoint_path: str, device=DEFAULT_DEVICE,
     ValueError for a CUDA device when the frontend route's kernel cannot
     take the checkpoint's config; nothing falls back to the CPU.
     """
+    if mesh is not None:
+        device = mesh.batch_devices()[0]
     device = resolve_device(device)
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"compute_dtype must be float32 or bfloat16, got "
@@ -122,4 +208,15 @@ def make_batch_scorer(checkpoint_path: str, device=DEFAULT_DEVICE,
                                      if handoff != torch.float32 else ""),
         "classifier": classifier_path,
     }
-    return BatchScorer(frontend, classifier, predictor, p, paths)
+    shards = [(frontend, classifier)]
+    n = batch_shards(mesh)
+    if n > 1:
+        classifiers = shard_classifier(classifier, mesh).shards
+        frontends = {classifier.device: frontend}
+        for c in classifiers:
+            if c.device not in frontends:
+                frontends[c.device] = MfccFrontend(p, feature_type, c.device,
+                                                   out_dtype=handoff)
+        shards = [(frontends[c.device], c) for c in classifiers]
+        paths["parallel"] = f"shards x{n}"
+    return BatchScorer(shards, predictor, p, paths)

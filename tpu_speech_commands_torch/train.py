@@ -9,11 +9,21 @@ On the card (the default), `--augment` runs the augmentation and the
 frontend kernel inside every train step; without it the features are
 extracted once through the frontend kernel.  The classifier trains under
 autograd over the port's plain modules, and the validation pass runs the
-classifier kernel.  Differences from the JAX trainer: `--num_devices` takes
-only 1, `--epochs_per_dispatch` is accepted and has no effect (one step a
-batch, one checkpoint check an epoch), there is no TensorBoard log, and
-`--dtype bfloat16` rounds the matmul and conv inputs to bf16 (f32
-accumulation), as the scorer's bf16 paths do.
+classifier kernel.
+
+`--num_devices N` trains on N devices on the 'data' axis, one process a
+device (`parallel/launch.py`: N ranks started with `spawn`, NCCL between
+distinct cards, gloo on the CPU); the default, as in the JAX trainer, is
+every visible card (the one card `--device cuda:<i>` names; one device for
+`--device cpu`, where N gloo ranks share the CPU).  A mesh larger than the
+devices raises the JAX ValueError.  Under `torchrun` (WORLD_SIZE set) each
+process is one rank of that group.  Rank 0 prints and writes the log
+directory.
+
+Differences from the JAX trainer: `--epochs_per_dispatch` is accepted and
+has no effect (one step a batch, one checkpoint check an epoch), there is
+no TensorBoard log, and `--dtype bfloat16` rounds the matmul and conv
+inputs to bf16 (f32 accumulation), as the scorer's bf16 paths do.
 """
 from __future__ import annotations
 
@@ -29,17 +39,60 @@ from .models import MODEL_TYPES, init_model
 from .ops.frontend_kernel import MfccFrontend
 from .optim import get_optimizer
 from .params import inject_params, pr, save_params
+from .parallel import batch_shards, init_process_mesh, make_mesh
 from .training import Trainer, TrainerConfig, restore_state
 from .training.checkpoints import CheckpointManager
 from .utils import ensure_background_first, get_classes
 
 
+def train_mesh(args):
+    """The ('data', 'model') mesh of --num_devices over the devices --device
+    names: every visible card for "cuda", that card alone for "cuda:<i>"
+    without --num_devices, N copies of the CPU for "cpu" (N gloo ranks);
+    ValueError when it does not fit."""
+    device = torch.device(args.device)
+    if device.type == "cpu":
+        devices = ["cpu"] * (args.num_devices or 1)
+    else:
+        resolve_device(device)
+        devices = None  # every visible card
+        if device.index is not None and args.num_devices is None:
+            devices = [device]
+    return make_mesh(n_data=args.num_devices, devices=devices)
+
+
 def main(args):
-    """Returns the Trainer, after fit."""
-    if args.num_devices not in (None, 1):
-        raise ValueError(f"--num_devices {args.num_devices}: the port trains "
-                         "on one device")
-    device = resolve_device(args.device)
+    """Returns the Trainer, after fit (None in the parent of spawned
+    ranks)."""
+    mesh = train_mesh(args)
+    devices = [str(d) for d in mesh.batch_devices()]
+    if batch_shards(mesh) == 1:
+        return fit(args, devices[0])
+    from .parallel import launch
+
+    if "WORLD_SIZE" in os.environ:  # one rank of a torchrun group
+        rank, device = launch.init_from_env(devices)
+        return fit_rank(rank, device, args, len(devices))
+    if mesh.devices.flat[0].type == "cuda":
+        # one nvcc build in the parent, not one in every rank
+        from .ops import _build
+
+        _build.load_library()
+    launch.launch(fit_rank, devices, args=(args, len(devices)))
+    return None
+
+
+def fit_rank(rank: int, device, args, n_data: int):
+    """One rank of `main`'s data-parallel run (a spawned process)."""
+    del rank
+    return fit(args, device, init_process_mesh(1, n_data, 1, device))
+
+
+def fit(args, device, mesh=None):
+    """Train on one device, or as one rank of a process `mesh`; returns the
+    Trainer, after fit."""
+    device = resolve_device(device)
+    writer = mesh is None or mesh.rank == 0
     log_dir = args.log_dir
     class_names = get_classes(args.classes_path)
     ensure_background_first(class_names)
@@ -66,22 +119,33 @@ def main(args):
         if len(noise_bank) == 0:
             noise_bank = np.zeros((1, pr.max_samples), np.float32)
         frontend, _ = select_training_frontend(
-            pr, args.feature_type, args.batch_size, device)
+            pr, args.feature_type, args.batch_size, device, verbose=writer,
+            mesh=mesh)
         device_pipeline = make_audio_pipeline(frontend, args.model_type,
-                                              noise_bank, device=device)
+                                              noise_bank, device=device,
+                                              mesh=mesh)
     else:
         frontend = MfccFrontend(pr, args.feature_type, device)
-        if args.val_data_path:
-            train_ds = get_dataset(args.train_data_path, class_names,
-                                   frontend=frontend)
-            val_ds = get_dataset(args.val_data_path, class_names,
-                                 frontend=frontend)
-        else:
+
+        def load():
+            if args.val_data_path:
+                return (get_dataset(args.train_data_path, class_names,
+                                    frontend=frontend),
+                        get_dataset(args.val_data_path, class_names,
+                                    frontend=frontend))
             if not args.val_split > 0:
                 raise ValueError("no val data split.")
-            train_ds, val_ds = get_dataset(
-                args.train_data_path, class_names, val_split=args.val_split,
-                frontend=frontend)
+            return get_dataset(args.train_data_path, class_names,
+                               val_split=args.val_split, frontend=frontend)
+
+        if mesh is not None:
+            # rank 0 extracts and caches the features, then every rank reads
+            # the cache: a first extraction and the cache order the samples
+            # differently, and every rank must hold the same rows
+            if writer:
+                load()
+            torch.distributed.barrier()
+        train_ds, val_ds = load()
 
     # ceil: the padded final batch is a step too
     steps_per_epoch = max(1, -(-len(train_ds) // args.batch_size))
@@ -97,14 +161,15 @@ def main(args):
                           bn_momentum=args.bn_momentum)
     if args.weights_path:
         restore_state(model, args.weights_path, args.model_type)
-        print(f"Load weights {args.weights_path}.")
+        if writer:
+            print(f"Load weights {args.weights_path}.")
     elif args.resume:
         newest = CheckpointManager(log_dir).latest()
         if newest:
             restore_state(model, newest, args.model_type)
-            print(f"Resumed from {newest}.")
-        else:
-            print("No checkpoint to resume from; starting fresh.")
+        if writer:
+            print(f"Resumed from {newest}." if newest else
+                  "No checkpoint to resume from; starting fresh.")
 
     config = TrainerConfig(batch_size=args.batch_size, epochs=args.epochs,
                            log_dir=log_dir, use_plateau=args.decay_type is None,
@@ -125,18 +190,21 @@ def main(args):
                       checkpoint_meta=trainer_meta,
                       average_type=args.average_type,
                       device_pipeline=device_pipeline, device=device,
-                      compute_dtype=compute_dtype)
+                      compute_dtype=compute_dtype, mesh=mesh)
 
-    print(f"Train on {len(train_ds)} samples, val on {len(val_ds)} samples, "
-          f"with batch size {args.batch_size} on {device}.")
-    os.makedirs(log_dir, exist_ok=True)
-    save_params(os.path.join(log_dir, "params.json"))
-    with open(os.path.join(log_dir, "classes.txt"), "w") as f:
-        f.write("\n".join(class_names) + "\n")
+    if writer:
+        where = device if mesh is None else f"mesh {mesh.shape}"
+        print(f"Train on {len(train_ds)} samples, val on {len(val_ds)} "
+              f"samples, with batch size {args.batch_size} on {where}.")
+        os.makedirs(log_dir, exist_ok=True)
+        save_params(os.path.join(log_dir, "params.json"))
+        with open(os.path.join(log_dir, "classes.txt"), "w") as f:
+            f.write("\n".join(class_names) + "\n")
 
     history = trainer.fit(train_ds, val_ds)
-    best = max((h.val_accuracy for h in history), default=0.0)
-    print(f"Best val_accuracy: {best:.4f}")
+    if writer:
+        best = max((h.val_accuracy for h in history), default=0.0)
+        print(f"Best val_accuracy: {best:.4f}")
     return trainer
 
 
@@ -177,7 +245,8 @@ def build_parser():
     parser.add_argument("--bn_momentum", type=float, default=0.99,
                         help="BatchNorm running-stats momentum")
     parser.add_argument("--num_devices", type=int, default=None,
-                        help="only 1: the port trains on one device")
+                        help="devices on the data axis, one rank each "
+                             "(default: every visible card; 1 on the CPU)")
     parser.add_argument("--log_dir", type=str, default=os.path.join("logs", "000"))
     parser.add_argument("--resume", action="store_true",
                         help="resume weights from the newest checkpoint in log_dir")

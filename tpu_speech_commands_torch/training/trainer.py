@@ -18,7 +18,19 @@ Callbacks, as the JAX per-epoch fit: best-val_accuracy checkpoints with
 keep-newest-5, ReduceLROnPlateau (x0.5 after 10 epochs, only without a
 decay schedule, floor 1e-10), EarlyStopping (50), TerminateOnNaN, and a
 `metrics.csv` with the JAX columns.  Not ported: the multi-epoch device
-scan, the staging cache, meshes and TensorBoard (ROADMAP.md).
+scan, the staging cache and TensorBoard (ROADMAP.md).
+
+Under a process mesh (`parallel.ProcessMesh`, one rank a device: the
+counterpart of the JAX trainer's mesh-sharded step) every rank runs the
+same `batch_iterator` and takes its rows of each global batch; the model's
+dense pair is split over 'model' (`parallel.tensor_parallel`), BatchNorm
+and dropout take the global batch's statistics and mask; the loss is the
+rank's sum(mask * loss) over the global mask count (summed over the batch
+group first), and the gradients are summed over the batch group with one
+flat all-reduce, which also carries the step's loss and accuracy.
+Validation sums are summed the same way, so every rank takes the same
+callback branches; rank 0 alone writes checkpoints (from gathered full
+tensors, the JAX key layout) and `metrics.csv`.
 """
 from __future__ import annotations
 
@@ -35,6 +47,8 @@ from ..data.dataset import Dataset, batch_iterator
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..losses import make_loss_fn
 from ..models.factory import features_to_input
+from ..parallel import all_reduce_
+from ..parallel.tensor_parallel import gather_model, shard_model
 from ..serving import make_classifier
 from .checkpoints import CheckpointManager
 
@@ -51,31 +65,51 @@ def step_generator(seed: int, step: int, stream: int,
     return g
 
 
+def sum_over_batch_flat(tensors, mesh) -> list[torch.Tensor]:
+    """`tensors` summed over the mesh's batch group by one all-reduce of
+    their concatenation."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    all_reduce_(flat, mesh.batch_group)
+    return [part.view_as(t) for part, t in
+            zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
 def make_train_step(model, loss_fn: Callable, optimizer,
                     device_pipeline: Callable | None = None,
-                    compute_dtype=torch.float32, seed: int = 0):
+                    compute_dtype=torch.float32, seed: int = 0, mesh=None):
     """(x, y, mask, step) -> (loss, accuracy) device scalars, after one
     update of `optimizer`'s parameters (the model's).
 
     device_pipeline (optional): (generator, x, train) -> model input, run
-    first, e.g. augmentation + the frontend kernel on raw audio."""
+    first, e.g. augmentation + the frontend kernel on raw audio.  Under a
+    process `mesh`, x, y and mask are this rank's rows of the global batch
+    and the model is `shard_model`'s; the loss and accuracy returned are
+    the global batch's."""
     params = [p for p in model.parameters()]
 
     def train_step(x, y, mask, step: int):
         if device_pipeline is not None:
             x = device_pipeline(step_generator(seed, step, _PIPELINE), x, True)
         model.train()
+        count = mask.sum()
+        if mesh is not None:
+            count = all_reduce_(count, mesh.batch_group)
+        denom = torch.clamp(count, min=1.0)
         with torch.enable_grad():
             logits = model(x, compute_dtype=compute_dtype,
                            generator=step_generator(seed, step, _DROPOUT,
                                                     x.device))
             losses = loss_fn(y, logits)
-            denom = torch.clamp(mask.sum(), min=1.0)
             loss = (losses * mask).sum() / denom
             grads = torch.autograd.grad(loss, params)
+        loss = loss.detach()
         acc = ((logits.argmax(-1) == y).float() * mask).sum() / denom
+        if mesh is not None:
+            *grads, metrics = sum_over_batch_flat(
+                [*grads, torch.stack([loss, acc])], mesh)
+            loss, acc = metrics
         optimizer.step(grads)
-        return loss.detach(), acc.detach()
+        return loss, acc.detach()
 
     return train_step
 
@@ -131,15 +165,19 @@ class EpochMetrics:
 
 class Trainer:
     """The per-epoch training loop with the reference's callback semantics,
-    on one device (the card unless the caller passes "cpu")."""
+    on one device (the card unless the caller passes "cpu"), or as one rank
+    of a process `mesh` (`parallel.ProcessMesh`) on the mesh's device."""
 
     def __init__(self, model, optimizer, model_type: str, num_classes: int,
                  config: TrainerConfig, background_bias: float | None = None,
                  checkpoint_meta: dict | None = None,
                  average_type: str | None = None,
                  device_pipeline: Callable | None = None,
-                 device=DEFAULT_DEVICE, compute_dtype=torch.float32):
-        self.device = resolve_device(device)
+                 device=DEFAULT_DEVICE, compute_dtype=torch.float32,
+                 mesh=None):
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if mesh is not None
+                                     else device)
         self.model = model.to(self.device)
         self.model_type = model_type
         self.config = config
@@ -149,7 +187,10 @@ class Trainer:
             "model_type": model_type, "num_classes": num_classes}
         self.loss_fn = make_loss_fn(num_classes, background_bias)
         self.optimizer = optimizer
-        if not optimizer.params:
+        if mesh is not None:  # the optimizer steps this rank's shards
+            shard_model(self.model, mesh)
+            optimizer.bind(self.model.parameters())
+        elif not optimizer.params:
             optimizer.bind(self.model.parameters())
         self.averager = None
         if average_type:
@@ -159,14 +200,23 @@ class Trainer:
                                            self.model.parameters())
         self._train_step = make_train_step(self.model, self.loss_fn, optimizer,
                                            device_pipeline, compute_dtype,
-                                           config.seed)
+                                           config.seed, mesh)
         self.step = optimizer.count
         self.history: list[EpochMetrics] = []
 
+    @property
+    def writer(self) -> bool:
+        """Whether this process writes files and prints: rank 0 of a mesh."""
+        return self.mesh is None or self.mesh.rank == 0
+
     def _batch(self, x, y, valid):
+        """A global host batch -> this process's rows on its device."""
         if self.device_pipeline is None:  # raw audio goes to the pipeline
             x = features_to_input(x, self.model_type)
         mask = (np.arange(len(y)) < valid).astype(np.float32)
+        if self.mesh is not None:
+            rows = self.mesh.batch_rows(len(y))
+            x, y, mask = x[rows], y[rows], mask[rows]
         return (torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(self.device),
                 torch.from_numpy(np.asarray(y, np.int64)).to(self.device),
                 torch.from_numpy(mask).to(self.device))
@@ -192,17 +242,24 @@ class Trainer:
 
     def eval_model(self):
         """The model evaluation and checkpoints use: the averaged parameters
-        under EMA / SWA (the live BatchNorm statistics), else the model."""
-        if self.averager is None or self.averager.average_type == "lookahead":
-            return self.model
-        model = copy.deepcopy(self.model)
-        with torch.no_grad():
-            for p, a in zip(model.parameters(), self.averager.avg_params):
-                p.copy_(a)
+        under EMA / SWA (the live BatchNorm statistics), else the model;
+        under a mesh an unsharded copy, gathered over 'model' (every rank
+        calls it)."""
+        model = self.model
+        if self.averager is not None and \
+                self.averager.average_type != "lookahead":
+            model = copy.deepcopy(self.model)
+            with torch.no_grad():
+                for p, a in zip(model.parameters(), self.averager.avg_params):
+                    p.copy_(a)
+        if self.mesh is not None:
+            model = gather_model(model, self.mesh)
         return model
 
     def evaluate(self, ds: Dataset) -> dict:
-        """Mean loss and accuracy over ds through the classifier kernel."""
+        """Mean loss and accuracy over ds through the classifier kernel
+        (under a mesh, each rank on its rows, the sums summed over the batch
+        group)."""
         model = self.eval_model()
         model.eval()
         classifier, _ = make_classifier(model, self.model_type,
@@ -213,6 +270,8 @@ class Trainer:
         for x, y, valid in batch_iterator(ds, self.config.batch_size,
                                           shuffle=False):
             sums += eval_step(*self._batch(x, y, valid))
+        if self.mesh is not None:
+            all_reduce_(sums, self.mesh.batch_group)
         loss_sum, correct, count = sums.tolist()
         count = max(count, 1.0)
         return {"loss": loss_sum / count, "accuracy": correct / count}
@@ -222,10 +281,13 @@ class Trainer:
 
     def fit(self, train_ds: Dataset, val_ds: Dataset, verbose: bool = True):
         cfg = self.config
-        os.makedirs(cfg.log_dir, exist_ok=True)
-        ckpt = CheckpointManager(cfg.log_dir, max_keep=cfg.max_keep,
-                                 meta=self.checkpoint_meta)
-        logger = MetricsLogger(cfg.log_dir)
+        verbose = verbose and self.writer
+        ckpt = logger = None
+        if self.writer:
+            os.makedirs(cfg.log_dir, exist_ok=True)
+            ckpt = CheckpointManager(cfg.log_dir, max_keep=cfg.max_keep,
+                                     meta=self.checkpoint_meta)
+            logger = MetricsLogger(cfg.log_dir)
         best_val_acc = -np.inf
         epochs_since_best = 0
         plateau_wait = 0
@@ -241,7 +303,8 @@ class Trainer:
                               val_accuracy=val_metrics["accuracy"],
                               seconds=dt, lr=self._current_lr())
             self.history.append(em)
-            logger.log(em)
+            if logger is not None:
+                logger.log(em)
             if verbose:
                 print(f"Epoch {epoch}/{cfg.epochs} - {dt:.1f}s - "
                       f"loss: {em.loss:.4f} - accuracy: {em.accuracy:.4f} - "
@@ -249,7 +312,8 @@ class Trainer:
                       f"val_accuracy: {em.val_accuracy:.4f}")
             # TerminateOnNaN
             if not np.isfinite(em.loss):
-                print("NaN loss encountered — terminating training.")
+                if self.writer:
+                    print("NaN loss encountered — terminating training.")
                 nan_terminated = True
                 break
             # best checkpoint + keep-newest cleanup
@@ -257,7 +321,9 @@ class Trainer:
                 best_val_acc = em.val_accuracy
                 epochs_since_best = 0
                 plateau_wait = 0
-                ckpt.save_epoch(self.eval_model(), em)
+                model = self.eval_model()  # a collective under a mesh
+                if ckpt is not None:
+                    ckpt.save_epoch(model, em)
             else:
                 epochs_since_best += 1
                 plateau_wait += 1
@@ -280,11 +346,15 @@ class Trainer:
     def _fit_finish(self, ckpt, logger, nan_terminated: bool):
         if nan_terminated:
             # NaN weights would clobber a usable trained_final.npz
-            print("Not writing trained_final.npz (NaN weights); use the "
-                  "last best checkpoint (ep*.npz) instead.")
+            if self.writer:
+                print("Not writing trained_final.npz (NaN weights); use the "
+                      "last best checkpoint (ep*.npz) instead.")
         else:
-            ckpt.save_final(self.eval_model())
-        logger.close()
+            model = self.eval_model()  # a collective under a mesh
+            if ckpt is not None:
+                ckpt.save_final(model)
+        if logger is not None:
+            logger.close()
         return self.history
 
 
