@@ -100,8 +100,10 @@ Phases, in order; any failure raises and the script exits non-zero:
               rise, the printed frontend names cuda-mfcc, every loss is
               finite, ep*.npz, trained_final.npz, metrics.csv, params.json
               and classes.txt exist; one train step on the card and one on
-              the CPU from the same init, batch and augmentation draws
-              (dropout 0) give losses and parameters within 1e-4;
+              the CPU (`dev.bench_train.make_step`, the builder phase 5
+              times, over 5 classes) from the same init, batch and
+              augmentation draws (dropout 0) give losses and parameters
+              within 1e-4;
             - eval: the port's `eval.main` on the card and on the CPU for
               the four shipped checkpoints on the example clips (accuracy
               1.0) and for the two checkpoints just trained on the corpus:
@@ -145,7 +147,21 @@ Phases, in order; any failure raises and the script exits non-zero:
               validation, then evaluation and the scorer over a mesh of the
               same devices; each rank's frontend, GRU and CNN classifier
               launch counts (from its report) above 0, no JAX module in any
-              rank; the same through one NCCL rank
+              rank; the same through one NCCL rank;
+            - tools: `validate_speech_commands.main` on example/ for the
+              simple_gru and simple_cnn `.npz` (frontend and classifier
+              kernels) and `.tscm`: every clip's top-1 its label (eval's
+              top-1 above); `mfcc_feature.main` on one clip: the frontend
+              and fast_math kernels' features finite, the first within the
+              f32 feature bound of the float64 oracle, the second within
+              it of its plain chain and within FAST_MATH_ORACLE_ATOL of
+              the oracle; `dump_inference_model.main` on the simple_gru
+              checkpoint just trained: the same arrays, and scores (frontend
+              and GRU kernels) equal to the input's; `dev.accuracy_parity`
+              for simple_gru, seed 0, 36 classes x 8 clips, 3 epochs: the
+              frontend kernel in the extraction, the GRU kernel in
+              validation, a finite accuracy, and the committed easy stage
+              file refused (another configuration) before any training
 5. times    CUDA-event times at B = 8192, audio resident on the card (the
             dense-DFT, load-floor and CT kernels are first held to their
             plain versions at this batch, their entry points' own, with the
@@ -198,11 +214,15 @@ Phases, in order; any failure raises and the script exits non-zero:
             least 0.9x the load floor's time (they read every sample), and
             each `full` cut is timed in turns with its shipped kernel;
             route ct's split-dup body at n_fft 4352 with 300, 512 and 600
-            coefficients beside its bound; the train step of `train.py
-            --augment` at B = 512 for simple_gru and simple_cnn (ms a
-            step, samples/s, the frontend kernel's share) and
+            coefficients beside its bound; the train step at B = 512
+            for simple_gru and simple_cnn from `dev.bench_train` (its
+            config: 36 classes, adam on a cosine decay; the step of
+            `train.py --augment`: ms a step, samples/s, the frontend
+            kernel's share; and on features, the JAX bench's) and
             `evaluate_accuracy` at batch 512 (samples/s), printed as a
-            JSON line `{"train_eval": ...}`; the streaming tick
+            JSON line `{"train_eval": ...}`; the host's postprocess a tick
+            (`dev.bench_postprocess`, scalar against vectorized, 1 and 1024
+            slots), printed as `{"postprocess": ...}`; the streaming tick
             (`dev.bench_streaming`: ring update, frame features, the
             classifier kernel, softmax) at 1 and 1024 streams for
             simple_gru and simple_cnn, p50 / p90 / p99 ms a tick between
@@ -225,7 +245,6 @@ import contextlib
 import copy
 import glob
 import io
-import itertools
 import json
 import os
 import shutil
@@ -671,37 +690,6 @@ def random_cnn(cls, h: int, w: int, seed: int, device):
     return model.to(device).eval()
 
 
-def train_step_for(model_type: str, device, noise_bank, seed: int = 0):
-    """One model from init_model's seed-0 weights on `device` (dropout 0),
-    adam, and the train step of `train.py --augment` over it: the
-    augmentation and the frontend (the frontend kernel on the card, the
-    plain chain on the CPU), then the plain module under autograd.  Returns
-    (step, model, frontend)."""
-    from tpu_speech_commands_torch.data.augment import make_audio_pipeline
-    from tpu_speech_commands_torch.losses import make_loss_fn
-    from tpu_speech_commands_torch.models import init_model
-    from tpu_speech_commands_torch.ops.training_frontend import (
-        select_training_frontend)
-    from tpu_speech_commands_torch.optim import get_optimizer
-    from tpu_speech_commands_torch.params import ListenerParams
-    from tpu_speech_commands_torch.training.trainer import make_train_step
-
-    model, _ = init_model(model_type, 5, seed=0, dropout_rate=0.0)
-    model.to(device)
-    frontend, kind = select_training_frontend(ListenerParams(), "mfcc",
-                                              TRAIN_BATCH, device,
-                                              verbose=False)
-    want = "cuda-mfcc" if str(device).startswith("cuda") else "torch"
-    if kind != want:
-        raise AssertionError(f"training frontend {kind} is not {want}")
-    pipe = make_audio_pipeline(frontend, model_type, noise_bank,
-                               device=device)
-    opt = get_optimizer("adam", 1e-3, decay_type=None, injectable=True,
-                        params=model.parameters())
-    return (make_train_step(model, make_loss_fn(5), opt, pipe, seed=seed),
-            model, frontend)
-
-
 def flat_variables(model) -> dict:
     from tpu_speech_commands_torch.training.checkpoints import (
         flatten_variables)
@@ -740,6 +728,7 @@ def drive_train_eval(dev, drive, clips, work: str) -> None:
     from tpu_speech_commands_torch import eval as port_eval
     from tpu_speech_commands_torch import train as port_train
     from tpu_speech_commands_torch.data.synthetic import make_synthetic_dataset
+    from tpu_speech_commands_torch.dev import bench_train
     from tpu_speech_commands_torch.export.inference_loader import load_native
     from tpu_speech_commands_torch.params import ListenerParams, pr
     from tpu_speech_commands_torch.utils import get_classes
@@ -787,14 +776,24 @@ def drive_train_eval(dev, drive, clips, work: str) -> None:
             raise AssertionError(f"train.main({mt}) wrote no ep*.npz")
         finals[mt] = os.path.join(log_dir, "trained_final.npz")
 
-    # one train step, card against CPU: the same init, batch and
-    # augmentation draws, dropout 0
+    # one train step, card against CPU: dev.bench_train's step (the one
+    # phase 5 times) of train.py --augment over 5 classes, adam at
+    # train.py's constant rate, dropout 0, the same init, batch and
+    # augmentation draws
+    pr.override(ListenerParams().to_dict())
     step_audio = test_audio(clips, 64, seed=6)
     step_labels = np.arange(64) % 5
     for mt in ("simple_gru", "simple_cnn"):
         out = []
         for d in (dev, torch.device("cpu")):
-            step, model, _ = train_step_for(mt, d, step_audio[step_labels == 0])
+            step, model, _, kind_d = bench_train.make_step(
+                mt, TRAIN_BATCH, d, augment=True, num_classes=5,
+                decay_type=None, noise_bank=step_audio[step_labels == 0],
+                dropout_rate=0.0)
+            want = kind if d == dev else "torch"
+            if kind_d != want:
+                raise AssertionError(f"training frontend {kind_d} is not "
+                                     f"{want}")
             mask = torch.ones(64, device=d)
             mask[-5:] = 0.0
             loss, _ = step(torch.tensor(step_audio, device=d),
@@ -853,41 +852,46 @@ def drive_train_eval(dev, drive, clips, work: str) -> None:
     pr.override(ListenerParams().to_dict())
 
 
-def time_train_eval(dev, big, big_np, big_feats, labels, card) -> dict:
+def time_train_eval(dev, big_feats, labels, card) -> dict:
     """Phase 5's train and eval times on `dev`: the train step at
-    TRAIN_BATCH and evaluate_accuracy over big_feats' windows (the rows of
-    `big`, clip i % 8's)."""
+    TRAIN_BATCH from dev.bench_train (features, and raw audio through the
+    `--augment` pipeline), and evaluate_accuracy over big_feats' windows
+    (clip i % 8's)."""
     import torch
 
     from tpu_speech_commands_torch.data.dataset import Dataset
+    from tpu_speech_commands_torch.dev import bench_train
     from tpu_speech_commands_torch.evaluation import evaluate_accuracy
     from tpu_speech_commands_torch.export.inference_loader import load_native
     from tpu_speech_commands_torch.params import ListenerParams, pr
     from tpu_speech_commands_torch.serving import make_classifier
 
-    # the train step of `train.py --augment` at its default batch (512) and
-    # config, simple_gru and simple_cnn, device times over 10 steps after 3
-    # of warm-up; beside it the frontend kernel alone on the same batch;
-    # then evaluate_accuracy at batch 512 on B_TIME windows' features,
-    # through the classifier kernels
+    # dev.bench_train.bench_model at train.py's default batch (512),
+    # simple_gru and simple_cnn, on its config (36 classes, adam on a
+    # cosine decay): the step of `train.py --augment` (augmentation and the
+    # frontend kernel inside it; the frontend alone on the same batch
+    # beside it) and the step on features (the JAX bench_train's); then
+    # evaluate_accuracy at batch 512 on B_TIME windows' features, through
+    # the classifier kernels
+    pr.override(ListenerParams().to_dict())
     train_eval_times = {}
-    step_audio = big[:TRAIN_BATCH]
-    step_labels = torch.tensor(np.arange(TRAIN_BATCH) % 5, device=dev)
-    step_mask = torch.ones(TRAIN_BATCH, device=dev)
     for mt in ("simple_gru", "simple_cnn"):
-        step, _, frontend = train_step_for(mt, dev, big_np[-64:])
-        counter = itertools.count()
-        step_ms = cuda_ms(lambda: step(step_audio, step_labels, step_mask,
-                                       next(counter)), 10, warmup=3)
-        fe_ms = cuda_ms(lambda: frontend(step_audio), 20)
-        train_eval_times[mt] = {"step_ms": step_ms,
-                                "samples_per_s": TRAIN_BATCH / step_ms * 1e3,
-                                "frontend_ms": fe_ms,
-                                "frontend_share": fe_ms / step_ms}
-        log(f"  train step {mt} B = {TRAIN_BATCH} --augment: {step_ms:.4f} "
-            f"ms/step  {TRAIN_BATCH / step_ms * 1e3:.0f} samples/s; the "
-            f"frontend kernel {fe_ms:.4f} ms = {fe_ms / step_ms:.1%} of the "
-            f"step  ({card})")
+        aug = bench_train.bench_model(mt, TRAIN_BATCH, iters=10, device=dev,
+                                      augment=True)
+        feat = bench_train.bench_model(mt, TRAIN_BATCH, iters=20, device=dev)
+        train_eval_times[f"bench_train {mt} (36 classes, cosine adam)"] = {
+            "step_ms": aug["step_ms"], "samples_per_s": aug["samples_per_s"],
+            "frontend_ms": aug["frontend_ms"],
+            "frontend_share": aug["frontend_share"],
+            "features_step_ms": feat["step_ms"],
+            "features_samples_per_s": feat["samples_per_s"]}
+        log(f"  bench_train step {mt} (36 classes, cosine adam) "
+            f"B = {TRAIN_BATCH} --augment: "
+            f"{aug['step_ms']:.4f} ms/step  {aug['samples_per_s']:.0f} "
+            f"samples/s; the frontend kernel {aug['frontend_ms']:.4f} ms = "
+            f"{aug['frontend_share']:.1%} of the step; on features "
+            f"{feat['step_ms']:.4f} ms/step {feat['samples_per_s']:.0f} "
+            f"samples/s (dev.bench_train)  ({card})")
     n = len(big_feats)
     eval_labels = np.arange(n) % 8
     for mt, path in (("simple_gru", CHECKPOINT),
@@ -1351,6 +1355,189 @@ def drive_export(dev, drive, work: str) -> None:
     pr.override(ListenerParams().to_dict())
 
 
+def drive_tools(dev, drive, work: str, trained: str) -> dict:
+    """Phase 4's tools slice on `dev` (the card; the CPU for a dry run),
+    each path through `drive`:
+    - the validator (`validate_speech_commands.main`) on example/ for the
+      simple_gru and simple_cnn `.npz` (frontend and classifier kernels)
+      and `.tscm` (frontend kernel, the C++ runtime): each clip's top-1 is
+      its label, which is eval.main's top-1 on these clips (accuracy 1.0
+      above);
+    - the comparator (`mfcc_feature.main`) on one clip: the frontend and
+      fast_math kernels' features finite, the first within the f32 feature
+      bound of the float64 oracle, the second within it of its own plain
+      chain on the CPU and within FAST_MATH_ORACLE_ATOL of the oracle;
+    - `dump_inference_model.main` on `trained` (a checkpoint of the train
+      slice): the same arrays, and the dump's scores on the clips' features
+      (frontend and GRU kernels) equal the input's;
+    - the accuracy-parity stage (`dev.accuracy_parity.main`): simple_gru,
+      seed 0, 36 classes x 8 clips, 3 epochs: the frontend kernel in the
+      extraction, the GRU kernel in validation, a finite accuracy; then the
+      committed easy stage file, whose configuration differs, is refused
+      before any training.
+    Returns the tools' numbers."""
+    import torch
+
+    from tpu_speech_commands_torch import (dump_inference_model, mfcc_feature,
+                                           validate_speech_commands)
+    from tpu_speech_commands_torch.dev import (FAST_MATH_ORACLE_ATOL,
+                                               FEAT_ATOL, FEAT_RTOL,
+                                               accuracy_parity,
+                                               check_features)
+    from tpu_speech_commands_torch.export.inference_loader import load_native
+    from tpu_speech_commands_torch.frontend.dsp import Frontend
+    from tpu_speech_commands_torch.ops.frontend_kernel import MfccFrontend
+    from tpu_speech_commands_torch.params import ListenerParams, pr
+    from tpu_speech_commands_torch.serving import make_classifier
+
+    t0 = time.perf_counter()
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out = {}
+    wavs = sorted(glob.glob(os.path.join(REPO, "example", "*.wav")))
+    labels = [os.path.basename(w).split("_")[0] for w in wavs]
+    eval_kernel = {"simple_gru": "gru_classifier",
+                   "simple_cnn": "cnn_classifier"}
+    for mt, kernel in eval_kernel.items():
+        for suffix, need in ((".npz", ("mfcc_frontend", kernel)),
+                             (".tscm", ("mfcc_frontend",))):
+            model = os.path.join(REPO, "pretrained", f"direction_{mt}{suffix}")
+            pr.override(ListenerParams().to_dict())
+            printed = io.StringIO()
+
+            def run(model=model, printed=printed):
+                with contextlib.redirect_stdout(printed):
+                    return validate_speech_commands.main([
+                        "--model_path", model, "--audio_path",
+                        os.path.join(REPO, "example"), "--classes_path",
+                        CLASSES_PATH, "--top_k", "2", "--loop_count", "20",
+                        "--device", str(dev)])
+
+            forbid = () if suffix == ".npz" else tuple(eval_kernel.values())
+            results = drive(f"validate_speech_commands.main("
+                            f"{os.path.basename(model)}, example/, top 2, "
+                            "20 loops)", run, need, forbid)
+            top1 = [r[0][0] for r in results]
+            ms = [float(line.split(":")[1].strip()[:-2])
+                  for line in printed.getvalue().splitlines()
+                  if line.startswith("Average Inference time")]
+            log(f"  validator {os.path.basename(model)}: top-1 {top1}, "
+                f"{np.mean(ms):.4f} ms a prediction (mean of the clips)")
+            if top1 != labels:
+                raise AssertionError(f"validator {model}: top-1 {top1} is not "
+                                     f"the clips' labels {labels}")
+            out[f"validate {os.path.basename(model)}"] = {
+                "top1": top1, "ms_a_prediction": float(np.mean(ms))}
+
+    # the comparator on one clip
+    pr.override(ListenerParams().to_dict())
+    clip = os.path.join(REPO, "example", "left_1.wav")
+
+    def run_comparator():
+        with contextlib.redirect_stdout(io.StringIO()):
+            return mfcc_feature.main(["--audio_file", clip, "--device",
+                                      str(dev), "--output_path",
+                                      os.path.join(work, "mfcc")])
+
+    res = drive("mfcc_feature.main(example/left_1.wav)", run_comparator,
+                ("mfcc_frontend", "dft_frontend_bf16"))
+    oracle = torch.tensor(res["numpy_oracle"])
+    fm_plain = Frontend(ListenerParams(), device="cpu", fast_math=True)(
+        torch.tensor(mfcc_feature.load_padded(clip)[None],
+                     dtype=torch.float32))[0]
+    errs = {
+        "frontend_kernel vs oracle": check_features(
+            "comparator: frontend kernel vs the float64 oracle",
+            torch.tensor(res["frontend_kernel"]), oracle),
+        "fast_math_kernel vs its plain chain": check_features(
+            "comparator: fast_math kernel vs its plain chain",
+            torch.tensor(res["fast_math_kernel"]), fm_plain),
+        "fast_math_kernel vs oracle": check_features(
+            "comparator: fast_math kernel vs the float64 oracle",
+            torch.tensor(res["fast_math_kernel"]), oracle,
+            FAST_MATH_ORACLE_ATOL, 0.0),
+    }
+    if "native_cpp" in res:
+        errs["native_cpp vs oracle"] = check_features(
+            "comparator: native C++ vs the float64 oracle",
+            torch.tensor(res["native_cpp"]), oracle)
+    log(f"  comparator ({res['frontend_kernel_path']}, "
+        f"{res['fast_math_kernel_path']}): max|delta| {errs}  (bounds atol "
+        f"{FEAT_ATOL:g} + rtol {FEAT_RTOL:g}; fast_math vs oracle atol "
+        f"{FAST_MATH_ORACLE_ATOL:g})")
+    out["mfcc_feature max_abs_err"] = errs
+
+    # dump_inference_model on the train slice's checkpoint
+    dumped = os.path.join(work, "dumped.npz")
+    with contextlib.redirect_stdout(io.StringIO()):
+        meta = dump_inference_model.main([
+            "--checkpoint", trained, "--output_file", dumped,
+            "--classes_path", CLASSES_PATH])
+    with np.load(trained) as a, np.load(dumped) as b:
+        if sorted(a.files) != sorted(b.files) or any(
+                not np.array_equal(a[k], b[k]) for k in a.files
+                if k != "__meta__"):
+            raise AssertionError("dump_inference_model changed the arrays")
+    clips, _ = load_clips()
+
+    def score(path):
+        predictor = load_native(path, dev)
+        classifier, _ = make_classifier(predictor.model, predictor.model_type)
+        fe = MfccFrontend(pr, "mfcc", dev)
+        return classifier(fe(torch.tensor(clips, device=dev)))
+
+    got = drive("dump_inference_model: the dump's scores on the clips",
+                lambda: score(dumped), ("mfcc_frontend", "gru_classifier"))
+    want = score(trained)
+    if not torch.equal(got, want):
+        raise AssertionError(f"the dump's scores differ from the input's by "
+                             f"{float((got - want).abs().max()):.3e}")
+    log(f"  dump_inference_model {os.path.relpath(trained, REPO)}: meta "
+        f"{sorted(meta)}, scores equal the input's bit for bit")
+
+    # the accuracy-parity stage, a smoke run
+    pr.override(ListenerParams().to_dict())
+    flags = ["--samples_per_class", "8", "--epochs", "3", "--seed", "0",
+             "--model_type", "simple_gru", "--work_dir",
+             os.path.join(work, "parity"), "--device", str(dev)]
+    printed = io.StringIO()
+
+    def run_parity():
+        with contextlib.redirect_stdout(printed):
+            return accuracy_parity.main(flags)
+
+    stage = drive("dev.accuracy_parity.main(simple_gru, 36 x 8, 3 epochs)",
+                  run_parity, ("mfcc_frontend", "gru_classifier"))
+    acc = stage["simple_gru"]["0"]["acc"]
+    log(f"  accuracy parity smoke: val_accuracy {acc:.4f} after 3 epochs")
+    if not np.isfinite(acc):
+        raise AssertionError(f"accuracy parity smoke: accuracy {acc}")
+    committed = os.path.join(REPO, "docs", "parity",
+                             "keras_stage_easy_371spc_100ep.json")
+    def run_refused():
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                accuracy_parity.main(flags + ["--keras_stage", committed])
+        except SystemExit as e:
+            return str(e)
+        return None
+
+    refusal = drive("dev.accuracy_parity.main(--keras_stage of another "
+                    "configuration)", run_refused, (), ("gru_classifier",))
+    if refusal is None:
+        raise AssertionError("accuracy parity: a stage file of another "
+                             "configuration was not refused")
+    if "recorded: " not in refusal or "current: " not in refusal:
+        raise AssertionError(f"accuracy parity refusal names no values: "
+                             f"{refusal}")
+    log(f"  accuracy parity refusal: {refusal.splitlines()[0]}")
+    out["parity smoke"] = {"acc": acc, "refused": refusal.splitlines()[0]}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  tools slice: {out['seconds']:.1f} s")
+    pr.override(ListenerParams().to_dict())
+    return out
+
+
 def time_streaming(card) -> dict:
     """Phase 5's streaming ticks: dev.bench_streaming at 1 and 1024 streams
     for simple_gru and simple_cnn, on the card."""
@@ -1373,6 +1560,20 @@ def time_streaming(card) -> dict:
                 f"{r['headroom_p50']:.1f}x / {r['headroom_p99']:.1f}x "
                 f"against {r['budget_ms']:.0f} ms  ({card})")
     return times
+
+
+def time_postprocess() -> list:
+    """Phase 5's host postprocess a tick (dev.bench_postprocess): the
+    scalar loop and the vectorized step at 1 and 1024 slots, each firing
+    the same triggers."""
+    from tpu_speech_commands_torch.dev import bench_postprocess
+
+    rows = [bench_postprocess.bench(n) for n in (1, 1024)]
+    for r in rows:
+        log(f"  postprocess {r['slots']} slots: scalar {r['scalar_ms']:.4f} "
+            f"vector {r['vector_ms']:.4f} ms a tick ({r['speedup']:.1f}x), "
+            f"{r['fired']} triggers each (host)")
+    return rows
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -2138,6 +2339,10 @@ def main() -> int:
                                              "streaming"))
     drive_export(dev, drive, os.path.join(REPO, "build", "chip_smoke",
                                           "export"))
+    log(json.dumps({"tools": drive_tools(
+        dev, drive, os.path.join(REPO, "build", "chip_smoke", "tools"),
+        os.path.join(REPO, "build", "chip_smoke", "train_eval",
+                     "logs_simple_gru", "trained_final.npz"))}))
     log(json.dumps({"parallel": drive_parallel(
         drive, launches, os.path.join(REPO, "build", "chip_smoke",
                                       "parallel"))}))
@@ -2609,7 +2814,8 @@ def main() -> int:
             f"windows/s  ({card})")
 
     log(json.dumps({"train_eval": time_train_eval(
-        dev, big, big_np, big_feats, labels, card), "card": card}))
+        dev, big_feats, labels, card), "card": card}))
+    log(json.dumps({"postprocess": time_postprocess(), "card": card}))
     log(json.dumps({"streaming": time_streaming(card), "card": card}))
     log(json.dumps({"parallel_serving": time_parallel(card), "card": card}))
 

@@ -133,6 +133,14 @@ def test_port_imports_no_jax():
         "tpu_speech_commands_torch.parallel.launch",
         "tpu_speech_commands_torch.dev.dryrun_multichip",
         "tpu_speech_commands_torch.dev.bench_multichip",
+        "tpu_speech_commands_torch.frontend.numpy_ref",
+        "tpu_speech_commands_torch.validate_speech_commands",
+        "tpu_speech_commands_torch.dump_inference_model",
+        "tpu_speech_commands_torch.mfcc_feature",
+        "tpu_speech_commands_torch.plot_spectrogram",
+        "tpu_speech_commands_torch.dev.accuracy_parity",
+        "tpu_speech_commands_torch.dev.bench_train",
+        "tpu_speech_commands_torch.dev.bench_postprocess",
     }
     assert expected <= set(result["modules"])
     assert result["leaked"] == []

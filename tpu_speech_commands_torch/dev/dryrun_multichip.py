@@ -182,8 +182,11 @@ def rank_main(rank: int, device, n: int, out: str, batch: int) -> None:
                     raise RuntimeError(f"dryrun witness failed: {b} != {a} at "
                                        f"{key} (max|d|={max_diff(steps[a], steps[b])})")
     mesh = meshes["data_x_model"]
+    # no TensorBoard log: TensorFlow, where it is installed, loads jax
+    # (through keras), and a rank must load none
     cfg = TrainerConfig(batch_size=batch, epochs=1, seed=0,
-                        log_dir=os.path.join(out, "cnn"))
+                        log_dir=os.path.join(out, "cnn"),
+                        log_tensorboard=False)
 
     # the --augment step, dropout on, against the one-device step
     audio, ya, ma, noise = audio_batch(batch)

@@ -21,9 +21,12 @@ process is one rank of that group.  Rank 0 prints and writes the log
 directory.
 
 Differences from the JAX trainer: `--epochs_per_dispatch` is accepted and
-has no effect (one step a batch, one checkpoint check an epoch), there is
-no TensorBoard log, and `--dtype bfloat16` rounds the matmul and conv
-inputs to bf16 (f32 accumulation), as the scorer's bf16 paths do.
+has no effect (one step a batch, one checkpoint check an epoch), and
+`--dtype bfloat16` rounds the matmul and conv inputs to bf16 (f32
+accumulation), as the scorer's bf16 paths do.  The log directory gets the
+JAX trainer's TensorBoard scalars where TensorFlow or tensorboard imports
+(`training.trainer.MetricsLogger`; the card's machine has neither, and
+there metrics.csv is the log).
 """
 from __future__ import annotations
 

@@ -16,9 +16,10 @@ generator on the model's device.
 
 Callbacks, as the JAX per-epoch fit: best-val_accuracy checkpoints with
 keep-newest-5, ReduceLROnPlateau (x0.5 after 10 epochs, only without a
-decay schedule, floor 1e-10), EarlyStopping (50), TerminateOnNaN, and a
-`metrics.csv` with the JAX columns.  Not ported: the multi-epoch device
-scan, the staging cache and TensorBoard (ROADMAP.md).
+decay schedule, floor 1e-10), EarlyStopping (50), TerminateOnNaN, a
+`metrics.csv` with the JAX columns and, with `log_tensorboard`, the JAX
+logger's TensorBoard scalars.  Not ported: the multi-epoch device scan and
+the staging cache (ROADMAP.md).
 
 Under a process mesh (`parallel.ProcessMesh`, one rank a device: the
 counterpart of the JAX trainer's mesh-sharded step) every rank runs the
@@ -150,6 +151,7 @@ class TrainerConfig:
     use_plateau: bool = True  # disabled when a decay schedule is active
     max_keep: int = 5
     seed: int = 0
+    log_tensorboard: bool = True
 
 
 @dataclass
@@ -287,7 +289,8 @@ class Trainer:
             os.makedirs(cfg.log_dir, exist_ok=True)
             ckpt = CheckpointManager(cfg.log_dir, max_keep=cfg.max_keep,
                                      meta=self.checkpoint_meta)
-            logger = MetricsLogger(cfg.log_dir)
+            logger = MetricsLogger(cfg.log_dir,
+                                   tensorboard=cfg.log_tensorboard)
         best_val_acc = -np.inf
         epochs_since_best = 0
         plateau_wait = 0
@@ -359,13 +362,45 @@ class Trainer:
 
 
 class MetricsLogger:
-    """The CSV metrics log, with the JAX package's columns."""
+    """The CSV metrics log with the JAX package's columns, and the JAX
+    logger's TensorBoard scalars (loss, accuracy, val_loss, val_accuracy
+    and lr at step `epoch`): written with tf.summary where TensorFlow
+    imports, as the JAX logger does, else with torch.utils.tensorboard
+    where tensorboard imports; where neither does, one printed line says
+    so and the CSV is the only log.  Where TensorFlow is installed, both
+    writers import it, and with it what it loads (keras, and through keras
+    jax where that is installed): a process that must load no jax passes
+    tensorboard=False (TrainerConfig.log_tensorboard), as the multi-rank
+    dry run does."""
 
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: str, tensorboard: bool = True):
         self.csv_path = os.path.join(log_dir, "metrics.csv")
         self._csv = open(self.csv_path, "a")
         if os.path.getsize(self.csv_path) == 0:
             self._csv.write("epoch,loss,accuracy,val_loss,val_accuracy,seconds,lr\n")
+        self._tf = self._torch_tb = None
+        if not tensorboard:
+            return
+        try:
+            import tensorflow as tf
+
+            self._tf = tf.summary.create_file_writer(log_dir)
+        except Exception:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._torch_tb = SummaryWriter(log_dir)
+            except Exception:
+                print("TensorBoard log off: neither tensorflow nor "
+                      "tensorboard imports (metrics.csv only).")
+
+    @staticmethod
+    def scalars(em: EpochMetrics) -> dict:
+        out = {"loss": em.loss, "accuracy": em.accuracy,
+               "val_loss": em.val_loss, "val_accuracy": em.val_accuracy}
+        if em.lr is not None:
+            out["lr"] = em.lr
+        return out
 
     def log(self, em: EpochMetrics):
         self._csv.write(
@@ -373,6 +408,18 @@ class MetricsLogger:
             f"{em.val_loss:.6f},{em.val_accuracy:.6f},{em.seconds:.3f},"
             f"{'' if em.lr is None else em.lr}\n")
         self._csv.flush()
+        if self._tf is not None:
+            import tensorflow as tf
+
+            with self._tf.as_default(step=em.epoch):
+                for tag, value in self.scalars(em).items():
+                    tf.summary.scalar(tag, value)
+        elif self._torch_tb is not None:
+            for tag, value in self.scalars(em).items():
+                self._torch_tb.add_scalar(tag, value, global_step=em.epoch)
 
     def close(self):
         self._csv.close()
+        for writer in (self._tf, self._torch_tb):
+            if writer is not None:
+                writer.close()
