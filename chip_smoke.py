@@ -161,7 +161,22 @@ Phases, in order; any failure raises and the script exits non-zero:
               for simple_gru, seed 0, 36 classes x 8 clips, 3 epochs: the
               frontend kernel in the extraction, the GRU kernel in
               validation, a finite accuracy, and the committed easy stage
-              file refused (another configuration) before any training
+              file refused (another configuration) before any training;
+            - user tools: `dev.make_pretrained.main` at the JAX script's
+              recipe (four families, 5 classes x 80 clips, seed 1, batch
+              64, 40 epochs) under build/chip_smoke/user_tools/: each
+              family's training wall time, every `.npz` (frontend kernel,
+              then the classifier kernel) and `.tscm` (frontend kernel,
+              then the C++ runtime) 8/8 on the example clips, and the
+              frontend, GRU, LSTM and CNN classifier launch counts rise;
+              `audio_process.vad_clip --model_path` with the shipped and
+              the port-trained simple_gru on noise, a word, noise: only
+              the word's second flagged, the per-frame speech scores
+              within SCORE_ATOL and the clips equal to a `--device cpu`
+              run's; `dev.bench_native` on the port-written `.tscm`
+              files (host CPU times, the CPU named); every other new tool
+              once on a small corpus, no kernel launched (the pyaudio
+              tools `--help` only, `plot_audio` where matplotlib imports)
 5. times    CUDA-event times at B = 8192, audio resident on the card (the
             dense-DFT, load-floor and CT kernels are first held to their
             plain versions at this batch, their entry points' own, with the
@@ -1538,6 +1553,219 @@ def drive_tools(dev, drive, work: str, trained: str) -> dict:
     return out
 
 
+def drive_user_tools(dev, drive, work: str) -> dict:
+    """Phase 4's last tools slice on `dev` (the card), each path through
+    `drive`:
+    - `dev.make_pretrained.main` at the JAX script's full recipe (four
+      families, 5 classes x 80 clips, seed 1, batch 64, 40 epochs) into
+      `work`: each family's training wall time, every `.npz` (K1, then K3
+      or K4) and `.tscm` (K1, then the C++ runtime) at 8/8 on the example
+      clips, and the K1, K3 (gru, lstm) and K4 launch counts risen;
+    - `audio_process.vad_clip --model_path` with the shipped and the
+      port-trained simple_gru `.npz` on noise, a word, noise: exactly the
+      word's second flagged (one clip, `long_3.wav`), the same clip bytes
+      as a `--device cpu` run, K1 and K3 launched; the per-frame speech
+      scores (`vad_clip.model_scores`) of the card's scorer within
+      SCORE_ATOL of the CPU scorer's;
+    - `dev.bench_native` on the port-written `.tscm` files: its JSON line,
+      times on the host CPU it names;
+    - every other new tool once on a small corpus, no kernel launched
+      (the pyaudio tools `--help` only; `plot_audio` where matplotlib
+      imports).
+    Returns the slice's numbers."""
+    import importlib
+
+    import torch
+
+    from tpu_speech_commands_torch.audio_process import vad_clip
+    from tpu_speech_commands_torch.data.wav import save_audio
+    from tpu_speech_commands_torch.dev import bench_native, make_pretrained
+    from tpu_speech_commands_torch.params import ListenerParams, pr
+    from tpu_speech_commands_torch.serving import make_batch_scorer
+
+    t0 = time.perf_counter()
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out = {}
+    models = os.path.join(work, "pretrained")
+    pr.override(ListenerParams().to_dict())
+    printed = io.StringIO()
+
+    def run_make_pretrained():
+        with contextlib.redirect_stdout(printed):
+            try:
+                return make_pretrained.main(["--out", models, "--device",
+                                             str(dev)])
+            except SystemExit as e:
+                return e
+
+    results = drive("dev.make_pretrained.main(4 families, 5 x 80 clips, "
+                    "40 epochs)", run_make_pretrained,
+                    ("mfcc_frontend", "gru_classifier", "lstm_classifier",
+                     "cnn_classifier"))
+    with open(os.path.join(work, "make_pretrained.log"), "w") as f:
+        f.write(printed.getvalue())
+    for line in printed.getvalue().splitlines():
+        if "trained in" in line or "example accuracy" in line:
+            log("  " + line)
+    if isinstance(results, SystemExit):
+        raise AssertionError(f"make_pretrained: {results}")
+    out["make_pretrained"] = results
+    pr.override(ListenerParams().to_dict())
+
+    # the learned VAD, card against CPU, on the shipped and the new GRU
+    rec = os.path.join(work, "vad_in", "long.wav")
+    os.makedirs(os.path.dirname(rec))
+    audio = vad_clip.noise_word_noise(rec)
+    for name, ckpt in (("shipped", CHECKPOINT), ("port-trained", os.path.join(
+            models, "direction_simple_gru.npz"))):
+        speech = {}
+        for d in (dev, "cpu"):
+            scorer = make_batch_scorer(ckpt, d)
+            speech[d] = vad_clip.model_scores(
+                audio, scorer, scorer.params.max_samples, 16000)
+            pr.override(ListenerParams().to_dict())
+        err = float(np.max(np.abs(speech[dev] - speech["cpu"])))
+        log(f"  vad_clip {name} simple_gru: speech scores {speech[dev]} "
+            f"(card), max |card - CPU| {err:.3g} (atol {SCORE_ATOL})")
+        if speech[dev].shape != (5,) or err > SCORE_ATOL:
+            raise AssertionError(f"vad_clip {name}: card scores "
+                                 f"{speech[dev]}, CPU {speech['cpu']}")
+        clips = {}
+        for d in (dev, "cpu"):
+            dst = os.path.join(work, f"vad_{name}_{torch.device(d).type}")
+            argv = ["--input_path", rec, "--output_path", dst,
+                    "--model_path", ckpt, "--device", str(d)]
+
+            def run(argv=argv):
+                with contextlib.redirect_stdout(io.StringIO()):
+                    return vad_clip.main(argv)
+
+            if d == dev:
+                written = drive(f"audio_process.vad_clip --model_path "
+                                f"{name} simple_gru", run,
+                                ("mfcc_frontend", "gru_classifier"))
+            else:
+                written = run()
+            clips[d] = []
+            for w in written:
+                with open(w, "rb") as f:
+                    clips[d].append((os.path.basename(w), f.read()))
+        names = [n for n, _ in clips[dev]]
+        log(f"  vad_clip {name} simple_gru: clips {names} (card), "
+            f"{[n for n, _ in clips['cpu']]} (CPU)")
+        if names != ["long_3.wav"]:
+            raise AssertionError(f"vad_clip {name}: clips {names}, not the "
+                                 "word's second alone (long_3.wav)")
+        if clips[dev] != clips["cpu"]:
+            raise AssertionError(f"vad_clip {name}: the card's clips differ "
+                                 "from the CPU's")
+        out[f"vad_clip {name}"] = {"clips": names, "score_max_abs_err": err}
+
+    # the native apps on the port-written .tscm files (host CPU times)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        bench = bench_native.main(["--model_dir", models, "--loop_count",
+                                   "200", "--runs", "3"])
+    for line in printed.getvalue().splitlines():
+        log("  bench_native: " + line)
+    if bench is None or [r["family"] for r in bench["rows"]] != \
+            bench_native.FAMILIES:
+        raise AssertionError(f"bench_native: rows {bench}")
+    out["bench_native"] = {"host_cpu": bench_native.host_cpu(), **bench}
+
+    # every other new tool once, on a small corpus; no kernel
+    corpus = os.path.join(work, "corpus")
+    rng = np.random.default_rng(0)
+    tt = np.arange(16000) / 16000.0
+    for sub, freq in (("a", 300), ("b", 900)):
+        os.makedirs(os.path.join(corpus, "wavs", sub))
+        save_audio(os.path.join(corpus, "wavs", sub, "tone.wav"),
+                   0.4 * np.sin(2 * np.pi * freq * tt)
+                   + 0.01 * rng.standard_normal(16000))
+    save_audio(os.path.join(corpus, "wavs", "quiet.wav"), np.zeros(16000))
+    os.makedirs(os.path.join(corpus, "stereo"))
+    with wave.open(os.path.join(corpus, "stereo", "st.wav"), "wb") as wf:
+        wf.setnchannels(2)
+        wf.setsampwidth(2)
+        wf.setframerate(16000)
+        wf.writeframes((rng.standard_normal((16000, 2)) * 3000)
+                       .astype("<i2").tobytes())
+    with open(os.path.join(corpus, "ann.jsonl"), "w") as f:
+        f.write(json.dumps({"audio_filepath": "/old/a.wav"}) + "\n")
+    wavs, o = os.path.join(corpus, "wavs"), os.path.join(work, "tools_out")
+    runs = [
+        ("audio_process.white_noise", ["--output_path", f"{o}/noise",
+                                       "--count", "2", "--seed", "1"]),
+        ("audio_process.add_noise", ["--voice_path", wavs, "--noise_path",
+                                     f"{o}/noise", "--output_path",
+                                     f"{o}/noisy", "--seed", "2"]),
+        ("audio_process.audio_convert", ["--input_path", wavs,
+                                         "--output_path", f"{o}/conv",
+                                         "--sample_rate", "8000",
+                                         "--sample_bit", "24"]),
+        ("audio_process.audio_reverberation", ["--input_path", wavs,
+                                               "--output_path", f"{o}/rev",
+                                               "--seed", "1"]),
+        ("audio_process.audio_split", ["--input_path", wavs, "--output_path",
+                                       f"{o}/split", "--chunk_time", "0.5"]),
+        ("audio_process.split_channel", ["--input_path",
+                                         os.path.join(corpus, "stereo"),
+                                         "--output_path", f"{o}/chan"]),
+        ("audio_process.wav_filter", ["--input_path", wavs, "--output_path",
+                                      f"{o}/filt", "--cutoff", "500"]),
+        ("audio_process.wav_merge", ["--voice_path", wavs, "--noise_path",
+                                     f"{o}/noise/white_noise_0.wav",
+                                     "--output_path", f"{o}/merge"]),
+        ("audio_process.speech_command_split", ["--wav_path", rec]),
+        ("audio_process.speech_duration_check", ["--input_path", rec]),
+        ("audio_process.vad_clip", ["--input_path", rec, "--output_path",
+                                    f"{o}/vad_energy"]),
+        ("audio_process.silent_check", ["--input_path", wavs]),
+        ("audio_process.wav_check", ["--input_path", wavs]),
+        ("audio_process.wav_play", ["--wav_path", wavs, "--info_only"]),
+        ("audio_process.annotation_update", [
+            "--annotation_file", os.path.join(corpus, "ann.jsonl"),
+            "--output_file", f"{o}/ann.jsonl", "--old_prefix", "/old",
+            "--new_prefix", "/new"]),
+        ("dev.make_chimes", ["--all", "--output_dir", f"{o}/chimes"]),
+        *((f"audio_process.{tool}", ["--help"])
+          for tool in ("audio_play", "audio_record", "wav_play")),
+    ]
+    try:
+        import matplotlib  # noqa: F401
+
+        runs.append(("plot_audio", ["--audio_file", rec, "--output_file",
+                                    f"{o}/plot.png"]))
+    except ImportError:
+        log("  plot_audio: matplotlib does not import here (a CPU tool; "
+            "tests/test_torch_pretrained.py runs it)")
+
+    def run_tools():
+        for entry, argv in runs:
+            module = importlib.import_module(
+                f"tpu_speech_commands_torch.{entry}")
+            with contextlib.redirect_stdout(io.StringIO()) as text:
+                try:
+                    module.main(argv)
+                except SystemExit as e:  # --help
+                    if e.code not in (0, None):
+                        raise
+            if not text.getvalue().strip():
+                raise AssertionError(f"{entry} {argv} printed nothing")
+
+    drive(f"{len(runs)} host tool runs on a small corpus", run_tools, (),
+          ("mfcc_frontend", "gru_classifier", "lstm_classifier",
+           "cnn_classifier"))
+    files = sum(len(fs) for _, _, fs in os.walk(o))
+    log(f"  host tools: {len(runs)} runs, {files} files written")
+    out["host tools"] = {"ran": sorted({e for e, _ in runs}), "files": files}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  user tools slice: {out['seconds']:.1f} s")
+    pr.override(ListenerParams().to_dict())
+    return out
+
+
 def time_streaming(card) -> dict:
     """Phase 5's streaming ticks: dev.bench_streaming at 1 and 1024 streams
     for simple_gru and simple_cnn, on the card."""
@@ -2343,6 +2571,8 @@ def main() -> int:
         dev, drive, os.path.join(REPO, "build", "chip_smoke", "tools"),
         os.path.join(REPO, "build", "chip_smoke", "train_eval",
                      "logs_simple_gru", "trained_final.npz"))}))
+    log(json.dumps({"user_tools": drive_user_tools(
+        dev, drive, os.path.join(REPO, "build", "chip_smoke", "user_tools"))}))
     log(json.dumps({"parallel": drive_parallel(
         drive, launches, os.path.join(REPO, "build", "chip_smoke",
                                       "parallel"))}))

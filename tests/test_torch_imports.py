@@ -1,14 +1,15 @@
 """The port imports no jax or flax, and nothing of the JAX package
 `tpu_speech_commands`, not even transitively; and importing it loads no
-TensorFlow, Keras, h5py or onnxruntime (the export layer imports them
-inside the functions that need them).
+TensorFlow, Keras, h5py, onnxruntime or pyaudio (the export layer and the
+audio tools import them inside the functions that need them).
 
 Run in a fresh interpreter (this test process has jax loaded through
 conftest): import every module of tpu_speech_commands_torch and
 chip_smoke.py, run the `--help` of the export and statistics entry points,
-then list what reached sys.modules; then start one rank through the port's
-launcher (`parallel.launch`, a spawned child on the CPU) and read the
-modules the child loaded from its report.
+of the pyaudio tools and of `dev.make_pretrained`, then list what reached
+sys.modules; then start one rank through the port's launcher
+(`parallel.launch`, a spawned child on the CPU) and read the modules the
+child loaded from its report.
 """
 import json
 import os
@@ -25,7 +26,9 @@ for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
 import contextlib, io, runpy
-for entry in ("export_model", "model_statistics"):
+for entry in ("export_model", "model_statistics", "audio_process.audio_play",
+              "audio_process.audio_record", "audio_process.wav_play",
+              "dev.make_pretrained"):
     sys.argv = [entry, "--help"]
     with contextlib.redirect_stdout(io.StringIO()):
         try:
@@ -45,7 +48,7 @@ print(json.dumps({
     "modules": names,
     "leaked": sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "optax", "tpu_speech_commands",
-        "tensorflow", "keras", "h5py", "onnxruntime")),
+        "tensorflow", "keras", "h5py", "onnxruntime", "pyaudio")),
 }))
 """
 
@@ -141,6 +144,18 @@ def test_port_imports_no_jax():
         "tpu_speech_commands_torch.dev.accuracy_parity",
         "tpu_speech_commands_torch.dev.bench_train",
         "tpu_speech_commands_torch.dev.bench_postprocess",
+        "tpu_speech_commands_torch.audio_process",
+        "tpu_speech_commands_torch.audio_process._common",
+        *(f"tpu_speech_commands_torch.audio_process.{tool}" for tool in (
+            "add_noise", "annotation_update", "audio_convert", "audio_play",
+            "audio_record", "audio_reverberation", "audio_split",
+            "silent_check", "speech_command_split", "speech_duration_check",
+            "split_channel", "vad_clip", "wav_check", "wav_filter",
+            "wav_merge", "wav_play", "white_noise")),
+        "tpu_speech_commands_torch.dev.make_pretrained",
+        "tpu_speech_commands_torch.dev.bench_native",
+        "tpu_speech_commands_torch.dev.make_chimes",
+        "tpu_speech_commands_torch.plot_audio",
     }
     assert expected <= set(result["modules"])
     assert result["leaked"] == []

@@ -46,7 +46,11 @@ package's `tools/dev/` scripts whose TPU kernels the port carries:
 - `bench_postprocess`: the host's decode and trigger step a tick, scalar
   against vectorized (host only);
 - `accuracy_parity`: the torch stage of the accuracy-parity study, held
-  against a recorded tf.keras stage.
+  against a recorded tf.keras stage;
+- `make_pretrained`: the pretrained direction models, trained with the
+  port's `train.main` and verified at 8/8 on example/*.wav;
+- `bench_native`: the native apps' invoke and stream-step times (host
+  CPU, apps built by g++); `make_chimes`: the chime wavs (host).
 
 Each runs on the card and raises RuntimeError where CUDA is absent:
 
@@ -70,6 +74,12 @@ Each runs on the card and raises RuntimeError where CUDA is absent:
     python -m tpu_speech_commands_torch.dev.bench_train --batch_size 512
     python -m tpu_speech_commands_torch.dev.bench_postprocess --slots 1 1024
     python -m tpu_speech_commands_torch.dev.accuracy_parity --keras_stage F
+    python -m tpu_speech_commands_torch.dev.make_pretrained
+
+`bench_native` and `make_chimes` run on the host:
+
+    python -m tpu_speech_commands_torch.dev.bench_native
+    python -m tpu_speech_commands_torch.dev.make_chimes --all
 
 Their `make_*` functions take `device="cpu"` for the plain versions.
 """
