@@ -6,7 +6,8 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device   require CUDA; print the card's name and power limit (nvidia-smi)
-2. build    compile tpu_speech_commands_torch/csrc/*.cu with nvcc (sm_90a)
+2. build    compile tpu_speech_commands_torch/csrc/*.cu with nvcc (sm_90a),
+            one call a unit, all started together; each unit's seconds
 3. kernels  each kernel against its plain PyTorch version on the card, at
             B = 1000, over the configs and dtypes the slices can meet (the
             GRU and LSTM classifiers' tile kernels and their SIMT kernels,
@@ -29,13 +30,16 @@ Phases, in order; any failure raises and the script exits non-zero:
             768 with deltas, int16 in and bf16 out; route ct's mixed-radix
             FFT at every n_fft it takes (768 .. 3840), f32 and int16 in,
             f32 and bf16 out, batch- and time-major, with and without
-            deltas, against the CT plain version; route ct's split-dup
-            body (the split's (F, T) instantiation) at n_fft 4352, 10240
-            and 15872 in the same four cases, and at n_fft 4352 with 300,
-            512 and 600 filters and coefficients (blocks of 64, 32 and 32
-            rows; the coefficients in the idle T, ring and squares space,
-            at 600 in their own region), f32 and int16 in, f32
-            and bf16 out; the FFT kernel at window
+            deltas, against the CT plain version; route ct's wide FFT (a
+            frame over two or four warps) at every n_fft it takes (4352 ..
+            15872) in the same four cases; the CT split's (F, T)
+            instantiation ("split-dup", per_piece_mel=True) at n_fft 4352,
+            10240 and 15872 in the same four cases, and, chosen from the
+            config, at n_fft 4352 with 300, 512 and 600 filters and
+            coefficients (blocks of 64, 32 and 32 rows; the coefficients in
+            the idle T, ring and squares space, at 600 in their own
+            region), f32 and int16 in, f32 and bf16 out; the FFT kernel at
+            window
             1200 > n_fft,
             at alt_512 and an odd hop of 481, at every n_fft its register
             body takes (128 .. 4096) and at 8192 (its radix-2 body), f32
@@ -77,11 +81,13 @@ Phases, in order; any failure raises and the script exits non-zero:
               1200 > n_fft 1024 (cuda-mfcc, the FFT kernel's register
               body), n_fft 8192 (cuda-mfcc, its radix-2 body), n_fft 400
               (torch(xla-route), the plain chain) and n_fft = window = 4352
-              (cuda-ct(split-dup)): `.paths` must name the
+              (cuda-ct(wide), the wide FFT; split-dup's launch count must
+              stay at 0): `.paths` must name the
               route, its kernels' launch counts must rise, and the scores
               must agree with the same scorer on the CPU;
             - MfccFrontend at n_fft 4352 with 300 coefficients (`.route`
-              ct, `.body` split-dup) into GRUClassifier on a random 48-unit
+              ct, `.body` split-dup: no wide block fits its 300 x 300 DCT)
+              into GRUClassifier on a random 48-unit
               GRU of feature size 300 (its SIMT kernel): both launch counts
               rise and the scores agree with the CPU's;
             - the seven measurement entry points of tpu_speech_commands_torch
@@ -190,8 +196,12 @@ Phases, in order; any failure raises and the script exits non-zero:
             each beside its bound, the fast_math wgmma kernel against
             its first design in turns, mma_sync, wgmma, wgmma, mma_sync,
             beside the bound, the plain version and the DFT product alone
-            through cuBLAS (a yardstick), route ct's split-dup body at
-            n_fft 4352 beside its bound and the CT plain version, the GRU classifier's tile
+            through cuBLAS (a yardstick), route ct's wide FFT against
+            split-dup in turns, wide, split-dup, split-dup, wide, at n_fft
+            4352, 10240 and 15872, beside the bound, the CT plain version
+            and torch.fft.rfft plus the power alone (cuFFT, a yardstick),
+            the FFT kernel's radix-2 body at n_fft = window = 8192 beside
+            its bound and plain version, the GRU classifier's tile
             kernel against its SIMT kernel in turns, simt, tile, tile, simt,
             in f32 and bf16 (bf16 features), with a sweep of the tile
             kernel's windows a warp and warps a block and the gate math's
@@ -284,11 +294,13 @@ CT_ROUTE = {"n_fft": 768, "window_t": 0.048}
 # version: at hop 512 n_fft 1536 and 2816 give 29 and 26 frames, so these
 # run at hop 256 (57 and 52 frames); the split refuses 2816
 CT_AB = ((768, 0.032), (1536, 0.016), (2816, 0.016))
-# route ct above n_fft 4096 (the CT split's (F, T) instantiation): the first
-# size, one between and the longest window a 1 s buffer holds (one frame);
-# the simple_gru scorer and the timing at the first
-SPLIT_DUP = (4352, 10240, 15872)
-SPLIT_DUP_ROUTE = {"n_fft": 4352, "window_t": 0.272}
+# route ct above n_fft 4096 (the wide register FFT; the CT split's (F, T)
+# instantiation, "split-dup", through per_piece_mel=True): the first size,
+# one between and the longest window a 1 s buffer holds (one frame), where
+# split-dup is checked and the two are timed in turns; the simple_gru
+# scorer at the first
+WIDE_AB = (4352, 10240, 15872)
+WIDE_ROUTE = {"n_fft": 4352, "window_t": 0.272}
 # route ct with more coefficients than one residue's T holds (n_filt =
 # n_mfcc at n_fft 4352): blocks of 64 rows at 300 and of 32 at 512, both in
 # the block's idle space; at 600 (32 rows) in a region of their own
@@ -527,6 +539,7 @@ def kernel_bounds(p, batch, n_samples, rnn_dims, cnn_consts):
     return {
         **dict.fromkeys(VARIANTS, frontend),
         "mixed_fft_frontend": frontend_bound(p.replace(**CT_ROUTE), batch),
+        "wide_fft_frontend": frontend_bound(p.replace(**WIDE_ROUTE), batch),
         "mfcc_frontend": frontend,
         "mfcc_frontend_radix2": frontend,
         "dft_frontend_bf16": dft_bound(p, batch),
@@ -1875,6 +1888,10 @@ def main() -> int:
     info = _build.build_info
     log(f"build: {time.perf_counter() - t0:.1f} s (compiled in this run: "
         f"{info.compiled}) -> {os.path.relpath(info.path, REPO)}")
+    if info.compiled:
+        log("  each unit's nvcc, all started together: " + ", ".join(
+            f"{unit} {secs:.1f} s" for unit, secs in sorted(
+                info.unit_seconds.items(), key=lambda kv: -kv[1])))
     for line in info.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  " + line.strip())
@@ -2192,20 +2209,49 @@ def main() -> int:
                                               FEAT_RTOL))
             else:
                 check_close(what, got, want, FEAT_BF16_ATOL, FEAT_BF16_RTOL)
-    # route ct above n_fft 4096: the CT split's (F, T) instantiation
-    # ("split-dup"), chosen from the config, at both ends of its sizes and
-    # one between, in the mixed FFT's four cases, held to the CT plain
-    # version (its per-piece-mel form)
-    for n_fft in SPLIT_DUP:
+    # route ct above n_fft 4096: the wide register FFT, chosen from the
+    # config, at every n_fft it takes, in the mixed FFT's four cases, held
+    # to the CT plain version (the constants built once a size: they do not
+    # depend on the deltas)
+    wide_errs = []
+    for n_fft in sorted(fft_plan.WIDE_PLANS):
+        consts = None
+        for audio, out_dtype, gain, time_major, delta in mixed_cases:
+            p = ListenerParams(n_fft=n_fft, window_t=n_fft / 16000,
+                               use_delta=delta)
+            consts = consts or ct_kernel.CtConstants(p, "mfcc", dev)
+            if consts.body != "wide":
+                raise AssertionError(f"n_fft {n_fft}: route ct's body is "
+                                     f"{consts.body}, not wide")
+            gain_t = torch.full((1,), gain, dtype=torch.float32, device=dev)
+            got = ct_kernel.ct_frontend_cuda(audio, gain_t, consts, p,
+                                             time_major=time_major,
+                                             out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            want = ct_kernel.ct_frontend_plain(audio, gain, consts, p,
+                                               time_major=time_major,
+                                               out_dtype=out_dtype)
+            what = (f"wide_fft_frontend n_fft {n_fft} "
+                    f"{'time' if time_major else 'batch'}-major"
+                    f"{' deltas' if delta else ''} {str(audio.dtype)[6:]}->"
+                    f"{str(out_dtype)[6:]} ({consts.layout.warps} warps)")
+            if out_dtype == torch.float32:
+                wide_errs.append(check_close(what, got, want, FEAT_ATOL,
+                                             FEAT_RTOL))
+            else:
+                check_close(what, got, want, FEAT_BF16_ATOL, FEAT_BF16_RTOL)
+        del consts
+    # the CT split's (F, T) instantiation ("split-dup", per_piece_mel=True)
+    # at both ends of those sizes and one between, in the same four cases,
+    # held to the CT plain version (its per-piece-mel form)
+    for n_fft in WIDE_AB:
         for audio, out_dtype, gain, time_major, delta in mixed_cases:
             p = ListenerParams(n_fft=n_fft, window_t=n_fft / 16000,
                                use_delta=delta)
             consts = ct_kernel.CtConstants(p, "mfcc", dev)
-            if consts.body != "split-dup":
-                raise AssertionError(f"n_fft {n_fft}: route ct's body is "
-                                     f"{consts.body}, not split-dup")
             gain_t = torch.full((1,), gain, dtype=torch.float32, device=dev)
             got = ct_kernel.ct_frontend_cuda(audio, gain_t, consts, p,
+                                             per_piece_mel=True,
                                              time_major=time_major,
                                              out_dtype=out_dtype)
             torch.cuda.synchronize()
@@ -2301,6 +2347,7 @@ def main() -> int:
         "load_rowsum": load_kernel.load_rowsum_cuda,
         "load_broadcast": load_kernel.load_broadcast_cuda,
         "mixed_fft_frontend": ct_kernel.MIXED,
+        "wide_fft_frontend": ct_kernel.WIDE,
         **ct_kernel.counters,
         **omission_kernel.counters,
     }
@@ -2366,17 +2413,17 @@ def main() -> int:
     os.makedirs(route_dir, exist_ok=True)
     route_cases = (
         ("n_fft = window = 768", CT_ROUTE, "cuda-ct",
-         ("mixed_fft_frontend", "gru_classifier"), tuple(ct_kernel.counters)),
+         ("mixed_fft_frontend", "gru_classifier"),
+         ("wide_fft_frontend", *ct_kernel.counters)),
         ("window 1200 > n_fft 1024", {"window_t": 0.075}, "cuda-mfcc",
          ("mfcc_frontend", "gru_classifier"), ()),
         ("n_fft 8192 (the radix-2 body)", {"n_fft": 8192}, "cuda-mfcc",
          ("mfcc_frontend_radix2", "gru_classifier"), ()),
         ("n_fft 400", {"n_fft": 400, "window_t": 0.025}, "torch(xla-route)",
          ("gru_classifier",), ()),
-        ("n_fft = window = 4352 (route ct's split-dup body)", SPLIT_DUP_ROUTE,
-         "cuda-ct(split-dup)", ("ct_frontend_dup", "gru_classifier"),
-         ("mixed_fft_frontend", "ct_frontend", "ct_frontend_paired",
-          "ct_frontend_ppmel")),
+        ("n_fft = window = 4352 (route ct's wide body)", WIDE_ROUTE,
+         "cuda-ct(wide)", ("wide_fft_frontend", "gru_classifier"),
+         ("mixed_fft_frontend", *ct_kernel.counters)),
     )
     for label, overrides, route, need, forbid in route_cases:
         path = with_params(CHECKPOINT, overrides, route_dir)
@@ -2408,7 +2455,8 @@ def main() -> int:
                "(random, D 300) on 8 clips",
                lambda: score_fn(cls300(fe300(clips_dev))),
                ("ct_frontend_dup", "gru_classifier_simt"),
-               ("mixed_fft_frontend", "ct_frontend", "gru_classifier"))
+               ("mixed_fft_frontend", "wide_fft_frontend", "ct_frontend",
+                "gru_classifier"))
     cpu300 = score_fn(GRUClassifier(gru300)(
         MfccFrontend(p300, "mfcc", "cpu")(torch.tensor(clips))))
     check_close("scores card vs CPU, n_fft 4352, 300 coefficients", sc.cpu(),
@@ -2655,31 +2703,76 @@ def main() -> int:
         f"ms; the DFT product alone through cuBLAS (torch.matmul, bf16 "
         f"(245,760 x 1024) @ (1024 x 1040), a yardstick) {cublas_ms:.4f} ms  "
         f"({card})")
-    # route ct's split-dup body at n_fft 4352: held to the CT plain version
-    # at this batch, timed beside its bound and the plain version
-    p_dup = ListenerParams(**SPLIT_DUP_ROUTE)
-    dup_consts = ct_kernel.CtConstants(p_dup, "mfcc", dev)
-    dup_want = ct_kernel.ct_frontend_plain(big, None, dup_consts, p_dup,
-                                           per_piece_mel=True)
-    ct_errs["ct_frontend_dup"].append(check_close(
-        f"ct_frontend_dup (split-dup) n_fft 4352 B = {B_TIME}",
-        ct_kernel.ct_frontend_cuda(big, unit_gain, dup_consts, p_dup),
-        dup_want, FEAT_ATOL, FEAT_RTOL))
-    del dup_want
-    dup_ms = cuda_ms(lambda: ct_kernel.ct_frontend_cuda(big, unit_gain,
-                                                        dup_consts, p_dup), 5)
-    dup_plain_ms = cuda_ms(lambda: ct_kernel.ct_frontend_plain(
-        big, None, dup_consts, p_dup, per_piece_mel=True), 2)
-    dup_bound = frontend_bound(p_dup, B_TIME)
-    log(f"  route ct's split-dup body (ct_frontend_dup) at n_fft = window = "
-        f"4352 ({p_dup.n_features} frames), B = {B_TIME}, f32 audio and "
-        f"output: {dup_ms:.4f} ms; CT plain {dup_plain_ms:.4f} ms; bound "
-        f"{dup_bound[0]:.4f} ms ({dup_bound[1]})  ({card})")
-    # the same body with 300, 512 and 600 coefficients (blocks of 64, 32
-    # and 32 rows), beside its bound
+    # route ct above n_fft 4096: the wide FFT against split-dup
+    # (per_piece_mel=True) in turns, wide, split-dup, split-dup, wide, both
+    # first held to the CT plain version at this batch, beside the bound,
+    # the CT plain version and, as a yardstick only (not the function; the
+    # port never calls it), torch.fft.rfft of the kept frames and the power
+    # alone (cuFFT)
+    wide_ab = {}
+    for n_fft in WIDE_AB:
+        p = ListenerParams(n_fft=n_fft, window_t=n_fft / 16000)
+        consts = ct_kernel.CtConstants(p, "mfcc", dev)
+        runs = {"wide": lambda: ct_kernel.ct_frontend_cuda(big, unit_gain,
+                                                           consts, p),
+                "split-dup": lambda: ct_kernel.ct_frontend_cuda(
+                    big, unit_gain, consts, p, per_piece_mel=True)}
+        want = ct_kernel.ct_frontend_plain(big, None, consts, p)
+        wide_errs.append(check_close(
+            f"wide_fft_frontend n_fft {n_fft} B = {B_TIME}", runs["wide"](),
+            want, FEAT_ATOL, FEAT_RTOL))
+        ct_errs["ct_frontend_dup"].append(check_close(
+            f"ct_frontend_dup (split-dup) n_fft {n_fft} B = {B_TIME}",
+            runs["split-dup"](), want, FEAT_ATOL, FEAT_RTOL))
+        del want
+        ab = {"wide": [], "split-dup": []}
+        for which in ("wide", "split-dup", "split-dup", "wide"):
+            ab[which].append(cuda_ms(runs[which],
+                                     20 if which == "wide" else 3))
+        plain_ms = cuda_ms(lambda: ct_kernel.ct_frontend_plain(big, None,
+                                                               consts, p), 2)
+        frames = frame_signal(big, p.n_fft, p.hop_samples)[:, -p.n_features:]
+        cufft_ms = cuda_ms(lambda: torch.fft.rfft(frames).abs().square(), 5)
+        del frames
+        bound = frontend_bound(p, B_TIME)
+        wide_ab[n_fft] = {
+            "ms": ab["wide"][0], "split_dup_ms": ab["split-dup"][0],
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "cufft_power_ms": cufft_ms}
+        log(f"  route ct at n_fft = window = {n_fft} ({p.n_features} frames),"
+            f" B = {B_TIME}, f32 audio and output, in turns wide, split-dup, "
+            f"split-dup, wide: wide FFT (wide_fft_frontend, "
+            f"{consts.layout.warps} warps a block) {ab['wide'][0]:.4f}, "
+            f"{ab['wide'][1]:.4f} ms; split-dup (ct_frontend_dup) "
+            f"{ab['split-dup'][0]:.4f}, {ab['split-dup'][1]:.4f} ms = "
+            f"{sum(ab['split-dup']) / sum(ab['wide']):.2f}x; CT plain "
+            f"{plain_ms:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}); "
+            f"torch.fft.rfft + power alone (cuFFT, a yardstick) "
+            f"{cufft_ms:.4f} ms  ({card})")
+        del consts
+    # the FFT kernel's radix-2 body at n_fft = window = 8192 (the one size
+    # in route ct's series that route fft takes; its register body stops
+    # at 4096), beside its bound and the plain chain
+    p8k = ListenerParams(n_fft=8192, window_t=0.512)
+    fe8k = MfccFrontend(p8k, "mfcc", dev)
+    radix2_errs.append(check_close(
+        f"frontend (radix-2 body) n_fft 8192 B = {B_TIME}", fe8k(big),
+        fe8k.plain(big), FEAT_ATOL, FEAT_RTOL))
+    bound = frontend_bound(p8k, B_TIME)
+    radix2_8k = {"ms": cuda_ms(lambda: fe8k(big), 5),
+                 "plain_ms": cuda_ms(lambda: fe8k.plain(big), 2),
+                 "bound_ms": bound[0], "bound_by": bound[1]}
+    log(f"  FFT kernel, radix-2 body (mfcc_frontend_radix2) at n_fft = "
+        f"window = 8192 "
+        f"({p8k.n_features} frames), B = {B_TIME}, f32 audio and output: "
+        f"{radix2_8k['ms']:.4f} ms; plain {radix2_8k['plain_ms']:.4f} ms; "
+        f"bound {bound[0]:.4f} ms ({bound[1]})  ({card})")
+    del fe8k
+    # split-dup with 300, 512 and 600 coefficients (blocks of 64, 32 and 32
+    # rows: no wide block fits their DCT), beside its bound
     many_ms = {}
     for n in MANY_COEFFS:
-        p_many = ListenerParams(n_filt=n, n_mfcc=n, **SPLIT_DUP_ROUTE)
+        p_many = ListenerParams(n_filt=n, n_mfcc=n, **WIDE_ROUTE)
         many_consts = ct_kernel.CtConstants(p_many, "mfcc", dev)
         ms = cuda_ms(lambda: ct_kernel.ct_frontend_cuda(
             big, unit_gain, many_consts, p_many), 3)
@@ -2690,6 +2783,8 @@ def main() -> int:
             f"{ms:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]})  ({card})")
         del many_consts
     times = {
+        "wide_fft_frontend": (wide_ab[WIDE_AB[0]]["ms"],
+                              wide_ab[WIDE_AB[0]]["plain_ms"]),
         "mfcc_frontend": (cuda_ms(lambda: fe(big), 20), fe_plain_ms),
         "mfcc_frontend_radix2": (cuda_ms(radix2, 10), fe_plain_ms),
         "dft_frontend_bf16": (fast_ab["wgmma"][0], fast_plain_ms),
@@ -3143,6 +3238,8 @@ def main() -> int:
              load_kernel.BROADCAST_REPLACES, load_errs["load_broadcast"]),
             ("mixed_fft_frontend", ct_kernel.MIXED_SOURCE,
              frontend_kernel.REPLACES, mixed_errs),
+            ("wide_fft_frontend", ct_kernel.WIDE_SOURCE,
+             frontend_kernel.REPLACES, wide_errs),
             *((name, ct_kernel.SOURCE, replaces, ct_errs[name])
               for name, (_, _, replaces) in ct_kernel.VARIANTS.items())):
         kernels.append({
@@ -3182,11 +3279,21 @@ def main() -> int:
             # product alone through cuBLAS, a yardstick (not the function)
             kernels[-1]["mma_sync_ms"] = fast_ab["mma_sync"][0]
             kernels[-1]["cublas_product_ms"] = cublas_ms
+        if name == "wide_fft_frontend":
+            # the A/B above: split-dup in the same call, the cuFFT yardstick
+            kernels[-1]["cufft_power_ms"] = wide_ab[WIDE_AB[0]]["cufft_power_ms"]
+            kernels[-1]["split_dup_ms"] = wide_ab[WIDE_AB[0]]["split_dup_ms"]
+            for n_fft in WIDE_AB[1:]:
+                kernels[-1][f"n_fft_{n_fft}"] = wide_ab[n_fft]
+        if name == "mfcc_frontend_radix2":
+            kernels[-1]["n_fft_8192"] = radix2_8k
         if name == "ct_frontend_dup":
-            # route ct's split-dup body at n_fft 4352
+            # split-dup at n_fft 4352, from the A/B above, and with many
+            # coefficients
             kernels[-1]["n_fft_4352"] = {
-                "ms": dup_ms, "plain_ms": dup_plain_ms,
-                "bound_ms": dup_bound[0], "bound_by": dup_bound[1]}
+                key: wide_ab[4352][key] for key in ("plain_ms", "bound_ms",
+                                                    "bound_by")}
+            kernels[-1]["n_fft_4352"]["ms"] = wide_ab[4352]["split_dup_ms"]
             for n, entry in many_ms.items():
                 kernels[-1][f"n_fft_4352_{n}_coefficients"] = entry
         if name.startswith("cnn_block1"):

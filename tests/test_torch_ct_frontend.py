@@ -366,13 +366,14 @@ def test_split_shared_memory_mirror_is_the_kernel_source():
 
 def test_split_dup_plain_matches_jax_k1_above_4096():
     """n_fft = window = 4352 (n2 = 34, 23 frames), above the mixed-radix
-    FFT's plans: route ct's body is the split's (F, T) instantiation
-    ("split-dup"), whose plain version holds to JAX K1 (dft_mode="ct",
-    interpret mode) on two windows of int16 PCM with deltas, at the file's
-    RTOL / ATOL."""
+    FFT's plans: route ct's body is the wide FFT; the split's (F, T)
+    instantiation ("split-dup", per_piece_mel=True, the A/B baseline and
+    the body of configs the wide block does not fit) has a plain version
+    that holds to JAX K1 (dft_mode="ct", interpret mode) on two windows of
+    int16 PCM with deltas, at the file's RTOL / ATOL."""
     kw = {"n_fft": 4352, "window_t": 0.272, "use_delta": True}
     p = ListenerParams(**kw)
-    assert ct_kernel.ct_body(p) == "split-dup"
+    assert ct_kernel.ct_body(p) == "wide"
     rng = np.random.default_rng(13)
     pcm = np.clip(rng.standard_normal((2, 16000)) * 6000, -32768,
                   32767).astype(np.int16)

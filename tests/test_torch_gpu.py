@@ -28,8 +28,8 @@ Tolerances, each with its reason:
   math in another summation order, magnified by the log);
 - load-floor row sums: per row |err| <= 2e-6 * sum |gain * x| (16,000 f32
   terms summed in another order; the sums reach the hundreds);
-- CT split kernel and route ct's mixed-radix FFT features: the bounds of
-  the f32 (and bf16) features above (the same function as the CT plain
+- CT split kernel and route ct's mixed-radix and wide FFT features: the
+  bounds of the f32 (and bf16) features above (the same function as the CT plain
   version, summed in another order);
 - the stage cuts of the CT and FFT kernels (B, 128): `dev.r3_omission.
   TOLERANCES`, each stage's bound with its reason (f32 sums in another
@@ -1162,8 +1162,9 @@ def test_mixed_fft_and_the_forced_split_agree(cuda_device):
     torch.testing.assert_close(new, old, rtol=1e-3, atol=2e-3)
 
 
-# route ct above n_fft 4096: the CT split's (F, T) instantiation
-# ("split-dup"); (audio dtype, out dtype, time_major, deltas)
+# route ct above n_fft 4096: the wide register FFT from the config, and the
+# CT split's (F, T) instantiation ("split-dup") through per_piece_mel=True;
+# (audio dtype, out dtype, time_major, deltas)
 SPLIT_DUP_CASES = {
     "f32->f32": ("float32", torch.float32, False, False),
     "int16->bf16 time-major deltas": ("int16", torch.bfloat16, True, True),
@@ -1176,20 +1177,21 @@ SPLIT_DUP_CASES = {
 @pytest.mark.parametrize("n_fft", [4352, 10240, 15872])
 def test_split_dup_body_matches_plain(cuda_device, n_fft, case):
     """n_fft = window 4352 (23 frames), 10240 (12) and 15872 (1): route ct
-    takes the split's (F, T) instantiation from the config and holds to
-    ct_frontend_plain, its launch counted apart from the (F, F) one's and
-    the mixed FFT's."""
+    takes the wide FFT from the config; per_piece_mel=True launches the
+    split's (F, T) instantiation, which holds to ct_frontend_plain, its
+    launch counted apart from the (F, F) one's and the register FFTs'."""
     audio_dtype, out_dtype, time_major, delta = SPLIT_DUP_CASES[case]
     p = ListenerParams(n_fft=n_fft, window_t=n_fft / 16000, use_delta=delta)
     consts = ct_kernel.CtConstants(p, "mfcc", cuda_device)
-    assert consts.body == "split-dup"
+    assert consts.body == "wide"
     audio = torch.tensor(_ct_audio(audio_dtype), device=cuda_device)
     gain = torch.full((1,), 0.8, dtype=torch.float32, device=cuda_device)
     watched = (ct_kernel.counters["ct_frontend_dup"],
-               ct_kernel.counters["ct_frontend"], ct_kernel.MIXED)
+               ct_kernel.counters["ct_frontend"], ct_kernel.MIXED,
+               ct_kernel.WIDE)
     before = [c.launches for c in watched]
-    got = ct_kernel.ct_frontend(audio, gain, consts, p, time_major=time_major,
-                                out_dtype=out_dtype)
+    got = ct_kernel.ct_frontend(audio, gain, consts, p, per_piece_mel=True,
+                                time_major=time_major, out_dtype=out_dtype)
     torch.cuda.synchronize()
     assert [c.launches for c in watched] == [before[0] + 1] + before[1:]
     want = ct_kernel.ct_frontend_plain(audio, 0.8, consts, p,
@@ -1203,8 +1205,49 @@ def test_split_dup_body_matches_plain(cuda_device, n_fft, case):
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-3 + bf16,
                                atol=2e-3)
     fe = MfccFrontend(p, "mfcc", cuda_device, out_dtype=out_dtype)
-    assert fe.route == "ct" and fe.body == "split-dup"
+    assert fe.route == "ct" and fe.body == "wide"
 
+
+@pytest.mark.parametrize("case", sorted(SPLIT_DUP_CASES))
+@pytest.mark.parametrize("n_fft", sorted(fft_plan.WIDE_PLANS))
+def test_wide_body_matches_plain(cuda_device, n_fft, case):
+    """Every n_fft the wide FFT takes (4352 .. 15872, a frame over two or
+    four warps): route ct takes it from the config, its launch counted in
+    ct_kernel.WIDE alone, and it holds to ct_frontend_plain."""
+    audio_dtype, out_dtype, time_major, delta = SPLIT_DUP_CASES[case]
+    p = ListenerParams(n_fft=n_fft, window_t=n_fft / 16000, use_delta=delta)
+    fe = MfccFrontend(p, "mfcc", cuda_device, out_dtype=out_dtype)
+    assert (fe.route, fe.body, fe.path) == ("ct", "wide", "cuda-ct(wide)")
+    audio = torch.tensor(_ct_audio(audio_dtype), device=cuda_device)
+    watched = (ct_kernel.WIDE, ct_kernel.MIXED,
+               *ct_kernel.counters.values())
+    before = [c.launches for c in watched]
+    got = ct_kernel.ct_frontend(audio, 0.8, fe.consts, p,
+                                time_major=time_major, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert [c.launches for c in watched] == [before[0] + 1] + before[1:]
+    want = ct_kernel.ct_frontend_plain(audio, 0.8, fe.consts, p,
+                                       time_major=time_major,
+                                       out_dtype=out_dtype)
+    shape = (p.n_features, 13) if time_major else (13, p.n_features)
+    assert got.shape == shape + (p.feature_size,) and got.dtype == out_dtype
+    assert torch.isfinite(got.float()).all()
+    bf16 = 2.0 ** -7 if out_dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-3 + bf16,
+                               atol=2e-3)
+
+
+@pytest.mark.parametrize("n_fft", [4352, 7936, 8448, 15872])
+def test_wide_body_matches_plain_at_the_serving_batch(cuda_device, n_fft):
+    """B = 8192 f32: two frames a block of 64 lanes (4352, 7936) and one of
+    128 (8448, 15872)."""
+    p = ListenerParams(n_fft=n_fft, window_t=n_fft / 16000)
+    consts = ct_kernel.CtConstants(p, "mfcc", cuda_device)
+    assert consts.body == "wide"
+    audio = torch.tensor(_ct_audio("float32", 8192), device=cuda_device)
+    got = ct_kernel.ct_frontend(audio, 1.0, consts, p)
+    want = ct_kernel.ct_frontend_plain(audio, 1.0, consts, p)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=2e-3)
 
 
 @pytest.mark.parametrize("audio_dtype", ["float32", "int16"])
@@ -1295,8 +1338,7 @@ def test_ct_dev_entry_points_run_their_kernels(cuda_device):
 
 @pytest.mark.parametrize("kw,route,counter", [
     ({"n_fft": 768, "window_t": 0.048}, "cuda-ct", ct_kernel.MIXED),
-    ({"n_fft": 4352, "window_t": 0.272}, "cuda-ct(split-dup)",
-     ct_kernel.counters["ct_frontend_dup"]),
+    ({"n_fft": 4352, "window_t": 0.272}, "cuda-ct(wide)", ct_kernel.WIDE),
     ({"window_t": 0.075}, "cuda-mfcc", frontend_kernel.mfcc_frontend_cuda),
     ({"n_fft": 400, "window_t": 0.025}, "torch(xla-route)", None),
 ])
@@ -1316,7 +1358,8 @@ def test_scorer_route_of_each_config_class(cuda_device, tmp_path, kw, route,
     clips, _ = _clips()
     scorer = make_batch_scorer(path, cuda_device)
     assert scorer.paths == {"frontend": route, "classifier": "cuda-gru"}
-    watched = (ct_kernel.MIXED, ct_kernel.counters["ct_frontend"],
+    watched = (ct_kernel.MIXED, ct_kernel.WIDE,
+               ct_kernel.counters["ct_frontend"],
                ct_kernel.counters["ct_frontend_dup"],
                frontend_kernel.mfcc_frontend_cuda)
     launches = {id(c): c.launches for c in watched}

@@ -91,6 +91,7 @@ def test_port_imports_no_jax():
         "tpu_speech_commands_torch.dev.ct_ablation",
         "tpu_speech_commands_torch.dev.fft_ablation",
         "tpu_speech_commands_torch.dev.mixed_ablation",
+        "tpu_speech_commands_torch.dev.wide_ablation",
         "tpu_speech_commands_torch.dev.source_ab",
         "tpu_speech_commands_torch.ops.fft_plan",
         "tpu_speech_commands_torch.ops.ct_constants",

@@ -110,11 +110,11 @@ def test_ct_body_each_n_fft_takes(n_fft):
     CT-eligible n_fft up to 4096 that is not a power of two (2816 .. 3840
     too, which the CT split's (F, F) instantiation refuses); above it,
     where the mixed FFT has no plan and the (F, F) power rows fit no block,
-    the split's (F, T) instantiation, which keeps no power row."""
+    the wide FFT (a frame over two or four warps)."""
     p = ListenerParams(n_fft=n_fft, window_t=n_fft / 16000)
     assert frontend_route(p) == "ct"
     body = ct_kernel.ct_body(p)
-    assert body == ("register" if n_fft <= 4096 else "split-dup")
+    assert body == ("register" if n_fft <= 4096 else "wide")
     assert ct_kernel.ct_config_error(p) is None
     assert MfccFrontend(p, "mfcc", "cpu").body == body
     assert not ct_kernel.split_fits(p) or n_fft <= 4096

@@ -38,13 +38,7 @@
 // chosen by the caller (fft_plan.fft_layout); the store writes (B, T, F) or,
 // for time_major, (T, B, F).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include "register_fft.cuh"
-
-namespace {
 
 // (n_fft / 2, values a lane, the launch bounds' blocks an SM, the passes'
 // radices): ops/fft_plan.py's MIXED_PLANS, n_fft -> (values, radices,
@@ -62,89 +56,6 @@ namespace {
   X(1792, 56, 1, 4, 8, 8, 7)        \
   X(1920, 60, 1, 2, 4, 4, 4, 3, 5)
 
-template <typename InT, typename OutT, typename P>
-cudaError_t launch(const FftArgs& a, int n_warps, cudaStream_t stream) {
-  static int limit[kMaxDevices] = {};
-  auto kernel = register_fft_kernel<InT, OutT, P>;
-  const SmemLayout lay = smem_layout<P>(n_warps, a.n_packed, a.n_seg, a.n_filt,
-                                        a.n_mfcc, a.n_features);
-  const cudaError_t err = opt_in(kernel, limit, lay.total);
-  if (err != cudaSuccess) return err;
-  kernel<<<a.batch, n_warps * 32, lay.total, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <typename InT, typename OutT>
-cudaError_t launch_n(int n_fft, const FftArgs& a, int n_warps, cudaStream_t s) {
-  switch (n_fft) {
-#define TSC_CASE(N, V, ...) \
-  case 2 * N:               \
-    return launch<InT, OutT, RegisterPlan<N, V, __VA_ARGS__>>(a, n_warps, s);
-    TSC_MIXED_PLANS(TSC_CASE)
-#undef TSC_CASE
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
-
-// audio (batch, n_samples) f32 or int16; gain (1,) f32 on the device;
-// plan_twiddle (ops/fft_plan.py::mixed_plan(n_fft).twiddle as f32 rows),
-// filt_packed (n_packed,) f32 and fb_table (int32, filterbank_plan's table
-// over the plan's lanes, n_seg segments); dct_t (n_filt, n_filt) f32; out
-// (batch, n_features, F) or, time_major, (n_features, batch, F), F = n_mfcc
-// or 2 n_mfcc, f32 or bf16.  Frames first_frame .. first_frame + n_features
-// - 1, each n_fft samples (window = n_fft), are computed; n_warps (1, 2, 4
-// or 8) a block, ops/fft_plan.py::fft_layout's for the plan.  Returns the
-// launch's cudaError_t (cudaErrorInvalidValue for an n_fft without a plan,
-// an argument out of range, or shared memory above the card's opt-in
-// limit).
-extern "C" int tsc_mixed_fft_frontend(
-    const void* audio, int audio_int16, const void* gain, int batch,
-    int n_samples, int hop, int n_fft, int first_frame, int n_features,
-    const void* plan_twiddle, const void* filt_packed, const void* fb_table,
-    int n_packed, int n_seg, const void* dct_t, int n_filt, int n_mfcc,
-    int emit_deltas, int time_major, int n_warps, void* out, int out_bf16,
-    void* stream) {
-  if (batch <= 0 || n_samples <= 0 || hop <= 0 || first_frame < 0 ||
-      n_features <= 0 ||
-      (long long)(first_frame + n_features - 1) * hop + n_fft > n_samples ||
-      n_filt <= 0 || n_mfcc <= 0 || n_mfcc > n_filt || n_packed < 0 || n_seg < 0 ||
-      (n_warps != 1 && n_warps != 2 && n_warps != 4 && n_warps != 8) ||
-      !plan_twiddle || !fb_table || !dct_t)
-    return cudaErrorInvalidValue;
-  const size_t pair = audio_int16 ? 2 * sizeof(int16_t) : 2 * sizeof(float);
-  FftArgs a;
-  a.audio = audio;
-  a.gain = static_cast<const float*>(gain);
-  a.in_scale = audio_int16 ? 1.0f / 32768.0f : 1.0f;
-  a.batch = batch;
-  a.n_samples = n_samples;
-  a.window = n_fft;
-  a.hop = hop;
-  a.first_frame = first_frame;
-  a.n_features = n_features;
-  a.vec_rows = reinterpret_cast<uintptr_t>(audio) % pair == 0 && n_samples % 2 == 0;
-  a.twiddle = static_cast<const float2*>(plan_twiddle);
-  a.packed = static_cast<const float*>(filt_packed);
-  a.table = static_cast<const int*>(fb_table);
-  a.dct_t = static_cast<const float*>(dct_t);
-  a.n_packed = n_packed;
-  a.n_seg = n_seg;
-  a.n_filt = n_filt;
-  a.n_mfcc = n_mfcc;
-  a.emit_deltas = emit_deltas;
-  a.time_major = time_major;
-  a.out = out;
-  a.src_mod = 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (audio_int16)
-    err = out_bf16 ? launch_n<int16_t, __nv_bfloat16>(n_fft, a, n_warps, s)
-                   : launch_n<int16_t, float>(n_fft, a, n_warps, s);
-  else
-    err = out_bf16 ? launch_n<float, __nv_bfloat16>(n_fft, a, n_warps, s)
-                   : launch_n<float, float>(n_fft, a, n_warps, s);
-  return static_cast<int>(err);
-}
+// tsc_mixed_fft_frontend: register_fft.cuh's TSC_REGISTER_ENTRY on these
+// plans (its argument list and errors there)
+TSC_REGISTER_ENTRY(tsc_mixed_fft_frontend, TSC_MIXED_PLANS)

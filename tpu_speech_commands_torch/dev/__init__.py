@@ -22,6 +22,8 @@ package's `tools/dev/` scripts whose TPU kernels the port carries:
 - `mixed_ablation`: route ct's mixed-radix FFT with one design choice undone
   at a time (launch bounds, block size, the exchange's swizzle), and a
   sweep of launch bounds x block size at every plan;
+- `wide_ablation`: route ct's wide register FFT (above n_fft 4096) built
+  with other launch bounds (2 and 4 blocks an SM) beside the shipped one;
 - `source_ab`: the two register-resident FFT kernels (the register body,
   route ct's mixed-radix FFT) built from another checkout's csrc/ against
   this one's, held to the plain version and timed in turns;

@@ -5,8 +5,8 @@ one's, timed in turns on the card: the FFT kernel's register body
 FFT (csrc/mixed_fft_frontend.cu) at n_fft = window = 768 (hop 512) and 1536
 (hop 256), both on their shared csrc/register_fft.cuh; and the CT split
 (csrc/ct_frontend.cu), its (F, F) instantiation at the default config
-(which `ct_body` sends to it) and route ct's split-dup body at n_fft =
-window = 4352.
+(which `ct_body` sends to it) and its per-piece-mel (F, T) instantiation
+("split-dup", the wide FFT's A/B baseline) at n_fft = window = 4352.
 
     python -m tpu_speech_commands_torch.dev.source_ab --other DIR/csrc
         [--batch 8192] [--iters 20]
@@ -33,17 +33,17 @@ from . import card_line, check_features, device_audio
 from .ct_ablation import build, inlined_source
 
 UNITS = ("mfcc_frontend.cu", "mixed_fft_frontend.cu", "ct_frontend.cu")
-# label: (the source, the config's keyword arguments)
+# label: (the source, the config's keyword arguments, the per-piece mel)
 CONFIGS = {
-    "CT split (F, F), n_fft 1024": ("ct_frontend.cu", {}),
+    "CT split (F, F), n_fft 1024": ("ct_frontend.cu", {}, False),
     "CT split-dup, n_fft 4352": ("ct_frontend.cu",
-                                 {"n_fft": 4352, "window_t": 0.272}),
-    "register body, n_fft 1024": ("mfcc_frontend.cu", {}),
+                                 {"n_fft": 4352, "window_t": 0.272}, True),
+    "register body, n_fft 1024": ("mfcc_frontend.cu", {}, False),
     "mixed FFT, n_fft 768": ("mixed_fft_frontend.cu",
-                             {"n_fft": 768, "window_t": 0.048}),
+                             {"n_fft": 768, "window_t": 0.048}, False),
     "mixed FFT, n_fft 1536, hop 256": ("mixed_fft_frontend.cu",
                                        {"n_fft": 1536, "window_t": 0.096,
-                                        "hop_t": 0.016}),
+                                        "hop_t": 0.016}, False),
 }
 
 
@@ -84,13 +84,14 @@ def main(argv=None) -> dict:
     shipped = _build.load_library
     times = {}
     try:
-        for label, (unit, kw) in CONFIGS.items():
+        for label, (unit, kw, per_piece_mel) in CONFIGS.items():
             p = ListenerParams(**kw)
             audio = device_audio(args.batch, p.max_samples, 0, dev)
             # every config is CT-eligible: the CT plain version is the
             # function both kernels compute
             ct_consts = ct_kernel.CtConstants(p, "mfcc", dev)
-            want = ct_kernel.ct_frontend_plain(audio, None, ct_consts, p)
+            want = ct_kernel.ct_frontend_plain(audio, None, ct_consts, p,
+                                               per_piece_mel=per_piece_mel)
             if unit == "mfcc_frontend.cu":
                 consts = frontend_kernel.KernelConstants(p, "mfcc", dev)
 
@@ -98,11 +99,12 @@ def main(argv=None) -> dict:
                     return frontend_kernel.mfcc_frontend_cuda(audio, gain,
                                                               consts, p)
             else:
-                # route ct's body by the config: the mixed FFT, the split's
-                # (F, F) instantiation at n_fft 1024, split-dup at 4352
+                # route ct's body by the config (the mixed FFT, the split's
+                # (F, F) instantiation at n_fft 1024), split-dup at 4352
                 def launch():
-                    return ct_kernel.ct_frontend_cuda(audio, gain, ct_consts,
-                                                      p)
+                    return ct_kernel.ct_frontend_cuda(
+                        audio, gain, ct_consts, p,
+                        per_piece_mel=per_piece_mel)
             for tag in ("other", "this", "this", "other"):
                 lib = libs[names[(tag, unit)]]
                 _build.load_library = lambda lib=lib: lib

@@ -20,6 +20,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
@@ -70,18 +72,22 @@ def source_digest() -> str:
 
 class BuildInfo:
     """What the last `load_library` did: the library path, whether it was
-    compiled in this process, and nvcc's output (with `-Xptxas -v`, each
-    kernel's registers, shared memory and spills)."""
+    compiled in this process, nvcc's output (with `-Xptxas -v`, each
+    kernel's registers, shared memory and spills) and, where it compiled,
+    each unit's wall seconds (its nvcc call, all started together)."""
 
     path: Path | None = None
     compiled = False
     log = ""
+    unit_seconds: dict = {}
 
 
 build_info = BuildInfo()
 
 
 def _compile(lib_path: Path) -> str:
+    """Compile every unit (one nvcc each, all started together) and link;
+    each unit's seconds go to `build_info.unit_seconds`."""
     nvcc = find_nvcc()
     units = sorted(CSRC_DIR.glob("*.cu"))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -89,13 +95,23 @@ def _compile(lib_path: Path) -> str:
     # never loads a half-written library, and a failed build leaves nothing
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, unit.stem + ".o") for unit in units]
+        start = time.perf_counter()
         procs = [
             subprocess.Popen([nvcc, *COMPILE_FLAGS, "-c", "-o", obj, str(unit)],
                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                              text=True)
             for unit, obj in zip(units, objs)
         ]
-        outputs = [proc.communicate() for proc in procs]
+
+        def finish(proc):
+            out = proc.communicate()
+            return out, time.perf_counter() - start
+
+        with ThreadPoolExecutor(len(procs)) as pool:
+            done = list(pool.map(finish, procs))
+        outputs = [out for out, _ in done]
+        build_info.unit_seconds = {unit.name: secs
+                                   for unit, (_, secs) in zip(units, done)}
         log = "".join(out + err for out, err in outputs)
         failed = [unit.name for unit, proc in zip(units, procs)
                   if proc.returncode != 0]

@@ -22,22 +22,28 @@ the same way here, and map onto these four.
 
 `MfccFrontend` takes route "ct" for the configs the JAX scorer runs through
 its CT kernel and the FFT kernel cannot take.  Route ct's function, the
-(F, F) contract, has three bodies, chosen from the config (`ct_body`):
+(F, F) contract, has four bodies, chosen from the config (`ct_body`):
 - "register", `csrc/mixed_fft_frontend.cu`: a mixed-radix register-resident
   real-input FFT (the plan `fft_plan.mixed_plan`) for every n_fft up to
   4096 that has a plan whose block fits the card's shared memory;
+- "wide", `csrc/wide_fft_frontend_*.cu` (`csrc/wide_fft.cuh`): the same
+  register body with a frame over two or four warps (`fft_plan.wide_plan`)
+  for every n_fft above 4096 that has a plan (4352 .. 15872 at a 1 s
+  buffer, 8192 aside, which route fft takes) whose block fits;
 - "split", the CT split kernel's (F, F) instantiation, only for a config
-  whose mixed block does not fit but whose split rows do (many filters:
+  whose register block does not fit but whose split rows do (many filters:
   e.g. 230 at n_fft 768), and through `_split=True` for any config it fits
   (the A/B baseline; the `dev/` variants measure the split this way);
 - "split-dup", the CT split kernel's (F, T) instantiation
-  (`ct_frontend_dup`, the per-piece mel), for a config neither of the two
-  takes: every n_fft above 4096 (4352 .. 15872 at a 1 s buffer, 8192 aside,
-  which route fft takes), where the mixed FFT has no plan and the (F, F)
-  instantiation's power rows (n_fft / 2 + 1 floats a frame) fit no block.
-  It keeps no power row: its block is about 126 KB at 64 rows whatever
-  n_fft is, more with many filters or coefficients (300 of each at 4352:
-  64 rows, 189 KB; 512 of each: 32 rows, 129 KB).
+  (`ct_frontend_dup`, the per-piece mel), for a config none of the others
+  takes: above 4096 a config whose wide block does not fit (many filters
+  or coefficients: the n_filt x n_filt DCT of 300 filters alone is 360
+  KB), where the (F, F) instantiation's power rows (n_fft / 2 + 1 floats a
+  frame) fit no block either; and through `per_piece_mel=True` at any size
+  it fits (the A/B baseline of the wide body).  It keeps no power row: its
+  block is about 126 KB at 64 rows whatever n_fft is, more with many
+  filters or coefficients (300 of each at 4352: 64 rows, 189 KB; 512 of
+  each: 32 rows, 129 KB).
 A config none takes (a block of 32 rows that does not fit) raises
 ValueError from the config, before any launch (`ct_config_error`).
 `ct_frontend` dispatches on the tensor it is given: a
@@ -56,10 +62,11 @@ from . import _build
 from ._checks import OUT_DTYPES, check_launch, check_row_major, row_major
 from .ct_constants import CT_J, LANES, ct_eligible, ct_matrices
 from .fft_plan import (SMEM_OPTIN, fft_layout, filterbank_plan, mixed_plan,
-                       takes_mixed_fft)
+                       takes_mixed_fft, takes_wide_fft, wide_plan, wide_unit)
 
 SOURCE = "tpu_speech_commands_torch/csrc/ct_frontend.cu"
 MIXED_SOURCE = "tpu_speech_commands_torch/csrc/mixed_fft_frontend.cu"
+WIDE_SOURCE = "tpu_speech_commands_torch/csrc/wide_fft.cuh"
 _K1 = "tpu_speech_commands/ops/pallas_frontend.py:745"
 _VARIANTS_PY = "tools/dev/r3_frontend_variants.py:171"
 _STAGE2 = "tools/dev/r3_stage2.py:182"
@@ -83,12 +90,12 @@ VARIANTS = {
 #   out_bf16, stream).  The kernel picks its block rows and tiling itself.
 _N_ARGS = 24
 _INT_ARGS = (1, 3, 4, 5, 6, 7, 8, 9, 10, 17, 18, 19, 20, 22)
-# tsc_mixed_fft_frontend(audio, audio_int16, gain, batch, n_samples, hop,
-#   n_fft, first_frame, n_features, plan_twiddle, filt_packed, fb_table,
-#   n_packed, n_seg, dct_t, n_filt, n_mfcc, emit_deltas, time_major, n_warps,
-#   out, out_bf16, stream)
-_MIXED_N_ARGS = 23
-_MIXED_INT_ARGS = (1, 3, 4, 5, 6, 7, 8, 12, 13, 15, 16, 17, 18, 19, 21)
+# tsc_mixed_fft_frontend and tsc_wide_fft_frontend_<u>(audio, audio_int16,
+#   gain, batch, n_samples, hop, n_fft, first_frame, n_features,
+#   plan_twiddle, filt_packed, fb_table, n_packed, n_seg, dct_t, n_filt,
+#   n_mfcc, emit_deltas, time_major, n_warps, out, out_bf16, stream)
+_REGISTER_N_ARGS = 23
+_REGISTER_INT_ARGS = (1, 3, 4, 5, 6, 7, 8, 12, 13, 15, 16, 17, 18, 19, 21)
 _CUDA_ERROR_INVALID_VALUE = 1
 # csrc/ct_frontend.cu's kStages, kBK and kBms: the K-slice ring's stages and
 # depth, and the block rows it tries, largest first
@@ -105,6 +112,7 @@ class LaunchCount:
 
 counters = {name: LaunchCount() for name in VARIANTS}
 MIXED = LaunchCount()  # launches of the mixed-radix register FFT
+WIDE = LaunchCount()  # launches of the wide register FFT (above 4096)
 
 
 def variant_name(paired: bool, per_piece_mel: bool) -> str:
@@ -143,24 +151,27 @@ def split_fits(p: ListenerParams, per_piece_mel: bool = False) -> bool:
     return split_rows(p, per_piece_mel) > 0
 
 
-def _mixed(p: ListenerParams, feature_type: str):
-    """The mixed-radix plan, its filterbank plan and its block's layout for
-    config `p`."""
-    plan = mixed_plan(p.n_fft)
+def _register(p: ListenerParams, feature_type: str):
+    """The mixed-radix or wide plan, its filterbank plan and its block's
+    layout for config `p`."""
+    plan = mixed_plan(p.n_fft) if takes_mixed_fft(p.n_fft) else \
+        wide_plan(p.n_fft)
     fb = filterbank_plan(filterbank_matrix(p, feature_type).T, plan.lanes)
     return plan, fb, fft_layout(plan, fb, p.n_filt, p.n_mfcc, p.n_features)
 
 
 def ct_body(p: ListenerParams, feature_type: str = "mfcc") -> str | None:
     """Which kernel serves route ct's config `p` on CUDA: "register" (the
-    mixed-radix FFT) where it has a plan whose block fits SMEM_OPTIN,
-    "split" where only the split's (F, F) instantiation fits, "split-dup"
-    (its (F, T) instantiation, no power row) where neither does, None where
-    not even a block of 32 rows of that fits.  Chosen from the config,
-    never from a failed launch."""
-    if takes_mixed_fft(p.n_fft) and \
-            _mixed(p, feature_type)[2].smem_bytes <= SMEM_OPTIN:
-        return "register"
+    mixed-radix FFT) or "wide" (the wide FFT) where one has a plan whose
+    block fits SMEM_OPTIN, "split" where only the split's (F, F)
+    instantiation fits, "split-dup" (its (F, T) instantiation, no power
+    row) where neither does, None where not even a block of 32 rows of
+    that fits.  Chosen from the config, never from a failed launch."""
+    for body, takes in (("register", takes_mixed_fft),
+                        ("wide", takes_wide_fft)):
+        if takes(p.n_fft) and \
+                _register(p, feature_type)[2].smem_bytes <= SMEM_OPTIN:
+            return body
     if split_fits(p):
         return "split"
     return "split-dup" if split_fits(p, per_piece_mel=True) else None
@@ -186,11 +197,11 @@ def ct_config_error(p: ListenerParams,
         return err
     if ct_body(p, feature_type) is None:
         why = (f"its block does not fit in {SMEM_OPTIN} bytes of shared "
-               f"memory" if takes_mixed_fft(p.n_fft) else
-               "it has plans for n_fft <= 4096 only")
+               f"memory" if takes_mixed_fft(p.n_fft) or takes_wide_fft(p.n_fft)
+               else "it has no plan for this n_fft")
         return (f"no CUDA kernel of route ct takes n_fft {p.n_fft} with "
                 f"{p.n_filt} filters and {p.n_mfcc} coefficients: not the "
-                f"mixed-radix FFT ({why}), nor the CT split with or without "
+                f"register FFT ({why}), nor the CT split with or without "
                 f"the per-piece mel (no block of 64 or 32 frame rows fits in "
                 f"{SMEM_OPTIN} bytes of shared memory)")
     return None
@@ -201,10 +212,10 @@ class CtConstants:
     for one config.  The CT split's (`ct_constants.ct_matrices`): the stage-1
     tables, the unpaired and paired stage-2 packs, the permuted filterbank,
     its per-piece ranges and duplicated-row form, the Nyquist row and the
-    transposed DCT.  `body` is `ct_body`'s; where it is "register", the
-    mixed-radix FFT's too: `plan.twiddle` as float32 rows, the packed
-    filterbank and its int32 lane / filter / segment table over the plan's
-    lanes, and `layout`, its block."""
+    transposed DCT.  `body` is `ct_body`'s; where it is "register" or
+    "wide", the register FFT's too: `plan.twiddle` as float32 rows, the
+    packed filterbank and its int32 lane / filter / segment table over the
+    plan's lanes, and `layout`, its block."""
 
     def __init__(self, p: ListenerParams, feature_type: str, device):
         if not ct_eligible(p):
@@ -231,8 +242,8 @@ class CtConstants:
         self.body = ct_body(p, feature_type)
         self.plan = self.fb = self.layout = None
         self.plan_twiddle = self.filt_packed = self.fb_table = None
-        if self.body == "register":
-            self.plan, self.fb, self.layout = _mixed(p, feature_type)
+        if self.body in ("register", "wide"):
+            self.plan, self.fb, self.layout = _register(p, feature_type)
             self.plan_twiddle = row_major(self.plan.twiddle, device)
             self.filt_packed = row_major(self.fb.packed, device)
             self.fb_table = row_major(self.fb.table, device, np.int32)
@@ -326,11 +337,12 @@ def ct_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
     n_features, F), or (n_features, B, F) when time_major, in out_dtype.
 
     The (F, F) contract runs `consts.body`'s kernel: the mixed-radix FFT
-    (its launches add one to `MIXED.launches`), the split, or the split's
-    (F, T) instantiation ("split-dup").  paired or per_piece_mel, or
-    `_split` (the same-call A/B of the mixed FFT and the split), launch
-    that instantiation of the CT split kernel; each launch adds one to
-    `counters[variant_name(paired, per_piece_mel)].launches`."""
+    (its launches add one to `MIXED.launches`), the wide FFT (to
+    `WIDE.launches`), the split, or the split's (F, T) instantiation
+    ("split-dup").  paired or per_piece_mel (the same-call A/B of the wide
+    FFT and split-dup), or `_split` (of the mixed FFT and the split),
+    launch that instantiation of the CT split kernel; each launch adds one
+    to `counters[variant_name(paired, per_piece_mel)].launches`."""
     err = _contract_error(p)
     if not err and consts.body is None and not (paired or per_piece_mel):
         err = ct_config_error(p, consts.feature_type)
@@ -349,8 +361,8 @@ def ct_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
         return out
     first_frame = n_frames - p.n_features
     if not split:
-        _launch_mixed(audio, gain, consts, p, first_frame, time_major, out)
-        MIXED.launches += 1
+        _launch_register(audio, gain, consts, p, first_frame, time_major, out)
+        (MIXED if consts.body == "register" else WIDE).launches += 1
         return out
     fn = _build.bind("tsc_ct_frontend", _N_ARGS, _INT_ARGS)
     with torch.cuda.device(audio.device):
@@ -376,10 +388,13 @@ def ct_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
     return out
 
 
-def _launch_mixed(audio, gain, consts: CtConstants, p: ListenerParams,
-                  first_frame: int, time_major: bool, out: torch.Tensor):
-    """One launch of csrc/mixed_fft_frontend.cu into `out`."""
-    fn = _build.bind("tsc_mixed_fft_frontend", _MIXED_N_ARGS, _MIXED_INT_ARGS)
+def _launch_register(audio, gain, consts: CtConstants, p: ListenerParams,
+                     first_frame: int, time_major: bool, out: torch.Tensor):
+    """One launch of csrc/mixed_fft_frontend.cu or, for the wide body, of
+    n_fft's unit of csrc/wide_fft_frontend_*.cu into `out`."""
+    name = ("tsc_mixed_fft_frontend" if consts.body == "register" else
+            f"tsc_wide_fft_frontend_{wide_unit(p.n_fft)}")
+    fn = _build.bind(name, _REGISTER_N_ARGS, _REGISTER_INT_ARGS)
     with torch.cuda.device(audio.device):
         stream = torch.cuda.current_stream(audio.device).cuda_stream
         rc = fn(
@@ -392,7 +407,7 @@ def _launch_mixed(audio, gain, consts: CtConstants, p: ListenerParams,
             consts.layout.warps, out.data_ptr(),
             int(out.dtype == torch.bfloat16), stream,
         )
-    _build.check(rc, "tsc_mixed_fft_frontend")
+    _build.check(rc, name)
 
 
 def ct_frontend(audio: torch.Tensor, gain, consts: CtConstants,

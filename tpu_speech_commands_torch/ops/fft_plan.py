@@ -1,14 +1,16 @@
 """The plans the register-resident real-input FFTs follow, built in float64
 numpy: `csrc/mfcc_frontend.cu`'s register body (`fft_plan`, n_fft a power
-of two) and route ct's mixed-radix kernel `csrc/mixed_fft_frontend.cu`
-(`mixed_plan`, `MIXED_PLANS`): the passes, their index maps and twiddle
-tables, the untangle twiddles, the shared-memory layout, and the packed
-filterbank's work split over the lanes.
+of two), route ct's mixed-radix kernel `csrc/mixed_fft_frontend.cu`
+(`mixed_plan`, `MIXED_PLANS`) and its wide kernel above n_fft 4096, a frame
+over two or four warps (`csrc/wide_fft_frontend_*.cu`, `wide_plan`,
+`WIDE_PLANS`): the passes, their index maps and twiddle tables, the
+untangle twiddles, the shared-memory layout, and the packed filterbank's
+work split over the lanes.
 
-The kernels mirror these; tests/test_torch_fft_plan.py and
-tests/test_torch_mixed_fft.py run a numpy emulation of the same passes on
-the same tables (`emulate_rfft`) against np.fft.rfft and the plain
-frontends.  The mixed-radix plans keep the layout below with other radices
+The kernels mirror these; tests/test_torch_fft_plan.py,
+tests/test_torch_mixed_fft.py and tests/test_torch_wide_fft.py run a numpy
+emulation of the same passes on the same tables (`emulate_rfft`) against
+np.fft.rfft and the plain frontends.  The mixed-radix plans keep the layout below with other radices
 and lane counts.  For n_fft a power of two in [FFT_MIN, FFT_MAX]:
 
 - a real frame x of n_fft samples is the complex sequence z[n] = x[2n] + i
@@ -19,7 +21,9 @@ and lane counts.  For n_fft a power of two in [FFT_MIN, FFT_MAX]:
   (the product of the radices before it) and radix R: butterfly j in [0, N /
   R) reads z[j + r N / R], r < R; its inputs r >= 1 are multiplied by
   W_{Ns R}^{r (j mod Ns)}; a DFT-R in registers; output s goes to (j - c) R
-  + c + s Ns, c = j mod Ns.  Lane l owns butterflies l + lanes b.  Pass 0
+  + c + s Ns, c = j mod Ns.  Lane l owns butterflies l + lanes b, b <
+  ceil(values / R) (a wide plan's last one only where it is < N / R: its
+  power-of-two radices need not divide V).  Pass 0
   reads the audio itself; every later pass reads what the one before wrote;
 - X[k] = E + W_{2N}^k O and X[N - k] = conj(E - W_{2N}^k O), E = (Z[k] +
   conj Z[N - k]) / 2, O = -i (Z[k] - conj Z[N - k]) / 2: one lane takes the
@@ -42,6 +46,9 @@ import numpy as np
 FFT_MIN, FFT_MAX = 128, 4096
 RADIX = 16
 WARPS = 8  # a block: 8 warps, one window
+# a wide plan's block (a frame of 64 or 128 lanes): at most 4 warps, 128
+# threads, the launch bounds' block (register_fft.cuh's kWideThreads)
+WIDE_WARPS = 4
 # an H100 SM: 228 KB of shared memory, of which a block may opt in to 227
 # KB and the CUDA runtime reserves 1 KB a block; 64 warps
 SMEM_OPTIN = 232448
@@ -74,6 +81,28 @@ class FftPlan:
     @property
     def frames_per_warp(self) -> int:
         return max(1, 32 // self.lanes)
+
+    @property
+    def warps_per_frame(self) -> int:
+        return max(1, self.lanes // 32)
+
+    @property
+    def staged(self) -> bool:
+        """Whether the block stages the twiddles and the packed weights in
+        shared memory; a frame over several warps reads them through the
+        read-only cache (a block holds too few frames to repay staging)."""
+        return self.lanes <= 32
+
+    @property
+    def max_warps(self) -> int:
+        """The launch bounds' warps a block."""
+        return WARPS if self.staged else WIDE_WARPS
+
+    @property
+    def lane_slots(self) -> int:
+        """The complex values a lane holds in registers: the most of any
+        pass, ceil(values / R) butterflies of R."""
+        return max(-(-self.values // r) * r for r in self.radices)
 
 
 @functools.lru_cache()
@@ -165,18 +194,140 @@ def mixed_plan(n_fft: int) -> FftPlan:
     return build_plan(n_fft, *MIXED_PLANS[n_fft])
 
 
+# The wide plans of csrc/wide_fft_frontend_*.cu (their TSC_WIDE_PLANS
+# tables): n_fft -> (values a lane, the passes' radices, the launch bounds'
+# blocks an SM, warps a block).  n_fft = 256 m, m in 17 .. 62 but 32: the
+# sizes above FFT_MAX that the JAX package's CT kernel takes (n_fft = 128
+# n2, n2 even) and that are not powers of two, up to the longest window a
+# 1 s buffer holds.  `wide_rule` gives every entry: V is the largest 2^k q
+# <= 64 (q the odd part of m), so L = N / V is 64 lanes (m < 32) or 128
+# (m > 32), two or four warps a frame; the power-of-two part of N runs in
+# the fewest passes of radices up to 16, their exponents as even as they
+# split, the larger first (a radix that does not divide V leaves a lane's
+# last butterfly to some lanes only); then one pass for each odd prime
+# factor of m, the smallest first.  A block is 4 warps (two frames of 64
+# lanes, or one of 128), 128 threads.  The launch bounds' blocks an SM are
+# the fastest of 2, 3 and 4 (255, 168 and 128 registers a thread) on an
+# H100 where it beats 3 by more than 1% (dev/wide_ablation.py over every
+# plan, PERF.md): 4 for most plans up to 10752 whose spills at 128
+# registers are small, 2 for the primes 59 and 61 (15104, 15616), whose
+# odd DFT spills 1 KB at 168.
+WIDE_PLANS = {
+    4352: (34, (16, 8, 17), 4, 4),
+    4608: (36, (16, 16, 3, 3), 3, 4),
+    4864: (38, (16, 8, 19), 4, 4),
+    5120: (40, (8, 8, 8, 5), 4, 4),
+    5376: (42, (16, 8, 3, 7), 4, 4),
+    5632: (44, (16, 16, 11), 4, 4),
+    5888: (46, (16, 8, 23), 4, 4),
+    6144: (48, (16, 8, 8, 3), 3, 4),
+    6400: (50, (16, 8, 5, 5), 3, 4),
+    6656: (52, (16, 16, 13), 3, 4),
+    6912: (54, (16, 8, 3, 3, 3), 3, 4),
+    7168: (56, (8, 8, 8, 7), 3, 4),
+    7424: (58, (16, 8, 29), 3, 4),
+    7680: (60, (16, 16, 3, 5), 3, 4),
+    7936: (62, (16, 8, 31), 3, 4),
+    8448: (33, (16, 8, 3, 11), 4, 4),
+    8704: (34, (16, 16, 17), 4, 4),
+    8960: (35, (16, 8, 5, 7), 4, 4),
+    9216: (36, (8, 8, 8, 3, 3), 4, 4),
+    9472: (37, (16, 8, 37), 4, 4),
+    9728: (38, (16, 16, 19), 4, 4),
+    9984: (39, (16, 8, 3, 13), 4, 4),
+    10240: (40, (16, 8, 8, 5), 4, 4),
+    10496: (41, (16, 8, 41), 4, 4),
+    10752: (42, (16, 16, 3, 7), 4, 4),
+    11008: (43, (16, 8, 43), 3, 4),
+    11264: (44, (8, 8, 8, 11), 3, 4),
+    11520: (45, (16, 8, 3, 3, 5), 3, 4),
+    11776: (46, (16, 16, 23), 3, 4),
+    12032: (47, (16, 8, 47), 3, 4),
+    12288: (48, (16, 16, 8, 3), 3, 4),
+    12544: (49, (16, 8, 7, 7), 3, 4),
+    12800: (50, (16, 16, 5, 5), 3, 4),
+    13056: (51, (16, 8, 3, 17), 3, 4),
+    13312: (52, (8, 8, 8, 13), 3, 4),
+    13568: (53, (16, 8, 53), 3, 4),
+    13824: (54, (16, 16, 3, 3, 3), 3, 4),
+    14080: (55, (16, 8, 5, 11), 3, 4),
+    14336: (56, (16, 8, 8, 7), 3, 4),
+    14592: (57, (16, 8, 3, 19), 3, 4),
+    14848: (58, (16, 16, 29), 3, 4),
+    15104: (59, (16, 8, 59), 2, 4),
+    15360: (60, (8, 8, 8, 3, 5), 3, 4),
+    15616: (61, (16, 8, 61), 2, 4),
+    15872: (62, (16, 16, 31), 3, 4),
+}
+# the wide plans' build units: csrc/wide_fft_frontend_<u>.cu holds the
+# plans whose index in sorted(WIDE_PLANS) is u modulo WIDE_UNITS, each
+# unit its own nvcc call (its own entry point, tsc_wide_fft_frontend_<u>)
+WIDE_UNITS = 8
+
+
+def odd_primes(m: int) -> tuple:
+    """The odd prime factors of m, with multiplicity, smallest first."""
+    out, q, f = [], m, 3
+    while q % 2 == 0:
+        q //= 2
+    while q > 1:
+        while q % f == 0:
+            out.append(f)
+            q //= f
+        f += 2
+    return tuple(out)
+
+
+def wide_rule(n_fft: int) -> tuple:
+    """(values a lane, radices) of the wide plan for n_fft = 256 m (see
+    WIDE_PLANS)."""
+    m, n = n_fft // 256, n_fft // 2
+    odd = odd_primes(m)
+    q = int(np.prod(odd)) if odd else 1
+    values = q
+    while 2 * values <= 64:
+        values *= 2
+    bits = (n // q).bit_length() - 1
+    passes = -(-bits // 4)
+    pow2 = tuple(2 ** (bits // passes + (i < bits % passes))
+                 for i in range(passes))
+    return values, pow2 + odd
+
+
+def takes_wide_fft(n_fft: int) -> bool:
+    """Whether the wide register FFT has a plan for n_fft."""
+    return n_fft in WIDE_PLANS
+
+
+@functools.lru_cache()
+def wide_plan(n_fft: int) -> FftPlan:
+    """The wide plan for n_fft (`WIDE_PLANS`): a frame over two or four
+    warps."""
+    if not takes_wide_fft(n_fft):
+        raise ValueError(f"the wide register FFT takes n_fft = 256 m, m in "
+                         f"17 .. 62 but 32, got {n_fft}")
+    return build_plan(n_fft, *WIDE_PLANS[n_fft])
+
+
+def wide_unit(n_fft: int) -> int:
+    """The build unit (csrc/wide_fft_frontend_<u>.cu) of n_fft's plan."""
+    return sorted(WIDE_PLANS).index(n_fft) % WIDE_UNITS
+
+
 def swizzle(i):
     """The float2 slot of logical point i in a swizzled exchange."""
     return i ^ ((i >> 4) & 15)
 
 
 def pass_maps(plan: FftPlan, p: int):
-    """Pass p's index maps, each (lanes, values / R, R): the point butterfly
-    l + lanes b reads as its input r, the point its output r goes to, and
-    the twiddle row its input r is multiplied by (-1: none)."""
+    """Pass p's index maps, each (lanes, ceil(values / R), R): the point
+    butterfly l + lanes b reads as its input r, the point its output r goes
+    to, and the twiddle row its input r is multiplied by (-1: none).  A
+    butterfly j >= N / R (the last of some lanes of a wide plan) is none:
+    its lane skips it."""
     radix, ns, n = plan.radices[p], plan.strides[p], plan.n
     j = (np.arange(plan.lanes)[:, None]
-         + plan.lanes * np.arange(plan.values // radix)[None, :])[..., None]
+         + plan.lanes * np.arange(-(-plan.values // radix))[None, :])[..., None]
     r = np.arange(radix)[None, None, :]
     c = j % ns
     reads = j + r * (n // radix)
@@ -197,6 +348,8 @@ def emulate_rfft(frames: np.ndarray, plan: FftPlan, tw: np.ndarray,
     buf = (frames[:, 0::2] + 1j * frames[:, 1::2]).astype(dt)
     for p in range(len(plan.radices)):
         reads, writes, tws = pass_maps(plan, p)
+        real = reads[..., 0] < n // plan.radices[p]
+        reads, writes, tws = reads[real], writes[real], tws[real]
         v = buf[:, reads]
         v = v * np.where(tws >= 0, tw[np.maximum(tws, 0)], 1).astype(dt)
         new = np.empty_like(buf)
@@ -304,31 +457,39 @@ class FftLayout:
 
 def fft_layout(plan: FftPlan, fb: FilterbankPlan, n_filt: int, n_mfcc: int,
                n_features: int, warps: int | None = None) -> FftLayout:
-    """Mirrors smem_layout() and launch_fft() in csrc/mfcc_frontend.cu (and
-    smem_layout() in csrc/mixed_fft_frontend.cu, whose launch takes the
-    warps from here): the twiddles, the packed weights, the filterbank
-    table, the DCT, one buffer a frame slot (warps x frames_per_warp slots
-    of `pitch` float2), one scratch row a slot (its partial sums, then
-    n_filt + 1 log-mel and energy values), and the window's (n_features,
-    n_mfcc) coefficients; `warps` (the plan's by default) a block, halved
-    while that exceeds SMEM_OPTIN.  Blocks an SM: the least of shared
+    """Mirrors smem_layout() in csrc/register_fft.cuh, and launch_fft() in
+    csrc/mfcc_frontend.cu (route ct's kernels take the warps from here):
+    the twiddles and the packed weights (where the plan stages them), the
+    filterbank table, the DCT, one buffer a frame slot (warps x
+    frames_per_warp / warps_per_frame slots of `pitch` float2), one scratch
+    row a slot (its partial sums, n_filt log-mel values, then
+    warps_per_frame energy parts), and the window's (n_features, n_mfcc)
+    coefficients; `warps` (the plan's by default, a wide plan's no more
+    than its window's frames fill) a block, halved while that exceeds
+    SMEM_OPTIN, down to one frame.  Blocks an SM: the least of shared
     memory, the warp limit and the launch bounds' registers."""
-    def regions_of(warps):
-        slots = warps * plan.frames_per_warp
-        return tuple(_align16(r) for r in (
-            8 * len(plan.twiddle), 4 * len(fb.packed), 4 * len(fb.table),
-            4 * n_filt * n_filt, 8 * slots * plan.pitch,
-            4 * slots * (fb.n_seg + n_filt + 1), 4 * n_features * n_mfcc))
+    wpf = plan.warps_per_frame
 
-    warps = warps or plan.warps
-    while sum(regions_of(warps)) > SMEM_OPTIN and warps > 1:
+    def regions_of(warps):
+        slots = warps * plan.frames_per_warp // wpf
+        return tuple(_align16(r) for r in (
+            8 * len(plan.twiddle) * plan.staged,
+            4 * len(fb.packed) * plan.staged, 4 * len(fb.table),
+            4 * n_filt * n_filt, 8 * slots * plan.pitch,
+            4 * slots * (fb.n_seg + n_filt + wpf), 4 * n_features * n_mfcc))
+
+    warps = warps or (plan.warps if wpf == 1 else
+                      min(plan.warps, wpf * n_features))
+    while sum(regions_of(warps)) > SMEM_OPTIN and warps > wpf:
         warps //= 2
     regions = regions_of(warps)
     smem = sum(regions)
-    # the launch bounds cap a thread's registers at 65,536 / (32 WARPS x
-    # min_blocks): that many blocks of WARPS warps fit whatever nvcc allocates
+    # the launch bounds cap a thread's registers at 65,536 / (32 max_warps
+    # x min_blocks): that many blocks of max_warps warps fit whatever nvcc
+    # allocates
     blocks = min(SMEM_PER_SM // (smem + SMEM_RESERVED),
-                 MAX_WARPS_PER_SM // warps, plan.min_blocks * WARPS // warps)
+                 MAX_WARPS_PER_SM // warps,
+                 plan.min_blocks * plan.max_warps // warps)
     return FftLayout(warps, *regions, smem_bytes=smem, blocks_per_sm=blocks,
                      warps_per_sm=blocks * warps)
 

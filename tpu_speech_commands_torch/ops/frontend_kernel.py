@@ -31,10 +31,12 @@ config when the frontend was built:
 - "ct": the configs the JAX package's CT kernel takes and the FFT kernel
   cannot, n_fft = 128 n2 (n2 even, not a power of two) == window: the
   mixed-radix register FFT (csrc/mixed_fft_frontend.cu) up to n_fft 4096,
-  the CT split kernel (csrc/ct_frontend.cu) where the mixed block does not
-  fit and the split's rows do (many filters), and above 4096 the split's
-  (F, T) instantiation, which keeps no power row (`ct_kernel.ct_body`:
-  "register", "split", "split-dup"; `MfccFrontend.body` names it);
+  above it the same register body with a frame over two or four warps
+  (csrc/wide_fft_frontend_*.cu), the CT split kernel (csrc/ct_frontend.cu)
+  where the register block does not fit and the split's rows do (many
+  filters), and above 4096 then the split's (F, T) instantiation, which
+  keeps no power row (`ct_kernel.ct_body`: "register", "wide", "split",
+  "split-dup"; `MfccFrontend.body` names it);
 - "torch": every other config, which the JAX scorer, too, serves with plain
   XLA products outside any Pallas kernel: the plain chain on the card.
 The fast_math DFT kernel needs a hop that is a multiple of 8 samples and at
@@ -494,14 +496,15 @@ class MfccFrontend:
     @property
     def path(self) -> str:
         """The kernel a CUDA tensor takes, by name: "cuda-mfcc" (the FFT
-        kernel), "cuda-ct" or "cuda-ct(<body>)" for route ct's split
-        bodies, "torch(xla-route)" (the plain chain on the card) or
+        kernel), "cuda-ct" or "cuda-ct(<body>)" for route ct's other
+        bodies (wide, split, split-dup), "torch(xla-route)" (the plain
+        chain on the card) or
         "cuda-fast_math"; "torch" (the plain chain) on the CPU."""
         if self.device.type != "cuda":
             return "torch"
         name = {"fft": "cuda-mfcc", "ct": "cuda-ct", "torch": "torch(xla-route)",
                 "fast_math": "cuda-fast_math"}[self.route]
-        if self.body not in (None, "register"):  # route ct's split bodies
+        if self.body not in (None, "register"):  # route ct's other bodies
             name += f"({self.body})"
         return name
 

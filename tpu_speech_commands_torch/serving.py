@@ -11,9 +11,11 @@ config takes the plain frontend route):
          CT route      (ops/ct_kernel.py), the configs the JAX scorer runs
                        on its CT kernel, n_fft = 128 n2 (n2 even) = window,
                        not a power of two ("cuda-ct"): the mixed-radix FFT
-                       (csrc/mixed_fft_frontend.cu) up to n_fft 4096, the
-                       CT split's per-piece-mel instantiation above it
-                       ("cuda-ct(split-dup)", csrc/ct_frontend.cu);
+                       (csrc/mixed_fft_frontend.cu) up to n_fft 4096, its
+                       wide form above it ("cuda-ct(wide)",
+                       csrc/wide_fft_frontend_*.cu), the CT split's
+                       per-piece-mel instantiation where that block does
+                       not fit ("cuda-ct(split-dup)", csrc/ct_frontend.cu);
          plain chain   every other config, which the JAX scorer, too, runs
                        on plain XLA products ("torch(xla-route)")
       -> GRU classifier kernel   (ops/rnn_kernel.py, csrc/gru_classifier.cu),
