@@ -39,12 +39,13 @@ Phases, in order; any failure raises and the script exits non-zero:
             coefficients (blocks of 64, 32 and 32 rows; the coefficients in
             the idle T, ring and squares space, at 600 in their own
             region), f32 and int16 in, f32 and bf16 out; the FFT kernel at
-            window
-            1200 > n_fft,
-            at alt_512 and an odd hop of 481, at every n_fft its register
-            body takes (128 .. 4096) and at 8192 (its radix-2 body), f32
-            and int16 in, f32 and bf16 out, and its radix-2 body at the
-            default config; every stage cut of the CT split and FFT
+            window 1200 > n_fft, at alt_512 and an odd hop of 481, at every
+            n_fft its register body takes (128 .. 4096), at 8192 and 16384
+            (its wide body; window 1024, and n_fft = window = 8192 and
+            16384 at window 12800, with and without deltas) and at 240
+            filters (its radix-2 body), f32 and int16 in, f32 and bf16 out,
+            and its radix-2 body forced at the default config and at both
+            wide configs; every stage cut of the CT split and FFT
             kernels, streamed and constant-block, at B = 1008 on f32
             audio, and on int16 at `full`)
 4. slices   each path driven on the eight example/*.wav clips in f32 and
@@ -79,7 +80,9 @@ Phases, in order; any failure raises and the script exits non-zero:
               n_fft = window = 768 (route cuda-ct, the mixed-radix FFT; the
               CT split's launch counts must stay at 0), window
               1200 > n_fft 1024 (cuda-mfcc, the FFT kernel's register
-              body), n_fft 8192 (cuda-mfcc, its radix-2 body), n_fft 400
+              body), n_fft 8192 (window 1024) and 16384 (window 12800)
+              (cuda-mfcc(wide), its wide body), 240 filters (cuda-mfcc,
+              its radix-2 body), n_fft 400
               (torch(xla-route), the plain chain) and n_fft = window = 4352
               (cuda-ct(wide), the wide FFT; split-dup's launch count must
               stay at 0): `.paths` must name the
@@ -200,8 +203,11 @@ Phases, in order; any failure raises and the script exits non-zero:
             split-dup in turns, wide, split-dup, split-dup, wide, at n_fft
             4352, 10240 and 15872, beside the bound, the CT plain version
             and torch.fft.rfft plus the power alone (cuFFT, a yardstick),
-            the FFT kernel's radix-2 body at n_fft = window = 8192 beside
-            its bound and plain version, the GRU classifier's tile
+            the FFT kernel's wide body against its radix-2 body in turns,
+            wide, radix-2, radix-2, wide, at n_fft = window = 8192 and at
+            16384 with window 12800, beside the bound, the plain chain,
+            the cuFFT yardstick and the register body at 1024 and route
+            ct's wide body at 4352 of the same run, the GRU classifier's tile
             kernel against its SIMT kernel in turns, simt, tile, tile, simt,
             in f32 and bf16 (bf16 features), with a sweep of the tile
             kernel's windows a warp and warps a block and the gate math's
@@ -301,6 +307,11 @@ CT_AB = ((768, 0.032), (1536, 0.016), (2816, 0.016))
 # scorer at the first
 WIDE_AB = (4352, 10240, 15872)
 WIDE_ROUTE = {"n_fft": 4352, "window_t": 0.272}
+# route fft's wide body (a frame over four warps), n_fft: window_t: n_fft =
+# window = 8192 (16 frames) and 16384 at the longest window a 1 s buffer
+# holds at hop 512 with 7 frames (12800 samples, zero-padded); timed
+# against the radix-2 body in turns
+FFT_WIDE_AB = {8192: 0.512, 16384: 0.8}
 # route ct with more coefficients than one residue's T holds (n_filt =
 # n_mfcc at n_fft 4352): blocks of 64 rows at 300 and of 32 at 512, both in
 # the block's idle space; at 600 (32 rows) in a region of their own
@@ -542,6 +553,8 @@ def kernel_bounds(p, batch, n_samples, rnn_dims, cnn_consts):
         "wide_fft_frontend": frontend_bound(p.replace(**WIDE_ROUTE), batch),
         "mfcc_frontend": frontend,
         "mfcc_frontend_radix2": frontend,
+        "mfcc_frontend_wide": frontend_bound(
+            p.replace(n_fft=8192, window_t=FFT_WIDE_AB[8192]), batch),
         "dft_frontend_bf16": dft_bound(p, batch),
         "dft_frontend_mma_sync": dft_bound(p, batch),
         "gru_classifier": gru,
@@ -2096,51 +2109,71 @@ def main() -> int:
 
     # the FFT kernel at a window longer than n_fft (it reads the first n_fft
     # samples of a frame), at alt_512 and an odd hop, at every n_fft of its
-    # register body and at one of its radix-2 body, in both input and output
-    # types; its radix-2 body at the default config
-    radix2_errs = []
+    # register and wide bodies (window 1024 at 8192 and 16384: zero-padded),
+    # at n_fft = window = 8192 and at 16384 with window 12800, with and
+    # without deltas, and at 240 filters (the radix-2 body: no register
+    # block fits its DCT), in both input and output types; its radix-2 body
+    # forced at the default config and at both wide configs
+    radix2_errs, fft_wide_errs = [], []
+    fft_errs = {"register": frontend_errs, "radix2": radix2_errs,
+                "wide": fft_wide_errs}
     fft_cases = [
         ("window 1200 > n_fft 1024", {"window_t": 0.075}),
         ("alt_512", {"window_t": 0.025, "hop_t": 0.01, "n_fft": 512,
                      "n_filt": 26, "n_mfcc": 13}),
         ("odd hop 481", {"hop_t": 481 / 16000}),
         *((f"n_fft {n}", {"n_fft": n, "window_t": min(0.064, n / 16000)})
-          for n in (128, 256, 512, 2048, 4096, 8192)),
+          for n in (128, 256, 512, 2048, 4096, 8192, 16384)),
+        *((f"n_fft {n} window {round(w * 16000)}{' deltas' * d}",
+           {"n_fft": n, "window_t": w, "use_delta": d})
+          for n, w in FFT_WIDE_AB.items() for d in (False, True)),
+        ("240 filters", {"n_filt": 240}),
     ]
     for name, kw in fft_cases:
         p = ListenerParams(**kw)
         body = frontend_kernel.fft_body(p)
+        want_body = ("wide" if p.n_fft in FFT_WIDE_AB else
+                     "radix2" if p.n_filt == 240 else "register")
+        if body != want_body:
+            raise AssertionError(f"{name}: the FFT kernel's body is {body}, "
+                                 f"not {want_body}")
         for audio, out_dtype, gain in ((audio_f32, torch.float32, 0.8),
                                        (audio_i16, torch.bfloat16, 1.25),
                                        (audio_i16, torch.float32, 1.0),
                                        (audio_f32, torch.bfloat16, 1.1)):
             fe = MfccFrontend(p, "mfcc", dev, out_dtype=out_dtype)
+            if body == "wide" and fe.path != "cuda-mfcc(wide)":
+                raise AssertionError(f"{name}: path {fe.path}")
             got = fe(audio, gain)
             torch.cuda.synchronize()
             want = fe.plain(audio, gain).to(out_dtype)
             what = (f"frontend ({body}) {name} mfcc {str(audio.dtype)[6:]}->"
                     f"{str(out_dtype)[6:]} gain {gain}")
             if out_dtype == torch.float32:
-                (radix2_errs if body == "radix2" else frontend_errs).append(
+                fft_errs[body].append(
                     check_close(what, got, want, FEAT_ATOL, FEAT_RTOL))
             else:
                 check_close(what, got, want, FEAT_BF16_ATOL, FEAT_BF16_RTOL)
-    p = ListenerParams()
-    fe_consts = frontend_kernel.KernelConstants(p, "mfcc", dev)
-    for audio, out_dtype, gain in ((audio_f32, torch.float32, 0.8),
-                                   (audio_i16, torch.bfloat16, 1.25)):
-        gain_t = torch.full((1,), gain, dtype=torch.float32, device=dev)
-        got = frontend_kernel.mfcc_frontend_cuda(audio, gain_t, fe_consts, p,
-                                                 out_dtype, _radix2=True)
-        torch.cuda.synchronize()
-        want = Frontend(p, "mfcc", dev)(audio, gain).to(out_dtype)
-        what = (f"frontend (radix2 forced) default mfcc "
-                f"{str(audio.dtype)[6:]}->{str(out_dtype)[6:]} gain {gain}")
-        if out_dtype == torch.float32:
-            radix2_errs.append(check_close(what, got, want, FEAT_ATOL,
-                                           FEAT_RTOL))
-        else:
-            check_close(what, got, want, FEAT_BF16_ATOL, FEAT_BF16_RTOL)
+    for name, kw in (("default", {}), *(
+            (f"n_fft {n} window {round(w * 16000)}",
+             {"n_fft": n, "window_t": w}) for n, w in FFT_WIDE_AB.items())):
+        p = ListenerParams(**kw)
+        fe_consts = frontend_kernel.KernelConstants(p, "mfcc", dev)
+        for audio, out_dtype, gain in ((audio_f32, torch.float32, 0.8),
+                                       (audio_i16, torch.bfloat16, 1.25)):
+            gain_t = torch.full((1,), gain, dtype=torch.float32, device=dev)
+            got = frontend_kernel.mfcc_frontend_cuda(
+                audio, gain_t, fe_consts, p, out_dtype, _radix2=True)
+            torch.cuda.synchronize()
+            want = Frontend(p, "mfcc", dev)(audio, gain).to(out_dtype)
+            what = (f"frontend (radix2 forced) {name} mfcc "
+                    f"{str(audio.dtype)[6:]}->{str(out_dtype)[6:]} gain {gain}")
+            if out_dtype == torch.float32:
+                radix2_errs.append(check_close(what, got, want, FEAT_ATOL,
+                                               FEAT_RTOL))
+            else:
+                check_close(what, got, want, FEAT_BF16_ATOL, FEAT_BF16_RTOL)
+        del fe_consts
     # the dense combined kernel with a gain and a first frame (the JAX
     # dense frontend's f32 contract)
     consts = dense_dft_kernel.DenseDftConstants(ListenerParams(hop_t=0.03), dev)
@@ -2332,6 +2365,7 @@ def main() -> int:
     counters = {
         "mfcc_frontend": frontend_kernel.mfcc_frontend_cuda,
         "mfcc_frontend_radix2": frontend_kernel.RADIX2,
+        "mfcc_frontend_wide": frontend_kernel.WIDE,
         "dft_frontend_bf16": frontend_kernel.dft_frontend_bf16_cuda,
         "dft_frontend_mma_sync": frontend_kernel.MMA_SYNC,
         "gru_classifier": rnn_kernel.gru_layer_cuda,
@@ -2417,8 +2451,17 @@ def main() -> int:
          ("wide_fft_frontend", *ct_kernel.counters)),
         ("window 1200 > n_fft 1024", {"window_t": 0.075}, "cuda-mfcc",
          ("mfcc_frontend", "gru_classifier"), ()),
-        ("n_fft 8192 (the radix-2 body)", {"n_fft": 8192}, "cuda-mfcc",
-         ("mfcc_frontend_radix2", "gru_classifier"), ()),
+        ("n_fft 8192 (the wide body; window 1024)", {"n_fft": 8192},
+         "cuda-mfcc(wide)", ("mfcc_frontend_wide", "gru_classifier"),
+         ("mfcc_frontend", "mfcc_frontend_radix2")),
+        ("n_fft 16384, window 12800 (the wide body)",
+         {"n_fft": 16384, "window_t": FFT_WIDE_AB[16384]}, "cuda-mfcc(wide)",
+         ("mfcc_frontend_wide", "gru_classifier"),
+         ("mfcc_frontend", "mfcc_frontend_radix2")),
+        ("240 filters (the radix-2 body: no register block fits its DCT)",
+         {"n_filt": 240}, "cuda-mfcc",
+         ("mfcc_frontend_radix2", "gru_classifier"),
+         ("mfcc_frontend", "mfcc_frontend_wide")),
         ("n_fft 400", {"n_fft": 400, "window_t": 0.025}, "torch(xla-route)",
          ("gru_classifier",), ()),
         ("n_fft = window = 4352 (route ct's wide body)", WIDE_ROUTE,
@@ -2750,24 +2793,62 @@ def main() -> int:
             f"torch.fft.rfft + power alone (cuFFT, a yardstick) "
             f"{cufft_ms:.4f} ms  ({card})")
         del consts
-    # the FFT kernel's radix-2 body at n_fft = window = 8192 (the one size
-    # in route ct's series that route fft takes; its register body stops
-    # at 4096), beside its bound and the plain chain
-    p8k = ListenerParams(n_fft=8192, window_t=0.512)
-    fe8k = MfccFrontend(p8k, "mfcc", dev)
-    radix2_errs.append(check_close(
-        f"frontend (radix-2 body) n_fft 8192 B = {B_TIME}", fe8k(big),
-        fe8k.plain(big), FEAT_ATOL, FEAT_RTOL))
-    bound = frontend_bound(p8k, B_TIME)
-    radix2_8k = {"ms": cuda_ms(lambda: fe8k(big), 5),
-                 "plain_ms": cuda_ms(lambda: fe8k.plain(big), 2),
-                 "bound_ms": bound[0], "bound_by": bound[1]}
-    log(f"  FFT kernel, radix-2 body (mfcc_frontend_radix2) at n_fft = "
-        f"window = 8192 "
-        f"({p8k.n_features} frames), B = {B_TIME}, f32 audio and output: "
-        f"{radix2_8k['ms']:.4f} ms; plain {radix2_8k['plain_ms']:.4f} ms; "
-        f"bound {bound[0]:.4f} ms ({bound[1]})  ({card})")
-    del fe8k
+    # route fft above 4096: the FFT kernel's wide body against its radix-2
+    # body in turns, wide, radix-2, radix-2, wide, at n_fft = window = 8192
+    # and at 16384 with window 12800, both first held to the plain chain at
+    # this batch, beside the bound, the plain chain and, as a yardstick only
+    # (not the function; the port never calls it), torch.fft.rfft of the
+    # kept frames (zero-padded to n_fft) and the power alone (cuFFT); the
+    # register body at 1024 and route ct's wide body at 4352 timed above in
+    # this run beside them
+    fft_wide_ab = {}
+    for n_fft, window_t in FFT_WIDE_AB.items():
+        p = ListenerParams(n_fft=n_fft, window_t=window_t)
+        fe_wide = MfccFrontend(p, "mfcc", dev)
+        if fe_wide.path != "cuda-mfcc(wide)":
+            raise AssertionError(f"n_fft {n_fft}: path {fe_wide.path}")
+        runs = {"wide": lambda: fe_wide(big),
+                "radix-2": lambda: frontend_kernel.mfcc_frontend_cuda(
+                    big, unit_gain, fe_wide.consts, p, _radix2=True)}
+        want = fe_wide.plain(big)
+        fft_wide_errs.append(check_close(
+            f"frontend (wide) n_fft {n_fft} window {p.window_samples} B = "
+            f"{B_TIME}", runs["wide"](), want, FEAT_ATOL, FEAT_RTOL))
+        radix2_errs.append(check_close(
+            f"frontend (radix2 forced) n_fft {n_fft} window "
+            f"{p.window_samples} B = {B_TIME}", runs["radix-2"](), want,
+            FEAT_ATOL, FEAT_RTOL))
+        del want
+        ab = {"wide": [], "radix-2": []}
+        for which in ("wide", "radix-2", "radix-2", "wide"):
+            ab[which].append(cuda_ms(runs[which], 20 if which == "wide" else 2,
+                                     warmup=1))
+        plain_ms = cuda_ms(lambda: fe_wide.plain(big), 2, warmup=1)
+        frames = frame_signal(big, p.window_samples, p.hop_samples)[
+            :, -p.n_features:]
+        cufft_ms = cuda_ms(lambda: torch.fft.rfft(frames, n=n_fft).abs()
+                           .square(), 5)
+        del frames
+        bound = frontend_bound(p, B_TIME)
+        fft_wide_ab[n_fft] = {
+            "ms": ab["wide"][0], "radix2_ms": ab["radix-2"][0],
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "cufft_power_ms": cufft_ms}
+        log(f"  route fft at n_fft {n_fft}, window {p.window_samples} "
+            f"({p.n_features} frames), B = {B_TIME}, f32 audio and output, in "
+            f"turns wide, radix-2, radix-2, wide: wide body "
+            f"(mfcc_frontend_wide, {fe_wide.consts.layout.warps} warps a "
+            f"block) {ab['wide'][0]:.4f}, {ab['wide'][1]:.4f} ms = "
+            f"{ab['wide'][0] / bound[0]:.2f}x its bound; radix-2 body "
+            f"(mfcc_frontend_radix2) {ab['radix-2'][0]:.4f}, "
+            f"{ab['radix-2'][1]:.4f} ms = "
+            f"{sum(ab['radix-2']) / sum(ab['wide']):.2f}x; plain "
+            f"{plain_ms:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}); "
+            f"torch.fft.rfft + power alone (cuFFT, a yardstick) "
+            f"{cufft_ms:.4f} ms; in this run the register body at 1024 "
+            f"{body_ab['register'][0]:.4f} ms, route ct's wide body at "
+            f"{WIDE_AB[0]} {wide_ab[WIDE_AB[0]]['ms']:.4f} ms  ({card})")
+        del fe_wide
     # split-dup with 300, 512 and 600 coefficients (blocks of 64, 32 and 32
     # rows: no wide block fits their DCT), beside its bound
     many_ms = {}
@@ -2787,6 +2868,8 @@ def main() -> int:
                               wide_ab[WIDE_AB[0]]["plain_ms"]),
         "mfcc_frontend": (cuda_ms(lambda: fe(big), 20), fe_plain_ms),
         "mfcc_frontend_radix2": (cuda_ms(radix2, 10), fe_plain_ms),
+        "mfcc_frontend_wide": (fft_wide_ab[8192]["ms"],
+                               fft_wide_ab[8192]["plain_ms"]),
         "dft_frontend_bf16": (fast_ab["wgmma"][0], fast_plain_ms),
         "dft_frontend_mma_sync": (fast_ab["mma_sync"][0], fast_plain_ms),
         "cnn_classifier": (
@@ -3208,6 +3291,8 @@ def main() -> int:
              frontend_errs),
             ("mfcc_frontend_radix2", frontend_kernel.SOURCE,
              frontend_kernel.REPLACES, radix2_errs),
+            ("mfcc_frontend_wide", frontend_kernel.WIDE_SOURCE,
+             frontend_kernel.REPLACES, fft_wide_errs),
             ("dft_frontend_bf16", frontend_kernel.DFT_SOURCE,
              frontend_kernel.DFT_REPLACES, fast_errs),
             ("dft_frontend_mma_sync", frontend_kernel.DFT_MMA_SYNC_SOURCE,
@@ -3286,7 +3371,17 @@ def main() -> int:
             for n_fft in WIDE_AB[1:]:
                 kernels[-1][f"n_fft_{n_fft}"] = wide_ab[n_fft]
         if name == "mfcc_frontend_radix2":
-            kernels[-1]["n_fft_8192"] = radix2_8k
+            # at both wide configs, from the A/B above
+            for n_fft, entry in fft_wide_ab.items():
+                kernels[-1][f"n_fft_{n_fft}"] = {
+                    "ms": entry["radix2_ms"], **{key: entry[key] for key in (
+                        "plain_ms", "bound_ms", "bound_by")}}
+        if name == "mfcc_frontend_wide":
+            # the A/B above: the radix-2 body in the same call, the cuFFT
+            # yardstick, and n_fft 16384
+            kernels[-1]["radix2_ms"] = fft_wide_ab[8192]["radix2_ms"]
+            kernels[-1]["cufft_power_ms"] = fft_wide_ab[8192]["cufft_power_ms"]
+            kernels[-1]["n_fft_16384"] = fft_wide_ab[16384]
         if name == "ct_frontend_dup":
             # split-dup at n_fft 4352, from the A/B above, and with many
             # coefficients

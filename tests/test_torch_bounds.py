@@ -226,6 +226,38 @@ def test_mixed_fft_bound_at_each_timed_config(chip_smoke, n_fft, hop_t, frames,
     assert got[1] == by and got[0] == pytest.approx(want, rel=1e-9)
 
 
+@pytest.mark.parametrize("n_fft,window_t,frames,bins,packed", [
+    (8192, 0.512, 16, 4097, 7545),
+    (16384, 0.8, 7, 8193, 15109),
+])
+def test_fft_wide_body_bound_at_each_timed_config(chip_smoke, bounds, n_fft,
+                                                  window_t, frames, bins,
+                                                  packed):
+    """Route fft's wide body where chip_smoke.py times it: n_fft = window =
+    8192 and 16384 at window 12800, a real FFT of n_fft points a frame (the
+    zero padding counted: the function transforms n_fft points) and the
+    cepstrum over the packed filterbank (7545, 15109 nonzero weights),
+    against the kept frames' span of audio (15,872 samples at both) and the
+    features: the operations bind, 0.584 ms and 0.545 ms."""
+    import math
+
+    p = ListenerParams(n_fft=n_fft, window_t=window_t)
+    assert (p.n_features, p.n_fft_bins) == (frames, bins)
+    f = 8192 * frames
+    ops = f * (2.5 * n_fft * math.log2(n_fft) + 4 * bins + 2 * packed
+               + 2 * 20 * 20)
+    span = (frames - 1) * p.hop_samples + min(p.window_samples, n_fft)
+    assert span == 15872
+    nbytes = 4 * 8192 * span + 4 * f * 20
+    want = max(ops / 67e9, nbytes / 3.35e9)
+    got = chip_smoke.frontend_bound(p, 8192)
+    assert got[1] == "operations" and got[0] == pytest.approx(want, rel=1e-9)
+    assert got[0] == pytest.approx({8192: 0.5840, 16384: 0.5454}[n_fft],
+                                   abs=1e-4)
+    if n_fft == 8192:
+        assert bounds["mfcc_frontend_wide"] == got
+
+
 def test_fft_frontend_operations_are_below_its_bytes(bounds):
     """The FFT frontend is bound by its bytes: its operations, the real FFT
     and the packed cepstrum, take 0.111 ms at the f32 peak."""

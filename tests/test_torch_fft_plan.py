@@ -278,13 +278,16 @@ def test_layout_fits_and_holds_32_warps_at_n_fft_1024():
 
 @pytest.mark.parametrize("n_fft", [2 ** e for e in range(1, 15)])
 def test_body_each_n_fft_takes(n_fft):
-    """n_fft 128 .. 4096 takes the register body, every other power of two
-    the radix-2 body; both are route "fft", on the FFT kernel."""
+    """n_fft 128 .. 4096 takes the register body, 8192 and 16384 the wide
+    body (a frame over two or four warps), every other power of two the
+    radix-2 body; all are route "fft", on the FFT kernel."""
     p = ListenerParams(n_fft=n_fft, window_t=min(0.064, n_fft / 16000))
     body = fft_body(p)
-    assert body == ("register" if 128 <= n_fft <= 4096 else "radix2")
+    assert body == ("register" if 128 <= n_fft <= 4096 else
+                    "wide" if n_fft in (8192, 16384) else "radix2")
     assert frontend_route(p) == "fft"
-    assert MfccFrontend(p, "mfcc", "cpu").route == "fft"
+    fe = MfccFrontend(p, "mfcc", "cpu")
+    assert fe.route == "fft" and fe.body == body
     if n_fft <= 8192:  # the constants' dense filterbank is (n_filt, n_fft/2+1)
         c = KernelConstants(p, "mfcc", "cpu")
         assert (c.plan is None) == (body == "radix2")

@@ -30,7 +30,8 @@ Tolerances, each with its reason:
   terms summed in another order; the sums reach the hundreds);
 - CT split kernel and route ct's mixed-radix and wide FFT features: the
   bounds of the f32 (and bf16) features above (the same function as the CT plain
-  version, summed in another order);
+  version, summed in another order); route fft's wide body the same,
+  against the plain chain;
 - the stage cuts of the CT and FFT kernels (B, 128): `dev.r3_omission.
   TOLERANCES`, each stage's bound with its reason (f32 sums in another
   order; from the log on, the f32 feature bound summed over 30 frames).
@@ -1250,6 +1251,91 @@ def test_wide_body_matches_plain_at_the_serving_batch(cuda_device, n_fft):
     torch.testing.assert_close(got, want, rtol=1e-3, atol=2e-3)
 
 
+# route fft's wide body (csrc/mfcc_wide_frontend.cu): n_fft = window = 8192
+# (16 frames, two frames a block of 64 lanes) and 16384 at window 12800 (7
+# frames, one frame of 128 lanes, zero-padded)
+FFT_WIDE_CONFIGS = {8192: 0.512, 16384: 0.8}  # n_fft: window_t
+FFT_WIDE_CASES = {  # name: (audio dtype, out dtype, deltas)
+    "f32->f32": ("float32", torch.float32, False),
+    "int16->bf16 deltas": ("int16", torch.bfloat16, True),
+    "int16->f32 deltas": ("int16", torch.float32, True),
+    "f32->bf16": ("float32", torch.bfloat16, False),
+}
+
+
+def _check_fft_wide(device, p, audio_dtype, out_dtype, batch, feature_type="mfcc"):
+    """Route fft's wide body at config `p` on `batch` windows: taken from
+    the config, its launch counted in frontend_kernel.WIDE alone, held to
+    the plain chain."""
+    fe = MfccFrontend(p, feature_type, device, out_dtype=out_dtype)
+    assert (fe.route, fe.body, fe.path) == ("fft", "wide", "cuda-mfcc(wide)")
+    audio = torch.tensor(_ct_audio(audio_dtype, batch), device=device)
+    watched = (frontend_kernel.WIDE, frontend_kernel.RADIX2,
+               frontend_kernel.mfcc_frontend_cuda)
+    before = [c.launches for c in watched]
+    got = fe(audio, 0.8)
+    torch.cuda.synchronize()
+    assert [c.launches for c in watched] == [before[0] + 1] + before[1:]
+    assert got.shape == (batch, p.n_features, p.feature_size)
+    assert got.dtype == out_dtype and torch.isfinite(got.float()).all()
+    want = fe.plain(audio, 0.8).to(out_dtype)
+    bf16 = 2.0 ** -7 if out_dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-3 + bf16,
+                               atol=2e-3)
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("case", sorted(FFT_WIDE_CASES))
+@pytest.mark.parametrize("n_fft", sorted(FFT_WIDE_CONFIGS))
+def test_fft_wide_body_matches_plain(cuda_device, n_fft, case, batch):
+    audio_dtype, out_dtype, delta = FFT_WIDE_CASES[case]
+    p = ListenerParams(n_fft=n_fft, window_t=FFT_WIDE_CONFIGS[n_fft],
+                       use_delta=delta)
+    _check_fft_wide(cuda_device, p, audio_dtype, out_dtype, batch)
+
+
+@pytest.mark.parametrize("n_fft", sorted(FFT_WIDE_CONFIGS))
+def test_fft_wide_body_matches_plain_at_the_serving_batch(cuda_device, n_fft):
+    """B = 8192 f32, as chip_smoke.py times it."""
+    p = ListenerParams(n_fft=n_fft, window_t=FFT_WIDE_CONFIGS[n_fft])
+    _check_fft_wide(cuda_device, p, "float32", torch.float32, 8192)
+
+
+@pytest.mark.parametrize("kw,feature_type", [
+    ({"n_fft": 8192, "window_t": 0.375}, "bark"),  # window 6000
+    ({"n_fft": 8192}, "mfcc"),  # window 1024, 30 frames
+    ({"n_fft": 16384, "use_delta": True}, "mfcc"),
+])
+@pytest.mark.parametrize("audio_dtype", ["float32", "int16"])
+def test_fft_wide_body_zero_pads_a_shorter_window(cuda_device, kw,
+                                                  feature_type, audio_dtype):
+    """A window shorter than n_fft: its lanes' last pairs take the guarded
+    loads, past the window zeros, as np.fft.rfft(frame, n=n_fft) pads."""
+    p = ListenerParams(**kw)
+    assert p.window_samples < p.n_fft
+    _check_fft_wide(cuda_device, p, audio_dtype, torch.float32, 13,
+                    feature_type)
+
+
+@pytest.mark.parametrize("n_fft", sorted(FFT_WIDE_CONFIGS))
+def test_fft_wide_and_radix2_bodies_agree(cuda_device, n_fft):
+    """The A/B chip_smoke.py times: both bodies within the feature bound of
+    each other, each counted to its own launch count."""
+    p = ListenerParams(n_fft=n_fft, window_t=FFT_WIDE_CONFIGS[n_fft])
+    audio = torch.tensor(_ct_audio("float32", 16), device=cuda_device)
+    consts = frontend_kernel.KernelConstants(p, "mfcc", cuda_device)
+    assert consts.body == "wide"
+    gain = torch.full((1,), 1.2, dtype=torch.float32, device=cuda_device)
+    before = (frontend_kernel.WIDE.launches, frontend_kernel.RADIX2.launches)
+    new = frontend_kernel.mfcc_frontend_cuda(audio, gain, consts, p)
+    old = frontend_kernel.mfcc_frontend_cuda(audio, gain, consts, p,
+                                             _radix2=True)
+    torch.cuda.synchronize()
+    assert (frontend_kernel.WIDE.launches,
+            frontend_kernel.RADIX2.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(new, old, rtol=1e-3, atol=2e-3)
+
+
 @pytest.mark.parametrize("audio_dtype", ["float32", "int16"])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n_coeffs", [300, 512, 600])
@@ -1340,6 +1426,9 @@ def test_ct_dev_entry_points_run_their_kernels(cuda_device):
     ({"n_fft": 768, "window_t": 0.048}, "cuda-ct", ct_kernel.MIXED),
     ({"n_fft": 4352, "window_t": 0.272}, "cuda-ct(wide)", ct_kernel.WIDE),
     ({"window_t": 0.075}, "cuda-mfcc", frontend_kernel.mfcc_frontend_cuda),
+    ({"n_fft": 8192}, "cuda-mfcc(wide)", frontend_kernel.WIDE),
+    ({"n_fft": 16384, "window_t": 0.8}, "cuda-mfcc(wide)",
+     frontend_kernel.WIDE),
     ({"n_fft": 400, "window_t": 0.025}, "torch(xla-route)", None),
 ])
 def test_scorer_route_of_each_config_class(cuda_device, tmp_path, kw, route,
@@ -1361,7 +1450,8 @@ def test_scorer_route_of_each_config_class(cuda_device, tmp_path, kw, route,
     watched = (ct_kernel.MIXED, ct_kernel.WIDE,
                ct_kernel.counters["ct_frontend"],
                ct_kernel.counters["ct_frontend_dup"],
-               frontend_kernel.mfcc_frontend_cuda)
+               frontend_kernel.mfcc_frontend_cuda, frontend_kernel.WIDE,
+               frontend_kernel.RADIX2)
     launches = {id(c): c.launches for c in watched}
     got = scorer(torch.tensor(clips, device=cuda_device), 0.9)
     torch.cuda.synchronize()

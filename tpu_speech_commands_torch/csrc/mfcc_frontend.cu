@@ -33,7 +33,9 @@
 // the least wavefronts an access; it transforms n_fft / 2 complex points,
 // not n_fft; the filterbank touches only the nonzero weights.
 //
-// Two bodies, chosen from the config (ops/frontend_kernel.py::fft_body).
+// Three bodies, chosen from the config (ops/frontend_kernel.py::fft_body);
+// the third, the wide body at n_fft 8192 and 16384 (the register body with
+// a frame over four warps), is its own build unit, csrc/mfcc_wide_frontend.cu.
 //
 // The register body, n_fft 128 .. 4096 (N = n_fft / 2): csrc/register_fft.cuh's
 // register_fft_kernel on the plans of ops/fft_plan.py::fft_plan (`Plan`
@@ -43,9 +45,9 @@
 // SM.  The dynamic shared-memory attribute is set once an instantiation and
 // device.
 //
-// The radix-2 body, every other power of two and every config whose
-// register-body shared memory exceeds a block's (and, through the entry's
-// `radix2` argument, any of them: the A/B of the two): one warp a frame,
+// The radix-2 body, n_fft below 128 and every config whose register- or
+// wide-body shared memory exceeds a block's (and, through the entry's
+// `radix2` argument, any of them: the A/B of the bodies): one warp a frame,
 // the frame loaded bit-reversed into a per-warp shared buffer of n_fft
 // float2, an in-place radix-2 DIT FFT with __syncwarp between stages, the
 // dense filterbank.  It is the design the register body replaced.

@@ -1063,6 +1063,77 @@ cudaError_t launch_register(const FftArgs& a, int n_warps, cudaStream_t stream) 
     return launch_register<InT, OutT, P>(a, n_warps, s);                        \
   }
 
+// A table of plans as a type: NAME##_plans::launch<InT, OutT>(n_fft, args,
+// n_warps, stream) launches n_fft's plan, cudaErrorInvalidValue for an
+// n_fft the table has no plan for
+#define TSC_REGISTER_PLANS(NAME, PLANS)                                         \
+  namespace {                                                                   \
+  struct NAME##_plans {                                                         \
+    template <typename InT, typename OutT>                                      \
+    static cudaError_t launch(int n_fft, const FftArgs& a, int n_warps,         \
+                              cudaStream_t s) {                                 \
+      switch (n_fft) {                                                          \
+        PLANS(TSC_REGISTER_CASE)                                                \
+        default:                                                                \
+          return cudaErrorInvalidValue;                                         \
+      }                                                                         \
+    }                                                                           \
+  };                                                                            \
+  }
+
+// An entry point's checks and launch on the table `Plans`: frames
+// first_frame .. first_frame + n_features - 1, each the first min(window,
+// n_fft) samples from its start, zero-padded to n_fft (the arguments:
+// TSC_REGISTER_ENTRY's, and the window)
+template <typename Plans>
+int register_entry(const void* audio, int audio_int16, const void* gain, int batch,
+                   int n_samples, int window, int hop, int n_fft, int first_frame,
+                   int n_features, const void* plan_twiddle, const void* filt_packed,
+                   const void* fb_table, int n_packed, int n_seg, const void* dct_t,
+                   int n_filt, int n_mfcc, int emit_deltas, int time_major,
+                   int n_warps, void* out, int out_bf16, void* stream) {
+  const int span = window < n_fft ? window : n_fft;
+  if (batch <= 0 || n_samples <= 0 || window <= 0 || hop <= 0 || first_frame < 0 ||
+      n_features <= 0 ||
+      (long long)(first_frame + n_features - 1) * hop + span > n_samples ||
+      n_filt <= 0 || n_mfcc <= 0 || n_mfcc > n_filt || n_packed < 0 || n_seg < 0 ||
+      n_warps <= 0 || !plan_twiddle || !filt_packed || !fb_table || !dct_t)
+    return cudaErrorInvalidValue;
+  const size_t pair = audio_int16 ? 2 * sizeof(int16_t) : 2 * sizeof(float);
+  FftArgs a;
+  a.audio = audio;
+  a.gain = static_cast<const float*>(gain);
+  a.in_scale = audio_int16 ? 1.0f / 32768.0f : 1.0f;
+  a.batch = batch;
+  a.n_samples = n_samples;
+  a.window = window;
+  a.hop = hop;
+  a.first_frame = first_frame;
+  a.n_features = n_features;
+  a.vec_rows = reinterpret_cast<uintptr_t>(audio) % pair == 0 && n_samples % 2 == 0;
+  a.twiddle = static_cast<const float2*>(plan_twiddle);
+  a.packed = static_cast<const float*>(filt_packed);
+  a.table = static_cast<const int*>(fb_table);
+  a.dct_t = static_cast<const float*>(dct_t);
+  a.n_packed = n_packed;
+  a.n_seg = n_seg;
+  a.n_filt = n_filt;
+  a.n_mfcc = n_mfcc;
+  a.emit_deltas = emit_deltas;
+  a.time_major = time_major;
+  a.out = out;
+  a.src_mod = 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (audio_int16)
+    err = out_bf16 ? Plans::template launch<int16_t, __nv_bfloat16>(n_fft, a, n_warps, s)
+                   : Plans::template launch<int16_t, float>(n_fft, a, n_warps, s);
+  else
+    err = out_bf16 ? Plans::template launch<float, __nv_bfloat16>(n_fft, a, n_warps, s)
+                   : Plans::template launch<float, float>(n_fft, a, n_warps, s);
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 // Route ct's register FFT entry points (csrc/mixed_fft_frontend.cu, each
@@ -1082,17 +1153,7 @@ cudaError_t launch_register(const FftArgs& a, int n_warps, cudaStream_t stream) 
 // no plan for, an argument out of range, or shared memory above the card's
 // opt-in limit).
 #define TSC_REGISTER_ENTRY(NAME, PLANS)                                         \
-  namespace {                                                                   \
-  template <typename InT, typename OutT>                                        \
-  cudaError_t NAME##_launch(int n_fft, const FftArgs& a, int n_warps,           \
-                            cudaStream_t s) {                                   \
-    switch (n_fft) {                                                            \
-      PLANS(TSC_REGISTER_CASE)                                                  \
-      default:                                                                  \
-        return cudaErrorInvalidValue;                                           \
-    }                                                                           \
-  }                                                                             \
-  }                                                                             \
+  TSC_REGISTER_PLANS(NAME, PLANS)                                               \
   extern "C" int NAME(                                                          \
       const void* audio, int audio_int16, const void* gain, int batch,          \
       int n_samples, int hop, int n_fft, int first_frame, int n_features,       \
@@ -1100,45 +1161,9 @@ cudaError_t launch_register(const FftArgs& a, int n_warps, cudaStream_t stream) 
       int n_packed, int n_seg, const void* dct_t, int n_filt, int n_mfcc,       \
       int emit_deltas, int time_major, int n_warps, void* out, int out_bf16,    \
       void* stream) {                                                           \
-    if (batch <= 0 || n_samples <= 0 || hop <= 0 || first_frame < 0 ||          \
-        n_features <= 0 ||                                                      \
-        (long long)(first_frame + n_features - 1) * hop + n_fft > n_samples ||  \
-        n_filt <= 0 || n_mfcc <= 0 || n_mfcc > n_filt || n_packed < 0 ||        \
-        n_seg < 0 || n_warps <= 0 || !plan_twiddle || !filt_packed ||           \
-        !fb_table || !dct_t)                                                    \
-      return cudaErrorInvalidValue;                                             \
-    const size_t pair = audio_int16 ? 2 * sizeof(int16_t) : 2 * sizeof(float);  \
-    FftArgs a;                                                                  \
-    a.audio = audio;                                                            \
-    a.gain = static_cast<const float*>(gain);                                   \
-    a.in_scale = audio_int16 ? 1.0f / 32768.0f : 1.0f;                          \
-    a.batch = batch;                                                            \
-    a.n_samples = n_samples;                                                    \
-    a.window = n_fft;                                                           \
-    a.hop = hop;                                                                \
-    a.first_frame = first_frame;                                                \
-    a.n_features = n_features;                                                  \
-    a.vec_rows = reinterpret_cast<uintptr_t>(audio) % pair == 0 &&              \
-                 n_samples % 2 == 0;                                            \
-    a.twiddle = static_cast<const float2*>(plan_twiddle);                       \
-    a.packed = static_cast<const float*>(filt_packed);                          \
-    a.table = static_cast<const int*>(fb_table);                                \
-    a.dct_t = static_cast<const float*>(dct_t);                                 \
-    a.n_packed = n_packed;                                                      \
-    a.n_seg = n_seg;                                                            \
-    a.n_filt = n_filt;                                                          \
-    a.n_mfcc = n_mfcc;                                                          \
-    a.emit_deltas = emit_deltas;                                                \
-    a.time_major = time_major;                                                  \
-    a.out = out;                                                                \
-    a.src_mod = 0;                                                              \
-    cudaStream_t s = static_cast<cudaStream_t>(stream);                         \
-    cudaError_t err;                                                            \
-    if (audio_int16)                                                            \
-      err = out_bf16 ? NAME##_launch<int16_t, __nv_bfloat16>(n_fft, a, n_warps, s) \
-                     : NAME##_launch<int16_t, float>(n_fft, a, n_warps, s);     \
-    else                                                                        \
-      err = out_bf16 ? NAME##_launch<float, __nv_bfloat16>(n_fft, a, n_warps, s) \
-                     : NAME##_launch<float, float>(n_fft, a, n_warps, s);       \
-    return static_cast<int>(err);                                               \
+    return register_entry<NAME##_plans>(                                        \
+        audio, audio_int16, gain, batch, n_samples, n_fft, hop, n_fft,          \
+        first_frame, n_features, plan_twiddle, filt_packed, fb_table, n_packed, \
+        n_seg, dct_t, n_filt, n_mfcc, emit_deltas, time_major, n_warps, out,    \
+        out_bf16, stream);                                                      \
   }

@@ -24,6 +24,8 @@ package's `tools/dev/` scripts whose TPU kernels the port carries:
   sweep of launch bounds x block size at every plan;
 - `wide_ablation`: route ct's wide register FFT (above n_fft 4096) built
   with other launch bounds (2 and 4 blocks an SM) beside the shipped one;
+  with `--route fft`, the FFT kernel's wide body (n_fft 8192 and 16384)
+  at 2, 3 and 4 blocks an SM and 8192's other plan;
 - `source_ab`: the two register-resident FFT kernels (the register body,
   route ct's mixed-radix FFT) built from another checkout's csrc/ against
   this one's, held to the plain version and timed in turns;
@@ -66,6 +68,7 @@ Each runs on the card and raises RuntimeError where CUDA is absent:
     python -m tpu_speech_commands_torch.dev.ct_ablation
     python -m tpu_speech_commands_torch.dev.fft_ablation
     python -m tpu_speech_commands_torch.dev.mixed_ablation
+    python -m tpu_speech_commands_torch.dev.wide_ablation --route fft
     python -m tpu_speech_commands_torch.dev.source_ab --other DIR/csrc
     python -m tpu_speech_commands_torch.dev.cnn_ablation
     python -m tpu_speech_commands_torch.dev.gru_ablation

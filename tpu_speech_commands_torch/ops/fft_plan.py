@@ -3,15 +3,19 @@ numpy: `csrc/mfcc_frontend.cu`'s register body (`fft_plan`, n_fft a power
 of two), route ct's mixed-radix kernel `csrc/mixed_fft_frontend.cu`
 (`mixed_plan`, `MIXED_PLANS`) and its wide kernel above n_fft 4096, a frame
 over two or four warps (`csrc/wide_fft_frontend_*.cu`, `wide_plan`,
-`WIDE_PLANS`): the passes, their index maps and twiddle tables, the
-untangle twiddles, the shared-memory layout, and the packed filterbank's
-work split over the lanes.
+`WIDE_PLANS`), and the FFT kernel's wide body at n_fft 8192 and 16384
+(`csrc/mfcc_wide_frontend.cu`, `fft_wide_plan`, `FFT_WIDE_PLANS`): the
+passes, their index maps and twiddle tables, the untangle twiddles, the
+shared-memory layout, and the packed filterbank's work split over the
+lanes.
 
 The kernels mirror these; tests/test_torch_fft_plan.py,
-tests/test_torch_mixed_fft.py and tests/test_torch_wide_fft.py run a numpy
-emulation of the same passes on the same tables (`emulate_rfft`) against
-np.fft.rfft and the plain frontends.  The mixed-radix plans keep the layout below with other radices
-and lane counts.  For n_fft a power of two in [FFT_MIN, FFT_MAX]:
+tests/test_torch_mixed_fft.py, tests/test_torch_wide_fft.py and
+tests/test_torch_fft_wide_body.py run a numpy emulation of the same passes
+on the same tables (`emulate_rfft`) against np.fft.rfft and the plain
+frontends.  The mixed-radix and wide plans keep the layout below with
+other radices and lane counts.  For n_fft a power of two in [FFT_MIN,
+FFT_MAX]:
 
 - a real frame x of n_fft samples is the complex sequence z[n] = x[2n] + i
   x[2n + 1] of N = n_fft / 2 points;
@@ -312,6 +316,35 @@ def wide_plan(n_fft: int) -> FftPlan:
 def wide_unit(n_fft: int) -> int:
     """The build unit (csrc/wide_fft_frontend_<u>.cu) of n_fft's plan."""
     return sorted(WIDE_PLANS).index(n_fft) % WIDE_UNITS
+
+
+# The wide plans of route fft (csrc/mfcc_wide_frontend.cu, its
+# TSC_FFT_WIDE_PLANS table): the FFT kernel's body for the powers of two
+# above FFT_MAX that a 1 s buffer holds, n_fft -> (values a lane, the
+# passes' radices, the launch bounds' blocks an SM, warps a block): a frame
+# on 128 lanes, one a block of 4 warps, in `wide_rule`'s passes.  The
+# fastest of dev/wide_ablation.py --route fft on an H100 (PERF.md): at 8192
+# V = 32 at 4 blocks an SM, not wide_rule's V = 64 on 64 lanes (two frames
+# a block; at 2, 3 or 4 blocks); at 16384 V = 64 at 3 blocks, not 2 or 4.
+FFT_WIDE_PLANS = {
+    8192: (32, (16, 16, 16), 4, 4),
+    16384: (64, (16, 8, 8, 8), 3, 4),
+}
+
+
+def takes_fft_wide(n_fft: int) -> bool:
+    """Whether route fft's wide body has a plan for n_fft."""
+    return n_fft in FFT_WIDE_PLANS
+
+
+@functools.lru_cache()
+def fft_wide_plan(n_fft: int) -> FftPlan:
+    """Route fft's wide plan for n_fft (`FFT_WIDE_PLANS`): a frame over two
+    or four warps."""
+    if not takes_fft_wide(n_fft):
+        raise ValueError(f"the FFT kernel's wide body takes n_fft in "
+                         f"{sorted(FFT_WIDE_PLANS)}, got {n_fft}")
+    return build_plan(n_fft, *FFT_WIDE_PLANS[n_fft])
 
 
 def swizzle(i):

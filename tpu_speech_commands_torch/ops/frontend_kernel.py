@@ -6,10 +6,12 @@ versions, and the choice of route for a config.
 the contract of the dense branch of `make_fused_frontend`): gain x audio
 (int16 decoded as x/32768), framing, FFT power spectrum, mel or bark
 filterbank, log, DCT, log-energy coefficient, optional deltas and the tail
-trim to n_features, in one launch.  It has two bodies, chosen from the
+trim to n_features, in one launch.  It has three bodies, chosen from the
 config (`fft_body`): the register-resident real-input FFT with the packed
-filterbank for n_fft 128 .. 4096 (`fft_plan.py` holds its plan), and the
-shared-memory radix-2 FFT for every other power of two.
+filterbank for n_fft 128 .. 4096 (`fft_plan.py` holds its plan); the same
+body with a frame over four warps for n_fft 8192 and 16384
+(`csrc/mfcc_wide_frontend.cu`, "wide"); and the shared-memory radix-2 FFT
+for every other power of two and every config those leave no room.
 
 `csrc/dft_wgmma.cu` replaces the TPU kernel
 `tpu_speech_commands/ops/pallas_frontend.py::make_fused_frontend` with
@@ -27,7 +29,8 @@ through the plain PyTorch chain (`frontend/dsp.py::Frontend`, with the same
 config when the frontend was built:
 - "fft": n_fft a power of two, the FFT kernel (a window longer than n_fft
   is cut to its first n_fft samples, as np.fft.rfft(frame, n=n_fft) does),
-  its register body for n_fft 128 .. 4096 and its radix-2 body otherwise;
+  its register body for n_fft 128 .. 4096, its wide body at 8192 and 16384
+  and its radix-2 body otherwise (`MfccFrontend.body` names it);
 - "ct": the configs the JAX package's CT kernel takes and the FFT kernel
   cannot, n_fft = 128 n2 (n2 even, not a power of two) == window: the
   mixed-radix register FFT (csrc/mixed_fft_frontend.cu) up to n_fft 4096,
@@ -61,10 +64,12 @@ from .ct_kernel import (CtConstants, LaunchCount, ct_body, ct_config_error,
                         ct_frontend_cuda)
 from .dft_plan import (WGMMA_STAGES, column_order, filter_slots,
                        wgmma_rows, wgmma_smem_bytes, wgmma_table_bytes)
-from .fft_plan import (SMEM_OPTIN, fft_layout, fft_plan, filterbank_plan,
-                       pack_filterbank, takes_register_fft)
+from .fft_plan import (SMEM_OPTIN, fft_layout, fft_plan, fft_wide_plan,
+                       filterbank_plan, pack_filterbank, takes_fft_wide,
+                       takes_register_fft)
 
 SOURCE = "tpu_speech_commands_torch/csrc/mfcc_frontend.cu"
+WIDE_SOURCE = "tpu_speech_commands_torch/csrc/mfcc_wide_frontend.cu"
 REPLACES = "tpu_speech_commands/ops/pallas_frontend.py:745"
 DFT_SOURCE = "tpu_speech_commands_torch/csrc/dft_wgmma.cu"
 DFT_MMA_SYNC_SOURCE = "tpu_speech_commands_torch/csrc/dft_frontend.cu"
@@ -76,6 +81,12 @@ DFT_REPLACES = "tpu_speech_commands/ops/pallas_frontend.py:340"
 #   n_packed, n_seg, radix2, stream)
 _N_ARGS = 25
 _INT_ARGS = (1, 3, 4, 5, 6, 7, 8, 9, 13, 14, 15, 17, 21, 22, 23)
+# tsc_mfcc_wide_frontend(audio, audio_int16, gain, batch, n_samples, window,
+#   hop, n_fft, first_frame, n_features, plan_twiddle, filt_packed,
+#   fb_table, n_packed, n_seg, dct_t, n_filt, n_mfcc, emit_deltas, n_warps,
+#   out, out_bf16, stream)
+_WIDE_N_ARGS = 23
+_WIDE_INT_ARGS = (1, 3, 4, 5, 6, 7, 8, 9, 13, 14, 16, 17, 18, 19, 21)
 
 # tsc_dft_frontend_bf16(audio, audio_int16, gain, batch, n_samples, hop,
 #   first_frame, n_features, wpb, n_seg, seg_pitch, win_pitch, dft, k_pad,
@@ -111,27 +122,43 @@ def frontend_route(p: ListenerParams) -> str:
 
 
 def _register_plan(p: ListenerParams, feature_type: str):
-    """The register body's plan, filterbank plan and shared-memory layout
-    for config `p`."""
-    plan = fft_plan(p.n_fft)
+    """The register or wide body's plan, filterbank plan and shared-memory
+    layout for config `p`."""
+    plan = fft_plan(p.n_fft) if takes_register_fft(p.n_fft) else \
+        fft_wide_plan(p.n_fft)
     fb = filterbank_plan(filterbank_matrix(p, feature_type).T, plan.lanes)
     return plan, fb, fft_layout(plan, fb, p.n_filt, p.n_mfcc, p.n_features)
 
 
 def fft_body(p: ListenerParams, feature_type: str = "mfcc") -> str:
     """Which body of the FFT kernel takes config `p` (route "fft"):
-    "register" for n_fft 128 .. 4096 where its shared memory fits a block,
-    "radix2" for every other power of two (and a config whose filterbank,
-    DCT or coefficients leave the register body no room).  Chosen from the
-    config, never from a failed launch."""
-    if not takes_register_fft(p.n_fft):
+    "register" for n_fft 128 .. 4096 and "wide" for 8192 and 16384 where
+    its shared memory fits a block, "radix2" for every other power of two
+    (and a config whose filterbank, DCT or coefficients leave the register
+    or wide body no room).  Chosen from the config, never from a failed
+    launch."""
+    if takes_register_fft(p.n_fft):
+        body = "register"
+    elif takes_fft_wide(p.n_fft):
+        body = "wide"
+    else:
         return "radix2"
     smem = _register_plan(p, feature_type)[2].smem_bytes
-    return "register" if smem <= SMEM_OPTIN else "radix2"
+    return body if smem <= SMEM_OPTIN else "radix2"
 
 
-def kernel_config_error(p: ListenerParams) -> str | None:
-    """Why the FFT kernel cannot take config `p`, or None when it can."""
+def radix2_smem_bytes(p: ListenerParams, warps: int = 1) -> int:
+    """The radix-2 body's shared memory at config `p` (radix2_smem_bytes()
+    of csrc/mfcc_frontend.cu): a buffer of n_fft float2 and n_filt log-mel
+    values a warp, and the window's coefficients."""
+    return 8 * warps * p.n_fft + 4 * (warps * p.n_filt
+                                      + p.n_features * p.n_mfcc)
+
+
+def kernel_config_error(p: ListenerParams, feature_type: str = "mfcc",
+                        body: str | None = None) -> str | None:
+    """Why the FFT kernel cannot take config `p`, or None when it can;
+    `body`, where given, is the body the launch runs (else `fft_body`'s)."""
     n_fft = p.n_fft
     if n_fft < 2 or n_fft & (n_fft - 1):
         return f"the CUDA frontend kernel needs n_fft a power of two, got {n_fft}"
@@ -140,18 +167,24 @@ def kernel_config_error(p: ListenerParams) -> str | None:
             f"the CUDA frontend kernel needs n_mfcc <= n_filt, got "
             f"{p.n_mfcc} > {p.n_filt}"
         )
+    if radix2_smem_bytes(p) > SMEM_OPTIN and \
+            (body or fft_body(p, feature_type)) == "radix2":
+        return (f"no body of the CUDA frontend kernel takes n_fft {n_fft} "
+                f"with {p.n_filt} filters: the radix-2 body's one-warp "
+                f"block needs {radix2_smem_bytes(p)} bytes of shared memory, "
+                f"more than {SMEM_OPTIN}")
     return None
 
 
 class KernelConstants:
-    """Device-resident constants of the FFT kernel for one config.  Both
-    bodies: the transposed DCT.  The radix-2 body: twiddles exp(-2 pi i k /
+    """Device-resident constants of the FFT kernel for one config.  Every
+    body: the transposed DCT.  The radix-2 body: twiddles exp(-2 pi i k /
     n_fft), k < n_fft / 2, built in float64 and stored as float32 (cos, sin)
-    rows, and the filterbank transposed to (n_filt, n_bins).  The register
-    body, where `fft_body` gives it the config (else None): `plan.twiddle`
-    as float32 rows, the packed filterbank and its int32 lane / filter /
-    segment table (`fft_plan.filterbank_plan`), and `layout`, its shared
-    memory."""
+    rows, and the filterbank transposed to (n_filt, n_bins).  `body` is
+    `fft_body`'s; where it is "register" or "wide" (else None):
+    `plan.twiddle` as float32 rows, the packed filterbank and its int32
+    lane / filter / segment table (`fft_plan.filterbank_plan`), and
+    `layout`, its shared memory (the wide body's warps a block)."""
 
     def __init__(self, p: ListenerParams, feature_type: str, device):
         k = np.arange(p.n_fft // 2, dtype=np.float64)
@@ -167,7 +200,8 @@ class KernelConstants:
             ((p.n_fft // 2, 2), (p.n_filt, p.n_fft_bins), (p.n_filt, p.n_filt)))
         self.plan = self.fb = self.layout = None
         self.plan_twiddle = self.filt_packed = self.fb_table = None
-        if fft_body(p, feature_type) == "register":
+        self.body = fft_body(p, feature_type)
+        if self.body != "radix2":
             self.plan, self.fb, self.layout = _register_plan(p, feature_type)
             self.plan_twiddle = row_major(self.plan.twiddle, device)
             self.filt_packed = row_major(self.fb.packed, device)
@@ -351,11 +385,13 @@ def mfcc_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
                        _radix2: bool = False) -> torch.Tensor:
     """Launch the frontend kernel.  audio (B, S) float32 or int16 and gain
     (1,) float32, both on consts' CUDA device -> (B, n_features,
-    feature_size) out_dtype.  The body is `fft_body(p)`'s; `_radix2` sends
-    a config the register body takes to the radix-2 body instead (the
-    same-call A/B of the two).  A launch of the register body adds one to
-    `.launches`, one of the radix-2 body to `RADIX2.launches`."""
-    err = kernel_config_error(p)
+    feature_size) out_dtype.  The body is `consts.body`; `_radix2` sends a
+    config the register or wide body takes to the radix-2 body instead (the
+    same-call A/B).  A launch of the register body adds one to
+    `.launches`, one of the wide body to `WIDE.launches`, one of the
+    radix-2 body to `RADIX2.launches`."""
+    radix2 = _radix2 or consts.plan is None
+    err = kernel_config_error(p, body="radix2" if radix2 else consts.body)
     if err:
         raise ValueError(err)
     n_frames = check_launch(audio, gain, consts.device, p, out_dtype)
@@ -364,7 +400,10 @@ def mfcc_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
                       device=audio.device)
     if batch == 0:
         return out
-    radix2 = _radix2 or consts.plan is None
+    if consts.body == "wide" and not radix2:
+        _launch_wide(audio, gain, consts, p, n_frames - p.n_features, out)
+        WIDE.launches += 1
+        return out
     fn = _build.bind("tsc_mfcc_frontend", _N_ARGS, _INT_ARGS)
     with torch.cuda.device(audio.device):
         stream = torch.cuda.current_stream(audio.device).cuda_stream
@@ -390,6 +429,25 @@ def mfcc_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
 
 mfcc_frontend_cuda.launches = 0
 RADIX2 = LaunchCount()  # launches of the radix-2 body
+WIDE = LaunchCount()  # launches of the wide body (n_fft 8192, 16384)
+
+
+def _launch_wide(audio, gain, consts: KernelConstants, p: ListenerParams,
+                 first_frame: int, out: torch.Tensor):
+    """One launch of csrc/mfcc_wide_frontend.cu into `out`."""
+    fn = _build.bind("tsc_mfcc_wide_frontend", _WIDE_N_ARGS, _WIDE_INT_ARGS)
+    with torch.cuda.device(audio.device):
+        stream = torch.cuda.current_stream(audio.device).cuda_stream
+        rc = fn(
+            audio.data_ptr(), int(audio.dtype == torch.int16), gain.data_ptr(),
+            audio.shape[0], audio.shape[1], p.window_samples, p.hop_samples,
+            p.n_fft, first_frame, p.n_features, consts.plan_twiddle.data_ptr(),
+            consts.filt_packed.data_ptr(), consts.fb_table.data_ptr(),
+            len(consts.fb.packed), consts.fb.n_seg, consts.dct_t.data_ptr(),
+            p.n_filt, p.n_mfcc, int(p.use_delta), consts.layout.warps,
+            out.data_ptr(), int(out.dtype == torch.bfloat16), stream,
+        )
+    _build.check(rc, "tsc_mfcc_wide_frontend")
 
 
 def dft_frontend_bf16_cuda(audio: torch.Tensor, gain: torch.Tensor,
@@ -456,7 +514,8 @@ class MfccFrontend:
     FFT kernel, the CT kernel's (F, F) instantiation, or the plain chain on
     the card), or with fast_math=True the bf16 tensor-core DFT kernel (the
     counterpart of `make_fused_frontend(fast_math=True)`); `.route` names it,
-    and on route ct `.body` names the kernel (`ct_kernel.ct_body`).
+    and on routes fft and ct `.body` names the kernel's body (`fft_body`,
+    `ct_kernel.ct_body`).
     The device is the card unless the caller passes "cpu".  Constructing it
     for a CUDA device raises ValueError when the route's kernels cannot take
     the config, and RuntimeError without CUDA."""
@@ -471,11 +530,12 @@ class MfccFrontend:
         self.fast_math = fast_math
         self.device = torch.device(device)
         self.route = "fast_math" if fast_math else frontend_route(p)
-        self.body = ct_body(p, feature_type) if self.route == "ct" else None
+        self.body = (ct_body(p, feature_type) if self.route == "ct" else
+                     fft_body(p, feature_type) if self.route == "fft" else None)
         if fast_math:
             err = dft_config_error(p, feature_type)
         elif self.route == "fft":
-            err = kernel_config_error(p)
+            err = kernel_config_error(p, feature_type)
         elif self.route == "ct":
             err = ct_config_error(p, feature_type)
         else:
@@ -496,15 +556,15 @@ class MfccFrontend:
     @property
     def path(self) -> str:
         """The kernel a CUDA tensor takes, by name: "cuda-mfcc" (the FFT
-        kernel), "cuda-ct" or "cuda-ct(<body>)" for route ct's other
-        bodies (wide, split, split-dup), "torch(xla-route)" (the plain
-        chain on the card) or
-        "cuda-fast_math"; "torch" (the plain chain) on the CPU."""
+        kernel's register or radix-2 body), "cuda-mfcc(wide)" (its wide
+        body), "cuda-ct" or "cuda-ct(<body>)" for route ct's other bodies
+        (wide, split, split-dup), "torch(xla-route)" (the plain chain on the
+        card) or "cuda-fast_math"; "torch" (the plain chain) on the CPU."""
         if self.device.type != "cuda":
             return "torch"
         name = {"fft": "cuda-mfcc", "ct": "cuda-ct", "torch": "torch(xla-route)",
                 "fast_math": "cuda-fast_math"}[self.route]
-        if self.body not in (None, "register"):  # route ct's other bodies
+        if self.body not in (None, "register", "radix2"):
             name += f"({self.body})"
         return name
 
