@@ -34,16 +34,27 @@ Phases, in order; any failure raises and the script exits non-zero:
             frame over two or four warps) at every n_fft it takes (4352 ..
             15872) in the same four cases; the CT split's (F, T)
             instantiation ("split-dup", per_piece_mel=True) at n_fft 4352,
-            10240 and 15872 in the same four cases, and, chosen from the
-            config, at n_fft 4352 with 300, 512 and 600 filters and
-            coefficients (blocks of 64, 32 and 32 rows; the coefficients in
-            the idle T, ring and squares space, at 600 in their own
-            region), f32 and int16 in, f32 and bf16 out; the FFT kernel at
+            10240 and 15872 in the same four cases, and at n_fft 4352 with
+            300, 512 and 600 filters and coefficients (blocks of 64, 32 and
+            32 rows; the coefficients in the idle T, ring and squares
+            space, at 600 in their own region), f32 and int16 in, f32 and
+            bf16 out; the cepstrum kernel (csrc/cepstrum.cu) against
+            cepstrum_plain at CEP_SHAPES, batch- and time-major, with and
+            without deltas, f32 and bf16 out; the register and wide bodies
+            at many filters and coefficients (CEP_CONFIGS: 40-240 filters
+            at n_fft 1024, 230 at 768, 300-600 at 4352, 128 x 128 at 8192)
+            in their mode from the config (fused with the trimmed DCT
+            region, or log-mel mode and the cepstrum kernel), in the mixed
+            FFT's four cases, and in the first also the other mode and the
+            whole DCT where their blocks fit, held to the float64 features
+            within the feature bound plus twice the plain version's own
+            distance from them; the FFT kernel at
             window 1200 > n_fft, at alt_512 and an odd hop of 481, at every
             n_fft its register body takes (128 .. 4096), at 8192 and 16384
             (its wide body; window 1024, and n_fft = window = 8192 and
             16384 at window 12800, with and without deltas) and at 240
-            filters (its radix-2 body), f32 and int16 in, f32 and bf16 out,
+            filters (its register body: the trimmed DCT region fits), f32
+            and int16 in, f32 and bf16 out,
             and its radix-2 body forced at the default config and at both
             wide configs; every stage cut of the CT split and FFT
             kernels, streamed and constant-block, at B = 1008 on f32
@@ -56,7 +67,8 @@ Phases, in order; any failure raises and the script exits non-zero:
               direction_simple_cnn_lite.npz: top-1 must equal every file's
               label, `.paths` must name both kernels, both launch counts
               must rise (for simple_gru and simple_lstm the tile kernel's,
-              the SIMT kernel's staying at 0), and the scores must agree
+              the SIMT kernel's staying at 0; the cepstrum kernel's at 0
+              for all four), and the scores must agree
               with the same scorer run on the CPU (plain versions);
             - the SIMT GRU and LSTM classifiers kept for the A/B (frontend
               kernel, then GRUClassifier / LSTMClassifier(..., _simt=True)):
@@ -81,18 +93,21 @@ Phases, in order; any failure raises and the script exits non-zero:
               CT split's launch counts must stay at 0), window
               1200 > n_fft 1024 (cuda-mfcc, the FFT kernel's register
               body), n_fft 8192 (window 1024) and 16384 (window 12800)
-              (cuda-mfcc(wide), its wide body), 240 filters (cuda-mfcc,
-              its radix-2 body), n_fft 400
+              (cuda-mfcc(wide), its wide body), 240 filters
+              (cuda-mfcc+cep, its register body in log-mel mode and the
+              cepstrum kernel; the radix-2 count stays at 0), n_fft 400
               (torch(xla-route), the plain chain) and n_fft = window = 4352
               (cuda-ct(wide), the wide FFT; split-dup's launch count must
               stay at 0): `.paths` must name the
               route, its kernels' launch counts must rise, and the scores
               must agree with the same scorer on the CPU;
-            - MfccFrontend at n_fft 4352 with 300 coefficients (`.route`
-              ct, `.body` split-dup: no wide block fits its 300 x 300 DCT)
-              into GRUClassifier on a random 48-unit
-              GRU of feature size 300 (its SIMT kernel): both launch counts
-              rise and the scores agree with the CPU's;
+            - MfccFrontend at n_fft 4352 with 300 coefficients (path
+              cuda-ct(wide)+cep: no fused wide block fits its DCT columns,
+              so the wide FFT runs in log-mel mode and the cepstrum kernel
+              finishes) into GRUClassifier on a random 48-unit GRU of
+              feature size 300 (its SIMT kernel): the wide FFT's, the
+              cepstrum kernel's and the SIMT kernel's launch counts rise,
+              split-dup's stays at 0, and the scores agree with the CPU's;
             - the seven measurement entry points of tpu_speech_commands_torch
               .dev at their own batch (pallas_experiments B = 16384, every
               variant; the others B = 8192), a few iterations each: every
@@ -244,8 +259,16 @@ Phases, in order; any failure raises and the script exits non-zero:
             with the per-stage deltas: the streamed `load` cuts must take at
             least 0.9x the load floor's time (they read every sample), and
             each `full` cut is timed in turns with its shipped kernel;
-            route ct's split-dup body at n_fft 4352 with 300, 512 and 600
-            coefficients beside its bound; the train step at B = 512
+            the slice's A/Bs (dev.cepstrum_ablation, in turns, beside
+            each layout's blocks an SM, the plain version and the bound):
+            the trimmed DCT region against the whole table at the default
+            config and at 40-128 filters, the register body against the
+            radix-2 body at 240 filters, the wide FFT in log-mel mode with
+            the cepstrum kernel against split-dup at 300, 512 and 600
+            filters and coefficients; the cepstrum kernel alone at 600 x
+            600 beside its plain version, its bound and torch.matmul of
+            the rows and its table (cuBLAS, a yardstick); the train step
+            at B = 512
             for simple_gru and simple_cnn from `dev.bench_train` (its
             config: 36 classes, adam on a cosine decay; the step of
             `train.py --augment`: ms a step, samples/s, the frontend
@@ -274,6 +297,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import glob
 import io
 import json
@@ -312,10 +336,26 @@ WIDE_ROUTE = {"n_fft": 4352, "window_t": 0.272}
 # holds at hop 512 with 7 frames (12800 samples, zero-padded); timed
 # against the radix-2 body in turns
 FFT_WIDE_AB = {8192: 0.512, 16384: 0.8}
-# route ct with more coefficients than one residue's T holds (n_filt =
-# n_mfcc at n_fft 4352): blocks of 64 rows at 300 and of 32 at 512, both in
-# the block's idle space; at 600 (32 rows) in a region of their own
+# route ct with many filters and coefficients (n_filt = n_mfcc at n_fft
+# 4352): no fused block fits their DCT columns, so the wide FFT runs in
+# log-mel mode and the cepstrum kernel finishes; split-dup (blocks of 64
+# rows at 300, 32 at 512 and 600) is their A/B baseline
 MANY_COEFFS = (300, 512, 600)
+# the configs of many filters and coefficients (n_fft, n_filt, n_mfcc)
+# each frontend body is held to its plain version at, in its mode from the
+# config: fused with the trimmed DCT region (40 x 13 and 64 x 20 at 1024,
+# 230 x 20 at 768), or with the cepstrum kernel (the rest)
+CEP_CONFIGS = ((1024, 40, 13), (1024, 64, 20), (1024, 80, 40),
+               (1024, 128, 20), (1024, 128, 40), (1024, 128, 128),
+               (1024, 240, 20), (768, 230, 20), (4352, 300, 20),
+               (4352, 300, 300), (4352, 512, 512), (4352, 600, 600),
+               (8192, 128, 128))
+# the cepstrum kernel alone, (batch, frames, filters, coefficients): whole
+# windows split over tiles unevenly (23 frames, 5 a tile), a window over
+# two chunks of 128 rows (150 frames), one frame a window, 600
+# coefficients over five column tiles, one coefficient (the energy)
+CEP_SHAPES = ((1000, 23, 600, 600), (37, 150, 40, 13), (300, 7, 128, 128),
+              (130, 1, 20, 20), (64, 30, 300, 1))
 # the train and eval slice: train.py's default batch, the corpus of
 # .claude/skills/verify/SKILL.md step 1, the shipped class list
 TRAIN_BATCH = 512
@@ -497,6 +537,32 @@ def frontend_bound(p, batch):
                     4.0 * batch * audio_span(p) + 4.0 * frames * p.feature_size)
 
 
+def cepstrum_mode_bound(p, batch):
+    """The exact frontend's bound at config p where the cepstrum kernel
+    finishes it: the function's work only, its operations (the real FFT, 4
+    a bin, 2 a packed filterbank weight and the DCT's 2 n_filt (n_mfcc - 1)
+    a frame: column 0 is the log energy, no product) at the f32 peak
+    against the kept frames' span of audio read once and the features
+    written once; the log-mel rows' round trip is the design's, not the
+    function's (dev/cepstrum_ablation.py's `mode_bound` counts the
+    same)."""
+    frames = batch * p.n_features
+    fft, cepstrum = frontend_ops(p, frames)
+    return bound_ms(fft + cepstrum - frames * 2.0 * p.n_filt, 0,
+                    4.0 * batch * audio_span(p) + 4.0 * frames * p.feature_size)
+
+
+def cepstrum_bound(p, batch):
+    """The cepstrum kernel's bound at config p on `batch` windows: 2 n_filt
+    (n_mfcc - 1) operations a frame at the f32 peak, against its (B, T,
+    n_filt + 1) f32 log-mel rows read once and the features written
+    once."""
+    frames = batch * p.n_features
+    return bound_ms(frames * 2.0 * p.n_filt * (p.n_mfcc - 1), 0,
+                    4.0 * frames * (p.n_filt + 1)
+                    + 4.0 * frames * p.feature_size)
+
+
 def dft_bound(p, batch):
     """The fast_math frontend's bound at config p on `batch` windows of f32
     audio: the DFT's nonzero columns (cos of every bin and sin of all but
@@ -555,6 +621,10 @@ def kernel_bounds(p, batch, n_samples, rnn_dims, cnn_consts):
         "mfcc_frontend_radix2": frontend,
         "mfcc_frontend_wide": frontend_bound(
             p.replace(n_fft=8192, window_t=FFT_WIDE_AB[8192]), batch),
+        # alone, at n_fft 4352 with 600 filters and coefficients
+        "cepstrum": cepstrum_bound(
+            p.replace(n_filt=MANY_COEFFS[-1], n_mfcc=MANY_COEFFS[-1],
+                      **WIDE_ROUTE), batch),
         "dft_frontend_bf16": dft_bound(p, batch),
         "dft_frontend_mma_sync": dft_bound(p, batch),
         "gru_classifier": gru,
@@ -1856,15 +1926,18 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     from tpu_speech_commands_torch.frontend.dsp import Frontend, frame_signal
+    from tpu_speech_commands_torch.frontend.filterbanks import dct_t_matrix
     from tpu_speech_commands_torch.models import score_fn
     from tpu_speech_commands_torch.models.cnn import SimpleCNN, SimpleCNNLite
     from tpu_speech_commands_torch.models.rnn import SimpleGRU, SimpleLSTM
     from tpu_speech_commands_torch.dev import (
-        FEAT_ATOL, FEAT_RTOL, card_line, graph_ms, pallas_experiments,
+        FEAT_ATOL, FEAT_RTOL, card_line, cepstrum_ablation, graph_ms,
+        pallas_experiments,
         r3_experiments, r3_frontend_variants, r3_omission, r3_stage2,
         r3_widecell, r4_mxu_stage1)
     from tpu_speech_commands_torch.ops import (
-        _build, cnn_kernel, ct_kernel, dense_dft_kernel, fft_plan,
+        _build, cepstrum_plan, cnn_kernel, ct_kernel, dense_dft_kernel,
+        fft_plan,
         frontend_kernel, gru_plan, load_kernel, omission_kernel, rnn_kernel)
     from tpu_speech_commands_torch.ops.cnn_kernel import (
         CNNClassifier, make_fused_cnn_forward)
@@ -2111,9 +2184,11 @@ def main() -> int:
     # samples of a frame), at alt_512 and an odd hop, at every n_fft of its
     # register and wide bodies (window 1024 at 8192 and 16384: zero-padded),
     # at n_fft = window = 8192 and at 16384 with window 12800, with and
-    # without deltas, and at 240 filters (the radix-2 body: no register
-    # block fits its DCT), in both input and output types; its radix-2 body
-    # forced at the default config and at both wide configs
+    # without deltas, and at 240 filters (the register body, its block
+    # keeping only the 19 DCT columns the output uses: in log-mel mode with
+    # the cepstrum kernel, from the config), in both input and output
+    # types; its radix-2 body forced at the default config and at both wide
+    # configs
     radix2_errs, fft_wide_errs = [], []
     fft_errs = {"register": frontend_errs, "radix2": radix2_errs,
                 "wide": fft_wide_errs}
@@ -2132,8 +2207,7 @@ def main() -> int:
     for name, kw in fft_cases:
         p = ListenerParams(**kw)
         body = frontend_kernel.fft_body(p)
-        want_body = ("wide" if p.n_fft in FFT_WIDE_AB else
-                     "radix2" if p.n_filt == 240 else "register")
+        want_body = "wide" if p.n_fft in FFT_WIDE_AB else "register"
         if body != want_body:
             raise AssertionError(f"{name}: the FFT kernel's body is {body}, "
                                  f"not {want_body}")
@@ -2301,24 +2375,24 @@ def main() -> int:
                     what, got, want, FEAT_ATOL, FEAT_RTOL))
             else:
                 check_close(what, got, want, FEAT_BF16_ATOL, FEAT_BF16_RTOL)
-    # route ct with more coefficients than one residue's T holds: 300, 512
-    # and 600 filters and coefficients at n_fft 4352, split-dup from the
-    # config (the coefficients in the idle T, ring and squares space, at
-    # 600 in their own region), f32 and int16 in, f32 and bf16 out,
-    # held to the CT plain version
+    # split-dup (per_piece_mel=True), the A/B baseline of route ct with
+    # many filters and coefficients: 300, 512 and 600 of each at n_fft 4352
+    # (the coefficients in the idle T, ring and squares space, at 600 in
+    # their own region), f32 and int16 in, f32 and bf16 out, held to the CT
+    # plain version (its per-piece-mel form)
     for n in MANY_COEFFS:
         p = ListenerParams(n_fft=4352, window_t=0.272, n_filt=n, n_mfcc=n)
+        consts = ct_kernel.CtConstants(p, "mfcc", dev)
         for audio, out_dtype in ((audio_f32, torch.float32),
                                  (audio_i16, torch.float32),
                                  (audio_f32, torch.bfloat16),
                                  (audio_i16, torch.bfloat16)):
-            fe = MfccFrontend(p, "mfcc", dev, out_dtype=out_dtype)
-            if (fe.route, fe.body) != ("ct", "split-dup"):
-                raise AssertionError(f"{n} coefficients: route {fe.route}, "
-                                     f"body {fe.body}, not ct split-dup")
-            got = fe(audio, 0.9)
+            gain_t = torch.full((1,), 0.9, dtype=torch.float32, device=dev)
+            got = ct_kernel.ct_frontend_cuda(audio, gain_t, consts, p,
+                                             per_piece_mel=True,
+                                             out_dtype=out_dtype)
             torch.cuda.synchronize()
-            want = ct_kernel.ct_frontend_plain(audio, 0.9, fe.consts, p,
+            want = ct_kernel.ct_frontend_plain(audio, 0.9, consts, p,
                                                per_piece_mel=True,
                                                out_dtype=out_dtype)
             what = (f"ct_frontend_dup n_fft 4352, {n} coefficients "
@@ -2329,6 +2403,111 @@ def main() -> int:
                     what, got, want, FEAT_ATOL, FEAT_RTOL))
             else:
                 check_close(what, got, want, FEAT_BF16_ATOL, FEAT_BF16_RTOL)
+        del consts
+    # the cepstrum kernel alone (csrc/cepstrum.cu) against its plain version
+    # on random log-mel rows at CEP_SHAPES, batch- and time-major, with and
+    # without deltas, f32 and bf16 out
+    cep_errs = []
+    cep_rng = np.random.default_rng(7)
+    for batch, n_feat, n_filt, n_mfcc in CEP_SHAPES:
+        logmel = torch.tensor(3.0 * cep_rng.standard_normal(
+            (batch, n_feat, n_filt + 1)), dtype=torch.float32, device=dev)
+        dct = torch.tensor(dct_t_matrix(n_filt), device=dev)
+        table = torch.tensor(cepstrum_plan.extended_table(
+            dct_t_matrix(n_filt), n_mfcc), device=dev)
+        for deltas in (False, True):
+            for time_major in (False, True):
+                for out_dtype in (torch.float32, torch.bfloat16):
+                    got = frontend_kernel.cepstrum_cuda(
+                        logmel, table, n_mfcc, deltas, time_major, out_dtype)
+                    torch.cuda.synchronize()
+                    want = cepstrum_plan.cepstrum_plain(
+                        logmel, dct, n_mfcc, deltas, time_major, out_dtype)
+                    what = (f"cepstrum B {batch} T {n_feat} {n_filt} x "
+                            f"{n_mfcc}{' deltas' * deltas}"
+                            f"{' time-major' * time_major} "
+                            f"{str(out_dtype)[6:]}")
+                    if out_dtype == torch.float32:
+                        cep_errs.append(check_close(what, got, want,
+                                                    FEAT_ATOL, FEAT_RTOL))
+                    else:
+                        check_close(what, got, want, FEAT_BF16_ATOL,
+                                    FEAT_BF16_RTOL)
+        del logmel, table
+    # the register and wide bodies at many filters and coefficients
+    # (CEP_CONFIGS), each in its mode from the config (fused with the
+    # trimmed DCT region, or log-mel mode and the cepstrum kernel), f32 and
+    # int16 in, f32 and bf16 out, batch- and time-major (route ct; route
+    # fft is batch-major), with and without deltas, held to the plain
+    # version (route ct's CT plain version, route fft's plain chain); in
+    # the first case also the other mode (`_cepstrum`) and the whole DCT
+    # (`_full_dct`) where their blocks fit.  From 80 filters at n_fft 1024
+    # a filter covers one bin, whose power in a quiet frame can be 1e-15 of
+    # the frame's: the log of its f32 rounding moves a coefficient past the
+    # feature bound in any f32 chain, the plain one too, so each run and
+    # its plain version are held to the float64 features within the bound
+    # plus the slack that rounding carries (`cepstrum_ablation.
+    # check_conditioned`); max_abs_err is still against the plain version
+    body_errs = {"register": frontend_errs, "wide": fft_wide_errs,
+                 "ct register": mixed_errs, "ct wide": wide_errs}
+    for n_fft, n_filt, n_mfcc in CEP_CONFIGS:
+        consts = None
+        for audio, out_dtype, gain, time_major, delta in mixed_cases:
+            p = cepstrum_ablation.config(n_fft, n_filt, n_mfcc).replace(
+                use_delta=delta)
+            route = frontend_kernel.frontend_route(p)
+            exact, slack = cepstrum_ablation.exact_features(p, audio, gain)
+            if route == "ct":
+                consts = consts or ct_kernel.CtConstants(p, "mfcc", dev)
+                launch = functools.partial(ct_kernel.ct_frontend_cuda,
+                                           time_major=time_major)
+                plain = ct_kernel.ct_frontend_plain(audio, gain, consts, p)
+            else:
+                consts = consts or frontend_kernel.KernelConstants(p, "mfcc",
+                                                                   dev)
+                launch = frontend_kernel.mfcc_frontend_cuda
+                time_major = False
+                plain = Frontend(p, "mfcc", dev)(audio, gain)
+            if time_major:
+                plain, exact, slack = (t.transpose(0, 1)
+                                       for t in (plain, exact, slack))
+            if consts.body not in ("register", "wide"):
+                raise AssertionError(f"{n_fft} x {n_filt} x {n_mfcc}: body "
+                                     f"{consts.body}")
+            gain_t = torch.full((1,), gain, dtype=torch.float32, device=dev)
+            runs = {"": {}}
+            if out_dtype == torch.float32 and audio.dtype == torch.float32:
+                for flags in ({"_cepstrum": not consts.cepstrum},
+                              {"_cepstrum": False, "_full_dct": True}):
+                    lay = consts.layout_for(p, flags.get("_full_dct", False),
+                                            flags["_cepstrum"])
+                    if lay.smem_bytes <= fft_plan.SMEM_OPTIN:
+                        runs[f" {flags}"] = flags
+            for label, flags in runs.items():
+                cep = flags.get("_cepstrum", consts.cepstrum)
+                got = launch(audio, gain_t, consts, p, out_dtype=out_dtype,
+                             **flags)
+                torch.cuda.synchronize()
+                what = (f"{route} {consts.body}{'+cep' * cep} {n_fft} x "
+                        f"{n_filt} x {n_mfcc}{label}"
+                        f"{' time-major' * time_major}{' deltas' * delta} "
+                        f"{str(audio.dtype)[6:]}->{str(out_dtype)[6:]}")
+                bf16 = out_dtype == torch.bfloat16
+                err = cepstrum_ablation.check_conditioned(
+                    what, got, plain, exact, slack, FEAT_ATOL,
+                    FEAT_BF16_RTOL if bf16 else FEAT_RTOL)
+                log(f"  {what:46s} max_abs_err {err:.3e} against the plain "
+                    f"version (both held to float64 within atol "
+                    f"{FEAT_ATOL:g}, rtol "
+                    f"{FEAT_BF16_RTOL if bf16 else FEAT_RTOL:g} and the "
+                    f"rounding slack, at most {float(slack.max()):.2e})")
+                if not bf16:
+                    body_errs[("ct " if route == "ct" else "")
+                              + consts.body].append(err)
+                    if cep:
+                        cep_errs.append(err)
+            del plain, exact, slack
+        del consts
     # the stage cuts of both frontend kernels (K8 r3_omission :164), each
     # held to the one plain version with its stage's bound
     cut_consts = omission_kernel.TruncatedConstants(ListenerParams(), dev)
@@ -2366,6 +2545,7 @@ def main() -> int:
         "mfcc_frontend": frontend_kernel.mfcc_frontend_cuda,
         "mfcc_frontend_radix2": frontend_kernel.RADIX2,
         "mfcc_frontend_wide": frontend_kernel.WIDE,
+        "cepstrum": frontend_kernel.CEPSTRUM,
         "dft_frontend_bf16": frontend_kernel.dft_frontend_bf16_cuda,
         "dft_frontend_mma_sync": frontend_kernel.MMA_SYNC,
         "gru_classifier": rnn_kernel.gru_layer_cuda,
@@ -2409,11 +2589,14 @@ def main() -> int:
 
     clips_dev = torch.tensor(clips, device=dev)
     scorer_paths = (
-        (CHECKPOINT, "cuda-gru", "gru_classifier", ("gru_classifier_simt",)),
+        (CHECKPOINT, "cuda-gru", "gru_classifier",
+         ("gru_classifier_simt", "cepstrum")),
         (LSTM_CHECKPOINT, "cuda-lstm", "lstm_classifier",
-         ("lstm_classifier_simt",)),
-        (CNN_CHECKPOINTS["simple_cnn"], "cuda-cnn", "cnn_classifier", ()),
-        (CNN_CHECKPOINTS["simple_cnn_lite"], "cuda-cnn", "cnn_classifier", ()),
+         ("lstm_classifier_simt", "cepstrum")),
+        (CNN_CHECKPOINTS["simple_cnn"], "cuda-cnn", "cnn_classifier",
+         ("cepstrum",)),
+        (CNN_CHECKPOINTS["simple_cnn_lite"], "cuda-cnn", "cnn_classifier",
+         ("cepstrum",)),
     )
     scorers_by_path = {}
     for path, classifier_path, kernel_name, forbid in scorer_paths:
@@ -2458,10 +2641,10 @@ def main() -> int:
          {"n_fft": 16384, "window_t": FFT_WIDE_AB[16384]}, "cuda-mfcc(wide)",
          ("mfcc_frontend_wide", "gru_classifier"),
          ("mfcc_frontend", "mfcc_frontend_radix2")),
-        ("240 filters (the radix-2 body: no register block fits its DCT)",
-         {"n_filt": 240}, "cuda-mfcc",
-         ("mfcc_frontend_radix2", "gru_classifier"),
-         ("mfcc_frontend", "mfcc_frontend_wide")),
+        ("240 filters (the register body in log-mel mode, then the "
+         "cepstrum kernel)", {"n_filt": 240}, "cuda-mfcc+cep",
+         ("mfcc_frontend", "cepstrum", "gru_classifier"),
+         ("mfcc_frontend_radix2", "mfcc_frontend_wide")),
         ("n_fft 400", {"n_fft": 400, "window_t": 0.025}, "torch(xla-route)",
          ("gru_classifier",), ()),
         ("n_fft = window = 4352 (route ct's wide body)", WIDE_ROUTE,
@@ -2482,24 +2665,24 @@ def main() -> int:
         check_close(f"scores card vs CPU, {label}", sc.cpu(),
                     make_batch_scorer(path, "cpu")(clips), SCORE_ATOL, 0.0)
 
-    # route ct with 300 coefficients (more than one residue's T holds)
+    # route ct with 300 filters and coefficients (no fused block fits their
+    # DCT columns: the wide FFT in log-mel mode, then the cepstrum kernel)
     # into the GRU classifier: a random 48-unit GRU of feature size 300
     # (init_model, seed 1; no shipped checkpoint has this config), whose
     # input width takes the GRU's SIMT kernel; card against CPU
     p300 = ListenerParams(n_fft=4352, window_t=0.272, n_filt=300, n_mfcc=300)
     gru300, _ = init_model("simple_gru", 5, seed=1, params=p300)
     fe300 = MfccFrontend(p300, "mfcc", dev)
-    if (fe300.route, fe300.body, fe300.path) != ("ct", "split-dup",
-                                                 "cuda-ct(split-dup)"):
+    if (fe300.route, fe300.body, fe300.path) != ("ct", "wide",
+                                                 "cuda-ct(wide)+cep"):
         raise AssertionError(f"300 coefficients: route {fe300.route}, body "
                              f"{fe300.body}, path {fe300.path}")
     cls300 = GRUClassifier(copy.deepcopy(gru300).to(dev))
     sc = drive("MfccFrontend (n_fft 4352, 300 coefficients) + GRUClassifier "
                "(random, D 300) on 8 clips",
                lambda: score_fn(cls300(fe300(clips_dev))),
-               ("ct_frontend_dup", "gru_classifier_simt"),
-               ("mixed_fft_frontend", "wide_fft_frontend", "ct_frontend",
-                "gru_classifier"))
+               ("wide_fft_frontend", "cepstrum", "gru_classifier_simt"),
+               ("mixed_fft_frontend", *ct_kernel.counters, "gru_classifier"))
     cpu300 = score_fn(GRUClassifier(gru300)(
         MfccFrontend(p300, "mfcc", "cpu")(torch.tensor(clips))))
     check_close("scores card vs CPU, n_fft 4352, 300 coefficients", sc.cpu(),
@@ -2849,20 +3032,57 @@ def main() -> int:
             f"{body_ab['register'][0]:.4f} ms, route ct's wide body at "
             f"{WIDE_AB[0]} {wide_ab[WIDE_AB[0]]['ms']:.4f} ms  ({card})")
         del fe_wide
-    # split-dup with 300, 512 and 600 coefficients (blocks of 64, 32 and 32
-    # rows: no wide block fits their DCT), beside its bound
-    many_ms = {}
-    for n in MANY_COEFFS:
-        p_many = ListenerParams(n_filt=n, n_mfcc=n, **WIDE_ROUTE)
-        many_consts = ct_kernel.CtConstants(p_many, "mfcc", dev)
-        ms = cuda_ms(lambda: ct_kernel.ct_frontend_cuda(
-            big, unit_gain, many_consts, p_many), 3)
-        bound = frontend_bound(p_many, B_TIME)
-        many_ms[n] = {"ms": ms, "bound_ms": bound[0], "bound_by": bound[1]}
-        log(f"  split-dup at n_fft 4352 with {n} coefficients "
-            f"({ct_kernel.split_rows(p_many, True)} rows), B = {B_TIME}: "
-            f"{ms:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]})  ({card})")
-        del many_consts
+    # the slice's A/Bs (dev/cepstrum_ablation.py, in turns, each run first
+    # held to its plain version; its lines carry each layout's blocks an SM,
+    # the plain version's time and the function's bound): the trimmed DCT
+    # region against the whole table (`_full_dct=True`) at the default
+    # config and at 40-128 filters; the register body against the radix-2
+    # body at 240 filters; the wide FFT in log-mel mode with the cepstrum
+    # kernel against split-dup at 300, 512 and 600 filters and coefficients
+    log(f"  the cepstrum slice's A/Bs at B = {B_TIME} ({card}):")
+    cep_ab = {part: cepstrum_ablation.run_part(part, B_TIME, 10, dev)
+              for part in ("trim", "radix2", "split_dup")}
+    for row in cep_ab["split_dup"]:
+        p_many = cepstrum_ablation.config(4352, row["n_filt"], row["n_mfcc"])
+        bound = cepstrum_mode_bound(p_many, B_TIME)
+        if abs(bound[0] - row["bound_ms"]) > 1e-9 * bound[0]:
+            raise AssertionError("the ablation's bound is not chip_smoke's")
+    # the cepstrum kernel alone at n_fft 4352 with 600 filters and
+    # coefficients, on the plain log-mel rows of this batch: held to its
+    # plain version, then timed beside it, its bound and one PyTorch call
+    # of the same function at these settings (no deltas, batch-major, f32:
+    # torch.matmul of the rows and the extended table, cuBLAS with TF32
+    # off; a yardstick the port never calls)
+    p600 = ListenerParams(n_filt=MANY_COEFFS[-1], n_mfcc=MANY_COEFFS[-1],
+                          **WIDE_ROUTE)
+    logmel = cepstrum_plan.logmel_plain(Frontend(p600, "mfcc", dev), big)
+    dct600 = torch.tensor(dct_t_matrix(p600.n_filt), device=dev)
+    table600 = torch.tensor(cepstrum_plan.extended_table(
+        dct_t_matrix(p600.n_filt), p600.n_mfcc), device=dev)
+    ext600 = table600[:p600.n_filt + 1, :p600.n_mfcc]
+    want = cepstrum_plan.cepstrum_plain(logmel, dct600, p600.n_mfcc)
+    cep_errs.append(check_close(
+        f"cepstrum n_fft 4352, 600 x 600, B = {B_TIME}",
+        frontend_kernel.cepstrum_cuda(logmel, table600, p600.n_mfcc), want,
+        FEAT_ATOL, FEAT_RTOL))
+    check_close("torch.matmul of the rows and the extended table (the "
+                "yardstick)", torch.matmul(logmel, ext600), want, FEAT_ATOL,
+                FEAT_RTOL)
+    del want
+    cep_ms = cuda_ms(lambda: frontend_kernel.cepstrum_cuda(
+        logmel, table600, p600.n_mfcc), 10)
+    cep_plain_ms = cuda_ms(lambda: cepstrum_plan.cepstrum_plain(
+        logmel, dct600, p600.n_mfcc), 5)
+    cep_matmul_ms = cuda_ms(lambda: torch.matmul(logmel, ext600), 10)
+    cep_bound = cepstrum_bound(p600, B_TIME)
+    log(f"  cepstrum (the kernel alone) at n_fft 4352, 600 filters and "
+        f"coefficients, B = {B_TIME} ({p600.n_features} frames): "
+        f"{cep_ms:.4f} ms = "
+        f"{2e-9 * B_TIME * p600.n_features * 600 * 599 / cep_ms:.1f} TFLOP/s;"
+        f" plain {cep_plain_ms:.4f} ms; bound {cep_bound[0]:.4f} ms "
+        f"({cep_bound[1]}); torch.matmul (cuBLAS, TF32 off) "
+        f"{cep_matmul_ms:.4f} ms  ({card})")
+    del logmel
     times = {
         "wide_fft_frontend": (wide_ab[WIDE_AB[0]]["ms"],
                               wide_ab[WIDE_AB[0]]["plain_ms"]),
@@ -2870,6 +3090,7 @@ def main() -> int:
         "mfcc_frontend_radix2": (cuda_ms(radix2, 10), fe_plain_ms),
         "mfcc_frontend_wide": (fft_wide_ab[8192]["ms"],
                                fft_wide_ab[8192]["plain_ms"]),
+        "cepstrum": (cep_ms, cep_plain_ms),
         "dft_frontend_bf16": (fast_ab["wgmma"][0], fast_plain_ms),
         "dft_frontend_mma_sync": (fast_ab["mma_sync"][0], fast_plain_ms),
         "cnn_classifier": (
@@ -3042,6 +3263,7 @@ def main() -> int:
     # is timed with its A/B below
     library = dict.fromkeys(times)
     library["load_rowsum"] = cuda_ms(lambda: torch.sum(big, 1), 50)
+    library["cepstrum"] = cep_matmul_ms
     # (T, D, U, C), the same for both RNN checkpoints
     rnn_dims = (big_feats.shape[1], big_feats.shape[2],
                 lstm_pretrained.backbone.lstm_unit_0.units,
@@ -3293,6 +3515,8 @@ def main() -> int:
              frontend_kernel.REPLACES, radix2_errs),
             ("mfcc_frontend_wide", frontend_kernel.WIDE_SOURCE,
              frontend_kernel.REPLACES, fft_wide_errs),
+            ("cepstrum", frontend_kernel.CEPSTRUM_SOURCE,
+             frontend_kernel.REPLACES, cep_errs),
             ("dft_frontend_bf16", frontend_kernel.DFT_SOURCE,
              frontend_kernel.DFT_REPLACES, fast_errs),
             ("dft_frontend_mma_sync", frontend_kernel.DFT_MMA_SYNC_SOURCE,
@@ -3389,8 +3613,15 @@ def main() -> int:
                 key: wide_ab[4352][key] for key in ("plain_ms", "bound_ms",
                                                     "bound_by")}
             kernels[-1]["n_fft_4352"]["ms"] = wide_ab[4352]["split_dup_ms"]
-            for n, entry in many_ms.items():
-                kernels[-1][f"n_fft_4352_{n}_coefficients"] = entry
+            for row in cep_ab["split_dup"]:
+                kernels[-1][f"n_fft_4352_{row['n_filt']}_coefficients"] = {
+                    "ms": row["ms"]["split-dup"][0],
+                    **{key: row[key] for key in ("plain_ms", "bound_ms",
+                                                 "bound_by")}}
+        if name == "cepstrum":
+            # the frontend in each mode, from the slice's A/Bs above (each
+            # row's runs in turns, their layouts, plain and bound)
+            kernels[-1]["frontend_ab"] = cep_ab
         if name.startswith("cnn_block1"):
             # bf16 compute on f32 features, from the A/B above
             ab, plain_ms = block1_ab["bfloat16"]

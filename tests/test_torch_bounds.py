@@ -21,6 +21,12 @@ classes.  Peaks: 67 TFLOP/s f32, 989 TFLOP/s bf16, 3.35 TB/s.
   reported apart: stage 2, 14 products of 128 x 128 x 2 a frame (112.7
   GFLOP), stage 1, the n2 = 8 butterfly's 24 operations a lane, and the
   packed cepstrum: about 1.71 ms of f32;
+- the cepstrum kernel alone at n_fft 4352 with 600 filters and 600
+  coefficients (23 frames): 2 x 600 x 599 a frame (135.4 GFLOP, 2.0214 ms
+  of f32) against its log-mel rows read (601 floats a frame) and its
+  features written (0.2702 ms); the frontend in that mode counts its
+  function's work only, the real FFT, 4 a bin, 2 a packed weight and 2 x
+  n_filt x (n_mfcc - 1) for the DCT, no log-mel round trip;
 - the stage cuts (ops/omission_kernel.py): the audio read (or, with a
   constant block, block 0's 16 rows) and a (B, 128) f32 output; the
   operations of the cut's function (`chip_smoke.cut_bounds`);
@@ -79,6 +85,7 @@ EXPECTED = {  # name: (bound_by, ms)
     # route ct's kernel at n_fft = window = 768: 30 frames of 20 features
     # over a span of 15,616 samples
     "mixed_fft_frontend": ("bytes", (SPAN_768_B + FEATS_B) / 3.35e9),
+    "cepstrum": ("operations", 8192 * 23 * 2 * 600 * 599 / 67e9),
     "dense_dft_combined": ("operations", (DFT + CEPSTRUM) / 67e9),
     "dense_dft_halves": ("operations", (DFT + CEPSTRUM) / 67e9),
     "load_rowsum": ("bytes", (AUDIO_B + 4 * 8192) / 3.35e9),
@@ -296,3 +303,35 @@ def test_cnn_bounds_count_the_kept_positions_and_the_separable_form(bounds):
         pytest.approx(0.0583, abs=1e-4)
     assert 8192 * 3_833_856 / 67e9 == pytest.approx(0.4688, abs=1e-4)
     assert CNN / CNN_LITE == pytest.approx(6.61, abs=1e-2)
+
+
+def test_cepstrum_kernel_bound_at_600_coefficients(bounds):
+    """The cepstrum kernel alone at n_fft 4352, 600 x 600: its operations
+    bind, 2.0214 ms, above its bytes' 0.2702 ms."""
+    frames = 8192 * 23
+    assert bounds["cepstrum"][0] == pytest.approx(2.0214, abs=1e-4)
+    nbytes = 4 * frames * 601 + 4 * frames * 600
+    assert nbytes / 3.35e9 == pytest.approx(0.2702, abs=1e-4)
+
+
+@pytest.mark.parametrize("n,packed", [(300, 4029), (512, 3847), (600, 3779)])
+def test_cepstrum_mode_bound_counts_the_function_only(chip_smoke, n, packed):
+    """The frontend in log-mel mode with the cepstrum kernel at n_fft 4352
+    with n filters and coefficients: the real FFT, 4 a bin, 2 a packed
+    weight and 2 n (n - 1) for the DCT a frame at the f32 peak, against the
+    kept frames' span of audio and the features; the ablation's
+    `mode_bound` is the same count."""
+    import math
+
+    from tpu_speech_commands_torch.dev import cepstrum_ablation
+
+    p = ListenerParams(n_fft=4352, window_t=0.272, n_filt=n, n_mfcc=n)
+    f = 8192 * 23
+    ops = f * (2.5 * 4352 * math.log2(4352) + 4 * 2177 + 2 * packed
+               + 2 * n * (n - 1))
+    nbytes = 4 * 8192 * (22 * 512 + 4352) + 4 * f * n
+    got = chip_smoke.cepstrum_mode_bound(p, 8192)
+    assert got[1] == "operations"
+    assert got[0] == pytest.approx(max(ops / 67e9, nbytes / 3.35e9), rel=1e-9)
+    assert cepstrum_ablation.mode_bound(p, 8192) == pytest.approx(got)
+

@@ -202,24 +202,25 @@ def test_piece_ranges_cover_every_weight():
     assert (r[20] == [0, 64]).all()  # the energy column
 
 
-def test_host_refusals():
+def test_host_refusals(monkeypatch):
     """The host refuses from the config, before any launch: outside the
     contract, or where no kernel of route ct has a block that fits.  Above
-    n_fft 4096 the split's (F, T) instantiation takes the config (n_fft
-    4352 and 15872 at the default 20 filters), and with 300 or 512
-    coefficients too, which outnumber one residue's T and take the idle T,
-    ring and squares space after the last residue;
-    a config whose block of 32 rows fits nowhere (1000 filters) is still
-    refused."""
+    n_fft 4096 the wide FFT takes the config (n_fft 4352 and 15872 at the
+    default 20 filters), and with 300, 512 or 1000 coefficients too, in
+    log-mel mode with the cepstrum kernel after it; a config whose block
+    fits nowhere even in log-mel mode (1000 filters on a card whose blocks
+    held at most 40,000 bytes) is refused."""
     assert ct_config_error(ListenerParams(n_fft=768, window_t=0.048)) is None
     assert ct_config_error(ListenerParams(n_fft=3072, window_t=0.192)) is None
     assert ct_config_error(ListenerParams(n_fft=4352, window_t=0.272)) is None
     assert ct_config_error(ListenerParams(n_fft=15872, window_t=0.992)) is None
-    for n in (300, 512):
+    for n in (300, 512, 1000):
         assert ct_config_error(ListenerParams(
             n_fft=4352, window_t=0.272, n_filt=n, n_mfcc=n)) is None
+    monkeypatch.setattr(ct_kernel, "SMEM_OPTIN", 40_000)
     assert "no CUDA kernel of route ct" in ct_config_error(
         ListenerParams(n_fft=4352, window_t=0.272, n_filt=1000, n_mfcc=1000))
+    monkeypatch.undo()
     assert "n2 even" in ct_config_error(ListenerParams(window_t=0.05))
     assert "n2 even" in ct_config_error(ListenerParams(n_fft=640,
                                                        window_t=0.04))
@@ -237,7 +238,9 @@ def test_wrapper_on_cpu_is_the_plain_version(audio16):
             got, ct_frontend_plain(audio, 0.7, consts, p, True, False, True,
                                    out_dtype), rtol=0, atol=0)
     with pytest.raises(ValueError, match="audio on cpu"):
-        ct_kernel.ct_frontend_cuda(audio, torch.ones(1), consts, p)
+        # the split forced: route ct has no register body at n_fft 1024
+        ct_kernel.ct_frontend_cuda(audio, torch.ones(1), consts, p,
+                                   _split=True)
 
 
 def test_dense_plain_takes_the_gain_and_first_frame_of_the_jax_dense_frontend(
@@ -332,7 +335,9 @@ def test_split_shared_memory_mirror_is_the_kernel_source():
     4096 the (F, F) instantiation fits no block at any filter count while
     the (F, T) one fits at every one up to 256; and at n_fft 4352 the (F,
     T) one takes 64 rows with 300 filters and coefficients and 32 with 512,
-    both in the idle space, and 32 with 600, in a region of their own."""
+    both in the idle space, and 32 with 600, in a region of their own
+    (split-dup serves them only as the A/B, `per_piece_mel=True`: route ct
+    takes the wide FFT in log-mel mode and the cepstrum kernel)."""
     src = _split_source_functions()
     assert (src["kStages"], src["kBK"], src["kLanes"], src["kBms"]) == (
         ct_kernel._SPLIT_STAGES, ct_kernel._SPLIT_BK, LANES,
@@ -354,7 +359,7 @@ def test_split_shared_memory_mirror_is_the_kernel_source():
     for n, bm, own in ((300, 64, False), (512, 32, False), (600, 32, True)):
         p = ListenerParams(n_fft=4352, window_t=0.272, n_filt=n, n_mfcc=n)
         assert ct_kernel.split_rows(p, per_piece_mel=True) == bm
-        assert ct_kernel.ct_body(p) == "split-dup"
+        assert ct_kernel.ct_body(p) == "wide" and ct_kernel.ct_cepstrum(p)
         assert bm * n > 2 * 128 * (bm + 4)  # more than T alone holds
         assert src["coef_floats"](bm, 4352, n, False, True) == (
             bm * n if own else 0)
@@ -389,13 +394,16 @@ def test_split_dup_plain_matches_jax_k1_above_4096():
 
 def test_split_dup_plain_matches_jax_k1_with_300_coefficients():
     """n_fft = window = 4352 with 300 filters and 300 coefficients (more
-    than one residue's T holds, where the coefficients were kept):
-    route ct's body is split-dup, whose plain version holds to JAX K1
+    than one residue's T holds, where the coefficients were kept): route
+    ct's body is the wide FFT in log-mel mode with the cepstrum kernel
+    after it (tests/test_torch_cepstrum.py); split-dup, its A/B baseline
+    (`per_piece_mel=True`), has a plain version that holds to JAX K1
     (dft_mode="ct", interpret mode) on two windows of f32 audio, at the
     file's RTOL / ATOL."""
     kw = {"n_fft": 4352, "window_t": 0.272, "n_filt": 300, "n_mfcc": 300}
     p = ListenerParams(**kw)
-    assert ct_kernel.ct_body(p) == "split-dup" and ct_config_error(p) is None
+    assert ct_kernel.ct_body(p) == "wide" and ct_kernel.ct_cepstrum(p)
+    assert ct_config_error(p) is None
     rng = np.random.default_rng(17)
     audio = (0.2 * rng.standard_normal((2, 16000))).astype(np.float32)
     fused = make_fused_frontend(JaxParams(**kw), batch_tile=2, interpret=True,

@@ -295,19 +295,25 @@ def test_body_each_n_fft_takes(n_fft):
 
 @pytest.mark.parametrize("kw,body", [
     ({"n_filt": 200}, "register"),
-    ({"n_filt": 240}, "radix2"),  # its 230 KB DCT leaves no room
+    # its whole 230 KB DCT once left no room: the trimmed columns fit
+    ({"n_filt": 240}, "register"),
     ({"n_fft": 4096, "n_filt": 200}, "register"),  # on one warp a block
 ])
 def test_body_follows_the_register_layout(kw, body):
-    """A config whose register-body shared memory exceeds a block's, even
-    at one warp, takes the radix-2 body: the choice is the config's, so
-    nothing the radix-2 body serves is refused."""
+    """The body follows the register layout: a config whose block fits,
+    fused with the DCT columns the output uses or in log-mel mode, takes
+    the register body (240 filters, whose whole n_filt x n_filt table
+    once sent it to the radix-2 body, fits 2 blocks an SM fused); only a
+    config that fits not even in log-mel mode takes the radix-2 body.  The
+    choice is the config's, so nothing is refused at launch."""
     p = ListenerParams(**kw)
     assert fft_body(p) == body
     c = KernelConstants(p, "mfcc", "cpu")
     assert (c.plan is None) == (body == "radix2")
     if c.layout is not None:
         assert c.layout.smem_bytes <= fp.SMEM_OPTIN
+        assert c.layout_for(p, full_dct=True).smem_bytes > fp.SMEM_OPTIN \
+            or kw.get("n_filt") != 240
 
 
 @pytest.mark.parametrize("case", ["mfcc", "bark", "alt_512", "n_fft=128",

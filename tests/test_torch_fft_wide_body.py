@@ -174,28 +174,34 @@ def test_emulated_features_match_the_jax_frontend(audio, feature_type, dtype,
 
 @pytest.mark.parametrize("n_fft", SIZES)
 def test_radix2_body_keeps_a_config_the_wide_block_cannot_hold(n_fft):
-    """240 filters: the 230 KB DCT fits no block of the wide body, so the
-    config takes the radix-2 body, chosen from the config."""
+    """240 filters: the whole 230 KB DCT fits no block of the wide body,
+    which sent the config to the radix-2 body; the block keeps only the 19
+    columns the output uses now, and the wide body takes it, chosen from
+    the config, in log-mel mode with the cepstrum kernel after it (those
+    columns would still cost it warps an SM); the radix-2 body serves it
+    through `_radix2=True`."""
     p = ListenerParams(n_fft=n_fft, n_filt=240)
-    assert fft_body(p) == "radix2"
+    assert fft_body(p) == "wide"
     c = KernelConstants(p, "mfcc", "cpu")
-    assert c.body == "radix2" and c.plan is None and c.layout is None
-    assert MfccFrontend(p, "mfcc", "cpu").body == "radix2"
+    assert c.body == "wide" and c.plan is not None and c.cepstrum
+    assert c.layout_for(p, full_dct=True).smem_bytes > fp.SMEM_OPTIN \
+        >= c.layout_for(p).smem_bytes
+    assert MfccFrontend(p, "mfcc", "cpu").body == "wide"
 
 
 def test_a_radix2_buffer_beyond_shared_memory_is_refused_from_the_config(
         monkeypatch):
     """n_fft 32768: the radix-2 body's one-warp buffer alone is 256 KB, so
     no body takes it: ValueError when the frontend is built for CUDA,
-    before the device is looked at; 16384 at 240 filters (its 128 KB
-    buffer fits) gets as far as the device check."""
+    before the device is looked at; 16384 at 240 filters (the wide body)
+    gets as far as the device check."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     p = ListenerParams(n_fft=32768)
     assert fft_body(p) == "radix2" and radix2_smem_bytes(p) > fp.SMEM_OPTIN
     with pytest.raises(ValueError, match="radix-2 body's one-warp block"):
         MfccFrontend(p, "mfcc", "cuda")
     q = ListenerParams(n_fft=16384, n_filt=240)
-    assert fft_body(q) == "radix2" and kernel_config_error(q) is None
+    assert fft_body(q) == "wide" and kernel_config_error(q) is None
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         MfccFrontend(q, "mfcc", "cuda")
 

@@ -35,6 +35,16 @@ Tolerances, each with its reason:
 - the stage cuts of the CT and FFT kernels (B, 128): `dev.r3_omission.
   TOLERANCES`, each stage's bound with its reason (f32 sums in another
   order; from the log on, the f32 feature bound summed over 30 frames).
+- the register and wide bodies at many filters and coefficients, fused
+  with the trimmed DCT region or with the cepstrum kernel: within the
+  feature bound of the float64 features plus the slack f32 rounding
+  carries through the log of each filter's power, and so must the plain
+  version be (`dev.cepstrum_ablation.check_conditioned`: from 80 filters
+  at n_fft 1024 a filter covers one bin, whose power in a quiet frame can
+  be 1e-15 of the frame's, and the log of its f32 rounding moves a
+  coefficient past the bare bound in the plain f32 chain too); the
+  cepstrum kernel alone: the feature bounds above against cepstrum_plain
+  (the same f32 products summed in another order);
 - the stream tick and the Listener, card vs CPU: scores atol 1e-3 (the
   scores f32 bound above), the feature buffer within the f32 feature bound
   (the frame features are the plain chain's products on both devices),
@@ -52,14 +62,16 @@ import torch
 
 from tpu_speech_commands_torch.models.cnn import SimpleCNN, SimpleCNNLite
 from tpu_speech_commands_torch.models.rnn import SimpleGRU, SimpleLSTM
-from tpu_speech_commands_torch.dev import (pallas_experiments, r3_experiments,
+from tpu_speech_commands_torch.dev import (cepstrum_ablation,
+                                           pallas_experiments, r3_experiments,
                                            r3_frontend_variants, r3_omission,
                                            r3_stage2, r3_widecell,
                                            r4_mxu_stage1)
-from tpu_speech_commands_torch.ops import (cnn_kernel, ct_kernel,
+from tpu_speech_commands_torch.ops import (cepstrum_plan, cnn_kernel, ct_kernel,
                                            dense_dft_kernel, fft_plan,
                                            frontend_kernel, load_kernel,
                                            omission_kernel, rnn_kernel)
+from tpu_speech_commands_torch.frontend.filterbanks import dct_t_matrix
 from tpu_speech_commands_torch.ops.cnn_lowering import lower_block1
 from tpu_speech_commands_torch.ops.frontend_kernel import MfccFrontend
 from tpu_speech_commands_torch.ops.rnn_kernel import GRUClassifier, LSTMClassifier
@@ -1344,9 +1356,10 @@ def test_split_dup_takes_many_coefficients(cuda_device, n_coeffs, audio_dtype,
     """n_fft = window = 4352 with n_filt = n_mfcc = 300 (blocks of 64 rows)
     and 512 (32 rows): more coefficients than one residue's T holds, so
     they take the idle T, ring and squares space; 600 (32 rows) outnumber
-    that and take a region of their own.  Route ct builds and takes
-    split-dup
-    from the config and holds to ct_frontend_plain."""
+    that and take a region of their own.  Route ct takes the wide FFT in
+    log-mel mode with the cepstrum kernel from the config
+    (`test_many_coefficients_take_the_cepstrum_kernel`); split-dup, their
+    A/B baseline (`per_piece_mel=True`), holds to ct_frontend_plain."""
     p = ListenerParams(n_fft=4352, window_t=0.272, n_filt=n_coeffs,
                        n_mfcc=n_coeffs)
     assert ct_kernel.split_rows(p, per_piece_mel=True) == (
@@ -1355,10 +1368,11 @@ def test_split_dup_takes_many_coefficients(cuda_device, n_coeffs, audio_dtype,
              - ct_kernel.split_smem_bytes(32, 4352, n_coeffs, 1, True))
     assert grown == (4 * 32 * n_coeffs if n_coeffs == 600 else 0)
     fe = MfccFrontend(p, "mfcc", cuda_device, out_dtype=out_dtype)
-    assert fe.route == "ct" and fe.body == "split-dup"
+    assert (fe.route, fe.body, fe.cepstrum) == ("ct", "wide", True)
     audio = torch.tensor(_ct_audio(audio_dtype), device=cuda_device)
     before = ct_kernel.counters["ct_frontend_dup"].launches
-    got = fe(audio, 0.8)
+    got = ct_kernel.ct_frontend(audio, 0.8, fe.consts, p, per_piece_mel=True,
+                                out_dtype=out_dtype)
     torch.cuda.synchronize()
     assert ct_kernel.counters["ct_frontend_dup"].launches == before + 1
     want = ct_kernel.ct_frontend_plain(audio, 0.8, fe.consts, p,
@@ -1755,3 +1769,144 @@ def test_listener_card_matches_cpu(cuda_device, model_type):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
     np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
     assert events == cpu_events and [i for _, i in events] == [2, 3]
+
+
+# the cepstrum kernel alone, (batch, frames, filters, coefficients): whole
+# windows split over tiles unevenly, a window over two chunks of 128 rows,
+# one frame a window, 600 coefficients over five column tiles, one
+# coefficient (the energy)
+CEP_SHAPES = [(1000, 23, 600, 600), (37, 150, 40, 13), (300, 7, 128, 128),
+              (130, 1, 20, 20), (64, 30, 300, 1)]
+
+
+@pytest.mark.parametrize("time_major", [False, True])
+@pytest.mark.parametrize("deltas", [False, True])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CEP_SHAPES)
+def test_cepstrum_kernel_matches_plain(cuda_device, shape, out_dtype, deltas,
+                                       time_major):
+    """csrc/cepstrum.cu against cepstrum_plan.cepstrum_plain on random
+    log-mel rows, each launch counted in frontend_kernel.CEPSTRUM."""
+    batch, n_feat, n_filt, n_mfcc = shape
+    rng = np.random.default_rng(sum(shape))
+    logmel = torch.tensor(3.0 * rng.standard_normal(
+        (batch, n_feat, n_filt + 1)), dtype=torch.float32, device=cuda_device)
+    dct = torch.tensor(dct_t_matrix(n_filt), device=cuda_device)
+    table = torch.tensor(cepstrum_plan.extended_table(dct_t_matrix(n_filt),
+                                                      n_mfcc),
+                         device=cuda_device)
+    before = frontend_kernel.CEPSTRUM.launches
+    got = frontend_kernel.cepstrum_cuda(logmel, table, n_mfcc, deltas,
+                                        time_major, out_dtype)
+    torch.cuda.synchronize()
+    assert frontend_kernel.CEPSTRUM.launches == before + 1
+    want = cepstrum_plan.cepstrum_plain(logmel, dct, n_mfcc, deltas,
+                                        time_major, out_dtype)
+    assert got.shape == want.shape and got.dtype == out_dtype
+    bf16 = 2.0 ** -7 if out_dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-3 + bf16,
+                               atol=2e-3)
+
+
+def test_cepstrum_kernel_rejects_what_it_cannot_take(cuda_device):
+    logmel = torch.zeros(2, 30, 21, device=cuda_device)
+    table = torch.tensor(cepstrum_plan.extended_table(dct_t_matrix(20), 20),
+                         device=cuda_device)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        frontend_kernel.cepstrum_cuda(logmel.cpu(), table, 20)
+    with pytest.raises(ValueError, match="n_mfcc <= n_filt"):
+        frontend_kernel.cepstrum_cuda(logmel, table, 21)
+    with pytest.raises(ValueError, match="contiguous f32"):
+        frontend_kernel.cepstrum_cuda(logmel.transpose(0, 1), table, 20)
+    with pytest.raises(ValueError, match="row-major"):
+        frontend_kernel.cepstrum_cuda(logmel, table[:, :64], 20)
+
+
+# (n_fft, n_filt, n_mfcc) of many filters and coefficients: each body in
+# its mode from the config (+cep: log-mel mode and the cepstrum kernel)
+CEP_CONFIGS = {
+    (1024, 64, 20): ("fft", "register", False),
+    (1024, 80, 40): ("fft", "register", True),
+    (1024, 128, 20): ("fft", "register", True),
+    (1024, 128, 128): ("fft", "register", True),
+    (1024, 240, 20): ("fft", "register", True),
+    (768, 230, 20): ("ct", "register", False),
+    (4352, 300, 20): ("ct", "wide", True),
+    (4352, 300, 300): ("ct", "wide", True),
+    (4352, 600, 600): ("ct", "wide", True),
+    (8192, 128, 128): ("fft", "wide", True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_DUP_CASES))
+@pytest.mark.parametrize("key", sorted(CEP_CONFIGS))
+def test_many_filters_and_coefficients_match_plain(cuda_device, key, case):
+    """The register and wide bodies at many filters and coefficients, in
+    their mode from the config, in both input and output types, batch- and
+    time-major (route ct), with and without deltas: the body's launch
+    count rises once, the cepstrum kernel's once in its mode and never
+    otherwise, no radix-2 or CT split launch; held to the plain version
+    and the float64 features (`check_conditioned`)."""
+    route, body, cepstrum = CEP_CONFIGS[key]
+    audio_dtype, out_dtype, time_major, delta = SPLIT_DUP_CASES[case]
+    p = cepstrum_ablation.config(*key).replace(use_delta=delta)
+    fe = MfccFrontend(p, "mfcc", cuda_device, out_dtype=out_dtype)
+    assert (fe.route, fe.body, fe.cepstrum) == (route, body, cepstrum)
+    assert fe.path.endswith("+cep") == cepstrum
+    counter = {("fft", "register"): frontend_kernel.mfcc_frontend_cuda,
+               ("fft", "wide"): frontend_kernel.WIDE,
+               ("ct", "register"): ct_kernel.MIXED,
+               ("ct", "wide"): ct_kernel.WIDE}[route, body]
+    watched = (counter, frontend_kernel.CEPSTRUM, frontend_kernel.RADIX2,
+               *ct_kernel.counters.values())
+    before = [c.launches for c in watched]
+    audio = torch.tensor(_ct_audio(audio_dtype), device=cuda_device)
+    if route == "ct":
+        got = ct_kernel.ct_frontend(audio, 0.8, fe.consts, p,
+                                    time_major=time_major,
+                                    out_dtype=out_dtype)
+        plain = ct_kernel.ct_frontend_plain(audio, 0.8, fe.consts, p)
+    else:
+        time_major = False
+        got = fe(audio, 0.8)
+        plain = fe.plain(audio, 0.8)
+    torch.cuda.synchronize()
+    assert [c.launches for c in watched] == [
+        before[0] + 1, before[1] + cepstrum, *before[2:]]
+    exact, slack = cepstrum_ablation.exact_features(p, audio, 0.8)
+    if time_major:
+        plain, exact, slack = (t.transpose(0, 1)
+                               for t in (plain, exact, slack))
+    assert got.dtype == out_dtype
+    bf16 = 2.0 ** -7 if out_dtype == torch.bfloat16 else 0.0
+    cepstrum_ablation.check_conditioned(str(key), got, plain, exact, slack,
+                                        2e-3, 1e-3 + bf16)
+
+
+@pytest.mark.parametrize("key", [(1024, 20, 20), (1024, 80, 40),
+                                 (1024, 128, 20), (4352, 80, 40),
+                                 (8192, 128, 128), (768, 40, 40)])
+def test_fused_trimmed_full_and_cepstrum_modes_agree(cuda_device, key):
+    """The A/Bs of the slice compute one function: the fused epilogue on
+    the trimmed DCT columns, on the whole table (`_full_dct=True`) and the
+    log-mel mode with the cepstrum kernel (`_cepstrum=True`), within the
+    feature bound of each other, the trimmed and the whole table bit for
+    bit (the same products in the same order)."""
+    p = cepstrum_ablation.config(*key).replace(use_delta=True)
+    audio = torch.tensor(_ct_audio("float32", 37), device=cuda_device)
+    gain = torch.full((1,), 1.1, dtype=torch.float32, device=cuda_device)
+    if frontend_kernel.frontend_route(p) == "ct":
+        consts = ct_kernel.CtConstants(p, "mfcc", cuda_device)
+        launch = ct_kernel.ct_frontend_cuda
+    else:
+        consts = frontend_kernel.KernelConstants(p, "mfcc", cuda_device)
+        launch = frontend_kernel.mfcc_frontend_cuda
+    trimmed = launch(audio, gain, consts, p, _cepstrum=False)
+    full = launch(audio, gain, consts, p, _cepstrum=False, _full_dct=True)
+    before = frontend_kernel.CEPSTRUM.launches
+    cep = launch(audio, gain, consts, p, _cepstrum=True)
+    torch.cuda.synchronize()
+    assert frontend_kernel.CEPSTRUM.launches == before + 1
+    torch.testing.assert_close(trimmed, full, rtol=0, atol=0)
+    torch.testing.assert_close(cep, trimmed, rtol=1e-3, atol=2e-3)
+

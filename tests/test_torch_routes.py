@@ -121,42 +121,55 @@ def test_ct_body_each_n_fft_takes(n_fft):
 
 
 def test_ct_body_takes_the_split_where_the_register_block_does_not_fit():
-    """230 filters at n_fft 768: the 230 x 230 DCT leaves the mixed-radix
-    block no room, the split's rows of 32 frames still fit."""
+    """230 filters at n_fft 768: the whole 230 x 230 DCT left the
+    mixed-radix block no room and sent the config to the CT split; the
+    block keeps only the 19 DCT columns the output uses now, so the
+    mixed-radix FFT takes it, fused (the split's rows of 32 frames, which
+    still fit, serve only the `_split=True` A/B)."""
     p = ListenerParams(n_fft=768, window_t=0.048, n_filt=230)
-    assert ct_kernel.ct_body(p) == "split" and ct_kernel.split_fits(p)
+    assert ct_kernel.ct_body(p) == "register" and ct_kernel.split_fits(p)
+    assert not ct_kernel.ct_cepstrum(p)
+    consts = ct_kernel.CtConstants(p, "mfcc", "cpu")
+    assert consts.layout_for(p, full_dct=True).smem_bytes > \
+        ct_kernel.SMEM_OPTIN >= consts.layout.smem_bytes
     assert ct_kernel.ct_body(ListenerParams(n_fft=768, window_t=0.048,
                                             n_filt=200)) == "register"
 
 
 def test_ct_refuses_from_the_config_before_any_launch(monkeypatch):
     """A config no kernel of route ct takes raises ValueError when the
-    frontend is built for CUDA, before the device is looked at: 1000
-    filters and coefficients at n_fft 4352 (no block of the split fits),
-    or more coefficients than filters; on the CPU it runs the plain chain.
-    n_fft 4352 with 300 or 512 coefficients (more than one residue's T
-    holds: they take the idle T, ring and squares space), and n_fft 4352
-    and 15872
-    at 20 filters, get as far as the device check."""
+    frontend is built for CUDA, before the device is looked at: more
+    coefficients than filters, or a block that fits no shared memory even
+    in log-mel mode (1000 filters and coefficients at n_fft 4352 on a card
+    whose blocks held at most 40,000 bytes); on the CPU it runs the plain
+    chain.  n_fft 4352 with 300, 512 or 1000 coefficients (the wide FFT in
+    log-mel mode and the cepstrum kernel), and n_fft 2816, 3840, 4352 and
+    15872 at 20 filters, get as far as the device check."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     p = ListenerParams(n_fft=4352, window_t=0.272, n_filt=1000, n_mfcc=1000)
-    with pytest.raises(ValueError, match="no CUDA kernel of route ct"):
-        MfccFrontend(p, "mfcc", "cuda")
     with pytest.raises(ValueError, match="n_mfcc <= n_filt"):
         MfccFrontend(ListenerParams(n_fft=4352, window_t=0.272, n_filt=300,
                                     n_mfcc=301), "mfcc", "cuda")
     for kw in ({"n_fft": 2816}, {"n_fft": 3840}, {"n_fft": 4352},
                {"n_fft": 15872}, {"n_fft": 4352, "n_filt": 300, "n_mfcc": 300},
-               {"n_fft": 4352, "n_filt": 512, "n_mfcc": 512}):
+               {"n_fft": 4352, "n_filt": 512, "n_mfcc": 512},
+               {"n_fft": 4352, "n_filt": 1000, "n_mfcc": 1000}):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             MfccFrontend(ListenerParams(window_t=kw["n_fft"] / 16000, **kw),
                          "mfcc", "cuda")
     fe = MfccFrontend(p, "mfcc", "cpu")
-    assert fe.route == "ct" and fe.body is None
+    assert (fe.route, fe.body, fe.cepstrum) == ("ct", "wide", True)
     assert fe(torch.zeros(2, 16000)).shape == (2, p.n_features, p.n_mfcc)
+    with monkeypatch.context() as m:
+        m.setattr(ct_kernel, "SMEM_OPTIN", 40_000)
+        with pytest.raises(ValueError, match="no CUDA kernel of route ct"):
+            MfccFrontend(p, "mfcc", "cuda")
+        fe = MfccFrontend(p, "mfcc", "cpu")
+        assert fe.route == "ct" and fe.body is None
+        assert fe(torch.zeros(2, 16000)).shape == (2, p.n_features, p.n_mfcc)
     p300 = ListenerParams(n_fft=4352, window_t=0.272, n_filt=300, n_mfcc=300)
     fe = MfccFrontend(p300, "mfcc", "cpu")
-    assert fe.route == "ct" and fe.body == "split-dup"
+    assert (fe.route, fe.body, fe.cepstrum) == ("ct", "wide", True)
     assert fe(torch.zeros(2, 16000)).shape == (2, p300.n_features, 300)
 
 

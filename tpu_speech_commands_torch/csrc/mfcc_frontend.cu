@@ -40,14 +40,17 @@
 // The register body, n_fft 128 .. 4096 (N = n_fft / 2): csrc/register_fft.cuh's
 // register_fft_kernel on the plans of ops/fft_plan.py::fft_plan (`Plan`
 // below), 8 warps a block, passes of radix 16, 16 and N / 256.  Shared memory at
-// n_fft 1024 is 49,648 bytes (ops/fft_plan.py::fft_layout mirrors
-// smem_layout): with the launch bounds' 64 registers, 4 blocks, 32 warps an
-// SM.  The dynamic shared-memory attribute is set once an instantiation and
-// device.
+// n_fft 1024 is 49,568 bytes (ops/fft_plan.py::fft_layout mirrors
+// smem_layout; the DCT region holds the 19 columns the output uses): with
+// the launch bounds' 64 registers, 4 blocks, 32 warps an SM.  A config whose
+// DCT columns leave the block too little room runs the body in log-mel mode
+// and csrc/cepstrum.cu after it (register_fft.cuh).  The dynamic
+// shared-memory attribute is set once an instantiation and device.
 //
 // The radix-2 body, n_fft below 128 and every config whose register- or
-// wide-body shared memory exceeds a block's (and, through the entry's
-// `radix2` argument, any of them: the A/B of the bodies): one warp a frame,
+// wide-body shared memory exceeds a block's even in log-mel mode (and,
+// through the entry's `radix2` argument, any of them: the A/B of the
+// bodies; it reads the whole n_filt x n_filt DCT): one warp a frame,
 // the frame loaded bit-reversed into a per-warp shared buffer of n_fft
 // float2, an in-place radix-2 DIT FFT with __syncwarp between stages, the
 // dense filterbank.  It is the design the register body replaced.
@@ -92,8 +95,7 @@ cudaError_t launch_fft(const FftArgs& a, cudaStream_t stream) {
   SmemLayout lay;
   cudaError_t err;
   for (;; n_warps >>= 1) {
-    lay = smem_layout<Plan<N>>(n_warps, a.n_packed, a.n_seg, a.n_filt, a.n_mfcc,
-                         a.n_features);
+    lay = args_layout<Plan<N>>(a, n_warps);
     err = opt_in(kernel, limit, lay.total);
     if (err != cudaErrorInvalidValue || n_warps == 1) break;
   }
@@ -254,26 +256,33 @@ bool takes_register_fft(int n_fft) {
 }  // namespace
 
 // audio (batch, n_samples) f32 or int16; gain (1,) f32 on the device;
-// dct_t (n_filt, n_filt) f32; out (batch, n_features, n_mfcc or 2 n_mfcc)
-// f32 or bf16.  Frames first_frame .. first_frame + n_features - 1 are
-// computed.  The register body (radix2 = 0, n_fft 128 .. 4096) reads
-// plan_twiddle (ops/fft_plan.py::fft_plan(n_fft).twiddle, f32 rows),
-// filt_packed (n_packed,) f32 and fb_table (int32, filterbank_plan's
-// table with n_seg segments); the radix-2 body (radix2 = 1, any power of
-// two) reads twiddle (n_fft/2,) complex64 exp(-2 pi i k / n_fft) and filt_t
-// (n_filt, n_fft/2 + 1) f32.  Returns the launch's cudaError_t
-// (cudaErrorInvalidValue for a config the chosen body cannot take).
+// dct_t (n_filt, dct_cols) f32, the DCT's columns 1 .. n_mfcc - 1 (dct_cols
+// = n_mfcc - 1) or the whole table (dct_cols = n_filt; the radix-2 body
+// takes only that); out (batch, n_features, n_mfcc or 2 n_mfcc) f32 or
+// bf16, or with logmel (the register body only) (batch, n_features, n_filt
+// + 1) f32 log-mel rows for csrc/cepstrum.cu.  Frames first_frame ..
+// first_frame + n_features - 1 are computed.  The register body (radix2 = 0,
+// n_fft 128 .. 4096) reads plan_twiddle (ops/fft_plan.py::fft_plan(n_fft).
+// twiddle, f32 rows), filt_packed (n_packed,) f32 and fb_table (int32,
+// filterbank_plan's table with n_seg segments); the radix-2 body (radix2 =
+// 1, any power of two) reads twiddle (n_fft/2,) complex64 exp(-2 pi i k /
+// n_fft) and filt_t (n_filt, n_fft/2 + 1) f32.  Returns the launch's
+// cudaError_t (cudaErrorInvalidValue for a config the chosen body cannot
+// take).
 extern "C" int tsc_mfcc_frontend(const void* audio, int audio_int16,
                                  const void* gain, int batch, int n_samples,
                                  int window, int hop, int n_fft,
                                  int first_frame, int n_features,
                                  const void* twiddle, const void* filt_t,
-                                 const void* dct_t, int n_filt, int n_mfcc,
-                                 int emit_deltas, void* out, int out_bf16,
+                                 const void* dct_t, int dct_cols, int n_filt,
+                                 int n_mfcc, int emit_deltas, void* out, int out_bf16,
                                  const void* plan_twiddle, const void* filt_packed,
                                  const void* fb_table, int n_packed, int n_seg,
-                                 int radix2, void* stream) {
-  if (batch <= 0 || n_fft < 2 || (n_fft & (n_fft - 1)) != 0 || n_mfcc > n_filt)
+                                 int radix2, int logmel, void* stream) {
+  if (batch <= 0 || n_fft < 2 || (n_fft & (n_fft - 1)) != 0 || n_mfcc > n_filt ||
+      (radix2 && (logmel || dct_cols != n_filt)) ||
+      (logmel ? out_bf16 != 0
+              : (dct_cols && !dct_t) || (dct_cols != n_mfcc - 1 && dct_cols != n_filt)))
     return cudaErrorInvalidValue;
   const float* g = static_cast<const float*>(gain);
   const float* dc = static_cast<const float*>(dct_t);
@@ -317,8 +326,10 @@ extern "C" int tsc_mfcc_frontend(const void* audio, int audio_int16,
   a.n_seg = n_seg;
   a.n_filt = n_filt;
   a.n_mfcc = n_mfcc;
+  a.dct_cols = logmel ? 0 : dct_cols;
   a.emit_deltas = emit_deltas;
   a.time_major = 0;
+  a.logmel = logmel ? 1 : 0;
   a.out = out;
   a.src_mod = 0;
   if (audio_int16)
@@ -337,8 +348,8 @@ extern "C" int tsc_mfcc_frontend(const void* audio, int audio_int16,
 // (batch, 128) f32: each window's per-frame rows of the stage, in the CT
 // split's lane order, summed over its frames; window b reads audio row b %
 // src_mod when src_mod > 0 (the constant-block profile).  Constants as for
-// tsc_mfcc_frontend's register body.  Returns cudaErrorInvalidValue for any
-// other config or stage.
+// tsc_mfcc_frontend's register body, dct_t the whole (n_filt, n_filt)
+// table.  Returns cudaErrorInvalidValue for any other config or stage.
 extern "C" int tsc_mfcc_truncated(const void* audio, int audio_int16,
                                   const void* gain, int batch, int n_samples,
                                   int hop, int n_fft, int n_frames, int stop,
@@ -372,8 +383,10 @@ extern "C" int tsc_mfcc_truncated(const void* audio, int audio_int16,
   a.n_seg = n_seg;
   a.n_filt = n_filt;
   a.n_mfcc = n_mfcc;
+  a.dct_cols = n_filt;
   a.emit_deltas = 0;
   a.time_major = 0;
+  a.logmel = 0;
   a.out = out;
   a.src_mod = src_mod;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

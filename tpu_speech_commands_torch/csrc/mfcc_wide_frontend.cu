@@ -57,8 +57,11 @@ TSC_REGISTER_PLANS(tsc_mfcc_wide_frontend, TSC_FFT_WIDE_PLANS)
 // audio (batch, n_samples) f32 or int16; gain (1,) f32 on the device;
 // plan_twiddle (ops/fft_plan.py::fft_wide_plan(n_fft).twiddle, f32 rows),
 // filt_packed (n_packed,) f32 and fb_table (int32, filterbank_plan's table
-// over the plan's lanes, n_seg segments); dct_t (n_filt, n_filt) f32; out
-// (batch, n_features, n_mfcc or 2 n_mfcc) f32 or bf16.  Frames first_frame
+// over the plan's lanes, n_seg segments); dct_t (n_filt, dct_cols) f32, the
+// DCT's columns 1 .. n_mfcc - 1 (dct_cols = n_mfcc - 1) or the whole table
+// (dct_cols = n_filt); out (batch, n_features, n_mfcc or 2 n_mfcc) f32 or
+// bf16, or with logmel (batch, n_features, n_filt + 1) f32 log-mel rows
+// (register_fft.cuh; csrc/cepstrum.cu finishes them).  Frames first_frame
 // .. first_frame + n_features - 1 are computed, each the first min(window,
 // n_fft) samples from its start, zero-padded to n_fft; n_warps a block,
 // ops/fft_plan.py::fft_layout's for the plan.  Returns the launch's
@@ -69,10 +72,10 @@ extern "C" int tsc_mfcc_wide_frontend(
     const void* audio, int audio_int16, const void* gain, int batch, int n_samples,
     int window, int hop, int n_fft, int first_frame, int n_features,
     const void* plan_twiddle, const void* filt_packed, const void* fb_table,
-    int n_packed, int n_seg, const void* dct_t, int n_filt, int n_mfcc,
-    int emit_deltas, int n_warps, void* out, int out_bf16, void* stream) {
+    int n_packed, int n_seg, const void* dct_t, int dct_cols, int n_filt, int n_mfcc,
+    int emit_deltas, int n_warps, void* out, int out_bf16, int logmel, void* stream) {
   return register_entry<tsc_mfcc_wide_frontend_plans>(
       audio, audio_int16, gain, batch, n_samples, window, hop, n_fft, first_frame,
-      n_features, plan_twiddle, filt_packed, fb_table, n_packed, n_seg, dct_t, n_filt,
-      n_mfcc, emit_deltas, 0, n_warps, out, out_bf16, stream);
+      n_features, plan_twiddle, filt_packed, fb_table, n_packed, n_seg, dct_t, dct_cols,
+      n_filt, n_mfcc, emit_deltas, 0, n_warps, out, out_bf16, logmel, stream);
 }

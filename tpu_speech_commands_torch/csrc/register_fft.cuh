@@ -50,7 +50,17 @@
 //   partial sums in order;
 // - log and DCT per frame into the block's (T, n_mfcc) coefficients in
 //   shared memory; deltas and a coalesced store, batch- or time-major, once
-//   the window is done.
+//   the window is done.  The DCT region holds only the columns the output
+//   uses, 1 .. n_mfcc - 1 (column 0 is the log energy), dct_cols = n_mfcc -
+//   1 of them; the whole n_filt x n_filt table (dct_cols = n_filt) is the
+//   A/B of that trim;
+// - or, in log-mel mode (a uniform runtime flag, `logmel`), the body stops
+//   after the log: each kept frame's n_filt log-mel values and its log
+//   energy go, f32, to a (B, T, n_filt + 1) buffer on the device, and
+//   csrc/cepstrum.cu finishes the contract (the DCT as a GEMM, deltas, the
+//   store); the block then holds no DCT and no coefficients.  It serves the
+//   configs whose DCT columns leave the fused block too little room
+//   (ops/fft_plan.py::cepstrum_mode).
 // A compile-time STOP cuts the body after one stage for the stage-omission
 // profile (ops/omission_kernel.py; csrc/mfcc_frontend.cu instantiates the
 // cuts at n_fft 1024 only); the shipped kernels take kShipped and every cut
@@ -521,36 +531,50 @@ struct FftArgs {
   const float2* twiddle;  // the plan's kNtw rows
   const float* packed;    // n_packed weights
   const int* table;       // lane_seg (L + 1), filt_seg (n_filt + 1), segments
-  const float* dct_t;     // (n_filt, n_filt)
-  int n_packed, n_seg, n_filt, n_mfcc, emit_deltas, time_major;
+  // (n_filt, dct_cols): the DCT's columns 1 .. n_mfcc - 1 (dct_cols = n_mfcc
+  // - 1), or all n_filt of them (dct_cols = n_filt, the A/B)
+  const float* dct_t;
+  int n_packed, n_seg, n_filt, n_mfcc, dct_cols, emit_deltas, time_major;
+  int logmel;  // 1: (B, n_features, n_filt + 1) f32 log-mel rows to out
   void* out;
   int src_mod;  // a cut's constant block: window b reads row b % src_mod
 };
 
 // Shared memory, region by region, each 16-byte aligned (mirrored by
 // ops/fft_plan.py::fft_layout): the twiddles and the packed weights (none
-// where the plan does not stage them), the filterbank table, the DCT, one
-// buffer of kPitch float2 a frame slot, one scratch row a slot (its partial
-// sums, n_filt log-mel values, then kWpf energy parts), and the window's
-// (n_features, n_mfcc) coefficients.
+// where the plan does not stage them), the filterbank table, the DCT's
+// (n_filt, dct_cols) columns, one buffer of kPitch float2 a frame slot, one
+// scratch row a slot (its partial sums, n_filt log-mel values, then kWpf
+// energy parts), and the window's (n_features, feat_cols) coefficients.
+// Log-mel mode keeps neither the DCT nor the coefficients (`args_layout`).
 struct SmemLayout {
   size_t twiddle, packed, table, dct, frames, scratch, feats, total;
 };
 
 template <typename P>
 __host__ __device__ SmemLayout smem_layout(int n_warps, int n_packed, int n_seg,
-                                           int n_filt, int n_mfcc, int n_features) {
+                                           int n_filt, int dct_cols, int feat_cols,
+                                           int n_features) {
   const size_t slots = static_cast<size_t>(n_warps) * P::kFpw / P::kWpf;
   SmemLayout s;
   s.twiddle = 0;
   s.packed = s.twiddle + (P::kStaged ? align16(sizeof(float2) * P::kNtw) : 0);
   s.table = s.packed + (P::kStaged ? align16(sizeof(float) * n_packed) : 0);
   s.dct = s.table + align16(sizeof(int) * (P::kL + 1 + n_filt + 1 + 3 * n_seg));
-  s.frames = s.dct + align16(sizeof(float) * n_filt * n_filt);
+  s.frames = s.dct + align16(sizeof(float) * n_filt * dct_cols);
   s.scratch = s.frames + align16(sizeof(float2) * slots * P::kPitch);
   s.feats = s.scratch + align16(sizeof(float) * slots * (n_seg + n_filt + P::kWpf));
-  s.total = s.feats + align16(sizeof(float) * n_features * n_mfcc);
+  s.total = s.feats + align16(sizeof(float) * n_features * feat_cols);
   return s;
+}
+
+// A launch's layout: the fused epilogue's, or log-mel mode's (no DCT, no
+// coefficients)
+template <typename P>
+__host__ __device__ SmemLayout args_layout(const FftArgs& a, int n_warps) {
+  return smem_layout<P>(n_warps, a.n_packed, a.n_seg, a.n_filt,
+                        a.logmel ? 0 : a.dct_cols, a.logmel ? 0 : a.n_mfcc,
+                        a.n_features);
 }
 
 // The end of an exchange among a frame's lanes: its warp's, or, where a
@@ -705,8 +729,7 @@ __global__ void __launch_bounds__(P::kBoundThreads, P::kMinBlocks)
   extern __shared__ float4 smem_raw[];
   char* base = reinterpret_cast<char*>(smem_raw);
   const int n_warps = blockDim.x >> 5;
-  const SmemLayout lay = smem_layout<P>(n_warps, a.n_packed, a.n_seg, a.n_filt,
-                                        a.n_mfcc, a.n_features);
+  const SmemLayout lay = args_layout<P>(a, n_warps);
   // a wide plan reads the twiddles and the packed weights where they lie
   const float2* s_tw =
       P::kStaged ? reinterpret_cast<const float2*>(base + lay.twiddle) : a.twiddle;
@@ -770,8 +793,10 @@ __global__ void __launch_bounds__(P::kBoundThreads, P::kMinBlocks)
   }
   const int table_len = L + 1 + a.n_filt + 1 + 3 * a.n_seg;
   for (int i = threadIdx.x; i < table_len; i += blockDim.x) s_table[i] = __ldg(a.table + i);
-  for (int i = threadIdx.x; i < a.n_filt * a.n_filt; i += blockDim.x)
-    s_dct[i] = __ldg(a.dct_t + i);
+  // log-mel mode stages no DCT; the trimmed table's column c is c - 1
+  const int dct_len = a.logmel ? 0 : a.n_filt * a.dct_cols;
+  const int dct_first = a.dct_cols < a.n_filt;
+  for (int i = threadIdx.x; i < dct_len; i += blockDim.x) s_dct[i] = __ldg(a.dct_t + i);
   __syncthreads();
   const int* lane_seg = s_table;
   const int* filt_seg = s_table + L + 1;
@@ -967,6 +992,28 @@ __global__ void __launch_bounds__(P::kBoundThreads, P::kMinBlocks)
       }
     }
     frame_sync<P>(slot);
+    if (STOP == kShipped && a.logmel) {
+      // log-mel mode: the frame's row of the (B, T, n_filt + 1) buffer, the
+      // log energy last; the cepstrum kernel takes it from here (the frame
+      // buffer and the partial sums are free again: the next frame's
+      // exchanges end in frame_syncs before it writes either)
+      float* lm = static_cast<float*>(a.out) +
+                  ((size_t)blockIdx.x * a.n_features + (active ? f : 0)) * (a.n_filt + 1);
+      for (int m = l; m < a.n_filt; m += L) {
+        float acc = 0.0f;
+        for (int s = filt_seg[m]; s < filt_seg[m + 1]; ++s) acc += partial[s];
+        if (active) lm[m] = safe_log(acc);
+      }
+      if (l == 0 && active) {
+        if constexpr (P::kWpf > 1) {
+          energy = 0.0f;
+#pragma unroll
+          for (int w = 0; w < P::kWpf; ++w) energy += energy_parts[w];
+        }
+        lm[a.n_filt] = safe_log(energy);
+      }
+      continue;
+    }
     for (int m = l; m < a.n_filt; m += L) {
       float acc = 0.0f;
       for (int s = filt_seg[m]; s < filt_seg[m + 1]; ++s) acc += partial[s];
@@ -1001,7 +1048,8 @@ __global__ void __launch_bounds__(P::kBoundThreads, P::kMinBlocks)
         y = safe_log(energy);
       } else {
         y = 0.0f;
-        for (int m = 0; m < a.n_filt; ++m) y += mel[m] * s_dct[m * a.n_filt + c];
+        const float* col = s_dct + (c - dct_first);
+        for (int m = 0; m < a.n_filt; ++m) y += mel[m] * col[m * a.dct_cols];
       }
       if (active) feats[f * a.n_mfcc + c] = y;
     }
@@ -1032,6 +1080,7 @@ __global__ void __launch_bounds__(P::kBoundThreads, P::kMinBlocks)
     }
     return;
   }
+  if (a.logmel) return;  // the rows are out already
   store_window(feats, a.n_features, a.n_mfcc, a.emit_deltas, a.time_major, a.batch,
                static_cast<OutT*>(a.out));
 }
@@ -1044,8 +1093,7 @@ template <typename InT, typename OutT, typename P>
 cudaError_t launch_register(const FftArgs& a, int n_warps, cudaStream_t stream) {
   static int limit[kMaxDevices] = {};
   auto kernel = register_fft_kernel<InT, OutT, P>;
-  const SmemLayout lay = smem_layout<P>(n_warps, a.n_packed, a.n_seg, a.n_filt,
-                                        a.n_mfcc, a.n_features);
+  const SmemLayout lay = args_layout<P>(a, n_warps);
   const cudaError_t err = opt_in(kernel, limit, lay.total);
   if (err != cudaSuccess) return err;
   kernel<<<a.batch, n_warps * 32, lay.total, stream>>>(a);
@@ -1090,14 +1138,17 @@ int register_entry(const void* audio, int audio_int16, const void* gain, int bat
                    int n_samples, int window, int hop, int n_fft, int first_frame,
                    int n_features, const void* plan_twiddle, const void* filt_packed,
                    const void* fb_table, int n_packed, int n_seg, const void* dct_t,
-                   int n_filt, int n_mfcc, int emit_deltas, int time_major,
-                   int n_warps, void* out, int out_bf16, void* stream) {
+                   int dct_cols, int n_filt, int n_mfcc, int emit_deltas,
+                   int time_major, int n_warps, void* out, int out_bf16, int logmel,
+                   void* stream) {
   const int span = window < n_fft ? window : n_fft;
   if (batch <= 0 || n_samples <= 0 || window <= 0 || hop <= 0 || first_frame < 0 ||
       n_features <= 0 ||
       (long long)(first_frame + n_features - 1) * hop + span > n_samples ||
       n_filt <= 0 || n_mfcc <= 0 || n_mfcc > n_filt || n_packed < 0 || n_seg < 0 ||
-      n_warps <= 0 || !plan_twiddle || !filt_packed || !fb_table || !dct_t)
+      n_warps <= 0 || !plan_twiddle || !filt_packed || !fb_table ||
+      (logmel ? out_bf16 || time_major
+              : (dct_cols != n_mfcc - 1 && dct_cols != n_filt) || (dct_cols && !dct_t)))
     return cudaErrorInvalidValue;
   const size_t pair = audio_int16 ? 2 * sizeof(int16_t) : 2 * sizeof(float);
   FftArgs a;
@@ -1119,8 +1170,10 @@ int register_entry(const void* audio, int audio_int16, const void* gain, int bat
   a.n_seg = n_seg;
   a.n_filt = n_filt;
   a.n_mfcc = n_mfcc;
+  a.dct_cols = logmel ? 0 : dct_cols;
   a.emit_deltas = emit_deltas;
   a.time_major = time_major;
+  a.logmel = logmel ? 1 : 0;
   a.out = out;
   a.src_mod = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1140,30 +1193,33 @@ int register_entry(const void* audio, int audio_int16, const void* gain, int bat
 // csrc/wide_fft_frontend_<u>.cu), one a table of plans:
 // NAME(audio, audio_int16, gain, batch, n_samples, hop, n_fft, first_frame,
 //   n_features, plan_twiddle, filt_packed, fb_table, n_packed, n_seg, dct_t,
-//   n_filt, n_mfcc, emit_deltas, time_major, n_warps, out, out_bf16,
-//   stream): audio (batch, n_samples) f32 or int16; gain (1,) f32 on the
-// device; plan_twiddle (ops/fft_plan.py's plan of n_fft, its twiddle as f32
-// rows), filt_packed (n_packed,) f32 and fb_table (int32, filterbank_plan's
-// table over the plan's lanes, n_seg segments); dct_t (n_filt, n_filt) f32;
-// out (batch, n_features, F) or, time_major, (n_features, batch, F), F =
-// n_mfcc or 2 n_mfcc, f32 or bf16.  Frames first_frame .. first_frame +
-// n_features - 1, each n_fft samples (window = n_fft), are computed;
-// n_warps a block, ops/fft_plan.py::fft_layout's for the plan.  Returns the
-// launch's cudaError_t (cudaErrorInvalidValue for an n_fft the table has
-// no plan for, an argument out of range, or shared memory above the card's
-// opt-in limit).
+//   dct_cols, n_filt, n_mfcc, emit_deltas, time_major, n_warps, out,
+//   out_bf16, logmel, stream): audio (batch, n_samples) f32 or int16; gain
+// (1,) f32 on the device; plan_twiddle (ops/fft_plan.py's plan of n_fft, its
+// twiddle as f32 rows), filt_packed (n_packed,) f32 and fb_table (int32,
+// filterbank_plan's table over the plan's lanes, n_seg segments); dct_t
+// (n_filt, dct_cols) f32, the DCT's columns 1 .. n_mfcc - 1 (dct_cols =
+// n_mfcc - 1) or the whole table (dct_cols = n_filt); out (batch,
+// n_features, F) or, time_major, (n_features, batch, F), F = n_mfcc or 2
+// n_mfcc, f32 or bf16; or, with logmel, (batch, n_features, n_filt + 1) f32
+// log-mel rows, the log energy last (no DCT is read: batch-major f32 only).
+// Frames first_frame .. first_frame + n_features - 1, each n_fft samples
+// (window = n_fft), are computed; n_warps a block, ops/fft_plan.py::
+// fft_layout's for the plan.  Returns the launch's cudaError_t
+// (cudaErrorInvalidValue for an n_fft the table has no plan for, an
+// argument out of range, or shared memory above the card's opt-in limit).
 #define TSC_REGISTER_ENTRY(NAME, PLANS)                                         \
   TSC_REGISTER_PLANS(NAME, PLANS)                                               \
   extern "C" int NAME(                                                          \
       const void* audio, int audio_int16, const void* gain, int batch,          \
       int n_samples, int hop, int n_fft, int first_frame, int n_features,       \
       const void* plan_twiddle, const void* filt_packed, const void* fb_table,  \
-      int n_packed, int n_seg, const void* dct_t, int n_filt, int n_mfcc,       \
-      int emit_deltas, int time_major, int n_warps, void* out, int out_bf16,    \
-      void* stream) {                                                           \
+      int n_packed, int n_seg, const void* dct_t, int dct_cols, int n_filt,     \
+      int n_mfcc, int emit_deltas, int time_major, int n_warps, void* out,      \
+      int out_bf16, int logmel, void* stream) {                                 \
     return register_entry<NAME##_plans>(                                        \
         audio, audio_int16, gain, batch, n_samples, n_fft, hop, n_fft,          \
         first_frame, n_features, plan_twiddle, filt_packed, fb_table, n_packed, \
-        n_seg, dct_t, n_filt, n_mfcc, emit_deltas, time_major, n_warps, out,    \
-        out_bf16, stream);                                                      \
+        n_seg, dct_t, dct_cols, n_filt, n_mfcc, emit_deltas, time_major,        \
+        n_warps, out, out_bf16, logmel, stream);                                \
   }

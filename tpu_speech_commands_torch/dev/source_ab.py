@@ -4,9 +4,9 @@ one's, timed in turns on the card: the FFT kernel's register body
 (csrc/mfcc_frontend.cu) at the default config and route ct's mixed-radix
 FFT (csrc/mixed_fft_frontend.cu) at n_fft = window = 768 (hop 512) and 1536
 (hop 256), both on their shared csrc/register_fft.cuh; and the CT split
-(csrc/ct_frontend.cu), its (F, F) instantiation at the default config
-(which `ct_body` sends to it) and its per-piece-mel (F, T) instantiation
-("split-dup", the wide FFT's A/B baseline) at n_fft = window = 4352.
+(csrc/ct_frontend.cu), forced, its (F, F) instantiation at the default
+config and its per-piece-mel (F, T) instantiation ("split-dup", the wide
+FFT's A/B baseline) at n_fft = window = 4352.
 
     python -m tpu_speech_commands_torch.dev.source_ab --other DIR/csrc
         [--batch 8192] [--iters 20]
@@ -99,12 +99,13 @@ def main(argv=None) -> dict:
                     return frontend_kernel.mfcc_frontend_cuda(audio, gain,
                                                               consts, p)
             else:
-                # route ct's body by the config (the mixed FFT, the split's
-                # (F, F) instantiation at n_fft 1024), split-dup at 4352
+                # the mixed FFT by the config; the split forced, its (F, F)
+                # instantiation at n_fft 1024 and split-dup at 4352
                 def launch():
                     return ct_kernel.ct_frontend_cuda(
                         audio, gain, ct_consts, p,
-                        per_piece_mel=per_piece_mel)
+                        per_piece_mel=per_piece_mel,
+                        _split=unit == "ct_frontend.cu")
             for tag in ("other", "this", "this", "other"):
                 lib = libs[names[(tag, unit)]]
                 _build.load_library = lambda lib=lib: lib

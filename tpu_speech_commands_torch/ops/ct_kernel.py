@@ -22,30 +22,24 @@ the same way here, and map onto these four.
 
 `MfccFrontend` takes route "ct" for the configs the JAX scorer runs through
 its CT kernel and the FFT kernel cannot take.  Route ct's function, the
-(F, F) contract, has four bodies, chosen from the config (`ct_body`):
+(F, F) contract, has two bodies, chosen from the config (`ct_body`):
 - "register", `csrc/mixed_fft_frontend.cu`: a mixed-radix register-resident
   real-input FFT (the plan `fft_plan.mixed_plan`) for every n_fft up to
-  4096 that has a plan whose block fits the card's shared memory;
+  4096;
 - "wide", `csrc/wide_fft_frontend_*.cu` (`csrc/wide_fft.cuh`): the same
   register body with a frame over two or four warps (`fft_plan.wide_plan`)
-  for every n_fft above 4096 that has a plan (4352 .. 15872 at a 1 s
-  buffer, 8192 aside, which route fft takes) whose block fits;
-- "split", the CT split kernel's (F, F) instantiation, only for a config
-  whose register block does not fit but whose split rows do (many filters:
-  e.g. 230 at n_fft 768), and through `_split=True` for any config it fits
-  (the A/B baseline; the `dev/` variants measure the split this way);
-- "split-dup", the CT split kernel's (F, T) instantiation
-  (`ct_frontend_dup`, the per-piece mel), for a config none of the others
-  takes: above 4096 a config whose wide block does not fit (many filters
-  or coefficients: the n_filt x n_filt DCT of 300 filters alone is 360
-  KB), where the (F, F) instantiation's power rows (n_fft / 2 + 1 floats a
-  frame) fit no block either; and through `per_piece_mel=True` at any size
-  it fits (the A/B baseline of the wide body).  It keeps no power row: its
-  block is about 126 KB at 64 rows whatever n_fft is, more with many
-  filters or coefficients (300 of each at 4352: 64 rows, 189 KB; 512 of
-  each: 32 rows, 129 KB).
-A config none takes (a block of 32 rows that does not fit) raises
-ValueError from the config, before any launch (`ct_config_error`).
+  for every n_fft above 4096 (4352 .. 15872 at a 1 s buffer, 8192 aside,
+  which route fft takes).
+Each keeps only the DCT columns the output uses; where even those leave
+the block too little room (many filters and coefficients:
+`fft_plan.cepstrum_mode`, `ct_cepstrum`), the body runs in log-mel mode and
+the cepstrum kernel (`csrc/cepstrum.cu`, `frontend_kernel.cepstrum_cuda`)
+finishes.  The CT split kernel's instantiations are the A/B baselines:
+(F, F) through `_split=True` (the `dev/` variants measure the split this
+way), its (F, T) instantiation ("split-dup", `ct_frontend_dup`, the
+per-piece mel, which keeps no power row) through `per_piece_mel=True`.  A
+config neither body takes, even in log-mel mode, raises ValueError from the
+config, before any launch (`ct_config_error`).
 `ct_frontend` dispatches on the tensor it is given: a
 CPU tensor takes `ct_frontend_plain`, a CUDA tensor launches a kernel or
 raises.
@@ -60,9 +54,11 @@ from ..frontend.filterbanks import filterbank_matrix
 from ..params import ListenerParams
 from . import _build
 from ._checks import OUT_DTYPES, check_launch, check_row_major, row_major
+from .cepstrum_plan import DctTables, logmel_buffer, register_layout
 from .ct_constants import CT_J, LANES, ct_eligible, ct_matrices
-from .fft_plan import (SMEM_OPTIN, fft_layout, filterbank_plan, mixed_plan,
-                       takes_mixed_fft, takes_wide_fft, wide_plan, wide_unit)
+from .fft_plan import (SMEM_OPTIN, cepstrum_mode, fft_layout, filterbank_plan,
+                       mixed_plan, takes_mixed_fft, takes_wide_fft, wide_plan,
+                       wide_unit)
 
 SOURCE = "tpu_speech_commands_torch/csrc/ct_frontend.cu"
 MIXED_SOURCE = "tpu_speech_commands_torch/csrc/mixed_fft_frontend.cu"
@@ -92,10 +88,12 @@ _N_ARGS = 24
 _INT_ARGS = (1, 3, 4, 5, 6, 7, 8, 9, 10, 17, 18, 19, 20, 22)
 # tsc_mixed_fft_frontend and tsc_wide_fft_frontend_<u>(audio, audio_int16,
 #   gain, batch, n_samples, hop, n_fft, first_frame, n_features,
-#   plan_twiddle, filt_packed, fb_table, n_packed, n_seg, dct_t, n_filt,
-#   n_mfcc, emit_deltas, time_major, n_warps, out, out_bf16, stream)
-_REGISTER_N_ARGS = 23
-_REGISTER_INT_ARGS = (1, 3, 4, 5, 6, 7, 8, 12, 13, 15, 16, 17, 18, 19, 21)
+#   plan_twiddle, filt_packed, fb_table, n_packed, n_seg, dct_t, dct_cols,
+#   n_filt, n_mfcc, emit_deltas, time_major, n_warps, out, out_bf16,
+#   logmel, stream)
+_REGISTER_N_ARGS = 25
+_REGISTER_INT_ARGS = (1, 3, 4, 5, 6, 7, 8, 12, 13, 15, 16, 17, 18, 19, 20,
+                      22, 23)
 _CUDA_ERROR_INVALID_VALUE = 1
 # csrc/ct_frontend.cu's kStages, kBK and kBms: the K-slice ring's stages and
 # depth, and the block rows it tries, largest first
@@ -152,29 +150,34 @@ def split_fits(p: ListenerParams, per_piece_mel: bool = False) -> bool:
 
 
 def _register(p: ListenerParams, feature_type: str):
-    """The mixed-radix or wide plan, its filterbank plan and its block's
-    layout for config `p`."""
+    """The mixed-radix or wide plan and its filterbank plan for config
+    `p`."""
     plan = mixed_plan(p.n_fft) if takes_mixed_fft(p.n_fft) else \
         wide_plan(p.n_fft)
-    fb = filterbank_plan(filterbank_matrix(p, feature_type).T, plan.lanes)
-    return plan, fb, fft_layout(plan, fb, p.n_filt, p.n_mfcc, p.n_features)
+    return plan, filterbank_plan(filterbank_matrix(p, feature_type).T,
+                                 plan.lanes)
 
 
 def ct_body(p: ListenerParams, feature_type: str = "mfcc") -> str | None:
     """Which kernel serves route ct's config `p` on CUDA: "register" (the
     mixed-radix FFT) or "wide" (the wide FFT) where one has a plan whose
-    block fits SMEM_OPTIN, "split" where only the split's (F, F)
-    instantiation fits, "split-dup" (its (F, T) instantiation, no power
-    row) where neither does, None where not even a block of 32 rows of
-    that fits.  Chosen from the config, never from a failed launch."""
+    block fits SMEM_OPTIN, fused or in log-mel mode (`ct_cepstrum`); None
+    where neither does.  Chosen from the config, never from a failed
+    launch."""
     for body, takes in (("register", takes_mixed_fft),
                         ("wide", takes_wide_fft)):
-        if takes(p.n_fft) and \
-                _register(p, feature_type)[2].smem_bytes <= SMEM_OPTIN:
+        if takes(p.n_fft) and fft_layout(
+                *_register(p, feature_type), p.n_filt, p.n_mfcc,
+                p.n_features, cepstrum=True).smem_bytes <= SMEM_OPTIN:
             return body
-    if split_fits(p):
-        return "split"
-    return "split-dup" if split_fits(p, per_piece_mel=True) else None
+    return None
+
+
+def ct_cepstrum(p: ListenerParams, feature_type: str = "mfcc") -> bool:
+    """Whether route ct's body runs config `p` in log-mel mode with the
+    cepstrum kernel after it (`fft_plan.cepstrum_mode`)."""
+    return ct_body(p, feature_type) is not None and cepstrum_mode(
+        *_register(p, feature_type), p.n_filt, p.n_mfcc, p.n_features)
 
 
 def _contract_error(p: ListenerParams) -> str | None:
@@ -197,29 +200,29 @@ def ct_config_error(p: ListenerParams,
         return err
     if ct_body(p, feature_type) is None:
         why = (f"its block does not fit in {SMEM_OPTIN} bytes of shared "
-               f"memory" if takes_mixed_fft(p.n_fft) or takes_wide_fft(p.n_fft)
-               else "it has no plan for this n_fft")
+               f"memory even in log-mel mode" if takes_mixed_fft(p.n_fft)
+               or takes_wide_fft(p.n_fft) else "it has no plan for this n_fft")
         return (f"no CUDA kernel of route ct takes n_fft {p.n_fft} with "
                 f"{p.n_filt} filters and {p.n_mfcc} coefficients: not the "
-                f"register FFT ({why}), nor the CT split with or without "
-                f"the per-piece mel (no block of 64 or 32 frame rows fits in "
-                f"{SMEM_OPTIN} bytes of shared memory)")
+                f"register FFT ({why})")
     return None
 
 
-class CtConstants:
+class CtConstants(DctTables):
     """Device-resident constants of route ct's kernels and the plain version
     for one config.  The CT split's (`ct_constants.ct_matrices`): the stage-1
     tables, the unpaired and paired stage-2 packs, the permuted filterbank,
-    its per-piece ranges and duplicated-row form, the Nyquist row and the
-    transposed DCT.  `body` is `ct_body`'s; where it is "register" or
-    "wide", the register FFT's too: `plan.twiddle` as float32 rows, the
-    packed filterbank and its int32 lane / filter / segment table over the
-    plan's lanes, and `layout`, its block."""
+    its per-piece ranges and duplicated-row form and the Nyquist row; the
+    DCT tables (`DctTables`).  `body` is `ct_body`'s; where it is
+    "register" or "wide", the register FFT's too: `plan.twiddle` as float32
+    rows, the packed filterbank and its int32 lane / filter / segment table
+    over the plan's lanes, `cepstrum` (`fft_plan.cepstrum_mode`) and
+    `layout`, that mode's block."""
 
     def __init__(self, p: ListenerParams, feature_type: str, device):
         if not ct_eligible(p):
             raise ValueError(ct_config_error(p))
+        super().__init__(p, device)
         m = ct_matrices(p.n_fft, p.n_filt, p.sample_rate, feature_type)
         self.n2 = m.n2
         self.stage1 = row_major(m.stage1, device)
@@ -229,7 +232,6 @@ class CtConstants:
         self.filt_dup = row_major(m.filt_dup(), device)
         self.filt_nyq = row_major(m.filt_nyq, device)
         self.jrange = row_major(m.piece_ranges(), device, np.int32)
-        self.dct_t = row_major(m.dct_t, device)
         self.device = self.stage1.device  # with its index: cuda -> cuda:0
         n2, half, nf1 = m.n2, m.half, p.n_filt + 1
         check_row_major(
@@ -242,8 +244,12 @@ class CtConstants:
         self.body = ct_body(p, feature_type)
         self.plan = self.fb = self.layout = None
         self.plan_twiddle = self.filt_packed = self.fb_table = None
-        if self.body in ("register", "wide"):
-            self.plan, self.fb, self.layout = _register(p, feature_type)
+        self.cepstrum = False
+        if self.body is not None:
+            self.plan, self.fb = _register(p, feature_type)
+            self.cepstrum = cepstrum_mode(self.plan, self.fb, p.n_filt,
+                                          p.n_mfcc, p.n_features)
+            self.layout = self.layout_for(p, cepstrum=self.cepstrum)
             self.plan_twiddle = row_major(self.plan.twiddle, device)
             self.filt_packed = row_major(self.fb.packed, device)
             self.fb_table = row_major(self.fb.table, device, np.int32)
@@ -331,39 +337,53 @@ def ct_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
                      paired: bool = False, per_piece_mel: bool = False,
                      time_major: bool = False,
                      out_dtype=torch.float32, *,
-                     _split: bool = False) -> torch.Tensor:
+                     _split: bool = False, _full_dct: bool = False,
+                     _cepstrum: bool | None = None) -> torch.Tensor:
     """Launch route ct's kernel for config `p`.  audio (B, S) float32 or
     int16 and gain (1,) float32, both on consts' CUDA device -> (B,
     n_features, F), or (n_features, B, F) when time_major, in out_dtype.
 
-    The (F, F) contract runs `consts.body`'s kernel: the mixed-radix FFT
-    (its launches add one to `MIXED.launches`), the wide FFT (to
-    `WIDE.launches`), the split, or the split's (F, T) instantiation
-    ("split-dup").  paired or per_piece_mel (the same-call A/B of the wide
-    FFT and split-dup), or `_split` (of the mixed FFT and the split),
-    launch that instantiation of the CT split kernel; each launch adds one
-    to `counters[variant_name(paired, per_piece_mel)].launches`."""
+    The (F, F) contract runs `consts.body`'s kernel, the mixed-radix FFT
+    (its launches add one to `MIXED.launches`) or the wide FFT (to
+    `WIDE.launches`), fused or, where `consts.cepstrum`, in log-mel mode
+    with the cepstrum kernel after it (`frontend_kernel.cepstrum_cuda`,
+    counted in `frontend_kernel.CEPSTRUM`).  The same-call A/Bs:
+    `_full_dct` runs the fused epilogue on the whole n_filt x n_filt DCT,
+    `_cepstrum` (True or False) forces the mode; paired or per_piece_mel
+    (split-dup, the wide FFT's baseline), or `_split` (the mixed FFT's),
+    launch that instantiation of the CT split kernel, each launch adding
+    one to `counters[variant_name(paired, per_piece_mel)].launches`."""
+    split = _split or paired or per_piece_mel
     err = _contract_error(p)
-    if not err and consts.body is None and not (paired or per_piece_mel):
+    if not err and consts.body is None and not split:
         err = ct_config_error(p, consts.feature_type)
     if err:
         raise ValueError(err)
-    if consts.body == "split-dup" and not (paired or _split):
-        per_piece_mel = True
-    split = (_split or paired or per_piece_mel
-             or consts.body in ("split", "split-dup"))
+    cepstrum = not split and (consts.cepstrum if _cepstrum is None
+                              else _cepstrum)
+    lay = None if split else register_layout(consts, p, _full_dct, cepstrum)
     n_frames = check_launch(audio, gain, consts.device, p, out_dtype)
     batch, n_samples = audio.shape
     shape = ((p.n_features, batch, p.feature_size) if time_major
              else (batch, p.n_features, p.feature_size))
-    out = torch.empty(shape, dtype=out_dtype, device=audio.device)
     if batch == 0:
-        return out
+        return torch.empty(shape, dtype=out_dtype, device=audio.device)
     first_frame = n_frames - p.n_features
     if not split:
-        _launch_register(audio, gain, consts, p, first_frame, time_major, out)
+        # frontend_kernel imports this module: its cepstrum wrapper is
+        # looked up at the call
+        from .frontend_kernel import cepstrum_cuda
+
+        out = logmel_buffer(audio, p) if cepstrum else torch.empty(
+            shape, dtype=out_dtype, device=audio.device)
+        _launch_register(audio, gain, consts, p, first_frame, time_major,
+                         out, lay.warps, _full_dct, cepstrum)
         (MIXED if consts.body == "register" else WIDE).launches += 1
+        if cepstrum:
+            return cepstrum_cuda(out, consts.cep_table, p.n_mfcc,
+                                 p.use_delta, time_major, out_dtype)
         return out
+    out = torch.empty(shape, dtype=out_dtype, device=audio.device)
     fn = _build.bind("tsc_ct_frontend", _N_ARGS, _INT_ARGS)
     with torch.cuda.device(audio.device):
         stream = torch.cuda.current_stream(audio.device).cuda_stream
@@ -389,12 +409,15 @@ def ct_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
 
 
 def _launch_register(audio, gain, consts: CtConstants, p: ListenerParams,
-                     first_frame: int, time_major: bool, out: torch.Tensor):
+                     first_frame: int, time_major: bool, out: torch.Tensor,
+                     warps: int, full_dct: bool, logmel: bool):
     """One launch of csrc/mixed_fft_frontend.cu or, for the wide body, of
-    n_fft's unit of csrc/wide_fft_frontend_*.cu into `out`."""
+    n_fft's unit of csrc/wide_fft_frontend_*.cu into `out` (with logmel,
+    the (B, n_features, n_filt + 1) log-mel rows)."""
     name = ("tsc_mixed_fft_frontend" if consts.body == "register" else
             f"tsc_wide_fft_frontend_{wide_unit(p.n_fft)}")
     fn = _build.bind(name, _REGISTER_N_ARGS, _REGISTER_INT_ARGS)
+    dct_ptr, dct_cols = consts.dct_args(p, full_dct)
     with torch.cuda.device(audio.device):
         stream = torch.cuda.current_stream(audio.device).cuda_stream
         rc = fn(
@@ -402,10 +425,10 @@ def _launch_register(audio, gain, consts: CtConstants, p: ListenerParams,
             audio.shape[0], audio.shape[1], p.hop_samples, p.n_fft,
             first_frame, p.n_features, consts.plan_twiddle.data_ptr(),
             consts.filt_packed.data_ptr(), consts.fb_table.data_ptr(),
-            len(consts.fb.packed), consts.fb.n_seg, consts.dct_t.data_ptr(),
-            p.n_filt, p.n_mfcc, int(p.use_delta), int(time_major),
-            consts.layout.warps, out.data_ptr(),
-            int(out.dtype == torch.bfloat16), stream,
+            len(consts.fb.packed), consts.fb.n_seg, dct_ptr, dct_cols,
+            p.n_filt, p.n_mfcc, int(p.use_delta),
+            int(time_major and not logmel), warps, out.data_ptr(),
+            int(out.dtype == torch.bfloat16), int(logmel), stream,
         )
     _build.check(rc, name)
 

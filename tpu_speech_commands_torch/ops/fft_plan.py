@@ -62,8 +62,9 @@ MAX_WARPS_PER_SM = 64
 
 
 def takes_register_fft(n_fft: int) -> bool:
-    """Whether the register-resident design takes n_fft; every other power
-    of two goes to the kernel's radix-2 body."""
+    """Whether the register-resident design takes n_fft; the wide body
+    takes 8192 and 16384, every other power of two goes to the kernel's
+    radix-2 body."""
     return FFT_MIN <= n_fft <= FFT_MAX and not n_fft & (n_fft - 1)
 
 
@@ -488,28 +489,40 @@ class FftLayout:
     warps_per_sm: int
 
 
+def dct_cols(n_filt: int, n_mfcc: int, full_dct: bool = False) -> int:
+    """The DCT columns the fused epilogue keeps in shared memory: the n_mfcc
+    - 1 the output uses (column 0 is the log energy), or with full_dct all
+    n_filt (the A/B of that trim)."""
+    return n_filt if full_dct else n_mfcc - 1
+
+
 def fft_layout(plan: FftPlan, fb: FilterbankPlan, n_filt: int, n_mfcc: int,
-               n_features: int, warps: int | None = None) -> FftLayout:
-    """Mirrors smem_layout() in csrc/register_fft.cuh, and launch_fft() in
-    csrc/mfcc_frontend.cu (route ct's kernels take the warps from here):
-    the twiddles and the packed weights (where the plan stages them), the
-    filterbank table, the DCT, one buffer a frame slot (warps x
-    frames_per_warp / warps_per_frame slots of `pitch` float2), one scratch
-    row a slot (its partial sums, n_filt log-mel values, then
-    warps_per_frame energy parts), and the window's (n_features, n_mfcc)
-    coefficients; `warps` (the plan's by default, a wide plan's no more
+               n_features: int, warps: int | None = None, *,
+               full_dct: bool = False, cepstrum: bool = False) -> FftLayout:
+    """Mirrors smem_layout() and args_layout() in csrc/register_fft.cuh, and
+    launch_fft() in csrc/mfcc_frontend.cu (route ct's kernels take the
+    warps from here): the twiddles and the packed weights (where the plan
+    stages them), the filterbank table, the DCT's (n_filt, `dct_cols`)
+    columns, one buffer a frame slot (warps x frames_per_warp /
+    warps_per_frame slots of `pitch` float2), one scratch row a slot (its
+    partial sums, n_filt log-mel values, then warps_per_frame energy
+    parts), and the window's (n_features, n_mfcc) coefficients; with
+    `cepstrum` (the body's log-mel mode) neither the DCT nor the
+    coefficients.  `warps` (the plan's by default, a wide plan's no more
     than its window's frames fill) a block, halved while that exceeds
     SMEM_OPTIN, down to one frame.  Blocks an SM: the least of shared
     memory, the warp limit and the launch bounds' registers."""
     wpf = plan.warps_per_frame
+    dct = 0 if cepstrum else n_filt * dct_cols(n_filt, n_mfcc, full_dct)
+    feats = 0 if cepstrum else n_features * n_mfcc
 
     def regions_of(warps):
         slots = warps * plan.frames_per_warp // wpf
         return tuple(_align16(r) for r in (
             8 * len(plan.twiddle) * plan.staged,
             4 * len(fb.packed) * plan.staged, 4 * len(fb.table),
-            4 * n_filt * n_filt, 8 * slots * plan.pitch,
-            4 * slots * (fb.n_seg + n_filt + wpf), 4 * n_features * n_mfcc))
+            4 * dct, 8 * slots * plan.pitch,
+            4 * slots * (fb.n_seg + n_filt + wpf), 4 * feats))
 
     warps = warps or (plan.warps if wpf == 1 else
                       min(plan.warps, wpf * n_features))
@@ -526,3 +539,28 @@ def fft_layout(plan: FftPlan, fb: FilterbankPlan, n_filt: int, n_mfcc: int,
     return FftLayout(warps, *regions, smem_bytes=smem, blocks_per_sm=blocks,
                      warps_per_sm=blocks * warps)
 
+
+
+# The least share of the log-mel layout's warps an SM that the fused
+# epilogue's layout must keep: below it the body runs in log-mel mode and
+# the cepstrum kernel takes the DCT, as it does wherever the fused block
+# does not fit at all.  1: on an H100 (dev/cepstrum_ablation.py's sweep,
+# PERF.md) the cepstrum mode won at every config whose DCT columns cost
+# the fused block warps an SM (64-256 filters at n_fft 1024, 128-300 at
+# 4352: 1.02-3.8x), and the fused epilogue where they cost none at 1024
+# (1.04x at 40 x 13 and 64 x 20).
+CEP_MIN_SHARE = 1.0
+
+
+def cepstrum_mode(plan: FftPlan, fb: FilterbankPlan, n_filt: int,
+                  n_mfcc: int, n_features: int) -> bool:
+    """Whether a config runs the body in log-mel mode with the cepstrum
+    kernel after it (csrc/cepstrum.cu), from its layouts alone: where the
+    fused block (the trimmed DCT, `fft_layout`) exceeds SMEM_OPTIN, or
+    keeps fewer than CEP_MIN_SHARE of the warps an SM that the body holds
+    in log-mel mode."""
+    fused = fft_layout(plan, fb, n_filt, n_mfcc, n_features)
+    if fused.smem_bytes > SMEM_OPTIN:
+        return True
+    logmel = fft_layout(plan, fb, n_filt, n_mfcc, n_features, cepstrum=True)
+    return fused.warps_per_sm < CEP_MIN_SHARE * logmel.warps_per_sm

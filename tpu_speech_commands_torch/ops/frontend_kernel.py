@@ -11,7 +11,13 @@ config (`fft_body`): the register-resident real-input FFT with the packed
 filterbank for n_fft 128 .. 4096 (`fft_plan.py` holds its plan); the same
 body with a frame over four warps for n_fft 8192 and 16384
 (`csrc/mfcc_wide_frontend.cu`, "wide"); and the shared-memory radix-2 FFT
-for every other power of two and every config those leave no room.
+for n_fft below 128 (and a config whose filterbank leaves the others no
+room).  The register and wide bodies keep only the DCT columns the output
+uses; where even those leave the block too little room
+(`fft_plan.cepstrum_mode`: many filters and coefficients), the body runs in
+log-mel mode and `csrc/cepstrum.cu` (`cepstrum_cuda`, plan
+`cepstrum_plan.py`) computes the DCT, the energy column, the deltas and the
+store as a GEMM ("+cep" in `MfccFrontend.path`).
 
 `csrc/dft_wgmma.cu` replaces the TPU kernel
 `tpu_speech_commands/ops/pallas_frontend.py::make_fused_frontend` with
@@ -30,16 +36,15 @@ config when the frontend was built:
 - "fft": n_fft a power of two, the FFT kernel (a window longer than n_fft
   is cut to its first n_fft samples, as np.fft.rfft(frame, n=n_fft) does),
   its register body for n_fft 128 .. 4096, its wide body at 8192 and 16384
-  and its radix-2 body otherwise (`MfccFrontend.body` names it);
+  and its radix-2 body otherwise (`MfccFrontend.body` names it), the first
+  two fused or with the cepstrum kernel (`MfccFrontend.cepstrum`);
 - "ct": the configs the JAX package's CT kernel takes and the FFT kernel
   cannot, n_fft = 128 n2 (n2 even, not a power of two) == window: the
   mixed-radix register FFT (csrc/mixed_fft_frontend.cu) up to n_fft 4096,
   above it the same register body with a frame over two or four warps
-  (csrc/wide_fft_frontend_*.cu), the CT split kernel (csrc/ct_frontend.cu)
-  where the register block does not fit and the split's rows do (many
-  filters), and above 4096 then the split's (F, T) instantiation, which
-  keeps no power row (`ct_kernel.ct_body`: "register", "wide", "split",
-  "split-dup"; `MfccFrontend.body` names it);
+  (csrc/wide_fft_frontend_*.cu), each fused or with the cepstrum kernel
+  (`ct_kernel.ct_body`: "register", "wide"; the CT split kernel,
+  csrc/ct_frontend.cu, is the A/B baseline);
 - "torch": every other config, which the JAX scorer, too, serves with plain
   XLA products outside any Pallas kernel: the plain chain on the card.
 The fast_math DFT kernel needs a hop that is a multiple of 8 samples and at
@@ -57,36 +62,41 @@ from ..device import DEFAULT_DEVICE, resolve_device
 from ..frontend.dsp import Frontend
 from ..frontend.filterbanks import dct_t_matrix, dft_matrices, filterbank_matrix
 from ..params import ListenerParams, pr
-from . import _build
+from . import _build, cepstrum_plan
 from ._checks import OUT_DTYPES, check_launch, check_row_major, row_major
 from .ct_constants import ct_eligible
-from .ct_kernel import (CtConstants, LaunchCount, ct_body, ct_config_error,
-                        ct_frontend_cuda)
+from .ct_kernel import (CtConstants, LaunchCount, ct_body, ct_cepstrum,
+                        ct_config_error, ct_frontend_cuda)
 from .dft_plan import (WGMMA_STAGES, column_order, filter_slots,
                        wgmma_rows, wgmma_smem_bytes, wgmma_table_bytes)
-from .fft_plan import (SMEM_OPTIN, fft_layout, fft_plan, fft_wide_plan,
-                       filterbank_plan, pack_filterbank, takes_fft_wide,
-                       takes_register_fft)
+from .fft_plan import (SMEM_OPTIN, cepstrum_mode, fft_layout, fft_plan,
+                       fft_wide_plan, filterbank_plan, pack_filterbank,
+                       takes_fft_wide, takes_register_fft)
 
 SOURCE = "tpu_speech_commands_torch/csrc/mfcc_frontend.cu"
 WIDE_SOURCE = "tpu_speech_commands_torch/csrc/mfcc_wide_frontend.cu"
+CEPSTRUM_SOURCE = "tpu_speech_commands_torch/csrc/cepstrum.cu"
 REPLACES = "tpu_speech_commands/ops/pallas_frontend.py:745"
 DFT_SOURCE = "tpu_speech_commands_torch/csrc/dft_wgmma.cu"
 DFT_MMA_SYNC_SOURCE = "tpu_speech_commands_torch/csrc/dft_frontend.cu"
 DFT_REPLACES = "tpu_speech_commands/ops/pallas_frontend.py:340"
 
 # tsc_mfcc_frontend(audio, audio_int16, gain, batch, n_samples, window, hop,
-#   n_fft, first_frame, n_features, twiddle, filt_t, dct_t, n_filt, n_mfcc,
-#   emit_deltas, out, out_bf16, plan_twiddle, filt_packed, fb_table,
-#   n_packed, n_seg, radix2, stream)
-_N_ARGS = 25
-_INT_ARGS = (1, 3, 4, 5, 6, 7, 8, 9, 13, 14, 15, 17, 21, 22, 23)
+#   n_fft, first_frame, n_features, twiddle, filt_t, dct_t, dct_cols,
+#   n_filt, n_mfcc, emit_deltas, out, out_bf16, plan_twiddle, filt_packed,
+#   fb_table, n_packed, n_seg, radix2, logmel, stream)
+_N_ARGS = 27
+_INT_ARGS = (1, 3, 4, 5, 6, 7, 8, 9, 13, 14, 15, 16, 18, 22, 23, 24, 25)
 # tsc_mfcc_wide_frontend(audio, audio_int16, gain, batch, n_samples, window,
 #   hop, n_fft, first_frame, n_features, plan_twiddle, filt_packed,
-#   fb_table, n_packed, n_seg, dct_t, n_filt, n_mfcc, emit_deltas, n_warps,
-#   out, out_bf16, stream)
-_WIDE_N_ARGS = 23
-_WIDE_INT_ARGS = (1, 3, 4, 5, 6, 7, 8, 9, 13, 14, 16, 17, 18, 19, 21)
+#   fb_table, n_packed, n_seg, dct_t, dct_cols, n_filt, n_mfcc, emit_deltas,
+#   n_warps, out, out_bf16, logmel, stream)
+_WIDE_N_ARGS = 25
+_WIDE_INT_ARGS = (1, 3, 4, 5, 6, 7, 8, 9, 13, 14, 16, 17, 18, 19, 20, 22, 23)
+# tsc_cepstrum(logmel, batch, n_features, n_filt, n_mfcc, table, k_pad,
+#   n_pad, windows_per_block, emit_deltas, time_major, out, out_bf16, stream)
+_CEP_N_ARGS = 14
+_CEP_INT_ARGS = (1, 2, 3, 4, 6, 7, 8, 9, 10, 12)
 
 # tsc_dft_frontend_bf16(audio, audio_int16, gain, batch, n_samples, hop,
 #   first_frame, n_features, wpb, n_seg, seg_pitch, win_pitch, dft, k_pad,
@@ -122,29 +132,40 @@ def frontend_route(p: ListenerParams) -> str:
 
 
 def _register_plan(p: ListenerParams, feature_type: str):
-    """The register or wide body's plan, filterbank plan and shared-memory
-    layout for config `p`."""
+    """The register or wide body's plan and filterbank plan for config
+    `p`."""
     plan = fft_plan(p.n_fft) if takes_register_fft(p.n_fft) else \
         fft_wide_plan(p.n_fft)
-    fb = filterbank_plan(filterbank_matrix(p, feature_type).T, plan.lanes)
-    return plan, fb, fft_layout(plan, fb, p.n_filt, p.n_mfcc, p.n_features)
+    return plan, filterbank_plan(filterbank_matrix(p, feature_type).T,
+                                 plan.lanes)
 
 
 def fft_body(p: ListenerParams, feature_type: str = "mfcc") -> str:
     """Which body of the FFT kernel takes config `p` (route "fft"):
     "register" for n_fft 128 .. 4096 and "wide" for 8192 and 16384 where
-    its shared memory fits a block, "radix2" for every other power of two
-    (and a config whose filterbank, DCT or coefficients leave the register
-    or wide body no room).  Chosen from the config, never from a failed
-    launch."""
+    its block fits, fused or in log-mel mode (`fft_cepstrum`), "radix2" for
+    every other power of two (and a config whose filterbank leaves the
+    register or wide body no room even in log-mel mode).  Chosen from the
+    config, never from a failed launch."""
     if takes_register_fft(p.n_fft):
         body = "register"
     elif takes_fft_wide(p.n_fft):
         body = "wide"
     else:
         return "radix2"
-    smem = _register_plan(p, feature_type)[2].smem_bytes
-    return body if smem <= SMEM_OPTIN else "radix2"
+    lay = fft_layout(*_register_plan(p, feature_type), p.n_filt, p.n_mfcc,
+                     p.n_features, cepstrum=True)
+    return body if lay.smem_bytes <= SMEM_OPTIN else "radix2"
+
+
+def fft_cepstrum(p: ListenerParams, feature_type: str = "mfcc") -> bool:
+    """Whether route fft runs config `p` through the cepstrum kernel: its
+    register or wide body in log-mel mode, then csrc/cepstrum.cu
+    (`fft_plan.cepstrum_mode`); never on the radix-2 body."""
+    if fft_body(p, feature_type) == "radix2":
+        return False
+    return cepstrum_mode(*_register_plan(p, feature_type), p.n_filt,
+                         p.n_mfcc, p.n_features)
 
 
 def radix2_smem_bytes(p: ListenerParams, warps: int = 1) -> int:
@@ -176,33 +197,38 @@ def kernel_config_error(p: ListenerParams, feature_type: str = "mfcc",
     return None
 
 
-class KernelConstants:
+class KernelConstants(cepstrum_plan.DctTables):
     """Device-resident constants of the FFT kernel for one config.  Every
-    body: the transposed DCT.  The radix-2 body: twiddles exp(-2 pi i k /
-    n_fft), k < n_fft / 2, built in float64 and stored as float32 (cos, sin)
-    rows, and the filterbank transposed to (n_filt, n_bins).  `body` is
-    `fft_body`'s; where it is "register" or "wide" (else None):
-    `plan.twiddle` as float32 rows, the packed filterbank and its int32
-    lane / filter / segment table (`fft_plan.filterbank_plan`), and
-    `layout`, its shared memory (the wide body's warps a block)."""
+    body: the DCT tables (`DctTables`).  The radix-2 body: twiddles
+    exp(-2 pi i k / n_fft), k < n_fft / 2, built in float64 and stored as
+    float32 (cos, sin) rows, and the filterbank transposed to (n_filt,
+    n_bins).  `body` is `fft_body`'s; where it is "register" or "wide"
+    (else None): `plan.twiddle` as float32 rows, the packed filterbank and
+    its int32 lane / filter / segment table (`fft_plan.filterbank_plan`),
+    `cepstrum` (`fft_plan.cepstrum_mode`: log-mel mode and the cepstrum
+    kernel) and `layout`, that mode's shared memory (the wide body's warps
+    a block)."""
 
     def __init__(self, p: ListenerParams, feature_type: str, device):
+        super().__init__(p, device)
         k = np.arange(p.n_fft // 2, dtype=np.float64)
         ang = -2.0 * np.pi * k / p.n_fft
         filt_t = filterbank_matrix(p, feature_type).T
         self.twiddle = row_major(np.stack([np.cos(ang), np.sin(ang)], axis=-1),
                                  device)
         self.filt_t = row_major(filt_t, device)
-        self.dct_t = row_major(dct_t_matrix(p.n_filt), device)
         self.device = self.twiddle.device  # with its index: cuda -> cuda:0
-        check_row_major(
-            (self.twiddle, self.filt_t, self.dct_t),
-            ((p.n_fft // 2, 2), (p.n_filt, p.n_fft_bins), (p.n_filt, p.n_filt)))
+        check_row_major((self.twiddle, self.filt_t),
+                        ((p.n_fft // 2, 2), (p.n_filt, p.n_fft_bins)))
         self.plan = self.fb = self.layout = None
         self.plan_twiddle = self.filt_packed = self.fb_table = None
+        self.cepstrum = False
         self.body = fft_body(p, feature_type)
         if self.body != "radix2":
-            self.plan, self.fb, self.layout = _register_plan(p, feature_type)
+            self.plan, self.fb = _register_plan(p, feature_type)
+            self.cepstrum = cepstrum_mode(self.plan, self.fb, p.n_filt,
+                                          p.n_mfcc, p.n_features)
+            self.layout = self.layout_for(p, cepstrum=self.cepstrum)
             self.plan_twiddle = row_major(self.plan.twiddle, device)
             self.filt_packed = row_major(self.fb.packed, device)
             self.fb_table = row_major(self.fb.table, device, np.int32)
@@ -381,73 +407,129 @@ class DftConstants:
 
 def mfcc_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
                        consts: KernelConstants, p: ListenerParams,
-                       out_dtype=torch.float32, *,
-                       _radix2: bool = False) -> torch.Tensor:
+                       out_dtype=torch.float32, *, _radix2: bool = False,
+                       _full_dct: bool = False,
+                       _cepstrum: bool | None = None) -> torch.Tensor:
     """Launch the frontend kernel.  audio (B, S) float32 or int16 and gain
     (1,) float32, both on consts' CUDA device -> (B, n_features,
-    feature_size) out_dtype.  The body is `consts.body`; `_radix2` sends a
-    config the register or wide body takes to the radix-2 body instead (the
-    same-call A/B).  A launch of the register body adds one to
+    feature_size) out_dtype.  The body is `consts.body`, fused or, where
+    `consts.cepstrum`, in log-mel mode with the cepstrum kernel after it
+    (`cepstrum_cuda`).  The same-call A/Bs: `_radix2` sends a config the
+    register or wide body takes to the radix-2 body; `_full_dct` runs the
+    fused epilogue on the whole n_filt x n_filt DCT; `_cepstrum` (True or
+    False) forces the mode.  A launch of the register body adds one to
     `.launches`, one of the wide body to `WIDE.launches`, one of the
-    radix-2 body to `RADIX2.launches`."""
+    radix-2 body to `RADIX2.launches` (and the cepstrum kernel's to
+    `CEPSTRUM.launches`)."""
     radix2 = _radix2 or consts.plan is None
     err = kernel_config_error(p, body="radix2" if radix2 else consts.body)
     if err:
         raise ValueError(err)
+    cepstrum = not radix2 and (consts.cepstrum if _cepstrum is None
+                               else _cepstrum)
+    lay = None if radix2 else cepstrum_plan.register_layout(
+        consts, p, _full_dct, cepstrum)
     n_frames = check_launch(audio, gain, consts.device, p, out_dtype)
     batch, n_samples = audio.shape
-    out = torch.empty((batch, p.n_features, p.feature_size), dtype=out_dtype,
-                      device=audio.device)
+    shape = (batch, p.n_features, p.feature_size)
     if batch == 0:
-        return out
+        return torch.empty(shape, dtype=out_dtype, device=audio.device)
+    out = cepstrum_plan.logmel_buffer(audio, p) if cepstrum else \
+        torch.empty(shape, dtype=out_dtype, device=audio.device)
+    dct_ptr, dct_cols = consts.dct_args(p, _full_dct or radix2)
+    out_bf16 = int(out_dtype == torch.bfloat16 and not cepstrum)
     if consts.body == "wide" and not radix2:
-        _launch_wide(audio, gain, consts, p, n_frames - p.n_features, out)
+        fn = _build.bind("tsc_mfcc_wide_frontend", _WIDE_N_ARGS,
+                         _WIDE_INT_ARGS)
+        with torch.cuda.device(audio.device):
+            stream = torch.cuda.current_stream(audio.device).cuda_stream
+            rc = fn(
+                audio.data_ptr(), int(audio.dtype == torch.int16),
+                gain.data_ptr(), batch, n_samples, p.window_samples,
+                p.hop_samples, p.n_fft, n_frames - p.n_features, p.n_features,
+                consts.plan_twiddle.data_ptr(), consts.filt_packed.data_ptr(),
+                consts.fb_table.data_ptr(), len(consts.fb.packed),
+                consts.fb.n_seg, dct_ptr, dct_cols, p.n_filt, p.n_mfcc,
+                int(p.use_delta), lay.warps, out.data_ptr(), out_bf16,
+                int(cepstrum), stream,
+            )
+        _build.check(rc, "tsc_mfcc_wide_frontend")
         WIDE.launches += 1
-        return out
-    fn = _build.bind("tsc_mfcc_frontend", _N_ARGS, _INT_ARGS)
-    with torch.cuda.device(audio.device):
-        stream = torch.cuda.current_stream(audio.device).cuda_stream
-        plan_args = (0, 0, 0, 0, 0) if consts.plan is None else (
-            consts.plan_twiddle.data_ptr(), consts.filt_packed.data_ptr(),
-            consts.fb_table.data_ptr(), len(consts.fb.packed), consts.fb.n_seg)
-        rc = fn(
-            audio.data_ptr(), int(audio.dtype == torch.int16),
-            gain.data_ptr(), batch, n_samples, p.window_samples,
-            p.hop_samples, p.n_fft, n_frames - p.n_features, p.n_features,
-            consts.twiddle.data_ptr(), consts.filt_t.data_ptr(),
-            consts.dct_t.data_ptr(), p.n_filt, p.n_mfcc, int(p.use_delta),
-            out.data_ptr(), int(out_dtype == torch.bfloat16), *plan_args,
-            int(radix2), stream,
-        )
-    _build.check(rc, "tsc_mfcc_frontend")
-    if radix2:
-        RADIX2.launches += 1
     else:
-        mfcc_frontend_cuda.launches += 1
+        fn = _build.bind("tsc_mfcc_frontend", _N_ARGS, _INT_ARGS)
+        with torch.cuda.device(audio.device):
+            stream = torch.cuda.current_stream(audio.device).cuda_stream
+            plan_args = (0, 0, 0, 0, 0) if consts.plan is None else (
+                consts.plan_twiddle.data_ptr(), consts.filt_packed.data_ptr(),
+                consts.fb_table.data_ptr(), len(consts.fb.packed),
+                consts.fb.n_seg)
+            rc = fn(
+                audio.data_ptr(), int(audio.dtype == torch.int16),
+                gain.data_ptr(), batch, n_samples, p.window_samples,
+                p.hop_samples, p.n_fft, n_frames - p.n_features, p.n_features,
+                consts.twiddle.data_ptr(), consts.filt_t.data_ptr(),
+                dct_ptr, dct_cols, p.n_filt, p.n_mfcc, int(p.use_delta),
+                out.data_ptr(), out_bf16, *plan_args, int(radix2),
+                int(cepstrum), stream,
+            )
+        _build.check(rc, "tsc_mfcc_frontend")
+        if radix2:
+            RADIX2.launches += 1
+        else:
+            mfcc_frontend_cuda.launches += 1
+    if cepstrum:
+        return cepstrum_cuda(out, consts.cep_table, p.n_mfcc, p.use_delta,
+                             out_dtype=out_dtype)
     return out
 
 
 mfcc_frontend_cuda.launches = 0
 RADIX2 = LaunchCount()  # launches of the radix-2 body
 WIDE = LaunchCount()  # launches of the wide body (n_fft 8192, 16384)
+CEPSTRUM = LaunchCount()  # launches of the cepstrum kernel (both routes)
 
 
-def _launch_wide(audio, gain, consts: KernelConstants, p: ListenerParams,
-                 first_frame: int, out: torch.Tensor):
-    """One launch of csrc/mfcc_wide_frontend.cu into `out`."""
-    fn = _build.bind("tsc_mfcc_wide_frontend", _WIDE_N_ARGS, _WIDE_INT_ARGS)
-    with torch.cuda.device(audio.device):
-        stream = torch.cuda.current_stream(audio.device).cuda_stream
-        rc = fn(
-            audio.data_ptr(), int(audio.dtype == torch.int16), gain.data_ptr(),
-            audio.shape[0], audio.shape[1], p.window_samples, p.hop_samples,
-            p.n_fft, first_frame, p.n_features, consts.plan_twiddle.data_ptr(),
-            consts.filt_packed.data_ptr(), consts.fb_table.data_ptr(),
-            len(consts.fb.packed), consts.fb.n_seg, consts.dct_t.data_ptr(),
-            p.n_filt, p.n_mfcc, int(p.use_delta), consts.layout.warps,
-            out.data_ptr(), int(out.dtype == torch.bfloat16), stream,
-        )
-    _build.check(rc, "tsc_mfcc_wide_frontend")
+def cepstrum_cuda(logmel: torch.Tensor, table: torch.Tensor, n_mfcc: int,
+                  emit_deltas: bool = False, time_major: bool = False,
+                  out_dtype=torch.float32) -> torch.Tensor:
+    """Launch the cepstrum kernel (csrc/cepstrum.cu): the (B, T, n_filt +
+    1) f32 log-mel rows of the FFT body's log-mel mode and the extended DCT
+    (`cepstrum_plan.extended_table` of n_mfcc columns), both on one CUDA
+    device -> (B, T, F), or (T, B, F) when time_major, F = n_mfcc or, with
+    emit_deltas, 2 n_mfcc, in out_dtype; its plain version is
+    `cepstrum_plan.cepstrum_plain`.  A launch adds one to
+    `CEPSTRUM.launches`; a CPU tensor raises."""
+    if not logmel.is_cuda or table.device != logmel.device:
+        raise ValueError(f"the cepstrum kernel takes CUDA tensors on one "
+                         f"device, got {logmel.device} and {table.device}")
+    if out_dtype not in OUT_DTYPES:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    if (logmel.dtype != torch.float32 or not logmel.is_contiguous()
+            or logmel.ndim != 3 or not 0 < n_mfcc < logmel.shape[2]):
+        raise ValueError(f"log-mel rows must be a contiguous f32 (B, T, "
+                         f"n_filt + 1) with n_mfcc <= n_filt, got "
+                         f"{logmel.dtype} {tuple(logmel.shape)}, n_mfcc "
+                         f"{n_mfcc}")
+    batch, n_feat, n_filt = logmel.shape[0], logmel.shape[1], \
+        logmel.shape[2] - 1
+    k_pad, n_pad = cepstrum_plan.padded_shape(n_filt, n_mfcc)
+    check_row_major((table,), ((k_pad, n_pad),))
+    width = 2 * n_mfcc if emit_deltas else n_mfcc
+    shape = (n_feat, batch, width) if time_major else (batch, n_feat, width)
+    out = torch.empty(shape, dtype=out_dtype, device=logmel.device)
+    if out.numel() == 0:
+        return out
+    fn = _build.bind("tsc_cepstrum", _CEP_N_ARGS, _CEP_INT_ARGS)
+    with torch.cuda.device(logmel.device):
+        stream = torch.cuda.current_stream(logmel.device).cuda_stream
+        rc = fn(logmel.data_ptr(), batch, n_feat, n_filt, n_mfcc,
+                table.data_ptr(), k_pad, n_pad,
+                cepstrum_plan.windows_per_block(n_feat), int(emit_deltas),
+                int(time_major), out.data_ptr(),
+                int(out_dtype == torch.bfloat16), stream)
+    _build.check(rc, "tsc_cepstrum")
+    CEPSTRUM.launches += 1
+    return out
 
 
 def dft_frontend_bf16_cuda(audio: torch.Tensor, gain: torch.Tensor,
@@ -511,11 +593,12 @@ class MfccFrontend:
     """(B, S) audio [, gain] -> (B, n_features, feature_size) features, from
     a snapshot of the config.  CPU tensors take the plain `Frontend` chain.
     CUDA tensors take the route `frontend_route` chose for the config (the
-    FFT kernel, the CT kernel's (F, F) instantiation, or the plain chain on
-    the card), or with fast_math=True the bf16 tensor-core DFT kernel (the
-    counterpart of `make_fused_frontend(fast_math=True)`); `.route` names it,
-    and on routes fft and ct `.body` names the kernel's body (`fft_body`,
-    `ct_kernel.ct_body`).
+    FFT kernel, route ct's register FFTs, or the plain chain on the card),
+    or with fast_math=True the bf16 tensor-core DFT kernel (the counterpart
+    of `make_fused_frontend(fast_math=True)`); `.route` names it, on routes
+    fft and ct `.body` names the kernel's body (`fft_body`,
+    `ct_kernel.ct_body`) and `.cepstrum` whether the cepstrum kernel
+    finishes it (`fft_cepstrum`, `ct_kernel.ct_cepstrum`).
     The device is the card unless the caller passes "cpu".  Constructing it
     for a CUDA device raises ValueError when the route's kernels cannot take
     the config, and RuntimeError without CUDA."""
@@ -532,6 +615,9 @@ class MfccFrontend:
         self.route = "fast_math" if fast_math else frontend_route(p)
         self.body = (ct_body(p, feature_type) if self.route == "ct" else
                      fft_body(p, feature_type) if self.route == "fft" else None)
+        self.cepstrum = (ct_cepstrum(p, feature_type) if self.route == "ct"
+                         and self.body else fft_cepstrum(p, feature_type)
+                         if self.route == "fft" else False)
         if fast_math:
             err = dft_config_error(p, feature_type)
         elif self.route == "fft":
@@ -557,16 +643,17 @@ class MfccFrontend:
     def path(self) -> str:
         """The kernel a CUDA tensor takes, by name: "cuda-mfcc" (the FFT
         kernel's register or radix-2 body), "cuda-mfcc(wide)" (its wide
-        body), "cuda-ct" or "cuda-ct(<body>)" for route ct's other bodies
-        (wide, split, split-dup), "torch(xla-route)" (the plain chain on the
-        card) or "cuda-fast_math"; "torch" (the plain chain) on the CPU."""
+        body), "cuda-ct" or "cuda-ct(wide)" for route ct's bodies, each with
+        "+cep" where the cepstrum kernel finishes it, "torch(xla-route)"
+        (the plain chain on the card) or "cuda-fast_math"; "torch" (the
+        plain chain) on the CPU."""
         if self.device.type != "cuda":
             return "torch"
         name = {"fft": "cuda-mfcc", "ct": "cuda-ct", "torch": "torch(xla-route)",
                 "fast_math": "cuda-fast_math"}[self.route]
         if self.body not in (None, "register", "radix2"):
             name += f"({self.body})"
-        return name
+        return name + "+cep" * self.cepstrum
 
     def __call__(self, audio: torch.Tensor, gain=None) -> torch.Tensor:
         if audio.device.type == "cpu" or (

@@ -13,9 +13,11 @@ config takes the plain frontend route):
                        not a power of two ("cuda-ct"): the mixed-radix FFT
                        (csrc/mixed_fft_frontend.cu) up to n_fft 4096, its
                        wide form above it ("cuda-ct(wide)",
-                       csrc/wide_fft_frontend_*.cu), the CT split's
-                       per-piece-mel instantiation where that block does
-                       not fit ("cuda-ct(split-dup)", csrc/ct_frontend.cu);
+                       csrc/wide_fft_frontend_*.cu);
+                       either route's register body, where its DCT columns
+                       leave the block too little room, in log-mel mode
+                       with the cepstrum kernel after it ("+cep",
+                       csrc/cepstrum.cu);
          plain chain   every other config, which the JAX scorer, too, runs
                        on plain XLA products ("torch(xla-route)")
       -> GRU classifier kernel   (ops/rnn_kernel.py, csrc/gru_classifier.cu),
