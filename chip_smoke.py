@@ -38,7 +38,8 @@ Phases, in order; any failure raises and the script exits non-zero:
             300, 512 and 600 filters and coefficients (blocks of 64, 32 and
             32 rows; the coefficients in the idle T, ring and squares
             space, at 600 in their own region), f32 and int16 in, f32 and
-            bf16 out; the cepstrum kernel (csrc/cepstrum.cu) against
+            bf16 out; the cepstrum kernel (csrc/cepstrum_wgmma.cu) and
+            its first design (csrc/cepstrum.cu, `_simt=True`) against
             cepstrum_plain at CEP_SHAPES, batch- and time-major, with and
             without deltas, f32 and bf16 out; the register and wide bodies
             at many filters and coefficients (CEP_CONFIGS: 40-240 filters
@@ -101,6 +102,11 @@ Phases, in order; any failure raises and the script exits non-zero:
               stay at 0): `.paths` must name the
               route, its kernels' launch counts must rise, and the scores
               must agree with the same scorer on the CPU;
+            - the cepstrum kernel's first design kept for the A/B: the
+              240-filter scorer's frontend with `_cepstrum_simt=True` into
+              its GRU classifier kernel: its launch count rises (the
+              cepstrum kernel's stays at 0, and in every other slice the
+              first design's does), and the scores agree with the CPU's;
             - MfccFrontend at n_fft 4352 with 300 coefficients (path
               cuda-ct(wide)+cep: no fused wide block fits its DCT columns,
               so the wide FFT runs in log-mel mode and the cepstrum kernel
@@ -265,9 +271,12 @@ Phases, in order; any failure raises and the script exits non-zero:
             config and at 40-128 filters, the register body against the
             radix-2 body at 240 filters, the wide FFT in log-mel mode with
             the cepstrum kernel against split-dup at 300, 512 and 600
-            filters and coefficients; the cepstrum kernel alone at 600 x
-            600 beside its plain version, its bound and torch.matmul of
-            the rows and its table (cuBLAS, a yardstick); the train step
+            filters and coefficients; the cepstrum kernel alone against
+            its first design in turns (wgmma, simt, simt, wgmma) at 600 x
+            600 (n_fft 4352) and 240 x 20 (n_fft 1024, the 240-filter
+            scorer's), beside its plain version, its bound and
+            torch.matmul of the rows and its table (cuBLAS, TF32 off, a
+            yardstick); the train step
             at B = 512
             for simple_gru and simple_cnn from `dev.bench_train` (its
             config: 36 classes, adam on a cosine decay; the step of
@@ -343,19 +352,22 @@ FFT_WIDE_AB = {8192: 0.512, 16384: 0.8}
 MANY_COEFFS = (300, 512, 600)
 # the configs of many filters and coefficients (n_fft, n_filt, n_mfcc)
 # each frontend body is held to its plain version at, in its mode from the
-# config: fused with the trimmed DCT region (40 x 13 and 64 x 20 at 1024,
-# 230 x 20 at 768), or with the cepstrum kernel (the rest)
+# config: fused with the trimmed DCT region (40 x 13 at 1024), or with the
+# cepstrum kernel (the rest)
 CEP_CONFIGS = ((1024, 40, 13), (1024, 64, 20), (1024, 80, 40),
                (1024, 128, 20), (1024, 128, 40), (1024, 128, 128),
                (1024, 240, 20), (768, 230, 20), (4352, 300, 20),
                (4352, 300, 300), (4352, 512, 512), (4352, 600, 600),
                (8192, 128, 128))
-# the cepstrum kernel alone, (batch, frames, filters, coefficients): whole
-# windows split over tiles unevenly (23 frames, 5 a tile), a window over
-# two chunks of 128 rows (150 frames), one frame a window, 600
-# coefficients over five column tiles, one coefficient (the energy)
+# the cepstrum kernel alone and its first design, (batch, frames, filters,
+# coefficients): whole windows split over tiles unevenly (23 frames, 5 a
+# tile), a window over two chunks of 128 rows (150 frames), one frame a
+# window, 600 coefficients over three column tiles of the kernel (five of
+# the first design), one coefficient (the energy), the 240-filter scorer's
+# 20 at 30 frames, 8 and 9 coefficients (either side of a multiple of 8)
 CEP_SHAPES = ((1000, 23, 600, 600), (37, 150, 40, 13), (300, 7, 128, 128),
-              (130, 1, 20, 20), (64, 30, 300, 1))
+              (130, 1, 20, 20), (64, 30, 300, 1), (1000, 30, 240, 20),
+              (333, 23, 64, 8), (333, 23, 64, 9))
 # the train and eval slice: train.py's default batch, the corpus of
 # .claude/skills/verify/SKILL.md step 1, the shipped class list
 TRAIN_BATCH = 512
@@ -403,6 +415,9 @@ BLOCK1_BF16_ATOL = 5e-2
 LOAD_REL = 2e-6
 # Published peaks of one H100 SXM (dense, at 700 W), for the kernels' bounds
 PEAK_F32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
+# TF32 on the tensor cores; a product at f32 accuracy takes three of them
+# (3xTF32: hi.hi + hi.lo + lo.hi), 165 TFLOP/s of the function's products
+PEAK_TF32 = 495e12
 # The special-function units: 16 results a clock an SM, 132 SMs, at the
 # 1.98 GHz boost clock (the least time); information beside the RNN bounds
 SFU_RATE = 16 * 132 * 1.98e9
@@ -492,11 +507,13 @@ def check_rowsum(what, got, want, audio, gain) -> float:
     return max_err
 
 
-def bound_ms(flops_f32=0.0, flops_bf16=0.0, nbytes=0.0):
+def bound_ms(flops_f32=0.0, flops_bf16=0.0, nbytes=0.0, flops_3xtf32=0.0):
     """(ms, "operations" | "bytes"): the least time the card could take, the
     larger of the operations over the peak rate for their type and the
-    bytes over the memory rate."""
-    ops = flops_f32 / PEAK_F32 + flops_bf16 / PEAK_BF16
+    bytes over the memory rate; flops_3xtf32 are f32-accurate products run
+    as three TF32 products each on the tensor cores."""
+    ops = (flops_f32 / PEAK_F32 + flops_bf16 / PEAK_BF16
+           + 3.0 * flops_3xtf32 / PEAK_TF32)
     mem = nbytes / PEAK_BYTES
     return max(ops, mem) * 1e3, ("operations" if ops >= mem else "bytes")
 
@@ -540,27 +557,28 @@ def frontend_bound(p, batch):
 def cepstrum_mode_bound(p, batch):
     """The exact frontend's bound at config p where the cepstrum kernel
     finishes it: the function's work only, its operations (the real FFT, 4
-    a bin, 2 a packed filterbank weight and the DCT's 2 n_filt (n_mfcc - 1)
-    a frame: column 0 is the log energy, no product) at the f32 peak
-    against the kept frames' span of audio read once and the features
-    written once; the log-mel rows' round trip is the design's, not the
-    function's (dev/cepstrum_ablation.py's `mode_bound` counts the
-    same)."""
+    a bin and 2 a packed filterbank weight at the f32 peak; the DCT's 2
+    n_filt (n_mfcc - 1) a frame at the 3xTF32 rate, as the cepstrum kernel
+    runs it: column 0 is the log energy, no product) against the kept
+    frames' span of audio read once and the features written once; the
+    log-mel rows' round trip is the design's, not the function's
+    (dev/cepstrum_ablation.py's `mode_bound` counts the same)."""
     frames = batch * p.n_features
     fft, cepstrum = frontend_ops(p, frames)
-    return bound_ms(fft + cepstrum - frames * 2.0 * p.n_filt, 0,
-                    4.0 * batch * audio_span(p) + 4.0 * frames * p.feature_size)
+    return bound_ms(fft + cepstrum - frames * 2.0 * p.n_filt * p.n_mfcc, 0,
+                    4.0 * batch * audio_span(p) + 4.0 * frames * p.feature_size,
+                    frames * 2.0 * p.n_filt * (p.n_mfcc - 1))
 
 
 def cepstrum_bound(p, batch):
     """The cepstrum kernel's bound at config p on `batch` windows: 2 n_filt
-    (n_mfcc - 1) operations a frame at the f32 peak, against its (B, T,
-    n_filt + 1) f32 log-mel rows read once and the features written
-    once."""
+    (n_mfcc - 1) operations a frame at the 3xTF32 rate (the f32-accurate
+    products on the tensor cores), against its (B, T, n_filt + 1) f32
+    log-mel rows read once and the features written once."""
     frames = batch * p.n_features
-    return bound_ms(frames * 2.0 * p.n_filt * (p.n_mfcc - 1), 0,
-                    4.0 * frames * (p.n_filt + 1)
-                    + 4.0 * frames * p.feature_size)
+    return bound_ms(0, 0, 4.0 * frames * (p.n_filt + 1)
+                    + 4.0 * frames * p.feature_size,
+                    frames * 2.0 * p.n_filt * (p.n_mfcc - 1))
 
 
 def dft_bound(p, batch):
@@ -613,6 +631,11 @@ def kernel_bounds(p, batch, n_samples, rnn_dims, cnn_consts):
     # function: one bound (the CT split's own algorithm's floor is
     # ct_split_flops, information only)
     frontend = frontend_bound(p, batch)
+    # the cepstrum kernel and its first design, alone at n_fft 4352 with 600
+    # filters and coefficients
+    cepstrum_600 = cepstrum_bound(
+        p.replace(n_filt=MANY_COEFFS[-1], n_mfcc=MANY_COEFFS[-1], **WIDE_ROUTE),
+        batch)
     return {
         **dict.fromkeys(VARIANTS, frontend),
         "mixed_fft_frontend": frontend_bound(p.replace(**CT_ROUTE), batch),
@@ -622,9 +645,8 @@ def kernel_bounds(p, batch, n_samples, rnn_dims, cnn_consts):
         "mfcc_frontend_wide": frontend_bound(
             p.replace(n_fft=8192, window_t=FFT_WIDE_AB[8192]), batch),
         # alone, at n_fft 4352 with 600 filters and coefficients
-        "cepstrum": cepstrum_bound(
-            p.replace(n_filt=MANY_COEFFS[-1], n_mfcc=MANY_COEFFS[-1],
-                      **WIDE_ROUTE), batch),
+        "cepstrum": cepstrum_600,
+        "cepstrum_simt": cepstrum_600,
         "dft_frontend_bf16": dft_bound(p, batch),
         "dft_frontend_mma_sync": dft_bound(p, batch),
         "gru_classifier": gru,
@@ -2404,36 +2426,40 @@ def main() -> int:
             else:
                 check_close(what, got, want, FEAT_BF16_ATOL, FEAT_BF16_RTOL)
         del consts
-    # the cepstrum kernel alone (csrc/cepstrum.cu) against its plain version
-    # on random log-mel rows at CEP_SHAPES, batch- and time-major, with and
-    # without deltas, f32 and bf16 out
-    cep_errs = []
+    # the cepstrum kernel alone (csrc/cepstrum_wgmma.cu) and its first design
+    # (csrc/cepstrum.cu, `_simt=True`) against the plain version on random
+    # log-mel rows at CEP_SHAPES, batch- and time-major, with and without
+    # deltas, f32 and bf16 out
+    cep_errs, cep_simt_errs = [], []
     cep_rng = np.random.default_rng(7)
     for batch, n_feat, n_filt, n_mfcc in CEP_SHAPES:
         logmel = torch.tensor(3.0 * cep_rng.standard_normal(
             (batch, n_feat, n_filt + 1)), dtype=torch.float32, device=dev)
         dct = torch.tensor(dct_t_matrix(n_filt), device=dev)
-        table = torch.tensor(cepstrum_plan.extended_table(
-            dct_t_matrix(n_filt), n_mfcc), device=dev)
+        tables = cepstrum_plan.cep_tables(dct_t_matrix(n_filt), n_mfcc, dev)
         for deltas in (False, True):
             for time_major in (False, True):
                 for out_dtype in (torch.float32, torch.bfloat16):
-                    got = frontend_kernel.cepstrum_cuda(
-                        logmel, table, n_mfcc, deltas, time_major, out_dtype)
-                    torch.cuda.synchronize()
                     want = cepstrum_plan.cepstrum_plain(
                         logmel, dct, n_mfcc, deltas, time_major, out_dtype)
-                    what = (f"cepstrum B {batch} T {n_feat} {n_filt} x "
-                            f"{n_mfcc}{' deltas' * deltas}"
-                            f"{' time-major' * time_major} "
-                            f"{str(out_dtype)[6:]}")
-                    if out_dtype == torch.float32:
-                        cep_errs.append(check_close(what, got, want,
+                    for simt, errs in ((False, cep_errs),
+                                       (True, cep_simt_errs)):
+                        got = frontend_kernel.cepstrum_cuda(
+                            logmel, tables, n_mfcc, deltas, time_major,
+                            out_dtype, _simt=simt)
+                        torch.cuda.synchronize()
+                        what = (f"cepstrum{'_simt' * simt} B {batch} T "
+                                f"{n_feat} {n_filt} x {n_mfcc}"
+                                f"{' deltas' * deltas}"
+                                f"{' time-major' * time_major} "
+                                f"{str(out_dtype)[6:]}")
+                        if out_dtype == torch.float32:
+                            errs.append(check_close(what, got, want,
                                                     FEAT_ATOL, FEAT_RTOL))
-                    else:
-                        check_close(what, got, want, FEAT_BF16_ATOL,
-                                    FEAT_BF16_RTOL)
-        del logmel, table
+                        else:
+                            check_close(what, got, want, FEAT_BF16_ATOL,
+                                        FEAT_BF16_RTOL)
+        del logmel, tables
     # the register and wide bodies at many filters and coefficients
     # (CEP_CONFIGS), each in its mode from the config (fused with the
     # trimmed DCT region, or log-mel mode and the cepstrum kernel), f32 and
@@ -2546,6 +2572,7 @@ def main() -> int:
         "mfcc_frontend_radix2": frontend_kernel.RADIX2,
         "mfcc_frontend_wide": frontend_kernel.WIDE,
         "cepstrum": frontend_kernel.CEPSTRUM,
+        "cepstrum_simt": frontend_kernel.CEPSTRUM_SIMT,
         "dft_frontend_bf16": frontend_kernel.dft_frontend_bf16_cuda,
         "dft_frontend_mma_sync": frontend_kernel.MMA_SYNC,
         "gru_classifier": rnn_kernel.gru_layer_cuda,
@@ -2590,13 +2617,13 @@ def main() -> int:
     clips_dev = torch.tensor(clips, device=dev)
     scorer_paths = (
         (CHECKPOINT, "cuda-gru", "gru_classifier",
-         ("gru_classifier_simt", "cepstrum")),
+         ("gru_classifier_simt", "cepstrum", "cepstrum_simt")),
         (LSTM_CHECKPOINT, "cuda-lstm", "lstm_classifier",
-         ("lstm_classifier_simt", "cepstrum")),
+         ("lstm_classifier_simt", "cepstrum", "cepstrum_simt")),
         (CNN_CHECKPOINTS["simple_cnn"], "cuda-cnn", "cnn_classifier",
-         ("cepstrum",)),
+         ("cepstrum", "cepstrum_simt")),
         (CNN_CHECKPOINTS["simple_cnn_lite"], "cuda-cnn", "cnn_classifier",
-         ("cepstrum",)),
+         ("cepstrum", "cepstrum_simt")),
     )
     scorers_by_path = {}
     for path, classifier_path, kernel_name, forbid in scorer_paths:
@@ -2644,7 +2671,7 @@ def main() -> int:
         ("240 filters (the register body in log-mel mode, then the "
          "cepstrum kernel)", {"n_filt": 240}, "cuda-mfcc+cep",
          ("mfcc_frontend", "cepstrum", "gru_classifier"),
-         ("mfcc_frontend_radix2", "mfcc_frontend_wide")),
+         ("mfcc_frontend_radix2", "mfcc_frontend_wide", "cepstrum_simt")),
         ("n_fft 400", {"n_fft": 400, "window_t": 0.025}, "torch(xla-route)",
          ("gru_classifier",), ()),
         ("n_fft = window = 4352 (route ct's wide body)", WIDE_ROUTE,
@@ -2665,6 +2692,27 @@ def main() -> int:
         check_close(f"scores card vs CPU, {label}", sc.cpu(),
                     make_batch_scorer(path, "cpu")(clips), SCORE_ATOL, 0.0)
 
+    # the cepstrum kernel's first design kept for the A/B: the 240-filter
+    # scorer's frontend (its register body in log-mel mode), finished by
+    # `_cepstrum_simt=True`, into the scorer's GRU classifier kernel; card
+    # against CPU
+    path240 = with_params(CHECKPOINT, {"n_filt": 240}, route_dir)
+    scorer240 = make_batch_scorer(path240, "cuda")
+    fe240 = scorer240.frontend
+    sc = drive("the 240-filter scorer's frontend with the cepstrum kernel's "
+               "first design (_cepstrum_simt=True) + its GRU classifier on 8 "
+               "clips",
+               lambda: score_fn(scorer240.classifier(
+                   frontend_kernel.mfcc_frontend_cuda(
+                       clips_dev, fe240._unit_gain, fe240.consts,
+                       fe240.params, fe240.out_dtype, _cepstrum_simt=True))),
+               ("mfcc_frontend", "cepstrum_simt", "gru_classifier"),
+               ("cepstrum", "mfcc_frontend_radix2"))
+    check_close("scores card vs CPU, 240 filters, the cepstrum kernel's first "
+                "design", sc.cpu(), make_batch_scorer(path240, "cpu")(clips),
+                SCORE_ATOL, 0.0)
+    del scorer240, fe240
+
     # route ct with 300 filters and coefficients (no fused block fits their
     # DCT columns: the wide FFT in log-mel mode, then the cepstrum kernel)
     # into the GRU classifier: a random 48-unit GRU of feature size 300
@@ -2682,7 +2730,8 @@ def main() -> int:
                "(random, D 300) on 8 clips",
                lambda: score_fn(cls300(fe300(clips_dev))),
                ("wide_fft_frontend", "cepstrum", "gru_classifier_simt"),
-               ("mixed_fft_frontend", *ct_kernel.counters, "gru_classifier"))
+               ("mixed_fft_frontend", *ct_kernel.counters, "gru_classifier",
+                "cepstrum_simt"))
     cpu300 = score_fn(GRUClassifier(gru300)(
         MfccFrontend(p300, "mfcc", "cpu")(torch.tensor(clips))))
     check_close("scores card vs CPU, n_fft 4352, 300 coefficients", sc.cpu(),
@@ -3047,42 +3096,33 @@ def main() -> int:
         bound = cepstrum_mode_bound(p_many, B_TIME)
         if abs(bound[0] - row["bound_ms"]) > 1e-9 * bound[0]:
             raise AssertionError("the ablation's bound is not chip_smoke's")
-    # the cepstrum kernel alone at n_fft 4352 with 600 filters and
-    # coefficients, on the plain log-mel rows of this batch: held to its
-    # plain version, then timed beside it, its bound and one PyTorch call
-    # of the same function at these settings (no deltas, batch-major, f32:
-    # torch.matmul of the rows and the extended table, cuBLAS with TF32
+    # the cepstrum kernel alone against its first design, in turns wgmma,
+    # simt, simt, wgmma, on the plain log-mel rows of speech at 600 x 600
+    # (n_fft 4352) and 240 x 20 (n_fft 1024, the 240-filter scorer's), each
+    # first held to the plain version, beside it, the bound and one PyTorch
+    # call of the same function at these settings (no deltas, batch-major,
+    # f32: torch.matmul of the rows and the extended table, cuBLAS with TF32
     # off; a yardstick the port never calls)
-    p600 = ListenerParams(n_filt=MANY_COEFFS[-1], n_mfcc=MANY_COEFFS[-1],
-                          **WIDE_ROUTE)
-    logmel = cepstrum_plan.logmel_plain(Frontend(p600, "mfcc", dev), big)
-    dct600 = torch.tensor(dct_t_matrix(p600.n_filt), device=dev)
-    table600 = torch.tensor(cepstrum_plan.extended_table(
-        dct_t_matrix(p600.n_filt), p600.n_mfcc), device=dev)
-    ext600 = table600[:p600.n_filt + 1, :p600.n_mfcc]
-    want = cepstrum_plan.cepstrum_plain(logmel, dct600, p600.n_mfcc)
-    cep_errs.append(check_close(
-        f"cepstrum n_fft 4352, 600 x 600, B = {B_TIME}",
-        frontend_kernel.cepstrum_cuda(logmel, table600, p600.n_mfcc), want,
-        FEAT_ATOL, FEAT_RTOL))
-    check_close("torch.matmul of the rows and the extended table (the "
-                "yardstick)", torch.matmul(logmel, ext600), want, FEAT_ATOL,
-                FEAT_RTOL)
-    del want
-    cep_ms = cuda_ms(lambda: frontend_kernel.cepstrum_cuda(
-        logmel, table600, p600.n_mfcc), 10)
-    cep_plain_ms = cuda_ms(lambda: cepstrum_plan.cepstrum_plain(
-        logmel, dct600, p600.n_mfcc), 5)
-    cep_matmul_ms = cuda_ms(lambda: torch.matmul(logmel, ext600), 10)
-    cep_bound = cepstrum_bound(p600, B_TIME)
-    log(f"  cepstrum (the kernel alone) at n_fft 4352, 600 filters and "
-        f"coefficients, B = {B_TIME} ({p600.n_features} frames): "
-        f"{cep_ms:.4f} ms = "
-        f"{2e-9 * B_TIME * p600.n_features * 600 * 599 / cep_ms:.1f} TFLOP/s;"
-        f" plain {cep_plain_ms:.4f} ms; bound {cep_bound[0]:.4f} ms "
-        f"({cep_bound[1]}); torch.matmul (cuBLAS, TF32 off) "
-        f"{cep_matmul_ms:.4f} ms  ({card})")
-    del logmel
+    log(f"  the cepstrum kernel alone against its first design at B = "
+        f"{B_TIME} ({card}):")
+    cep_alone = {(row["n_fft"], row["n_filt"], row["n_mfcc"]): row
+                 for row in cepstrum_ablation.run_alone(B_TIME, 10, dev)}
+    for (n_fft, n_filt, n_mfcc), row in cep_alone.items():
+        bound = cepstrum_bound(cepstrum_ablation.config(n_fft, n_filt, n_mfcc),
+                               B_TIME)
+        if abs(bound[0] - row["bound_ms"]) > 1e-9 * bound[0]:
+            raise AssertionError("the ablation's kernel bound is not "
+                                 "chip_smoke's")
+        cep_errs.append(row["max_abs_err"]["wgmma"])
+        cep_simt_errs.append(row["max_abs_err"]["simt"])
+        new_ms, simt_ms = row["ms"]["wgmma"][0], row["ms"]["simt"][0]
+        log(f"  cepstrum (the kernel alone) at n_fft {n_fft}, {n_filt} x "
+            f"{n_mfcc} ({row['rows']} rows): wgmma {new_ms:.4f} ms, simt "
+            f"{simt_ms:.4f} ms ({simt_ms / new_ms:.2f}x), torch.matmul "
+            f"{row['matmul_ms']:.4f} ms ({row['matmul_ms'] / new_ms:.2f}x), "
+            f"bound {bound[0]:.4f} ms ({bound[1]}; wgmma at "
+            f"{new_ms / bound[0]:.2f}x)  ({card})")
+    cep600 = cep_alone[4352, MANY_COEFFS[-1], MANY_COEFFS[-1]]
     times = {
         "wide_fft_frontend": (wide_ab[WIDE_AB[0]]["ms"],
                               wide_ab[WIDE_AB[0]]["plain_ms"]),
@@ -3090,7 +3130,8 @@ def main() -> int:
         "mfcc_frontend_radix2": (cuda_ms(radix2, 10), fe_plain_ms),
         "mfcc_frontend_wide": (fft_wide_ab[8192]["ms"],
                                fft_wide_ab[8192]["plain_ms"]),
-        "cepstrum": (cep_ms, cep_plain_ms),
+        "cepstrum": (cep600["ms"]["wgmma"][0], cep600["plain_ms"]),
+        "cepstrum_simt": (cep600["ms"]["simt"][0], cep600["plain_ms"]),
         "dft_frontend_bf16": (fast_ab["wgmma"][0], fast_plain_ms),
         "dft_frontend_mma_sync": (fast_ab["mma_sync"][0], fast_plain_ms),
         "cnn_classifier": (
@@ -3263,7 +3304,7 @@ def main() -> int:
     # is timed with its A/B below
     library = dict.fromkeys(times)
     library["load_rowsum"] = cuda_ms(lambda: torch.sum(big, 1), 50)
-    library["cepstrum"] = cep_matmul_ms
+    library["cepstrum"] = library["cepstrum_simt"] = cep600["matmul_ms"]
     # (T, D, U, C), the same for both RNN checkpoints
     rnn_dims = (big_feats.shape[1], big_feats.shape[2],
                 lstm_pretrained.backbone.lstm_unit_0.units,
@@ -3517,6 +3558,8 @@ def main() -> int:
              frontend_kernel.REPLACES, fft_wide_errs),
             ("cepstrum", frontend_kernel.CEPSTRUM_SOURCE,
              frontend_kernel.REPLACES, cep_errs),
+            ("cepstrum_simt", frontend_kernel.CEPSTRUM_SIMT_SOURCE,
+             frontend_kernel.REPLACES, cep_simt_errs),
             ("dft_frontend_bf16", frontend_kernel.DFT_SOURCE,
              frontend_kernel.DFT_REPLACES, fast_errs),
             ("dft_frontend_mma_sync", frontend_kernel.DFT_MMA_SYNC_SOURCE,
@@ -3618,9 +3661,20 @@ def main() -> int:
                     "ms": row["ms"]["split-dup"][0],
                     **{key: row[key] for key in ("plain_ms", "bound_ms",
                                                  "bound_by")}}
+        if name.startswith("cepstrum"):
+            # alone at n_fft 1024, 240 x 20, from the A/B above
+            row = cep_alone[1024, 240, 20]
+            kernels[-1]["n_fft_1024_240x20"] = {
+                "ms": row["ms"]["simt" if name.endswith("simt") else
+                              "wgmma"][0],
+                "library_ms": row["matmul_ms"],
+                **{key: row[key] for key in ("rows", "plain_ms", "bound_ms",
+                                             "bound_by")}}
         if name == "cepstrum":
-            # the frontend in each mode, from the slice's A/Bs above (each
-            # row's runs in turns, their layouts, plain and bound)
+            # its first design in the same call; the frontend in each mode,
+            # from the slice's A/Bs above (each row's runs in turns, their
+            # layouts, plain and bound)
+            kernels[-1]["simt_ms"] = cep600["ms"]["simt"][0]
             kernels[-1]["frontend_ab"] = cep_ab
         if name.startswith("cnn_block1"):
             # bf16 compute on f32 features, from the A/B above

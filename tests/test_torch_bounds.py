@@ -3,7 +3,7 @@
 B = 8192 windows of 16,000 f32 samples at the default config: 245,760
 frames of 1,024 samples, 513 bins, 20 filters (927 nonzero weights once
 packed), 20 MFCCs; a 48-unit GRU or LSTM over (30, 20) features into 5
-classes.  Peaks: 67 TFLOP/s f32, 989 TFLOP/s bf16, 3.35 TB/s.
+classes.  Peaks: 67 TFLOP/s f32, 989 TFLOP/s bf16, 495 TFLOP/s TF32, 3.35 TB/s.
 
 - FFT frontend: a real-input 1024-point FFT is 2.5 n log2 n = 25,600
   FLOP a frame (6.29 GFLOP), with the cepstrum (4 a bin, 2 a packed
@@ -21,12 +21,21 @@ classes.  Peaks: 67 TFLOP/s f32, 989 TFLOP/s bf16, 3.35 TB/s.
   reported apart: stage 2, 14 products of 128 x 128 x 2 a frame (112.7
   GFLOP), stage 1, the n2 = 8 butterfly's 24 operations a lane, and the
   packed cepstrum: about 1.71 ms of f32;
-- the cepstrum kernel alone at n_fft 4352 with 600 filters and 600
-  coefficients (23 frames): 2 x 600 x 599 a frame (135.4 GFLOP, 2.0214 ms
-  of f32) against its log-mel rows read (601 floats a frame) and its
-  features written (0.2702 ms); the frontend in that mode counts its
-  function's work only, the real FFT, 4 a bin, 2 a packed weight and 2 x
-  n_filt x (n_mfcc - 1) for the DCT, no log-mel round trip;
+- the cepstrum kernel alone (both designs, one function) at n_fft 4352
+  with 600 filters and 600 coefficients (23 frames): 2 x 600 x 599 a frame
+  (135.4 GFLOP) at the 3xTF32 rate, 0.8208 ms, against its log-mel rows
+  read (601 floats a frame) and its features written (0.2702 ms); at n_fft
+  1024 with 240 filters and 20 coefficients (30 frames) its bytes bind,
+  256.6 MB in 0.0766 ms against 2.24 GFLOP in 0.0136 ms.  The DCT's
+  operations count at 495 / 3 = 165 TFLOP/s: an f32-accurate product runs
+  on the tensor cores as three TF32 products (hi.hi + hi.lo + lo.hi of
+  each operand split into a TF32 high part and the TF32 rounding of the
+  rest), as the kernel runs it, and the least time the card needs for the
+  function is that, not the FFMA units' 67 TFLOP/s (2.0214 ms, the first
+  design's own floor).  The frontend in that mode counts its function's
+  work only, the real FFT, 4 a bin and 2 a packed weight at the f32 peak
+  and 2 x n_filt x (n_mfcc - 1) for the DCT at the 3xTF32 rate, no log-mel
+  round trip;
 - the stage cuts (ops/omission_kernel.py): the audio read (or, with a
   constant block, block 0's 16 rows) and a (B, 128) f32 output; the
   operations of the cut's function (`chip_smoke.cut_bounds`);
@@ -85,7 +94,8 @@ EXPECTED = {  # name: (bound_by, ms)
     # route ct's kernel at n_fft = window = 768: 30 frames of 20 features
     # over a span of 15,616 samples
     "mixed_fft_frontend": ("bytes", (SPAN_768_B + FEATS_B) / 3.35e9),
-    "cepstrum": ("operations", 8192 * 23 * 2 * 600 * 599 / 67e9),
+    "cepstrum": ("operations", 3 * 8192 * 23 * 2 * 600 * 599 / 495e9),
+    "cepstrum_simt": ("operations", 3 * 8192 * 23 * 2 * 600 * 599 / 495e9),
     "dense_dft_combined": ("operations", (DFT + CEPSTRUM) / 67e9),
     "dense_dft_halves": ("operations", (DFT + CEPSTRUM) / 67e9),
     "load_rowsum": ("bytes", (AUDIO_B + 4 * 8192) / 3.35e9),
@@ -306,20 +316,49 @@ def test_cnn_bounds_count_the_kept_positions_and_the_separable_form(bounds):
 
 
 def test_cepstrum_kernel_bound_at_600_coefficients(bounds):
-    """The cepstrum kernel alone at n_fft 4352, 600 x 600: its operations
-    bind, 2.0214 ms, above its bytes' 0.2702 ms."""
+    """The cepstrum kernel alone at n_fft 4352, 600 x 600: its operations at
+    the 3xTF32 rate bind, 0.8208 ms (135.44 GFLOP), above its bytes' 0.2702
+    ms; at the f32 FFMA peak, the first design's own floor, they took
+    2.0214 ms."""
     frames = 8192 * 23
-    assert bounds["cepstrum"][0] == pytest.approx(2.0214, abs=1e-4)
+    assert bounds["cepstrum"][0] == pytest.approx(0.8208, abs=1e-4)
+    assert bounds["cepstrum_simt"] == bounds["cepstrum"]
+    assert frames * 2 * 600 * 599 == pytest.approx(135.44e9, rel=1e-4)
+    assert frames * 2 * 600 * 599 / 67e9 == pytest.approx(2.0214, abs=1e-4)
     nbytes = 4 * frames * 601 + 4 * frames * 600
     assert nbytes / 3.35e9 == pytest.approx(0.2702, abs=1e-4)
+
+
+def test_cepstrum_kernel_bound_at_240_filters(chip_smoke):
+    """The 240-filter scorer's cepstrum (n_fft 1024, 20 coefficients, 30
+    frames, 245,760 rows): its bytes bind, 256.6 MB in 0.0766 ms, above its
+    2.24 GFLOP's 0.0136 ms at the 3xTF32 rate; the ablation's
+    `kernel_bound` is the same count."""
+    from tpu_speech_commands_torch.dev import cepstrum_ablation
+
+    frames = 8192 * 30
+    nbytes = 4 * frames * 241 + 4 * frames * 20
+    ops = frames * 2 * 240 * 19
+    assert nbytes == pytest.approx(256.6e6, rel=1e-3)
+    assert 3 * ops / 495e9 == pytest.approx(0.0136, abs=1e-4)
+    got = chip_smoke.cepstrum_bound(ListenerParams(n_filt=240), 8192)
+    assert got[1] == "bytes"
+    assert got[0] == pytest.approx(nbytes / 3.35e9, rel=1e-9)
+    assert got[0] == pytest.approx(0.0766, abs=1e-4)
+    assert cepstrum_ablation.kernel_bound(8192, 30, 240, 20) == \
+        pytest.approx(got)
+    p600 = ListenerParams(n_fft=4352, window_t=0.272, n_filt=600, n_mfcc=600)
+    assert cepstrum_ablation.kernel_bound(8192, 23, 600, 600) == \
+        pytest.approx(chip_smoke.cepstrum_bound(p600, 8192))
 
 
 @pytest.mark.parametrize("n,packed", [(300, 4029), (512, 3847), (600, 3779)])
 def test_cepstrum_mode_bound_counts_the_function_only(chip_smoke, n, packed):
     """The frontend in log-mel mode with the cepstrum kernel at n_fft 4352
-    with n filters and coefficients: the real FFT, 4 a bin, 2 a packed
-    weight and 2 n (n - 1) for the DCT a frame at the f32 peak, against the
-    kept frames' span of audio and the features; the ablation's
+    with n filters and coefficients: the real FFT, 4 a bin and 2 a packed
+    weight a frame at the f32 peak, 2 n (n - 1) for the DCT at the 3xTF32
+    rate, against the kept frames' span of audio and the features (at 600,
+    1.2364 ms, from 2.4370 with the DCT at the f32 peak); the ablation's
     `mode_bound` is the same count."""
     import math
 
@@ -327,11 +366,14 @@ def test_cepstrum_mode_bound_counts_the_function_only(chip_smoke, n, packed):
 
     p = ListenerParams(n_fft=4352, window_t=0.272, n_filt=n, n_mfcc=n)
     f = 8192 * 23
-    ops = f * (2.5 * 4352 * math.log2(4352) + 4 * 2177 + 2 * packed
-               + 2 * n * (n - 1))
+    ops = f * (2.5 * 4352 * math.log2(4352) + 4 * 2177 + 2 * packed)
+    dct = f * 2 * n * (n - 1)
     nbytes = 4 * 8192 * (22 * 512 + 4352) + 4 * f * n
     got = chip_smoke.cepstrum_mode_bound(p, 8192)
     assert got[1] == "operations"
-    assert got[0] == pytest.approx(max(ops / 67e9, nbytes / 3.35e9), rel=1e-9)
+    assert got[0] == pytest.approx(
+        max(ops / 67e9 + 3 * dct / 495e9, nbytes / 3.35e9), rel=1e-9)
     assert cepstrum_ablation.mode_bound(p, 8192) == pytest.approx(got)
-
+    if n == 600:
+        assert got[0] == pytest.approx(1.2364, abs=1e-4)
+        assert ops / 67e9 + dct / 67e9 == pytest.approx(2.4370, abs=1e-4)

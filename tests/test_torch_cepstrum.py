@@ -1,17 +1,23 @@
 """The cepstrum kernel's plan and the DCT region of the register and wide FFT
-bodies (csrc/cepstrum.cu, csrc/register_fft.cuh), on the CPU.
+bodies (csrc/cepstrum_wgmma.cu and its first design csrc/cepstrum.cu,
+csrc/register_fft.cuh), on the CPU.
 
 - the port's frontend at configs of many filters and coefficients against
   the JAX package's plain frontend, and the cepstrum kernel's emulated maps
   on the plain log-mel rows against JAX K1 (`make_fused_frontend`,
   dft_mode="ct", interpret mode), at this file's RTOL / ATOL (two f32
   chains that sum in another order, as tests/test_torch_frontend.py);
-- `cepstrum_plan.emulate` (the kernel's blocks, whole-window tiles, chunks
-  of BM rows with the carried row, K slices, time-major store) against
-  `cepstrum_plain` at 1e-5: float32 products summed in another order;
+- `cepstrum_plan.emulate` (the kernel's blocks, whole-window tiles, column
+  tiles of `n_tile`, chunks of 128 rows with the carried row, k8 steps of
+  three TF32 products from the split rows and tables, time-major store) and
+  `emulate_simt` (its first design's) against `cepstrum_plain` at 1e-5:
+  float32 sums in another order, and the split's 2^-22 of each product;
+- the kernel's column tiles (`n_tile`: a multiple of 8 up to 256, fewer
+  than 8 columns past n_mfcc a tile) and its split tables (TF32 values,
+  hi + lo within 2^-21 of the f32 table);
 - the mirrors: `fft_plan.fft_layout` against smem_layout() evaluated from
   register_fft.cuh's text in every mode, and the tile constants against
-  cepstrum.cu's `#define`s;
+  cepstrum_wgmma.cu's and cepstrum.cu's `#define`s;
 - the body and mode each config of many filters and coefficients gets,
   from the config alone;
 - the float64 features the card's checks at many filters use, against the
@@ -77,11 +83,22 @@ def test_frontend_matches_the_jax_plain_frontend(audio, name):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
-def test_emulated_cepstrum_matches_jax_k1(audio):
-    """The cepstrum kernel's maps (`emulate`) on the plain log-mel rows
-    (`logmel_plain`, what the body writes in log-mel mode) against JAX K1
-    in interpret mode, at 128 filters and 128 coefficients (a config the
-    cepstrum kernel serves) with deltas, two windows of int16 PCM."""
+def _emulate(design, logmel, dct, n_mfcc, deltas=False, time_major=False):
+    """The design's emulated maps on its own tables."""
+    if design == "simt":
+        return cp.emulate_simt(logmel, cp.extended_table(dct, n_mfcc), n_mfcc,
+                               deltas, time_major)
+    return cp.emulate(logmel, *cp.split_tables(dct, n_mfcc), n_mfcc, deltas,
+                      time_major)
+
+
+@pytest.mark.parametrize("design", ["wgmma", "simt"])
+def test_emulated_cepstrum_matches_jax_k1(audio, design):
+    """The cepstrum kernel's maps and split (`emulate`), and its first
+    design's (`emulate_simt`), on the plain log-mel rows (`logmel_plain`,
+    what the body writes in log-mel mode) against JAX K1 in interpret mode,
+    at 128 filters and 128 coefficients (a config the cepstrum kernel
+    serves) with deltas, two windows of int16 PCM."""
     kw = _params(1024, 128, 128, use_delta=True)
     p = ListenerParams(**kw)
     assert fft_cepstrum(p)
@@ -91,8 +108,7 @@ def test_emulated_cepstrum_matches_jax_k1(audio):
     want = np.asarray(fused(jnp.asarray(pcm), GAIN))
     logmel = cp.logmel_plain(Frontend(p, "mfcc", "cpu"), torch.tensor(pcm),
                              GAIN).numpy()
-    got = cp.emulate(logmel, cp.extended_table(dct_t_matrix(128), 128), 128,
-                     emit_deltas=True)
+    got = _emulate(design, logmel, dct_t_matrix(128), 128, deltas=True)
     assert got.shape == want.shape == (2, p.n_features, 256)
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
@@ -103,28 +119,78 @@ EMULATION_CASES = {
     "a window over two chunks": (3, 150, 24, 10),
     "one frame a window": (130, 1, 20, 20),
     "two column tiles": (5, 30, 200, 130),
+    "two kernel column tiles": (3, 23, 300, 300),
 }
 
 
+@pytest.mark.parametrize("design", ["wgmma", "simt"])
 @pytest.mark.parametrize("time_major", [False, True])
 @pytest.mark.parametrize("deltas", [False, True])
 @pytest.mark.parametrize("name", sorted(EMULATION_CASES))
-def test_emulation_matches_plain(name, deltas, time_major):
-    """`emulate` writes every output once and agrees with `cepstrum_plain`:
-    5 + 2 windows of 23 frames (wpb 5), a window of 150 frames in chunks of
-    128 and 22 rows (the carried row gives the first delta of the second),
-    one-frame windows 128 a tile, 130 coefficients over two column tiles."""
+def test_emulation_matches_plain(name, deltas, time_major, design):
+    """`emulate` (the kernel) and `emulate_simt` (its first design) write
+    every output once and agree with `cepstrum_plain`: 5 + 2 windows of 23
+    frames (wpb 5), a window of 150 frames in chunks of 128 and 22 rows (the
+    carried row gives the first delta of the second), one-frame windows 128
+    a tile, 130 coefficients over the first design's two column tiles, 300
+    over the kernel's two of 152."""
     batch, n_feat, n_filt, n_mfcc = EMULATION_CASES[name]
     rng = np.random.default_rng(batch + n_feat)
     logmel = (3 * rng.standard_normal((batch, n_feat, n_filt + 1))
               ).astype(np.float32)
     dct = dct_t_matrix(n_filt)
-    got = cp.emulate(logmel, cp.extended_table(dct, n_mfcc), n_mfcc, deltas,
-                     time_major)
+    got = _emulate(design, logmel, dct, n_mfcc, deltas, time_major)
     want = cp.cepstrum_plain(torch.tensor(logmel), torch.tensor(dct), n_mfcc,
                              deltas, time_major).numpy()
     assert not np.isnan(got).any()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_n_tile_fits_the_coefficients():
+    """For every n_mfcc of 1-600 the kernel's column tile is one of TILES
+    (multiples of 8 up to 256, each an instantiation), its tiles hold fewer
+    than 8 columns past n_mfcc each, and no tile is all padding: 24 columns
+    at 20 coefficients, 3 x 200 at 600."""
+    assert cp.TILES == tuple(range(8, cp.MAX_TILE_N + 1, 8))
+    assert cp.MAX_TILE_N <= 256
+    for n_mfcc in range(1, 601):
+        tile = cp.n_tile(n_mfcc)
+        n_pad, k_pad = cp.table_shape(600, n_mfcc)
+        n_tiles = n_pad // tile
+        assert tile in cp.TILES and n_pad == n_tiles * tile, n_mfcc
+        assert n_pad - n_mfcc < 8 * n_tiles, n_mfcc
+        assert n_pad - tile < n_mfcc <= n_pad, n_mfcc
+        assert k_pad == 608
+    assert (cp.n_tile(20), cp.table_shape(240, 20)) == (24, (24, 256))
+    assert (cp.n_tile(600), cp.table_shape(600, 600)) == (200, (600, 608))
+    assert (cp.n_tile(8), cp.n_tile(9)) == (8, 16)
+
+
+@pytest.mark.parametrize("n_filt,n_mfcc", [(20, 20), (240, 20), (600, 600),
+                                           (40, 13)])
+def test_split_tables_hold_tf32_values(n_filt, n_mfcc):
+    """hi and lo are (n_pad, k_pad), the extended table transposed; every
+    value has its low 13 bits zero (TF32), and hi + lo is the f32 table
+    within 2^-21 of each value (|lo| <= 2^-11 |hi|)."""
+    dct = dct_t_matrix(n_filt)
+    hi, lo = cp.split_tables(dct, n_mfcc)
+    ext = cp.extended_table(dct, n_mfcc)
+    n_pad, k_pad = cp.table_shape(n_filt, n_mfcc)
+    assert hi.shape == lo.shape == (n_pad, k_pad)
+    assert hi.dtype == lo.dtype == np.float32
+    for part in (hi, lo):
+        assert not (part.view(np.uint32) & np.uint32(0x1FFF)).any()
+    want = np.zeros((k_pad, n_pad), np.float32)
+    rows, cols = min(k_pad, ext.shape[0]), min(n_pad, ext.shape[1])
+    want[:rows, :cols] = ext[:rows, :cols]
+    got = hi.astype(np.float64) + lo.astype(np.float64)
+    np.testing.assert_allclose(got, want.T.astype(np.float64), rtol=2.0 ** -21,
+                               atol=0)
+    assert (np.abs(lo) <= 2.0 ** -11 * np.abs(hi)).all()
+    assert hi[0, n_filt] == 1 and np.count_nonzero(hi[0]) == 1
+    x = np.array([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -12], np.float32)
+    np.testing.assert_array_equal(cp.tf32_rna(x),
+                                  [1 + 2 ** -10, -(1 + 2 ** -10), 1])
 
 
 def test_extended_table_carries_the_energy_into_column_zero():
@@ -152,6 +218,40 @@ def test_tile_constants_are_the_source_defines():
     assert "__launch_bounds__(TSC_CEP_THREADS, 2)" in src
     assert cp.smem_bytes() == 4 * (128 * 129 + 128) == 66560
     assert fp.SMEM_PER_SM // (cp.smem_bytes() + fp.SMEM_RESERVED) == 3
+
+
+def test_wgmma_tile_constants_are_the_source_defines():
+    """cepstrum_wgmma.cu's TSC_CEPW_* are the plan's tile, its launch bounds
+    the plan's blocks an SM, and its ring the plan's: at least three stages
+    at every tile, each block within its share of the SM (two blocks up to
+    32 columns, else one) and the staged tile within the ring."""
+    src = (_build.CSRC_DIR / "cepstrum_wgmma.cu").read_text()
+    defines = {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"#define TSC_CEPW_(\w+) (\d+)", src)}
+    assert defines == {"BM": cp.TILE_M, "BK": cp.TILE_K,
+                       "MAX_BN": cp.MAX_TILE_N, "APITCH": cp.A_PITCH,
+                       "THREADS": cp.WG_THREADS,
+                       "MAX_STAGES": cp.MAX_STAGES,
+                       "TWO_BLOCK_BN": cp.TWO_BLOCK_TILE,
+                       "CUT": 0}  # the ablation's switch: no cut shipped
+    assert "__launch_bounds__(TSC_CEPW_THREADS, Tile<BN>::kBlocks)" in src
+    assert "kBlocks = BN <= TSC_CEPW_TWO_BLOCK_BN ? 2 : 1" in src
+    assert "kStageBytes = 2 * kTableBytes + kBM * kAPitch * 4" in src
+    assert "return 1024 + 4 * BN + 8 * (2 * stages + 1)" in src
+    assert {int(n) for n in re.findall(r"TSC_WGMMA_TF32\(\d+, (\d+)\)",
+                                       src)} == set(cp.TILES)
+    assert cp.TILE_M == cp.BM and cp.A_PITCH == cp.TILE_K + 4
+    for tile in cp.TILES:
+        blocks = cp.blocks_per_sm(tile)
+        assert 3 <= cp.ring_stages(tile) <= cp.MAX_STAGES
+        assert blocks * (cp.wgmma_smem_bytes(tile) + fp.SMEM_RESERVED) <= \
+            fp.SMEM_PER_SM
+        assert cp.wgmma_smem_bytes(tile) <= fp.SMEM_OPTIN
+        assert 4 * cp.TILE_M * (tile + 4) <= \
+            cp.ring_stages(tile) * cp.stage_bytes(tile)
+        assert cp.stage_bytes(tile) % 1024 == 0
+    assert [cp.ring_stages(t) for t in (24, 200, 224)] == [4, 3, 3]
+    assert cp.wgmma_smem_bytes(200) == 210776
 
 
 def _source_smem_layout():
@@ -223,12 +323,12 @@ def test_fft_layout_mirrors_the_source(mode):
 
 TABLE = {  # (n_fft, n_filt, n_mfcc): body, cepstrum, blocks x warps an SM
     (1024, 20, 20): ("register", False, (4, 8)),
-    (1024, 64, 20): ("register", False, (4, 8)),
+    (1024, 64, 20): ("register", True, (4, 8)),
     (1024, 80, 40): ("register", True, (4, 8)),
     (1024, 128, 20): ("register", True, (4, 8)),
     (1024, 128, 128): ("register", True, (4, 8)),
     (1024, 240, 20): ("register", True, (3, 8)),
-    (768, 230, 20): ("register", False, (2, 4)),
+    (768, 230, 20): ("register", True, (2, 4)),
     (4352, 300, 20): ("wide", True, (4, 4)),
     (4352, 300, 300): ("wide", True, (4, 4)),
     (4352, 512, 512): ("wide", True, (4, 4)),
@@ -240,10 +340,11 @@ TABLE = {  # (n_fft, n_filt, n_mfcc): body, cepstrum, blocks x warps an SM
 def test_body_and_mode_come_from_the_config(key):
     """Every config of the table takes the register or wide body, fused
     where its trimmed block keeps all the warps an SM that log-mel mode
-    holds (CEP_MIN_SHARE 1: 20 x 20, 64 x 20 at 1024, 230 x 20 at 768),
-    else with the cepstrum kernel (80 x 40 at 1024: 24 of 32; 128 x 128: 8
-    of 32; 300-600 coefficients at 4352: no fused block fits); never the
-    radix-2 body or the CT split."""
+    holds and its DCT has fewer than CEP_MIN_PRODUCTS products a frame
+    (20 x 20 at 1024: 380), else with the cepstrum kernel (80 x 40 at 1024:
+    24 of 32 warps; 128 x 128: 8 of 32; 64 x 20 at 1024 and 230 x 20 at 768
+    keep their warps, at 1,216 and 4,370 products; 300-600 coefficients at
+    4352: no fused block fits); never the radix-2 body or the CT split."""
     body, cepstrum, (blocks, warps) = TABLE[key]
     p = ListenerParams(**_params(*key))
     fe = MfccFrontend(p, "mfcc", "cpu")

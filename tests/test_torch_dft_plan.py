@@ -35,7 +35,10 @@ CONFIGS = {
     "alt_512": ({"window_t": 0.025, "hop_t": 0.01, "n_fft": 512,
                  "n_filt": 26, "n_mfcc": 13}, "mfcc"),
 }
-SRC = (_build.CSRC_DIR / "dft_wgmma.cu").read_text()
+# the kernel's source and the ring's pieces it shares with the cepstrum
+# kernel (its B descriptor among them)
+SRC = "".join((_build.CSRC_DIR / name).read_text()
+              for name in ("dft_wgmma.cu", "hopper_ring.cuh"))
 
 
 def _const(name):

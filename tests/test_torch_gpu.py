@@ -1773,33 +1773,41 @@ def test_listener_card_matches_cpu(cuda_device, model_type):
 
 # the cepstrum kernel alone, (batch, frames, filters, coefficients): whole
 # windows split over tiles unevenly, a window over two chunks of 128 rows,
-# one frame a window, 600 coefficients over five column tiles, one
-# coefficient (the energy)
+# one frame a window, 600 coefficients over three column tiles of the kernel
+# (five of its first design), one coefficient (the energy), the 240-filter
+# scorer's 20 at 30 frames, 8 and 9 coefficients (either side of a
+# multiple of 8: one column tile of 8 and one of 16)
 CEP_SHAPES = [(1000, 23, 600, 600), (37, 150, 40, 13), (300, 7, 128, 128),
-              (130, 1, 20, 20), (64, 30, 300, 1)]
+              (130, 1, 20, 20), (64, 30, 300, 1), (1000, 30, 240, 20),
+              (333, 23, 64, 8), (333, 23, 64, 9)]
 
 
+@pytest.mark.parametrize("design", ["wgmma", "simt"])
 @pytest.mark.parametrize("time_major", [False, True])
 @pytest.mark.parametrize("deltas", [False, True])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", CEP_SHAPES)
 def test_cepstrum_kernel_matches_plain(cuda_device, shape, out_dtype, deltas,
-                                       time_major):
-    """csrc/cepstrum.cu against cepstrum_plan.cepstrum_plain on random
-    log-mel rows, each launch counted in frontend_kernel.CEPSTRUM."""
+                                       time_major, design):
+    """csrc/cepstrum_wgmma.cu, and its first design csrc/cepstrum.cu
+    (`_simt=True`), against cepstrum_plan.cepstrum_plain on random log-mel
+    rows, each launch counted in frontend_kernel.CEPSTRUM or
+    CEPSTRUM_SIMT and never in the other."""
     batch, n_feat, n_filt, n_mfcc = shape
     rng = np.random.default_rng(sum(shape))
     logmel = torch.tensor(3.0 * rng.standard_normal(
         (batch, n_feat, n_filt + 1)), dtype=torch.float32, device=cuda_device)
     dct = torch.tensor(dct_t_matrix(n_filt), device=cuda_device)
-    table = torch.tensor(cepstrum_plan.extended_table(dct_t_matrix(n_filt),
-                                                      n_mfcc),
-                         device=cuda_device)
-    before = frontend_kernel.CEPSTRUM.launches
-    got = frontend_kernel.cepstrum_cuda(logmel, table, n_mfcc, deltas,
-                                        time_major, out_dtype)
+    tables = cepstrum_plan.cep_tables(dct_t_matrix(n_filt), n_mfcc,
+                                      cuda_device)
+    simt = design == "simt"
+    counts = (frontend_kernel.CEPSTRUM, frontend_kernel.CEPSTRUM_SIMT)
+    before = [c.launches for c in counts]
+    got = frontend_kernel.cepstrum_cuda(logmel, tables, n_mfcc, deltas,
+                                        time_major, out_dtype, _simt=simt)
     torch.cuda.synchronize()
-    assert frontend_kernel.CEPSTRUM.launches == before + 1
+    assert [c.launches for c in counts] == [before[0] + (not simt),
+                                            before[1] + simt]
     want = cepstrum_plan.cepstrum_plain(logmel, dct, n_mfcc, deltas,
                                         time_major, out_dtype)
     assert got.shape == want.shape and got.dtype == out_dtype
@@ -1808,29 +1816,80 @@ def test_cepstrum_kernel_matches_plain(cuda_device, shape, out_dtype, deltas,
                                atol=2e-3)
 
 
+@pytest.mark.parametrize("n_mfcc", [40, 48, 64, 100, 150, 224, 225])
+def test_cepstrum_kernel_takes_every_ring_depth(cuda_device, n_mfcc):
+    """Column tiles of one block an SM at each ring depth, 8 stages (40
+    columns) down to 3 (224, the widest tile), and 225 coefficients over two
+    tiles of 120, with deltas, against the plain version."""
+    n_filt = 240
+    tile = cepstrum_plan.n_tile(n_mfcc)
+    assert cepstrum_plan.blocks_per_sm(tile) == 1
+    rng = np.random.default_rng(n_mfcc)
+    logmel = torch.tensor(3.0 * rng.standard_normal((61, 23, n_filt + 1)),
+                          dtype=torch.float32, device=cuda_device)
+    tables = cepstrum_plan.cep_tables(dct_t_matrix(n_filt), n_mfcc,
+                                      cuda_device)
+    got = frontend_kernel.cepstrum_cuda(logmel, tables, n_mfcc, True)
+    want = cepstrum_plan.cepstrum_plain(
+        logmel, torch.tensor(dct_t_matrix(n_filt), device=cuda_device),
+        n_mfcc, True)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("shift", [1, 2, 3])
+def test_cepstrum_kernel_takes_rows_at_any_4_byte_offset(cuda_device, shift):
+    """Rows that start 4, 8 or 12 bytes past a 16-byte boundary (a view into
+    a larger buffer): the windows of the first row's slices begin before
+    the rows and are zero-filled there; held to the plain version."""
+    rng = np.random.default_rng(shift)
+    batch, n_feat, n_filt, n_mfcc = 37, 23, 64, 20
+    n = batch * n_feat * (n_filt + 1)
+    buf = torch.tensor(3.0 * rng.standard_normal(n + shift),
+                       dtype=torch.float32, device=cuda_device)
+    logmel = buf[shift:].view(batch, n_feat, n_filt + 1)
+    assert logmel.is_contiguous() and logmel.data_ptr() % 16 == 4 * shift
+    tables = cepstrum_plan.cep_tables(dct_t_matrix(n_filt), n_mfcc,
+                                      cuda_device)
+    got = frontend_kernel.cepstrum_cuda(logmel, tables, n_mfcc, True)
+    want = cepstrum_plan.cepstrum_plain(
+        logmel, torch.tensor(dct_t_matrix(n_filt), device=cuda_device),
+        n_mfcc, True)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=2e-3)
+
+
 def test_cepstrum_kernel_rejects_what_it_cannot_take(cuda_device):
     logmel = torch.zeros(2, 30, 21, device=cuda_device)
-    table = torch.tensor(cepstrum_plan.extended_table(dct_t_matrix(20), 20),
-                         device=cuda_device)
+    tables = cepstrum_plan.cep_tables(dct_t_matrix(20), 20, cuda_device)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        frontend_kernel.cepstrum_cuda(logmel.cpu(), table, 20)
+        frontend_kernel.cepstrum_cuda(logmel.cpu(), tables, 20)
     with pytest.raises(ValueError, match="n_mfcc <= n_filt"):
-        frontend_kernel.cepstrum_cuda(logmel, table, 21)
+        frontend_kernel.cepstrum_cuda(logmel, tables, 21)
     with pytest.raises(ValueError, match="contiguous f32"):
-        frontend_kernel.cepstrum_cuda(logmel.transpose(0, 1), table, 20)
+        frontend_kernel.cepstrum_cuda(logmel.transpose(0, 1), tables, 20)
     with pytest.raises(ValueError, match="row-major"):
-        frontend_kernel.cepstrum_cuda(logmel, table[:, :64], 20)
+        frontend_kernel.cepstrum_cuda(
+            logmel, tables._replace(hi=tables.hi[:, :16]), 20)
+    with pytest.raises(ValueError, match="row-major"):
+        frontend_kernel.cepstrum_cuda(
+            logmel, tables._replace(ext=tables.ext[:, :64]), 20, _simt=True)
+    # another coefficient count's tables (another column tile)
+    with pytest.raises(ValueError, match="row-major"):
+        frontend_kernel.cepstrum_cuda(logmel, tables, 13)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flat = torch.zeros(tables.hi.numel() + 1, device=cuda_device)
+        frontend_kernel.cepstrum_cuda(
+            logmel, tables._replace(hi=flat[1:].view(tables.hi.shape)), 20)
 
 
 # (n_fft, n_filt, n_mfcc) of many filters and coefficients: each body in
 # its mode from the config (+cep: log-mel mode and the cepstrum kernel)
 CEP_CONFIGS = {
-    (1024, 64, 20): ("fft", "register", False),
+    (1024, 64, 20): ("fft", "register", True),
     (1024, 80, 40): ("fft", "register", True),
     (1024, 128, 20): ("fft", "register", True),
     (1024, 128, 128): ("fft", "register", True),
     (1024, 240, 20): ("fft", "register", True),
-    (768, 230, 20): ("ct", "register", False),
+    (768, 230, 20): ("ct", "register", True),
     (4352, 300, 20): ("ct", "wide", True),
     (4352, 300, 300): ("ct", "wide", True),
     (4352, 600, 600): ("ct", "wide", True),
@@ -1858,7 +1917,7 @@ def test_many_filters_and_coefficients_match_plain(cuda_device, key, case):
                ("ct", "register"): ct_kernel.MIXED,
                ("ct", "wide"): ct_kernel.WIDE}[route, body]
     watched = (counter, frontend_kernel.CEPSTRUM, frontend_kernel.RADIX2,
-               *ct_kernel.counters.values())
+               frontend_kernel.CEPSTRUM_SIMT, *ct_kernel.counters.values())
     before = [c.launches for c in watched]
     audio = torch.tensor(_ct_audio(audio_dtype), device=cuda_device)
     if route == "ct":

@@ -124,11 +124,13 @@ def test_ct_body_takes_the_split_where_the_register_block_does_not_fit():
     """230 filters at n_fft 768: the whole 230 x 230 DCT left the
     mixed-radix block no room and sent the config to the CT split; the
     block keeps only the 19 DCT columns the output uses now, so the
-    mixed-radix FFT takes it, fused (the split's rows of 32 frames, which
-    still fit, serve only the `_split=True` A/B)."""
+    mixed-radix FFT takes it, in log-mel mode with the cepstrum kernel (its
+    fused DCT, 230 x 19 products a frame, is past CEP_MIN_PRODUCTS; the
+    split's rows of 32 frames, which still fit, serve only the
+    `_split=True` A/B)."""
     p = ListenerParams(n_fft=768, window_t=0.048, n_filt=230)
     assert ct_kernel.ct_body(p) == "register" and ct_kernel.split_fits(p)
-    assert not ct_kernel.ct_cepstrum(p)
+    assert ct_kernel.ct_cepstrum(p)
     consts = ct_kernel.CtConstants(p, "mfcc", "cpu")
     assert consts.layout_for(p, full_dct=True).smem_bytes > \
         ct_kernel.SMEM_OPTIN >= consts.layout.smem_bytes

@@ -1,8 +1,12 @@
-// The cepstrum kernel: the end of the MFCC / bark frontend's contract for the
-// configs whose DCT columns leave the FFT body's block too little room,
-// hand-written for Hopper (sm_90a).
+// The cepstrum kernel's first design: the DCT, energy column, deltas and
+// store after the FFT body's log-mel mode as an FFMA GEMM on the SIMT
+// cores, hand-written for Hopper (sm_90a).  csrc/cepstrum_wgmma.cu, the
+// kernel the frontends launch, computes the same function on the tensor
+// cores (3xTF32 wgmma); this one stays for the A/B (`_simt=True`,
+// `tsc_cepstrum_simt`).
 //
-// Replaces, for those configs, the epilogue of the TPU kernel
+// Replaces, for the configs whose DCT columns leave the FFT body's block
+// too little room, the epilogue of the TPU kernel
 // tpu_speech_commands/ops/pallas_frontend.py::_make_ct_frontend (pallas_call
 // at :745): the DCT product of the log-mel rows (:711), the energy column
 // (:713), the deltas (`_kernel_deltas`, :716) and the store.  The register
@@ -16,19 +20,18 @@
 //   optional deltas c[t] - c[t-1] (zero for the first kept frame); F =
 //   n_mfcc or 2 n_mfcc
 //
-// What bounds it on this card: the operations, 2 B T n_filt (n_mfcc - 1)
-// at the f32 peak (the f32 paths keep TF32 off, so the tensor cores are not
-// used).  At n_fft 4352 with 600 filters and coefficients, B = 8192 windows
-// of 23 frames: 135.4 GFLOP, 2.02 ms at 67 TFLOP/s, above the 0.27 ms of its
-// bytes (the rows read once, 453 MB; the features written once, 452 MB).
-// The fused epilogue does the same product one frame at a time, a lane a
-// coefficient and each mel value read from shared memory for every product;
-// at these widths its table does not fit a block at all (the split's
-// "split-dup" body served them at 56-84x the whole frontend's bound).
+// What bounds this design: its products run on the FFMA units, 2 B T
+// n_filt (n_mfcc - 1) operations at the f32 peak of 67 TFLOP/s.  At n_fft
+// 4352 with 600 filters and coefficients, B = 8192 windows of 23 frames:
+// 135.4 GFLOP, 2.02 ms, above the 0.27 ms of its bytes (the rows read
+// once, 453 MB; the features written once, 452 MB).  The function's own
+// bound is lower: the same products at f32 accuracy run on the tensor
+// cores as three TF32 products each (cepstrum_wgmma.cu, 0.82 ms there).
 //
 // Design: a register-tiled f32 GEMM (ops/cepstrum_plan.py holds its tile,
-// its table and a numpy emulation of its maps).  The rows are the (B T, n_filt
-// + 1) log-mel rows, the table the DCT's columns extended by the energy:
+// its table and a numpy emulation of its maps, `emulate_simt`).  The rows
+// are the (B T, n_filt + 1) log-mel rows, the table the DCT's columns
+// extended by the energy:
 // ext[m][i] = dct_t[m][i] for 0 < i < n_mfcc, ext[n_filt][0] = 1 and zero
 // elsewhere, padded with zeros to (k_pad, n_pad), multiples of TSC_CEP_BK
 // and TSC_CEP_BN; column 0 of the product is then the log energy itself
@@ -228,10 +231,11 @@ cudaError_t launch_cepstrum(const CepArgs& a, cudaStream_t stream) {
 // batch, F), F = n_mfcc or 2 n_mfcc with emit_deltas, f32 or bf16.
 // Returns the launch's cudaError_t (cudaErrorInvalidValue for an argument
 // out of range).
-extern "C" int tsc_cepstrum(const void* logmel, int batch, int n_features,
-                            int n_filt, int n_mfcc, const void* table, int k_pad,
-                            int n_pad, int windows_per_block, int emit_deltas,
-                            int time_major, void* out, int out_bf16, void* stream) {
+extern "C" int tsc_cepstrum_simt(const void* logmel, int batch, int n_features,
+                                 int n_filt, int n_mfcc, const void* table, int k_pad,
+                                 int n_pad, int windows_per_block, int emit_deltas,
+                                 int time_major, void* out, int out_bf16,
+                                 void* stream) {
   const int wpb = kBM / n_features > 1 ? kBM / n_features : 1;
   if (!logmel || !table || !out || batch <= 0 || n_features <= 0 || n_filt <= 0 ||
       n_mfcc <= 0 || n_mfcc > n_filt || k_pad < n_filt + 1 || k_pad % kBK ||

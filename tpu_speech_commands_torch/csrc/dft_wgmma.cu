@@ -91,6 +91,7 @@
 #include <stdint.h>
 
 #include "dft_common.cuh"
+#include "hopper_ring.cuh"
 
 #ifndef TSC_DFT_CLUSTER
 #define TSC_DFT_CLUSTER 1
@@ -114,6 +115,7 @@
 namespace {
 
 using namespace tsc_dft;
+using namespace tsc_ring;
 
 constexpr int kBM = 128;       // GEMM rows (frames) a block: 2 warpgroups x 64
 constexpr int kBN = 128;       // DFT columns a chunk (64 bins), the wgmma N
@@ -195,49 +197,7 @@ __host__ __device__ inline size_t smem_bytes(int wpb, int win_pitch, int n_filt,
          sizeof(uint64_t) * (2 * stages + 4);
 }
 
-// ---- mbarriers, TMA, clusters, wgmma (PTX) ---------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// wait until the phase of parity `parity` of the barrier has completed; a
-// wait of more than ~2 s of clocks traps, so that a stuck ring is a launch
-// error and not a hang
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  if (done) return;
-  const long long start = clock64();
-  while (true) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - start > (1ll << 32)) __trap();
-  }
-}
+// ---- clusters, TMA, wgmma (PTX; the ring's common pieces: hopper_ring.cuh) --
 
 // arrive on the barrier at the same offset in block `cta` of the cluster
 __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
@@ -251,23 +211,10 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) 
       : "memory");
 }
 
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
   return r;
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ void cluster_sync() {
@@ -313,43 +260,6 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       " [%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
-}
-
-// the generic proxy's reads of shared memory before the async proxy's
-// writes there (a bulk copy or TMA into the same bytes)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// The wgmma descriptor of a K-major B tile in the 128-byte swizzle at
-// `addr`: rows 128 bytes apart (implied by the swizzle), 8-row groups 1024
-// bytes apart (SBO), the leading offset unused (1)
-__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// pins the accumulators in place around the asynchronous products, so
-// that no ordinary read or write of them moves across a fence or a wait
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-template <int R>
-__device__ __forceinline__ void fence_regs(const float (&d)[R]) {
-  fence_regs(const_cast<float(&)[R]>(d));
 }
 
 // d[0 .. N / 2) (64 x N f32: the m64nNk16 accumulator fragment) +=
@@ -975,32 +885,6 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
             coeffs, static_cast<float*>(a.out) + at, [] { consumers_sync(); });
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, a driver call, from the runtime's entry point
-// table: the library links no libcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 template <int S>

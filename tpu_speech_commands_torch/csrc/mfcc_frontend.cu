@@ -44,7 +44,7 @@
 // smem_layout; the DCT region holds the 19 columns the output uses): with
 // the launch bounds' 64 registers, 4 blocks, 32 warps an SM.  A config whose
 // DCT columns leave the block too little room runs the body in log-mel mode
-// and csrc/cepstrum.cu after it (register_fft.cuh).  The dynamic
+// and csrc/cepstrum_wgmma.cu after it (register_fft.cuh).  The dynamic
 // shared-memory attribute is set once an instantiation and device.
 //
 // The radix-2 body, n_fft below 128 and every config whose register- or
@@ -260,7 +260,7 @@ bool takes_register_fft(int n_fft) {
 // = n_mfcc - 1) or the whole table (dct_cols = n_filt; the radix-2 body
 // takes only that); out (batch, n_features, n_mfcc or 2 n_mfcc) f32 or
 // bf16, or with logmel (the register body only) (batch, n_features, n_filt
-// + 1) f32 log-mel rows for csrc/cepstrum.cu.  Frames first_frame ..
+// + 1) f32 log-mel rows for csrc/cepstrum_wgmma.cu.  Frames first_frame ..
 // first_frame + n_features - 1 are computed.  The register body (radix2 = 0,
 // n_fft 128 .. 4096) reads plan_twiddle (ops/fft_plan.py::fft_plan(n_fft).
 // twiddle, f32 rows), filt_packed (n_packed,) f32 and fb_table (int32,

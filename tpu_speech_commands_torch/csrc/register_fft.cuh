@@ -57,7 +57,7 @@
 // - or, in log-mel mode (a uniform runtime flag, `logmel`), the body stops
 //   after the log: each kept frame's n_filt log-mel values and its log
 //   energy go, f32, to a (B, T, n_filt + 1) buffer on the device, and
-//   csrc/cepstrum.cu finishes the contract (the DCT as a GEMM, deltas, the
+//   csrc/cepstrum_wgmma.cu finishes the contract (the DCT as a GEMM, deltas, the
 //   store); the block then holds no DCT and no coefficients.  It serves the
 //   configs whose DCT columns leave the fused block too little room
 //   (ops/fft_plan.py::cepstrum_mode).

@@ -13,7 +13,7 @@
 // the CT split kernel's (csrc/ct_frontend.cu), whose per-piece-mel (F, T)
 // instantiation ("split-dup") served these sizes before and stays the A/B
 // baseline (a config whose DCT columns leave this kernel's block too
-// little room runs it in log-mel mode, then csrc/cepstrum.cu):
+// little room runs it in log-mel mode, then csrc/cepstrum_wgmma.cu):
 //
 //   audio (B, S) f32 | int16, gain (1,) f32  ->  (B, T, F) or (T, B, F)
 //   x = int16 ? pcm * (gain / 32768) : audio * gain

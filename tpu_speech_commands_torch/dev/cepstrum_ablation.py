@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""The cepstrum kernel (csrc/cepstrum.cu) and the trimmed DCT region of the
-register and wide FFT bodies (csrc/register_fft.cuh), each against what it
-replaces, in turns on the card; and the sweep `fft_plan.cepstrum_mode`'s
-threshold comes from.
+"""The cepstrum kernel (csrc/cepstrum_wgmma.cu) against its first design
+(csrc/cepstrum.cu), and the trimmed DCT region of the register and wide FFT
+bodies (csrc/register_fft.cuh), each against what it replaces, in turns on
+the card; and the sweep `fft_plan.cepstrum_mode`'s threshold comes from.
 
     python -m tpu_speech_commands_torch.dev.cepstrum_ablation [--batch 8192]
-        [--iters 10] [--parts trim radix2 split_dup sweep]
+        [--iters 10] [--parts trim radix2 split_dup sweep alone cuts]
 
 Parts (every config at B windows of f32 audio, gain 1, hop 512; the audio
 is `speech_audio`'s, the example clips at random gains and a little noise):
@@ -25,8 +25,20 @@ is `speech_audio`'s, the example clips at random gains and a little noise):
              split-dup, split-dup, new;
   sweep      the fused epilogue (`_cepstrum=False`, where its block fits)
              against log-mel mode and the cepstrum kernel (`_cepstrum=True`)
-             over SWEEP_GRID at n_fft 1024 and 4352, in turns fused, +cep,
-             +cep, fused.
+             over SWEEP_GRID at n_fft 1024, 768 and 4352, in turns fused,
+             +cep, +cep, fused;
+  alone      the cepstrum kernel alone against its first design
+             (`_simt=True`) at ALONE_CASES, on the plain log-mel rows of the
+             same audio, in turns wgmma, simt, simt, wgmma, each first held
+             to `cepstrum_plain` within FEAT_ATOL / FEAT_RTOL, beside the
+             plain version, the kernel's bound (`kernel_bound`) and
+             torch.matmul of the rows and the extended table (cuBLAS, TF32
+             off: a yardstick the port never calls);
+  cuts       where the kernel's time goes at ALONE_CASES: the shipped
+             kernel against its cuts (CUTS, csrc/cepstrum_wgmma.cu's
+             TSC_CEPW_CUT, each built beside the shipped library), in turns
+             in the order listed, then reversed; a cut's output is not the
+             function.
 
 Each run is first held to `check_conditioned`: within FEAT_ATOL /
 FEAT_RTOL of the float64 features (`exact_features`) plus the slack the
@@ -59,7 +71,7 @@ from ..data.wav import load_wav
 from ..device import resolve_device
 from ..frontend.dsp import Frontend, add_deltas, decode_audio, frame_signal
 from ..frontend.filterbanks import LOG_EPS, dct_t_matrix, filterbank_matrix
-from ..ops import cepstrum_plan, ct_kernel, fft_plan, frontend_kernel
+from ..ops import _build, cepstrum_plan, ct_kernel, fft_plan, frontend_kernel
 from ..params import ListenerParams
 from . import FEAT_ATOL, FEAT_RTOL, card_line
 
@@ -68,14 +80,23 @@ from . import FEAT_ATOL, FEAT_RTOL, card_line
 TRIM_CASES = ((20, 20), (40, 13), (64, 20), (80, 40), (128, 20), (128, 40))
 # filters and coefficients at n_fft 4352 (n_filt = n_mfcc)
 SPLIT_DUP_COEFFS = (300, 512, 600)
+# (n_fft, n_filt, n_mfcc) of the kernel alone: the most coefficients route
+# ct's A/B takes, and the 240-filter scorer's
+ALONE_CASES = ((4352, 600, 600), (1024, 240, 20))
+# the kernel's cuts: name -> TSC_CEPW_CUT (one product a k8 step in place of
+# three; no row copies; no stores; all three)
+CUTS = {"one_product": 1, "no_row_copies": 2, "no_stores": 3, "all_three": 4}
 # n_fft: (n_filt, n_mfcc) pairs of the threshold's sweep
 SWEEP_GRID = {
-    1024: ((40, 13), (64, 20), (64, 40), (80, 40), (128, 20), (128, 40),
-           (128, 64), (128, 128), (240, 20), (256, 64)),
+    1024: ((20, 20), (40, 13), (64, 20), (64, 40), (80, 40), (128, 20),
+           (128, 40), (128, 64), (128, 128), (240, 20), (256, 64)),
+    768: ((230, 20),),
     4352: ((40, 20), (80, 40), (128, 40), (128, 128), (300, 20), (300, 60),
            (300, 120)),
 }
 PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
+# f32-accurate products on the tensor cores: three TF32 products each
+PEAK_3XTF32 = 495e12 / 3
 EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "example")
 
@@ -108,17 +129,34 @@ def mode_bound(p: ListenerParams, batch: int) -> tuple[float, str]:
     """(ms, "operations" | "bytes"): the frontend function's least time at
     config p on `batch` windows of f32 audio, the larger of its operations
     (a real FFT of n_fft points, 2.5 n log2 n; 4 a bin; 2 a packed
-    filterbank weight; 2 n_filt (n_mfcc - 1) for the DCT) at the f32 peak
-    and its bytes (the kept frames' span of audio read once, the features
-    written once); no log-mel round trip."""
+    filterbank weight: at the f32 peak; 2 n_filt (n_mfcc - 1) for the DCT
+    at the 3xTF32 rate, as the cepstrum kernel runs it) and its bytes (the
+    kept frames' span of audio read once, the features written once); no
+    log-mel round trip."""
     frames = batch * p.n_features
     packed = len(frontend_kernel.pack_filterbank(
         filterbank_matrix(p, "mfcc").T)[0])
     ops = frames * (2.5 * p.n_fft * math.log2(p.n_fft) + 4 * p.n_fft_bins
-                    + 2 * packed + 2 * p.n_filt * (p.n_mfcc - 1))
+                    + 2 * packed)
+    dct = frames * 2.0 * p.n_filt * (p.n_mfcc - 1)
     span = (p.n_features - 1) * p.hop_samples + min(p.window_samples, p.n_fft)
     nbytes = 4.0 * batch * span + 4.0 * frames * p.feature_size
-    ops_ms, bytes_ms = ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    ops_ms = (ops / PEAK_F32 + dct / PEAK_3XTF32) * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def kernel_bound(batch: int, n_feat: int, n_filt: int,
+                 n_mfcc: int) -> tuple[float, str]:
+    """(ms, "operations" | "bytes"): the cepstrum kernel's least time on
+    `batch` windows of n_feat frames: 2 n_filt (n_mfcc - 1) operations a
+    frame at the 3xTF32 rate, against the (B, T, n_filt + 1) f32 log-mel
+    rows read once and the f32 features written once (chip_smoke.py's
+    `cepstrum_bound` counts the same)."""
+    frames = batch * n_feat
+    ops_ms = frames * 2.0 * n_filt * (n_mfcc - 1) / PEAK_3XTF32 * 1e3
+    bytes_ms = 4.0 * frames * (n_filt + 1 + n_mfcc) / PEAK_BYTES * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
                                    else "bytes")
 
@@ -339,20 +377,126 @@ def run_part(part: str, batch: int, iters: int, dev) -> list:
     return rows
 
 
+def run_alone(batch: int, iters: int, dev) -> list:
+    """The kernel alone against its first design at ALONE_CASES (the part
+    "alone"): a dict a case of both designs' times in turns, their largest
+    distance from the plain version, the plain version's and torch.matmul's
+    times and the bound."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("the yardstick runs with TF32 off")
+    rows = []
+    for n_fft, n_filt, n_mfcc in ALONE_CASES:
+        p = config(n_fft, n_filt, n_mfcc)
+        audio = speech_audio(batch, p.max_samples, 0, dev)
+        logmel = cepstrum_plan.logmel_plain(Frontend(p, "mfcc", dev), audio)
+        del audio
+        tables = cepstrum_plan.cep_tables(dct_t_matrix(n_filt), n_mfcc, dev)
+        dct = torch.tensor(dct_t_matrix(n_filt), device=dev)
+        ext = tables.ext[:n_filt + 1, :n_mfcc]
+        runs = {"wgmma": lambda: frontend_kernel.cepstrum_cuda(
+                    logmel, tables, n_mfcc),
+                "simt": lambda: frontend_kernel.cepstrum_cuda(
+                    logmel, tables, n_mfcc, _simt=True),
+                "matmul": lambda: torch.matmul(logmel, ext)}
+        want = cepstrum_plan.cepstrum_plain(logmel, dct, n_mfcc)
+        label = f"alone n_fft {n_fft} {n_filt} x {n_mfcc}"
+        errs = {}
+        for name, run in runs.items():
+            diff = (run() - want).abs()
+            errs[name] = float(diff.max())
+            excess = float((diff - FEAT_ATOL - FEAT_RTOL * want.abs()).max())
+            if excess > 0:
+                raise RuntimeError(f"{label} {name}: {excess:.2e} past the "
+                                   f"feature bound")
+        del want
+        times = {"wgmma": [], "simt": []}
+        for name in ("wgmma", "simt", "simt", "wgmma"):
+            times[name].append(event_ms(runs[name], iters))
+        matmul_ms = event_ms(runs["matmul"], iters)
+        plain_ms = event_ms(lambda: cepstrum_plan.cepstrum_plain(
+            logmel, dct, n_mfcc), 1)
+        bound = kernel_bound(batch, p.n_features, n_filt, n_mfcc)
+        gflop = 2e-9 * batch * p.n_features * n_filt * (n_mfcc - 1)
+        print(f"{label} ({batch * p.n_features} rows, {gflop:.2f} GFLOP): "
+              + "; ".join(f"{name} {ms[0]:.4f}, {ms[1]:.4f} ms "
+                          f"({gflop / ms[0]:.1f} TFLOP/s, "
+                          f"{ms[0] / bound[0]:.2f}x the bound)"
+                          for name, ms in times.items())
+              + f"; simt / wgmma {sum(times['simt']) / sum(times['wgmma']):.2f}x"
+              f"; torch.matmul (cuBLAS, TF32 off) {matmul_ms:.4f} ms; plain "
+              f"{plain_ms:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}); "
+              f"max_abs_err wgmma {errs['wgmma']:.2e}, simt "
+              f"{errs['simt']:.2e}", flush=True)
+        rows.append({"part": "alone", "n_fft": n_fft, "n_filt": n_filt,
+                     "n_mfcc": n_mfcc, "rows": batch * p.n_features,
+                     "ms": times, "matmul_ms": matmul_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound[0],
+                     "bound_by": bound[1], "max_abs_err": errs})
+        del logmel, tables, runs
+    return rows
+
+
+def run_cuts(batch: int, iters: int, dev) -> list:
+    """The shipped kernel against its cuts at ALONE_CASES (the part
+    "cuts"): a dict a case of each variant's two times."""
+    from .ct_ablation import build
+
+    logs = {}
+    libs = build(dict.fromkeys(CUTS, (_build.CSRC_DIR
+                                      / "cepstrum_wgmma.cu").read_text()),
+                 "cepstrum", logs,
+                 {name: (f"-DTSC_CEPW_CUT={cut}",) for name, cut in CUTS.items()})
+    libs["shipped"] = _build.load_library()
+    names = ["shipped", *CUTS]
+    shipped = _build.load_library
+    rows = []
+    try:
+        for n_fft, n_filt, n_mfcc in ALONE_CASES:
+            p = config(n_fft, n_filt, n_mfcc)
+            audio = speech_audio(batch, p.max_samples, 0, dev)
+            logmel = cepstrum_plan.logmel_plain(Frontend(p, "mfcc", dev),
+                                                audio)
+            del audio
+            tables = cepstrum_plan.cep_tables(dct_t_matrix(n_filt), n_mfcc,
+                                              dev)
+
+            def run(name):
+                _build.load_library = lambda lib=libs[name]: lib
+                return frontend_kernel.cepstrum_cuda(logmel, tables, n_mfcc)
+
+            times = {name: [] for name in names}
+            for name in names + names[::-1]:
+                times[name].append(event_ms(lambda: run(name), iters))
+            print(f"cuts n_fft {n_fft} {n_filt} x {n_mfcc}: " + "; ".join(
+                f"{name} {ms[0]:.4f}, {ms[1]:.4f} ms"
+                for name, ms in times.items()), flush=True)
+            rows.append({"part": "cuts", "n_fft": n_fft, "n_filt": n_filt,
+                         "n_mfcc": n_mfcc, "ms": times})
+            del logmel, tables
+    finally:
+        _build.load_library = shipped
+    return rows
+
+
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=8192)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--parts", nargs="+",
-                    choices=("trim", "radix2", "split_dup", "sweep"),
-                    default=["trim", "radix2", "split_dup", "sweep"])
+                    choices=("trim", "radix2", "split_dup", "sweep", "alone",
+                             "cuts"),
+                    default=["trim", "radix2", "split_dup", "sweep", "alone",
+                             "cuts"])
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     print(card, flush=True)
     rows = []
     for part in args.parts:
-        rows += run_part(part, args.batch, args.iters, dev)
+        run = {"alone": run_alone, "cuts": run_cuts}.get(part)
+        rows += (run(args.batch, args.iters, dev) if run else
+                 run_part(part, args.batch, args.iters, dev))
     print(json.dumps({"cepstrum_ablation": rows, "batch": args.batch,
                       "card": card}), flush=True)
     return rows

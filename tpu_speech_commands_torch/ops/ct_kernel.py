@@ -33,8 +33,8 @@ its CT kernel and the FFT kernel cannot take.  Route ct's function, the
 Each keeps only the DCT columns the output uses; where even those leave
 the block too little room (many filters and coefficients:
 `fft_plan.cepstrum_mode`, `ct_cepstrum`), the body runs in log-mel mode and
-the cepstrum kernel (`csrc/cepstrum.cu`, `frontend_kernel.cepstrum_cuda`)
-finishes.  The CT split kernel's instantiations are the A/B baselines:
+the cepstrum kernel (`csrc/cepstrum_wgmma.cu`,
+`frontend_kernel.cepstrum_cuda`) finishes.  The CT split kernel's instantiations are the A/B baselines:
 (F, F) through `_split=True` (the `dev/` variants measure the split this
 way), its (F, T) instantiation ("split-dup", `ct_frontend_dup`, the
 per-piece mel, which keeps no power row) through `per_piece_mel=True`.  A

@@ -547,20 +547,28 @@ def fft_layout(plan: FftPlan, fb: FilterbankPlan, n_filt: int, n_mfcc: int,
 # does not fit at all.  1: on an H100 (dev/cepstrum_ablation.py's sweep,
 # PERF.md) the cepstrum mode won at every config whose DCT columns cost
 # the fused block warps an SM (64-256 filters at n_fft 1024, 128-300 at
-# 4352: 1.02-3.8x), and the fused epilogue where they cost none at 1024
-# (1.04x at 40 x 13 and 64 x 20).
+# 4352: 1.17-4.2x with the tensor-core cepstrum kernel).
 CEP_MIN_SHARE = 1.0
+# The fused DCT's products a frame, n_filt (n_mfcc - 1), from which the
+# cepstrum mode wins even where the fused block keeps every warp: the same
+# sweep (in turns) found it 3.2% faster at 64 x 20 (1,216 products) at n_fft
+# 1024, 18% at 230 x 20 at 768, 3.6% and 5.4% at 40 x 20 and 80 x 40 at
+# 4352, and the fused epilogue ahead or within 1% below it: 20 x 20 (380,
+# the default config; fused 1.3% faster) and 40 x 13 (480) at 1024.
+CEP_MIN_PRODUCTS = 512
 
 
 def cepstrum_mode(plan: FftPlan, fb: FilterbankPlan, n_filt: int,
                   n_mfcc: int, n_features: int) -> bool:
     """Whether a config runs the body in log-mel mode with the cepstrum
-    kernel after it (csrc/cepstrum.cu), from its layouts alone: where the
-    fused block (the trimmed DCT, `fft_layout`) exceeds SMEM_OPTIN, or
-    keeps fewer than CEP_MIN_SHARE of the warps an SM that the body holds
-    in log-mel mode."""
+    kernel after it (csrc/cepstrum_wgmma.cu), from its layouts and its DCT
+    alone: where the fused block (the trimmed DCT, `fft_layout`) exceeds
+    SMEM_OPTIN, keeps fewer than CEP_MIN_SHARE of the warps an SM that the
+    body holds in log-mel mode, or has CEP_MIN_PRODUCTS or more DCT
+    products a frame."""
     fused = fft_layout(plan, fb, n_filt, n_mfcc, n_features)
     if fused.smem_bytes > SMEM_OPTIN:
         return True
     logmel = fft_layout(plan, fb, n_filt, n_mfcc, n_features, cepstrum=True)
-    return fused.warps_per_sm < CEP_MIN_SHARE * logmel.warps_per_sm
+    return (fused.warps_per_sm < CEP_MIN_SHARE * logmel.warps_per_sm
+            or n_filt * (n_mfcc - 1) >= CEP_MIN_PRODUCTS)

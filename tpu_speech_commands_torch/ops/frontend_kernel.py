@@ -15,9 +15,11 @@ for n_fft below 128 (and a config whose filterbank leaves the others no
 room).  The register and wide bodies keep only the DCT columns the output
 uses; where even those leave the block too little room
 (`fft_plan.cepstrum_mode`: many filters and coefficients), the body runs in
-log-mel mode and `csrc/cepstrum.cu` (`cepstrum_cuda`, plan
+log-mel mode and `csrc/cepstrum_wgmma.cu` (`cepstrum_cuda`, plan
 `cepstrum_plan.py`) computes the DCT, the energy column, the deltas and the
-store as a GEMM ("+cep" in `MfccFrontend.path`).
+store as a 3xTF32 GEMM on the tensor cores ("+cep" in
+`MfccFrontend.path`); `csrc/cepstrum.cu`, its first design (FFMA),
+computes the same function and runs with `_simt=True` for the A/B.
 
 `csrc/dft_wgmma.cu` replaces the TPU kernel
 `tpu_speech_commands/ops/pallas_frontend.py::make_fused_frontend` with
@@ -75,7 +77,8 @@ from .fft_plan import (SMEM_OPTIN, cepstrum_mode, fft_layout, fft_plan,
 
 SOURCE = "tpu_speech_commands_torch/csrc/mfcc_frontend.cu"
 WIDE_SOURCE = "tpu_speech_commands_torch/csrc/mfcc_wide_frontend.cu"
-CEPSTRUM_SOURCE = "tpu_speech_commands_torch/csrc/cepstrum.cu"
+CEPSTRUM_SOURCE = "tpu_speech_commands_torch/csrc/cepstrum_wgmma.cu"
+CEPSTRUM_SIMT_SOURCE = "tpu_speech_commands_torch/csrc/cepstrum.cu"
 REPLACES = "tpu_speech_commands/ops/pallas_frontend.py:745"
 DFT_SOURCE = "tpu_speech_commands_torch/csrc/dft_wgmma.cu"
 DFT_MMA_SYNC_SOURCE = "tpu_speech_commands_torch/csrc/dft_frontend.cu"
@@ -93,10 +96,15 @@ _INT_ARGS = (1, 3, 4, 5, 6, 7, 8, 9, 13, 14, 15, 16, 18, 22, 23, 24, 25)
 #   n_warps, out, out_bf16, logmel, stream)
 _WIDE_N_ARGS = 25
 _WIDE_INT_ARGS = (1, 3, 4, 5, 6, 7, 8, 9, 13, 14, 16, 17, 18, 19, 20, 22, 23)
-# tsc_cepstrum(logmel, batch, n_features, n_filt, n_mfcc, table, k_pad,
+# tsc_cepstrum(logmel, batch, n_features, n_filt, n_mfcc, table_hi,
+#   table_lo, k_pad, n_pad, n_tile, windows_per_block, emit_deltas,
+#   time_major, out, out_bf16, stream)
+_CEP_N_ARGS = 16
+_CEP_INT_ARGS = (1, 2, 3, 4, 7, 8, 9, 10, 11, 12, 14)
+# tsc_cepstrum_simt(logmel, batch, n_features, n_filt, n_mfcc, table, k_pad,
 #   n_pad, windows_per_block, emit_deltas, time_major, out, out_bf16, stream)
-_CEP_N_ARGS = 14
-_CEP_INT_ARGS = (1, 2, 3, 4, 6, 7, 8, 9, 10, 12)
+_CEP_SIMT_N_ARGS = 14
+_CEP_SIMT_INT_ARGS = (1, 2, 3, 4, 6, 7, 8, 9, 10, 12)
 
 # tsc_dft_frontend_bf16(audio, audio_int16, gain, batch, n_samples, hop,
 #   first_frame, n_features, wpb, n_seg, seg_pitch, win_pitch, dft, k_pad,
@@ -160,7 +168,7 @@ def fft_body(p: ListenerParams, feature_type: str = "mfcc") -> str:
 
 def fft_cepstrum(p: ListenerParams, feature_type: str = "mfcc") -> bool:
     """Whether route fft runs config `p` through the cepstrum kernel: its
-    register or wide body in log-mel mode, then csrc/cepstrum.cu
+    register or wide body in log-mel mode, then csrc/cepstrum_wgmma.cu
     (`fft_plan.cepstrum_mode`); never on the radix-2 body."""
     if fft_body(p, feature_type) == "radix2":
         return False
@@ -409,7 +417,8 @@ def mfcc_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
                        consts: KernelConstants, p: ListenerParams,
                        out_dtype=torch.float32, *, _radix2: bool = False,
                        _full_dct: bool = False,
-                       _cepstrum: bool | None = None) -> torch.Tensor:
+                       _cepstrum: bool | None = None,
+                       _cepstrum_simt: bool = False) -> torch.Tensor:
     """Launch the frontend kernel.  audio (B, S) float32 or int16 and gain
     (1,) float32, both on consts' CUDA device -> (B, n_features,
     feature_size) out_dtype.  The body is `consts.body`, fused or, where
@@ -417,10 +426,11 @@ def mfcc_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
     (`cepstrum_cuda`).  The same-call A/Bs: `_radix2` sends a config the
     register or wide body takes to the radix-2 body; `_full_dct` runs the
     fused epilogue on the whole n_filt x n_filt DCT; `_cepstrum` (True or
-    False) forces the mode.  A launch of the register body adds one to
-    `.launches`, one of the wide body to `WIDE.launches`, one of the
+    False) forces the mode; `_cepstrum_simt` finishes log-mel mode with the
+    cepstrum kernel's first design.  A launch of the register body adds one
+    to `.launches`, one of the wide body to `WIDE.launches`, one of the
     radix-2 body to `RADIX2.launches` (and the cepstrum kernel's to
-    `CEPSTRUM.launches`)."""
+    `CEPSTRUM.launches`, its first design's to `CEPSTRUM_SIMT`)."""
     radix2 = _radix2 or consts.plan is None
     err = kernel_config_error(p, body="radix2" if radix2 else consts.body)
     if err:
@@ -479,7 +489,7 @@ def mfcc_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
             mfcc_frontend_cuda.launches += 1
     if cepstrum:
         return cepstrum_cuda(out, consts.cep_table, p.n_mfcc, p.use_delta,
-                             out_dtype=out_dtype)
+                             out_dtype=out_dtype, _simt=_cepstrum_simt)
     return out
 
 
@@ -487,21 +497,27 @@ mfcc_frontend_cuda.launches = 0
 RADIX2 = LaunchCount()  # launches of the radix-2 body
 WIDE = LaunchCount()  # launches of the wide body (n_fft 8192, 16384)
 CEPSTRUM = LaunchCount()  # launches of the cepstrum kernel (both routes)
+CEPSTRUM_SIMT = LaunchCount()  # launches of its first design (`_simt=True`)
 
 
-def cepstrum_cuda(logmel: torch.Tensor, table: torch.Tensor, n_mfcc: int,
-                  emit_deltas: bool = False, time_major: bool = False,
-                  out_dtype=torch.float32) -> torch.Tensor:
-    """Launch the cepstrum kernel (csrc/cepstrum.cu): the (B, T, n_filt +
-    1) f32 log-mel rows of the FFT body's log-mel mode and the extended DCT
-    (`cepstrum_plan.extended_table` of n_mfcc columns), both on one CUDA
+def cepstrum_cuda(logmel: torch.Tensor, tables: cepstrum_plan.CepTables,
+                  n_mfcc: int, emit_deltas: bool = False,
+                  time_major: bool = False, out_dtype=torch.float32, *,
+                  _simt: bool = False) -> torch.Tensor:
+    """Launch the cepstrum kernel (csrc/cepstrum_wgmma.cu): the (B, T, n_filt
+    + 1) f32 log-mel rows of the FFT body's log-mel mode and the DCT's
+    tables (`cepstrum_plan.cep_tables` of n_mfcc columns), all on one CUDA
     device -> (B, T, F), or (T, B, F) when time_major, F = n_mfcc or, with
     emit_deltas, 2 n_mfcc, in out_dtype; its plain version is
-    `cepstrum_plan.cepstrum_plain`.  A launch adds one to
-    `CEPSTRUM.launches`; a CPU tensor raises."""
-    if not logmel.is_cuda or table.device != logmel.device:
+    `cepstrum_plan.cepstrum_plain`.  `_simt` runs the first design
+    (csrc/cepstrum.cu, FFMA) instead, the same-call A/B.  A launch adds one
+    to `CEPSTRUM.launches`, one of the first design to
+    `CEPSTRUM_SIMT.launches`; a CPU tensor raises, and so does a shape the
+    kernel cannot take."""
+    if not logmel.is_cuda or any(t.device != logmel.device for t in tables):
         raise ValueError(f"the cepstrum kernel takes CUDA tensors on one "
-                         f"device, got {logmel.device} and {table.device}")
+                         f"device, got {logmel.device} and "
+                         f"{[str(t.device) for t in tables]}")
     if out_dtype not in OUT_DTYPES:
         raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     if (logmel.dtype != torch.float32 or not logmel.is_contiguous()
@@ -512,23 +528,38 @@ def cepstrum_cuda(logmel: torch.Tensor, table: torch.Tensor, n_mfcc: int,
                          f"{n_mfcc}")
     batch, n_feat, n_filt = logmel.shape[0], logmel.shape[1], \
         logmel.shape[2] - 1
-    k_pad, n_pad = cepstrum_plan.padded_shape(n_filt, n_mfcc)
-    check_row_major((table,), ((k_pad, n_pad),))
+    if _simt:
+        k_pad, n_pad = cepstrum_plan.padded_shape(n_filt, n_mfcc)
+        check_row_major((tables.ext,), ((k_pad, n_pad),))
+    else:
+        n_pad, k_pad = cepstrum_plan.table_shape(n_filt, n_mfcc)
+        check_row_major((tables.hi, tables.lo), ((n_pad, k_pad),) * 2)
+        if tables.hi.data_ptr() % 16 or tables.lo.data_ptr() % 16:
+            raise ValueError("the cepstrum kernel's tables must be 16-byte "
+                             "aligned (its TMA reads them)")
     width = 2 * n_mfcc if emit_deltas else n_mfcc
     shape = (n_feat, batch, width) if time_major else (batch, n_feat, width)
     out = torch.empty(shape, dtype=out_dtype, device=logmel.device)
     if out.numel() == 0:
         return out
-    fn = _build.bind("tsc_cepstrum", _CEP_N_ARGS, _CEP_INT_ARGS)
+    wpb = cepstrum_plan.windows_per_block(n_feat)
+    tail = (wpb, int(emit_deltas), int(time_major), out.data_ptr(),
+            int(out_dtype == torch.bfloat16))
     with torch.cuda.device(logmel.device):
         stream = torch.cuda.current_stream(logmel.device).cuda_stream
-        rc = fn(logmel.data_ptr(), batch, n_feat, n_filt, n_mfcc,
-                table.data_ptr(), k_pad, n_pad,
-                cepstrum_plan.windows_per_block(n_feat), int(emit_deltas),
-                int(time_major), out.data_ptr(),
-                int(out_dtype == torch.bfloat16), stream)
-    _build.check(rc, "tsc_cepstrum")
-    CEPSTRUM.launches += 1
+        if _simt:
+            name = "tsc_cepstrum_simt"
+            fn = _build.bind(name, _CEP_SIMT_N_ARGS, _CEP_SIMT_INT_ARGS)
+            rc = fn(logmel.data_ptr(), batch, n_feat, n_filt, n_mfcc,
+                    tables.ext.data_ptr(), k_pad, n_pad, *tail, stream)
+        else:
+            name = "tsc_cepstrum"
+            fn = _build.bind(name, _CEP_N_ARGS, _CEP_INT_ARGS)
+            rc = fn(logmel.data_ptr(), batch, n_feat, n_filt, n_mfcc,
+                    tables.hi.data_ptr(), tables.lo.data_ptr(), k_pad, n_pad,
+                    cepstrum_plan.n_tile(n_mfcc), *tail, stream)
+    _build.check(rc, name)
+    (CEPSTRUM_SIMT if _simt else CEPSTRUM).launches += 1
     return out
 
 

@@ -17,7 +17,7 @@ config takes the plain frontend route):
                        either route's register body, where its DCT columns
                        leave the block too little room, in log-mel mode
                        with the cepstrum kernel after it ("+cep",
-                       csrc/cepstrum.cu);
+                       csrc/cepstrum_wgmma.cu);
          plain chain   every other config, which the JAX scorer, too, runs
                        on plain XLA products ("torch(xla-route)")
       -> GRU classifier kernel   (ops/rnn_kernel.py, csrc/gru_classifier.cu),
