@@ -49,7 +49,16 @@ Phases, in order; any failure raises and the script exits non-zero:
             FFT's four cases, and in the first also the other mode and the
             whole DCT where their blocks fit, held to the float64 features
             within the feature bound plus twice the plain version's own
-            distance from them; the FFT kernel at
+            distance from them; log-mel mode alone (logmel_ablation.
+            logmel_launch), its tail and its first tail (`_partial_sums=
+            True`), at n_fft 4352 with 300, 512 and 600 filters and
+            coefficients, 1024 x 240, 768 x 230 and 8192 x 128, f32 and
+            int16 in: the rows held to the float64 rows the same way, the
+            tails within 1e-5 of each other; the fast_math kernel at 160,
+            240 and 400 filters (its log-mel mode and the cepstrum kernel)
+            in the mixed FFT's four cases against the float64 features of
+            its bf16 operands, and its log-mel launch alone against the
+            float64 rows; the FFT kernel at
             window 1200 > n_fft, at alt_512 and an odd hop of 481, at every
             n_fft its register body takes (128 .. 4096), at 8192 and 16384
             (its wide body; window 1024, and n_fft = window = 8192 and
@@ -101,7 +110,16 @@ Phases, in order; any failure raises and the script exits non-zero:
               (cuda-ct(wide), the wide FFT; split-dup's launch count must
               stay at 0): `.paths` must name the
               route, its kernels' launch counts must rise, and the scores
-              must agree with the same scorer on the CPU;
+              must agree with the same scorer on the CPU; also n_fft 32768
+              (torch(xla-route): no body of the FFT kernel takes it, and no
+              frontend kernel launches);
+            - log-mel mode's first tail kept for the A/B: the 240-filter
+              scorer's frontend with `_partial_sums=True` into its GRU
+              classifier kernel (its launch count rises, the shipped
+              tail's stays at 0; scores against the CPU's); and the
+              fast_math kernel at 240 filters (log-mel mode, the cepstrum
+              kernel) into the same classifier: top-1 equal to the CPU's,
+              scores within the bf16 scores bound;
             - the cepstrum kernel's first design kept for the A/B: the
               240-filter scorer's frontend with `_cepstrum_simt=True` into
               its GRU classifier kernel: its launch count rises (the
@@ -185,7 +203,9 @@ Phases, in order; any failure raises and the script exits non-zero:
               and fast_math kernels' features finite, the first within the
               f32 feature bound of the float64 oracle, the second within
               it of its plain chain and within FAST_MATH_ORACLE_ATOL of
-              the oracle; `dump_inference_model.main` on the simple_gru
+              the oracle; and with `--params_path` at 240 filters (both
+              kernels in log-mel mode with the cepstrum kernel), each held
+              to the float64 features of its arithmetic; `dump_inference_model.main` on the simple_gru
               checkpoint just trained: the same arrays, and scores (frontend
               and GRU kernels) equal to the input's; `dev.accuracy_parity`
               for simple_gru, seed 0, 36 classes x 8 clips, 3 epochs: the
@@ -276,7 +296,17 @@ Phases, in order; any failure raises and the script exits non-zero:
             600 (n_fft 4352) and 240 x 20 (n_fft 1024, the 240-filter
             scorer's), beside its plain version, its bound and
             torch.matmul of the rows and its table (cuBLAS, TF32 off, a
-            yardstick); the train step
+            yardstick); log-mel mode apart (dev.logmel_ablation): the
+            body's log-mel launch alone with its tail against its first
+            tail in turns (CUDA graphs) at n_fft 4352 with 300, 512 and 600
+            filters and coefficients and at 1024 with 240 filters, beside
+            the same body fused at 20 x 20, the plain rows and the bound;
+            the +cep frontend with either tail in turns at 1024 x 240 and
+            4352 x 600; the fast_math kernel fused against its log-mel
+            mode in turns at 64-400 filters, and that mode's launch alone;
+            the GRU classifier's
+            SIMT kernel at 300 features (above gru_plan.CAP_D) beside its
+            bound and the plain module; the train step
             at B = 512
             for simple_gru and simple_cnn from `dev.bench_train` (its
             config: 36 classes, adam on a cosine decay; the step of
@@ -352,8 +382,8 @@ FFT_WIDE_AB = {8192: 0.512, 16384: 0.8}
 MANY_COEFFS = (300, 512, 600)
 # the configs of many filters and coefficients (n_fft, n_filt, n_mfcc)
 # each frontend body is held to its plain version at, in its mode from the
-# config: fused with the trimmed DCT region (40 x 13 at 1024), or with the
-# cepstrum kernel (the rest)
+# config: all of them with the cepstrum kernel (fused with the trimmed DCT
+# region as the A/B)
 CEP_CONFIGS = ((1024, 40, 13), (1024, 64, 20), (1024, 80, 40),
                (1024, 128, 20), (1024, 128, 40), (1024, 128, 128),
                (1024, 240, 20), (768, 230, 20), (4352, 300, 20),
@@ -368,6 +398,17 @@ CEP_CONFIGS = ((1024, 40, 13), (1024, 64, 20), (1024, 80, 40),
 CEP_SHAPES = ((1000, 23, 600, 600), (37, 150, 40, 13), (300, 7, 128, 128),
               (130, 1, 20, 20), (64, 30, 300, 1), (1000, 30, 240, 20),
               (333, 23, 64, 8), (333, 23, 64, 9))
+# the fast_math kernel's many-filter mode (log-mel mode, then the cepstrum
+# kernel), n_filt at the default n_fft: past the 128 its whole-table DCT
+# once allowed, to 400
+FAST_MATH_FILTERS = (160, 240, 400)
+# phase 5's timing of log-mel mode apart (dev/logmel_ablation.py): the +cep
+# frontend with either tail at one config of each body (the launch alone
+# runs at all of the script's CASES), and the fast_math kernel's two modes
+# in turns at (n_filt, n_mfcc) each side of its DFT_CEP_MIN_PRODUCTS and at
+# many filters
+LOGMEL_FRONTEND = ((1024, 240, 20), (4352, 600, 600))
+DFT_MODES = ((64, 20), (96, 20), (240, 20), (400, 20))
 # the train and eval slice: train.py's default batch, the corpus of
 # .claude/skills/verify/SKILL.md step 1, the shipped class list
 TRAIN_BATCH = 512
@@ -1516,6 +1557,7 @@ def drive_tools(dev, drive, work: str, trained: str) -> dict:
     from tpu_speech_commands_torch.dev import (FAST_MATH_ORACLE_ATOL,
                                                FEAT_ATOL, FEAT_RTOL,
                                                accuracy_parity,
+                                               cepstrum_ablation,
                                                check_features)
     from tpu_speech_commands_torch.export.inference_loader import load_native
     from tpu_speech_commands_torch.frontend.dsp import Frontend
@@ -1599,6 +1641,49 @@ def drive_tools(dev, drive, work: str, trained: str) -> dict:
         f"{FEAT_ATOL:g} + rtol {FEAT_RTOL:g}; fast_math vs oracle atol "
         f"{FAST_MATH_ORACLE_ATOL:g})")
     out["mfcc_feature max_abs_err"] = errs
+    # the comparator with --params_path at 240 filters: the frontend kernel
+    # (its register body in log-mel mode, the cepstrum kernel) and the
+    # fast_math kernel (its log-mel mode, the cepstrum kernel) on the card,
+    # each held to the float64 features of its arithmetic within the
+    # feature bound plus the rounding slack, as the plain chains are
+    p240 = ListenerParams(n_filt=240)
+    params240 = os.path.join(work, "params_240.json")
+    with open(params240, "w") as f:
+        json.dump(p240.to_dict(), f)
+
+    def run_comparator_240():
+        with contextlib.redirect_stdout(io.StringIO()):
+            return mfcc_feature.main(["--audio_file", clip, "--device",
+                                      str(dev), "--params_path", params240])
+
+    try:
+        res = drive("mfcc_feature.main(example/left_1.wav, --params_path "
+                    "240 filters)", run_comparator_240,
+                    ("mfcc_frontend", "mfcc_frontend_logmel",
+                     "dft_frontend_bf16", "dft_frontend_logmel", "cepstrum"))
+    finally:
+        pr.override(ListenerParams().to_dict())
+    if (res["frontend_kernel_path"], res["fast_math_kernel_path"]) != (
+            "cuda-mfcc+cep", "cuda-fast_math+cep"):
+        raise AssertionError(f"comparator at 240 filters: paths "
+                             f"{res['frontend_kernel_path']}, "
+                             f"{res['fast_math_kernel_path']}")
+    x240 = torch.tensor(mfcc_feature.load_padded(clip, p240)[None],
+                        dtype=torch.float32)
+    errs240 = {}
+    for leg, fast_math in (("frontend_kernel", False),
+                           ("fast_math_kernel", True)):
+        exact, slack = cepstrum_ablation.exact_features(p240, x240,
+                                                        fast_math=fast_math)
+        errs240[leg] = cepstrum_ablation.check_conditioned(
+            f"comparator at 240 filters: {leg}",
+            torch.tensor(res[leg])[None],
+            Frontend(p240, device="cpu", fast_math=fast_math)(x240), exact,
+            slack)
+    log(f"  comparator at 240 filters ({res['frontend_kernel_path']}, "
+        f"{res['fast_math_kernel_path']}): max|delta| from the plain chains "
+        f"{errs240} (both held to float64)")
+    out["mfcc_feature 240 filters max_abs_err"] = errs240
 
     # dump_inference_model on the train slice's checkpoint
     dumped = os.path.join(work, "dumped.npz")
@@ -1941,6 +2026,7 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 def main() -> int:
     import torch
 
+    started = time.perf_counter()
     # -- 1. device -----------------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1954,7 +2040,7 @@ def main() -> int:
     from tpu_speech_commands_torch.models.rnn import SimpleGRU, SimpleLSTM
     from tpu_speech_commands_torch.dev import (
         FEAT_ATOL, FEAT_RTOL, card_line, cepstrum_ablation, graph_ms,
-        pallas_experiments,
+        logmel_ablation, pallas_experiments,
         r3_experiments, r3_frontend_variants, r3_omission, r3_stage2,
         r3_widecell, r4_mxu_stage1)
     from tpu_speech_commands_torch.ops import (
@@ -2003,6 +2089,14 @@ def main() -> int:
     for line in info.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  " + line.strip())
+
+    clock = [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        """Log the seconds since the last lap (or the build)."""
+        now = time.perf_counter()
+        log(f"{what}: {now - clock[0]:.1f} s")
+        clock[0] = now
 
     # -- 3. kernels against their plain versions ------------------------------
     clips, labels = load_clips()
@@ -2534,6 +2628,84 @@ def main() -> int:
                         cep_errs.append(err)
             del plain, exact, slack
         del consts
+    # log-mel mode alone (`logmel_ablation.logmel_launch`), its tail and its
+    # first tail (`_partial_sums=True`), at dev/logmel_ablation.py's CASES,
+    # 768 x 230 (route ct's mixed-radix body) and 8192 x 128 x 128 (route
+    # fft's wide body), f32 and int16 audio: the (B, T, n_filt + 1) rows
+    # held to the float64 rows within the feature bound plus the rounding
+    # slack, as the plain rows are (`check_conditioned`; max_abs_err
+    # against the plain rows), and the two tails within 1e-5 of each other
+    # (the same powers, sums of terms >= 0 grouped otherwise)
+    logmel_errs = {tail: [] for tail in logmel_ablation.TAILS}
+    for key in (*logmel_ablation.CASES, (768, 230, 20), (8192, 128, 128)):
+        p = cepstrum_ablation.config(*key)
+        consts = logmel_ablation.constants(p, dev)
+        launch = logmel_ablation.logmel_launch(p, consts)
+        chain = Frontend(p, "mfcc", dev)
+        for audio, gain in ((audio_f32, 0.8), (audio_i16, 1.25)):
+            gain_t = torch.full((1,), gain, dtype=torch.float32, device=dev)
+            plain = cepstrum_plan.logmel_plain(chain, audio, gain)
+            exact = cepstrum_ablation.exact_logmel(p, audio, gain)
+            rows = {}
+            for tail, flag in logmel_ablation.TAILS.items():
+                rows[tail] = launch(audio, gain_t, _partial_sums=flag)
+                what = (f"log-mel mode ({tail}) {consts.body} {key} "
+                        f"{str(audio.dtype)[6:]}")
+                err = cepstrum_ablation.check_conditioned(
+                    what, rows[tail], plain, *exact, FEAT_ATOL, FEAT_RTOL)
+                logmel_errs[tail].append(err)
+                log(f"  {what:52s} max_abs_err {err:.3e} against the plain "
+                    f"rows (both held to float64)")
+            between = float((rows["rows"] - rows["partial_sums"]).abs().max())
+            if between > 1e-5:
+                raise AssertionError(f"log-mel mode {key}: the tails differ "
+                                     f"by {between:.2e}")
+            del plain, exact, rows
+        del consts, chain
+    # the fast_math kernel at FAST_MATH_FILTERS (its log-mel mode, then the
+    # cepstrum kernel), in the mixed FFT's four input, output and delta
+    # cases (batch-major), held to the float64 features of its bf16 frames
+    # and DFT matrix within the feature bound plus the rounding slack, as
+    # its plain chain is; its log-mel launch alone (`dft_logmel_cuda`) to
+    # the float64 rows
+    dft_logmel_errs = []
+    for n_filt in FAST_MATH_FILTERS:
+        for audio, out_dtype, gain, _, delta in mixed_cases:
+            p = ListenerParams(n_filt=n_filt, use_delta=delta)
+            fe = MfccFrontend(p, "mfcc", dev, out_dtype=out_dtype,
+                              fast_math=True)
+            if fe.path != "cuda-fast_math+cep":
+                raise AssertionError(f"fast_math at {n_filt} filters: path "
+                                     f"{fe.path}")
+            exact, slack = cepstrum_ablation.exact_features(
+                p, audio, gain, fast_math=True)
+            bf16 = out_dtype == torch.bfloat16
+            what = (f"fast_math+cep {n_filt} filters{' deltas' * delta} "
+                    f"{str(audio.dtype)[6:]}->{str(out_dtype)[6:]}")
+            err = cepstrum_ablation.check_conditioned(
+                what, fe(audio, gain), fe.plain(audio, gain), exact, slack,
+                FEAT_ATOL, FEAT_BF16_RTOL if bf16 else FEAT_RTOL)
+            log(f"  {what:52s} max_abs_err {err:.3e} against the plain chain "
+                f"(both held to float64)")
+            if not bf16:
+                dft_logmel_errs.append(err)
+            del exact, slack
+        p = ListenerParams(n_filt=n_filt)
+        consts = frontend_kernel.DftConstants(p, "mfcc", dev)
+        rows = frontend_kernel.dft_logmel_cuda(
+            audio_f32, torch.full((1,), 0.8, dtype=torch.float32, device=dev),
+            consts, p)
+        err = cepstrum_ablation.check_conditioned(
+            f"fast_math log-mel rows {n_filt} filters", rows,
+            cepstrum_plan.logmel_plain(Frontend(p, "mfcc", dev,
+                                                fast_math=True),
+                                       audio_f32, 0.8),
+            *cepstrum_ablation.exact_logmel(p, audio_f32, 0.8,
+                                            fast_math=True))
+        dft_logmel_errs.append(err)
+        log(f"  fast_math log-mel rows {n_filt} filters{'':24s} max_abs_err "
+            f"{err:.3e} against the plain rows (both held to float64)")
+        del consts, rows
     # the stage cuts of both frontend kernels (K8 r3_omission :164), each
     # held to the one plain version with its stage's bound
     cut_consts = omission_kernel.TruncatedConstants(ListenerParams(), dev)
@@ -2566,6 +2738,7 @@ def main() -> int:
             check_cut(kernel, "full", cut_i16, 0.8, constant_block,
                       f"B = {B_CUT} int16 gain 0.8")
 
+    lap("phase 3")
     # -- 4. the slices ---------------------------------------------------------
     counters = {
         "mfcc_frontend": frontend_kernel.mfcc_frontend_cuda,
@@ -2573,6 +2746,9 @@ def main() -> int:
         "mfcc_frontend_wide": frontend_kernel.WIDE,
         "cepstrum": frontend_kernel.CEPSTRUM,
         "cepstrum_simt": frontend_kernel.CEPSTRUM_SIMT,
+        "mfcc_frontend_logmel": frontend_kernel.LOGMEL,
+        "mfcc_frontend_partial_sums": frontend_kernel.PARTIAL_SUMS,
+        "dft_frontend_logmel": frontend_kernel.DFT_LOGMEL,
         "dft_frontend_bf16": frontend_kernel.dft_frontend_bf16_cuda,
         "dft_frontend_mma_sync": frontend_kernel.MMA_SYNC,
         "gru_classifier": rnn_kernel.gru_layer_cuda,
@@ -2615,15 +2791,17 @@ def main() -> int:
         return out
 
     clips_dev = torch.tensor(clips, device=dev)
+    no_logmel = ("cepstrum", "cepstrum_simt", "mfcc_frontend_logmel",
+                 "mfcc_frontend_partial_sums")
     scorer_paths = (
         (CHECKPOINT, "cuda-gru", "gru_classifier",
-         ("gru_classifier_simt", "cepstrum", "cepstrum_simt")),
+         ("gru_classifier_simt", *no_logmel)),
         (LSTM_CHECKPOINT, "cuda-lstm", "lstm_classifier",
-         ("lstm_classifier_simt", "cepstrum", "cepstrum_simt")),
+         ("lstm_classifier_simt", *no_logmel)),
         (CNN_CHECKPOINTS["simple_cnn"], "cuda-cnn", "cnn_classifier",
-         ("cepstrum", "cepstrum_simt")),
+         no_logmel),
         (CNN_CHECKPOINTS["simple_cnn_lite"], "cuda-cnn", "cnn_classifier",
-         ("cepstrum", "cepstrum_simt")),
+         no_logmel),
     )
     scorers_by_path = {}
     for path, classifier_path, kernel_name, forbid in scorer_paths:
@@ -2670,10 +2848,16 @@ def main() -> int:
          ("mfcc_frontend", "mfcc_frontend_radix2")),
         ("240 filters (the register body in log-mel mode, then the "
          "cepstrum kernel)", {"n_filt": 240}, "cuda-mfcc+cep",
-         ("mfcc_frontend", "cepstrum", "gru_classifier"),
-         ("mfcc_frontend_radix2", "mfcc_frontend_wide", "cepstrum_simt")),
+         ("mfcc_frontend", "mfcc_frontend_logmel", "cepstrum",
+          "gru_classifier"),
+         ("mfcc_frontend_radix2", "mfcc_frontend_wide", "cepstrum_simt",
+          "mfcc_frontend_partial_sums")),
         ("n_fft 400", {"n_fft": 400, "window_t": 0.025}, "torch(xla-route)",
          ("gru_classifier",), ()),
+        ("n_fft 32768 (no body of the FFT kernel takes it)",
+         {"n_fft": 32768}, "torch(xla-route)", ("gru_classifier",),
+         ("mfcc_frontend", "mfcc_frontend_radix2", "mfcc_frontend_wide",
+          "mfcc_frontend_logmel")),
         ("n_fft = window = 4352 (route ct's wide body)", WIDE_ROUTE,
          "cuda-ct(wide)", ("wide_fft_frontend", "gru_classifier"),
          ("mixed_fft_frontend", *ct_kernel.counters)),
@@ -2708,10 +2892,49 @@ def main() -> int:
                        fe240.params, fe240.out_dtype, _cepstrum_simt=True))),
                ("mfcc_frontend", "cepstrum_simt", "gru_classifier"),
                ("cepstrum", "mfcc_frontend_radix2"))
+    cpu240 = make_batch_scorer(path240, "cpu")(clips)
     check_close("scores card vs CPU, 240 filters, the cepstrum kernel's first "
-                "design", sc.cpu(), make_batch_scorer(path240, "cpu")(clips),
-                SCORE_ATOL, 0.0)
-    del scorer240, fe240
+                "design", sc.cpu(), cpu240, SCORE_ATOL, 0.0)
+    # log-mel mode's first tail kept for the A/B: the 240-filter scorer's
+    # frontend with `_partial_sums=True` into its GRU classifier kernel
+    sc = drive("the 240-filter scorer's frontend with log-mel mode's first "
+               "tail (_partial_sums=True) + its GRU classifier on 8 clips",
+               lambda: score_fn(scorer240.classifier(
+                   frontend_kernel.mfcc_frontend_cuda(
+                       clips_dev, fe240._unit_gain, fe240.consts,
+                       fe240.params, fe240.out_dtype, _partial_sums=True))),
+               ("mfcc_frontend", "mfcc_frontend_partial_sums", "cepstrum",
+                "gru_classifier"),
+               ("mfcc_frontend_logmel", "mfcc_frontend_radix2"))
+    check_close("scores card vs CPU, 240 filters, log-mel mode's first tail",
+                sc.cpu(), cpu240, SCORE_ATOL, 0.0)
+    # the fast_math kernel at 240 filters (its log-mel mode, then the
+    # cepstrum kernel) into the same GRU classifier kernel: top-1 equal to
+    # the CPU's (the fast_math plain chain into the plain GRU), scores
+    # within the bf16 scores bound (the same bf16 frames and DFT matrix,
+    # the f32 sums in another order, magnified by the log of a filter
+    # that covers one bin)
+    p240 = fe240.params
+    fm240 = MfccFrontend(p240, "mfcc", dev, fast_math=True)
+    if fm240.path != "cuda-fast_math+cep":
+        raise AssertionError(f"fast_math at 240 filters: path {fm240.path}")
+    sc = drive("MfccFrontend(fast_math=True) at 240 filters + the 240-filter "
+               "scorer's GRU classifier on 8 clips",
+               lambda: score_fn(scorer240.classifier(fm240(clips_dev))),
+               ("dft_frontend_bf16", "dft_frontend_logmel", "cepstrum",
+                "gru_classifier"),
+               ("mfcc_frontend", "dft_frontend_mma_sync"))
+    cpu_fm240 = score_fn(GRUClassifier(load_native(path240, "cpu").model)(
+        MfccFrontend(p240, "mfcc", "cpu", fast_math=True)(
+            torch.tensor(clips))))
+    top1 = sc.argmax(-1).tolist()
+    if top1 != cpu_fm240.argmax(-1).tolist() or not torch.isfinite(sc).all():
+        raise AssertionError(f"fast_math at 240 filters: top-1 {top1}, CPU "
+                             f"{cpu_fm240.argmax(-1).tolist()}")
+    log(f"  fast_math at 240 filters: top-1 {top1} (the CPU's)")
+    check_close("scores card vs CPU, fast_math at 240 filters", sc.cpu(),
+                cpu_fm240, SCORE_BF16_ATOL, 0.0)
+    del scorer240, fe240, fm240
 
     # route ct with 300 filters and coefficients (no fused block fits their
     # DCT columns: the wide FFT in log-mel mode, then the cepstrum kernel)
@@ -2729,9 +2952,10 @@ def main() -> int:
     sc = drive("MfccFrontend (n_fft 4352, 300 coefficients) + GRUClassifier "
                "(random, D 300) on 8 clips",
                lambda: score_fn(cls300(fe300(clips_dev))),
-               ("wide_fft_frontend", "cepstrum", "gru_classifier_simt"),
+               ("wide_fft_frontend", "mfcc_frontend_logmel", "cepstrum",
+                "gru_classifier_simt"),
                ("mixed_fft_frontend", *ct_kernel.counters, "gru_classifier",
-                "cepstrum_simt"))
+                "cepstrum_simt", "mfcc_frontend_partial_sums"))
     cpu300 = score_fn(GRUClassifier(gru300)(
         MfccFrontend(p300, "mfcc", "cpu")(torch.tensor(clips))))
     check_close("scores card vs CPU, n_fft 4352, 300 coefficients", sc.cpu(),
@@ -2833,7 +3057,8 @@ def main() -> int:
             f"{os.path.basename(path)}) on 8 clips, f32 and bf16",
             lambda: {dt: score_fn(c(fe(clips_dev)))
                      for dt, c in classifiers.items()},
-            ("dft_frontend_bf16", kernel_name), ("dft_frontend_mma_sync",))
+            ("dft_frontend_bf16", kernel_name),
+            ("dft_frontend_mma_sync", "dft_frontend_logmel"))
         for dt, sc in scores.items():
             top1 = [predictor.classes[i] for i in sc.argmax(-1).tolist()]
             log(f"  {str(dt)[6:]:8s} top-1 {sum(a == b for a, b in zip(top1, labels))}/8")
@@ -2901,6 +3126,7 @@ def main() -> int:
                                       "parallel"))}))
 
 
+    lap("phase 4")
     # -- 5. times (information only) -------------------------------------------
     log(f"times at B = {B_TIME}, audio resident on the card ({card}):")
     big_np = test_audio(clips, B_TIME, seed=2)
@@ -3123,6 +3349,24 @@ def main() -> int:
             f"bound {bound[0]:.4f} ms ({bound[1]}; wgmma at "
             f"{new_ms / bound[0]:.2f}x)  ({card})")
     cep600 = cep_alone[4352, MANY_COEFFS[-1], MANY_COEFFS[-1]]
+    # log-mel mode measured apart (dev/logmel_ablation.py, its tail against
+    # its first tail in turns rows, partial_sums, partial_sums, rows, each
+    # first held to the float64 rows): the body's log-mel launch alone
+    # (device times from CUDA graphs) at its CASES beside the same body
+    # fused at 20 filters and coefficients, the plain rows and the bound;
+    # the +cep frontend with either tail (CUDA events) at LOGMEL_FRONTEND;
+    # the fast_math kernel fused against its log-mel mode with the cepstrum
+    # kernel, in turns, at DFT_MODES, and that mode's launch alone
+    lap("phase 5 up to log-mel mode apart")
+    log(f"  log-mel mode apart at B = {B_TIME} ({card}):")
+    logmel_alone = {(r["n_fft"], r["n_filt"], r["n_mfcc"]): r
+                    for r in logmel_ablation.run_alone(B_TIME, 10, dev)}
+    logmel_frontend = {(r["n_fft"], r["n_filt"], r["n_mfcc"]): r
+                       for r in logmel_ablation.run_frontend(
+                           B_TIME, 5, dev, cases=LOGMEL_FRONTEND)}
+    dft_modes = {r["n_filt"]: r for r in logmel_ablation.run_dft(
+        B_TIME, 10, dev, cases=DFT_MODES)}
+    lap("phase 5 log-mel mode apart")
     times = {
         "wide_fft_frontend": (wide_ab[WIDE_AB[0]]["ms"],
                               wide_ab[WIDE_AB[0]]["plain_ms"]),
@@ -3367,6 +3611,37 @@ def main() -> int:
             log(f"    {dname} {split[0]} windows a warp, {split[1]} warps a "
                 f"block{' (default)' if default else ''}: "
                 f"{graph_ms(run_split):.4f} ms (device time)  ({card})")
+    # the GRU classifier above the tile's gru_plan.CAP_D features: a random
+    # 48-unit GRU of feature size 300 (the 300-coefficient frontend's,
+    # phase 4) takes the SIMT kernel; on (B_TIME, 23, 300) f32 features
+    # from a numpy seed, held to the plain module, device time from a CUDA
+    # graph beside the bound and the plain module
+    p300 = ListenerParams(n_fft=4352, window_t=0.272, n_filt=300, n_mfcc=300)
+    gru300 = init_model("simple_gru", 5, seed=1, params=p300)[0].to(dev)
+    x300 = torch.tensor(np.random.default_rng(3).standard_normal(
+        (B_TIME, p300.n_features, 300)).astype(np.float32), device=dev)
+    cls300 = GRUClassifier(gru300)
+    before = rnn_kernel.GRU_SIMT.launches
+    with torch.inference_mode():
+        want300 = gru300(x300, torch.float32)
+    rnn_errs["gru_simt"].append(check_close(
+        f"gru_classifier (simt) 300 features B = {B_TIME}", cls300(x300),
+        want300, GRU_ATOL, GRU_RTOL))
+    if rnn_kernel.GRU_SIMT.launches != before + 1:
+        raise AssertionError("300 features did not take the GRU's SIMT kernel")
+    dims300 = (p300.n_features, 300, rnn_dims[2], rnn_dims[3])
+    gru_simt_300 = {
+        "ms": graph_ms(lambda: cls300(x300)),
+        "plain_ms": cuda_ms(lambda: gru300(x300, torch.float32), 5),
+        "library_ms": None}
+    b300 = rnn_bound(B_TIME, dims300, 3, "float32")
+    gru_simt_300.update(bound_ms=b300[0], bound_by=b300[1],
+                        features=300, frames=p300.n_features)
+    log(f"  gru_classifier_simt at 300 features (above CAP_D = "
+        f"{gru_plan.CAP_D}), f32: {gru_simt_300['ms']:.4f} ms (device time); "
+        f"plain {gru_simt_300['plain_ms']:.4f} ms; bound {b300[0]:.4f} ms "
+        f"({b300[1]}; {gru_simt_300['ms'] / b300[0]:.1f}x)  ({card})")
+    del gru300, x300, cls300, want300
     # the LSTM classifier the same way (the scorer runs it in f32), each
     # dtype beside cuDNN's nn.LSTM in that dtype (f32 held to the kernel;
     # bf16 keeps h and c in bf16 between steps, so its error is printed)
@@ -3601,6 +3876,9 @@ def main() -> int:
             "plain_ms": times[name][1], "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1], "library_ms": library[name],
         })
+        if name == "gru_classifier_simt":
+            # above CAP_D features (300), from the timing above
+            kernels[-1]["features_300"] = gru_simt_300
         if name.startswith("gru_classifier"):
             # in bf16 (bf16 features), from the A/B above
             ab, plain_ms, bound = gru_ab["bfloat16"]
@@ -3692,6 +3970,48 @@ def main() -> int:
                 "bf16_ms": ab["simt" if name.endswith("simt") else "gemm"][0],
                 "bf16_plain_ms": plain_ms, "bf16_bound_ms": bound[0],
                 "bf16_bound_by": bound[1]})
+    # log-mel mode of the register and wide bodies, each tail a row: the
+    # main keys alone at n_fft 1024 with 240 filters (the 240-filter
+    # scorer's), the others at n_fft 4352 beside the fused 20-filter body,
+    # and the +cep frontend with that tail; no one PyTorch call computes it
+    for name, tail in (("mfcc_frontend_logmel", "rows"),
+                       ("mfcc_frontend_partial_sums", "partial_sums")):
+        main = logmel_alone[1024, 240, 20]
+        entry = {
+            "name": name, "route": "cuda",
+            "source": "tpu_speech_commands_torch/csrc/register_fft.cuh",
+            "replaces": frontend_kernel.REPLACES, "launches": launches[name],
+            "max_abs_err": max(logmel_errs[tail]), "ms": main["ms"][tail][0],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "fused_20_ms": main["fused_20_ms"],
+            "frontend_cep_ms": logmel_frontend[1024, 240, 20]["ms"][tail][0]}
+        for key, row in logmel_alone.items():
+            if key != (1024, 240, 20):
+                entry["n_fft_{}_{}x{}".format(*key)] = {
+                    "ms": row["ms"][tail][0], "fused_20_ms": row["fused_20_ms"],
+                    **{k: row[k] for k in ("plain_ms", "bound_ms",
+                                           "bound_by")}}
+                if key in logmel_frontend:
+                    entry["n_fft_{}_{}x{}".format(*key)]["frontend_cep_ms"] \
+                        = logmel_frontend[key]["ms"][tail][0]
+        kernels.append(entry)
+    # the fast_math kernel in log-mel mode: alone at 240 filters, and each
+    # mode in turns at every many-filter config
+    row240 = dft_modes[240]
+    kernels.append({
+        "name": "dft_frontend_logmel", "route": "cuda",
+        "source": frontend_kernel.DFT_SOURCE,
+        "replaces": frontend_kernel.DFT_REPLACES,
+        "launches": launches["dft_frontend_logmel"],
+        "max_abs_err": max(dft_logmel_errs), "ms": row240["logmel_ms"],
+        "plain_ms": row240["logmel_plain_ms"],
+        "bound_ms": row240["logmel_bound_ms"],
+        "bound_by": row240["logmel_bound_by"], "library_ms": None,
+        "modes": {str(k): {"ms": r["ms"], "bound_ms": r["bound_ms"],
+                           "windows_per_block": r["windows_per_block"],
+                           "config_mode": r["config_mode"]}
+                  for k, r in dft_modes.items()}})
     # the stage cuts: the main keys are the streamed cut's, the
     # constant_block_* keys the constant-block cut's; no library call
     # computes a cut
@@ -3711,6 +4031,8 @@ def main() -> int:
             "constant_block_bound_ms": cut_bound[name, True][0],
             "constant_block_bound_by": cut_bound[name, True][1],
         })
+    lap("phase 5, the rest")
+    log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -377,3 +377,72 @@ def test_cepstrum_mode_bound_counts_the_function_only(chip_smoke, n, packed):
     if n == 600:
         assert got[0] == pytest.approx(1.2364, abs=1e-4)
         assert ops / 67e9 + dct / 67e9 == pytest.approx(2.4370, abs=1e-4)
+
+
+@pytest.mark.parametrize("n,packed", [(300, 4029), (512, 3847), (600, 3779)])
+def test_logmel_launch_bound_counts_the_body_only(n, packed):
+    """Log-mel mode's launch alone at n_fft 4352 with n filters
+    (dev/logmel_ablation.py's `logmel_bound`): the real FFT, 4 a bin and 2
+    a packed weight a frame at the f32 peak against the kept frames' span
+    of audio and the (B, T, n + 1) f32 rows; its operations bind (0.4156 ms
+    at 600, the rows' 453 MB take 0.1352 ms)."""
+    import math
+
+    from tpu_speech_commands_torch.dev import logmel_ablation
+
+    p = ListenerParams(n_fft=4352, window_t=0.272, n_filt=n, n_mfcc=n)
+    f = 8192 * 23
+    ops = f * (2.5 * 4352 * math.log2(4352) + 4 * 2177 + 2 * packed)
+    nbytes = 4 * 8192 * (22 * 512 + 4352) + 4 * f * (n + 1)
+    got = logmel_ablation.logmel_bound(p, 8192)
+    assert got == pytest.approx((max(ops / 67e9, nbytes / 3.35e9),
+                                 "operations"), rel=1e-9)
+    if n == 600:
+        assert got[0] == pytest.approx(0.4156, abs=1e-4)
+        assert 4 * f * 601 / 3.35e9 == pytest.approx(0.1352, abs=1e-4)
+
+
+def test_logmel_launch_bound_at_240_filters_is_its_bytes():
+    """n_fft 1024 with 240 filters: the kept frames' 520.1 MB of audio and
+    the 236.9 MB of (B, 30, 241) rows bind, 0.2260 ms."""
+    from tpu_speech_commands_torch.dev import logmel_ablation
+
+    f = 8192 * 30
+    nbytes = 4 * 8192 * (29 * 512 + 1024) + 4 * f * 241
+    assert nbytes == pytest.approx(757.0e6, rel=1e-3)
+    got = logmel_ablation.logmel_bound(ListenerParams(n_filt=240), 8192)
+    assert got == pytest.approx((nbytes / 3.35e9, "bytes"), rel=1e-9)
+    assert got[0] == pytest.approx(0.2260, abs=1e-4)
+
+
+def test_fast_math_mode_bounds_count_the_function_only():
+    """The fast_math function at 240 filters (dev/logmel_ablation.py): the
+    DFT's 2 x 1024 x 1026 products a frame at the bf16 peak, 2 a packed
+    weight at the f32 peak and the DCT's 2 x 240 x 19 at the 3xTF32 rate
+    (`dft_mode_bound`); its log-mel launch alone without the DCT, the rows
+    written in place of the features (`dft_logmel_bound`)."""
+    from tpu_speech_commands_torch.dev import logmel_ablation
+    from tpu_speech_commands_torch.ops.fft_plan import pack_filterbank
+    from tpu_speech_commands_torch.frontend.filterbanks import (
+        filterbank_matrix)
+
+    p = ListenerParams(n_filt=240)
+    packed = len(pack_filterbank(filterbank_matrix(p, "mfcc").T)[0])
+    f = 8192 * 30
+    dft = f * 2 * 1024 * 1026 / 989e9 + f * 2 * packed / 67e9
+    dct = f * 2 * 240 * 19 * 3 / 495e9
+    assert logmel_ablation.dft_mode_bound(p, 8192) == pytest.approx(
+        (dft + dct, "operations"), rel=1e-9)
+    assert logmel_ablation.dft_logmel_bound(p, 8192) == pytest.approx(
+        (dft, "operations"), rel=1e-9)
+
+
+def test_gru_bound_above_the_tile_width(chip_smoke):
+    """The GRU classifier at 300 features (23 frames, 48 units, 5 classes:
+    the SIMT kernel, above gru_plan.CAP_D): [x_t | h] @ [W; U] a step, 2 a
+    multiply-add, and the head, at the f32 peak; operations bind."""
+    ops = 8192 * 23 * 2 * 3 * 48 * (300 + 48) + 8192 * 2 * 48 * 5
+    nbytes = 8192 * (23 * 300 * 4 + 4 * 5)
+    got = chip_smoke.rnn_bound(8192, (23, 300, 48, 5), 3, "float32")
+    assert got == pytest.approx((max(ops / 67e9, nbytes / 3.35e9),
+                                 "operations"), rel=1e-9)

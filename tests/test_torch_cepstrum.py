@@ -293,28 +293,52 @@ class _P:
         self.kL, self.kPitch = plan.lanes, plan.pitch
 
 
-@pytest.mark.parametrize("mode", ["trimmed", "full", "logmel"])
+@pytest.mark.parametrize("mode", ["trimmed", "full", "logmel",
+                                  "logmel_partial_sums"])
 def test_fft_layout_mirrors_the_source(mode):
     """fft_layout's regions, fused with the trimmed (n_filt, n_mfcc - 1) or
-    the whole DCT, or in log-mel mode (no DCT, no coefficients), are the
-    offsets smem_layout() computes from the source's text, at the register,
-    mixed-radix and wide plans and several filter and coefficient counts."""
+    the whole DCT, or in log-mel mode (no DCT, no coefficients; its tail on
+    the log-mel filterbank plan, or its first tail on the fused one), are
+    the offsets smem_layout() computes from the source's text, at the
+    register, mixed-radix and wide plans and several filter and coefficient
+    counts (the tail's weights are its step tables', chunk a lane);
+    table_ints() and slot_floats() of the source are fft_plan's table and
+    `slot_floats`."""
     smem_layout = _source_smem_layout()
+    src = (_build.CSRC_DIR / "register_fft.cuh").read_text()
+    assert ("return P::kL + 1 + n_filt + 1 + (logmel == kLogmelRows ? 4 : 3) "
+            "* n_seg;") in src
+    assert ("return logmel == kLogmelRows ? row_stage(n_filt) + ((P::kL + "
+            "P::kWpf + 3) & ~3)\n                               : n_seg + "
+            "n_filt + P::kWpf;") in src
+    assert "inline int row_stage(int n_filt) { return (n_filt + 7) & ~3; }" \
+        in src
+    assert re.search(r"enum Logmel : int \{ kFused = 0, kLogmelRows = "
+                     rf"{cp.LOGMEL_ROWS}, kLogmelPartial = "
+                     rf"{cp.LOGMEL_PARTIAL} \}};", src)
     cases = [(fp.fft_plan(1024), 1024), (fp.fft_plan(4096), 4096),
              (fp.mixed_plan(768), 768), (fp.wide_plan(4352), 4352),
              (fp.fft_wide_plan(8192), 8192)]
+    logmel = mode.startswith("logmel")
+    rows = mode == "logmel"
     for plan, n_fft in cases:
         for n_filt, n_mfcc in ((20, 20), (40, 13), (128, 1), (300, 60)):
             p = ListenerParams(**_params(n_fft, n_filt, n_mfcc))
             fb = fp.filterbank_plan(filterbank_matrix(p, "mfcc").T, plan.lanes)
             lay = fp.fft_layout(plan, fb, n_filt, n_mfcc, p.n_features,
                                 plan.warps_per_frame,
-                                full_dct=mode == "full",
-                                cepstrum=mode == "logmel")
-            cols = {"trimmed": n_mfcc - 1, "full": n_filt, "logmel": 0}[mode]
-            got = smem_layout(_P(plan), lay.warps, len(fb.packed), fb.n_seg,
-                              n_filt, cols, 0 if mode == "logmel" else n_mfcc,
-                              p.n_features)
+                                full_dct=mode == "full", cepstrum=logmel,
+                                partial_sums=mode == "logmel_partial_sums")
+            used = fp.logmel_filterbank(fb, plan.lanes) if rows else fb
+            assert len(used.table) == (plan.lanes + 1 + n_filt + 1
+                                       + (4 if rows else 3) * used.n_seg)
+            cols = n_filt if mode == "full" else 0 if logmel else n_mfcc - 1
+            # the tail stages its step tables' weights, chunk a lane
+            n_weights = used.chunk * plan.lanes if rows else len(used.packed)
+            got = smem_layout(_P(plan), lay.warps, n_weights,
+                              len(used.table), n_filt, cols,
+                              0 if logmel else n_mfcc, p.n_features,
+                              fp.slot_floats(plan, used.n_seg, n_filt, rows))
             regions = (lay.twiddle, lay.weights, lay.table, lay.dct,
                        lay.frames, lay.scratch, lay.feats)
             assert got == tuple(np.cumsum((0,) + regions)), (n_fft, n_filt)
@@ -327,7 +351,7 @@ TABLE = {  # (n_fft, n_filt, n_mfcc): body, cepstrum, blocks x warps an SM
     (1024, 80, 40): ("register", True, (4, 8)),
     (1024, 128, 20): ("register", True, (4, 8)),
     (1024, 128, 128): ("register", True, (4, 8)),
-    (1024, 240, 20): ("register", True, (3, 8)),
+    (1024, 240, 20): ("register", True, (4, 8)),  # 3 before the row tail
     (768, 230, 20): ("register", True, (2, 4)),
     (4352, 300, 20): ("wide", True, (4, 4)),
     (4352, 300, 300): ("wide", True, (4, 4)),

@@ -21,9 +21,11 @@ import torch
 from tpu_speech_commands_torch.frontend import Frontend, frame_signal
 from tpu_speech_commands_torch.frontend.filterbanks import filterbank_matrix
 from tpu_speech_commands_torch.ops import _build, dft_plan
+from tpu_speech_commands_torch.ops import fft_plan as fp
 from tpu_speech_commands_torch.ops.frontend_kernel import (
-    DFT_SMEM_MAX, DftConstants, _dft_smem_bytes, dft_config_error,
-    dft_layout, pack_filterbank)
+    DFT_CEP_MIN_PRODUCTS, DFT_SMEM_MAX, DftConstants, _dft_smem_bytes,
+    dft_cepstrum, dft_config_error, dft_layout, kernel_config_error,
+    pack_filterbank)
 from tpu_speech_commands_torch.params import ListenerParams
 
 CONFIGS = {
@@ -69,17 +71,25 @@ def test_source_constants_are_the_plan():
 
 
 def test_source_shared_memory_terms_are_the_mirror():
-    """smem_bytes() of the source, term by term, in the mirror's order."""
+    """smem_bytes() of the source, term by term, in the mirror's order: the
+    filter sums of the block's windows' rows (all kBM with the power
+    tile), the DCT's n_mfcc - 1 columns (none in log-mel mode)."""
     body = re.search(r"inline size_t smem_bytes\([^)]*\) \{(.*?)\n\}", SRC,
                      re.S).group(1)
     terms = ["1024 + ring_bytes(n_mfcc, stages)", "kPowerTile ? align16(sizeof(float) * kBM * kPPitch)",
              "sizeof(__nv_bfloat16) * (size_t)wpb * win_pitch",
-             "sizeof(float) * (size_t)kBM * mel_pitch(n_filt)",
+             "sizeof(float) * (size_t)mel_rows(wpb, n_features) * mel_pitch(n_filt)",
              "sizeof(int) * (size_t)(k_pad / 8)",
-             "sizeof(float) * (size_t)n_filt * n_filt", "+ table +",
-             "sizeof(uint64_t) * (2 * stages + 4)"]
+             "sizeof(float) * (size_t)n_filt * dct_cols(n_mfcc, logmel)",
+             "+ table +", "sizeof(uint64_t) * (2 * stages + 4)"]
     at = [body.find(t) for t in terms]
     assert -1 not in at and at == sorted(at)
+    rows = re.search(r"inline int mel_rows\(int wpb, int n_features\) \{(.*?)\n\}",
+                     SRC, re.S).group(1)
+    assert "return kPowerTile ? kBM : wpb * n_features;" in rows
+    cols = re.search(r"inline int dct_cols\(int n_mfcc, int logmel\) \{(.*?)\n\}",
+                     SRC, re.S).group(1)
+    assert "return logmel ? 0 : n_mfcc - 1;" in cols
     ring = re.search(r"inline size_t ring_bytes\(int n_mfcc, int stages\) \{(.*?)\n\}",
                      SRC, re.S).group(1)
     assert "(size_t)stages * kStageBytes" in ring
@@ -101,7 +111,8 @@ def test_layout_uses_the_mirror_and_fits(name):
     table = dft_plan.wgmma_table_bytes(lay.wgmma_rows, slots) if lay.table_smem else 0
     assert lay.smem_bytes == dft_plan.wgmma_smem_bytes(
         lay.wpb, lay.win_pitch, p.n_filt, p.n_mfcc, lay.k_pad, table,
-        lay.stages) <= DFT_SMEM_MAX
+        lay.stages, n_features=p.n_features) <= DFT_SMEM_MAX
+    assert not lay.logmel and not dft_cepstrum(p, feature_type)
     # a ring of 5 stages fits beside every one of these configs' windows,
     # and then the mel (2-slot) filter slots, but not the bark (4-slot) ones
     assert lay.stages == 5
@@ -119,7 +130,7 @@ def test_takes_every_config_the_first_design_takes():
         for k_pad in (64, 448, 1024, 4096):
             for win_pitch in (1000, 16120, 60000):
                 ours = dft_plan.wgmma_smem_bytes(1, win_pitch, n_filt, n_mfcc,
-                                                 k_pad)
+                                                 k_pad, n_features=128)
                 theirs = _dft_smem_bytes(1, win_pitch, n_filt, n_mfcc, k_pad,
                                          0)
                 assert ours <= theirs
@@ -127,6 +138,46 @@ def test_takes_every_config_the_first_design_takes():
                           n_fft=2048)
     assert "shared memory" in dft_config_error(long)
     assert "shared memory" in dft_config_error(long, mma_sync=True)
+
+
+# the many-filter sweep of the fast_math kernel's layouts: n_filt 20 ..
+# 512 at the default n_fft, 13 and 20 coefficients
+MANY_FILTERS = (20, 40, 64, 100, 128, 129, 160, 200, 240, 300, 400, 512)
+
+
+@pytest.mark.parametrize("n_mfcc", [13, 20])
+def test_takes_every_filter_count_the_fft_kernel_takes(n_mfcc):
+    """n_fft 1024, n_filt 20 .. 512: the kernel takes every config that the
+    FFT kernel's route fft takes, in its mode from the config; a layout
+    holds its DCT's n_mfcc - 1 columns (fused) or none (log-mel mode) and
+    the filter sums of its windows' rows only, fits, and holds at least as
+    many windows in log-mel mode as fused.  The default config stays
+    fused; past the trimmed block's room, or DFT_CEP_MIN_PRODUCTS products
+    a frame, log-mel mode."""
+    for n_filt in MANY_FILTERS:
+        p = ListenerParams(n_filt=n_filt, n_mfcc=n_mfcc)
+        assert kernel_config_error(p) is None
+        assert dft_config_error(p) is None, n_filt
+        fused, logmel = dft_layout(p), dft_layout(p, logmel=True)
+        for lay, mode in ((fused, False), (logmel, True)):
+            slots = dft_plan.filter_slots(filterbank_matrix(p, "mfcc").T,
+                                          lay.wgmma_rows // 2).slots
+            table = dft_plan.wgmma_table_bytes(lay.wgmma_rows, slots) \
+                if lay.table_smem else 0
+            assert lay.logmel == mode
+            assert lay.smem_bytes == dft_plan.wgmma_smem_bytes(
+                lay.wpb, lay.win_pitch, n_filt, n_mfcc, lay.k_pad, table,
+                lay.stages, n_features=p.n_features, logmel=mode)
+            assert lay.smem_bytes <= DFT_SMEM_MAX
+            assert lay.wpb * p.n_features <= dft_plan.BM
+        assert logmel.wpb >= fused.wpb
+        cep = dft_cepstrum(p)
+        assert cep == (fused.wpb < logmel.wpb
+                       or n_filt * (n_mfcc - 1) >= DFT_CEP_MIN_PRODUCTS)
+        assert DftConstants(p, "mfcc", "cpu").layout == (logmel if cep
+                                                         else fused)
+    assert not dft_cepstrum(ListenerParams())
+    assert dft_cepstrum(ListenerParams(n_filt=240))
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))

@@ -396,3 +396,127 @@ def test_source_plan_alias_is_the_python_plan(n_fft):
     radices = tuple(c_eval(r.strip(), N=n) for r in radices.split(","))
     plan = fp.fft_plan(n_fft)
     assert (v, b, radices) == (plan.values, plan.min_blocks, plan.radices)
+
+
+# filters at the register body's n_fft 1024 and route ct's wide body's 4352
+LOGMEL_TAIL_CASES = {"20 filters": (1024, 20), "240 filters": (1024, 240),
+                     "600 filters": (4352, 600)}
+
+
+@pytest.mark.parametrize("case", sorted(LOGMEL_TAIL_CASES))
+def test_logmel_tail_plan_covers_each_weight_once(case):
+    """Log-mel mode's tail emulated on its plan (`fft_plan.emulate_logmel_
+    tail`): every packed weight is read once, every filter (the empty ones
+    too, through their one zero weight) gets its sum from exactly one lane,
+    and the sums are the plain filterbank product (frontend/dsp.py's
+    matrix) within f32 rounding: rtol 1e-5 of the sum of |terms| (all terms
+    are >= 0), the plain product in float64 here."""
+    n_fft, n_filt = LOGMEL_TAIL_CASES[case]
+    kw = {} if n_fft & (n_fft - 1) == 0 else {"window_t": n_fft / 16000}
+    p = ListenerParams(n_fft=n_fft, n_filt=n_filt, n_mfcc=20, **kw)
+    plan = fp.fft_plan(n_fft) if fp.takes_register_fft(n_fft) else \
+        fp.wide_plan(n_fft)
+    filt_t = filterbank_matrix(p, "mfcc").T
+    fb = fp.filterbank_plan(filt_t, plan.lanes, logmel=True)
+    assert fb is fp.logmel_filterbank(fb, plan.lanes)
+    np.testing.assert_array_equal(
+        fp.logmel_filterbank(fp.filterbank_plan(filt_t, plan.lanes),
+                             plan.lanes).table, fb.table)
+    empty = (filt_t != 0).sum(1) == 0
+    # an empty filter: one segment of one zero weight
+    assert (np.diff(fb.filt_seg)[empty] == 1).all()
+    assert (fb.segments[fb.filt_seg[:-1][empty], 2] == 1).all()
+    assert (np.diff(fb.filt_seg) >= 1).all()
+    rng = np.random.default_rng(n_filt)
+    power = (rng.random((3, p.n_fft_bins)) ** 4).astype(np.float32)
+    power[1] *= 1e-12  # a quiet frame
+    sums, reads = fp.emulate_logmel_tail(power, fb, plan.lanes)
+    assert (reads == 1).all()
+    assert np.isfinite(sums).all()
+    want = power.astype(np.float64) @ filt_t.T.astype(np.float64)
+    np.testing.assert_allclose(sums, want, rtol=1e-5, atol=0)
+    assert (sums[:, empty] == 0).all()
+    # a filter split over lanes' runs is assembled from its carries
+    split = [m for m in range(n_filt)
+             if fb.filt_seg[m + 1] - fb.filt_seg[m] > 1]
+    assert split
+
+
+def test_logmel_cuts_are_the_source_stops():
+    """dev/logmel_ablation.py's cuts build csrc/mfcc_frontend.cu and 4352's
+    wide unit with TSC_LOGMEL_STOP at register_fft.cuh's kPower, kMel and
+    kLog; the shipped library takes the default, kShipped."""
+    import re
+
+    from tpu_speech_commands_torch.dev import logmel_ablation
+    from tpu_speech_commands_torch.ops import _build
+
+    src = (_build.CSRC_DIR / "register_fft.cuh").read_text()
+    names = [n.strip() for n in re.search(
+        r"enum Stop : int \{ ([^}]*) \};", src).group(1).split(",")]
+    assert {cut: names[stop] for cut, stop in logmel_ablation.CUTS.items()} \
+        == {"power_row": "kPower", "walk": "kMel", "sums_and_logs": "kLog"}
+    assert "#define TSC_LOGMEL_STOP kShipped" in src
+    assert "TSC_LOGMEL_STOP" not in "".join(_build.COMPILE_FLAGS)
+    sources, flags = logmel_ablation.cut_sources()
+    assert set(sources) == {f"{route}_{cut}" for route in ("fft", "ct")
+                            for cut in logmel_ablation.CUTS}
+    assert sources["ct_walk"] == (_build.CSRC_DIR / "wide_fft_frontend_"
+                                  f"{fp.wide_unit(4352)}.cu").read_text()
+    assert flags["fft_sums_and_logs"] == ("-DTSC_LOGMEL_STOP=5",)
+
+
+def test_logmel_tail_steps_the_plans_run_length():
+    """Log-mel mode's tail steps `chunk` times in every lane (the launch's
+    n_packed is chunk x lanes, its step tables' weights), reading step i of
+    lane l at i lanes + l: the step tables (`fft_plan.logmel_steps`) hold
+    each lane's run in order, a segment's last step marking its filter and
+    kind, padding that weighs 0 past the run; the constants the kernel
+    reads the descriptors with are the plan's; the route fft constants
+    stage them after the plan's table."""
+    import re
+
+    from tpu_speech_commands_torch.ops import _build
+
+    src = (_build.CSRC_DIR / "register_fft.cuh").read_text()
+    assert "const int chunk = a.n_packed / L;" in src
+    assert "const int* steps = a.table + table_len;" in src
+    assert f"constexpr int kStepBin = (1 << {fp.STEP_BIN_BITS}) - 1;" in src
+    assert f"constexpr int kStepKindShift = {fp.STEP_KIND_SHIFT};" in src
+    assert f"constexpr int kStepFiltShift = {fp.STEP_FILT_SHIFT};" in src
+    assert re.search(rf"kStepFinish = {fp.STEP_FINISH}, kStepCarry = "
+                     rf"{fp.STEP_CARRY}, kStepHead = {fp.STEP_HEAD}", src)
+    for n_fft, n_filt in ((128, 20), (1024, 20), (1024, 240), (4352, 600),
+                          (8192, 128)):
+        kw = {} if n_fft & (n_fft - 1) == 0 else {"window_t": n_fft / 16000}
+        p = ListenerParams(n_fft=n_fft, n_filt=n_filt, **kw)
+        plan = (fp.fft_plan(n_fft) if fp.takes_register_fft(n_fft) else
+                fp.wide_plan(n_fft) if fp.takes_wide_fft(n_fft) else
+                fp.fft_wide_plan(n_fft))
+        fb = fp.filterbank_plan(filterbank_matrix(p, "mfcc").T, plan.lanes,
+                                logmel=True)
+        tab = fp.logmel_steps(fb, plan.lanes)
+        lanes = plan.lanes
+        assert len(tab.weights) == len(tab.steps) == fb.chunk * lanes
+        for lane in range(lanes):
+            ls0, ls_end = fb.lane_seg[lane], fb.lane_seg[lane + 1]
+            src_lane = tab.source[lane::lanes]
+            n_run = fb.segments[ls0:ls_end, 2].sum()
+            want = np.arange(lane * fb.chunk, lane * fb.chunk + n_run)
+            np.testing.assert_array_equal(src_lane[:n_run], want)
+            assert (src_lane[n_run:] == -1).all()
+            assert (tab.weights[lane::lanes][n_run:] == 0).all()
+            kinds = (tab.steps[lane::lanes] >> fp.STEP_KIND_SHIFT) & 3
+            assert (kinds != 0).sum() == ls_end - ls0
+        np.testing.assert_array_equal(
+            tab.weights[tab.source >= 0], fb.packed[tab.source[
+                tab.source >= 0]])
+        if fp.takes_register_fft(n_fft) and n_filt == 240:
+            c = KernelConstants(p, "mfcc", "cpu")
+            assert c.cepstrum
+            np.testing.assert_array_equal(c.filt_packed_logmel.numpy(),
+                                          tab.weights)
+            np.testing.assert_array_equal(
+                c.fb_table_logmel.numpy(),
+                np.concatenate([fb.table, tab.steps]))
+            assert c.fb_args(True)[2] == fb.chunk * lanes

@@ -191,17 +191,24 @@ def test_radix2_body_keeps_a_config_the_wide_block_cannot_hold(n_fft):
 
 def test_a_radix2_buffer_beyond_shared_memory_is_refused_from_the_config(
         monkeypatch):
-    """n_fft 32768: the radix-2 body's one-warp buffer alone is 256 KB, so
-    no body takes it: ValueError when the frontend is built for CUDA,
-    before the device is looked at; 16384 at 240 filters (the wide body)
-    gets as far as the device check."""
+    """n_fft 32768 and 65536: the radix-2 body's one-warp buffer alone is
+    256 KB or more, so no body takes them: the route is the plain chain on
+    the card ("torch", as the JAX scorer's XLA frontend), chosen from the
+    config, and the frontend builds for CUDA as far as the device check;
+    the FFT kernel itself still refuses them.  16384 at 240 filters (the
+    wide body) gets as far as the device check on route fft."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    p = ListenerParams(n_fft=32768)
-    assert fft_body(p) == "radix2" and radix2_smem_bytes(p) > fp.SMEM_OPTIN
-    with pytest.raises(ValueError, match="radix-2 body's one-warp block"):
-        MfccFrontend(p, "mfcc", "cuda")
+    for n_fft in (32768, 65536):
+        p = ListenerParams(n_fft=n_fft)
+        assert fft_body(p) == "radix2" and radix2_smem_bytes(p) > fp.SMEM_OPTIN
+        assert frontend_route(p) == "torch"
+        assert "radix-2 body's one-warp block" in kernel_config_error(p)
+        assert MfccFrontend(p, "mfcc", "cpu").path == "torch"
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            MfccFrontend(p, "mfcc", "cuda")
     q = ListenerParams(n_fft=16384, n_filt=240)
     assert fft_body(q) == "wide" and kernel_config_error(q) is None
+    assert frontend_route(q) == "fft"
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         MfccFrontend(q, "mfcc", "cuda")
 

@@ -71,6 +71,7 @@ from tpu_speech_commands_torch.ops import (cepstrum_plan, cnn_kernel, ct_kernel,
                                            dense_dft_kernel, fft_plan,
                                            frontend_kernel, load_kernel,
                                            omission_kernel, rnn_kernel)
+from tpu_speech_commands_torch.frontend.dsp import Frontend
 from tpu_speech_commands_torch.frontend.filterbanks import dct_t_matrix
 from tpu_speech_commands_torch.ops.cnn_lowering import lower_block1
 from tpu_speech_commands_torch.ops.frontend_kernel import MfccFrontend
@@ -1969,3 +1970,151 @@ def test_fused_trimmed_full_and_cepstrum_modes_agree(cuda_device, key):
     torch.testing.assert_close(trimmed, full, rtol=0, atol=0)
     torch.testing.assert_close(cep, trimmed, rtol=1e-3, atol=2e-3)
 
+
+
+# (n_fft, n_filt, n_mfcc) of log-mel mode: route ct's wide body at 4352,
+# route fft's register body at 1024 and wide body at 8192, route ct's
+# mixed-radix body at 768
+LOGMEL_CONFIGS = [(4352, 300, 300), (4352, 512, 512), (4352, 600, 600),
+                  (1024, 240, 20), (1024, 64, 20), (8192, 128, 128),
+                  (768, 230, 20)]
+
+
+@pytest.mark.parametrize("tail", ["rows", "partial_sums"])
+@pytest.mark.parametrize("key", LOGMEL_CONFIGS)
+def test_logmel_tails_match_the_float64_rows(cuda_device, key, tail):
+    """Log-mel mode alone (`fft_logmel_cuda`, `ct_kernel.ct_logmel_cuda`),
+    its tail and its first tail (`_partial_sums=True`): the (B, T, n_filt +
+    1) rows, at 37 windows (rows start at every shift from a 16-byte
+    boundary), f32 and
+    int16 in, held to the float64 rows within the feature bound plus the
+    rounding slack, and so is the plain version (`check_conditioned`); the
+    body's count and the tail's rise once, no cepstrum kernel; the two
+    tails within 1e-5 of each other (the same powers, sums of terms >= 0
+    grouped otherwise)."""
+    p = cepstrum_ablation.config(*key)
+    route = frontend_kernel.frontend_route(p)
+    consts = (ct_kernel.CtConstants if route == "ct" else
+              frontend_kernel.KernelConstants)(p, "mfcc", cuda_device)
+    assert consts.cepstrum and consts.body in ("register", "wide")
+    launch = (ct_kernel.ct_logmel_cuda if route == "ct" else
+              frontend_kernel.fft_logmel_cuda)
+    counter = {("fft", "register"): frontend_kernel.mfcc_frontend_cuda,
+               ("fft", "wide"): frontend_kernel.WIDE,
+               ("ct", "register"): ct_kernel.MIXED,
+               ("ct", "wide"): ct_kernel.WIDE}[route, consts.body]
+    mine, other = ((frontend_kernel.PARTIAL_SUMS, frontend_kernel.LOGMEL)
+                   if tail == "partial_sums" else
+                   (frontend_kernel.LOGMEL, frontend_kernel.PARTIAL_SUMS))
+    watched = (counter, mine, other, frontend_kernel.CEPSTRUM)
+    gain = torch.full((1,), 0.8, dtype=torch.float32, device=cuda_device)
+    for audio_dtype in ("float32", "int16"):
+        audio = torch.tensor(_ct_audio(audio_dtype, 37), device=cuda_device)
+        before = [c.launches for c in watched]
+        got = launch(audio, gain, consts, p,
+                     _partial_sums=tail == "partial_sums")
+        torch.cuda.synchronize()
+        assert [c.launches for c in watched] == [
+            before[0] + 1, before[1] + 1, before[2], before[3]]
+        assert got.shape == (37, p.n_features, p.n_filt + 1)
+        plain = cepstrum_plan.logmel_plain(Frontend(p, "mfcc", cuda_device),
+                                           audio, 0.8)
+        exact, slack = cepstrum_ablation.exact_logmel(p, audio, 0.8)
+        cepstrum_ablation.check_conditioned(f"{key} {tail} {audio_dtype}",
+                                            got, plain, exact, slack,
+                                            2e-3, 1e-3)
+        twin = launch(audio, gain, consts, p,
+                      _partial_sums=tail != "partial_sums")
+        torch.testing.assert_close(got, twin, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("key", [(4352, 600, 600), (1024, 240, 20)])
+def test_cepstrum_frontend_takes_either_tail(cuda_device, key):
+    """The +cep frontend through its route's wrapper with either tail
+    (`_partial_sums`): the same features within the feature bound, each
+    held to the float64 features (`check_conditioned`); the tail's count
+    rises, the cepstrum kernel's once each."""
+    p = cepstrum_ablation.config(*key).replace(use_delta=True)
+    audio = torch.tensor(_ct_audio("float32", 21), device=cuda_device)
+    fe = MfccFrontend(p, "mfcc", cuda_device)
+    assert fe.cepstrum
+    gain = torch.ones(1, dtype=torch.float32, device=cuda_device)
+    launch = (ct_kernel.ct_frontend_cuda if fe.route == "ct"
+              else frontend_kernel.mfcc_frontend_cuda)
+    exact, slack = cepstrum_ablation.exact_features(p, audio)
+    plain = fe.plain(audio) if fe.route == "fft" else \
+        ct_kernel.ct_frontend_plain(audio, None, fe.consts, p)
+    outs = []
+    for flag, counter in ((False, frontend_kernel.LOGMEL),
+                          (True, frontend_kernel.PARTIAL_SUMS)):
+        before = (counter.launches, frontend_kernel.CEPSTRUM.launches)
+        outs.append(launch(audio, gain, fe.consts, p, _partial_sums=flag))
+        torch.cuda.synchronize()
+        assert (counter.launches, frontend_kernel.CEPSTRUM.launches) == (
+            before[0] + 1, before[1] + 1)
+        cepstrum_ablation.check_conditioned(f"{key} {flag}", outs[-1], plain,
+                                            exact, slack, 2e-3, 1e-3)
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_filt", [160, 240, 400])
+def test_fast_math_many_filters_match_the_float64_features(cuda_device,
+                                                           n_filt, out_dtype):
+    """The fast_math kernel at 160, 240 and 400 filters (its log-mel mode
+    and the cepstrum kernel, `dft_cepstrum`; where the fused block fits,
+    also fused with the trimmed DCT, `_cepstrum=False`), f32 and int16 in,
+    with deltas: its launch counts (the kernel's, log-mel mode's, the
+    cepstrum kernel's) rise, and it and the plain fast_math chain are held
+    to the float64 features of the bf16 frames and DFT matrix within the
+    feature bound plus the rounding slack (`check_conditioned`)."""
+    p = ListenerParams(n_filt=n_filt, use_delta=True)
+    fe = MfccFrontend(p, "mfcc", cuda_device, out_dtype=out_dtype,
+                      fast_math=True)
+    assert fe.route == "fast_math" and fe.cepstrum
+    assert fe.path == "cuda-fast_math+cep"
+    bf16 = 2.0 ** -7 if out_dtype == torch.bfloat16 else 0.0
+    for audio_dtype in ("float32", "int16"):
+        audio = torch.tensor(_ct_audio(audio_dtype, 37), device=cuda_device)
+        exact, slack = cepstrum_ablation.exact_features(p, audio, 0.8,
+                                                        fast_math=True)
+        plain = fe.plain(audio, 0.8)
+        watched = (frontend_kernel.dft_frontend_bf16_cuda,
+                   frontend_kernel.DFT_LOGMEL, frontend_kernel.CEPSTRUM)
+        before = [c.launches for c in watched]
+        got = fe(audio, 0.8)
+        torch.cuda.synchronize()
+        assert [c.launches for c in watched] == [b + 1 for b in before]
+        assert got.dtype == out_dtype
+        cepstrum_ablation.check_conditioned(
+            f"fast_math {n_filt} {audio_dtype}", got, plain, exact, slack,
+            2e-3, 1e-3 + bf16)
+        if fe.consts.layouts[False].smem_bytes <= frontend_kernel.DFT_SMEM_MAX:
+            fused = frontend_kernel.dft_frontend_bf16_cuda(
+                audio, torch.full((1,), 0.8, dtype=torch.float32,
+                                  device=cuda_device),
+                fe.consts, p, out_dtype, _cepstrum=False)
+            cepstrum_ablation.check_conditioned(
+                f"fast_math {n_filt} fused {audio_dtype}", fused, plain,
+                exact, slack, 2e-3, 1e-3 + bf16)
+
+
+def test_unservable_power_of_two_runs_the_plain_chain_on_the_card(
+        cuda_device):
+    """n_fft 32768: no body of the FFT kernel takes it, so the frontend
+    built for the card takes route "torch" (the plain chain there), launches
+    no frontend kernel, and matches the plain chain on the CPU within the
+    f32 feature bound (chip_smoke.py drives a scorer there)."""
+    p = ListenerParams(n_fft=32768)
+    fe = MfccFrontend(p, "mfcc", cuda_device)
+    assert (fe.route, fe.path, fe.consts) == ("torch", "torch(xla-route)",
+                                              None)
+    watched = (frontend_kernel.mfcc_frontend_cuda, frontend_kernel.RADIX2,
+               frontend_kernel.WIDE)
+    before = [c.launches for c in watched]
+    audio = _ct_audio("float32", 64)
+    got = fe(torch.tensor(audio, device=cuda_device))
+    torch.cuda.synchronize()
+    assert [c.launches for c in watched] == before
+    want = MfccFrontend(p, "mfcc", "cpu")(torch.tensor(audio))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=2e-3)

@@ -7,7 +7,9 @@ port's scorer against the JAX scorer at a config of each route's class.
   (F, T) instantiation above it (`ct_body`), and refused from the config
   where no kernel of the route takes it;
 - "torch": every other config, where the JAX scorer, too, runs no Pallas
-  kernel (its "xla" frontend).
+  kernel (its "xla" frontend); among them the powers of two from n_fft
+  32768 at a shorter window, which no body of the FFT kernel takes (at
+  window = n_fft they are CT-eligible, stay on route fft and are refused).
 
 The scorers load a fresh simple_gru checkpoint that the JAX package saves
 with its `pr` set to the config; the JAX one runs its Pallas kernels in
@@ -42,7 +44,12 @@ ROUTE_CASES = {
     "n_fft=window=768": ({"n_fft": 768, "window_t": 0.048}, "ct", "pallas-ct"),
     "window 1200 > n_fft 1024": ({"window_t": 0.075}, "fft", "xla"),
     "n_fft=400": ({"n_fft": 400, "window_t": 0.025}, "torch", "xla"),
+    "n_fft=32768": ({"n_fft": 32768}, "torch", "xla"),
 }
+# the port's plain chain at n_fft 32768 and 65536 against the JAX Frontend:
+# the same float32 chain, sums in another order (the two agree to about
+# 1e-6); the bound tests/test_torch_frontend.py holds the chain to
+FRONTEND_RTOL, FRONTEND_ATOL = 1e-4, 1e-4
 
 
 @pytest.fixture(autouse=True)
@@ -97,6 +104,39 @@ def test_cuda_frontend_refuses_only_what_its_route_cannot_take(monkeypatch):
     for kw, _, _ in ROUTE_CASES.values():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             MfccFrontend(ListenerParams(**kw), "mfcc", "cuda")
+
+
+@pytest.mark.parametrize("n_fft", [32768, 65536])
+def test_unservable_power_of_two_takes_the_plain_chain(n_fft):
+    """No body of the FFT kernel takes n_fft 32768 or 65536 (the radix-2
+    body's one-warp buffer alone passes shared memory), and the JAX scorer
+    serves them with XLA (not CT-eligible at window 1024): route "torch",
+    from the config.  The port's frontend on the CPU against the JAX
+    Frontend on two clips made from a seed, within FRONTEND_RTOL /
+    FRONTEND_ATOL."""
+    from tpu_speech_commands.frontend import Frontend as JaxFrontend
+
+    p = ListenerParams(n_fft=n_fft)
+    assert frontend_route(p) == "torch" and not ct_eligible(p)
+    assert not _ct_eligible(JaxParams(n_fft=n_fft))
+    fe = MfccFrontend(p, "mfcc", "cpu")
+    assert (fe.route, fe.body, fe.cepstrum) == ("torch", None, False)
+    rng = np.random.default_rng(32)
+    audio = (0.3 * rng.standard_normal((2, 16000))).astype(np.float32)
+    got = fe(torch.tensor(audio)).numpy()
+    want = np.asarray(JaxFrontend(JaxParams(n_fft=n_fft), "mfcc")(
+        jnp.asarray(audio)))
+    assert got.shape == want.shape == (2, p.n_features, p.n_mfcc)
+    np.testing.assert_allclose(got, want, rtol=FRONTEND_RTOL,
+                               atol=FRONTEND_ATOL)
+    # at window = n_fft the config is CT-eligible, and the JAX scorer runs
+    # its CT kernel: no route of the port takes it, and CUDA refuses it
+    kw = dict(n_fft=n_fft, window_t=n_fft / 16000, buffer_t=n_fft / 16000)
+    q = ListenerParams(**kw)
+    assert ct_eligible(q) and _ct_eligible(JaxParams(**kw))
+    assert frontend_route(q) == "fft"
+    with pytest.raises(ValueError, match="radix-2 body's one-warp block"):
+        MfccFrontend(q, "mfcc", "cuda")
 
 
 # every CT-eligible n_fft that is not a power of two, up to the longest
@@ -213,3 +253,19 @@ def test_scorer_matches_jax_at_each_route(tmp_path, clips, name):
     got = scorer(clips, 0.7).numpy()
     assert got.shape == (6, 5)
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_checkout_ab_times_the_fused_paths():
+    """dev/checkout_ab.py's configs each take a kernel route fused, with no
+    cepstrum kernel after it: the paths an A/B against an older tree
+    holds to that tree's."""
+    from tpu_speech_commands_torch.dev import checkout_ab
+
+    bodies = set()
+    for kw, fast_math, _ in checkout_ab.CONFIGS.values():
+        fe = MfccFrontend(ListenerParams(**kw), "mfcc", "cpu",
+                          fast_math=fast_math)
+        assert fe.route in ("fft", "ct", "fast_math") and not fe.cepstrum
+        bodies.add((fe.route, fe.body))
+    assert bodies == {("fft", "register"), ("fft", "wide"), ("ct", "register"),
+                      ("ct", "wide"), ("fast_math", None)}

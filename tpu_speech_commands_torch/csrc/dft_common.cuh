@@ -50,16 +50,18 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t& r0,
 __host__ __device__ inline int mel_pitch(int n_filt) { return (n_filt + 1) | 1; }
 
 // The tail, by kThreads threads (tid < kThreads) that `sync()` joins:
-// smel (kBM rows x mel_pitch, the filter sums, column n_filt the energy)
+// smel (rows x mel_pitch, the filter sums, column n_filt the energy)
 // -> safe_log in place -> feats (rows x n_mfcc: the energy, then DCT
 // coefficients 1 ..) -> out (rows x n_mfcc, or 2 n_mfcc with the deltas,
-// zero on each window's first frame).  kBM is a multiple of kThreads or
-// kThreads a multiple of kBM.
+// zero on each window's first frame).  sdct is (n_filt, dct_cols): the
+// whole table (dct_cols = n_filt) or its columns 1 .. n_mfcc - 1 (dct_cols
+// = n_mfcc - 1).  kBM is a multiple of kThreads or kThreads a multiple of
+// kBM.
 template <int kThreads, int kBM, typename OutT, typename Sync>
 __device__ __forceinline__ void cepstrum_tail(
     int tid, int rows, int n_features, int n_filt, int n_mfcc,
-    int emit_deltas, float* smel, const float* sdct, float* feats, OutT* dst,
-    Sync sync) {
+    int emit_deltas, float* smel, const float* sdct, int dct_cols, float* feats,
+    OutT* dst, Sync sync) {
   constexpr int kMStep = kThreads >= kBM ? kThreads / kBM : 1;
   const int mp = mel_pitch(n_filt);
   const int r_own = tid % kBM;
@@ -76,7 +78,8 @@ __device__ __forceinline__ void cepstrum_tail(
         v = mel[n_filt];
       } else {
         v = 0.0f;
-        for (int m = 0; m < n_filt; ++m) v += mel[m] * sdct[m * n_filt + i];
+        const float* col = sdct + (i - (dct_cols < n_filt));
+        for (int m = 0; m < n_filt; ++m) v += mel[m] * col[m * dct_cols];
       }
       feats[r_own * n_mfcc + i] = v;
     }

@@ -342,7 +342,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // log of the filter sums and the energy, the DCT, deltas and the store
   const int n_out = a.emit_deltas ? 2 * a.n_mfcc : a.n_mfcc;
   cepstrum_tail<kThreads, kBM>(
-      tid, rows, a.n_features, a.n_filt, a.n_mfcc, a.emit_deltas, smel, sdct,
+      tid, rows, a.n_features, a.n_filt, a.n_mfcc, a.emit_deltas, smel, sdct, a.n_filt,
       sp, static_cast<OutT*>(a.out) + (size_t)b0 * a.n_features * n_out,
       [] { __syncthreads(); });
 }

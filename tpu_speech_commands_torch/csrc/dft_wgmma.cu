@@ -71,7 +71,19 @@
 //   epilogue overlaps the other's products as far as the ring lets one run
 //   ahead (a stage is refilled when both have released it).
 // - After the last chunk: log, the DCT, the energy swap, deltas, and the
-//   (B, T, F) store in f32 or bf16 (csrc/dft_common.cuh).
+//   (B, T, F) store in f32 or bf16 (csrc/dft_common.cuh).  The block keeps
+//   only the DCT columns the output uses, 1 .. n_mfcc - 1 (column 0 is the
+//   log energy), and filter sums for its windows' rows only, not for all
+//   kBM GEMM rows (the padding rows' sums are dropped where they would be
+//   added): at many filters those two regions decide how many windows a
+//   block holds.
+// - Or, in log-mel mode (the runtime flag `logmel`; ops/frontend_kernel.py::
+//   dft_cepstrum chooses it from the config, as fft_plan.cepstrum_mode
+//   does for the FFT bodies), the block stops after the log: each row's
+//   n_filt log filter sums and its log energy go, f32, to a (B, T, n_filt
+//   + 1) buffer in one coalesced span a block (its windows' rows are
+//   consecutive), and csrc/cepstrum_wgmma.cu finishes the contract (the
+//   DCT, deltas, the store); the block then holds no DCT at all.
 //
 // Compile-time switches for dev/dft_ablation.py (each undoes one choice;
 // the shipped kernel takes the defaults): TSC_DFT_CLUSTER (2: TMA
@@ -154,8 +166,9 @@ struct WgArgs {
   int bulk_stage;        // 1: the audio comes in by bulk copies (aligned rows)
   const float* filt_packed;  // the power-tile ablation: each filter's nonzero
   const int* filt_range;     // bins back to back; (n_filt, 3) lo, hi, offset
-  const float* dct_t;    // (n_filt, n_filt)
+  const float* dct_t;    // (n_filt, n_mfcc - 1): the DCT columns 1 .. n_mfcc - 1
   int n_filt, n_mfcc, emit_deltas, vec_loads;
+  int logmel;            // 1: (B, T, n_filt + 1) f32 log-mel rows to out
   int in_int16, out_bf16;  // the audio's and the output's types
   void* out;
 };
@@ -175,25 +188,36 @@ __host__ __device__ inline size_t ring_bytes(int n_mfcc, int stages) {
 
 // Shared memory, in order from a 1024-byte boundary (the base is aligned
 // up, hence the 1024 of slack): the ring, the power tile (ablation only),
-// the audio (wpb x win_pitch bf16), the filter sums (kBM x mel_pitch f32),
-// the k-offset table, the DCT, the filter slots (where they fit: `table`,
-// else 0 and read from the device's copy), the ring's full and empty
-// mbarriers and the audio staging's two pairs.
-// ops/dft_plan.py::wgmma_smem_bytes mirrors this sum to choose wpb.
+// the audio (wpb x win_pitch bf16), the filter sums (mel_rows x mel_pitch
+// f32), the k-offset table, the DCT's (n_filt, dct_cols) columns, the
+// filter slots (where they fit: `table`, else 0 and read from the device's
+// copy), the ring's full and empty mbarriers and the audio staging's two
+// pairs.  ops/dft_plan.py::wgmma_smem_bytes mirrors this sum to choose wpb.
 __host__ __device__ inline size_t table_bytes(int n_pad, int slots) {
   return align16(sizeof(int) * (size_t)(n_pad / 2)) +
          align16(sizeof(float) * (size_t)(n_pad / 2) * slots);
 }
 
+// The rows whose filter sums a block keeps: its windows' (the power-tile
+// ablation adds into all kBM)
+__host__ __device__ inline int mel_rows(int wpb, int n_features) {
+  return kPowerTile ? kBM : wpb * n_features;
+}
+
+// The DCT columns a block keeps: 1 .. n_mfcc - 1, none in log-mel mode
+__host__ __device__ inline int dct_cols(int n_mfcc, int logmel) {
+  return logmel ? 0 : n_mfcc - 1;
+}
+
 __host__ __device__ inline size_t smem_bytes(int wpb, int win_pitch, int n_filt,
                                              int n_mfcc, int k_pad, size_t table,
-                                             int stages) {
+                                             int stages, int n_features, int logmel) {
   return 1024 + ring_bytes(n_mfcc, stages) +
          (kPowerTile ? align16(sizeof(float) * kBM * kPPitch) : 0) +
          align16(sizeof(__nv_bfloat16) * (size_t)wpb * win_pitch) +
-         align16(sizeof(float) * (size_t)kBM * mel_pitch(n_filt)) +
+         align16(sizeof(float) * (size_t)mel_rows(wpb, n_features) * mel_pitch(n_filt)) +
          align16(sizeof(int) * (size_t)(k_pad / 8)) +
-         align16(sizeof(float) * (size_t)n_filt * n_filt) + table +
+         align16(sizeof(float) * (size_t)n_filt * dct_cols(n_mfcc, logmel)) + table +
          sizeof(uint64_t) * (2 * stages + 4);
 }
 
@@ -326,7 +350,8 @@ __device__ __forceinline__ void red_shared_add(float* p, float v) {
 
 // The running filter sums of one thread: for each of its two rows and
 // each slot, the sum over its bins so far of the slot's current filter,
-// added into the shared filter sums when the slot's filter changes.
+// added into the shared filter sums when the slot's filter changes (a
+// padding row's sums, mel0 or mel1 null, into none).
 template <int S>
 struct FilterRuns {
   int cur[S];
@@ -347,8 +372,8 @@ struct FilterRuns {
         e0 += 0.0f * run0[l];
         e1 += 0.0f * run1[l];
       } else {
-        red_shared_add(mel0 + cur[l], run0[l]);
-        red_shared_add(mel1 + cur[l], run1[l]);
+        if (mel0) red_shared_add(mel0 + cur[l], run0[l]);
+        if (mel1) red_shared_add(mel1 + cur[l], run1[l]);
       }
     }
     run0[l] = run1[l] = 0.0f;
@@ -371,8 +396,8 @@ struct FilterRuns {
   __device__ __forceinline__ void finish(float* mel0, float* mel1, int n_filt) {
 #pragma unroll
     for (int l = 0; l < S; ++l) flush(l, mel0, mel1, n_filt);
-    red_shared_add(mel0 + n_filt, e0);
-    red_shared_add(mel1 + n_filt, e1);
+    if (mel0) red_shared_add(mel0 + n_filt, e0);
+    if (mel1) red_shared_add(mel1 + n_filt, e1);
   }
 };
 
@@ -721,11 +746,13 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
   __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(base);
   base += align16(sizeof(__nv_bfloat16) * (size_t)a.wpb * a.win_pitch);
   float* smel = reinterpret_cast<float*>(base);
-  base += align16(sizeof(float) * (size_t)kBM * mel_pitch(a.n_filt));
+  const int n_mel_rows = mel_rows(a.wpb, a.n_features);
+  base += align16(sizeof(float) * (size_t)n_mel_rows * mel_pitch(a.n_filt));
   int* skoff = reinterpret_cast<int*>(base);
   base += align16(sizeof(int) * (size_t)(a.k_pad / 8));
   float* sdct = reinterpret_cast<float*>(base);
-  base += align16(sizeof(float) * (size_t)a.n_filt * a.n_filt);
+  const int n_dct = a.n_filt * dct_cols(a.n_mfcc, a.logmel);
+  base += align16(sizeof(float) * (size_t)n_dct);
   int* stkey = reinterpret_cast<int*>(base);
   float* stw = reinterpret_cast<float*>(base + align16(sizeof(int) * (size_t)(a.n_pad / 2)));
   if (a.table_smem) base += table_bytes(a.n_pad, S);
@@ -821,9 +848,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
     const int gap = a.seg_pitch - a.hop;
     for (int i = tid; i < a.k_pad / 8; i += kConsumers)
       skoff[i] = i * 8 + (i * 8 / a.hop) * gap;
-    for (int i = tid; i < kBM * mp; i += kConsumers) smel[i] = 0.0f;
-    for (int i = tid; i < a.n_filt * a.n_filt; i += kConsumers)
-      sdct[i] = __ldg(&a.dct_t[i]);
+    for (int i = tid; i < n_mel_rows * mp; i += kConsumers) smel[i] = 0.0f;
+    for (int i = tid; i < n_dct; i += kConsumers) sdct[i] = __ldg(&a.dct_t[i]);
     const int* tkey = a.bin_key;
     const float* tw = a.bin_w;
     if (a.table_smem) {
@@ -851,8 +877,9 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
     // block j of a chunk, columns 8 j + 2 t (re) and + 1 (im) of bin 4 j + t
     const int r0 = 64 * wg + 16 * wq + (lane >> 2);
     const int t = lane & 3;
-    float* mel0 = smel + r0 * mp;
-    float* mel1 = smel + (r0 + 8) * mp;
+    // a padding row past the block's filter sums adds into none
+    float* mel0 = r0 < n_mel_rows ? smel + r0 * mp : nullptr;
+    float* mel1 = r0 + 8 < n_mel_rows ? smel + (r0 + 8) * mp : nullptr;
 
     Consumer<S> cons{a,     Ring{ring_base, full0, empty0, stages, 0, 0}, lane, a_row,
                      a_khalf, skoff, mel0, mel1, ptile, smel, tkey, tw, tid, wg,
@@ -873,15 +900,27 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
     if constexpr (kCut != 1) {
       if constexpr (!kPowerTile && kCut != 2) runs.finish(mel0, mel1, a.n_filt);
       consumers_sync();
+      const int dc = dct_cols(a.n_mfcc, a.logmel);
+      if (a.logmel) {
+        // log-mel mode: the block's rows are one span of the (B, T, n_filt +
+        // 1) buffer, stored in order, the log energy last in each row
+        const int width = a.n_filt + 1;
+        float* dst = static_cast<float*>(a.out) + (size_t)b0 * a.n_features * width;
+        for (int i = tid; i < rows * width; i += kConsumers) {
+          const int r = i / width;
+          dst[i] = safe_log(smel[r * mp + (i - r * width)]);
+        }
+        return;
+      }
       // log of the filter sums and the energy, the DCT, deltas and the store
       const size_t at = (size_t)b0 * a.n_features * (a.emit_deltas ? 2 : 1) * a.n_mfcc;
       if (a.out_bf16)
         cepstrum_tail<kConsumers, kBM>(
-            tid, rows, a.n_features, a.n_filt, a.n_mfcc, a.emit_deltas, smel, sdct,
+            tid, rows, a.n_features, a.n_filt, a.n_mfcc, a.emit_deltas, smel, sdct, dc,
             coeffs, static_cast<__nv_bfloat16*>(a.out) + at, [] { consumers_sync(); });
       else
         cepstrum_tail<kConsumers, kBM>(
-            tid, rows, a.n_features, a.n_filt, a.n_mfcc, a.emit_deltas, smel, sdct,
+            tid, rows, a.n_features, a.n_filt, a.n_mfcc, a.emit_deltas, smel, sdct, dc,
             coeffs, static_cast<float*>(a.out) + at, [] { consumers_sync(); });
     }
   }
@@ -910,9 +949,11 @@ cudaError_t launch(const WgArgs& a, const CUtensorMap& map, size_t smem,
 // of each bin interleaved, 16-byte aligned; bin_key (n_pad / 2,) int32 and
 // bin_w (n_pad / 2, slots) f32, slots 2 or 4 (ops/dft_plan.py::
 // filter_slots), staged in shared memory when table_smem; filt_packed and filt_range as for tsc_dft_frontend_bf16
-// (read by the power-tile ablation only); dct_t (n_filt, n_filt) f32.  out
-// (batch, n_features, n_mfcc or 2 n_mfcc) f32 or bf16.  Returns the
-// launch's cudaError_t.
+// (read by the power-tile ablation only); dct_t (n_filt, n_mfcc - 1) f32,
+// the DCT's columns 1 .. n_mfcc - 1 (none read in log-mel mode).  out
+// (batch, n_features, n_mfcc or 2 n_mfcc) f32 or bf16, or with logmel
+// (batch, n_features, n_filt + 1) f32 log-mel rows, the log energy last,
+// for csrc/cepstrum_wgmma.cu.  Returns the launch's cudaError_t.
 extern "C" int tsc_dft_frontend_wgmma(
     const void* audio, int audio_int16, const void* gain, int batch,
     int n_samples, int hop, int first_frame, int n_features, int wpb,
@@ -920,13 +961,14 @@ extern "C" int tsc_dft_frontend_wgmma(
     int n_pad, int n_fft, const void* bin_key, const void* bin_w, int slots,
     int table_smem, int stages, const void* filt_packed,
     const void* filt_range, const void* dct_t, int n_filt, int n_mfcc,
-    int emit_deltas, void* out, int out_bf16, void* stream) {
+    int emit_deltas, int logmel, void* out, int out_bf16, void* stream) {
   if (batch <= 0 || hop <= 0 || hop % 8 != 0 || seg_pitch < hop ||
       seg_pitch % 8 != 0 || win_pitch % 8 != 0 || win_pitch < n_seg * seg_pitch ||
       k_pad <= 0 || k_pad % (2 * kBK) != 0 || n_pad <= 0 || n_pad % 16 != 0 ||
       n_features <= 0 || wpb <= 0 || wpb * n_features > kBM || n_mfcc > n_filt ||
       n_mfcc <= 0 || n_fft <= 0 || (slots != 2 && slots != 4) ||
-      reinterpret_cast<uintptr_t>(dft) % 16 != 0)
+      reinterpret_cast<uintptr_t>(dft) % 16 != 0 || (logmel && out_bf16) ||
+      (!logmel && n_mfcc > 1 && !dct_t))
     return cudaErrorInvalidValue;
   int device = 0, smem_max = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -937,10 +979,12 @@ extern "C" int tsc_dft_frontend_wgmma(
   if (kStages > 0) stages = kStages;  // an ablation's fixed ring
   if (stages < 2 || stages > kMaxStages) return cudaErrorInvalidValue;
   size_t smem = smem_bytes(wpb, win_pitch, n_filt, n_mfcc, k_pad,
-                           table_smem ? table_bytes(n_pad, slots) : 0, stages);
+                           table_smem ? table_bytes(n_pad, slots) : 0, stages,
+                           n_features, logmel);
   if (smem > (size_t)smem_max && table_smem) {  // an ablation's power tile
     table_smem = 0;
-    smem = smem_bytes(wpb, win_pitch, n_filt, n_mfcc, k_pad, 0, stages);
+    smem = smem_bytes(wpb, win_pitch, n_filt, n_mfcc, k_pad, 0, stages, n_features,
+                      logmel);
   }
   if (smem > (size_t)smem_max) return cudaErrorInvalidValue;
   const EncodeTiled encode = encode_tiled();
@@ -981,6 +1025,7 @@ extern "C" int tsc_dft_frontend_wgmma(
   a.n_filt = n_filt;
   a.n_mfcc = n_mfcc;
   a.emit_deltas = emit_deltas;
+  a.logmel = logmel ? 1 : 0;
   const size_t align = audio_int16 ? 8 : 16;
   a.vec_loads = n_samples % 4 == 0 && reinterpret_cast<uintptr_t>(audio) % align == 0;
   // (with a cluster the other block's stream may reach the ring while this

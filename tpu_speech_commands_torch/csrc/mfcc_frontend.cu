@@ -259,8 +259,10 @@ bool takes_register_fft(int n_fft) {
 // dct_t (n_filt, dct_cols) f32, the DCT's columns 1 .. n_mfcc - 1 (dct_cols
 // = n_mfcc - 1) or the whole table (dct_cols = n_filt; the radix-2 body
 // takes only that); out (batch, n_features, n_mfcc or 2 n_mfcc) f32 or
-// bf16, or with logmel (the register body only) (batch, n_features, n_filt
-// + 1) f32 log-mel rows for csrc/cepstrum_wgmma.cu.  Frames first_frame ..
+// bf16, or with logmel (the register body only; 1 its tail, 2 its first
+// tail, register_fft.cuh's Logmel, on the log-mel or the fused filterbank
+// plan) (batch, n_features, n_filt + 1) f32 log-mel rows, 16-byte aligned,
+// for csrc/cepstrum_wgmma.cu.  Frames first_frame ..
 // first_frame + n_features - 1 are computed.  The register body (radix2 = 0,
 // n_fft 128 .. 4096) reads plan_twiddle (ops/fft_plan.py::fft_plan(n_fft).
 // twiddle, f32 rows), filt_packed (n_packed,) f32 and fb_table (int32,
@@ -280,8 +282,9 @@ extern "C" int tsc_mfcc_frontend(const void* audio, int audio_int16,
                                  const void* fb_table, int n_packed, int n_seg,
                                  int radix2, int logmel, void* stream) {
   if (batch <= 0 || n_fft < 2 || (n_fft & (n_fft - 1)) != 0 || n_mfcc > n_filt ||
-      (radix2 && (logmel || dct_cols != n_filt)) ||
-      (logmel ? out_bf16 != 0
+      (radix2 && (logmel || dct_cols != n_filt)) || logmel < kFused ||
+      logmel > kLogmelPartial ||
+      (logmel ? out_bf16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0
               : (dct_cols && !dct_t) || (dct_cols != n_mfcc - 1 && dct_cols != n_filt)))
     return cudaErrorInvalidValue;
   const float* g = static_cast<const float*>(gain);
@@ -329,7 +332,7 @@ extern "C" int tsc_mfcc_frontend(const void* audio, int audio_int16,
   a.dct_cols = logmel ? 0 : dct_cols;
   a.emit_deltas = emit_deltas;
   a.time_major = 0;
-  a.logmel = logmel ? 1 : 0;
+  a.logmel = logmel;
   a.out = out;
   a.src_mod = 0;
   if (audio_int16)

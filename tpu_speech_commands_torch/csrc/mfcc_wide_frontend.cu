@@ -60,8 +60,10 @@ TSC_REGISTER_PLANS(tsc_mfcc_wide_frontend, TSC_FFT_WIDE_PLANS)
 // over the plan's lanes, n_seg segments); dct_t (n_filt, dct_cols) f32, the
 // DCT's columns 1 .. n_mfcc - 1 (dct_cols = n_mfcc - 1) or the whole table
 // (dct_cols = n_filt); out (batch, n_features, n_mfcc or 2 n_mfcc) f32 or
-// bf16, or with logmel (batch, n_features, n_filt + 1) f32 log-mel rows
-// (register_fft.cuh; csrc/cepstrum_wgmma.cu finishes them).  Frames first_frame
+// bf16, or with logmel (1 its tail, 2 its first tail, register_fft.cuh's
+// Logmel, on the log-mel or the fused filterbank plan) (batch, n_features,
+// n_filt + 1) f32 log-mel rows, 16-byte aligned (csrc/cepstrum_wgmma.cu
+// finishes them).  Frames first_frame
 // .. first_frame + n_features - 1 are computed, each the first min(window,
 // n_fft) samples from its start, zero-padded to n_fft; n_warps a block,
 // ops/fft_plan.py::fft_layout's for the plan.  Returns the launch's

@@ -47,7 +47,7 @@
 // - the packed filterbank: each lane steps through one run of consecutive
 //   packed weights against their bins, writing a partial sum where a filter
 //   ends (ops/fft_plan.py::filterbank_plan), and lane m adds filter m's
-//   partial sums in order;
+//   partial sums in order (the fused epilogue);
 // - log and DCT per frame into the block's (T, n_mfcc) coefficients in
 //   shared memory; deltas and a coalesced store, batch- or time-major, once
 //   the window is done.  The DCT region holds only the columns the output
@@ -60,11 +60,38 @@
 //   csrc/cepstrum_wgmma.cu finishes the contract (the DCT as a GEMM, deltas, the
 //   store); the block then holds no DCT and no coefficients.  It serves the
 //   configs whose DCT columns leave the fused block too little room
-//   (ops/fft_plan.py::cepstrum_mode).
+//   (ops/fft_plan.py::cepstrum_mode).  Its tail (kLogmelRows) finishes
+//   filters where the walk ends them: a lane's run of packed weights is
+//   consecutive filters, so each filter that starts and ends in the run
+//   has its whole sum in the lane at its last weight, and goes straight
+//   to the slot's row stage; only a filter split over lanes' runs leaves
+//   its earlier parts in those lanes' carries (one a lane: its last
+//   segment), added in order by the lane where it ends once the frame's
+//   lanes meet.  The walk reads no segment bound: one step descriptor a
+//   lane and step (the bin, and where a segment ends its kind and filter;
+//   ops/fft_plan.py::logmel_steps on logmel_filterbank's plan, in which
+//   every filter, an empty one too, ends in some run) and one weight, both
+//   lane-interleaved so that a step's lanes read consecutive words, the
+//   descriptors from the table's tail through the cache; every lane steps
+//   the plan's run length with no exit inside the loop, so that the
+//   frame's lanes meet again after each step (the first tail's walk,
+//   which leaves at each lane's own end and loads the next segment's
+//   bounds at each segment's end, loses them to one another at many
+//   filters).  Each row is staged at its shift
+//   from a 16-byte boundary (a block's rows are consecutive in the
+//   buffer, but a row of n_filt + 1 floats starts wherever the one before
+//   ended), then logged and stored in 16-byte stores with a scalar head
+//   and tail.  The first design of the tail (kLogmelPartial, the A/B):
+//   the fused epilogue's partial sums and per-filter pass, a 4-byte store
+//   a filter.
 // A compile-time STOP cuts the body after one stage for the stage-omission
 // profile (ops/omission_kernel.py; csrc/mfcc_frontend.cu instantiates the
 // cuts at n_fft 1024 only); the shipped kernels take kShipped and every cut
-// is an `if constexpr`.
+// is an `if constexpr`.  TSC_LOGMEL_STOP (a -D switch of the dev builds of
+// dev/logmel_ablation.py, never the shipped library) cuts log-mel mode's
+// tail the same way: after the power row (kPower), the filterbank walk
+// (kMel) or the filter sums and their logs (kLog), each frame then writing
+// its log energy alone.
 
 #pragma once
 
@@ -190,6 +217,27 @@ constexpr int kLanes = 128;       // a cut's output row, and the CT split's lane
 // STOP: the stage a cut ends after (ops/omission_kernel.py::STAGES; this
 // body has no butterfly stage), or the whole shipped kernel
 enum Stop : int { kLoad, kFraming, kButterfly, kPower, kMel, kLog, kFull, kShipped };
+
+#ifndef TSC_LOGMEL_STOP
+#define TSC_LOGMEL_STOP kShipped
+#endif
+// the stage log-mel mode's tail ends after (a dev build's cut), or all of it
+constexpr int kLogmelStop = TSC_LOGMEL_STOP;
+static_assert(kLogmelStop == kPower || kLogmelStop == kMel || kLogmelStop == kLog ||
+                  kLogmelStop == kShipped,
+              "a log-mel cut ends after the power row, the walk or the logs");
+
+// The epilogue a launch runs (FftArgs::logmel): fused, log-mel mode's tail,
+// or log-mel mode's first tail (partial sums, the A/B)
+enum Logmel : int { kFused = 0, kLogmelRows = 1, kLogmelPartial = 2 };
+
+// log-mel mode's tail: a step descriptor (ops/fft_plan.py::logmel_steps)
+// holds the bin (bits 0-13), the kind of segment end (bits 14-15) and its
+// filter (bits 16-27)
+constexpr int kStepBin = (1 << 14) - 1;
+constexpr int kStepKindShift = 14;
+constexpr int kStepFiltShift = 16;
+enum StepKind : int { kStepFinish = 1, kStepCarry = 2, kStepHead = 3 };
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -535,46 +583,69 @@ struct FftArgs {
   // - 1), or all n_filt of them (dct_cols = n_filt, the A/B)
   const float* dct_t;
   int n_packed, n_seg, n_filt, n_mfcc, dct_cols, emit_deltas, time_major;
-  int logmel;  // 1: (B, n_features, n_filt + 1) f32 log-mel rows to out
+  // kFused, or (B, n_features, n_filt + 1) f32 log-mel rows to out by
+  // kLogmelRows or kLogmelPartial (`Logmel`)
+  int logmel;
   void* out;
   int src_mod;  // a cut's constant block: window b reads row b % src_mod
 };
 
 // Shared memory, region by region, each 16-byte aligned (mirrored by
 // ops/fft_plan.py::fft_layout): the twiddles and the packed weights (none
-// where the plan does not stage them), the filterbank table, the DCT's
-// (n_filt, dct_cols) columns, one buffer of kPitch float2 a frame slot, one
-// scratch row a slot (its partial sums, n_filt log-mel values, then kWpf
-// energy parts), and the window's (n_features, feat_cols) coefficients.
-// Log-mel mode keeps neither the DCT nor the coefficients (`args_layout`).
+// where the plan does not stage them), the filterbank table (`table_ints`),
+// the DCT's (n_filt, dct_cols) columns, one buffer of kPitch float2 a frame
+// slot, one scratch row of `slot_floats` a slot, and the window's
+// (n_features, feat_cols) coefficients.  Log-mel mode keeps neither the
+// DCT nor the coefficients (`args_layout`).
 struct SmemLayout {
   size_t twiddle, packed, table, dct, frames, scratch, feats, total;
 };
 
 template <typename P>
-__host__ __device__ SmemLayout smem_layout(int n_warps, int n_packed, int n_seg,
+__host__ __device__ SmemLayout smem_layout(int n_warps, int n_packed, int n_table,
                                            int n_filt, int dct_cols, int feat_cols,
-                                           int n_features) {
+                                           int n_features, int slot_len) {
   const size_t slots = static_cast<size_t>(n_warps) * P::kFpw / P::kWpf;
   SmemLayout s;
   s.twiddle = 0;
   s.packed = s.twiddle + (P::kStaged ? align16(sizeof(float2) * P::kNtw) : 0);
   s.table = s.packed + (P::kStaged ? align16(sizeof(float) * n_packed) : 0);
-  s.dct = s.table + align16(sizeof(int) * (P::kL + 1 + n_filt + 1 + 3 * n_seg));
+  s.dct = s.table + align16(sizeof(int) * n_table);
   s.frames = s.dct + align16(sizeof(float) * n_filt * dct_cols);
   s.scratch = s.frames + align16(sizeof(float2) * slots * P::kPitch);
-  s.feats = s.scratch + align16(sizeof(float) * slots * (n_seg + n_filt + P::kWpf));
+  s.feats = s.scratch + align16(sizeof(float) * slots * slot_len);
   s.total = s.feats + align16(sizeof(float) * n_features * feat_cols);
   return s;
+}
+
+// Floats of a slot's row stage in log-mel mode's tail: a frame's n_filt + 1
+// values at its row's shift from a 16-byte boundary (0 .. 3), whole float4s
+__host__ __device__ inline int row_stage(int n_filt) { return (n_filt + 7) & ~3; }
+
+// The filterbank table's ints a block stages: lane_seg, filt_seg, the
+// segments' rows and, for log-mel mode's tail, each segment's filter (its
+// step descriptors follow in the table, read through the cache)
+template <typename P>
+__host__ __device__ inline int table_ints(int n_seg, int n_filt, int logmel) {
+  return P::kL + 1 + n_filt + 1 + (logmel == kLogmelRows ? 4 : 3) * n_seg;
+}
+
+// A slot's scratch floats: log-mel mode's tail keeps its row stage, a carry
+// a lane and kWpf energy parts (whole float4s); the fused epilogue and the
+// first tail the partial sums, n_filt log-mel values and the energy parts
+template <typename P>
+__host__ __device__ inline int slot_floats(int n_seg, int n_filt, int logmel) {
+  return logmel == kLogmelRows ? row_stage(n_filt) + ((P::kL + P::kWpf + 3) & ~3)
+                               : n_seg + n_filt + P::kWpf;
 }
 
 // A launch's layout: the fused epilogue's, or log-mel mode's (no DCT, no
 // coefficients)
 template <typename P>
 __host__ __device__ SmemLayout args_layout(const FftArgs& a, int n_warps) {
-  return smem_layout<P>(n_warps, a.n_packed, a.n_seg, a.n_filt,
-                        a.logmel ? 0 : a.dct_cols, a.logmel ? 0 : a.n_mfcc,
-                        a.n_features);
+  return smem_layout<P>(n_warps, a.n_packed, table_ints<P>(a.n_seg, a.n_filt, a.logmel),
+                        a.n_filt, a.logmel ? 0 : a.dct_cols, a.logmel ? 0 : a.n_mfcc,
+                        a.n_features, slot_floats<P>(a.n_seg, a.n_filt, a.logmel));
 }
 
 // The end of an exchange among a frame's lanes: its warp's, or, where a
@@ -791,7 +862,7 @@ __global__ void __launch_bounds__(P::kBoundThreads, P::kMinBlocks)
     for (int i = threadIdx.x; i < P::kNtw; i += blockDim.x) tw[i] = __ldg(a.twiddle + i);
     for (int i = threadIdx.x; i < a.n_packed; i += blockDim.x) w[i] = __ldg(a.packed + i);
   }
-  const int table_len = L + 1 + a.n_filt + 1 + 3 * a.n_seg;
+  const int table_len = table_ints<P>(a.n_seg, a.n_filt, a.logmel);
   for (int i = threadIdx.x; i < table_len; i += blockDim.x) s_table[i] = __ldg(a.table + i);
   // log-mel mode stages no DCT; the trimmed table's column c is c - 1
   const int dct_len = a.logmel ? 0 : a.n_filt * a.dct_cols;
@@ -807,10 +878,15 @@ __global__ void __launch_bounds__(P::kBoundThreads, P::kMinBlocks)
   const int n_slots = blockDim.x / L;
   float2* buf = s_frames + (size_t)slot * P::kPitch;
   float* prow = reinterpret_cast<float*>(buf);  // the power row, after the FFT
-  float* partial = s_scratch + (size_t)slot * (a.n_seg + a.n_filt + P::kWpf);
+  float* partial = s_scratch + (size_t)slot * slot_floats<P>(a.n_seg, a.n_filt, a.logmel);
   float* mel = partial + a.n_seg;
-  float* energy_parts = mel + a.n_filt;  // a frame's warps' sums (kWpf > 1)
+  // log-mel mode's tail: the slot's row stage, then a carry a lane
+  float* stage = partial;
+  float* carry = partial + row_stage(a.n_filt);
+  // a frame's warps' sums (kWpf > 1)
+  float* energy_parts = a.logmel == kLogmelRows ? carry + L : mel + a.n_filt;
   const int w_eff = min(a.window, 2 * N);
+  const int* seg_filt = segs + 3 * a.n_seg;  // log-mel mode's tail only
 
   // a cut's per-frame rows summed over the slot's frames, slot k at lane
   // lane + 32 k (framing: see there); a slot past the last frame adds none
@@ -968,6 +1044,105 @@ __global__ void __launch_bounds__(P::kBoundThreads, P::kMinBlocks)
       continue;
     }
 
+    if (STOP == kShipped && a.logmel) {
+      float total = energy;  // the frame's energy
+      if constexpr (P::kWpf > 1) {
+        total = 0.0f;
+#pragma unroll
+        for (int w = 0; w < P::kWpf; ++w) total += energy_parts[w];
+      }
+      // the frame's row of the (B, T, n_filt + 1) buffer, the log energy last
+      const size_t row0 =
+          ((size_t)blockIdx.x * a.n_features + (active ? f : 0)) * (a.n_filt + 1);
+      float* lm = static_cast<float*>(a.out) + row0;
+      if constexpr (kLogmelStop == kPower) {  // a dev build's cut
+        if (l == 0 && active) lm[a.n_filt] = safe_log(total);
+        continue;
+      }
+      if (a.logmel == kLogmelRows) {
+        // the lane's run is segments ls0 .. ls_end - 1: `back` earlier
+        // segments (one a lane, in the lanes before) belong to its first
+        // segment's filter f0, and its last segment's filter goes on in the
+        // next lane's run where `last_open` (these live only in log-mel
+        // mode: the fused epilogue's registers are not touched)
+        const int ls0 = lane_seg[l], ls_end = lane_seg[l + 1];
+        const bool run = ls0 < ls_end;
+        const int f0 = run ? seg_filt[ls0] : 0;
+        const int back = run ? ls0 - filt_seg[f0] : 0;
+        const bool last_open = run && filt_seg[seg_filt[ls_end - 1] + 1] > ls_end;
+        // the walk: `chunk` steps in every lane (the step tables'; a step
+        // past the lane's run weighs 0 and ends nothing), step i of lane l
+        // at i L + l in the weights and the step descriptors, which a
+        // step's lanes read in consecutive words; a step ending a segment
+        // writes its sum as the finished filter's (into the stage, whose
+        // element e of the row is at shift + e), the carry or the head.
+        // No bound is loaded in the loop, and no lane leaves it early: the
+        // frame's lanes meet again after every step
+        const int* steps = a.table + table_len;
+        const int chunk = a.n_packed / L;
+        const int shift = static_cast<int>(row0 & 3);
+        float* st = stage + shift;
+        float head = 0.0f, tail = 0.0f, acc = 0.0f;
+#pragma unroll 4
+        for (int i = 0; i < chunk; ++i) {
+          const int d = __ldg(steps + i * L + l);
+          acc = fmaf(prow[d & kStepBin], s_w[i * L + l], acc);
+          const int kind = (d >> kStepKindShift) & 3;
+          if (kind) {
+            if (kind == kStepFinish)
+              st[d >> kStepFiltShift] = acc;
+            else if (kind == kStepCarry)
+              tail = acc;
+            else
+              head = acc;
+            acc = 0.0f;
+          }
+        }
+        if (last_open) carry[l] = tail;
+        if (l == 0) st[a.n_filt] = total;
+        frame_sync<P>(slot);
+        if constexpr (kLogmelStop == kMel) {  // a dev build's cut
+          if (l == 0 && active) lm[a.n_filt] = safe_log(total);
+          continue;
+        }
+        // a split filter ends here: its earlier lanes' carries in order,
+        // then its first segment here (the fused epilogue's order)
+        if (back && !(ls0 == ls_end - 1 && last_open)) {
+          float sum = 0.0f;
+          for (int j = back; j > 0; --j) sum += carry[l - j];
+          st[f0] = sum + head;
+        }
+        frame_sync<P>(slot);
+        // the row, logged: float4 q of the stage is elements 4 q - shift ..
+        // of the row, whose start less the shift is 16-byte aligned
+        const int n_row = a.n_filt + 1;
+        const int n_q = (shift + n_row + 3) >> 2;
+        float* dst = lm - shift;
+        float keep = 0.0f;
+        for (int q = l; q < n_q; q += L) {
+          const float4 x = reinterpret_cast<const float4*>(stage)[q];
+          const float4 y = make_float4(safe_log(x.x), safe_log(x.y), safe_log(x.z),
+                                       safe_log(x.w));
+          if constexpr (kLogmelStop == kLog) {  // a dev build's cut: no stores
+            keep += (y.x + y.y) + (y.z + y.w);
+            continue;
+          }
+          const int e = 4 * q;
+          if (!active) continue;
+          if (e >= shift && e + 4 <= shift + n_row) {
+            *reinterpret_cast<float4*>(dst + e) = y;
+          } else {  // the row's head or tail
+            if (e >= shift && e < shift + n_row) dst[e] = y.x;
+            if (e + 1 >= shift && e + 1 < shift + n_row) dst[e + 1] = y.y;
+            if (e + 2 >= shift && e + 2 < shift + n_row) dst[e + 2] = y.z;
+            if (e + 3 >= shift && e + 3 < shift + n_row) dst[e + 3] = y.w;
+          }
+        }
+        if constexpr (kLogmelStop == kLog)
+          if (active && keep == -1.0f) lm[a.n_filt] = safe_log(total);
+        continue;
+      }
+    }
     // the packed filterbank: the lane's run of weights, one step a weight
     // (its segments are back to back in the packed order, so the warp steps
     // as often as the longest run, not once a segment), a partial sum
@@ -993,17 +1168,12 @@ __global__ void __launch_bounds__(P::kBoundThreads, P::kMinBlocks)
     }
     frame_sync<P>(slot);
     if (STOP == kShipped && a.logmel) {
-      // log-mel mode: the frame's row of the (B, T, n_filt + 1) buffer, the
-      // log energy last; the cepstrum kernel takes it from here (the frame
-      // buffer and the partial sums are free again: the next frame's
-      // exchanges end in frame_syncs before it writes either)
+      // log-mel mode's first tail: the frame's row of the (B, T, n_filt + 1)
+      // buffer, the log energy last; the cepstrum kernel takes it from here
+      // (the frame buffer and the partial sums are free again: the next
+      // frame's exchanges end in frame_syncs before it writes either)
       float* lm = static_cast<float*>(a.out) +
                   ((size_t)blockIdx.x * a.n_features + (active ? f : 0)) * (a.n_filt + 1);
-      for (int m = l; m < a.n_filt; m += L) {
-        float acc = 0.0f;
-        for (int s = filt_seg[m]; s < filt_seg[m + 1]; ++s) acc += partial[s];
-        if (active) lm[m] = safe_log(acc);
-      }
       if (l == 0 && active) {
         if constexpr (P::kWpf > 1) {
           energy = 0.0f;
@@ -1012,6 +1182,18 @@ __global__ void __launch_bounds__(P::kBoundThreads, P::kMinBlocks)
         }
         lm[a.n_filt] = safe_log(energy);
       }
+      if constexpr (kLogmelStop == kMel) continue;  // a dev build's cut
+      float keep = 0.0f;
+      for (int m = l; m < a.n_filt; m += L) {
+        float acc = 0.0f;
+        for (int s = filt_seg[m]; s < filt_seg[m + 1]; ++s) acc += partial[s];
+        if constexpr (kLogmelStop == kLog)  // a dev build's cut: no stores
+          keep += safe_log(acc);
+        else if (active)
+          lm[m] = safe_log(acc);
+      }
+      if constexpr (kLogmelStop == kLog)
+        if (active && keep == -1.0f) lm[l] = keep;
       continue;
     }
     for (int m = l; m < a.n_filt; m += L) {
@@ -1146,8 +1328,9 @@ int register_entry(const void* audio, int audio_int16, const void* gain, int bat
       n_features <= 0 ||
       (long long)(first_frame + n_features - 1) * hop + span > n_samples ||
       n_filt <= 0 || n_mfcc <= 0 || n_mfcc > n_filt || n_packed < 0 || n_seg < 0 ||
-      n_warps <= 0 || !plan_twiddle || !filt_packed || !fb_table ||
-      (logmel ? out_bf16 || time_major
+      n_warps <= 0 || !plan_twiddle || !filt_packed || !fb_table || logmel < kFused ||
+      logmel > kLogmelPartial ||
+      (logmel ? out_bf16 || time_major || reinterpret_cast<uintptr_t>(out) % 16
               : (dct_cols != n_mfcc - 1 && dct_cols != n_filt) || (dct_cols && !dct_t)))
     return cudaErrorInvalidValue;
   const size_t pair = audio_int16 ? 2 * sizeof(int16_t) : 2 * sizeof(float);
@@ -1173,7 +1356,7 @@ int register_entry(const void* audio, int audio_int16, const void* gain, int bat
   a.dct_cols = logmel ? 0 : dct_cols;
   a.emit_deltas = emit_deltas;
   a.time_major = time_major;
-  a.logmel = logmel ? 1 : 0;
+  a.logmel = logmel;
   a.out = out;
   a.src_mod = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1201,8 +1384,10 @@ int register_entry(const void* audio, int audio_int16, const void* gain, int bat
 // (n_filt, dct_cols) f32, the DCT's columns 1 .. n_mfcc - 1 (dct_cols =
 // n_mfcc - 1) or the whole table (dct_cols = n_filt); out (batch,
 // n_features, F) or, time_major, (n_features, batch, F), F = n_mfcc or 2
-// n_mfcc, f32 or bf16; or, with logmel, (batch, n_features, n_filt + 1) f32
-// log-mel rows, the log energy last (no DCT is read: batch-major f32 only).
+// n_mfcc, f32 or bf16; or, with logmel (kLogmelRows, or kLogmelPartial for
+// the first tail; fb_table then the log-mel or the fused plan's), (batch,
+// n_features, n_filt + 1) f32 log-mel rows, the log energy last (no DCT is
+// read: batch-major f32 only, out 16-byte aligned).
 // Frames first_frame .. first_frame + n_features - 1, each n_fft samples
 // (window = n_fft), are computed; n_warps a block, ops/fft_plan.py::
 // fft_layout's for the plan.  Returns the launch's cudaError_t

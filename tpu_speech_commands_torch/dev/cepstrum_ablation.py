@@ -59,6 +59,7 @@ JSON object of every time.
 from __future__ import annotations
 
 import argparse
+import functools
 import glob
 import json
 import math
@@ -70,7 +71,8 @@ import torch
 from ..data.wav import load_wav
 from ..device import resolve_device
 from ..frontend.dsp import Frontend, add_deltas, decode_audio, frame_signal
-from ..frontend.filterbanks import LOG_EPS, dct_t_matrix, filterbank_matrix
+from ..frontend.filterbanks import (LOG_EPS, dct_t_matrix, dft_matrices,
+                                    filterbank_matrix)
 from ..ops import _build, cepstrum_plan, ct_kernel, fft_plan, frontend_kernel
 from ..params import ListenerParams
 from . import FEAT_ATOL, FEAT_RTOL, card_line
@@ -101,11 +103,13 @@ EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "example")
 
 
+@functools.lru_cache(maxsize=4)
 def speech_audio(batch: int, n_samples: int, seed: int, dev) -> torch.Tensor:
     """(batch, n_samples) f32 on dev: the eight example/*.wav clips, each
     left-padded or cut to its last n_samples samples, at gains drawn from
     [0.3, 1.5] plus noise of 0.003, from a numpy seed (as chip_smoke.py's
-    test audio)."""
+    test audio).  Kept for the next call with the same arguments (a batch
+    of 8192 takes seconds on the host); callers only read it."""
     clips = np.stack([np.pad(c[-n_samples:], (n_samples - len(c[-n_samples:]),
                                               0))
                       for c in (load_wav(path, 16000) for path in sorted(
@@ -168,40 +172,65 @@ def kernel_bound(batch: int, n_feat: int, n_filt: int,
 EPS_F32, SLACK_FACTOR = 2.0 ** -23, 2.0
 
 
-def exact_features(p: ListenerParams, audio: torch.Tensor, gain=None,
-                   feature_type: str = "mfcc"):
-    """(features, slack), float64 on audio's device.  features: the
-    frontend's function in float64, from the f32 decoded audio the kernels
-    see: the kept frames' rfft of n_fft points, the power, the f32
-    filterbank and DCT tables' values, safe_log, the energy column and the
-    deltas -> (B, n_features, feature_size).  slack: how far f32 rounding
-    can move each feature.  An f32 FFT moves bin k's power p_k by about
-    2 eps log2(n_fft) sqrt(p_k E / n_fft) (E the frame's power, the
-    transform's error spread over its bins), so a filter's log moves by
-    d_m = 2 eps log2(n_fft) sqrt(E / n_fft) sum_k w_mk sqrt(p_k) / mel_m
-    (at most the log's range, 72), coefficient i by sum_m |dct_mi| d_m, the
-    energy by 2 eps log2(n_fft); slack is SLACK_FACTOR times that, a delta
-    the sum of its two frames'.  Negligible where a filter's power is a
-    fair share of the frame's, it is what lets a single-bin filter's power
-    of 1e-15 of the frame's move a coefficient by 0.04."""
-    x = decode_audio(audio, gain).double()
+def _exact_terms(p: ListenerParams, audio: torch.Tensor, gain,
+                 feature_type: str, fast_math: bool):
+    """(filter sums, frame energies, the f32 rounding's move of each log
+    filter sum, the log energy's) in float64 (`exact_features`)."""
+    x = decode_audio(audio, gain)
     frames = frame_signal(x, p.window_samples,
                           p.hop_samples)[..., -p.n_features:, :]
-    spec = torch.fft.rfft(frames, n=p.n_fft)
-    power = (spec.real ** 2 + spec.imag ** 2) / p.n_fft
-    del spec
+    if fast_math:
+        # the bf16 frames and DFT matrix the fast_math kernels multiply, then
+        # exact sums; f32 accumulation of the window's products moves a
+        # bin's amplitude by about 2 eps sqrt(window) of the frame's
+        cos, sin = (torch.tensor(m, dtype=torch.float32, device=x.device)
+                    .to(torch.bfloat16).double()
+                    for m in dft_matrices(p.window_samples, p.n_fft))
+        frames = frames.to(torch.bfloat16).double()
+        re, im = frames @ cos, frames @ sin
+        power = (re ** 2 + im ** 2) / p.n_fft
+        del re, im
+        step = 2.0 * EPS_F32 * math.sqrt(min(p.window_samples, p.n_fft))
+    else:
+        spec = torch.fft.rfft(frames.double(), n=p.n_fft)
+        power = (spec.real ** 2 + spec.imag ** 2) / p.n_fft
+        del spec
+        step = 2.0 * EPS_F32 * math.log2(p.n_fft)
+    del frames
     filt = torch.tensor(filterbank_matrix(p, feature_type),
                         dtype=torch.float64, device=x.device)
-    dct = torch.tensor(dct_t_matrix(p.n_filt), dtype=torch.float64,
-                       device=x.device)
     mel = power @ filt
     total = power.sum(-1, keepdim=True)
+    moved = step * torch.sqrt(total / p.n_fft) * (power.sqrt() @ filt)
+    d_log = torch.clamp(moved / torch.clamp(mel, min=LOG_EPS), max=72.0)
+    return mel, total, d_log, step
+
+
+def exact_features(p: ListenerParams, audio: torch.Tensor, gain=None,
+                   feature_type: str = "mfcc", fast_math: bool = False):
+    """(features, slack), float64 on audio's device.  features: the
+    frontend's function in float64, from the f32 decoded audio the kernels
+    see: the kept frames' rfft of n_fft points (with fast_math: the bf16
+    frames times the bf16 DFT matrix), the power, the f32 filterbank and
+    DCT tables' values, safe_log, the energy column and the deltas -> (B,
+    n_features, feature_size).  slack: how far f32 rounding can move each
+    feature.  An f32 FFT moves bin k's power p_k by about 2 eps log2(n_fft)
+    sqrt(p_k E / n_fft) (E the frame's power, the transform's error spread
+    over its bins; an f32 sum of the window's products, 2 eps sqrt(window)
+    in its place), so a filter's log moves by d_m = 2 eps log2(n_fft)
+    sqrt(E / n_fft) sum_k w_mk sqrt(p_k) / mel_m (at most the log's range,
+    72), coefficient i by sum_m |dct_mi| d_m, the energy by 2 eps
+    log2(n_fft); slack is SLACK_FACTOR times that, a delta the sum of its
+    two frames'.  Negligible where a filter's power is a fair share of the
+    frame's, it is what lets a single-bin filter's power of 1e-15 of the
+    frame's move a coefficient by 0.04."""
+    mel, total, d_log, step = _exact_terms(p, audio, gain, feature_type,
+                                           fast_math)
+    dct = torch.tensor(dct_t_matrix(p.n_filt), dtype=torch.float64,
+                       device=mel.device)
     logs = torch.log(torch.clamp(mel, min=LOG_EPS))
     energy = torch.log(torch.clamp(total, min=LOG_EPS))
     feats = torch.cat([energy, (logs @ dct)[..., 1:p.n_mfcc]], -1)
-    step = 2.0 * EPS_F32 * math.log2(p.n_fft)
-    moved = step * torch.sqrt(total / p.n_fft) * (power.sqrt() @ filt)
-    d_log = torch.clamp(moved / torch.clamp(mel, min=LOG_EPS), max=72.0)
     slack = SLACK_FACTOR * torch.cat(
         [torch.full_like(energy, step), (d_log @ dct.abs())[..., 1:p.n_mfcc]],
         -1)
@@ -213,6 +242,22 @@ def exact_features(p: ListenerParams, audio: torch.Tensor, gain=None,
         first[..., 0, :] = 0.0
         slack = torch.cat([slack, (slack + prev) * first], -1)
     return feats, slack
+
+
+def exact_logmel(p: ListenerParams, audio: torch.Tensor, gain=None,
+                 feature_type: str = "mfcc", fast_math: bool = False):
+    """(rows, slack), float64 on audio's device: the (B, n_features, n_filt
+    + 1) log-mel rows of log-mel mode (each kept frame's log filter sums,
+    then its log energy) computed as `exact_features` computes the
+    features, and how far f32 rounding can move each (SLACK_FACTOR times
+    d_m, the log energy's 2 eps log2(n_fft))."""
+    mel, total, d_log, step = _exact_terms(p, audio, gain, feature_type,
+                                           fast_math)
+    rows = torch.cat([torch.log(torch.clamp(mel, min=LOG_EPS)),
+                      torch.log(torch.clamp(total, min=LOG_EPS))], -1)
+    slack = SLACK_FACTOR * torch.cat([d_log, torch.full_like(total, step)],
+                                     -1)
+    return rows, slack
 
 
 def check_conditioned(label: str, got: torch.Tensor, plain: torch.Tensor,

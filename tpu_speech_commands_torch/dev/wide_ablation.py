@@ -44,13 +44,11 @@ import argparse
 import copy
 import re
 
-import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..frontend.filterbanks import filterbank_matrix
 from ..ops import _build, ct_kernel, fft_plan, frontend_kernel
-from ..ops._checks import row_major
 from ..params import ListenerParams
 from . import card_line, check_features, device_audio
 from .ct_ablation import build, inlined_source
@@ -114,13 +112,9 @@ def fft_constants(p: ListenerParams, values: int, dev):
     if values == shipped[0]:
         return consts
     other = copy.copy(consts)
-    other.plan = fft_plan.build_plan(p.n_fft, values, *shipped[1:])
-    other.fb = fft_plan.filterbank_plan(filterbank_matrix(p, "mfcc").T,
-                                        other.plan.lanes)
-    other.layout = fft_plan.fft_layout(other.plan, other.fb, p.n_filt,
-                                       p.n_mfcc, p.n_features)
-    other.plan_twiddle = row_major(other.plan.twiddle, dev)
-    other.fb_table = row_major(other.fb.table, dev, np.int32)
+    plan = fft_plan.build_plan(p.n_fft, values, *shipped[1:])
+    other.stage_register(plan, fft_plan.filterbank_plan(
+        filterbank_matrix(p, "mfcc").T, plan.lanes), p, dev)
     return other
 
 

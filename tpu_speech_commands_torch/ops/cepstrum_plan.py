@@ -51,7 +51,8 @@ from ..frontend.dsp import add_deltas, decode_audio, frame_signal, safe_log
 from ..frontend.filterbanks import dct_t_matrix, filterbank_matrix
 from ..params import ListenerParams
 from ._checks import check_row_major, row_major
-from .fft_plan import SMEM_OPTIN, SMEM_PER_SM, SMEM_RESERVED, fft_layout
+from .fft_plan import (SMEM_OPTIN, SMEM_PER_SM, SMEM_RESERVED, cepstrum_mode,
+                       fft_layout, logmel_filterbank, logmel_steps)
 
 # csrc/cepstrum_wgmma.cu's TSC_CEPW_*: rows (frames) a tile (two consumer
 # warpgroups of 64), the K slice a stage (32 floats: one row of the
@@ -348,13 +349,59 @@ class DctTables:
         check_row_major((self.dct_t, self.dct_trim),
                         ((p.n_filt, p.n_filt), (p.n_filt, n_mfcc - 1)))
 
+    def stage_register(self, plan, fb, p: ListenerParams, device):
+        """The register or wide body's tables on `device` (`plan`, `fb`
+        their plans): `plan_twiddle`, plan.twiddle as float32 rows; the
+        packed filterbank and its int32 lane / filter / segment table, of
+        the fused plan `fb` (`filt_packed`, `fb_table`: the fused epilogue
+        and log-mel mode's first tail read it) and of its log-mel plan
+        (`fb_logmel`, `fft_plan.logmel_filterbank`; log-mel mode's tail
+        reads `filt_packed_logmel`, its step tables' weights, and
+        `fb_table_logmel`, the plan's table then its step descriptors,
+        `fft_plan.logmel_steps`); `cepstrum`
+        (`fft_plan.cepstrum_mode`: log-mel mode and the cepstrum kernel)
+        and `layout`, that mode's block."""
+        self.plan, self.fb = plan, fb
+        self.fb_logmel = logmel_filterbank(fb, plan.lanes)
+        self.cepstrum = cepstrum_mode(plan, fb, p.n_filt, p.n_mfcc,
+                                      p.n_features)
+        self.layout = self.layout_for(p, cepstrum=self.cepstrum)
+        self.plan_twiddle = row_major(plan.twiddle, device)
+        self.filt_packed = row_major(fb.packed, device)
+        self.fb_table = row_major(fb.table, device, np.int32)
+        steps = logmel_steps(self.fb_logmel, plan.lanes)
+        self.filt_packed_logmel = row_major(steps.weights, device)
+        self.fb_table_logmel = row_major(
+            np.concatenate([self.fb_logmel.table, steps.steps]), device,
+            np.int32)
+        check_row_major(
+            (self.plan_twiddle, self.fb_table, self.filt_packed_logmel,
+             self.fb_table_logmel),
+            ((len(plan.twiddle), 2), (len(fb.table),),
+             (self.fb_logmel.chunk * plan.lanes,),
+             (len(self.fb_logmel.table) + len(steps.steps),)))
+
+    def fb_args(self, logmel_tail: bool) -> tuple:
+        """(filt_packed, fb_table, n_packed, n_seg) of the filterbank plan a
+        launch reads: the log-mel plan's for log-mel mode's tail, else the
+        fused plan's."""
+        if logmel_tail:
+            return (self.filt_packed_logmel.data_ptr(),
+                    self.fb_table_logmel.data_ptr(),
+                    self.filt_packed_logmel.numel(), self.fb_logmel.n_seg)
+        return (self.filt_packed.data_ptr(), self.fb_table.data_ptr(),
+                len(self.fb.packed), self.fb.n_seg)
+
     def layout_for(self, p: ListenerParams, full_dct: bool = False,
-                   cepstrum: bool = False):
+                   cepstrum: bool = False, partial_sums: bool = False):
         """The register or wide block of `self.plan` at config p: fused
         (the trimmed DCT, or with full_dct the whole one) or in log-mel
-        mode (`fft_plan.fft_layout`)."""
-        return fft_layout(self.plan, self.fb, p.n_filt, p.n_mfcc,
-                          p.n_features, full_dct=full_dct, cepstrum=cepstrum)
+        mode, its tail's or with partial_sums its first tail's
+        (`fft_plan.fft_layout`)."""
+        fb = self.fb_logmel if cepstrum and not partial_sums else self.fb
+        return fft_layout(self.plan, fb, p.n_filt, p.n_mfcc, p.n_features,
+                          full_dct=full_dct, cepstrum=cepstrum,
+                          partial_sums=partial_sums)
 
     def dct_args(self, p: ListenerParams, full_dct: bool) -> tuple:
         """(pointer, dct_cols) of the fused epilogue's DCT table."""
@@ -364,11 +411,12 @@ class DctTables:
 
 
 def register_layout(consts, p: ListenerParams, full_dct: bool,
-                    cepstrum: bool):
+                    cepstrum: bool, partial_sums: bool = False):
     """The register or wide block a launch runs (`DctTables.layout_for`),
     or ValueError where that mode's block fits no shared memory (the
     `_full_dct` A/B at a config whose whole DCT leaves no room)."""
-    lay = consts.layout_for(p, full_dct and not cepstrum, cepstrum)
+    lay = consts.layout_for(p, full_dct and not cepstrum, cepstrum,
+                            partial_sums and cepstrum)
     if lay.smem_bytes > SMEM_OPTIN:
         raise ValueError(
             f"the {'whole' if full_dct else 'trimmed'} DCT of {p.n_filt} "
@@ -376,6 +424,13 @@ def register_layout(consts, p: ListenerParams, full_dct: bool,
             f"{p.n_fft} room: {lay.smem_bytes} bytes of shared memory, more "
             f"than {SMEM_OPTIN}")
     return lay
+
+
+# the tails of the register and wide bodies' log-mel mode, as their launches
+# name them (register_fft.cuh's Logmel): the shipped tail (filters
+# finished where the walk ends them, each row staged and stored in 16-byte
+# stores) and the first one (partial sums, a pass a filter; the A/B)
+LOGMEL_ROWS, LOGMEL_PARTIAL = 1, 2
 
 
 def logmel_buffer(audio: torch.Tensor, p: ListenerParams) -> torch.Tensor:

@@ -50,7 +50,7 @@ from ..models.rnn import _rounded
 from . import _build, block1_plan
 from .cnn_lowering import Lowered, Stage, lower_block1, lower_classifier
 from .cnn_plan import Plan, make_plan
-from .ct_kernel import LaunchCount
+from .launch_count import LaunchCount
 
 SOURCE = "tpu_speech_commands_torch/csrc/cnn_classifier.cu"
 BLOCK1_SOURCE = "tpu_speech_commands_torch/csrc/cnn_block1.cu"

@@ -54,11 +54,13 @@ from ..frontend.filterbanks import filterbank_matrix
 from ..params import ListenerParams
 from . import _build
 from ._checks import OUT_DTYPES, check_launch, check_row_major, row_major
-from .cepstrum_plan import DctTables, logmel_buffer, register_layout
+from .cepstrum_plan import (LOGMEL_PARTIAL, LOGMEL_ROWS, DctTables,
+                            logmel_buffer, register_layout)
 from .ct_constants import CT_J, LANES, ct_eligible, ct_matrices
 from .fft_plan import (SMEM_OPTIN, cepstrum_mode, fft_layout, filterbank_plan,
                        mixed_plan, takes_mixed_fft, takes_wide_fft, wide_plan,
                        wide_unit)
+from .launch_count import LOGMEL, PARTIAL_SUMS, LaunchCount
 
 SOURCE = "tpu_speech_commands_torch/csrc/ct_frontend.cu"
 MIXED_SOURCE = "tpu_speech_commands_torch/csrc/mixed_fft_frontend.cu"
@@ -99,13 +101,6 @@ _CUDA_ERROR_INVALID_VALUE = 1
 # depth, and the block rows it tries, largest first
 # (tests/test_torch_ct_frontend.py holds them to the source)
 _SPLIT_STAGES, _SPLIT_BK, _SPLIT_BMS = 3, 8, (64, 32)
-
-
-class LaunchCount:
-    """The launch count of one instantiation."""
-
-    def __init__(self):
-        self.launches = 0
 
 
 counters = {name: LaunchCount() for name in VARIANTS}
@@ -214,10 +209,9 @@ class CtConstants(DctTables):
     tables, the unpaired and paired stage-2 packs, the permuted filterbank,
     its per-piece ranges and duplicated-row form and the Nyquist row; the
     DCT tables (`DctTables`).  `body` is `ct_body`'s; where it is
-    "register" or "wide", the register FFT's too: `plan.twiddle` as float32
-    rows, the packed filterbank and its int32 lane / filter / segment table
-    over the plan's lanes, `cepstrum` (`fft_plan.cepstrum_mode`) and
-    `layout`, that mode's block."""
+    "register" or "wide", the register FFT's too (`DctTables.
+    stage_register`: the twiddles, the fused filterbank plan's and log-mel
+    mode's step tables over the plan's lanes, `cepstrum` and `layout`)."""
 
     def __init__(self, p: ListenerParams, feature_type: str, device):
         if not ct_eligible(p):
@@ -246,16 +240,7 @@ class CtConstants(DctTables):
         self.plan_twiddle = self.filt_packed = self.fb_table = None
         self.cepstrum = False
         if self.body is not None:
-            self.plan, self.fb = _register(p, feature_type)
-            self.cepstrum = cepstrum_mode(self.plan, self.fb, p.n_filt,
-                                          p.n_mfcc, p.n_features)
-            self.layout = self.layout_for(p, cepstrum=self.cepstrum)
-            self.plan_twiddle = row_major(self.plan.twiddle, device)
-            self.filt_packed = row_major(self.fb.packed, device)
-            self.fb_table = row_major(self.fb.table, device, np.int32)
-            check_row_major(
-                (self.plan_twiddle, self.fb_table),
-                ((len(self.plan.twiddle), 2), (len(self.fb.table),)))
+            self.stage_register(*_register(p, feature_type), p, device)
 
 
 def ct_frontend_plain(audio: torch.Tensor, gain, consts: CtConstants,
@@ -338,7 +323,8 @@ def ct_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
                      time_major: bool = False,
                      out_dtype=torch.float32, *,
                      _split: bool = False, _full_dct: bool = False,
-                     _cepstrum: bool | None = None) -> torch.Tensor:
+                     _cepstrum: bool | None = None,
+                     _partial_sums: bool = False) -> torch.Tensor:
     """Launch route ct's kernel for config `p`.  audio (B, S) float32 or
     int16 and gain (1,) float32, both on consts' CUDA device -> (B,
     n_features, F), or (n_features, B, F) when time_major, in out_dtype.
@@ -347,9 +333,11 @@ def ct_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
     (its launches add one to `MIXED.launches`) or the wide FFT (to
     `WIDE.launches`), fused or, where `consts.cepstrum`, in log-mel mode
     with the cepstrum kernel after it (`frontend_kernel.cepstrum_cuda`,
-    counted in `frontend_kernel.CEPSTRUM`).  The same-call A/Bs:
-    `_full_dct` runs the fused epilogue on the whole n_filt x n_filt DCT,
-    `_cepstrum` (True or False) forces the mode; paired or per_piece_mel
+    counted in `frontend_kernel.CEPSTRUM`; the log-mel rows by
+    `ct_logmel_cuda`).  The same-call A/Bs: `_full_dct` runs the fused
+    epilogue on the whole n_filt x n_filt DCT, `_cepstrum` (True or False)
+    forces the mode, `_partial_sums` runs log-mel mode's first tail;
+    paired or per_piece_mel
     (split-dup, the wide FFT's baseline), or `_split` (the mixed FFT's),
     launch that instantiation of the CT split kernel, each launch adding
     one to `counters[variant_name(paired, per_piece_mel)].launches`."""
@@ -361,7 +349,17 @@ def ct_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
         raise ValueError(err)
     cepstrum = not split and (consts.cepstrum if _cepstrum is None
                               else _cepstrum)
-    lay = None if split else register_layout(consts, p, _full_dct, cepstrum)
+    if cepstrum:
+        # frontend_kernel imports this module: its cepstrum wrapper is
+        # looked up at the call
+        from .frontend_kernel import cepstrum_cuda
+
+        check_launch(audio, gain, consts.device, p, out_dtype)
+        rows = ct_logmel_cuda(audio, gain, consts, p,
+                              _partial_sums=_partial_sums)
+        return cepstrum_cuda(rows, consts.cep_table, p.n_mfcc, p.use_delta,
+                             time_major, out_dtype)
+    lay = None if split else register_layout(consts, p, _full_dct, False)
     n_frames = check_launch(audio, gain, consts.device, p, out_dtype)
     batch, n_samples = audio.shape
     shape = ((p.n_features, batch, p.feature_size) if time_major
@@ -370,18 +368,10 @@ def ct_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
         return torch.empty(shape, dtype=out_dtype, device=audio.device)
     first_frame = n_frames - p.n_features
     if not split:
-        # frontend_kernel imports this module: its cepstrum wrapper is
-        # looked up at the call
-        from .frontend_kernel import cepstrum_cuda
-
-        out = logmel_buffer(audio, p) if cepstrum else torch.empty(
-            shape, dtype=out_dtype, device=audio.device)
+        out = torch.empty(shape, dtype=out_dtype, device=audio.device)
         _launch_register(audio, gain, consts, p, first_frame, time_major,
-                         out, lay.warps, _full_dct, cepstrum)
+                         out, lay.warps, _full_dct, 0)
         (MIXED if consts.body == "register" else WIDE).launches += 1
-        if cepstrum:
-            return cepstrum_cuda(out, consts.cep_table, p.n_mfcc,
-                                 p.use_delta, time_major, out_dtype)
         return out
     out = torch.empty(shape, dtype=out_dtype, device=audio.device)
     fn = _build.bind("tsc_ct_frontend", _N_ARGS, _INT_ARGS)
@@ -408,12 +398,40 @@ def ct_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
     return out
 
 
+def ct_logmel_cuda(audio: torch.Tensor, gain: torch.Tensor,
+                   consts: CtConstants, p: ListenerParams, *,
+                   _partial_sums: bool = False) -> torch.Tensor:
+    """Launch route ct's register or wide body in log-mel mode: audio (B, S)
+    float32 or int16 and gain (1,) float32 on consts' CUDA device -> the (B,
+    n_features, n_filt + 1) f32 log-mel rows, the log energy last (the
+    plain version: `cepstrum_plan.logmel_plain`).  `_partial_sums` runs the
+    mode's first tail, the same-call A/B.  A launch adds one to its body's
+    count (`MIXED` or `WIDE`) and to `LOGMEL` (`PARTIAL_SUMS`)."""
+    err = _contract_error(p)
+    if not err and consts.body is None:
+        err = ct_config_error(p, consts.feature_type)
+    if err:
+        raise ValueError(err)
+    lay = register_layout(consts, p, False, True, _partial_sums)
+    n_frames = check_launch(audio, gain, consts.device, p, torch.float32)
+    out = logmel_buffer(audio, p)
+    if audio.shape[0] == 0:
+        return out
+    _launch_register(audio, gain, consts, p, n_frames - p.n_features, False,
+                     out, lay.warps, False,
+                     LOGMEL_PARTIAL if _partial_sums else LOGMEL_ROWS)
+    (MIXED if consts.body == "register" else WIDE).launches += 1
+    (PARTIAL_SUMS if _partial_sums else LOGMEL).launches += 1
+    return out
+
+
 def _launch_register(audio, gain, consts: CtConstants, p: ListenerParams,
                      first_frame: int, time_major: bool, out: torch.Tensor,
-                     warps: int, full_dct: bool, logmel: bool):
+                     warps: int, full_dct: bool, logmel: int):
     """One launch of csrc/mixed_fft_frontend.cu or, for the wide body, of
     n_fft's unit of csrc/wide_fft_frontend_*.cu into `out` (with logmel,
-    the (B, n_features, n_filt + 1) log-mel rows)."""
+    LOGMEL_ROWS or LOGMEL_PARTIAL, the (B, n_features, n_filt + 1) log-mel
+    rows)."""
     name = ("tsc_mixed_fft_frontend" if consts.body == "register" else
             f"tsc_wide_fft_frontend_{wide_unit(p.n_fft)}")
     fn = _build.bind(name, _REGISTER_N_ARGS, _REGISTER_INT_ARGS)
@@ -424,11 +442,10 @@ def _launch_register(audio, gain, consts: CtConstants, p: ListenerParams,
             audio.data_ptr(), int(audio.dtype == torch.int16), gain.data_ptr(),
             audio.shape[0], audio.shape[1], p.hop_samples, p.n_fft,
             first_frame, p.n_features, consts.plan_twiddle.data_ptr(),
-            consts.filt_packed.data_ptr(), consts.fb_table.data_ptr(),
-            len(consts.fb.packed), consts.fb.n_seg, dct_ptr, dct_cols,
+            *consts.fb_args(logmel == LOGMEL_ROWS), dct_ptr, dct_cols,
             p.n_filt, p.n_mfcc, int(p.use_delta),
             int(time_major and not logmel), warps, out.data_ptr(),
-            int(out.dtype == torch.bfloat16), int(logmel), stream,
+            int(out.dtype == torch.bfloat16), logmel, stream,
         )
     _build.check(rc, name)
 

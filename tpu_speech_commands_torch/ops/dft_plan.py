@@ -60,18 +60,22 @@ def wgmma_table_bytes(n_pad: int, slots: int) -> int:
 
 def wgmma_smem_bytes(wpb: int, win_pitch: int, n_filt: int, n_mfcc: int,
                      k_pad: int, table: int = 0, stages: int = STAGES,
-                     power_tile: bool = False) -> int:
+                     power_tile: bool = False, *, n_features: int,
+                     logmel: bool = False) -> int:
     """smem_bytes() of csrc/dft_wgmma.cu: 1024 bytes of alignment slack, the
-    ring, the power tile (the ablation only), the audio, the filter sums,
-    the k-offset table, the DCT, the filter slots where they fit (`table`
-    bytes, `wgmma_table_bytes`), 2 x stages mbarriers for the ring and 4
-    for the audio staging."""
+    ring, the power tile (the ablation only), the audio, the filter sums of
+    the block's wpb x n_features rows (all BM with the power tile), the
+    k-offset table, the DCT's n_mfcc - 1 columns (none in log-mel mode),
+    the filter slots where they fit (`table` bytes, `wgmma_table_bytes`), 2
+    x stages mbarriers for the ring and 4 for the audio staging."""
+    mel_rows = BM if power_tile else wpb * n_features
+    dct_cols = 0 if logmel else n_mfcc - 1
     return (1024 + ring_bytes(n_mfcc, stages)
             + (_align(4 * BM * 65, 16) if power_tile else 0)
             + _align(2 * wpb * win_pitch, 16)
-            + _align(4 * BM * ((n_filt + 1) | 1), 16)
+            + _align(4 * mel_rows * ((n_filt + 1) | 1), 16)
             + _align(4 * (k_pad // 8), 16)
-            + _align(4 * n_filt * n_filt, 16)
+            + _align(4 * n_filt * dct_cols, 16)
             + table + 8 * (2 * stages + 4))
 
 

@@ -404,10 +404,16 @@ class FilterbankPlan:
     """The packed filterbank (`pack_filterbank`) split into one run of
     `chunk` consecutive weights a lane (odd, so that the lanes' weight reads
     fall in distinct banks).  A lane's run is cut where a filter ends into
-    segments (first bin, first weight, count); a lane writes one partial sum
-    a segment, then lane m adds filter m's partial sums in order.  `table`
-    (int32) is what the kernel reads: lane_seg (lanes + 1), filt_seg (n_filt
-    + 1), then the segments' rows."""
+    segments (first bin, first weight, count).  The fused epilogue (and the
+    log-mel mode's first tail, `partial_sums`) writes one partial sum a
+    segment, then lane m adds filter m's partial sums in order.  The
+    log-mel plan (`logmel`, `logmel_filterbank`) gives each empty filter
+    one zero weight, so that every filter ends in some lane's run, and
+    records each segment's filter: its tail finishes a filter where the
+    walk ends it, and only a filter split over lanes' runs combines their
+    sums.  `table` (int32) is what the kernel reads: lane_seg (lanes + 1),
+    filt_seg (n_filt + 1), the segments' rows, then in the log-mel plan
+    seg_filter."""
 
     packed: np.ndarray
     ranges: np.ndarray
@@ -415,24 +421,27 @@ class FilterbankPlan:
     segments: np.ndarray  # (n_seg, 3) int32: bin, weight offset, count
     lane_seg: np.ndarray  # (lanes + 1,) a lane's first segment
     filt_seg: np.ndarray  # (n_filt + 1,) a filter's first segment
+    seg_filter: np.ndarray  # (n_seg,) a segment's filter
     table: np.ndarray
+    logmel: bool = False
 
     @property
     def n_seg(self) -> int:
         return len(self.segments)
 
 
-def pack_filterbank(filt_t: np.ndarray):
+def pack_filterbank(filt_t: np.ndarray, keep_empty: bool = False):
     """The (n_filt, n_bins) filterbank as the kernels keep it in shared
     memory: each filter's bins from its first to its last nonzero, back to
     back in one float32 vector, and (n_filt, 3) int32 rows (lo, hi, offset)
     so that filter m's weight of bin k in [lo, hi) is packed[offset + k -
-    lo].  An all-zero filter gets (0, 0, offset)."""
+    lo].  An all-zero filter gets (0, 0, offset), or with keep_empty (0, 1,
+    offset) and one zero weight."""
     ranges = np.zeros((filt_t.shape[0], 3), np.int32)
     chunks, offset = [], 0
     for m, row in enumerate(filt_t):
         nz = np.flatnonzero(row)
-        lo, hi = (nz[0], nz[-1] + 1) if nz.size else (0, 0)
+        lo, hi = (nz[0], nz[-1] + 1) if nz.size else (0, int(keep_empty))
         ranges[m] = lo, hi, offset
         chunks.append(row[lo:hi])
         offset += hi - lo
@@ -441,30 +450,189 @@ def pack_filterbank(filt_t: np.ndarray):
     return packed, ranges
 
 
-def filterbank_plan(filt_t: np.ndarray, lanes: int) -> FilterbankPlan:
-    packed, ranges = pack_filterbank(filt_t)
+def _segment(packed: np.ndarray, ranges: np.ndarray, lanes: int,
+             logmel: bool) -> FilterbankPlan:
+    """The plan of a packed filterbank over `lanes` lanes."""
     n_packed, n_filt = len(packed), len(ranges)
     chunk = max(1, -(-n_packed // lanes))
     chunk += 1 - chunk % 2
+    offs = ranges[:, 2].astype(np.int64)
+    ends = offs + ranges[:, 1] - ranges[:, 0]
     segs, seg_filt, lane_seg = [], [], []
     for lane in range(lanes):
         lane_seg.append(len(segs))
         e, end = min(lane * chunk, n_packed), min((lane + 1) * chunk, n_packed)
-        for m, (lo, hi, off) in enumerate(ranges):
-            a, b = max(e, off), min(end, off + hi - lo)
+        # the filters whose weights meet [e, end): offsets are cumulative
+        for m in range(int(np.searchsorted(ends, e, "right")),
+                       int(np.searchsorted(offs, end, "left"))):
+            a, b = max(e, offs[m]), min(end, ends[m])
             if a < b:
-                segs.append((lo + a - off, a, b - a))
+                segs.append((ranges[m, 0] + a - offs[m], a, b - a))
                 seg_filt.append(m)
     lane_seg.append(len(segs))
     seg_filt = np.asarray(seg_filt, np.int64)
     filt_seg = np.searchsorted(seg_filt, np.arange(n_filt + 1))
     segments = np.asarray(segs, np.int32).reshape(-1, 3)
-    table = np.concatenate([np.asarray(lane_seg), filt_seg,
-                            segments.ravel()]).astype(np.int32)
+    parts = [np.asarray(lane_seg), filt_seg, segments.ravel()]
+    if logmel:
+        parts.append(seg_filt)
     return FilterbankPlan(packed=packed, ranges=ranges, chunk=chunk,
                           segments=segments,
                           lane_seg=np.asarray(lane_seg, np.int32),
-                          filt_seg=filt_seg.astype(np.int32), table=table)
+                          filt_seg=filt_seg.astype(np.int32),
+                          seg_filter=seg_filt.astype(np.int32),
+                          table=np.concatenate(parts).astype(np.int32),
+                          logmel=logmel)
+
+
+def filterbank_plan(filt_t: np.ndarray, lanes: int,
+                    logmel: bool = False) -> FilterbankPlan:
+    """The plan of the (n_filt, n_bins) filterbank over `lanes` lanes: the
+    fused epilogue's, or with logmel the log-mel mode's
+    (`FilterbankPlan`)."""
+    return _segment(*pack_filterbank(filt_t, keep_empty=logmel), lanes,
+                    logmel)
+
+
+def logmel_filterbank(fb: FilterbankPlan, lanes: int) -> FilterbankPlan:
+    """The log-mel plan of the filterbank that `fb` packs (`fb` itself where
+    it is one): each empty filter one zero weight at bin 0."""
+    if fb.logmel:
+        return fb
+    chunks, ranges, offset = [], np.zeros_like(fb.ranges), 0
+    for m, (lo, hi, off) in enumerate(fb.ranges):
+        if hi == lo:
+            lo, hi, part = 0, 1, np.zeros(1, np.float32)
+        else:
+            part = fb.packed[off:off + hi - lo]
+        ranges[m] = lo, hi, offset
+        chunks.append(part)
+        offset += hi - lo
+    packed = np.concatenate(chunks).astype(np.float32) if chunks else \
+        np.zeros(0, np.float32)
+    return _segment(packed, ranges, lanes, True)
+
+
+# log-mel mode's tail walks one step descriptor (int32) a lane and step:
+# the bin (bits 0-13), the kind of segment end the step is (bits 14-15:
+# none, a finished filter, the run's carry, the run's head) and that
+# filter (bits 16-27); register_fft.cuh's kStep* constants
+STEP_BIN_BITS, STEP_KIND_SHIFT, STEP_FILT_SHIFT = 14, 14, 16
+STEP_FINISH, STEP_CARRY, STEP_HEAD = 1, 2, 3
+
+
+@dataclasses.dataclass(frozen=True)
+class LogmelSteps:
+    """Log-mel mode's tail as the kernel walks it: `chunk` steps a lane, in
+    lane-interleaved order (step i of lane l at i * lanes + l, so that a
+    step's lanes read consecutive words): `weights` (the packed weight, 0
+    past a lane's run), `steps` (the step descriptors) and `source` (the
+    packed weight's offset, -1 past a lane's run)."""
+
+    weights: np.ndarray  # (chunk * lanes,) float32
+    steps: np.ndarray    # (chunk * lanes,) int32
+    source: np.ndarray   # (chunk * lanes,) int64
+
+
+def logmel_steps(fb: FilterbankPlan, lanes: int) -> LogmelSteps:
+    """The step tables of the log-mel plan `fb` (`logmel_filterbank`):
+    each lane's run of weights in order, a segment's last step marking its
+    filter finished, the run's carry (its last segment, whose filter goes
+    on in the next lane's run) or its head (its first segment, whose filter
+    began in earlier lanes; not its carry too)."""
+    if not fb.logmel:
+        raise ValueError("the log-mel tail walks the log-mel plan")
+    n_bins = int(fb.segments[:, 0].max() + fb.segments[:, 2].max()) \
+        if fb.n_seg else 0
+    if n_bins > 1 << STEP_BIN_BITS or len(fb.ranges) > 1 << 12:
+        raise ValueError("a step descriptor holds bins below 16384 and "
+                         "filters below 4096")
+    size = fb.chunk * lanes
+    weights = np.zeros(size, np.float32)
+    steps = np.zeros(size, np.int64)
+    source = np.full(size, -1, np.int64)
+    for lane in range(lanes):
+        ls0, ls_end = fb.lane_seg[lane], fb.lane_seg[lane + 1]
+        if ls0 == ls_end:
+            continue
+        back = ls0 - fb.filt_seg[fb.seg_filter[ls0]]
+        last_open = fb.filt_seg[fb.seg_filter[ls_end - 1] + 1] > ls_end
+        step = 0
+        for s in range(ls0, ls_end):
+            k, o, n = (int(v) for v in fb.segments[s])
+            at = (step + np.arange(n)) * lanes + lane
+            weights[at] = fb.packed[o:o + n]
+            source[at] = o + np.arange(n)
+            steps[at] = k + np.arange(n)
+            kind = (STEP_CARRY if s == ls_end - 1 and last_open else
+                    STEP_HEAD if s == ls0 and back else STEP_FINISH)
+            steps[at[-1]] |= (kind << STEP_KIND_SHIFT) | (
+                int(fb.seg_filter[s]) << STEP_FILT_SHIFT)
+            step += n
+    return LogmelSteps(weights, steps.astype(np.int32), source)
+
+
+def emulate_logmel_tail(power: np.ndarray, fb: FilterbankPlan,
+                        lanes: int) -> tuple[np.ndarray, np.ndarray]:
+    """Log-mel mode's tail on the log-mel plan `fb` in numpy float32, the
+    kernel's maps: each lane steps `chunk` times through its step
+    descriptors and weights (`logmel_steps`) against the (frames, n_bins)
+    power rows, a step's product added to the running sum, which a segment
+    end writes as its filter's sum, the lane's carry or its head; the lane
+    whose head ends its filter adds the `back` earlier lanes' carries in
+    order, then the head.  Returns the (frames, n_filt) filter sums (NaN
+    where no lane wrote one) and each packed weight's count of reads."""
+    tab = logmel_steps(fb, lanes)
+    power = np.asarray(power, np.float32)
+    n_filt = len(fb.ranges)
+    sums = np.full((len(power), n_filt), np.nan, np.float32)
+    carry = np.zeros((len(power), lanes), np.float32)
+    heads = {}
+    reads = np.zeros(len(fb.packed), np.int64)
+    np.add.at(reads, tab.source[tab.source >= 0], 1)
+    mask = (1 << STEP_BIN_BITS) - 1
+    for lane in range(lanes):
+        acc = np.zeros(len(power), np.float32)
+        for i in range(fb.chunk):
+            d = int(tab.steps[i * lanes + lane])
+            acc = (acc + power[:, d & mask] * tab.weights[i * lanes + lane]
+                   ).astype(np.float32)
+            kind, filt = (d >> STEP_KIND_SHIFT) & 3, d >> STEP_FILT_SHIFT
+            if kind == STEP_FINISH:
+                sums[:, filt] = acc
+            elif kind == STEP_CARRY:
+                carry[:, lane] = acc
+            elif kind == STEP_HEAD:
+                ls0 = fb.lane_seg[lane]
+                heads[lane] = (filt, ls0 - fb.filt_seg[filt], acc)
+            if kind:
+                acc = np.zeros(len(power), np.float32)
+    for lane, (f, back, head) in heads.items():
+        total = np.zeros(len(power), np.float32)
+        for j in range(back, 0, -1):
+            total = (total + carry[:, lane - j]).astype(np.float32)
+        sums[:, f] = (total + head).astype(np.float32)
+    return sums, reads
+
+
+def row_stage(n_filt: int) -> int:
+    """Floats of a slot's row stage in the log-mel tail (row_stage() of
+    csrc/register_fft.cuh): a frame's n_filt + 1 values at its row's shift
+    from a 16-byte boundary (0 .. 3), whole float4s."""
+    return (n_filt + 7) & ~3
+
+
+def slot_floats(plan: FftPlan, n_seg: int, n_filt: int,
+                logmel_rows: bool) -> int:
+    """A frame slot's scratch floats (slot_floats() of csrc/
+    register_fft.cuh): the log-mel tail's row stage, a carry a lane and
+    warps_per_frame energy parts (whole float4s); else (fused, or the
+    log-mel mode's first tail) the partial sums of n_seg segments, n_filt
+    log-mel values and the energy parts."""
+    wpf = plan.warps_per_frame
+    if logmel_rows:
+        return row_stage(n_filt) + ((plan.lanes + wpf + 3) & ~3)
+    return n_seg + n_filt + wpf
 
 
 def _align16(n: int) -> int:
@@ -498,31 +666,40 @@ def dct_cols(n_filt: int, n_mfcc: int, full_dct: bool = False) -> int:
 
 def fft_layout(plan: FftPlan, fb: FilterbankPlan, n_filt: int, n_mfcc: int,
                n_features: int, warps: int | None = None, *,
-               full_dct: bool = False, cepstrum: bool = False) -> FftLayout:
+               full_dct: bool = False, cepstrum: bool = False,
+               partial_sums: bool = False) -> FftLayout:
     """Mirrors smem_layout() and args_layout() in csrc/register_fft.cuh, and
     launch_fft() in csrc/mfcc_frontend.cu (route ct's kernels take the
     warps from here): the twiddles and the packed weights (where the plan
     stages them), the filterbank table, the DCT's (n_filt, `dct_cols`)
     columns, one buffer a frame slot (warps x frames_per_warp /
-    warps_per_frame slots of `pitch` float2), one scratch row a slot (its
-    partial sums, n_filt log-mel values, then warps_per_frame energy
-    parts), and the window's (n_features, n_mfcc) coefficients; with
-    `cepstrum` (the body's log-mel mode) neither the DCT nor the
-    coefficients.  `warps` (the plan's by default, a wide plan's no more
-    than its window's frames fill) a block, halved while that exceeds
-    SMEM_OPTIN, down to one frame.  Blocks an SM: the least of shared
-    memory, the warp limit and the launch bounds' registers."""
+    warps_per_frame slots of `pitch` float2), one scratch row a slot
+    (`slot_floats`), and the window's (n_features, n_mfcc) coefficients;
+    with `cepstrum` (the body's log-mel mode) neither the DCT nor the
+    coefficients, and the log-mel tail's scratch on the log-mel filterbank
+    plan (`logmel_filterbank`), or with `partial_sums` its first tail's on
+    `fb`.
+    `warps` (the plan's by default, a wide plan's no more than its
+    window's frames fill) a block, halved while that exceeds SMEM_OPTIN,
+    down to one frame.  Blocks an SM: the least of shared memory, the warp
+    limit and the launch bounds' registers."""
     wpf = plan.warps_per_frame
+    rows_tail = cepstrum and not partial_sums
+    if rows_tail:
+        fb = logmel_filterbank(fb, plan.lanes)
     dct = 0 if cepstrum else n_filt * dct_cols(n_filt, n_mfcc, full_dct)
     feats = 0 if cepstrum else n_features * n_mfcc
+    slot = slot_floats(plan, fb.n_seg, n_filt, rows_tail)
+
+    # the tail's weights are its step tables' (chunk a lane, interleaved)
+    n_weights = fb.chunk * plan.lanes if rows_tail else len(fb.packed)
 
     def regions_of(warps):
         slots = warps * plan.frames_per_warp // wpf
         return tuple(_align16(r) for r in (
             8 * len(plan.twiddle) * plan.staged,
-            4 * len(fb.packed) * plan.staged, 4 * len(fb.table),
-            4 * dct, 8 * slots * plan.pitch,
-            4 * slots * (fb.n_seg + n_filt + wpf), 4 * feats))
+            4 * n_weights * plan.staged, 4 * len(fb.table),
+            4 * dct, 8 * slots * plan.pitch, 4 * slots * slot, 4 * feats))
 
     warps = warps or (plan.warps if wpf == 1 else
                       min(plan.warps, wpf * n_features))
@@ -540,7 +717,6 @@ def fft_layout(plan: FftPlan, fb: FilterbankPlan, n_filt: int, n_mfcc: int,
                      warps_per_sm=blocks * warps)
 
 
-
 # The least share of the log-mel layout's warps an SM that the fused
 # epilogue's layout must keep: below it the body runs in log-mel mode and
 # the cepstrum kernel takes the DCT, as it does wherever the fused block
@@ -551,11 +727,12 @@ def fft_layout(plan: FftPlan, fb: FilterbankPlan, n_filt: int, n_mfcc: int,
 CEP_MIN_SHARE = 1.0
 # The fused DCT's products a frame, n_filt (n_mfcc - 1), from which the
 # cepstrum mode wins even where the fused block keeps every warp: the same
-# sweep (in turns) found it 3.2% faster at 64 x 20 (1,216 products) at n_fft
-# 1024, 18% at 230 x 20 at 768, 3.6% and 5.4% at 40 x 20 and 80 x 40 at
-# 4352, and the fused epilogue ahead or within 1% below it: 20 x 20 (380,
-# the default config; fused 1.3% faster) and 40 x 13 (480) at 1024.
-CEP_MIN_PRODUCTS = 512
+# sweep (in turns), rerun on log-mel mode's tail of step descriptors, found
+# it 13% faster at 40 x 13 (480 products) at n_fft 1024, 29% at 64 x 20
+# (1,216), 75% at 230 x 20 at 768, 21% and 36% at 40 x 20 and 80 x 40 at
+# 4352, and the fused epilogue 7% faster at 20 x 20 (380, the default
+# config).  (On the first tail the threshold was 512: 40 x 13 within 1%.)
+CEP_MIN_PRODUCTS = 480
 
 
 def cepstrum_mode(plan: FftPlan, fb: FilterbankPlan, n_filt: int,

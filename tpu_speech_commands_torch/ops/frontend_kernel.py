@@ -27,9 +27,11 @@ computes the same function and runs with `_simt=True` for the A/B.
 `tools/dev/pallas_experiments.py::make_bf16_kernel`, the same contract): the
 same chain with the DFT as a bf16 GEMM on the tensor cores (wgmma on a
 TMA-fed ring, plan `dft_plan.py`), f32 accumulation, and an f32
-filterbank, log and DCT.  `csrc/dft_frontend.cu`, its first design
-(mma.sync), computes the same function; `_mma_sync=True` runs it for the
-A/B.
+filterbank, log and DCT; where many filters leave its block too few
+windows or its DCT too many products (`dft_cepstrum`), it runs in log-mel
+mode and the cepstrum kernel finishes ("+cep").  `csrc/dft_frontend.cu`,
+its first design (mma.sync), computes the same function; `_mma_sync=True`
+runs it for the A/B.
 
 `MfccFrontend` dispatches on the tensor it is given: a CPU tensor goes
 through the plain PyTorch chain (`frontend/dsp.py::Frontend`, with the same
@@ -38,7 +40,7 @@ config when the frontend was built:
 - "fft": n_fft a power of two, the FFT kernel (a window longer than n_fft
   is cut to its first n_fft samples, as np.fft.rfft(frame, n=n_fft) does),
   its register body for n_fft 128 .. 4096, its wide body at 8192 and 16384
-  and its radix-2 body otherwise (`MfccFrontend.body` names it), the first
+  and its radix-2 body below 128 (`MfccFrontend.body` names it), the first
   two fused or with the cepstrum kernel (`MfccFrontend.cepstrum`);
 - "ct": the configs the JAX package's CT kernel takes and the FFT kernel
   cannot, n_fft = 128 n2 (n2 even, not a power of two) == window: the
@@ -47,8 +49,10 @@ config when the frontend was built:
   (csrc/wide_fft_frontend_*.cu), each fused or with the cepstrum kernel
   (`ct_kernel.ct_body`: "register", "wide"; the CT split kernel,
   csrc/ct_frontend.cu, is the A/B baseline);
-- "torch": every other config, which the JAX scorer, too, serves with plain
-  XLA products outside any Pallas kernel: the plain chain on the card.
+- "torch": every other config (among them the powers of two from n_fft
+  32768 that no body of the FFT kernel takes and that are not CT-eligible:
+  window < n_fft), which the JAX scorer, too, serves with plain XLA
+  products outside any Pallas kernel: the plain chain on the card.
 The fast_math DFT kernel needs a hop that is a multiple of 8 samples and at
 most 128 kept frames.  A config a kernel route cannot take raises
 ValueError on CUDA; nothing falls back.
@@ -62,18 +66,20 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..frontend.dsp import Frontend
-from ..frontend.filterbanks import dct_t_matrix, dft_matrices, filterbank_matrix
+from ..frontend.filterbanks import dft_matrices, filterbank_matrix
 from ..params import ListenerParams, pr
 from . import _build, cepstrum_plan
 from ._checks import OUT_DTYPES, check_launch, check_row_major, row_major
 from .ct_constants import ct_eligible
-from .ct_kernel import (CtConstants, LaunchCount, ct_body, ct_cepstrum,
-                        ct_config_error, ct_frontend_cuda)
+from .ct_kernel import (CtConstants, ct_body, ct_cepstrum, ct_config_error,
+                        ct_frontend_cuda)
 from .dft_plan import (WGMMA_STAGES, column_order, filter_slots,
                        wgmma_rows, wgmma_smem_bytes, wgmma_table_bytes)
-from .fft_plan import (SMEM_OPTIN, cepstrum_mode, fft_layout, fft_plan,
+from .fft_plan import (SMEM_OPTIN, cepstrum_mode,
+                       fft_layout, fft_plan,
                        fft_wide_plan, filterbank_plan, pack_filterbank,
                        takes_fft_wide, takes_register_fft)
+from .launch_count import LOGMEL, PARTIAL_SUMS, LaunchCount
 
 SOURCE = "tpu_speech_commands_torch/csrc/mfcc_frontend.cu"
 WIDE_SOURCE = "tpu_speech_commands_torch/csrc/mfcc_wide_frontend.cu"
@@ -116,10 +122,11 @@ _DFT_INT_ARGS = (1, 3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 14, 15, 16, 18, 21, 22,
 # tsc_dft_frontend_wgmma(audio, audio_int16, gain, batch, n_samples, hop,
 #   first_frame, n_features, wpb, n_seg, seg_pitch, win_pitch, dft, k_pad,
 #   n_pad, n_fft, bin_key, bin_w, slots, table_smem, stages, filt_packed,
-#   filt_range, dct_t, n_filt, n_mfcc, emit_deltas, out, out_bf16, stream)
-_WGMMA_N_ARGS = 30
+#   filt_range, dct_t, n_filt, n_mfcc, emit_deltas, logmel, out, out_bf16,
+#   stream)
+_WGMMA_N_ARGS = 31
 _WGMMA_INT_ARGS = (1, 3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 14, 15, 18, 19, 20, 24,
-                   25, 26, 28)
+                   25, 26, 27, 29)
 # csrc/dft_frontend.cu's tile (the mma.sync kernel): GEMM rows (frames) a
 # block, DFT columns a chunk, the K-slice, the B-stage row pitch and the
 # B-stage count.  Both kernels take 128 rows a block and the K padded to
@@ -129,12 +136,24 @@ DFT_BM, DFT_BN, DFT_BK, DFT_BKP, DFT_STAGES = 128, 128, 64, 72, 2
 DFT_SMEM_MAX = 232448
 
 
-def frontend_route(p: ListenerParams) -> str:
+def frontend_route(p: ListenerParams, feature_type: str = "mfcc") -> str:
     """The route `MfccFrontend` takes on CUDA for config `p` (fast_math
-    aside): "fft" where n_fft is a power of two, "ct" where the JAX
-    package's CT kernel takes the config (`ct_eligible`), else "torch"."""
+    aside): "fft" where n_fft is a power of two that a body of the FFT
+    kernel takes, "ct" where the JAX package's CT kernel takes the config
+    (`ct_eligible`), else "torch".  A power of two no body takes (from n_fft
+    32768 the radix-2 body's one-warp block exceeds shared memory, and the
+    register and wide bodies have no plan) takes "torch" where it is not
+    CT-eligible: the JAX scorer serves it with plain XLA products, and so
+    does this route.  Where it is CT-eligible (window = n_fft), the JAX
+    scorer runs its CT kernel, which the port has no plan for above 15872:
+    it stays on route "fft", whose kernel refuses it
+    (`kernel_config_error`).  Chosen from the config, before anything
+    launches."""
     n_fft = p.n_fft
     if n_fft >= 2 and not n_fft & (n_fft - 1):
+        if fft_body(p, feature_type) == "radix2" and \
+                radix2_smem_bytes(p) > SMEM_OPTIN and not ct_eligible(p):
+            return "torch"
         return "fft"
     return "ct" if ct_eligible(p) else "torch"
 
@@ -211,11 +230,9 @@ class KernelConstants(cepstrum_plan.DctTables):
     exp(-2 pi i k / n_fft), k < n_fft / 2, built in float64 and stored as
     float32 (cos, sin) rows, and the filterbank transposed to (n_filt,
     n_bins).  `body` is `fft_body`'s; where it is "register" or "wide"
-    (else None): `plan.twiddle` as float32 rows, the packed filterbank and
-    its int32 lane / filter / segment table (`fft_plan.filterbank_plan`),
-    `cepstrum` (`fft_plan.cepstrum_mode`: log-mel mode and the cepstrum
-    kernel) and `layout`, that mode's shared memory (the wide body's warps
-    a block)."""
+    (else None): the register body's tables, `cepstrum` and `layout`
+    (`DctTables.stage_register`: the twiddles, the fused filterbank plan's
+    and log-mel mode's step tables, the mode and its block)."""
 
     def __init__(self, p: ListenerParams, feature_type: str, device):
         super().__init__(p, device)
@@ -233,15 +250,7 @@ class KernelConstants(cepstrum_plan.DctTables):
         self.cepstrum = False
         self.body = fft_body(p, feature_type)
         if self.body != "radix2":
-            self.plan, self.fb = _register_plan(p, feature_type)
-            self.cepstrum = cepstrum_mode(self.plan, self.fb, p.n_filt,
-                                          p.n_mfcc, p.n_features)
-            self.layout = self.layout_for(p, cepstrum=self.cepstrum)
-            self.plan_twiddle = row_major(self.plan.twiddle, device)
-            self.filt_packed = row_major(self.fb.packed, device)
-            self.fb_table = row_major(self.fb.table, device, np.int32)
-            check_row_major((self.plan_twiddle, self.fb_table),
-                            ((len(self.plan.twiddle), 2), (len(self.fb.table),)))
+            self.stage_register(*_register_plan(p, feature_type), p, device)
 
 
 def _round_up(v: int, m: int) -> int:
@@ -263,7 +272,8 @@ class DftLayout:
     has wgmma_rows rows (`dft_plan.wgmma_rows`), its ring `stages` B
     stages (5 where they fit, else 4; wpb is chosen at 4), and table_smem
     says whether its filter slots fit in shared memory beside the rest,
-    else it reads them from the device's copy."""
+    else it reads them from the device's copy; `logmel`: the block of its
+    log-mel mode (no DCT region)."""
 
     k_eff: int
     k_pad: int
@@ -277,6 +287,7 @@ class DftLayout:
     table_smem: bool = False
     stages: int = 4
     wgmma_rows: int = 0
+    logmel: bool = False
 
 
 def _dft_smem_bytes(wpb, win_pitch, n_filt, n_mfcc, k_pad, n_packed) -> int:
@@ -292,10 +303,10 @@ def _dft_smem_bytes(wpb, win_pitch, n_filt, n_mfcc, k_pad, n_packed) -> int:
 
 
 def dft_layout(p: ListenerParams, feature_type: str = "mfcc",
-               mma_sync: bool = False) -> DftLayout:
-    """The layout of the wgmma kernel, or with mma_sync of the first
-    design, at config p: the most windows a block (up to 128 rows) whose
-    shared memory fits."""
+               mma_sync: bool = False, logmel: bool = False) -> DftLayout:
+    """The layout of the wgmma kernel (fused, or with logmel in its log-mel
+    mode), or with mma_sync of the first design, at config p: the most
+    windows a block (up to 128 rows) whose shared memory fits."""
     n_packed = len(pack_filterbank(filterbank_matrix(p, feature_type).T)[0])
     hop = p.hop_samples
     k_eff = min(p.window_samples, p.n_fft)
@@ -311,7 +322,8 @@ def dft_layout(p: ListenerParams, feature_type: str = "mfcc",
         if mma_sync:
             return _dft_smem_bytes(wpb, win_pitch, p.n_filt, p.n_mfcc, k_pad,
                                    n_packed)
-        return wgmma_smem_bytes(wpb, win_pitch, p.n_filt, p.n_mfcc, k_pad)
+        return wgmma_smem_bytes(wpb, win_pitch, p.n_filt, p.n_mfcc, k_pad,
+                                n_features=p.n_features, logmel=logmel)
 
     while wpb > 1 and smem(wpb) > DFT_SMEM_MAX:
         wpb -= 1
@@ -319,10 +331,12 @@ def dft_layout(p: ListenerParams, feature_type: str = "mfcc",
     nbytes, table, stages = smem(wpb), False, DFT_STAGES
     if not mma_sync:
         stages = max([st for st in WGMMA_STAGES if wgmma_smem_bytes(
-            wpb, win_pitch, p.n_filt, p.n_mfcc, k_pad, stages=st)
+            wpb, win_pitch, p.n_filt, p.n_mfcc, k_pad, stages=st,
+            n_features=p.n_features, logmel=logmel)
             <= DFT_SMEM_MAX] or [WGMMA_STAGES[0]])
         nbytes = wgmma_smem_bytes(wpb, win_pitch, p.n_filt, p.n_mfcc, k_pad,
-                                  stages=stages)
+                                  stages=stages, n_features=p.n_features,
+                                  logmel=logmel)
         rows = wgmma_rows(n_pad)
         slots = filter_slots(filterbank_matrix(p, feature_type).T, rows // 2)
         extra = wgmma_table_bytes(rows, slots.slots)
@@ -332,7 +346,31 @@ def dft_layout(p: ListenerParams, feature_type: str = "mfcc",
         k_eff=k_eff, k_pad=k_pad, n_bins=p.n_fft_bins, n_pad=n_pad,
         seg_pitch=seg_pitch, n_seg=n_seg, win_pitch=win_pitch, wpb=wpb,
         smem_bytes=nbytes, table_smem=table, stages=stages,
-        wgmma_rows=wgmma_rows(n_pad))
+        wgmma_rows=wgmma_rows(n_pad), logmel=logmel and not mma_sync)
+
+
+# The fused DCT's products a frame, n_filt (n_mfcc - 1), from which the
+# wgmma kernel runs in log-mel mode with the cepstrum kernel even where its
+# fused block holds as many windows (its fused DCT runs on the CUDA cores
+# after the last chunk, with nothing to overlap it): the fused / log-mel
+# sweep at n_fft 1024 (`dev/logmel_ablation.py --parts dft`, in turns, 30
+# launches a turn, B = 8192) found log-mel mode 8.8% faster at 96 x 20
+# (1,824 products), 11.8% at 128 x 20 and 23.6% at 240 x 20, and within
+# 3.4% of fused at 32 x 20, 40 x 13 and 64 x 20 (608, 480, 1,216).
+DFT_CEP_MIN_PRODUCTS = 1824
+
+
+def dft_cepstrum(p: ListenerParams, feature_type: str = "mfcc") -> bool:
+    """Whether the wgmma kernel runs config `p` in log-mel mode with the
+    cepstrum kernel after it, by `fft_plan.cepstrum_mode`'s rule on its own
+    blocks and its own threshold: where its fused block (the trimmed DCT)
+    does not fit, holds fewer windows than the log-mel block, or has
+    DFT_CEP_MIN_PRODUCTS or more DCT products a frame."""
+    fused = dft_layout(p, feature_type)
+    if fused.smem_bytes > DFT_SMEM_MAX:
+        return True
+    return (fused.wpb < dft_layout(p, feature_type, logmel=True).wpb
+            or p.n_filt * (p.n_mfcc - 1) >= DFT_CEP_MIN_PRODUCTS)
 
 
 def dft_config_error(p: ListenerParams, feature_type: str = "mfcc",
@@ -341,8 +379,9 @@ def dft_config_error(p: ListenerParams, feature_type: str = "mfcc",
     """Why the fast_math DFT kernel (the wgmma one, or with mma_sync the
     first design) cannot take config `p`, or None; `layout`, where given,
     is that kernel's `dft_layout` at p (the launch passes its constants'
-    layout rather than build it anew).  The wgmma kernel's shared memory at
-    one window a block is never more than the first design's, so it takes
+    layout rather than build it anew; else the layout of the mode
+    `dft_cepstrum` chooses).  The wgmma kernel's shared memory at one
+    window a block is never more than the first design's, so it takes
     every config that one takes."""
     if p.hop_samples % 8:
         return ("the CUDA fast_math frontend kernel needs hop_samples a "
@@ -353,7 +392,9 @@ def dft_config_error(p: ListenerParams, feature_type: str = "mfcc",
     if p.n_mfcc > p.n_filt:
         return (f"the CUDA fast_math frontend kernel needs n_mfcc <= n_filt, "
                 f"got {p.n_mfcc} > {p.n_filt}")
-    smem = (layout or dft_layout(p, feature_type, mma_sync)).smem_bytes
+    smem = (layout or dft_layout(
+        p, feature_type, mma_sync,
+        not mma_sync and dft_cepstrum(p, feature_type))).smem_bytes
     if smem > DFT_SMEM_MAX:
         return (f"one window of this config needs {smem} bytes of shared "
                 f"memory in the CUDA fast_math frontend kernel, more than "
@@ -372,19 +413,27 @@ def dft_bf16_matrix(p: ListenerParams, layout: DftLayout) -> np.ndarray:
     return m
 
 
-class DftConstants:
+class DftConstants(cepstrum_plan.DctTables):
     """Device-resident constants of the fast_math DFT kernels for one
     config: the bf16 cos|sin matrix (`dft_bf16_matrix`), the transposed
     filterbank packed to its nonzero ranges (`pack_filterbank`) and as the
     wgmma kernel's filter slots over n_pad / 2 bins (`dft_plan.
-    filter_slots`: `bin_key`, `bin_w`, `slots`), the transposed DCT; the
-    layouts of both kernels (`layout`, `mma_sync_layout`).  The wgmma
-    kernel takes the matrix's rows in `dft_plan.column_order`
-    (`dft_wgmma`), the mma.sync kernel in the natural order (`dft`)."""
+    filter_slots`: `bin_key`, `bin_w`, `slots`), the DCT tables
+    (`DctTables`: the whole table the mma.sync kernel reads, the trimmed
+    columns of the wgmma kernel's fused mode, the cepstrum kernel's); the
+    wgmma kernel's mode (`cepstrum`, `dft_cepstrum`) and the layouts of
+    both kernels (`layout`, that mode's; `layouts`, each mode's;
+    `mma_sync_layout`).  The wgmma kernel takes the matrix's rows in
+    `dft_plan.column_order` (`dft_wgmma`), the mma.sync kernel in the
+    natural order (`dft`)."""
 
     def __init__(self, p: ListenerParams, feature_type: str, device):
+        super().__init__(p, device)
         self.feature_type = feature_type
-        self.layout = dft_layout(p, feature_type)
+        self.cepstrum = dft_cepstrum(p, feature_type)
+        self.layouts = {mode: dft_layout(p, feature_type, logmel=mode)
+                        for mode in (False, True)}
+        self.layout = self.layouts[self.cepstrum]
         self.mma_sync_layout = dft_layout(p, feature_type, mma_sync=True)
         matrix = dft_bf16_matrix(p, self.layout)
         self.dft = row_major(matrix, device).to(torch.bfloat16)
@@ -401,7 +450,6 @@ class DftConstants:
         self.slots = slots.slots
         self.bin_key = row_major(slots.key, device, np.int32)
         self.bin_w = row_major(slots.w, device)
-        self.dct_t = row_major(dct_t_matrix(p.n_filt), device)
         self.device = self.dft.device
         lay = self.layout
         check_row_major(
@@ -418,18 +466,21 @@ def mfcc_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
                        out_dtype=torch.float32, *, _radix2: bool = False,
                        _full_dct: bool = False,
                        _cepstrum: bool | None = None,
-                       _cepstrum_simt: bool = False) -> torch.Tensor:
+                       _cepstrum_simt: bool = False,
+                       _partial_sums: bool = False) -> torch.Tensor:
     """Launch the frontend kernel.  audio (B, S) float32 or int16 and gain
     (1,) float32, both on consts' CUDA device -> (B, n_features,
     feature_size) out_dtype.  The body is `consts.body`, fused or, where
-    `consts.cepstrum`, in log-mel mode with the cepstrum kernel after it
-    (`cepstrum_cuda`).  The same-call A/Bs: `_radix2` sends a config the
-    register or wide body takes to the radix-2 body; `_full_dct` runs the
-    fused epilogue on the whole n_filt x n_filt DCT; `_cepstrum` (True or
-    False) forces the mode; `_cepstrum_simt` finishes log-mel mode with the
-    cepstrum kernel's first design.  A launch of the register body adds one
-    to `.launches`, one of the wide body to `WIDE.launches`, one of the
-    radix-2 body to `RADIX2.launches` (and the cepstrum kernel's to
+    `consts.cepstrum`, in log-mel mode (`fft_logmel_cuda`) with the
+    cepstrum kernel after it (`cepstrum_cuda`).  The same-call A/Bs:
+    `_radix2` sends a config the register or wide body takes to the radix-2
+    body; `_full_dct` runs the fused epilogue on the whole n_filt x n_filt
+    DCT; `_cepstrum` (True or False) forces the mode; `_partial_sums` runs
+    log-mel mode's first tail; `_cepstrum_simt` finishes log-mel mode with
+    the cepstrum kernel's first design.  A launch of the register body adds
+    one to `.launches`, one of the wide body to `WIDE.launches`, one of the
+    radix-2 body to `RADIX2.launches` (and in log-mel mode one to
+    `LOGMEL.launches` or `PARTIAL_SUMS.launches`, the cepstrum kernel's to
     `CEPSTRUM.launches`, its first design's to `CEPSTRUM_SIMT`)."""
     radix2 = _radix2 or consts.plan is None
     err = kernel_config_error(p, body="radix2" if radix2 else consts.body)
@@ -437,17 +488,59 @@ def mfcc_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
         raise ValueError(err)
     cepstrum = not radix2 and (consts.cepstrum if _cepstrum is None
                                else _cepstrum)
+    if cepstrum:
+        check_launch(audio, gain, consts.device, p, out_dtype)
+        rows = fft_logmel_cuda(audio, gain, consts, p,
+                               _partial_sums=_partial_sums)
+        return cepstrum_cuda(rows, consts.cep_table, p.n_mfcc, p.use_delta,
+                             out_dtype=out_dtype, _simt=_cepstrum_simt)
     lay = None if radix2 else cepstrum_plan.register_layout(
-        consts, p, _full_dct, cepstrum)
+        consts, p, _full_dct, False)
     n_frames = check_launch(audio, gain, consts.device, p, out_dtype)
+    shape = (audio.shape[0], p.n_features, p.feature_size)
+    out = torch.empty(shape, dtype=out_dtype, device=audio.device)
+    if audio.shape[0]:
+        _launch_fft(audio, gain, consts, p, n_frames, out, radix2, _full_dct,
+                    0, lay)
+    return out
+
+
+def fft_logmel_cuda(audio: torch.Tensor, gain: torch.Tensor,
+                    consts: KernelConstants, p: ListenerParams, *,
+                    _partial_sums: bool = False) -> torch.Tensor:
+    """Launch route fft's register or wide body in log-mel mode: audio (B,
+    S) float32 or int16 and gain (1,) float32 on consts' CUDA device -> the
+    (B, n_features, n_filt + 1) f32 log-mel rows, the log energy last (the
+    plain version: `cepstrum_plan.logmel_plain`).  `_partial_sums` runs the
+    mode's first tail, the same-call A/B.  A launch adds one to its body's
+    count and to `LOGMEL.launches` (`PARTIAL_SUMS.launches`)."""
+    if consts.plan is None:
+        raise ValueError(f"no register or wide body takes n_fft {p.n_fft} "
+                         f"with {p.n_filt} filters: no log-mel mode")
+    err = kernel_config_error(p, body=consts.body)
+    if err:
+        raise ValueError(err)
+    lay = cepstrum_plan.register_layout(consts, p, False, True,
+                                        _partial_sums)
+    n_frames = check_launch(audio, gain, consts.device, p, torch.float32)
+    out = cepstrum_plan.logmel_buffer(audio, p)
+    if audio.shape[0]:
+        _launch_fft(audio, gain, consts, p, n_frames, out, False, False,
+                    cepstrum_plan.LOGMEL_PARTIAL if _partial_sums
+                    else cepstrum_plan.LOGMEL_ROWS, lay)
+        (PARTIAL_SUMS if _partial_sums else LOGMEL).launches += 1
+    return out
+
+
+def _launch_fft(audio, gain, consts: KernelConstants, p: ListenerParams,
+                n_frames: int, out: torch.Tensor, radix2: bool,
+                full_dct: bool, logmel: int, lay):
+    """One launch of the body `consts.body` (or, with radix2, the radix-2
+    body) into `out`: fused, or with logmel (LOGMEL_ROWS or
+    LOGMEL_PARTIAL) the log-mel rows; its launch count."""
     batch, n_samples = audio.shape
-    shape = (batch, p.n_features, p.feature_size)
-    if batch == 0:
-        return torch.empty(shape, dtype=out_dtype, device=audio.device)
-    out = cepstrum_plan.logmel_buffer(audio, p) if cepstrum else \
-        torch.empty(shape, dtype=out_dtype, device=audio.device)
-    dct_ptr, dct_cols = consts.dct_args(p, _full_dct or radix2)
-    out_bf16 = int(out_dtype == torch.bfloat16 and not cepstrum)
+    dct_ptr, dct_cols = consts.dct_args(p, full_dct or radix2)
+    out_bf16 = int(out.dtype == torch.bfloat16)
     if consts.body == "wide" and not radix2:
         fn = _build.bind("tsc_mfcc_wide_frontend", _WIDE_N_ARGS,
                          _WIDE_INT_ARGS)
@@ -457,40 +550,33 @@ def mfcc_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
                 audio.data_ptr(), int(audio.dtype == torch.int16),
                 gain.data_ptr(), batch, n_samples, p.window_samples,
                 p.hop_samples, p.n_fft, n_frames - p.n_features, p.n_features,
-                consts.plan_twiddle.data_ptr(), consts.filt_packed.data_ptr(),
-                consts.fb_table.data_ptr(), len(consts.fb.packed),
-                consts.fb.n_seg, dct_ptr, dct_cols, p.n_filt, p.n_mfcc,
-                int(p.use_delta), lay.warps, out.data_ptr(), out_bf16,
-                int(cepstrum), stream,
+                consts.plan_twiddle.data_ptr(),
+                *consts.fb_args(logmel == cepstrum_plan.LOGMEL_ROWS), dct_ptr,
+                dct_cols, p.n_filt, p.n_mfcc, int(p.use_delta), lay.warps,
+                out.data_ptr(), out_bf16, logmel, stream,
             )
         _build.check(rc, "tsc_mfcc_wide_frontend")
         WIDE.launches += 1
+        return
+    fn = _build.bind("tsc_mfcc_frontend", _N_ARGS, _INT_ARGS)
+    with torch.cuda.device(audio.device):
+        stream = torch.cuda.current_stream(audio.device).cuda_stream
+        plan_args = (0, 0, 0, 0, 0) if consts.plan is None else (
+            consts.plan_twiddle.data_ptr(),
+            *consts.fb_args(logmel == cepstrum_plan.LOGMEL_ROWS))
+        rc = fn(
+            audio.data_ptr(), int(audio.dtype == torch.int16),
+            gain.data_ptr(), batch, n_samples, p.window_samples,
+            p.hop_samples, p.n_fft, n_frames - p.n_features, p.n_features,
+            consts.twiddle.data_ptr(), consts.filt_t.data_ptr(),
+            dct_ptr, dct_cols, p.n_filt, p.n_mfcc, int(p.use_delta),
+            out.data_ptr(), out_bf16, *plan_args, int(radix2), logmel, stream,
+        )
+    _build.check(rc, "tsc_mfcc_frontend")
+    if radix2:
+        RADIX2.launches += 1
     else:
-        fn = _build.bind("tsc_mfcc_frontend", _N_ARGS, _INT_ARGS)
-        with torch.cuda.device(audio.device):
-            stream = torch.cuda.current_stream(audio.device).cuda_stream
-            plan_args = (0, 0, 0, 0, 0) if consts.plan is None else (
-                consts.plan_twiddle.data_ptr(), consts.filt_packed.data_ptr(),
-                consts.fb_table.data_ptr(), len(consts.fb.packed),
-                consts.fb.n_seg)
-            rc = fn(
-                audio.data_ptr(), int(audio.dtype == torch.int16),
-                gain.data_ptr(), batch, n_samples, p.window_samples,
-                p.hop_samples, p.n_fft, n_frames - p.n_features, p.n_features,
-                consts.twiddle.data_ptr(), consts.filt_t.data_ptr(),
-                dct_ptr, dct_cols, p.n_filt, p.n_mfcc, int(p.use_delta),
-                out.data_ptr(), out_bf16, *plan_args, int(radix2),
-                int(cepstrum), stream,
-            )
-        _build.check(rc, "tsc_mfcc_frontend")
-        if radix2:
-            RADIX2.launches += 1
-        else:
-            mfcc_frontend_cuda.launches += 1
-    if cepstrum:
-        return cepstrum_cuda(out, consts.cep_table, p.n_mfcc, p.use_delta,
-                             out_dtype=out_dtype, _simt=_cepstrum_simt)
-    return out
+        mfcc_frontend_cuda.launches += 1
 
 
 mfcc_frontend_cuda.launches = 0
@@ -566,58 +652,99 @@ def cepstrum_cuda(logmel: torch.Tensor, tables: cepstrum_plan.CepTables,
 def dft_frontend_bf16_cuda(audio: torch.Tensor, gain: torch.Tensor,
                            consts: DftConstants, p: ListenerParams,
                            out_dtype=torch.float32, *,
-                           _mma_sync: bool = False) -> torch.Tensor:
+                           _mma_sync: bool = False,
+                           _cepstrum: bool | None = None) -> torch.Tensor:
     """Launch the fast_math (bf16 tensor-core DFT) frontend kernel, the
     wgmma one (csrc/dft_wgmma.cu).  audio (B, S) float32 or int16 and gain
     (1,) float32, both on consts' CUDA device -> (B, n_features,
-    feature_size) out_dtype.  `_mma_sync` runs the first design
-    (csrc/dft_frontend.cu) instead, the same-call A/B of the two.  A launch
-    of the wgmma kernel adds one to `.launches`, one of the mma.sync kernel
-    to `MMA_SYNC.launches`."""
-    lay = consts.mma_sync_layout if _mma_sync else consts.layout
+    feature_size) out_dtype.  Fused, or where `consts.cepstrum` in log-mel
+    mode (`dft_logmel_cuda`) with the cepstrum kernel after it
+    (`cepstrum_cuda`).  The same-call A/Bs: `_cepstrum` (True or False)
+    forces the mode; `_mma_sync` runs the first design
+    (csrc/dft_frontend.cu, fused only) instead.  A launch of the wgmma
+    kernel adds one to `.launches` (and in log-mel mode one to
+    `DFT_LOGMEL.launches`), one of the mma.sync kernel to
+    `MMA_SYNC.launches`."""
+    cepstrum = not _mma_sync and (consts.cepstrum if _cepstrum is None
+                                  else _cepstrum)
+    if cepstrum:
+        check_launch(audio, gain, consts.device, p, out_dtype)
+        return cepstrum_cuda(dft_logmel_cuda(audio, gain, consts, p),
+                             consts.cep_table, p.n_mfcc, p.use_delta,
+                             out_dtype=out_dtype)
+    lay = consts.mma_sync_layout if _mma_sync else consts.layouts[False]
     err = dft_config_error(p, consts.feature_type, _mma_sync, lay)
     if err:
         raise ValueError(err)
     n_frames = check_launch(audio, gain, consts.device, p, out_dtype)
+    out = torch.empty((audio.shape[0], p.n_features, p.feature_size),
+                      dtype=out_dtype, device=audio.device)
+    if audio.shape[0]:
+        _dft_launch(audio, gain, consts, p, n_frames, out, lay, _mma_sync)
+    return out
+
+
+def dft_logmel_cuda(audio: torch.Tensor, gain: torch.Tensor,
+                    consts: DftConstants, p: ListenerParams) -> torch.Tensor:
+    """Launch the wgmma kernel in log-mel mode: audio (B, S) float32 or
+    int16 and gain (1,) float32 on consts' CUDA device -> the (B,
+    n_features, n_filt + 1) f32 log-mel rows, the log energy last (the
+    plain version: `cepstrum_plan.logmel_plain` on the fast_math chain).
+    A launch adds one to `dft_frontend_bf16_cuda.launches` and to
+    `DFT_LOGMEL.launches`."""
+    lay = consts.layouts[True]
+    err = dft_config_error(p, consts.feature_type, False, lay)
+    if err:
+        raise ValueError(err)
+    n_frames = check_launch(audio, gain, consts.device, p, torch.float32)
+    out = cepstrum_plan.logmel_buffer(audio, p)
+    if audio.shape[0]:
+        _dft_launch(audio, gain, consts, p, n_frames, out, lay, False)
+    return out
+
+
+def _dft_launch(audio, gain, consts: DftConstants, p: ListenerParams,
+                n_frames: int, out: torch.Tensor, lay: DftLayout,
+                mma_sync: bool):
+    """One launch of the wgmma kernel (in `lay`'s mode) or with mma_sync of
+    the first design into `out`; its launch counts."""
     batch, n_samples = audio.shape
-    out = torch.empty((batch, p.n_features, p.feature_size), dtype=out_dtype,
-                      device=audio.device)
-    if batch == 0:
-        return out
-    dft = consts.dft if _mma_sync else consts.dft_wgmma
+    dft = consts.dft if mma_sync else consts.dft_wgmma
     head = (audio.data_ptr(), int(audio.dtype == torch.int16),
             gain.data_ptr(), batch, n_samples, p.hop_samples,
             n_frames - p.n_features, p.n_features, lay.wpb, lay.n_seg,
             lay.seg_pitch, lay.win_pitch, dft.data_ptr(), lay.k_pad,
             dft.shape[0])
-    tail = (consts.dct_t.data_ptr(), p.n_filt, p.n_mfcc, int(p.use_delta),
-            out.data_ptr(), int(out_dtype == torch.bfloat16))
+    out_bf16 = int(out.dtype == torch.bfloat16)
     with torch.cuda.device(audio.device):
         stream = torch.cuda.current_stream(audio.device).cuda_stream
-        if _mma_sync:
+        if mma_sync:
             name = "tsc_dft_frontend_bf16"
             fn = _build.bind(name, _DFT_N_ARGS, _DFT_INT_ARGS)
             rc = fn(*head, lay.n_bins, p.n_fft, consts.filt_packed.data_ptr(),
                     consts.filt_packed.numel(), consts.filt_range.data_ptr(),
-                    *tail, stream)
+                    consts.dct_t.data_ptr(), p.n_filt, p.n_mfcc,
+                    int(p.use_delta), out.data_ptr(), out_bf16, stream)
         else:
             name = "tsc_dft_frontend_wgmma"
             fn = _build.bind(name, _WGMMA_N_ARGS, _WGMMA_INT_ARGS)
             rc = fn(*head, p.n_fft, consts.bin_key.data_ptr(),
                     consts.bin_w.data_ptr(), consts.slots, int(lay.table_smem),
-                    lay.stages,
-                    consts.filt_packed.data_ptr(),
-                    consts.filt_range.data_ptr(), *tail, stream)
+                    lay.stages, consts.filt_packed.data_ptr(),
+                    consts.filt_range.data_ptr(), consts.dct_trim.data_ptr(),
+                    p.n_filt, p.n_mfcc, int(p.use_delta), int(lay.logmel),
+                    out.data_ptr(), out_bf16, stream)
     _build.check(rc, name)
-    if _mma_sync:
+    if mma_sync:
         MMA_SYNC.launches += 1
     else:
         dft_frontend_bf16_cuda.launches += 1
-    return out
+        DFT_LOGMEL.launches += int(lay.logmel)
 
 
 dft_frontend_bf16_cuda.launches = 0
 MMA_SYNC = LaunchCount()  # launches of the mma.sync kernel (the A/B)
+DFT_LOGMEL = LaunchCount()  # launches of the wgmma kernel in log-mel mode
 
 
 class MfccFrontend:
@@ -629,7 +756,8 @@ class MfccFrontend:
     of `make_fused_frontend(fast_math=True)`); `.route` names it, on routes
     fft and ct `.body` names the kernel's body (`fft_body`,
     `ct_kernel.ct_body`) and `.cepstrum` whether the cepstrum kernel
-    finishes it (`fft_cepstrum`, `ct_kernel.ct_cepstrum`).
+    finishes it (`fft_cepstrum`, `ct_kernel.ct_cepstrum`, with fast_math
+    `dft_cepstrum`).
     The device is the card unless the caller passes "cpu".  Constructing it
     for a CUDA device raises ValueError when the route's kernels cannot take
     the config, and RuntimeError without CUDA."""
@@ -643,12 +771,15 @@ class MfccFrontend:
         self.out_dtype = out_dtype
         self.fast_math = fast_math
         self.device = torch.device(device)
-        self.route = "fast_math" if fast_math else frontend_route(p)
+        self.route = "fast_math" if fast_math else frontend_route(
+            p, feature_type)
         self.body = (ct_body(p, feature_type) if self.route == "ct" else
                      fft_body(p, feature_type) if self.route == "fft" else None)
         self.cepstrum = (ct_cepstrum(p, feature_type) if self.route == "ct"
                          and self.body else fft_cepstrum(p, feature_type)
-                         if self.route == "fft" else False)
+                         if self.route == "fft" else
+                         dft_cepstrum(p, feature_type) if fast_math
+                         and not dft_config_error(p, feature_type) else False)
         if fast_math:
             err = dft_config_error(p, feature_type)
         elif self.route == "fft":
@@ -676,8 +807,8 @@ class MfccFrontend:
         kernel's register or radix-2 body), "cuda-mfcc(wide)" (its wide
         body), "cuda-ct" or "cuda-ct(wide)" for route ct's bodies, each with
         "+cep" where the cepstrum kernel finishes it, "torch(xla-route)"
-        (the plain chain on the card) or "cuda-fast_math"; "torch" (the
-        plain chain) on the CPU."""
+        (the plain chain on the card) or "cuda-fast_math" (with "+cep" in
+        its log-mel mode); "torch" (the plain chain) on the CPU."""
         if self.device.type != "cuda":
             return "torch"
         name = {"fft": "cuda-mfcc", "ct": "cuda-ct", "torch": "torch(xla-route)",

@@ -47,9 +47,9 @@ from ..params import ListenerParams
 from . import _build
 from ._checks import check_launch
 from .ct_constants import LANES
-from .ct_kernel import (CtConstants, LaunchCount, ct_nyquist, ct_power,
-                        ct_stage1, ct_stage2)
+from .ct_kernel import CtConstants, ct_nyquist, ct_power, ct_stage1, ct_stage2
 from .frontend_kernel import KernelConstants
+from .launch_count import LaunchCount
 
 STAGES = ("load", "framing", "butterfly", "power", "mel", "log", "full")
 FFT_STAGES = tuple(s for s in STAGES if s != "butterfly")

@@ -27,7 +27,7 @@ import torch
 
 from ..models.rnn import SimpleGRU, SimpleLSTM
 from . import _build, gru_plan
-from .ct_kernel import LaunchCount
+from .launch_count import LaunchCount
 from .gru_plan import TilePack, gru_kernel_for, pack_gru_weights
 from .lstm_plan import lstm_kernel_for, pack_lstm_weights
 
