@@ -13,7 +13,12 @@ Phases, in order; any failure raises and the script exits non-zero:
             GRU and LSTM classifiers' tile kernels and their SIMT kernels,
             `_simt=True`, one layer pretrained and two random, f32 and bf16,
             and the tile kernels' reciprocal against the true divide on
-            every float of [1, inf]; the
+            every float of [1, inf]; the projected route above 64
+            features (fault 3.10): the projection kernel
+            (csrc/rnn_projection.cu) against its plain version and both
+            classifiers (the projection, then the tile kernel in projected
+            mode) against the plain module at 80, 300 and 600 features,
+            23 and 30 frames, f32 and bf16; the
             CNN classifier's tiled implicit GEMM and its SIMT kernel,
             `_simt=True`, at four model x shape cases, f32 and bf16; the
             CNN block-1 kernel and its first design (`_simt=True`) for both
@@ -128,10 +133,12 @@ Phases, in order; any failure raises and the script exits non-zero:
             - MfccFrontend at n_fft 4352 with 300 coefficients (path
               cuda-ct(wide)+cep: no fused wide block fits its DCT columns,
               so the wide FFT runs in log-mel mode and the cepstrum kernel
-              finishes) into GRUClassifier on a random 48-unit GRU of
-              feature size 300 (its SIMT kernel): the wide FFT's, the
-              cepstrum kernel's and the SIMT kernel's launch counts rise,
-              split-dup's stays at 0, and the scores agree with the CPU's;
+              finishes) into GRUClassifier and LSTMClassifier on a random
+              48-unit GRU and LSTM of feature size 300, and at 600
+              coefficients into a GRU of 600 (the projected route): the
+              wide FFT's, the cepstrum kernel's, the projection's and the
+              tile kernel's launch counts rise, split-dup's and the SIMT
+              kernel's stay at 0, and the scores agree with the CPU's;
             - the seven measurement entry points of tpu_speech_commands_torch
               .dev at their own batch (pallas_experiments B = 16384, every
               variant; the others B = 8192), a few iterations each: every
@@ -304,9 +311,14 @@ Phases, in order; any failure raises and the script exits non-zero:
             the +cep frontend with either tail in turns at 1024 x 240 and
             4352 x 600; the fast_math kernel fused against its log-mel
             mode in turns at 64-400 filters, and that mode's launch alone;
-            the GRU classifier's
-            SIMT kernel at 300 features (above gru_plan.CAP_D) beside its
-            bound and the plain module; the train step
+            the classifiers at 300 features (above gru_plan.CAP_D, the
+            projected route), f32 and bf16: the GRU against its SIMT
+            kernel in turns, simt, new, new, simt, the projection alone
+            (beside torch.matmul of X @ W, a yardstick) and the recurrence
+            alone, the LSTM beside cuDNN's nn.LSTM in the same dtype, each
+            beside its bound (`projected_bound`; the FFMA floor
+            `rnn_bound`) and the plain module, and the 300-coefficient
+            scorer end to end against its SIMT form; the train step
             at B = 512
             for simple_gru and simple_cnn from `dev.bench_train` (its
             config: 36 classes, adam on a cosine decay; the step of
@@ -380,6 +392,12 @@ FFT_WIDE_AB = {8192: 0.512, 16384: 0.8}
 # log-mel mode and the cepstrum kernel finishes; split-dup (blocks of 64
 # rows at 300, 32 at 512 and 600) is their A/B baseline
 MANY_COEFFS = (300, 512, 600)
+# the classifiers above gru_plan.CAP_D features (the projected route, fault
+# 3.10): phase 3's feature sizes (at 23 and 30 frames); phase 4 and 5's
+# (T, D, U, C), a 48-unit GRU or LSTM on the 300-coefficient frontend's
+# features (n_fft 4352: 23 frames)
+WIDE_FEATURES = (80, 300, 600)
+WIDE_RNN = (23, 300, 48, 5)
 # the configs of many filters and coefficients (n_fft, n_filt, n_mfcc)
 # each frontend body is held to its plain version at, in its mode from the
 # config: all of them with the cepstrum kernel (fused with the trimmed DCT
@@ -429,6 +447,11 @@ BF16_STEP = 2.0 ** -7
 # - GRU and LSTM logits f32 (tile and SIMT kernels): same math, f32 sums
 #   in another order over 30 steps
 GRU_ATOL, GRU_RTOL = 1e-4, 1e-5
+# - the RNN projection's XW (rnn_projection.cu), f32 (3xTF32) and bf16 (bf16
+#   products exact in f32): kernel and plain version each within the bound
+#   of an f32 sum of D products of the float64 XW of the mode's operands
+#   (`rnn_projection.exact_projection`, `check_projection`): at D 600 two
+#   f32 orders of the same sum differ by 7e-5, past a bare 1e-5
 # - GRU and LSTM logits bf16: rounding of bf16 products can flip at a
 #   boundary and grow over the recurrence; the bound tests/test_serving.py
 #   allows bf16
@@ -529,6 +552,30 @@ def check_close(what, got, want, atol, rtol) -> float:
     if excess > 0:
         raise AssertionError(f"{what}: error {max_err:.3e} outside tolerance")
     return max_err
+
+
+def check_projection(what, got, x, kernel, bias, units,
+                     compute_dtype) -> float:
+    """The projection kernel's XW, and its plain version's, each within
+    `rnn_projection.exact_projection`'s bound of the float64 XW: the
+    kernel's largest distance from it."""
+    import torch
+    from tpu_speech_commands_torch.ops import rnn_projection
+
+    exact, bound = rnn_projection.exact_projection(x, kernel, bias, units,
+                                                   compute_dtype)
+    plain = rnn_projection.rnn_projection_plain(x, kernel, bias, units,
+                                                compute_dtype)
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: kernel output is not finite")
+    err = (got.double() - exact).abs()
+    plain_err = (plain.double() - exact).abs()
+    log(f"  {what:46s} max_abs_err {float(err.max()):.3e} from float64 "
+        f"(plain {float(plain_err.max()):.3e}; bound up to "
+        f"{float(bound.max()):.3e})")
+    if (err > bound).any() or (plain_err > bound).any():
+        raise AssertionError(f"{what}: outside the f32 sum's bound")
+    return float(err.max())
 
 
 def check_rowsum(what, got, want, audio, gain) -> float:
@@ -667,6 +714,8 @@ def kernel_bounds(p, batch, n_samples, rnn_dims, cnn_consts):
     block1 = block1_bound(batch, cnn_consts.stages[0].stage)[:2]
     gru = rnn_bound(batch, rnn_dims, 3, "float32")
     lstm = rnn_bound(batch, rnn_dims, 4, "float32")
+    # alone, for the GRU at 300 features (the 300-coefficient frontend's)
+    projection = projection_bound(batch, WIDE_RNN, 3, "float32")
     cnn = cnn_bound(cnn_consts.lowered, False, batch, "float32")
     # the FFT kernel's two bodies and the CT split kernel compute one
     # function: one bound (the CT split's own algorithm's floor is
@@ -694,6 +743,7 @@ def kernel_bounds(p, batch, n_samples, rnn_dims, cnn_consts):
         "gru_classifier_simt": gru,
         "lstm_classifier": lstm,
         "lstm_classifier_simt": lstm,
+        "rnn_projection": projection,
         "cnn_classifier": cnn,
         "cnn_classifier_simt": cnn,
         "cnn_block1": block1,
@@ -722,6 +772,44 @@ def rnn_bound(batch, rnn_dims, gates: int, dtype: str):
                       + 4 * classes)
     if dtype == "float32":
         return bound_ms(ops, 0, nbytes)
+    return bound_ms(0, ops, nbytes)
+
+
+def projected_bound(batch, rnn_dims, gates: int, dtype: str):
+    """A GRU (3 gates) or LSTM (4) layer with its head on the projected
+    route (inputs above gru_plan.CAP_D), (T, D, U, C) = rnn_dims: the input
+    projection x @ W over every step and h @ U a step, 2 a multiply-add,
+    and the head; "float32": the projection at the 3xTF32 rate (its
+    f32-accurate products on the tensor cores), the rest at the f32 peak,
+    on f32 features; "bfloat16": all at the bf16 peak on bf16 features;
+    logits f32.  XW is the route's own intermediate, not the function's:
+    its bytes are left out (`projection_bound` counts them).  The FFMA
+    floor of the same function is `rnn_bound`."""
+    steps, d_in, units, classes = rnn_dims
+    projection = batch * steps * 2.0 * gates * units * d_in
+    rest = (batch * steps * 2.0 * gates * units * units
+            + batch * 2.0 * units * classes)
+    nbytes = batch * (steps * d_in * (4 if dtype == "float32" else 2)
+                      + 4 * classes)
+    if dtype == "float32":
+        return bound_ms(rest, 0, nbytes, flops_3xtf32=projection)
+    return bound_ms(0, projection + rest, nbytes)
+
+
+def projection_bound(batch, rnn_dims, gates: int, dtype: str):
+    """The projection kernel alone (csrc/rnn_projection.cu): x @ W + b over
+    every step, 2 a multiply-add, at the 3xTF32 rate ("float32", f32
+    features) or the bf16 peak ("bfloat16", bf16 features), against its
+    bytes: the features read and XW written (f32, the batch in tiles of 16
+    windows, G U_p columns)."""
+    from tpu_speech_commands_torch.ops.gru_plan import padded
+
+    steps, d_in, units, _ = rnn_dims
+    ops = batch * steps * 2.0 * gates * units * d_in
+    xw = 4.0 * -(-batch // 16) * 16 * steps * gates * padded(units)
+    nbytes = batch * steps * d_in * (4 if dtype == "float32" else 2) + xw
+    if dtype == "float32":
+        return bound_ms(nbytes=nbytes, flops_3xtf32=ops)
     return bound_ms(0, ops, nbytes)
 
 
@@ -2046,7 +2134,8 @@ def main() -> int:
     from tpu_speech_commands_torch.ops import (
         _build, cepstrum_plan, cnn_kernel, ct_kernel, dense_dft_kernel,
         fft_plan,
-        frontend_kernel, gru_plan, load_kernel, omission_kernel, rnn_kernel)
+        frontend_kernel, gru_plan, load_kernel, omission_kernel, rnn_kernel,
+        rnn_projection)
     from tpu_speech_commands_torch.ops.cnn_kernel import (
         CNNClassifier, make_fused_cnn_forward)
     from tpu_speech_commands_torch.ops.cnn_lowering import lower_block1
@@ -2163,8 +2252,8 @@ def main() -> int:
     lstm_pretrained = load_native(LSTM_CHECKPOINT, dev).model
     rng = np.random.default_rng(1)
 
-    def random_rnn(cls):
-        model = cls(5, 20, 48, num_layers=2).to(dev)
+    def random_rnn(cls, d_in=20, num_layers=2):
+        model = cls(5, d_in, 48, num_layers=num_layers).to(dev)
         with torch.no_grad():
             for prm in model.parameters():
                 prm.copy_(torch.tensor(
@@ -2208,6 +2297,45 @@ def main() -> int:
                         check_close(what, got, want, GRU_ATOL, GRU_RTOL))
                 else:
                     check_close(what, got, want, GRU_BF16_ATOL, 0.0)
+    # the projected route above gru_plan.CAP_D features (fault 3.10: the
+    # SIMT kernels' block was refused from 305 GRU / 227 LSTM features at
+    # 23 frames): the projection kernel against its plain version, then
+    # both classifiers (the projection and the tile kernel in projected
+    # mode) against the plain module, at WIDE_FEATURES and 23 and 30
+    # frames, f32 and bf16 (bf16 on bf16 features)
+    proj_errs = []
+    for rnn, rnn_cls, model_cls in (("gru", GRUClassifier, SimpleGRU),
+                                    ("lstm", LSTMClassifier, SimpleLSTM)):
+        for d_in in WIDE_FEATURES:
+            model = random_rnn(model_cls, d_in, 1)
+            cell = model.backbone.cells()[0]
+            xw_bias = cell.bias_input if rnn == "gru" else cell.bias
+            for steps in (23, 30):
+                x32 = torch.tensor(rng.standard_normal((B_CHECK, steps, d_in)),
+                                   dtype=torch.float32, device=dev)
+                for dtype in (torch.float32, torch.bfloat16):
+                    x = x32.to(dtype)
+                    dname = str(dtype)[6:]
+                    pack = rnn_projection.pack_projection(cell.kernel, xw_bias,
+                                                          48, dtype)
+                    proj_errs.append(check_projection(
+                        f"rnn_projection {rnn} D {d_in} T {steps} {dname}",
+                        rnn_projection.rnn_projection_cuda(x, pack), x,
+                        cell.kernel, xw_bias, 48, dtype))
+                    before = rnn_projection.PROJECTION.launches
+                    got = rnn_cls(model, dtype)(x)
+                    torch.cuda.synchronize()
+                    if rnn_projection.PROJECTION.launches != before + 1:
+                        raise AssertionError(f"{rnn} at {d_in} features did "
+                                             "not take the projected route")
+                    with torch.inference_mode():
+                        want = model(x.float(), dtype)
+                    what = f"{rnn} (projected) D {d_in} T {steps} {dname}"
+                    if dtype == torch.float32:
+                        rnn_errs[rnn].append(
+                            check_close(what, got, want, GRU_ATOL, GRU_RTOL))
+                    else:
+                        check_close(what, got, want, GRU_BF16_ATOL, 0.0)
 
     cnn_models = {m: load_native(path, dev).model
                   for m, path in CNN_CHECKPOINTS.items()}
@@ -2755,6 +2883,7 @@ def main() -> int:
         "gru_classifier_simt": rnn_kernel.GRU_SIMT,
         "lstm_classifier": rnn_kernel.lstm_layer_cuda,
         "lstm_classifier_simt": rnn_kernel.LSTM_SIMT,
+        "rnn_projection": rnn_projection.PROJECTION,
         "cnn_classifier": cnn_kernel.cnn_classifier_cuda,
         "cnn_classifier_simt": cnn_kernel.SIMT,
         "cnn_block1": cnn_kernel.cnn_block1_cuda,
@@ -2938,28 +3067,39 @@ def main() -> int:
 
     # route ct with 300 filters and coefficients (no fused block fits their
     # DCT columns: the wide FFT in log-mel mode, then the cepstrum kernel)
-    # into the GRU classifier: a random 48-unit GRU of feature size 300
-    # (init_model, seed 1; no shipped checkpoint has this config), whose
-    # input width takes the GRU's SIMT kernel; card against CPU
+    # into a random 48-unit GRU and LSTM of feature size 300, and with 600
+    # into a GRU of 600 (init_model, seed 1; no shipped checkpoint has
+    # these configs): inputs above gru_plan.CAP_D take the projected route
+    # (the projection, then the tile kernel in projected mode; the SIMT
+    # kernels' block was refused from 305 GRU / 227 LSTM features, fault
+    # 3.10); card against CPU
     p300 = ListenerParams(n_fft=4352, window_t=0.272, n_filt=300, n_mfcc=300)
-    gru300, _ = init_model("simple_gru", 5, seed=1, params=p300)
-    fe300 = MfccFrontend(p300, "mfcc", dev)
-    if (fe300.route, fe300.body, fe300.path) != ("ct", "wide",
-                                                 "cuda-ct(wide)+cep"):
-        raise AssertionError(f"300 coefficients: route {fe300.route}, body "
-                             f"{fe300.body}, path {fe300.path}")
-    cls300 = GRUClassifier(copy.deepcopy(gru300).to(dev))
-    sc = drive("MfccFrontend (n_fft 4352, 300 coefficients) + GRUClassifier "
-               "(random, D 300) on 8 clips",
-               lambda: score_fn(cls300(fe300(clips_dev))),
-               ("wide_fft_frontend", "mfcc_frontend_logmel", "cepstrum",
-                "gru_classifier_simt"),
-               ("mixed_fft_frontend", *ct_kernel.counters, "gru_classifier",
-                "cepstrum_simt", "mfcc_frontend_partial_sums"))
-    cpu300 = score_fn(GRUClassifier(gru300)(
-        MfccFrontend(p300, "mfcc", "cpu")(torch.tensor(clips))))
-    check_close("scores card vs CPU, n_fft 4352, 300 coefficients", sc.cpu(),
-                cpu300, SCORE_ATOL, 0.0)
+    for n_mfcc, model_type, rnn_cls, name in (
+            (300, "simple_gru", GRUClassifier, "gru_classifier"),
+            (300, "simple_lstm", LSTMClassifier, "lstm_classifier"),
+            (600, "simple_gru", GRUClassifier, "gru_classifier")):
+        p_wide = p300.replace(n_filt=n_mfcc, n_mfcc=n_mfcc)
+        rnn_wide, _ = init_model(model_type, 5, seed=1, params=p_wide)
+        fe_wide = MfccFrontend(p_wide, "mfcc", dev)
+        if (fe_wide.route, fe_wide.body, fe_wide.path) != (
+                "ct", "wide", "cuda-ct(wide)+cep"):
+            raise AssertionError(
+                f"{n_mfcc} coefficients: route {fe_wide.route}, body "
+                f"{fe_wide.body}, path {fe_wide.path}")
+        cls_wide = rnn_cls(copy.deepcopy(rnn_wide).to(dev))
+        sc = drive(f"MfccFrontend (n_fft 4352, {n_mfcc} coefficients) + "
+                   f"{rnn_cls.__name__} (random, D {n_mfcc}) on 8 clips",
+                   lambda: score_fn(cls_wide(fe_wide(clips_dev))),
+                   ("wide_fft_frontend", "mfcc_frontend_logmel", "cepstrum",
+                    "rnn_projection", name),
+                   ("mixed_fft_frontend", *ct_kernel.counters,
+                    f"{name}_simt", "cepstrum_simt",
+                    "mfcc_frontend_partial_sums"))
+        cpu_wide = score_fn(rnn_cls(rnn_wide)(
+            MfccFrontend(p_wide, "mfcc", "cpu")(torch.tensor(clips))))
+        check_close(f"scores card vs CPU, n_fft 4352, {n_mfcc} coefficients, "
+                    f"{model_type}", sc.cpu(), cpu_wide, SCORE_ATOL, 0.0)
+    del rnn_wide, fe_wide, cls_wide
 
     for name, path in CNN_CHECKPOINTS.items():
         predictor = load_native(path, dev)
@@ -3611,37 +3751,133 @@ def main() -> int:
             log(f"    {dname} {split[0]} windows a warp, {split[1]} warps a "
                 f"block{' (default)' if default else ''}: "
                 f"{graph_ms(run_split):.4f} ms (device time)  ({card})")
-    # the GRU classifier above the tile's gru_plan.CAP_D features: a random
-    # 48-unit GRU of feature size 300 (the 300-coefficient frontend's,
-    # phase 4) takes the SIMT kernel; on (B_TIME, 23, 300) f32 features
-    # from a numpy seed, held to the plain module, device time from a CUDA
-    # graph beside the bound and the plain module
+    # the classifiers above gru_plan.CAP_D features (WIDE_RNN: a random
+    # 48-unit GRU and LSTM of feature size 300, the 300-coefficient
+    # frontend's, phase 4) on (B_TIME, 23, 300) features from a numpy seed,
+    # f32 and bf16 (bf16 features), each first held to the plain module:
+    # the projected route (the projection, then the tile kernel in
+    # projected mode) against the GRU's SIMT kernel in turns, simt, new,
+    # new, simt (the LSTM's SIMT block is refused at this width); the
+    # projection alone and the recurrence alone; torch.matmul of X @ W (a
+    # yardstick for the projection) and, for the LSTM, cuDNN's nn.LSTM in
+    # the same dtype; each beside its bound (`projected_bound`; the FFMA
+    # floor `rnn_bound`) and the plain module; device times from CUDA
+    # graphs.  Then the 300-coefficient scorer end to end (the +cep
+    # frontend, then the GRU) on the phase's audio, the new route against
+    # the SIMT kernel, back-to-back calls
     p300 = ListenerParams(n_fft=4352, window_t=0.272, n_filt=300, n_mfcc=300)
-    gru300 = init_model("simple_gru", 5, seed=1, params=p300)[0].to(dev)
+    if (p300.n_features, p300.n_mfcc) != WIDE_RNN[:2]:
+        raise AssertionError(f"WIDE_RNN {WIDE_RNN} is not the 300-coefficient "
+                             f"frontend's {p300.n_features} x {p300.n_mfcc}")
     x300 = torch.tensor(np.random.default_rng(3).standard_normal(
         (B_TIME, p300.n_features, 300)).astype(np.float32), device=dev)
-    cls300 = GRUClassifier(gru300)
-    before = rnn_kernel.GRU_SIMT.launches
-    with torch.inference_mode():
-        want300 = gru300(x300, torch.float32)
-    rnn_errs["gru_simt"].append(check_close(
-        f"gru_classifier (simt) 300 features B = {B_TIME}", cls300(x300),
-        want300, GRU_ATOL, GRU_RTOL))
-    if rnn_kernel.GRU_SIMT.launches != before + 1:
-        raise AssertionError("300 features did not take the GRU's SIMT kernel")
-    dims300 = (p300.n_features, 300, rnn_dims[2], rnn_dims[3])
-    gru_simt_300 = {
-        "ms": graph_ms(lambda: cls300(x300)),
-        "plain_ms": cuda_ms(lambda: gru300(x300, torch.float32), 5),
-        "library_ms": None}
-    b300 = rnn_bound(B_TIME, dims300, 3, "float32")
-    gru_simt_300.update(bound_ms=b300[0], bound_by=b300[1],
-                        features=300, frames=p300.n_features)
-    log(f"  gru_classifier_simt at 300 features (above CAP_D = "
-        f"{gru_plan.CAP_D}), f32: {gru_simt_300['ms']:.4f} ms (device time); "
-        f"plain {gru_simt_300['plain_ms']:.4f} ms; bound {b300[0]:.4f} ms "
-        f"({b300[1]}; {gru_simt_300['ms'] / b300[0]:.1f}x)  ({card})")
-    del gru300, x300, cls300, want300
+    wide = {}
+    wide_models = {}
+    for model_type, rnn_cls, gates in (("simple_gru", GRUClassifier, 3),
+                                       ("simple_lstm", LSTMClassifier, 4)):
+        rnn = model_type[len("simple_"):]
+        model = init_model(model_type, 5, seed=1, params=p300)[0].to(dev)
+        wide_models[rnn] = model
+        cell, head = model.backbone.cells()[0], model.score_predict
+        xw_bias = cell.bias_input if rnn == "gru" else cell.bias
+        for dt in (torch.float32, torch.bfloat16):
+            x = x300.to(dt)
+            dname = str(dt)[6:]
+            runs = {"new": rnn_cls(model, dt)}
+            if gates == 3:
+                runs["simt"] = rnn_cls(model, dt, _simt=True)
+            with torch.inference_mode():
+                want = model(x.float(), dt)
+            tol = (GRU_ATOL, GRU_RTOL) if dt == torch.float32 else \
+                (GRU_BF16_ATOL, 0.0)
+            for which, run in runs.items():
+                err = check_close(f"{rnn}_classifier ({which}) 300 features "
+                                  f"{dname} B = {B_TIME}", run(x), want, *tol)
+                if dt == torch.float32:
+                    rnn_errs[rnn if which == "new" else f"{rnn}_simt"].append(err)
+            pack = runs["new"].packs[cell]
+            xw = rnn_projection.rnn_projection_cuda(x, pack.projection)
+            proj_errs.append(check_projection(
+                f"rnn_projection {rnn} 300 features {dname} B = {B_TIME}", xw,
+                x, cell.kernel, xw_bias, 48, dt))
+            ab = {which: [] for which in runs}
+            for which in (("simt", "new", "new", "simt") if gates == 3
+                          else ("new", "new")):
+                ab[which].append(graph_ms(lambda w=which: runs[w](x),
+                                          5 if which == "simt" else 20))
+            w_dt = cell.kernel.detach().to(dt)
+            x2d = x.reshape(-1, 300)
+            bound = projected_bound(B_TIME, WIDE_RNN, gates, dname)
+            floor = rnn_bound(B_TIME, WIDE_RNN, gates, "float32")
+            proj_bound = projection_bound(B_TIME, WIDE_RNN, gates, dname)
+            entry = {
+                "features": 300, "frames": p300.n_features,
+                "ms": ab["new"][0], "turns_ms": ab["new"],
+                "simt_turns_ms": ab.get("simt"),
+                "projection_ms": graph_ms(
+                    lambda: rnn_projection.rnn_projection_cuda(
+                        x, pack.projection)),
+                "recurrence_ms": graph_ms(
+                    lambda: rnn_kernel.projected_recurrence_cuda(
+                        xw, B_TIME, pack, head.kernel, head.bias)),
+                "matmul_ms": graph_ms(lambda: torch.matmul(x2d, w_dt)),
+                "plain_ms": cuda_ms(lambda: model(x.float(), dt), 5),
+                "plain_projection_ms": cuda_ms(
+                    lambda: rnn_projection.rnn_projection_plain(
+                        x, cell.kernel, xw_bias, 48, dt), 5),
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "ffma_floor_ms": floor[0],
+                "projection_bound_ms": proj_bound[0],
+                "projection_bound_by": proj_bound[1],
+                "library_ms": None}
+            lib_note = ""
+            if gates == 4:
+                lstm_lib = cudnn_lstm(model, dev, dt)
+                with torch.inference_mode():
+                    lib_logits = (lstm_lib(x)[0][:, -1].float() @ head.kernel
+                                  + head.bias)
+                if dt == torch.float32:
+                    check_close("cuDNN nn.LSTM (library yardstick) vs the "
+                                "LSTM kernel at 300 features",
+                                runs["new"](x), lib_logits, GRU_ATOL, GRU_RTOL)
+                entry["library_ms"] = cuda_ms(lambda: lstm_lib(x), 20)
+                lib_note = (f"; cuDNN nn.LSTM {dname} "
+                            f"{entry['library_ms']:.4f} ms (back-to-back "
+                            f"calls)")
+                del lstm_lib
+            wide[rnn, dname] = entry
+            simt = (f"; simt ({rnn}_classifier_simt) "
+                    f"{ab['simt'][0]:.4f}, {ab['simt'][1]:.4f} ms = "
+                    f"{sum(ab['simt']) / sum(ab['new']):.2f}x" if "simt" in ab
+                    else "")
+            log(f"  {rnn}_classifier at 300 features (projected route), "
+                f"{dname}: {ab['new'][0]:.4f}, {ab['new'][1]:.4f} ms{simt} "
+                f"(device times); the projection alone "
+                f"{entry['projection_ms']:.4f} ms (bound "
+                f"{proj_bound[0]:.4f}, {proj_bound[1]}; torch.matmul of X @ "
+                f"W {entry['matmul_ms']:.4f}), the recurrence alone "
+                f"{entry['recurrence_ms']:.4f} ms; plain "
+                f"{entry['plain_ms']:.4f} ms; bound {bound[0]:.4f} ms "
+                f"({bound[1]}; {ab['new'][0] / bound[0]:.1f}x; the FFMA floor "
+                f"{floor[0]:.4f}){lib_note}  ({card})")
+            del xw, runs
+    fe300 = MfccFrontend(p300, "mfcc", dev)
+    gru300 = wide_models["gru"]
+    e2e = {}
+    for which, cls in (("new", GRUClassifier(gru300)),
+                       ("simt", GRUClassifier(gru300, _simt=True))):
+        e2e[which] = cuda_ms(lambda: score_fn(cls(fe300(big))),
+                             10 if which == "new" else 3)
+    wide["gru", "float32"].update(scorer_ms=e2e["new"],
+                                  scorer_simt_ms=e2e["simt"])
+    log(f"  the 300-coefficient scorer end to end (MfccFrontend n_fft 4352 "
+        f"+cep, GRUClassifier at 300 features), f32, B = {B_TIME}: "
+        f"{e2e['new']:.4f} ms, with the SIMT kernel {e2e['simt']:.4f} ms "
+        f"(back-to-back calls)  ({card})")
+    times["rnn_projection"] = (wide["gru", "float32"]["projection_ms"],
+                               wide["gru", "float32"]["plain_projection_ms"])
+    library["rnn_projection"] = wide["gru", "float32"]["matmul_ms"]
+    del x300, wide_models, gru300, fe300
     # the LSTM classifier the same way (the scorer runs it in f32), each
     # dtype beside cuDNN's nn.LSTM in that dtype (f32 held to the kernel;
     # bf16 keeps h and c in bf16 between steps, so its error is printed)
@@ -3847,6 +4083,8 @@ def main() -> int:
              rnn_kernel.LSTM_REPLACES, rnn_errs["lstm"]),
             ("lstm_classifier_simt", rnn_kernel.LSTM_SOURCE,
              rnn_kernel.LSTM_REPLACES, rnn_errs["lstm_simt"]),
+            ("rnn_projection", rnn_projection.SOURCE, rnn_projection.REPLACES,
+             proj_errs),
             ("cnn_classifier", cnn_kernel.SOURCE, cnn_kernel.REPLACES,
              cnn_errs["cnn_classifier"]),
             ("cnn_classifier_simt", cnn_kernel.SOURCE, cnn_kernel.REPLACES,
@@ -3876,9 +4114,30 @@ def main() -> int:
             "plain_ms": times[name][1], "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1], "library_ms": library[name],
         })
-        if name == "gru_classifier_simt":
-            # above CAP_D features (300), from the timing above
-            kernels[-1]["features_300"] = gru_simt_300
+        if name.startswith(("gru_classifier", "lstm_classifier")):
+            # above CAP_D features (300), from the timings above: the
+            # projected route, and the SIMT kernel in the same turns
+            rnn = name.split("_")[0]
+            if name.endswith("simt"):
+                if rnn == "gru":
+                    kernels[-1]["features_300"] = {
+                        dname: {"ms": wide[rnn, dname]["simt_turns_ms"][0],
+                                "bound_ms": wide[rnn, dname]["ffma_floor_ms"],
+                                "bound_by": "operations",
+                                "plain_ms": wide[rnn, dname]["plain_ms"]}
+                        for dname in ("float32", "bfloat16")}
+            else:
+                kernels[-1]["features_300"] = {
+                    dname: wide[rnn, dname] for dname in ("float32",
+                                                          "bfloat16")}
+        if name == "rnn_projection":
+            # in bf16 (bf16 features), and the LSTM's 192 columns
+            kernels[-1].update({
+                "bf16_ms": wide["gru", "bfloat16"]["projection_ms"],
+                "bf16_bound_ms": wide["gru", "bfloat16"]["projection_bound_ms"],
+                "bf16_bound_by": wide["gru", "bfloat16"]["projection_bound_by"],
+                "bf16_library_ms": wide["gru", "bfloat16"]["matmul_ms"],
+                "lstm_ms": wide["lstm", "float32"]["projection_ms"]})
         if name.startswith("gru_classifier"):
             # in bf16 (bf16 features), from the A/B above
             ab, plain_ms, bound = gru_ab["bfloat16"]

@@ -106,6 +106,10 @@ EXPECTED = {  # name: (bound_by, ms)
     "lstm_classifier": ("operations", LSTM / 67e9),
     "lstm_classifier_simt": ("operations", LSTM / 67e9),
     "lstm_classifier bfloat16": ("operations", LSTM / 989e9),
+    # the projection kernel alone at the GRU's 300 features (23 frames, 48
+    # units): the f32 features read and XW (144 columns) written bind
+    "rnn_projection": ("bytes", (8192 * 23 * 300 * 4
+                                 + 4 * 8192 * 23 * 144) / 3.35e9),
     "cnn_classifier": ("operations", CNN / 67e9),
     "cnn_classifier_simt": ("operations", CNN / 67e9),
     "cnn_classifier simple_cnn float32": ("operations", CNN / 67e9),
@@ -446,3 +450,49 @@ def test_gru_bound_above_the_tile_width(chip_smoke):
     got = chip_smoke.rnn_bound(8192, (23, 300, 48, 5), 3, "float32")
     assert got == pytest.approx((max(ops / 67e9, nbytes / 3.35e9),
                                  "operations"), rel=1e-9)
+
+
+@pytest.mark.parametrize("gates", [3, 4])
+def test_projected_route_bound_above_the_tile_width(chip_smoke, gates):
+    """The projected route at 300 features (23 frames, 48 units, 5
+    classes): x @ W over every step at the 3xTF32 rate (3 TF32 products a
+    product at 495 TFLOP/s), h @ U a step and the head at the f32 peak;
+    the GRU's 16.28 GFLOP projection is 0.0987 ms, its recurrence 2.60
+    GFLOP 0.0389 ms, operations bind (0.1376 ms; the f32 features alone
+    0.0675).  bf16: everything at the bf16 peak, the bf16 features bind
+    (0.0337 ms)."""
+    projection = 8192 * 23 * 2 * gates * 48 * 300
+    rest = 8192 * 23 * 2 * gates * 48 * 48 + 8192 * 2 * 48 * 5
+    f32_bytes = 8192 * (23 * 300 * 4 + 4 * 5)
+    got = chip_smoke.projected_bound(8192, (23, 300, 48, 5), gates, "float32")
+    assert got == pytest.approx(
+        (3 * projection / 495e9 + rest / 67e9, "operations"), rel=1e-9)
+    assert got[0] > f32_bytes / 3.35e9
+    bf16_bytes = 8192 * (23 * 300 * 2 + 4 * 5)
+    got16 = chip_smoke.projected_bound(8192, (23, 300, 48, 5), gates,
+                                       "bfloat16")
+    assert got16 == pytest.approx((bf16_bytes / 3.35e9, "bytes"), rel=1e-9)
+    if gates == 3:
+        assert projection == pytest.approx(16.28e9, rel=1e-3)
+        assert 3 * projection / 495e9 == pytest.approx(0.0987, abs=1e-4)
+        assert rest / 67e9 == pytest.approx(0.0389, abs=1e-4)
+        assert got[0] == pytest.approx(0.1376, abs=1e-4)
+        assert got16[0] == pytest.approx(0.0337, abs=1e-4)
+
+
+def test_projection_bound_alone_counts_xw(chip_smoke, bounds):
+    """The projection kernel alone at the GRU's 300 features: 16.28 GFLOP at
+    the 3xTF32 rate (0.0987 ms) against the 226.1 MB of f32 features read
+    and the 108.5 MB of XW written (512 tiles of 16 windows x 23 steps x
+    144 columns): the bytes bind, 0.0999 ms; in bf16 the features are half."""
+    ops = 8192 * 23 * 2 * 144 * 300
+    xw = 4 * 512 * 16 * 23 * 144
+    assert xw == pytest.approx(108.5e6, rel=1e-3)
+    nbytes = 8192 * 23 * 300 * 4 + xw
+    want = max(3 * ops / 495e9, nbytes / 3.35e9)
+    assert bounds["rnn_projection"] == pytest.approx((want, "bytes"),
+                                                     rel=1e-9)
+    assert want == pytest.approx(0.0999, abs=1e-4)
+    got16 = chip_smoke.projection_bound(8192, (23, 300, 48, 5), 3, "bfloat16")
+    assert got16 == pytest.approx(
+        ((8192 * 23 * 300 * 2 + xw) / 3.35e9, "bytes"), rel=1e-9)

@@ -844,6 +844,158 @@ def test_lstm_scorer_runs_both_kernels(cuda_device, compute_dtype):
     torch.testing.assert_close(got, want, rtol=0, atol=atol)
 
 
+def _wide_counts():
+    from tpu_speech_commands_torch.ops import rnn_projection
+
+    return (rnn_projection.PROJECTION.launches,
+            rnn_kernel.gru_layer_cuda.launches + rnn_kernel.lstm_layer_cuda.launches,
+            rnn_kernel.GRU_SIMT.launches + rnn_kernel.LSTM_SIMT.launches)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [37, 1000])
+@pytest.mark.parametrize("gates,units", [(3, 48), (4, 48), (3, 16), (4, 64),
+                                         (3, 64), (4, 32)])
+@pytest.mark.parametrize("d_in", [33, 80, 300, 600])
+def test_rnn_projection_kernel_matches_plain(cuda_device, d_in, gates, units,
+                                             batch, compute_dtype, x_dtype):
+    """The projection kernel (csrc/rnn_projection.cu) in its tile layout:
+    every N it serves, D not a multiple of a stage (33, 300, 600; 33 odd:
+    bf16 rows at odd offsets take the register-staged ring) and a ragged
+    batch (37: a tile of 5 windows).  Kernel and `rnn_projection_plain`
+    each within `exact_projection`'s bound of the float64 XW (an f32 sum
+    of D products, plus 3xTF32's dropped terms in f32 mode)."""
+    from tpu_speech_commands_torch.ops import rnn_projection as rp
+
+    rng = np.random.default_rng(d_in + units)
+    kernel = torch.tensor(rng.standard_normal((d_in, gates * units)) /
+                          np.sqrt(d_in), dtype=torch.float32,
+                          device=cuda_device)
+    bias = torch.tensor(rng.standard_normal(gates * units),
+                        dtype=torch.float32, device=cuda_device)
+    x = torch.tensor(rng.standard_normal((batch, 23, d_in)),
+                     dtype=torch.float32, device=cuda_device).to(x_dtype)
+    pack = rp.pack_projection(kernel, bias, units, compute_dtype)
+    before = rp.PROJECTION.launches
+    got = rp.rnn_projection_cuda(x, pack)
+    torch.cuda.synchronize()
+    assert rp.PROJECTION.launches == before + 1
+    want = rp.rnn_projection_plain(x, kernel, bias, units, compute_dtype)
+    assert got.shape == want.shape == (-(-batch // 16), 23,
+                                       gates * rp.padded(units) // 8, 32, 4)
+    exact, bound = rp.exact_projection(x, kernel, bias, units, compute_dtype)
+    assert torch.isfinite(got).all()
+    assert ((got.double() - exact).abs() <= bound).all()
+    assert ((want.double() - exact).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [37, 8192])
+@pytest.mark.parametrize("steps", [23, 30])
+@pytest.mark.parametrize("d_in", [80, 300, 600])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_wide_classifiers_take_the_projected_route(cuda_device, cell, d_in,
+                                                   steps, batch,
+                                                   compute_dtype):
+    """Fault 3.10: above 64 features the classifiers run the projection
+    and the tile kernel in projected mode (one launch each, the SIMT kernel
+    none), at feature sizes the SIMT kernel's block refused from 305 (GRU)
+    and 227 (LSTM) at 23 frames; bf16 compute on bf16 features, as the
+    bf16 scorer hands them over.  Against the plain module: the GRU and
+    LSTM tolerances above."""
+    random = _random_gru if cell == "gru" else _random_lstm
+    classifier = GRUClassifier if cell == "gru" else LSTMClassifier
+    model = random(d_in, 48, 1, d_in + steps, cuda_device)
+    x = torch.tensor(np.random.default_rng(batch).standard_normal(
+        (batch, steps, d_in)), dtype=torch.float32,
+        device=cuda_device).to(compute_dtype)
+    before = _wide_counts()
+    got = classifier(model, compute_dtype)(x)
+    torch.cuda.synchronize()
+    assert _wide_counts() == (before[0] + 1, before[1] + 1, before[2])
+    assert got.shape == (batch, 5) and got.dtype == torch.float32
+    with torch.no_grad():
+        want = model(x.float(), compute_dtype)
+    _gru_close(got, want, compute_dtype)
+
+
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_wide_stacked_layers_and_sequences(cuda_device, cell, compute_dtype):
+    """A two-layer model at 150 features and 33 units (padded to 48): layer
+    1 takes the projected route and writes its h sequence, layer 2 (33
+    features) the tile kernel; f32 features in either mode."""
+    random = _random_gru if cell == "gru" else _random_lstm
+    classifier = GRUClassifier if cell == "gru" else LSTMClassifier
+    model = random(150, 33, 2, 11, cuda_device)
+    x = torch.tensor(np.random.default_rng(4).standard_normal((77, 23, 150)),
+                     dtype=torch.float32, device=cuda_device)
+    before = _wide_counts()
+    got = classifier(model, compute_dtype)(x)
+    torch.cuda.synchronize()
+    assert _wide_counts() == (before[0] + 1, before[1] + 2, before[2])
+    with torch.no_grad():
+        want = model(x, compute_dtype)
+    _gru_close(got, want, compute_dtype)
+    cellmod = model.backbone.cells()[0]
+    layer = rnn_kernel.gru_layer_cuda if cell == "gru" else \
+        rnn_kernel.lstm_layer_cuda
+    weights = ((cellmod.kernel, cellmod.recurrent_kernel, cellmod.bias_input,
+                cellmod.bias_recurrent) if cell == "gru" else
+               (cellmod.kernel, cellmod.recurrent_kernel, cellmod.bias))
+    with torch.no_grad():
+        seq = layer(x, *weights, compute_dtype=compute_dtype)
+        h, hs = torch.zeros(77, 33, device=cuda_device), []
+        c = torch.zeros_like(h)
+        for t in range(23):
+            if cell == "gru":
+                h = cellmod(h, x[:, t], compute_dtype)
+            else:
+                h, c = cellmod((h, c), x[:, t], compute_dtype)
+            hs.append(h)
+    _gru_close(seq, torch.stack(hs, 1), compute_dtype)
+
+
+def test_wide_gru_simt_kernel_kept_for_the_a_b(cuda_device):
+    """`_simt=True` still runs the SIMT kernel at 300 features (its A/B),
+    where its block fits (23 frames), and it agrees with the plain module;
+    a feature size past its block raises rather than running another
+    kernel."""
+    model = _random_gru(300, 48, 1, 8, cuda_device)
+    x = torch.tensor(np.random.default_rng(5).standard_normal((37, 23, 300)),
+                     dtype=torch.float32, device=cuda_device)
+    before = _wide_counts()
+    got = GRUClassifier(model, torch.float32, _simt=True)(x)
+    torch.cuda.synchronize()
+    assert _wide_counts() == (before[0], before[1], before[2] + 1)
+    with torch.no_grad():
+        _gru_close(got, model(x, torch.float32), torch.float32)
+    wide = _random_gru(600, 48, 1, 9, cuda_device)
+    x600 = torch.zeros((37, 23, 600), device=cuda_device)
+    with pytest.raises(RuntimeError, match="tsc_gru_layer_simt"):
+        GRUClassifier(wide, torch.float32, _simt=True)(x600)
+
+
+def test_wide_wrappers_reject_what_they_cannot_take(cuda_device):
+    from tpu_speech_commands_torch.ops import gru_plan
+    from tpu_speech_commands_torch.ops import rnn_projection as rp
+
+    cell = SimpleGRU(5, 300, 48).to(cuda_device).backbone.gru_unit_0
+    weights = tuple(t.detach() for t in (cell.kernel, cell.recurrent_kernel,
+                                         cell.bias_input, cell.bias_recurrent))
+    x = torch.zeros(2, 23, 300, device=cuda_device)
+    tile = gru_plan.pack_gru_weights(*weights)
+    with pytest.raises(ValueError, match="ProjectedPack"):
+        rnn_kernel.gru_layer_cuda(x, *weights, pack=tile)
+    pack16 = rp.pack_gru_projected(*weights, torch.bfloat16)
+    with pytest.raises(ValueError, match="pack"):  # packed for bf16
+        rnn_kernel.gru_layer_cuda(x, *weights, pack=pack16)
+    with pytest.raises(ValueError, match="features"):
+        rp.rnn_projection_cuda(x[:, :, :299].contiguous(), pack16.projection)
+    assert rnn_kernel.gru_layer_cuda(x[:0], *weights).shape == (0, 23, 48)
+
+
 @pytest.mark.parametrize("ckpt", ["simple_gru", "simple_lstm", "simple_cnn",
                                   "simple_cnn_lite"])
 def test_fast_math_frontend_into_classifier_kernels(cuda_device, ckpt):

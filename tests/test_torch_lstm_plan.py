@@ -95,7 +95,7 @@ def _close(got, want, dtype):
     (20, 48, "tile"),    # the shipped checkpoint
     (48, 48, "tile"),    # layer 2 of a stacked model
     (3, 4, "tile"), (1, 1, "tile"), (64, 64, "tile"), (40, 64, "tile"),
-    (65, 48, "simt"), (20, 65, "simt"), (80, 80, "simt"), (20, 1024, "simt"),
+    (65, 48, "proj"), (20, 65, "simt"), (80, 80, "simt"), (20, 1024, "simt"),
 ])
 def test_kernel_for_each_width(d_in, units, route):
     assert lp.lstm_kernel_for(d_in, units) == route

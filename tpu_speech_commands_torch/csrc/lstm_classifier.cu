@@ -304,12 +304,35 @@ __device__ __forceinline__ void products(float (&acc)[4][4],
       mma(acc[q], ha[kb], s_b[((KBX + kb) * NT + q * NU + j) * 32]);
 }
 
+// projected mode, bf16: the four accumulators of group j, from the bias
+// (zero: the LSTM's is in XW), XW_t and h @ U on the tensor cores
+template <int KBH, int NU>
+__device__ __forceinline__ void projected(float (&acc)[4][4], const float4* xs,
+                                          const uint32_t (&ha)[KBH][4],
+                                          const uint2* s_b, const float* s_bias,
+                                          int j, int t4) {
+  constexpr int UP = 8 * NU, NT = 4 * NU;
+  const int col = 8 * j + 2 * t4;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    bias4(acc[q], s_bias, q * UP + col);
+    add_xw(acc[q], xs[(q * NU + j) * 32]);
+  }
+#pragma unroll
+  for (int kb = 0; kb < KBH; ++kb)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) mma(acc[q], ha[kb], s_b[(kb * NT + q * NU + j) * 32]);
+}
+
+// the bias, the weights, f32 mode's warp buffers, and in projected mode (DP
+// == 0) each warp's ring of two steps of XW (NT words a lane a step)
 template <bool kBf16>
 constexpr size_t tile_smem(int DP, int UP) {
   return 16 * (size_t)UP +
          (kBf16 ? (size_t)(DP + UP) / 16 * (UP / 2) * 256
                 : (size_t)(DP + UP) * 4 * UP * 4 +
-                      (size_t)kWarps * (DP + UP) * kXPitch * 4);
+                      (size_t)kWarps * (DP + UP) * kXPitch * 4) +
+         (DP == 0 ? (size_t)kWarps * 2 * (UP / 2) * 512 : 0);
 }
 
 // __launch_bounds__ with a minimum of one block an SM, as the GRU's tile
@@ -318,6 +341,8 @@ constexpr size_t tile_smem(int DP, int UP) {
 // [k-block][n-tile][lane] x 4 bf16; f32: the padded [W; U], row-major),
 // bias (4, U_p) f32 [b_i, b_f, b_c, b_o].  A warp's rows past the batch load
 // zeros and store nothing; a warp wholly past it leaves after the staging.
+// DP == 0 is projected mode: x is the projection's XW (csrc/
+// rnn_projection.cu, the bias in it), wpack U alone, bias zero.
 template <typename InT, bool kBf16, int DP, int UP>
 __global__ void __launch_bounds__(kMaxWarps * 32, 1)
 lstm_tile_kernel(const InT* __restrict__ x, int batch, int T, int D, int U,
@@ -358,10 +383,85 @@ lstm_tile_kernel(const InT* __restrict__ x, int batch, int T, int D, int U,
   for (int j = 0; j < NU; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) h[j][e] = c[j][e] = 0.0f;
-  InT xr[KBX][8];
-  load_x<InT, KBX>(xr, x0, x1, v0, v1, 0, D, t4);
+  InT xr[KBX > 0 ? KBX : 1][8];
+  if constexpr (DP > 0) load_x<InT, KBX>(xr, x0, x1, v0, v1, 0, D, t4);
 
-  if constexpr (kBf16) {
+  if constexpr (DP == 0) {
+    // projected mode: the four accumulators start from XW_t, copied into
+    // the warp's ring slot a step ahead; only h @ U runs a step.  The ring
+    // follows the weights (and in f32 mode every warp's h buffer).
+    const float4* xw = reinterpret_cast<const float4*>(x) +
+                       (size_t)(b0 / kRows) * T * NT * 32 + lane;
+    float* hbuf = reinterpret_cast<float*>(s_w + kWBytes) + (size_t)warp * K * kXPitch;
+    XwRing<NT> ring(xw, reinterpret_cast<float4*>(
+                            s_w + kWBytes + (kBf16 ? 0 : (size_t)kWarps * K * kXPitch * 4)) +
+                            (size_t)warp * 2 * NT * 32 + lane);
+    if constexpr (!kBf16)
+      for (int i = lane; i < UP * kXPitch; i += 32) hbuf[i] = 0.0f;
+    uint32_t hf[KBH][4];  // bf16: h as the A operand (C_TO_A), bf16 zeros
+#pragma unroll
+    for (int kb = 0; kb < KBH; ++kb)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) hf[kb][q] = 0u;
+    for (int step = 0; step < T; ++step) {
+      const float4* xs = ring.step(step, T);
+      if constexpr (kBf16) {
+        const uint2* s_u = reinterpret_cast<const uint2*>(s_w) + lane;
+        uint32_t hn[KBH][4];
+        float sums[2][4][4];  // i, f, c, o of two groups
+        projected<KBH, NU>(sums[0], xs, hf, s_u, s_bias, 0, t4);
+#pragma unroll
+        for (int j = 0; j < NU; ++j) {
+          if (j + 1 < NU) projected<KBH, NU>(sums[(j + 1) & 1], xs, hf, s_u, s_bias, j + 1, t4);
+          const auto& p = sums[j & 1];
+          gate(h[j], c[j], p[0], p[1], p[2], p[3]);
+          hn[j >> 1][2 * (j & 1)] = pack2(h[j][0], h[j][1]);
+          hn[j >> 1][2 * (j & 1) + 1] = pack2(h[j][2], h[j][3]);
+        }
+#pragma unroll
+        for (int kb = 0; kb < KBH; ++kb)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) hf[kb][q] = hn[kb][q];
+      } else {
+        const float2* s_u2 = reinterpret_cast<const float2*>(s_w + 8 * t4);
+        float2* hb = reinterpret_cast<float2*>(hbuf) + g;
+        __syncwarp();  // the last step's h is in the buffer
+#pragma unroll
+        for (int j0 = 0; j0 < NU; j0 += kPass) {
+          float sums[4][kPass][4];  // i, f, c, o
+#pragma unroll
+          for (int jj = 0; jj < kPass; ++jj) {
+            const int col = 8 * (j0 + jj) + 2 * t4;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              bias4(sums[q][jj], s_bias, q * UP + col);
+              add_xw(sums[q][jj], xs[(q * NU + j0 + jj) * 32]);
+            }
+          }
+#pragma unroll 4
+          for (int k = 0; k < UP; ++k) {
+            const float2 a = hb[k * (kXPitch / 2)];
+            const float2* uk = s_u2 + (size_t)k * NT * 4;
+#pragma unroll
+            for (int jj = 0; jj < kPass; ++jj)
+#pragma unroll
+              for (int q = 0; q < 4; ++q) fma4<kRows>(sums[q][jj], a, uk[(q * NU + j0 + jj) * 4]);
+          }
+#pragma unroll
+          for (int jj = 0; jj < kPass; ++jj)
+            gate(h[j0 + jj], c[j0 + jj], sums[0][jj], sums[1][jj], sums[2][jj], sums[3][jj]);
+        }
+        __syncwarp();  // every lane has read the old h
+#pragma unroll
+        for (int j = 0; j < NU; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            hb[(8 * j + 2 * t4 + e) * (kXPitch / 2)] = make_float2(h[j][e], h[j][e + 2]);
+      }
+      if (so) store_seq<kRows, NU>(h, so + (size_t)step * U, row8, t4, v0, v1, U);
+    }
+    // the head rounds h_T to bf16 in bf16 mode, as the A fragments hold it
+  } else if constexpr (kBf16) {
     const uint2* s_b = reinterpret_cast<const uint2*>(s_w) + lane;
     // h as the A operand, bf16: n-tiles 2k, 2k + 1 of the C layout are
     // k-block k (zeros are bf16 zeros)
@@ -544,6 +644,22 @@ cudaError_t dispatch_tile(int DP, int UP, const void* x, int batch, int T,
   return cudaErrorInvalidValue;
 }
 
+// Projected mode: every U_p up to kCapU
+template <bool kBf16>
+cudaError_t dispatch_projected(int UP, const float* xw, int batch, int T, int U,
+                               const void* w, const float* bias,
+                               const float* head_w, const float* head_b, int C,
+                               float* seq_out, float* logits, cudaStream_t stream) {
+#define TSC_LSTM_PROJ_CASE(up)                                                \
+  if (UP == up)                                                               \
+    return launch_tile<float, kBf16, 0, up>(xw, batch, T, 0, U, w, bias,      \
+                                            head_w, head_b, C, seq_out,       \
+                                            logits, stream);
+  TSC_LSTM_PROJ_CASE(16) TSC_LSTM_PROJ_CASE(32) TSC_LSTM_PROJ_CASE(48) TSC_LSTM_PROJ_CASE(64)
+#undef TSC_LSTM_PROJ_CASE
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // The tile kernel.  x (batch, T, D) f32 or bf16; wpack and bias as
@@ -576,5 +692,32 @@ extern "C" int tsc_lstm_layer(const void* x, int x_bf16, int batch, int T,
     err = bf16_math
               ? dispatch_tile<float, true>(DP, UP, x, batch, T, D, U, wpack, fb, hw, hb, C, so, lo, s)
               : dispatch_tile<float, false>(DP, UP, x, batch, T, D, U, wpack, fb, hw, hb, C, so, lo, s);
+  return static_cast<int>(err);
+}
+
+// The tile kernel in projected mode, the layer's second launch after
+// tsc_rnn_projection: xw that launch's output ((batch + 15) / 16, T, U_p /
+// 2, 32, 4) f32 (x_t @ W + b); wpack and bias as ops/rnn_projection.py::
+// pack_lstm_projected packs the recurrence for bf16_math (U alone, a zero
+// bias); head, seq_out and logits as tsc_lstm_layer's.  Returns the launch's
+// cudaError_t; cudaErrorInvalidValue for U_p past kCapU.
+extern "C" int tsc_lstm_layer_proj(const void* xw, int batch, int T, int U,
+                                   const void* wpack, const void* bias,
+                                   const void* head_w, const void* head_b,
+                                   int C, void* seq_out, void* logits,
+                                   int bf16_math, void* stream) {
+  if (batch <= 0 || T <= 0 || U <= 0 || (logits && C <= 0)) return cudaErrorInvalidValue;
+  const int UP = (U + 15) / 16 * 16;
+  if (UP > kCapU) return cudaErrorInvalidValue;
+  const float* x = static_cast<const float*>(xw);
+  const float* fb = static_cast<const float*>(bias);
+  const float* hw = static_cast<const float*>(head_w);
+  const float* hb = static_cast<const float*>(head_b);
+  float* so = static_cast<float*>(seq_out);
+  float* lo = static_cast<float*>(logits);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      bf16_math ? dispatch_projected<true>(UP, x, batch, T, U, wpack, fb, hw, hb, C, so, lo, s)
+                : dispatch_projected<false>(UP, x, batch, T, U, wpack, fb, hw, hb, C, so, lo, s);
   return static_cast<int>(err);
 }

@@ -5,6 +5,8 @@ beside the shipped library and timed in turns on the card.
 
     python -m tpu_speech_commands_torch.dev.gru_ablation [--batch 8192]
         [--iters 20]
+    python -m tpu_speech_commands_torch.dev.gru_ablation --features 300
+        [--frames 23] [--batch 8192] [--iters 20]
 
 Variants (text substitutions in a copy of the source; every one computes
 the shipped kernel's function, and its logits are printed against the
@@ -30,6 +32,14 @@ Times: device time from CUDA graphs (`graph_ms`: a bf16 launch is shorter
 than its host work) of `gru_layer_cuda` on a seeded 48-unit layer over
 (B, 30, 20) features, f32 and bf16 (bf16 features), every variant in the
 order base, variants, then reversed.
+
+`--features D` (above gru_plan.CAP_D) times the projected route's parts
+instead, on the shipped library: the projection alone
+(`rnn_projection_cuda`), the recurrence alone
+(`projected_recurrence_cuda` on its XW), both (`gru_layer_cuda`), and the
+SIMT kernel where its block fits (`gru_plan.simt_smem_bytes`), in turns,
+on a seeded 48-unit layer over numpy-seeded (B, frames, D) features, f32
+and bf16 (bf16 features), each first held to the plain module.
 """
 from __future__ import annotations
 
@@ -39,8 +49,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.rnn import SimpleGRU
-from ..ops import _build, rnn_kernel
+from ..models.rnn import SimpleGRU, SimpleLSTM
+from ..ops import _build, gru_plan, rnn_kernel, rnn_projection
 from ..ops.gru_plan import pack_gru_weights
 from . import card_line, graph_ms
 from .ct_ablation import build
@@ -116,14 +126,87 @@ def time_variants(libs: dict, run_for, iters: int):
     return times, outs
 
 
+def time_projected(cell: str, batch: int, features: int, frames: int,
+                   iters: int, dev, card: str) -> dict:
+    """The projected route's parts for a seeded 48-unit GRU or LSTM layer
+    ("gru", "lstm") over numpy-seeded (batch, frames, features) features,
+    f32 and bf16 (bf16 features): device times (`graph_ms`) of the
+    projection alone, the recurrence alone, both, and the SIMT kernel where
+    its block fits, in the order projection, recurrence, both, simt, then
+    reversed; each run first held to the plain module.  Returns {(dtype,
+    part): [ms, ms]}."""
+    gates = 3 if cell == "gru" else 4
+    if gru_plan.kernel_for(features, 48) != "proj":
+        raise ValueError(f"{features} features do not take the projected "
+                         f"route (above {gru_plan.CAP_D})")
+    rng = np.random.default_rng(0)
+    model = (SimpleGRU if cell == "gru" else SimpleLSTM)(5, features, 48)
+    with torch.no_grad():
+        for prm in model.parameters():
+            prm.copy_(torch.tensor(0.1 * rng.standard_normal(tuple(prm.shape)),
+                                   dtype=torch.float32))
+    model = model.to(dev).eval()
+    layer, head = model.backbone.cells()[0], model.score_predict
+    weights = ((layer.kernel, layer.recurrent_kernel, layer.bias_input,
+                layer.bias_recurrent) if cell == "gru" else
+               (layer.kernel, layer.recurrent_kernel, layer.bias))
+    launch = rnn_kernel.gru_layer_cuda if cell == "gru" else \
+        rnn_kernel.lstm_layer_cuda
+    pack_for = rnn_projection.pack_gru_projected if cell == "gru" else \
+        rnn_projection.pack_lstm_projected
+    x32 = torch.tensor(rng.standard_normal((batch, frames, features)),
+                       dtype=torch.float32, device=dev)
+    simt_fits = gru_plan.simt_smem_bytes(frames, features, 48, gates) <= \
+        gru_plan.SMEM_OPTIN
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = x32.to(dtype)
+        pack = pack_for(*weights, dtype)
+        xw = rnn_projection.rnn_projection_cuda(x, pack.projection)
+        runs = {
+            "projection": lambda: rnn_projection.rnn_projection_cuda(
+                x, pack.projection),
+            "recurrence": lambda: rnn_kernel.projected_recurrence_cuda(
+                xw, batch, pack, head.kernel, head.bias),
+            "both": lambda: launch(x, *weights, head.kernel, head.bias, dtype,
+                                   pack)}
+        if simt_fits:
+            runs["simt"] = lambda: launch(x, *weights, head.kernel, head.bias,
+                                          dtype, _simt=True)
+        with torch.no_grad():
+            want = model(x.float(), dtype)
+        atol = 1e-4 if dtype == torch.float32 else 5e-2
+        for name in ("both", "recurrence", "simt"):
+            if name in runs:
+                torch.testing.assert_close(runs[name](), want, rtol=1e-5,
+                                           atol=atol)
+        for name in list(runs) + list(runs)[::-1]:
+            times.setdefault((dtype, name), []).append(
+                graph_ms(runs[name], iters if name != "simt" else 3))
+        for name in runs:
+            print(f"{cell}_classifier {str(dtype)[6:]:8s} {name:10s} "
+                  + ", ".join(f"{t:.4f}" for t in times[dtype, name])
+                  + f" ms (device time)  (B = {batch}, 48 units, {frames} x "
+                  f"{features}, {card})", flush=True)
+    return times
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=8192)
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--features", type=int, default=None,
+                    help="time the projected route's parts at this feature "
+                         "size (above gru_plan.CAP_D) instead of the variants")
+    ap.add_argument("--frames", type=int, default=23,
+                    help="frames a window with --features")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     card = card_line()
     print(card, flush=True)
+    if args.features is not None:
+        return time_projected("gru", args.batch, args.features, args.frames,
+                              args.iters, dev, card)
     libs = build(variant_sources(), "gru")
     model = SimpleGRU(5, 20, 48)
     rng = np.random.default_rng(0)

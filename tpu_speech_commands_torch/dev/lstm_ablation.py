@@ -6,6 +6,8 @@ the card, as `dev/gru_ablation.py` does for the GRU.
 
     python -m tpu_speech_commands_torch.dev.lstm_ablation [--batch 8192]
         [--iters 20]
+    python -m tpu_speech_commands_torch.dev.lstm_ablation --features 300
+        [--frames 23] [--batch 8192] [--iters 20]
 
 Variants (text substitutions in a copy of the source; every one computes
 the shipped kernel's function, and its logits are printed against the
@@ -35,6 +37,10 @@ Cuts (their logits are not the kernel's; only their time is read):
 Times: device time from CUDA graphs (`graph_ms`) of `lstm_layer_cuda` on a
 seeded 48-unit layer over (B, 30, 20) features, f32 and bf16 (bf16
 features), every variant in the order base, variants, then reversed.
+
+`--features D` (above gru_plan.CAP_D) times the projected route's parts
+instead (`gru_ablation.time_projected`: the projection alone, the
+recurrence alone, both, and the SIMT kernel where its block fits).
 """
 from __future__ import annotations
 
@@ -49,7 +55,7 @@ from ..ops import rnn_kernel
 from ..ops.lstm_plan import pack_lstm_weights
 from . import card_line
 from .ct_ablation import build
-from .gru_ablation import edited_sources, time_variants
+from .gru_ablation import edited_sources, time_projected, time_variants
 
 RCP = ("    si[e] = rcp_rn(di[e]);\n"
        "    sf[e] = rcp_rn(df[e]);\n"
@@ -103,10 +109,18 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=8192)
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--features", type=int, default=None,
+                    help="time the projected route's parts at this feature "
+                         "size (above gru_plan.CAP_D) instead of the variants")
+    ap.add_argument("--frames", type=int, default=23,
+                    help="frames a window with --features")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     card = card_line()
     print(card, flush=True)
+    if args.features is not None:
+        return time_projected("lstm", args.batch, args.features, args.frames,
+                              args.iters, dev, card)
     libs = build(variant_sources(), "lstm")
     model = SimpleLSTM(5, 20, 48)
     rng = np.random.default_rng(0)

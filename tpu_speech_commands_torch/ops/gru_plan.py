@@ -27,6 +27,12 @@ side by side (`slot`, `X_PITCH` floats a k), and reads, per k, that pair
 and the float2 weights of every n-tile at [k][n][t]: the padded [W; U]
 matrix itself, row-major.
 
+Projected mode (route "proj", inputs wider than CAP_D): D_p = 0, the
+pack holds U alone, and the accumulators of the gates x_t feeds start from
+XW_t, the input projection's output (`ops/rnn_projection.py`,
+`csrc/rnn_projection.cu`) in the C layout, which each warp copies into a
+ring of two steps in shared memory a step ahead (`tile_smem_bytes`).
+
 `emulate` runs these maps on the CPU in torch (`WarpTiles`, whatever the
 gates: `ops/lstm_plan.py` runs the LSTM tile kernel's on it); tests hold it
 against the plain module (`models/rnn.py`) and the JAX kernel.
@@ -37,6 +43,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from .fft_plan import SMEM_OPTIN  # a block's opt-in shared memory
 
 TILE = 16        # the rows of an mma tile
 ROWS = 16        # windows a warp, a tile's rows
@@ -75,10 +83,44 @@ def padded(n: int) -> int:
     return -(-n // PAD) * PAD
 
 
+def kernel_for(d_in: int, units: int) -> str:
+    """Either tile kernel's route for a layer of these widths: "tile" where
+    both padded widths fit its instantiations; "proj" where only the units
+    do (the projection kernel, then the tile kernel in projected mode: any
+    D); else "simt", the first design."""
+    if padded(units) > CAP_U:
+        return "simt"
+    return "tile" if padded(d_in) <= CAP_D else "proj"
+
+
 def gru_kernel_for(d_in: int, units: int) -> str:
-    """"tile" where the padded widths fit the tile kernel's instantiations,
-    else "simt" (`tsc_gru_layer_simt`)."""
-    return "tile" if padded(d_in) <= CAP_D and padded(units) <= CAP_U else "simt"
+    """The GRU's route (`kernel_for`): "tile", "proj" or "simt"
+    (`tsc_gru_layer_simt`)."""
+    return kernel_for(d_in, units)
+
+
+def tile_smem_bytes(d_p: int, u_p: int, bf16: bool, gates: int = 3,
+                    warps: int = WARPS) -> int:
+    """A tile kernel's block of shared memory (`tile_smem` of csrc/
+    gru_classifier.cu, 3 gates, and csrc/lstm_classifier.cu, 4): the bias,
+    the packed weights, f32 mode's warp buffers of D_p + U_p k-rows, and in
+    projected mode (d_p 0) each warp's ring of two steps of XW, a 16-byte
+    word a lane an n-tile."""
+    n_t, k = gates * u_p // 8, d_p + u_p
+    weights = (k // 16 * n_t * 256 if bf16 else
+               k * gates * u_p * 4 + warps * k * X_PITCH * 4)
+    ring = warps * 2 * n_t * 512 if d_p == 0 else 0
+    return 16 * u_p + weights + ring
+
+
+def simt_smem_bytes(steps: int, d_in: int, units: int, gates: int) -> int:
+    """The SIMT kernels' block at its smallest tile, one window (`smem_floats`
+    of either .cu: W, U, the biases (the GRU's two, the LSTM's one), the
+    window's features and the h double buffer): their launch is refused
+    past SMEM_OPTIN."""
+    g = gates * units
+    biases = 2 if gates == 3 else 1
+    return 4 * (d_in * g + units * g + biases * g + steps * d_in + 2 * units)
 
 
 @dataclass(frozen=True)
@@ -237,6 +279,13 @@ class WarpTiles:
     def zeros(self) -> torch.Tensor:
         return torch.zeros((self.warps, self.nu, 32, 4))
 
+    def projected(self, xw: torch.Tensor, step: int, gate: int) -> torch.Tensor:
+        """Projected mode: gate `gate`'s XW_t of each warp in the C layout
+        (warps, NU, 32, 4), from XW in the projection's layout (B / 16, T,
+        NT, 32, 4) (`rnn_projection.to_tiles`)."""
+        nu = self.nu
+        return xw[:self.warps, step, gate * nu:(gate + 1) * nu].float()
+
     def products(self, step: int, h: torch.Tensor):
         warps, nu, d_p = self.warps, self.nu, self.pack.d_p
         c_row, c_col = self.c_row, torch.as_tensor(C_COL)
@@ -299,16 +348,21 @@ class WarpTiles:
 
 def emulate(pack: TilePack, x: torch.Tensor, head_kernel=None,
             head_bias=None, rows=None, c_to_a=C_TO_A, h_slot=slot,
-            padded_units=False) -> torch.Tensor:
+            padded_units=False, xw=None) -> torch.Tensor:
     """Run the GRU tile kernel's warps on the CPU (`WarpTiles`).  x (B, T,
     D) float32 or bfloat16 -> logits (B, C) with a head, else the h sequence
-    (B, T, U; U_p with `padded_units`), float32."""
+    (B, T, U; U_p with `padded_units`), float32.  Projected mode: `pack`
+    holds U alone (`rnn_projection.pack_gru_projected`), x is (B, T, 0) and
+    `xw` the projection's output, which starts z, r and xh."""
     tiles = WarpTiles(pack, x, rows, c_to_a, h_slot)
     nu, h = tiles.nu, tiles.zeros()
     for step in range(tiles.steps):
         products = tiles.products(step, h)
         # [x_t | h] into z and r; x_t @ W_h and h @ U_h apart
         z, r, xh, hh = tiles.bias
+        if xw is not None:
+            z, r, xh = (b + tiles.projected(xw, step, q)
+                        for q, b in enumerate((z, r, xh)))
         z = z + products(tiles.every, 0)
         r = r + products(tiles.every, nu)
         xh = xh + products(tiles.xs, 2 * nu)

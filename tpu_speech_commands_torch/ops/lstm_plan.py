@@ -23,17 +23,18 @@ from __future__ import annotations
 import torch
 
 from .gru_plan import (C_TO_A, CAP_D, CAP_U, ROWS, WARPS, X_PITCH, TilePack,
-                       WarpTiles, check_compute_dtype, pack_matrix, padded,
-                       padded_matrix, sigmoid, slot)
+                       WarpTiles, check_compute_dtype, kernel_for,
+                       pack_matrix, padded, padded_matrix, sigmoid, slot)
 
 __all__ = ["CAP_D", "CAP_U", "ROWS", "WARPS", "X_PITCH", "emulate",
            "lstm_kernel_for", "pack_lstm_weights"]
 
 
 def lstm_kernel_for(d_in: int, units: int) -> str:
-    """"tile" where the padded widths fit the tile kernel's instantiations,
-    else "simt" (`tsc_lstm_layer_simt`)."""
-    return "tile" if padded(d_in) <= CAP_D and padded(units) <= CAP_U else "simt"
+    """The LSTM's route (`gru_plan.kernel_for`): "tile", "proj" (the
+    projection kernel, then the tile kernel in projected mode) or "simt"
+    (`tsc_lstm_layer_simt`)."""
+    return kernel_for(d_in, units)
 
 
 def pack_lstm_weights(kernel, recurrent_kernel, bias,
@@ -54,19 +55,23 @@ def pack_lstm_weights(kernel, recurrent_kernel, bias,
 
 def emulate(pack: TilePack, x: torch.Tensor, head_kernel=None,
             head_bias=None, c_to_a=C_TO_A, h_slot=slot,
-            padded_units=False) -> torch.Tensor:
+            padded_units=False, xw=None) -> torch.Tensor:
     """Run the LSTM tile kernel's warps on the CPU (`gru_plan.WarpTiles`,
     16 windows a warp).  x (B, T, D) float32 or bfloat16 -> logits (B, C)
     with a head, else the h sequence (B, T, U; U_p with `padded_units`),
     float32.  `c_to_a` and `h_slot` are the maps by which the bf16 and the
-    f32 mode hand h to the next step (tests perturb them)."""
+    f32 mode hand h to the next step (tests perturb them).  Projected mode:
+    `pack` holds U alone (`rnn_projection.pack_lstm_projected`), x is (B,
+    T, 0) and `xw` the projection's output, which starts all four gates."""
     tiles = WarpTiles(pack, x, ROWS, c_to_a, h_slot)
     nu, h = tiles.nu, tiles.zeros()
     c = tiles.zeros()
     for step in range(tiles.steps):
         products = tiles.products(step, h)
+        starts = tiles.bias if xw is None else [
+            b + tiles.projected(xw, step, q) for q, b in enumerate(tiles.bias)]
         gi, gf, gc, go = (b + products(tiles.every, q * nu)
-                          for q, b in enumerate(tiles.bias))
+                          for q, b in enumerate(starts))
         c = sigmoid(gf) * c + sigmoid(gi) * torch.tanh(gc)
         h = sigmoid(go) * torch.tanh(c)
         tiles.end_step(step, h)

@@ -8,14 +8,23 @@ candidate) or LSTM layer (gates [i, f, c, o], one bias) over the whole
 sequence, with the dense head fused into the last layer's launch.  A
 stacked model runs one launch per layer.
 
-Each runs a tile kernel (`tsc_gru_layer`, `tsc_lstm_layer`: one warp for
-16 windows, bf16 `mma.sync` or f32 register tiles in its layout, the
-shared pieces in `csrc/rnn_tile.cuh`; plan, weight pack and CPU emulation
-in `ops/gru_plan.py` and `ops/lstm_plan.py`) wherever
-`gru_plan.gru_kernel_for` / `lstm_plan.lstm_kernel_for` takes the layer's
-widths, and the first, SIMT kernel (`tsc_gru_layer_simt`,
-`tsc_lstm_layer_simt`) for wider layers or with `_simt=True` (the A/B
-baseline); neither stands in for the other on an error.
+Each runs, by `gru_plan.gru_kernel_for` / `lstm_plan.lstm_kernel_for` of
+the layer's widths:
+- "tile": a tile kernel (`tsc_gru_layer`, `tsc_lstm_layer`: one warp for
+  16 windows, bf16 `mma.sync` or f32 register tiles in its layout, the
+  shared pieces in `csrc/rnn_tile.cuh`; plan, weight pack and CPU
+  emulation in `ops/gru_plan.py` and `ops/lstm_plan.py`), inputs and units
+  padded to 64 or fewer;
+- "proj": inputs wider than that, two launches: the input projection
+  (`csrc/rnn_projection.cu`, `ops/rnn_projection.py`: XW = x @ W + b on
+  the tensor cores, into a workspace allocated here) and the tile kernel
+  in projected mode (`tsc_gru_layer_proj`, `tsc_lstm_layer_proj`: only
+  h @ U a step), the TPU kernel's hoisted projection;
+- "simt": units padded past 64 (no shipped config), and every layer with
+  `_simt=True` (the A/B baseline): the first, SIMT kernel
+  (`tsc_gru_layer_simt`, `tsc_lstm_layer_simt`), whose block stages W and
+  the window's features and is refused past 232,448 bytes.
+No kernel stands in for another on an error.
 
 `GRUClassifier` and `LSTMClassifier` dispatch on the tensor they are given:
 a CPU tensor goes through the plain module loop (`models/rnn.py::SimpleGRU`,
@@ -26,10 +35,12 @@ from __future__ import annotations
 import torch
 
 from ..models.rnn import SimpleGRU, SimpleLSTM
-from . import _build, gru_plan
+from . import _build, gru_plan, rnn_projection
 from .launch_count import LaunchCount
 from .gru_plan import TilePack, gru_kernel_for, pack_gru_weights
 from .lstm_plan import lstm_kernel_for, pack_lstm_weights
+from .rnn_projection import (ProjectedPack, pack_gru_projected,
+                             pack_lstm_projected)
 
 SOURCE = "tpu_speech_commands_torch/csrc/gru_classifier.cu"
 REPLACES = "tpu_speech_commands/ops/pallas_rnn.py:223"
@@ -52,6 +63,10 @@ _LSTM_INT_ARGS = (1, 2, 3, 4, 5, 10, 13)
 #   C, seq_out, logits, bf16_math, stream)
 _LSTM_SIMT_N_ARGS = 16
 _LSTM_SIMT_INT_ARGS = (1, 2, 3, 4, 5, 11, 14)
+# tsc_gru_layer_proj / tsc_lstm_layer_proj(xw, batch, T, U, wpack, bias,
+#   head_w, head_b, C, seq_out, logits, bf16_math, stream)
+_PROJ_N_ARGS = 13
+_PROJ_INT_ARGS = (1, 2, 3, 8, 11)
 _COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -80,11 +95,12 @@ def _check_input(x, compute_dtype, units, what):
                          f"{units}")
 
 
-def _outputs(x, units, head_kernel, head_bias):
+def _outputs(x, units, head_kernel, head_bias, batch=None):
     """The layer's output tensor and the (head_w, head_b, C, seq_out,
     logits) launch arguments: logits (B, C) with a head, else the h
-    sequence (B, T, U)."""
-    batch, steps, _ = x.shape
+    sequence (B, T, U).  B is x's first dimension unless given."""
+    batch = x.shape[0] if batch is None else batch
+    steps = x.shape[1]
     if head_kernel is not None:
         n_classes = head_kernel.shape[-1]
         _check_weight("head kernel", head_kernel, (units, n_classes), x.device)
@@ -113,6 +129,9 @@ def _launch(name, n_args, int_args, x, weights, units, head_args,
 
 
 def _check_pack(pack: TilePack, d_in, units, compute_dtype, device):
+    if not isinstance(pack, TilePack):
+        raise ValueError(f"a ({d_in}, {units}) layer takes the tile kernel: "
+                         f"need a TilePack, got {type(pack).__name__}")
     if (pack.d_in, pack.units, pack.compute_dtype) != (d_in, units,
                                                        compute_dtype):
         raise ValueError(
@@ -126,22 +145,83 @@ def _check_pack(pack: TilePack, d_in, units, compute_dtype, device):
                              f"tensor on {device}, got one on {t.device}")
 
 
+def _check_projected(pack, d_in, units, compute_dtype, device):
+    if not isinstance(pack, ProjectedPack):
+        raise ValueError(f"a {d_in}-feature layer takes the projected route: "
+                         f"need a ProjectedPack, got {type(pack).__name__}")
+    _check_pack(pack.recurrence, 0, units, compute_dtype, device)
+    if (pack.d_in, pack.compute_dtype) != (d_in, compute_dtype):
+        raise ValueError(
+            f"projected pack of a {pack.d_in}-feature layer for "
+            f"{pack.compute_dtype}, launch of a {d_in}-feature layer for "
+            f"{compute_dtype}")
+
+
+def projected_recurrence_cuda(xw: torch.Tensor, batch: int,
+                              pack: ProjectedPack, head_kernel=None,
+                              head_bias=None) -> torch.Tensor:
+    """The projected route's second launch alone: the GRU's or the LSTM's
+    tile kernel in projected mode (by the pack's gates) over XW, the
+    projection's output for `batch` windows (`rnn_projection_cuda`).
+    Returns what the layer returns; adds one to `gru_layer_cuda.launches`
+    or `lstm_layer_cuda.launches`."""
+    units, cd = pack.units, pack.compute_dtype
+    if xw.dtype != torch.float32 or not xw.is_cuda or not xw.is_contiguous() \
+            or xw.shape[0] != -(-batch // gru_plan.TILE) \
+            or xw.shape[2:] != (pack.projection.n_cols // 8, 32, 4):
+        raise ValueError(f"XW of {batch} windows for this pack: need a "
+                         f"contiguous float32 CUDA tensor ({-(-batch // 16)}, "
+                         f"T, {pack.projection.n_cols // 8}, 32, 4), got "
+                         f"{xw.dtype} {tuple(xw.shape)} on {xw.device}")
+    _check_projected(pack, pack.d_in, units, cd, xw.device)
+    out, head_args = _outputs(xw, units, head_kernel, head_bias, batch)
+    gru = pack.projection.gates == 3
+    name = "tsc_gru_layer_proj" if gru else "tsc_lstm_layer_proj"
+    fn = _build.bind(name, _PROJ_N_ARGS, _PROJ_INT_ARGS)
+    with torch.cuda.device(xw.device):
+        stream = torch.cuda.current_stream(xw.device).cuda_stream
+        rc = fn(xw.data_ptr(), batch, xw.shape[1], units,
+                pack.recurrence.weights.data_ptr(),
+                pack.recurrence.bias.data_ptr(), *head_args,
+                int(cd == torch.bfloat16), stream)
+    _build.check(rc, name)
+    if gru:
+        gru_layer_cuda.launches += 1
+    else:
+        lstm_layer_cuda.launches += 1
+    return out
+
+
+def _projected(x, pack: ProjectedPack, units, head_kernel, head_bias,
+               compute_dtype) -> torch.Tensor:
+    """The projected route's two launches: the projection into a workspace,
+    then the tile kernel in projected mode over it."""
+    _check_projected(pack, x.shape[2], units, compute_dtype, x.device)
+    xw = rnn_projection.rnn_projection_cuda(x, pack.projection)
+    return projected_recurrence_cuda(xw, x.shape[0], pack, head_kernel,
+                                     head_bias)
+
+
 def gru_layer_cuda(x: torch.Tensor, kernel: torch.Tensor,
                    recurrent_kernel: torch.Tensor, bias_input: torch.Tensor,
                    bias_recurrent: torch.Tensor, head_kernel=None,
                    head_bias=None, compute_dtype=torch.float32,
-                   pack: TilePack | None = None, _simt: bool = False,
+                   pack: TilePack | ProjectedPack | None = None,
+                   _simt: bool = False,
                    _split: tuple[int, int] | None = None) -> torch.Tensor:
     """Launch a GRU kernel for one layer.  x (B, T, D) float32 or bfloat16
     on a CUDA device, weights in the Keras layout (float32).  With a head:
     returns logits (B, C) float32; without: the layer's h sequence (B, T, U)
     float32.
 
-    The tile kernel where `gru_plan.gru_kernel_for(D, U)` is "tile", on
-    `pack` (`pack_gru_weights` of these weights for compute_dtype; packed
-    here when None): adds one to `.launches`.  `_split` (windows a warp,
-    warps a block; `gru_plan.SWEEP`) overrides its work split.  The SIMT
-    kernel for wider layers, or with `_simt=True` (the A/B): adds one to
+    By `gru_plan.gru_kernel_for(D, U)`: "tile", the tile kernel on `pack`
+    (`pack_gru_weights` of these weights for compute_dtype; packed here
+    when None), adding one to `.launches`; `_split` (windows a warp, warps
+    a block; `gru_plan.SWEEP`) overrides its work split.  "proj", the
+    projection kernel (one to `rnn_projection.PROJECTION.launches`) and the
+    tile kernel in projected mode (one to `.launches`) on `pack`
+    (`rnn_projection.pack_gru_projected`; packed here when None).  "simt",
+    or `_simt=True` (the A/B): the SIMT kernel, one to
     `GRU_SIMT.launches`."""
     units = recurrent_kernel.shape[0]
     _check_input(x, compute_dtype, units, "GRU")
@@ -154,12 +234,19 @@ def gru_layer_cuda(x: torch.Tensor, kernel: torch.Tensor,
     out, head_args = _outputs(x, units, head_kernel, head_bias)
     if x.shape[0] == 0:
         return out
-    if _simt or gru_kernel_for(d_in, units) == "simt":
+    route = "simt" if _simt else gru_kernel_for(d_in, units)
+    if route == "simt":
         _launch("tsc_gru_layer_simt", _SIMT_N_ARGS, _SIMT_INT_ARGS, x,
                 (kernel, recurrent_kernel, bias_input, bias_recurrent), units,
                 head_args, compute_dtype)
         GRU_SIMT.launches += 1
         return out
+    if route == "proj":
+        if pack is None:
+            pack = pack_gru_projected(kernel, recurrent_kernel, bias_input,
+                                      bias_recurrent, compute_dtype)
+        return _projected(x, pack, units, head_kernel, head_bias,
+                          compute_dtype)
     if pack is None:
         pack = pack_gru_weights(kernel, recurrent_kernel, bias_input,
                                 bias_recurrent, compute_dtype)
@@ -192,17 +279,20 @@ def lstm_layer_cuda(x: torch.Tensor, kernel: torch.Tensor,
                     recurrent_kernel: torch.Tensor, bias: torch.Tensor,
                     head_kernel=None, head_bias=None,
                     compute_dtype=torch.float32,
-                    pack: TilePack | None = None,
+                    pack: TilePack | ProjectedPack | None = None,
                     _simt: bool = False) -> torch.Tensor:
     """Launch an LSTM kernel for one layer.  x (B, T, D) float32 or
     bfloat16 on a CUDA device, weights in the Keras layout (float32, gates
     [i, f, c, o]).  With a head: returns logits (B, C) float32; without: the
     layer's h sequence (B, T, U) float32.
 
-    The tile kernel where `lstm_plan.lstm_kernel_for(D, U)` is "tile", on
-    `pack` (`pack_lstm_weights` of these weights for compute_dtype; packed
-    here when None): adds one to `.launches`.  The SIMT kernel for wider
-    layers, or with `_simt=True` (the A/B): adds one to
+    By `lstm_plan.lstm_kernel_for(D, U)`: "tile", the tile kernel on `pack`
+    (`pack_lstm_weights` of these weights for compute_dtype; packed here
+    when None), adding one to `.launches`.  "proj", the projection kernel
+    (one to `rnn_projection.PROJECTION.launches`) and the tile kernel in
+    projected mode (one to `.launches`) on `pack`
+    (`rnn_projection.pack_lstm_projected`; packed here when None).
+    "simt", or `_simt=True` (the A/B): the SIMT kernel, one to
     `LSTM_SIMT.launches`."""
     units = recurrent_kernel.shape[0]
     _check_input(x, compute_dtype, units, "LSTM")
@@ -214,12 +304,19 @@ def lstm_layer_cuda(x: torch.Tensor, kernel: torch.Tensor,
     out, head_args = _outputs(x, units, head_kernel, head_bias)
     if x.shape[0] == 0:
         return out
-    if _simt or lstm_kernel_for(d_in, units) == "simt":
+    route = "simt" if _simt else lstm_kernel_for(d_in, units)
+    if route == "simt":
         _launch("tsc_lstm_layer_simt", _LSTM_SIMT_N_ARGS, _LSTM_SIMT_INT_ARGS,
                 x, (kernel, recurrent_kernel, bias), units, head_args,
                 compute_dtype)
         LSTM_SIMT.launches += 1
         return out
+    if route == "proj":
+        if pack is None:
+            pack = pack_lstm_projected(kernel, recurrent_kernel, bias,
+                                       compute_dtype)
+        return _projected(x, pack, units, head_kernel, head_bias,
+                          compute_dtype)
     if pack is None:
         pack = pack_lstm_weights(kernel, recurrent_kernel, bias, compute_dtype)
     _check_pack(pack, d_in, units, compute_dtype, x.device)
@@ -237,10 +334,11 @@ class _RNNClassifier:
     """(B, T, D) features -> (B, C) float32 logits.  CPU tensors run the
     module's own loop; CUDA tensors launch the kernel once per layer, the
     last launch with the head.  For a model on the card, each layer the
-    tile kernel takes has its weights packed once, here: a later change to
-    the model's weights needs a new classifier.  `_simt` runs every layer
-    on the SIMT kernel instead, for the A/B.  Subclasses name the model
-    class, the route, the pack and the per-layer launch."""
+    tile kernel takes, directly or projected, has its weights packed once,
+    here: a later change to the model's weights needs a new classifier.
+    `_simt` runs every layer on the SIMT kernel instead, for the A/B.
+    Subclasses name the model class, the route, the packs and the
+    per-layer launch."""
 
     def __init__(self, model, compute_dtype=torch.float32, _simt=False):
         if not isinstance(model, self.model_cls):
@@ -254,11 +352,13 @@ class _RNNClassifier:
         self.simt = _simt
         self.device = next(model.parameters()).device
         on_card = self.device.type == "cuda"
+        routes = {cell: self._kernel_for(cell.kernel.shape[0], cell.units)
+                  for cell in model.backbone.cells()}
         self.packs = {
-            cell: self._pack(cell, compute_dtype)
-            for cell in model.backbone.cells()
-            if on_card and not _simt
-            and self._kernel_for(cell.kernel.shape[0], cell.units) == "tile"}
+            cell: (self._pack if route == "tile" else self._pack_projected)(
+                cell, compute_dtype)
+            for cell, route in routes.items()
+            if on_card and not _simt and route in ("tile", "proj")}
 
     @torch.inference_mode()
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
@@ -288,6 +388,12 @@ class GRUClassifier(_RNNClassifier):
                                 cell.bias_input, cell.bias_recurrent,
                                 compute_dtype)
 
+    @staticmethod
+    def _pack_projected(cell, compute_dtype):
+        return pack_gru_projected(cell.kernel, cell.recurrent_kernel,
+                                  cell.bias_input, cell.bias_recurrent,
+                                  compute_dtype)
+
     def _layer(self, seq, cell, head_kernel, head_bias):
         return gru_layer_cuda(seq, cell.kernel, cell.recurrent_kernel,
                               cell.bias_input, cell.bias_recurrent,
@@ -305,6 +411,11 @@ class LSTMClassifier(_RNNClassifier):
     def _pack(cell, compute_dtype):
         return pack_lstm_weights(cell.kernel, cell.recurrent_kernel,
                                  cell.bias, compute_dtype)
+
+    @staticmethod
+    def _pack_projected(cell, compute_dtype):
+        return pack_lstm_projected(cell.kernel, cell.recurrent_kernel,
+                                   cell.bias, compute_dtype)
 
     def _layer(self, seq, cell, head_kernel, head_bias):
         return lstm_layer_cuda(seq, cell.kernel, cell.recurrent_kernel,
