@@ -62,8 +62,9 @@ Phases, in order; any failure raises and the script exits non-zero:
             tails within 1e-5 of each other; the fast_math kernel at 160,
             240 and 400 filters (its log-mel mode and the cepstrum kernel)
             in the mixed FFT's four cases against the float64 features of
-            its bf16 operands, and its log-mel launch alone against the
-            float64 rows; the FFT kernel at
+            its bf16 operands, and its log-mel launch alone (finished
+            filters from the registers) and its first log-mel design
+            (`_shared_sums=True`) against the float64 rows; the FFT kernel at
             window 1200 > n_fft, at alt_512 and an odd hop of 481, at every
             n_fft its register body takes (128 .. 4096), at 8192 and 16384
             (its wide body; window 1024, and n_fft = window = 8192 and
@@ -124,7 +125,8 @@ Phases, in order; any failure raises and the script exits non-zero:
               tail's stays at 0; scores against the CPU's); and the
               fast_math kernel at 240 filters (log-mel mode, the cepstrum
               kernel) into the same classifier: top-1 equal to the CPU's,
-              scores within the bf16 scores bound;
+              scores within the bf16 scores bound, and with log-mel mode's
+              first design (`_shared_sums=True`) the same;
             - the cepstrum kernel's first design kept for the A/B: the
               240-filter scorer's frontend with `_cepstrum_simt=True` into
               its GRU classifier kernel: its launch count rises (the
@@ -310,7 +312,9 @@ Phases, in order; any failure raises and the script exits non-zero:
             the same body fused at 20 x 20, the plain rows and the bound;
             the +cep frontend with either tail in turns at 1024 x 240 and
             4352 x 600; the fast_math kernel fused against its log-mel
-            mode in turns at 64-400 filters, and that mode's launch alone;
+            mode (in either design) with the cepstrum kernel in turns at
+            32-512 filters, and that mode's launch alone in either design
+            in turns, beside the bound and the windows a block;
             the classifiers at 300 features (above gru_plan.CAP_D, the
             projected route), f32 and bf16: the GRU against its SIMT
             kernel in turns, simt, new, new, simt, the projection alone
@@ -422,11 +426,11 @@ CEP_SHAPES = ((1000, 23, 600, 600), (37, 150, 40, 13), (300, 7, 128, 128),
 FAST_MATH_FILTERS = (160, 240, 400)
 # phase 5's timing of log-mel mode apart (dev/logmel_ablation.py): the +cep
 # frontend with either tail at one config of each body (the launch alone
-# runs at all of the script's CASES), and the fast_math kernel's two modes
-# in turns at (n_filt, n_mfcc) each side of its DFT_CEP_MIN_PRODUCTS and at
-# many filters
+# runs at all of the script's CASES); the fast_math kernel's modes (fused,
+# +cep in either log-mel design) in turns and its log-mel launch alone in
+# either design, in turns, at the script's DFT_CASES (n_filt 32-512, each
+# side of DFT_CEP_MIN_PRODUCTS)
 LOGMEL_FRONTEND = ((1024, 240, 20), (4352, 600, 600))
-DFT_MODES = ((64, 20), (96, 20), (240, 20), (400, 20))
 # the train and eval slice: train.py's default batch, the corpus of
 # .claude/skills/verify/SKILL.md step 1, the shipped class list
 TRAIN_BATCH = 512
@@ -2795,8 +2799,9 @@ def main() -> int:
     # cases (batch-major), held to the float64 features of its bf16 frames
     # and DFT matrix within the feature bound plus the rounding slack, as
     # its plain chain is; its log-mel launch alone (`dft_logmel_cuda`) to
-    # the float64 rows
-    dft_logmel_errs = []
+    # the float64 rows, in its design and in its first design
+    # (`_shared_sums=True`)
+    dft_logmel_errs, dft_shared_sums_errs = [], []
     for n_filt in FAST_MATH_FILTERS:
         for audio, out_dtype, gain, _, delta in mixed_cases:
             p = ListenerParams(n_filt=n_filt, use_delta=delta)
@@ -2820,20 +2825,25 @@ def main() -> int:
             del exact, slack
         p = ListenerParams(n_filt=n_filt)
         consts = frontend_kernel.DftConstants(p, "mfcc", dev)
-        rows = frontend_kernel.dft_logmel_cuda(
-            audio_f32, torch.full((1,), 0.8, dtype=torch.float32, device=dev),
-            consts, p)
-        err = cepstrum_ablation.check_conditioned(
-            f"fast_math log-mel rows {n_filt} filters", rows,
-            cepstrum_plan.logmel_plain(Frontend(p, "mfcc", dev,
-                                                fast_math=True),
-                                       audio_f32, 0.8),
-            *cepstrum_ablation.exact_logmel(p, audio_f32, 0.8,
-                                            fast_math=True))
-        dft_logmel_errs.append(err)
-        log(f"  fast_math log-mel rows {n_filt} filters{'':24s} max_abs_err "
-            f"{err:.3e} against the plain rows (both held to float64)")
-        del consts, rows
+        plain_rows = cepstrum_plan.logmel_plain(
+            Frontend(p, "mfcc", dev, fast_math=True), audio_f32, 0.8)
+        exact_rows = cepstrum_ablation.exact_logmel(p, audio_f32, 0.8,
+                                                    fast_math=True)
+        for shared, errs in ((False, dft_logmel_errs),
+                             (True, dft_shared_sums_errs)):
+            design = "first design" if shared else "design"
+            rows = frontend_kernel.dft_logmel_cuda(
+                audio_f32, torch.full((1,), 0.8, dtype=torch.float32,
+                                      device=dev),
+                consts, p, _shared_sums=shared)
+            err = cepstrum_ablation.check_conditioned(
+                f"fast_math log-mel rows {n_filt} filters ({design})", rows,
+                plain_rows, *exact_rows)
+            errs.append(err)
+            log(f"  fast_math log-mel rows {n_filt} filters ({design})"
+                f"{'':5s} max_abs_err {err:.3e} against the plain rows (both "
+                f"held to float64)")
+        del consts, rows, plain_rows, exact_rows
     # the stage cuts of both frontend kernels (K8 r3_omission :164), each
     # held to the one plain version with its stage's bound
     cut_consts = omission_kernel.TruncatedConstants(ListenerParams(), dev)
@@ -2877,6 +2887,7 @@ def main() -> int:
         "mfcc_frontend_logmel": frontend_kernel.LOGMEL,
         "mfcc_frontend_partial_sums": frontend_kernel.PARTIAL_SUMS,
         "dft_frontend_logmel": frontend_kernel.DFT_LOGMEL,
+        "dft_frontend_shared_sums": frontend_kernel.DFT_SHARED_SUMS,
         "dft_frontend_bf16": frontend_kernel.dft_frontend_bf16_cuda,
         "dft_frontend_mma_sync": frontend_kernel.MMA_SYNC,
         "gru_classifier": rnn_kernel.gru_layer_cuda,
@@ -3052,7 +3063,8 @@ def main() -> int:
                lambda: score_fn(scorer240.classifier(fm240(clips_dev))),
                ("dft_frontend_bf16", "dft_frontend_logmel", "cepstrum",
                 "gru_classifier"),
-               ("mfcc_frontend", "dft_frontend_mma_sync"))
+               ("mfcc_frontend", "dft_frontend_mma_sync",
+                "dft_frontend_shared_sums"))
     cpu_fm240 = score_fn(GRUClassifier(load_native(path240, "cpu").model)(
         MfccFrontend(p240, "mfcc", "cpu", fast_math=True)(
             torch.tensor(clips))))
@@ -3063,6 +3075,28 @@ def main() -> int:
     log(f"  fast_math at 240 filters: top-1 {top1} (the CPU's)")
     check_close("scores card vs CPU, fast_math at 240 filters", sc.cpu(),
                 cpu_fm240, SCORE_BF16_ATOL, 0.0)
+    # log-mel mode's first design kept for the A/B (every filter summed in
+    # shared memory, `_shared_sums=True`) into the same GRU classifier
+    # kernel: the same top-1, scores within the same bound
+    sc = drive("fast_math at 240 filters with log-mel mode's first design "
+               "(_shared_sums=True) + the 240-filter scorer's GRU "
+               "classifier on 8 clips",
+               lambda: score_fn(scorer240.classifier(
+                   frontend_kernel.dft_frontend_bf16_cuda(
+                       clips_dev, fm240._unit_gain, fm240.consts, p240,
+                       _shared_sums=True))),
+               ("dft_frontend_bf16", "dft_frontend_shared_sums", "cepstrum",
+                "gru_classifier"),
+               ("dft_frontend_logmel", "mfcc_frontend",
+                "dft_frontend_mma_sync"))
+    top1 = sc.argmax(-1).tolist()
+    if top1 != cpu_fm240.argmax(-1).tolist() or not torch.isfinite(sc).all():
+        raise AssertionError(f"fast_math at 240 filters, first log-mel "
+                             f"design: top-1 {top1}, CPU "
+                             f"{cpu_fm240.argmax(-1).tolist()}")
+    check_close("scores card vs CPU, fast_math at 240 filters, log-mel "
+                "mode's first design", sc.cpu(), cpu_fm240, SCORE_BF16_ATOL,
+                0.0)
     del scorer240, fe240, fm240
 
     # route ct with 300 filters and coefficients (no fused block fits their
@@ -3198,7 +3232,8 @@ def main() -> int:
             lambda: {dt: score_fn(c(fe(clips_dev)))
                      for dt, c in classifiers.items()},
             ("dft_frontend_bf16", kernel_name),
-            ("dft_frontend_mma_sync", "dft_frontend_logmel"))
+            ("dft_frontend_mma_sync", "dft_frontend_logmel",
+             "dft_frontend_shared_sums"))
         for dt, sc in scores.items():
             top1 = [predictor.classes[i] for i in sc.argmax(-1).tolist()]
             log(f"  {str(dt)[6:]:8s} top-1 {sum(a == b for a, b in zip(top1, labels))}/8")
@@ -3496,7 +3531,8 @@ def main() -> int:
     # fused at 20 filters and coefficients, the plain rows and the bound;
     # the +cep frontend with either tail (CUDA events) at LOGMEL_FRONTEND;
     # the fast_math kernel fused against its log-mel mode with the cepstrum
-    # kernel, in turns, at DFT_MODES, and that mode's launch alone
+    # kernel in either design, in turns, and that mode's launch alone in
+    # either design, in turns, at logmel_ablation.DFT_CASES
     lap("phase 5 up to log-mel mode apart")
     log(f"  log-mel mode apart at B = {B_TIME} ({card}):")
     logmel_alone = {(r["n_fft"], r["n_filt"], r["n_mfcc"]): r
@@ -3505,7 +3541,7 @@ def main() -> int:
                        for r in logmel_ablation.run_frontend(
                            B_TIME, 5, dev, cases=LOGMEL_FRONTEND)}
     dft_modes = {r["n_filt"]: r for r in logmel_ablation.run_dft(
-        B_TIME, 10, dev, cases=DFT_MODES)}
+        B_TIME, 10, dev)}
     lap("phase 5 log-mel mode apart")
     times = {
         "wide_fft_frontend": (wide_ab[WIDE_AB[0]]["ms"],
@@ -4255,22 +4291,34 @@ def main() -> int:
                     entry["n_fft_{}_{}x{}".format(*key)]["frontend_cep_ms"] \
                         = logmel_frontend[key]["ms"][tail][0]
         kernels.append(entry)
-    # the fast_math kernel in log-mel mode: alone at 240 filters, and each
-    # mode in turns at every many-filter config
+    # the fast_math kernel in log-mel mode, each design a row: alone at 240
+    # filters (both designs' times in turns in each), and each mode in turns
+    # at every config of the sweep
     row240 = dft_modes[240]
-    kernels.append({
-        "name": "dft_frontend_logmel", "route": "cuda",
-        "source": frontend_kernel.DFT_SOURCE,
-        "replaces": frontend_kernel.DFT_REPLACES,
-        "launches": launches["dft_frontend_logmel"],
-        "max_abs_err": max(dft_logmel_errs), "ms": row240["logmel_ms"],
-        "plain_ms": row240["logmel_plain_ms"],
-        "bound_ms": row240["logmel_bound_ms"],
-        "bound_by": row240["logmel_bound_by"], "library_ms": None,
-        "modes": {str(k): {"ms": r["ms"], "bound_ms": r["bound_ms"],
-                           "windows_per_block": r["windows_per_block"],
-                           "config_mode": r["config_mode"]}
-                  for k, r in dft_modes.items()}})
+    for name, design, errs in (
+            ("dft_frontend_logmel", "rows", dft_logmel_errs),
+            ("dft_frontend_shared_sums", "shared_sums",
+             dft_shared_sums_errs)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": frontend_kernel.DFT_SOURCE,
+            "replaces": frontend_kernel.DFT_REPLACES,
+            "launches": launches[name], "max_abs_err": max(errs),
+            "ms": row240["logmel_turns"][design][0],
+            "plain_ms": row240["logmel_plain_ms"],
+            "bound_ms": row240["logmel_bound_ms"],
+            "bound_by": row240["logmel_bound_by"], "library_ms": None,
+            "designs_ms": row240["logmel_turns"],
+            "designs_launches": {
+                "rows": launches["dft_frontend_logmel"],
+                "shared_sums": launches["dft_frontend_shared_sums"]},
+            "modes": {str(k): {
+                "ms": r["ms"], "bound_ms": r["bound_ms"],
+                "logmel_ms": r["logmel_turns"],
+                "logmel_bound_ms": r["logmel_bound_ms"],
+                "windows_per_block": r["windows_per_block"],
+                "config_mode": r["config_mode"]}
+                for k, r in dft_modes.items()}})
     # the stage cuts: the main keys are the streamed cut's, the
     # constant_block_* keys the constant-block cut's; no library call
     # computes a cut

@@ -72,16 +72,19 @@ def test_source_constants_are_the_plan():
 
 def test_source_shared_memory_terms_are_the_mirror():
     """smem_bytes() of the source, term by term, in the mirror's order: the
-    filter sums of the block's windows' rows (all kBM with the power
-    tile), the DCT's n_mfcc - 1 columns (none in log-mel mode)."""
+    shared sums of the block's windows' rows (all kBM with the power
+    tile; a row `sums_pitch` floats), the DCT's n_mfcc - 1 columns (none
+    in log-mel mode), log-mel mode's home table after the filter slots."""
     body = re.search(r"inline size_t smem_bytes\([^)]*\) \{(.*?)\n\}", SRC,
                      re.S).group(1)
     terms = ["1024 + ring_bytes(n_mfcc, stages)", "kPowerTile ? align16(sizeof(float) * kBM * kPPitch)",
              "sizeof(__nv_bfloat16) * (size_t)wpb * win_pitch",
-             "sizeof(float) * (size_t)mel_rows(wpb, n_features) * mel_pitch(n_filt)",
+             "sizeof(float) * (size_t)mel_rows(wpb, n_features) *\n"
+             "                 sums_pitch(n_filt, n_bnd, direct)",
              "sizeof(int) * (size_t)(k_pad / 8)",
              "sizeof(float) * (size_t)n_filt * dct_cols(n_mfcc, logmel)",
-             "+ table +", "sizeof(uint64_t) * (2 * stages + 4)"]
+             "+ table +", "home_bytes(n_filt, direct)",
+             "sizeof(uint64_t) * (2 * stages + 4)"]
     at = [body.find(t) for t in terms]
     assert -1 not in at and at == sorted(at)
     rows = re.search(r"inline int mel_rows\(int wpb, int n_features\) \{(.*?)\n\}",
@@ -167,7 +170,8 @@ def test_takes_every_filter_count_the_fft_kernel_takes(n_mfcc):
             assert lay.logmel == mode
             assert lay.smem_bytes == dft_plan.wgmma_smem_bytes(
                 lay.wpb, lay.win_pitch, n_filt, n_mfcc, lay.k_pad, table,
-                lay.stages, n_features=p.n_features, logmel=mode)
+                lay.stages, n_features=p.n_features, logmel=mode,
+                n_bnd=lay.n_bnd)
             assert lay.smem_bytes <= DFT_SMEM_MAX
             assert lay.wpb * p.n_features <= dft_plan.BM
         assert logmel.wpb >= fused.wpb

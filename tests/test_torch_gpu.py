@@ -2241,6 +2241,13 @@ def test_fast_math_many_filters_match_the_float64_features(cuda_device,
         cepstrum_ablation.check_conditioned(
             f"fast_math {n_filt} {audio_dtype}", got, plain, exact, slack,
             2e-3, 1e-3 + bf16)
+        old_design = frontend_kernel.dft_frontend_bf16_cuda(
+            audio, torch.full((1,), 0.8, dtype=torch.float32,
+                              device=cuda_device),
+            fe.consts, p, out_dtype, _shared_sums=True)
+        cepstrum_ablation.check_conditioned(
+            f"fast_math {n_filt} shared sums {audio_dtype}", old_design,
+            plain, exact, slack, 2e-3, 1e-3 + bf16)
         if fe.consts.layouts[False].smem_bytes <= frontend_kernel.DFT_SMEM_MAX:
             fused = frontend_kernel.dft_frontend_bf16_cuda(
                 audio, torch.full((1,), 0.8, dtype=torch.float32,
@@ -2249,6 +2256,48 @@ def test_fast_math_many_filters_match_the_float64_features(cuda_device,
             cepstrum_ablation.check_conditioned(
                 f"fast_math {n_filt} fused {audio_dtype}", fused, plain,
                 exact, slack, 2e-3, 1e-3 + bf16)
+
+
+@pytest.mark.parametrize("feature_type", ["mfcc", "bark"])
+@pytest.mark.parametrize("n_filt", [96, 128, 160, 240, 400, 512])
+def test_fast_math_logmel_rows_match_the_float64_rows(cuda_device, n_filt,
+                                                      feature_type):
+    """The fast_math kernel's log-mel mode alone (`dft_logmel_cuda`: finished
+    filters from the registers, 4 windows a block) and its first design
+    (`_shared_sums=True`) on the same inputs, f32 and int16 audio at B 1,
+    37 and 8192: each launch counted once in its own counter, every row
+    finite, and each design and the plain fast_math rows held to the
+    float64 rows of the bf16 frames and DFT matrix within the feature bound
+    plus the rounding slack (`check_conditioned`); the two designs within
+    that bound of each other."""
+    p = ListenerParams(n_filt=n_filt)
+    consts = frontend_kernel.DftConstants(p, feature_type, cuda_device)
+    assert consts.layouts[True].wpb == 4 and not consts.layouts[True].shared_sums
+    plain = Frontend(p, feature_type, cuda_device, fast_math=True)
+    gain = torch.full((1,), 0.8, dtype=torch.float32, device=cuda_device)
+    for batch in (1, 37, 8192):
+        for audio_dtype in ("float32", "int16"):
+            audio = torch.tensor(_ct_audio(audio_dtype, batch),
+                                 device=cuda_device)
+            exact, slack = cepstrum_ablation.exact_logmel(
+                p, audio, 0.8, feature_type, fast_math=True)
+            want = cepstrum_plan.logmel_plain(plain, audio, 0.8)
+            rows = {}
+            for flag, counter in ((False, frontend_kernel.DFT_LOGMEL),
+                                  (True, frontend_kernel.DFT_SHARED_SUMS)):
+                before = counter.launches
+                rows[flag] = frontend_kernel.dft_logmel_cuda(
+                    audio, gain, consts, p, _shared_sums=flag)
+                torch.cuda.synchronize()
+                assert counter.launches == before + 1
+                assert torch.isfinite(rows[flag]).all()
+                cepstrum_ablation.check_conditioned(
+                    f"{feature_type} {n_filt} B {batch} {audio_dtype} "
+                    f"shared_sums={flag}", rows[flag], want, exact, slack,
+                    2e-3, 1e-3)
+            bound = 2e-3 + 1e-3 * exact.abs() + slack
+            assert ((rows[False] - rows[True]).abs() <= 2 * bound).all()
+            del exact, slack, want, rows
 
 
 def test_unservable_power_of_two_runs_the_plain_chain_on_the_card(

@@ -81,9 +81,27 @@
 //   dft_cepstrum chooses it from the config, as fft_plan.cepstrum_mode
 //   does for the FFT bodies), the block stops after the log: each row's
 //   n_filt log filter sums and its log energy go, f32, to a (B, T, n_filt
-//   + 1) buffer in one coalesced span a block (its windows' rows are
-//   consecutive), and csrc/cepstrum_wgmma.cu finishes the contract (the
-//   DCT, deltas, the store); the block then holds no DCT at all.
+//   + 1) buffer, and csrc/cepstrum_wgmma.cu finishes the contract (the
+//   DCT, deltas, the store); the block then holds no DCT at all.  A filter
+//   whose bins all lie in one quad lane's walk is whole in that lane's
+//   running sum when its slot releases it, and leaves the block from the
+//   registers (kDirect): the lane stores its two rows' sums to their rows
+//   of the output as they stand, and after the walk the block takes the
+//   safe_log of its rows in place in one coalesced pass (kFinish 0), so
+//   no log runs in the walk, where a lane logging the filters it releases
+//   keeps the other three of its quad waiting (they release theirs at
+//   other bins) on a chain of dependent instructions.  The host marks
+//   each filter's home (ops/dft_plan.py::filter_homes): the owner lane, or
+//   one of the few boundary filters that several walks weigh (those
+//   straddling the runs' three seams or reaching the last chunk's bins),
+//   which alone meet in shared memory (n_bnd floats a row, whatever
+//   n_filt is), or a filter no bin weighs.  The energy meets across the
+//   quad by two shuffles.
+//   The block's tail writes the boundary filters and the weightless ones.
+//   So the block keeps 4 windows at every filter count (at n_fft 1024).
+//   The first log-mel design (the host's `shared_sums`: every filter
+//   summed in shared memory, then logged and stored in one coalesced span
+//   a block) stays as the A/B; its filter sums cost the block windows.
 //
 // Compile-time switches for dev/dft_ablation.py (each undoes one choice;
 // the shipped kernel takes the defaults): TSC_DFT_CLUSTER (2: TMA
@@ -94,8 +112,15 @@
 // right after its own products) and TSC_DFT_CUT (1: the B stream alone,
 // no staging, products or epilogue; 2: no epilogue, where ptxas then
 // drops the products too, their accumulators unread; 3: the epilogue
-// without its shared-memory adds; 4: the audio staging and the tail
-// alone; 5: all but the audio staging).
+// without its shared-memory adds and, in log-mel mode, without its stores
+// from the registers; 4: the audio staging and the tail alone; 5: all but
+// the audio staging; 6: log-mel mode's finished filters stored without
+// their log, the raw sums) and TSC_DFT_LOGMEL_FINISH, where log-mel mode
+// logs its finished filters (0: in the pass after the walk; 1: the owner
+// lane where its slot releases them, logf; 2: the same with the SFU's
+// __logf; 3: the owner lane appends them to its warp's ring in shared
+// memory, 64 entries placed by a ballot, and each time 32 are there the
+// warp's 32 lanes log and store one each).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -123,6 +148,9 @@
 #ifndef TSC_DFT_EARLY_RELEASE
 #define TSC_DFT_EARLY_RELEASE 0
 #endif
+#ifndef TSC_DFT_LOGMEL_FINISH
+#define TSC_DFT_LOGMEL_FINISH 0
+#endif
 
 namespace {
 
@@ -146,6 +174,16 @@ constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 constexpr int kPPitch = 65;                 // the power tile's pitch (ablation)
 constexpr bool kPowerTile = TSC_DFT_POWER_TILE != 0;
+// log-mel mode's home codes (ops/dft_plan.py::filter_homes): 0 .. 3 the
+// quad lane whose walk alone weighs the filter, from kHomeShared the
+// boundary sum code - kHomeShared, kHomeNone a filter no bin weighs
+constexpr int kHomeShared = 4;
+constexpr int kHomeNone = 255;
+// where log-mel mode logs its finished filters (TSC_DFT_LOGMEL_FINISH)
+constexpr int kFinish = TSC_DFT_LOGMEL_FINISH;
+constexpr bool kStaged = kFinish == 3;  // the ablation's rings a warp
+constexpr int kStageCap = 64;  // entries a warp's ring: (v0, v1, g << 16 | f)
+static_assert(kFinish >= 0 && kFinish <= 3, "TSC_DFT_LOGMEL_FINISH 0 .. 3");
 constexpr int kCut = TSC_DFT_CUT;
 static_assert(kCluster == 1 || kCluster == 2, "a cluster of 1 or 2 blocks");
 static_assert(kStages == 0 || (kStages >= 2 && kStages <= kMaxStages),
@@ -169,6 +207,9 @@ struct WgArgs {
   const float* dct_t;    // (n_filt, n_mfcc - 1): the DCT columns 1 .. n_mfcc - 1
   int n_filt, n_mfcc, emit_deltas, vec_loads;
   int logmel;            // 1: (B, T, n_filt + 1) f32 log-mel rows to out
+  const uint8_t* filt_home;  // log-mel mode: (n_filt,) each filter's home
+  const int* tail_filt;  // (n_tail,) the filters the tail writes: n_bnd
+  int n_bnd, n_tail;     // boundary filters, then those no bin weighs
   int in_int16, out_bf16;  // the audio's and the output's types
   void* out;
 };
@@ -188,11 +229,13 @@ __host__ __device__ inline size_t ring_bytes(int n_mfcc, int stages) {
 
 // Shared memory, in order from a 1024-byte boundary (the base is aligned
 // up, hence the 1024 of slack): the ring, the power tile (ablation only),
-// the audio (wpb x win_pitch bf16), the filter sums (mel_rows x mel_pitch
+// the audio (wpb x win_pitch bf16), the shared sums (mel_rows x sums_pitch
 // f32), the k-offset table, the DCT's (n_filt, dct_cols) columns, the
 // filter slots (where they fit: `table`, else 0 and read from the device's
-// copy), the ring's full and empty mbarriers and the audio staging's two
-// pairs.  ops/dft_plan.py::wgmma_smem_bytes mirrors this sum to choose wpb.
+// copy), log-mel mode's home codes (and an ablation's rings of finished
+// filters), the ring's full and empty mbarriers and the audio staging's
+// two pairs.  ops/dft_plan.py::wgmma_smem_bytes mirrors this sum to choose
+// wpb.
 __host__ __device__ inline size_t table_bytes(int n_pad, int slots) {
   return align16(sizeof(int) * (size_t)(n_pad / 2)) +
          align16(sizeof(float) * (size_t)(n_pad / 2) * slots);
@@ -209,15 +252,35 @@ __host__ __device__ inline int dct_cols(int n_mfcc, int logmel) {
   return logmel ? 0 : n_mfcc - 1;
 }
 
+// The floats a row of the shared sums: every filter's and the energy
+// (fused, and the first log-mel design), or log-mel mode's n_bnd boundary
+// sums (`direct`); odd, so that a quad's rows fall in distinct banks
+__host__ __device__ inline int sums_pitch(int n_filt, int n_bnd, int direct) {
+  return direct ? (n_bnd | 1) : mel_pitch(n_filt);
+}
+
+// log-mel mode's home codes, a byte a filter
+__host__ __device__ inline size_t home_bytes(int n_filt, int direct) {
+  return direct ? align16((size_t)n_filt) : 0;
+}
+
+// log-mel mode's rings of finished filters, one a consumer warp
+__host__ __device__ inline size_t staging_bytes(int direct) {
+  return direct && kStaged ? align16((size_t)(kConsumers / 32) * kStageCap * 12) : 0;
+}
+
 __host__ __device__ inline size_t smem_bytes(int wpb, int win_pitch, int n_filt,
                                              int n_mfcc, int k_pad, size_t table,
-                                             int stages, int n_features, int logmel) {
+                                             int stages, int n_features, int logmel,
+                                             int direct, int n_bnd) {
   return 1024 + ring_bytes(n_mfcc, stages) +
          (kPowerTile ? align16(sizeof(float) * kBM * kPPitch) : 0) +
          align16(sizeof(__nv_bfloat16) * (size_t)wpb * win_pitch) +
-         align16(sizeof(float) * (size_t)mel_rows(wpb, n_features) * mel_pitch(n_filt)) +
+         align16(sizeof(float) * (size_t)mel_rows(wpb, n_features) *
+                 sums_pitch(n_filt, n_bnd, direct)) +
          align16(sizeof(int) * (size_t)(k_pad / 8)) +
          align16(sizeof(float) * (size_t)n_filt * dct_cols(n_mfcc, logmel)) + table +
+         home_bytes(n_filt, direct) + staging_bytes(direct) +
          sizeof(uint64_t) * (2 * stages + 4);
 }
 
@@ -343,20 +406,54 @@ __device__ __forceinline__ void wgmma(float (&d)[kBN / 2], const uint32_t (&a)[4
   if constexpr (N == 16) wgmma_m64n16(d, a, desc, accumulate);
 }
 
+// log-mel mode's value of a finished sum where it is stored: as it stands
+// where the block's pass after the walk logs it (kFinish 0) and in the
+// cut 6, else its safe_log (the SFU's log with kFinish 2)
+__device__ __forceinline__ float finish_log(float x) {
+  if constexpr (kCut == 6 || kFinish == 0) {
+    return x;
+  } else if constexpr (kFinish == 2) {
+    return __logf(fmaxf(x, kLogEps));
+  } else {
+    return safe_log(x);
+  }
+}
+
 // *p += v on a shared-memory float, atomically with the quad's other lanes
 __device__ __forceinline__ void red_shared_add(float* p, float v) {
   asm volatile("red.shared.add.f32 [%0], %1;\n" ::"r"(smem_addr(p)), "f"(v));
 }
 
+// Where one thread's filter sums go: the shared sums of its rows r0, r0 +
+// 8 (null: a padding row), and in log-mel mode (kDirect) its quad lane,
+// the home codes and the two rows of the output (null past the block's
+// rows); with kStaged its warp's ring (values of the first and second
+// row, g << 16 | f) and what its drain needs: the block's rows of the
+// output, their width, how many there are and the warp's first
+struct Sums {
+  float *mel0, *mel1;
+  float *out0, *out1;
+  const uint8_t* home;
+  int t;
+  float *qv0, *qv1;
+  int* qfg;
+  float* rows_out;
+  int width, rows, rbase, lane;
+};
+
 // The running filter sums of one thread: for each of its two rows and
 // each slot, the sum over its bins so far of the slot's current filter,
-// added into the shared filter sums when the slot's filter changes (a
-// padding row's sums, mel0 or mel1 null, into none).
-template <int S>
+// flushed when the slot's filter changes: added into the shared filter
+// sums, or in log-mel mode (kDirect) by the filter's home: stored to the
+// output rows by the lane that owns it (`finish_log`), added into the
+// shared boundary sums, or dropped (a lane whose walk does not weigh it
+// holds exactly 0).
+template <int S, bool kDirect>
 struct FilterRuns {
   int cur[S];
   float run0[S], run1[S];
   float e0, e1;
+  int head, count;  // the warp's ring (kStaged): the same in all its lanes
 
   __device__ __forceinline__ void init() {
 #pragma unroll
@@ -365,39 +462,110 @@ struct FilterRuns {
       run0[l] = run1[l] = 0.0f;
     }
     e0 = e1 = 0.0f;
+    head = count = 0;
   }
-  __device__ __forceinline__ void flush(int l, float* mel0, float* mel1, int n_filt) {
-    if (cur[l] >= 0 && cur[l] < n_filt) {
-      if constexpr (kCut == 3) {  // the cut: sums kept, no shared-memory adds
+  // slot l releases its filter where `release` (every lane of the warp
+  // calls this together): added into the shared sums, or in log-mel mode
+  // by the filter's home: a boundary filter into the shared boundary sums;
+  // the owner lane's (kStaged) appended to the warp's ring, in lane order
+  // after its `count` entries, or (else) stored to its rows
+  __device__ __forceinline__ void flush(int l, bool release, const Sums& s, int n_filt) {
+    const int f = cur[l];
+    bool own = false;
+    if (release && f >= 0 && f < n_filt) {
+      if constexpr (kCut == 3) {  // the cut: sums kept, no adds, no stores
         e0 += 0.0f * run0[l];
         e1 += 0.0f * run1[l];
+      } else if constexpr (kDirect) {
+        const int code = s.home[f];
+        if (code == s.t) {
+          if constexpr (kStaged) {
+            own = s.out0 != nullptr;
+          } else {
+            if (s.out0) s.out0[f] = finish_log(run0[l]);
+            if (s.out1) s.out1[f] = finish_log(run1[l]);
+          }
+        } else if (code >= kHomeShared && code != kHomeNone) {
+          if (s.mel0) red_shared_add(s.mel0 + (code - kHomeShared), run0[l]);
+          if (s.mel1) red_shared_add(s.mel1 + (code - kHomeShared), run1[l]);
+        }
       } else {
-        if (mel0) red_shared_add(mel0 + cur[l], run0[l]);
-        if (mel1) red_shared_add(mel1 + cur[l], run1[l]);
+        if (s.mel0) red_shared_add(s.mel0 + f, run0[l]);
+        if (s.mel1) red_shared_add(s.mel1 + f, run1[l]);
       }
     }
-    run0[l] = run1[l] = 0.0f;
+    if constexpr (kDirect && kStaged && kCut != 3) {
+      const unsigned m = __ballot_sync(0xffffffffu, own);
+      if (own) {
+        const int at =
+            (head + count + __popc(m & ((1u << s.lane) - 1u))) & (kStageCap - 1);
+        s.qv0[at] = run0[l];
+        s.qv1[at] = run1[l];
+        s.qfg[at] = (s.lane >> 2) << 16 | f;
+      }
+      count += __popc(m);
+      if (count >= 32) drain(s, 32);
+    }
+    if (release) run0[l] = run1[l] = 0.0f;
+  }
+  // the warp stores its ring's first n (<= 32) entries, lane i the i-th:
+  // its two rows (the second only where it is a row of the block; an
+  // entry's first always is)
+  __device__ __forceinline__ void drain(const Sums& s, int n) {
+    __syncwarp();
+    if (s.lane < n) {
+      const int at = (head + s.lane) & (kStageCap - 1);
+      const int fg = s.qfg[at];
+      const int r = s.rbase + (fg >> 16);
+      float* dst = s.rows_out + (size_t)r * s.width + (fg & 0xffff);
+      const float v0 = s.qv0[at], v1 = s.qv1[at];
+      *dst = finish_log(v0);
+      if (r + 8 < s.rows) dst[(size_t)8 * s.width] = finish_log(v1);
+    }
+    __syncwarp();
+    head = (head + n) & (kStageCap - 1);
+    count -= n;
   }
   // one bin: powers p0, p1 of the two rows, its slots' first filter and
   // weights (the energy is summed apart, where the powers are formed)
   __device__ __forceinline__ void add(float p0, float p1, int key, const float (&w)[S],
-                                      float* mel0, float* mel1, int n_filt) {
+                                      const Sums& s, int n_filt) {
 #pragma unroll
     for (int l = 0; l < S; ++l) {
       const int f = key + ((l - key) & (S - 1));
-      if (f != cur[l]) {
-        flush(l, mel0, mel1, n_filt);
-        cur[l] = f;
+      const bool release = f != cur[l];
+      if constexpr (kDirect && kStaged) {
+        flush(l, release, s, n_filt);  // the ring's ballot: the whole warp
+      } else if (release) {
+        flush(l, true, s, n_filt);
       }
+      if (release) cur[l] = f;
       run0[l] = fmaf(p0, w[l], run0[l]);
       run1[l] = fmaf(p1, w[l], run1[l]);
     }
   }
-  __device__ __forceinline__ void finish(float* mel0, float* mel1, int n_filt) {
+  // the last flushes and the energy: into the shared sums, or in log-mel
+  // mode across the quad by two shuffles (every consumer lane takes part),
+  // stored by lane 0; with kStaged the ring drained first
+  __device__ __forceinline__ void finish(const Sums& s, int n_filt) {
 #pragma unroll
-    for (int l = 0; l < S; ++l) flush(l, mel0, mel1, n_filt);
-    if (mel0) red_shared_add(mel0 + n_filt, e0);
-    if (mel1) red_shared_add(mel1 + n_filt, e1);
+    for (int l = 0; l < S; ++l) flush(l, true, s, n_filt);
+    if constexpr (kDirect && kStaged && kCut != 3) {
+      if (count > 0) drain(s, count);
+    }
+    if constexpr (kDirect) {
+      e0 += __shfl_xor_sync(0xffffffffu, e0, 1);
+      e1 += __shfl_xor_sync(0xffffffffu, e1, 1);
+      e0 += __shfl_xor_sync(0xffffffffu, e0, 2);
+      e1 += __shfl_xor_sync(0xffffffffu, e1, 2);
+      if (s.t == 0) {
+        if (s.out0) s.out0[n_filt] = finish_log(e0);
+        if (s.out1) s.out1[n_filt] = finish_log(e1);
+      }
+    } else {
+      if (s.mel0) red_shared_add(s.mel0 + n_filt, e0);
+      if (s.mel1) red_shared_add(s.mel1 + n_filt, e1);
+    }
   }
 };
 
@@ -572,9 +740,39 @@ __device__ __forceinline__ int chunk_bin(int c, int j, int t, int n_full) {
   return N == kBN ? 16 * (t * n_full + c) + j : n_full * (kBN / 2) + 4 * j + t;
 }
 
+// log-mel mode's pass after the walk (kFinish 0): the safe_log of n floats
+// from dst in place, by the kConsumers threads; in 16-byte pieces from the
+// first 16-byte boundary, kPassLoads of them a thread loaded before any is
+// logged (the pass would wait on one load at a time)
+constexpr int kPassLoads = 4;
+
+__device__ __forceinline__ float4 safe_log4(float4 v) {
+  return make_float4(safe_log(v.x), safe_log(v.y), safe_log(v.z), safe_log(v.w));
+}
+
+__device__ __forceinline__ void log_pass(float* dst, int n, int tid) {
+  const int head =
+      min(n, (int)((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15) / 4);
+  if (tid < head) dst[tid] = safe_log(dst[tid]);
+  float4* body = reinterpret_cast<float4*>(dst + head);
+  const int n4 = (n - head) / 4;
+  for (int i0 = tid; i0 < n4; i0 += kPassLoads * kConsumers) {
+    float4 v[kPassLoads];
+#pragma unroll
+    for (int u = 0; u < kPassLoads; ++u)
+      if (i0 + u * kConsumers < n4) v[u] = body[i0 + u * kConsumers];
+#pragma unroll
+    for (int u = 0; u < kPassLoads; ++u)
+      if (i0 + u * kConsumers < n4) body[i0 + u * kConsumers] = safe_log4(v[u]);
+  }
+  const int tail = head + 4 * n4;
+  if (tail + tid < n) dst[tail + tid] = safe_log(dst[tail + tid]);
+}
+
 // One consumer thread: its warpgroup's rows, its ldmatrix address, its two
-// accumulator rows, their filter sums and the filter slots it reads
-template <int S>
+// accumulator rows, where their filter sums go and the filter slots it
+// reads
+template <int S, bool kDirect>
 struct Consumer {
   const WgArgs& a;
   Ring ring;
@@ -582,7 +780,7 @@ struct Consumer {
   uint32_t a_row;   // its ldmatrix row address
   int a_khalf;      // and k-half
   const int* skoff;
-  float *mel0, *mel1;  // the filter sums of rows r0 and r0 + 8
+  Sums sums;        // rows r0 and r0 + 8
   float* ptile;
   float* smel;
   const int* tkey;   // the filter slots: in shared memory where they fit,
@@ -590,7 +788,7 @@ struct Consumer {
   int tid, wg, r0, t, mp, n_ks;
   int n_full;        // full chunks (the bins' order, chunk_bin)
   int pending;       // the stage whose products are issued and not yet done
-  FilterRuns<S> runs;
+  FilterRuns<S, kDirect> runs;
 
   // K-slice ks of the chunk in the ring's next stage: its products into
   // the first N / 2 accumulators (zeroed at ks 0); then the stage of the
@@ -655,7 +853,7 @@ struct Consumer {
         float w[S];
 #pragma unroll
         for (int l = 0; l < S; ++l) w[l] = tw[b * S + l];
-        runs.add(p0, p1, tkey[b], w, mel0, mel1, a.n_filt);
+        runs.add(p0, p1, tkey[b], w, sums, a.n_filt);
       }
     }
   }
@@ -731,7 +929,7 @@ struct Consumer {
   }
 };
 
-template <int S>
+template <int S, bool kDirect>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
     dft_wgmma_kernel(const WgArgs a, const __grid_constant__ CUtensorMap map) {
   extern __shared__ uint8_t smem_raw[];
@@ -747,7 +945,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
   base += align16(sizeof(__nv_bfloat16) * (size_t)a.wpb * a.win_pitch);
   float* smel = reinterpret_cast<float*>(base);
   const int n_mel_rows = mel_rows(a.wpb, a.n_features);
-  base += align16(sizeof(float) * (size_t)n_mel_rows * mel_pitch(a.n_filt));
+  const int mp = sums_pitch(a.n_filt, a.n_bnd, kDirect);
+  base += align16(sizeof(float) * (size_t)n_mel_rows * mp);
   int* skoff = reinterpret_cast<int*>(base);
   base += align16(sizeof(int) * (size_t)(a.k_pad / 8));
   float* sdct = reinterpret_cast<float*>(base);
@@ -756,6 +955,10 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
   int* stkey = reinterpret_cast<int*>(base);
   float* stw = reinterpret_cast<float*>(base + align16(sizeof(int) * (size_t)(a.n_pad / 2)));
   if (a.table_smem) base += table_bytes(a.n_pad, S);
+  uint8_t* shome = base;
+  base += home_bytes(a.n_filt, kDirect);
+  uint8_t* sstage = base;  // (kStaged) a ring a consumer warp: v0, v1, fg
+  base += staging_bytes(kDirect);
   const int stages = a.stages;
   const uint32_t full0 = smem_addr(base);            // `stages` full barriers
   const uint32_t empty0 = full0 + 8 * stages;        // then as many empty ones
@@ -772,7 +975,6 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
   const int n_ks = a.k_pad / kBK;
   const int n_chunks = (a.n_pad + kBN - 1) / kBN;
   const int total = kCut == 4 ? 0 : n_chunks * n_ks;  // the staging cut: none
-  const int mp = mel_pitch(a.n_filt);
 
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -850,6 +1052,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
       skoff[i] = i * 8 + (i * 8 / a.hop) * gap;
     for (int i = tid; i < n_mel_rows * mp; i += kConsumers) smel[i] = 0.0f;
     for (int i = tid; i < n_dct; i += kConsumers) sdct[i] = __ldg(&a.dct_t[i]);
+    if constexpr (kDirect)
+      for (int i = tid; i < a.n_filt; i += kConsumers) shome[i] = __ldg(&a.filt_home[i]);
     const int* tkey = a.bin_key;
     const float* tw = a.bin_w;
     if (a.table_smem) {
@@ -877,13 +1081,25 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
     // block j of a chunk, columns 8 j + 2 t (re) and + 1 (im) of bin 4 j + t
     const int r0 = 64 * wg + 16 * wq + (lane >> 2);
     const int t = lane & 3;
-    // a padding row past the block's filter sums adds into none
-    float* mel0 = r0 < n_mel_rows ? smel + r0 * mp : nullptr;
-    float* mel1 = r0 + 8 < n_mel_rows ? smel + (r0 + 8) * mp : nullptr;
+    // a padding row past the block's filter sums adds into none, and one
+    // past its rows stores nothing
+    Sums sums{r0 < n_mel_rows ? smel + r0 * mp : nullptr,
+              r0 + 8 < n_mel_rows ? smel + (r0 + 8) * mp : nullptr,
+              nullptr, nullptr, shome, t, nullptr, nullptr, nullptr, nullptr,
+              a.n_filt + 1, rows, 64 * wg + 16 * wq, lane};
+    if constexpr (kDirect) {
+      sums.rows_out = static_cast<float*>(a.out) + (size_t)b0 * a.n_features * sums.width;
+      if (r0 < rows) sums.out0 = sums.rows_out + (size_t)r0 * sums.width;
+      if (r0 + 8 < rows) sums.out1 = sums.rows_out + (size_t)(r0 + 8) * sums.width;
+      float* ring = reinterpret_cast<float*>(sstage) + warp * 3 * kStageCap;
+      sums.qv0 = ring;
+      sums.qv1 = ring + kStageCap;
+      sums.qfg = reinterpret_cast<int*>(ring + 2 * kStageCap);
+    }
 
-    Consumer<S> cons{a,     Ring{ring_base, full0, empty0, stages, 0, 0}, lane, a_row,
-                     a_khalf, skoff, mel0, mel1, ptile, smel, tkey, tw, tid, wg,
-                     r0,    t,    mp,   n_ks, a.n_pad / kBN, -1};
+    Consumer<S, kDirect> cons{a,     Ring{ring_base, full0, empty0, stages, 0, 0}, lane,
+                              a_row, a_khalf, skoff, sums, ptile, smel, tkey, tw, tid,
+                              wg,    r0,      t,     mp,   n_ks,  a.n_pad / kBN, -1};
     cons.runs.init();
     // the last chunk's 16 columns (every n_fft 2^k) run m64n16; any other
     // part chunk runs the full width on the matrix's zero rows
@@ -896,40 +1112,59 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
     } else {
       cons.template run<16>(n_full, tail);
     }
-    FilterRuns<S>& runs = cons.runs;
+    FilterRuns<S, kDirect>& runs = cons.runs;
     if constexpr (kCut != 1) {
-      if constexpr (!kPowerTile && kCut != 2) runs.finish(mel0, mel1, a.n_filt);
+      if constexpr (!kPowerTile && kCut != 2) runs.finish(sums, a.n_filt);
       consumers_sync();
       const int dc = dct_cols(a.n_mfcc, a.logmel);
-      if (a.logmel) {
-        // log-mel mode: the block's rows are one span of the (B, T, n_filt +
-        // 1) buffer, stored in order, the log energy last in each row
+      if constexpr (kDirect) {
+        // log-mel mode: the rest of each row left from the registers; the
+        // tail writes the boundary filters' sums and 0 for the filters no
+        // bin weighs, then (kFinish 0) takes the safe_log of the block's
+        // rows in place, one coalesced span (their stores are visible
+        // after the barrier)
+        const int width = a.n_filt + 1;
+        float* dst = static_cast<float*>(a.out) + (size_t)b0 * a.n_features * width;
+        for (int i = tid; i < rows * a.n_tail; i += kConsumers) {
+          const int r = i / a.n_tail;
+          const int k = i - r * a.n_tail;
+          const float v = k < a.n_bnd ? smel[r * mp + k] : 0.0f;
+          dst[(size_t)r * width + __ldg(&a.tail_filt[k])] = finish_log(v);
+        }
+        if constexpr (kFinish == 0 && kCut != 6) {
+          consumers_sync();
+          log_pass(dst, rows * width, tid);
+        }
+      } else if (a.logmel) {
+        // the first log-mel design: the block's rows are one span of the
+        // (B, T, n_filt + 1) buffer, stored in order, the log energy last in
+        // each row
         const int width = a.n_filt + 1;
         float* dst = static_cast<float*>(a.out) + (size_t)b0 * a.n_features * width;
         for (int i = tid; i < rows * width; i += kConsumers) {
           const int r = i / width;
           dst[i] = safe_log(smel[r * mp + (i - r * width)]);
         }
-        return;
+      } else {
+        // log of the filter sums and the energy, the DCT, deltas and the store
+        const size_t at = (size_t)b0 * a.n_features * (a.emit_deltas ? 2 : 1) * a.n_mfcc;
+        if (a.out_bf16)
+          cepstrum_tail<kConsumers, kBM>(
+              tid, rows, a.n_features, a.n_filt, a.n_mfcc, a.emit_deltas, smel, sdct, dc,
+              coeffs, static_cast<__nv_bfloat16*>(a.out) + at, [] { consumers_sync(); });
+        else
+          cepstrum_tail<kConsumers, kBM>(
+              tid, rows, a.n_features, a.n_filt, a.n_mfcc, a.emit_deltas, smel, sdct, dc,
+              coeffs, static_cast<float*>(a.out) + at, [] { consumers_sync(); });
       }
-      // log of the filter sums and the energy, the DCT, deltas and the store
-      const size_t at = (size_t)b0 * a.n_features * (a.emit_deltas ? 2 : 1) * a.n_mfcc;
-      if (a.out_bf16)
-        cepstrum_tail<kConsumers, kBM>(
-            tid, rows, a.n_features, a.n_filt, a.n_mfcc, a.emit_deltas, smel, sdct, dc,
-            coeffs, static_cast<__nv_bfloat16*>(a.out) + at, [] { consumers_sync(); });
-      else
-        cepstrum_tail<kConsumers, kBM>(
-            tid, rows, a.n_features, a.n_filt, a.n_mfcc, a.emit_deltas, smel, sdct, dc,
-            coeffs, static_cast<float*>(a.out) + at, [] { consumers_sync(); });
     }
   }
 }
 
-template <int S>
+template <int S, bool kDirect>
 cudaError_t launch(const WgArgs& a, const CUtensorMap& map, size_t smem,
                    cudaStream_t stream) {
-  auto kernel = dft_wgmma_kernel<S>;
+  auto kernel = dft_wgmma_kernel<S, kDirect>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -953,7 +1188,11 @@ cudaError_t launch(const WgArgs& a, const CUtensorMap& map, size_t smem,
 // the DCT's columns 1 .. n_mfcc - 1 (none read in log-mel mode).  out
 // (batch, n_features, n_mfcc or 2 n_mfcc) f32 or bf16, or with logmel
 // (batch, n_features, n_filt + 1) f32 log-mel rows, the log energy last,
-// for csrc/cepstrum_wgmma.cu.  Returns the launch's cudaError_t.
+// for csrc/cepstrum_wgmma.cu: finished filters from the registers by
+// filt_home (n_filt,) uint8 and the tail's tail_filt (n_tail,) int32, n_bnd
+// of them boundary filters (ops/dft_plan.py::filter_homes), or with
+// shared_sums every filter summed in shared memory (the first design).
+// Returns the launch's cudaError_t.
 extern "C" int tsc_dft_frontend_wgmma(
     const void* audio, int audio_int16, const void* gain, int batch,
     int n_samples, int hop, int first_frame, int n_features, int wpb,
@@ -961,14 +1200,20 @@ extern "C" int tsc_dft_frontend_wgmma(
     int n_pad, int n_fft, const void* bin_key, const void* bin_w, int slots,
     int table_smem, int stages, const void* filt_packed,
     const void* filt_range, const void* dct_t, int n_filt, int n_mfcc,
-    int emit_deltas, int logmel, void* out, int out_bf16, void* stream) {
+    int emit_deltas, int logmel, int shared_sums, const void* filt_home,
+    const void* tail_filt, int n_bnd, int n_tail, void* out, int out_bf16,
+    void* stream) {
+  const int direct = logmel && !shared_sums;
   if (batch <= 0 || hop <= 0 || hop % 8 != 0 || seg_pitch < hop ||
       seg_pitch % 8 != 0 || win_pitch % 8 != 0 || win_pitch < n_seg * seg_pitch ||
       k_pad <= 0 || k_pad % (2 * kBK) != 0 || n_pad <= 0 || n_pad % 16 != 0 ||
       n_features <= 0 || wpb <= 0 || wpb * n_features > kBM || n_mfcc > n_filt ||
       n_mfcc <= 0 || n_fft <= 0 || (slots != 2 && slots != 4) ||
       reinterpret_cast<uintptr_t>(dft) % 16 != 0 || (logmel && out_bf16) ||
-      (!logmel && n_mfcc > 1 && !dct_t))
+      (!logmel && n_mfcc > 1 && !dct_t) ||
+      (direct && (!filt_home || (n_tail > 0 && !tail_filt) || n_bnd < 0 ||
+                  n_tail < n_bnd || n_tail > n_filt || n_bnd > kHomeNone - kHomeShared ||
+                  kPowerTile)))
     return cudaErrorInvalidValue;
   int device = 0, smem_max = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -980,11 +1225,11 @@ extern "C" int tsc_dft_frontend_wgmma(
   if (stages < 2 || stages > kMaxStages) return cudaErrorInvalidValue;
   size_t smem = smem_bytes(wpb, win_pitch, n_filt, n_mfcc, k_pad,
                            table_smem ? table_bytes(n_pad, slots) : 0, stages,
-                           n_features, logmel);
+                           n_features, logmel, direct, n_bnd);
   if (smem > (size_t)smem_max && table_smem) {  // an ablation's power tile
     table_smem = 0;
     smem = smem_bytes(wpb, win_pitch, n_filt, n_mfcc, k_pad, 0, stages, n_features,
-                      logmel);
+                      logmel, direct, n_bnd);
   }
   if (smem > (size_t)smem_max) return cudaErrorInvalidValue;
   const EncodeTiled encode = encode_tiled();
@@ -1026,6 +1271,10 @@ extern "C" int tsc_dft_frontend_wgmma(
   a.n_mfcc = n_mfcc;
   a.emit_deltas = emit_deltas;
   a.logmel = logmel ? 1 : 0;
+  a.filt_home = static_cast<const uint8_t*>(filt_home);
+  a.tail_filt = static_cast<const int*>(tail_filt);
+  a.n_bnd = direct ? n_bnd : 0;
+  a.n_tail = direct ? n_tail : 0;
   const size_t align = audio_int16 ? 8 : 16;
   a.vec_loads = n_samples % 4 == 0 && reinterpret_cast<uintptr_t>(audio) % align == 0;
   // (with a cluster the other block's stream may reach the ring while this
@@ -1036,6 +1285,9 @@ extern "C" int tsc_dft_frontend_wgmma(
   a.out_bf16 = out_bf16;
   a.out = out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = slots == 4 ? launch<4>(a, map, smem, s) : launch<2>(a, map, smem, s);
+  if (direct)
+    err = slots == 4 ? launch<4, true>(a, map, smem, s) : launch<2, true>(a, map, smem, s);
+  else
+    err = slots == 4 ? launch<4, false>(a, map, smem, s) : launch<2, false>(a, map, smem, s);
   return static_cast<int>(err);
 }

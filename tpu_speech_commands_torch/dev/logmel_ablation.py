@@ -5,7 +5,7 @@ frontend with each tail, and the fast_math kernel's log-mel mode
 (csrc/dft_wgmma.cu) against its fused epilogue, in turns on the card.
 
     python -m tpu_speech_commands_torch.dev.logmel_ablation [--batch 8192]
-        [--iters 20] [--parts alone cuts frontend dft]
+        [--iters 20] [--parts alone cuts frontend dft dft_cuts]
         [--tails rows partial_sums]
 
 Parts (B windows of f32 speech audio, `cepstrum_ablation.speech_audio`,
@@ -35,11 +35,27 @@ fft's register body):
             beside the plain version and `cepstrum_ablation.mode_bound`;
   dft       the fast_math kernel at DFT_CASES: fused (`_cepstrum=False`)
             against log-mel mode and the cepstrum kernel
-            (`_cepstrum=True`) in turns, each first held to the float64
-            fast_math features (`exact_features(fast_math=True)`), beside
-            `dft_mode_bound`, with each mode's windows a block; its log-mel
-            launch alone (`dft_logmel_cuda`, a CUDA graph), held to the
-            float64 rows, beside the plain rows and `dft_logmel_bound`.
+            (`_cepstrum=True`), and against log-mel mode's first design
+            with the cepstrum kernel (`_shared_sums=True`), in turns, each
+            first held to the float64 fast_math features
+            (`exact_features(fast_math=True)`), beside `dft_mode_bound`,
+            with each mode's windows a block; the log-mel launch alone
+            (`dft_logmel_cuda`, CUDA graphs), the mode's design against
+            its first design in turns rows, shared_sums, shared_sums,
+            rows, each held to the float64 rows, beside the plain rows and
+            `dft_logmel_bound`;
+  dft_cuts  where the fast_math kernel's log-mel launch spends its time
+            (DFT_CUT_CASES): the shipped launch (finished filters stored as
+            they stand, logged in one pass over the block's rows after the
+            walk) beside dev builds of csrc/dft_wgmma.cu (DFT_VARIANTS,
+            TSC_DFT_LOGMEL_FINISH: the owner lane logging where its slot
+            releases a filter, with logf or the SFU's __logf, or appending
+            it to its warp's ring whose 32 lanes log and store 32 at a
+            time, each held to the float64 rows; and two cuts whose output
+            is not the function: no log at all, TSC_DFT_CUT=6, and the
+            epilogue without its stores and shared-memory adds,
+            TSC_DFT_CUT=3), in turns in the order listed, then reversed,
+            CUDA graphs.
 
 `--tails` times only the tails named (the parts alone, cuts and frontend;
 each run twice where one is named, else in turns).  The last line is a JSON
@@ -76,11 +92,22 @@ TAILS = {"rows": False, "partial_sums": True}
 # the cuts: name -> TSC_LOGMEL_STOP (register_fft.cuh's Stop: kPower,
 # kMel, kLog), the stage each ends after
 CUTS = {"power_row": 3, "walk": 4, "sums_and_logs": 5}
-# (n_filt, n_mfcc) of the fast_math kernel's modes at n_fft 1024: each side
-# of `frontend_kernel.DFT_CEP_MIN_PRODUCTS` (32 x 20, 40 x 13 and 64 x 20
-# below it, 96 x 20 and 128 x 20 from it), and many filters
-DFT_CASES = ((32, 20), (40, 13), (64, 20), (96, 20), (128, 20), (240, 20),
-             (400, 20))
+# (n_filt, n_mfcc) of the fast_math kernel's modes at n_fft 1024: where its
+# fused block holds 4 windows, as its log-mel block does (32 x 20, 40 x 13,
+# 48 x 20, 64 x 20: the sweep `frontend_kernel.DFT_CEP_MIN_PRODUCTS` is
+# fitted to), and where it holds fewer (80-512 filters)
+DFT_CASES = ((32, 20), (40, 13), (48, 20), (64, 20), (80, 20), (96, 20),
+             (128, 20), (160, 20), (240, 20), (400, 20), (512, 20))
+# log-mel mode's designs: name -> `_shared_sums`
+DFT_DESIGNS = {"rows": False, "shared_sums": True}
+# the part dft_cuts: name -> (nvcc -D switches, held to the float64 rows)
+DFT_VARIANTS = {
+    "logs_at_release": (("-DTSC_DFT_LOGMEL_FINISH=1",), True),
+    "sfu_logs_at_release": (("-DTSC_DFT_LOGMEL_FINISH=2",), True),
+    "warp_rings": (("-DTSC_DFT_LOGMEL_FINISH=3",), True),
+    "no_log": (("-DTSC_DFT_CUT=6",), False),
+    "no_stores": (("-DTSC_DFT_CUT=3",), False)}
+DFT_CUT_CASES = ((32, 20), (96, 20), (240, 20), (400, 20), (512, 20))
 PEAK_BF16 = 989e12
 
 
@@ -341,20 +368,30 @@ def run_frontend(batch: int, iters: int, dev, tails=tuple(TAILS),
 
 
 def run_dft(batch: int, iters: int, dev, tails=(), cases=DFT_CASES) -> list:
-    """The part "dft": the fast_math kernel fused against log-mel mode, at
+    """The part "dft": the fast_math kernel fused against log-mel mode (in
+    either design), and log-mel mode's launch alone in either design, at
     `cases` ((n_filt, n_mfcc) at n_fft 1024)."""
     gain = torch.ones(1, dtype=torch.float32, device=dev)
     out = []
     for n_filt, n_mfcc in cases:
         p = config(1024, n_filt, n_mfcc)
         consts = frontend_kernel.DftConstants(p, "mfcc", dev)
-        modes = {"fused": False, "+cep": True}
+        # mode name -> (_cepstrum, _shared_sums)
+        modes = {"fused": (False, False), "+cep": (True, False),
+                 "+cep_shared_sums": (True, True)}
+        layouts = {"fused": consts.layouts[False],
+                   "+cep": consts.layouts[True],
+                   "+cep_shared_sums": consts.shared_sums_layout}
         runs = {}
-        for name, flag in modes.items():
-            if consts.layouts[flag].smem_bytes <= frontend_kernel.DFT_SMEM_MAX:
-                runs[name] = (lambda a, flag=flag:
+        for name, (cep, shared) in modes.items():
+            if layouts[name].smem_bytes <= frontend_kernel.DFT_SMEM_MAX:
+                runs[name] = (lambda a, cep=cep, shared=shared:
                               frontend_kernel.dft_frontend_bf16_cuda(
-                                  a, gain, consts, p, _cepstrum=flag))
+                                  a, gain, consts, p, _cepstrum=cep,
+                                  _shared_sums=shared))
+        alone = {name: (lambda a, flag=flag: frontend_kernel.dft_logmel_cuda(
+            a, gain, consts, p, _shared_sums=flag))
+            for name, flag in DFT_DESIGNS.items()}
         check = speech_audio(B_CHECK, p.max_samples, 1, dev)
         plain = Frontend(p, "mfcc", dev, fast_math=True)(check)
         exact = exact_features(p, check, fast_math=True)
@@ -363,45 +400,111 @@ def run_dft(batch: int, iters: int, dev, tails=(), cases=DFT_CASES) -> list:
                                         *exact, FEAT_ATOL, FEAT_RTOL)
                 for name, run in runs.items()}
         fm_chain = Frontend(p, "mfcc", dev, fast_math=True)
-        errs["logmel_rows"] = check_conditioned(
-            f"{label} log-mel rows",
-            frontend_kernel.dft_logmel_cuda(check, gain, consts, p),
-            cepstrum_plan.logmel_plain(fm_chain, check),
-            *exact_logmel(p, check, fast_math=True))
-        del check, plain, exact
+        plain_rows = cepstrum_plan.logmel_plain(fm_chain, check)
+        exact_rows = exact_logmel(p, check, fast_math=True)
+        for name, run in alone.items():
+            errs[f"logmel_{name}"] = check_conditioned(
+                f"{label} log-mel rows ({name})", run(check), plain_rows,
+                *exact_rows)
+        del check, plain, exact, plain_rows, exact_rows
         audio = speech_audio(batch, p.max_samples, 0, dev)
         names = list(runs)
         times = {name: [] for name in names}
         for name in names + names[::-1]:
             times[name].append(event_ms(lambda n=name: runs[n](audio), iters))
-        rows_ms = graph_ms(lambda: frontend_kernel.dft_logmel_cuda(
-            audio, gain, consts, p), iters)
+        rows_ms = {name: [] for name in alone}
+        for name in _turns(list(alone)):
+            rows_ms[name].append(graph_ms(lambda n=name: alone[n](audio),
+                                          iters))
         rows_plain_ms = event_ms(lambda: cepstrum_plan.logmel_plain(
             fm_chain, audio), 1)
         bound = dft_mode_bound(p, batch)
         rows_bound = dft_logmel_bound(p, batch)
         own = "+cep" if consts.cepstrum else "fused"
-        wpb = {name: consts.layouts[modes[name]].wpb for name in names}
+        wpb = {name: layouts[name].wpb for name in names}
         print(f"{label} (config: {own}): " + "; ".join(
             f"{name} {ms[0]:.4f}, {ms[1]:.4f} ms ({wpb[name]} windows a "
             f"block)" for name, ms in times.items())
             + f"; bound {bound[0]:.4f} ms ({bound[1]}); log-mel mode alone "
-            f"{rows_ms:.4f} ms (device time; plain {rows_plain_ms:.4f} ms, "
-            f"bound {rows_bound[0]:.4f} ms, {rows_bound[1]}); max_abs_err "
-            f"{errs}", flush=True)
+            + ", ".join(f"{name} {ms[0]:.4f}, {ms[1]:.4f}"
+                        for name, ms in rows_ms.items())
+            + f" ms (device times; plain {rows_plain_ms:.4f} ms, bound "
+            f"{rows_bound[0]:.4f} ms, {rows_bound[1]}); max_abs_err {errs}",
+            flush=True)
         out.append({"part": "dft", "n_fft": 1024, "n_filt": n_filt,
                     "n_mfcc": n_mfcc, "config_mode": own, "ms": times,
                     "windows_per_block": wpb, "bound_ms": bound[0],
-                    "bound_by": bound[1], "logmel_ms": rows_ms,
+                    "bound_by": bound[1], "logmel_ms": rows_ms["rows"][0],
+                    "logmel_shared_sums_ms": rows_ms["shared_sums"][0],
+                    "logmel_turns": rows_ms,
                     "logmel_plain_ms": rows_plain_ms,
                     "logmel_bound_ms": rows_bound[0],
                     "logmel_bound_by": rows_bound[1], "max_abs_err": errs})
-        del audio, consts, runs
+        del audio, consts, runs, alone
+    return out
+
+
+def run_dft_cuts(batch: int, iters: int, dev, tails=(),
+                 cases=DFT_CUT_CASES) -> list:
+    """The part "dft_cuts": the log-mel launch alone, shipped and in each
+    dev build of DFT_VARIANTS, at `cases` ((n_filt, n_mfcc) at n_fft
+    1024)."""
+    source = (_build.CSRC_DIR / "dft_wgmma.cu").read_text()
+    logs = {}
+    libs = build({name: source for name in DFT_VARIANTS}, "dft_logmel", logs,
+                 {name: flags for name, (flags, _) in DFT_VARIANTS.items()})
+    for name, log in logs.items():
+        spills = [ln.strip() for ln in log.splitlines()
+                  if "spill" in ln and "0 bytes spill" not in ln]
+        if spills:
+            print(f"dft cut build {name}: {spills[:4]}", flush=True)
+    shipped = _build.load_library
+    gain = torch.ones(1, dtype=torch.float32, device=dev)
+    out = []
+    try:
+        for n_filt, n_mfcc in cases:
+            p = config(1024, n_filt, n_mfcc)
+            consts = frontend_kernel.DftConstants(p, "mfcc", dev)
+
+            def run(name, audio):
+                lib = shipped() if name == "shipped" else libs[name]
+                _build.load_library = lambda lib=lib: lib
+                try:
+                    return frontend_kernel.dft_logmel_cuda(audio, gain,
+                                                           consts, p)
+                finally:
+                    _build.load_library = shipped
+
+            check = speech_audio(B_CHECK, p.max_samples, 1, dev)
+            fm_chain = Frontend(p, "mfcc", dev, fast_math=True)
+            plain = cepstrum_plan.logmel_plain(fm_chain, check)
+            exact = exact_logmel(p, check, fast_math=True)
+            errs = {name: check_conditioned(
+                f"fast_math 1024 {n_filt} x {n_mfcc} log-mel rows {name}",
+                run(name, check), plain, *exact)
+                for name in ["shipped", *DFT_VARIANTS]
+                if name == "shipped" or DFT_VARIANTS[name][1]}
+            del check, plain, exact
+            audio = speech_audio(batch, p.max_samples, 0, dev)
+            names = ["shipped", *DFT_VARIANTS]
+            times = {name: [] for name in names}
+            for name in names + names[::-1]:
+                times[name].append(graph_ms(lambda n=name: run(n, audio),
+                                            iters))
+            print(f"dft cuts 1024 {n_filt} x {n_mfcc}: "
+                  + "; ".join(f"{name} {ms[0]:.4f}, {ms[1]:.4f} ms"
+                              for name, ms in times.items())
+                  + f" (device times); max_abs_err {errs}", flush=True)
+            out.append({"part": "dft_cuts", "n_fft": 1024, "n_filt": n_filt,
+                        "n_mfcc": n_mfcc, "ms": times, "max_abs_err": errs})
+            del audio, consts
+    finally:
+        _build.load_library = shipped
     return out
 
 
 PARTS = {"alone": run_alone, "cuts": run_cuts, "frontend": run_frontend,
-         "dft": run_dft}
+         "dft": run_dft, "dft_cuts": run_dft_cuts}
 
 
 def main(argv=None) -> list:

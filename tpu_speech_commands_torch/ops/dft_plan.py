@@ -21,7 +21,14 @@ way the kernel moves it, each step by the map the hardware applies:
   chunks), the order the host builds the kernel's matrix in;
 - `filter_slots` / `emulate_epilogue`: the filterbank from the
   accumulators, one running sum a slot and a row a thread, added into the
-  filter sums where the slot's filter changes.
+  filter sums where the slot's filter changes (fused mode, and log-mel
+  mode's first design, `shared_sums`);
+- `walk_lanes` / `filter_homes` / `emulate_logmel`: log-mel mode's
+  design, where a filter that one quad lane's walk alone weighs leaves
+  from that lane's registers (stored as it stands, logged in a pass over
+  the block's rows after the walk), the few that several walks weigh are
+  summed in a shared region of `n_bnd` floats a row, and a filter no bin
+  weighs is written by the block's tail.
 """
 from __future__ import annotations
 
@@ -41,6 +48,13 @@ SBO = 1024       # bytes between 8-row groups of a stage (8 rows of 128 B)
 ROW = 128        # bytes a B row of a stage (BK bf16)
 TAIL_WIDTHS = (16, 128)  # the wgmma N of the last chunk
 SLOTS = (2, 4)   # the kernel's instantiations: filters a bin may meet
+QUAD = 4         # the lanes of a quad: each walks one run of bins (chunk_bin)
+HOME_SHARED = 4  # a filter's home code from 4: its boundary sum k = code - 4
+HOME_NONE = 255  # the home code of a filter no bin weighs
+LOG_EPS = np.float32(2.220446049250313e-16)  # safe_log's clamp (kLogEps)
+STAGE_CAP = 64   # entries of a warp's ring of finished filters (kStageCap)
+LOGMEL_FINISH = 0  # where log-mel mode logs its finished filters (kFinish):
+                   # 0 in one pass over the block's rows after the walk
 
 
 def _align(v: int, m: int) -> int:
@@ -58,25 +72,53 @@ def wgmma_table_bytes(n_pad: int, slots: int) -> int:
     return _align(4 * (n_pad // 2), 16) + _align(4 * (n_pad // 2) * slots, 16)
 
 
+def sums_pitch(n_filt: int, n_bnd: int, direct: bool) -> int:
+    """sums_pitch() of the source: the floats a row of the block's shared
+    sums, the filter sums and the energy (fused, and log-mel mode's first
+    design), or in log-mel mode the n_bnd boundary sums; odd, so that the
+    rows of a quad's lanes fall in distinct banks."""
+    return (n_bnd | 1) if direct else ((n_filt + 1) | 1)
+
+
+def home_bytes(n_filt: int, direct: bool) -> int:
+    """home_bytes() of the source: log-mel mode's home codes, a byte a
+    filter (`filter_homes`)."""
+    return _align(n_filt, 16) if direct else 0
+
+
+def staging_bytes(direct: bool) -> int:
+    """staging_bytes() of the source: log-mel mode's rings of finished
+    filters, STAGE_CAP entries of 12 bytes a consumer warp, in the
+    ablation that logs them there (LOGMEL_FINISH 3)."""
+    return _align(CONSUMERS // 32 * STAGE_CAP * 12, 16) \
+        if direct and LOGMEL_FINISH == 3 else 0
+
+
 def wgmma_smem_bytes(wpb: int, win_pitch: int, n_filt: int, n_mfcc: int,
                      k_pad: int, table: int = 0, stages: int = STAGES,
                      power_tile: bool = False, *, n_features: int,
-                     logmel: bool = False) -> int:
+                     logmel: bool = False, shared_sums: bool = False,
+                     n_bnd: int = 0) -> int:
     """smem_bytes() of csrc/dft_wgmma.cu: 1024 bytes of alignment slack, the
-    ring, the power tile (the ablation only), the audio, the filter sums of
-    the block's wpb x n_features rows (all BM with the power tile), the
-    k-offset table, the DCT's n_mfcc - 1 columns (none in log-mel mode),
-    the filter slots where they fit (`table` bytes, `wgmma_table_bytes`), 2
-    x stages mbarriers for the ring and 4 for the audio staging."""
+    ring, the power tile (the ablation only), the audio, the shared sums of
+    the block's wpb x n_features rows (all BM with the power tile; a row
+    `sums_pitch` floats: in log-mel mode only its n_bnd boundary sums,
+    unless `shared_sums`, its first design), the k-offset table, the DCT's
+    n_mfcc - 1 columns (none in log-mel mode), the filter slots where they
+    fit (`table` bytes, `wgmma_table_bytes`), log-mel mode's home codes (and
+    in an ablation its warps' rings, `staging_bytes`), 2 x stages mbarriers
+    for the ring and 4 for the audio staging."""
     mel_rows = BM if power_tile else wpb * n_features
     dct_cols = 0 if logmel else n_mfcc - 1
+    direct = logmel and not shared_sums
     return (1024 + ring_bytes(n_mfcc, stages)
             + (_align(4 * BM * 65, 16) if power_tile else 0)
             + _align(2 * wpb * win_pitch, 16)
-            + _align(4 * mel_rows * ((n_filt + 1) | 1), 16)
+            + _align(4 * mel_rows * sums_pitch(n_filt, n_bnd, direct), 16)
             + _align(4 * (k_pad // 8), 16)
             + _align(4 * n_filt * dct_cols, 16)
-            + table + 8 * (2 * stages + 4))
+            + table + home_bytes(n_filt, direct) + staging_bytes(direct)
+            + 8 * (2 * stages + 4))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -321,3 +363,147 @@ def emulate_epilogue(acc: np.ndarray, n_filt: int, slots: FilterSlots,
         mel[rows[0], n_filt] += energy[0]
         mel[rows[1], n_filt] += energy[1]
     return mel
+
+
+# ---- log-mel mode: finished filters leave from the registers ---------------
+
+
+def walk_lanes(rows: int) -> np.ndarray:
+    """(rows // 2,) the quad lane t whose walk holds each bin of a matrix
+    of `rows` wgmma rows (`chunk_bin`: in the full chunks lane t walks bins
+    16 t n_full .. 16 (t + 1) n_full - 1, in a last chunk of 16 columns
+    bin n_full BN / 2 + 4 j + t)."""
+    n_full = rows // BN
+    lane = np.full(rows // 2, -1, np.int64)
+    for c in range(-(-rows // BN)):
+        for col in range(0, min(BN, rows - c * BN), 2):
+            lane[chunk_bin(c, col, c < n_full, n_full)] = col % 8 // 2
+    return lane
+
+
+@dataclasses.dataclass(frozen=True)
+class FilterHomes:
+    """Where log-mel mode finishes each filter.  `home[f]`: the quad lane t
+    (0 .. 3) whose walk alone weighs filter f, which stores safe_log of its
+    running sum to the row when its slot releases f; HOME_SHARED + k for
+    boundary filter k, which several lanes' walks weigh: their sums meet in
+    the block's shared region (n_bnd floats a row); HOME_NONE for a filter
+    no bin weighs.  `tail`: the filters the block's tail writes, the n_bnd
+    boundary filters (from the shared sums), then those no bin weighs
+    (safe_log(0))."""
+
+    home: np.ndarray  # (n_filt,) uint8
+    tail: np.ndarray  # (n_tail,) int32
+    n_bnd: int
+
+
+def filter_homes(slots: FilterSlots, n_filt: int, rows: int) -> FilterHomes:
+    """The homes of the n_filt filters of a slot table over rows // 2 bins
+    (`filter_slots`, `wgmma_rows`): a filter's lanes are the walks
+    (`walk_lanes`) of the bins whose slots weigh it nonzero."""
+    lane = walk_lanes(rows)
+    lanes = [set() for _ in range(n_filt)]
+    for b in range(rows // 2):
+        for l in range(slots.slots):
+            f = slot_filter(int(slots.key[b]), l, slots.slots)
+            if f < n_filt and slots.w[b, l] != 0:
+                lanes[f].add(int(lane[b]))
+    bnd = [f for f in range(n_filt) if len(lanes[f]) > 1]
+    if HOME_SHARED + len(bnd) > HOME_NONE:
+        raise ValueError(f"{len(bnd)} boundary filters, more than a home "
+                         f"code holds")
+    home = np.full(n_filt, HOME_NONE, np.uint8)
+    for f in range(n_filt):
+        if len(lanes[f]) == 1:
+            home[f] = next(iter(lanes[f]))
+    for k, f in enumerate(bnd):
+        home[f] = HOME_SHARED + k
+    zero = [f for f in range(n_filt) if not lanes[f]]
+    return FilterHomes(home, np.array(bnd + zero, np.int32), len(bnd))
+
+
+def safe_log32(x) -> np.ndarray:
+    """safe_log of the source on float32 values."""
+    return np.log(np.maximum(np.float32(x), LOG_EPS)).astype(np.float32)
+
+
+def emulate_logmel(acc: np.ndarray, n_filt: int, slots: FilterSlots,
+                   homes: FilterHomes, inv_fft: float, rows: int,
+                   warps=range(CONSUMERS // 32)) -> tuple[np.ndarray, np.ndarray]:
+    """(out, writes): the log-mel rows (BM, n_filt + 1; column n_filt the
+    log energy, NaN where nothing is written) that log-mel mode writes for
+    one block from its full accumulators acc (BM, n_pad), and how many
+    times each cell is written before the log pass.  Each consumer warp
+    walks its lanes' bins in step, as the kernel does (`emulate_epilogue`'s
+    walk): where a slot releases filter f, the owner lane (home[f] = t)
+    stores its two rows' sums, a boundary filter's sums are added into the
+    shared region, any other lane's (exactly 0: its walk does not weigh f)
+    are dropped; then the quad's energies meet by two shuffles (xor 1, xor
+    2) and lane 0 stores them; then the tail writes the boundary sums and 0
+    for the filters no bin weighs, and the log pass takes the safe_log of
+    the block's rows in place (LOGMEL_FINISH 0).  Rows from `rows` (the
+    block's padding) write nothing."""
+    raw = np.full((BM, n_filt + 1), np.nan, np.float32)
+    writes = np.zeros((BM, n_filt + 1), np.int64)
+    bnd = np.zeros((BM, max(homes.n_bnd, 1)), np.float32)
+    n_pad = acc.shape[1]
+    n_full = n_pad // BN
+    n_slots = slots.slots
+    home = homes.home.astype(np.int64)
+    lanes = np.arange(32)
+    t = lanes % QUAD
+
+    def store(r, f, v):
+        ok = r < rows
+        raw[r[ok], f[ok]] = v[ok]
+        np.add.at(writes, (r[ok], f[ok]), 1)
+
+    for warp in warps:
+        r0 = 16 * warp + lanes // QUAD  # acc_coords(warp, lane, 0)'s row
+        pair = np.stack([r0, r0 + 8], 1)
+        cur = np.full((32, n_slots), -1, np.int64)
+        run = np.zeros((32, n_slots, 2), np.float32)
+        energy = np.zeros((32, 2), np.float32)
+
+        def release(l, mask):
+            f = cur[:, l]
+            valid = mask & (f >= 0) & (f < n_filt)
+            code = np.where(valid, home[np.clip(f, 0, n_filt - 1)], -1)
+            for lane in np.flatnonzero(valid & (code >= HOME_SHARED)
+                                       & (code < HOME_NONE)):
+                bnd[pair[lane], code[lane] - HOME_SHARED] += run[lane, l]
+            own = np.flatnonzero(valid & (code == t))
+            for i in range(2):
+                store(pair[own, i], f[own], run[own, l, i])
+            run[mask, l] = 0
+
+        for c in range(-(-n_pad // BN)):
+            full = c < n_full
+            for j in range(min(BN, n_pad - c * BN) // 8):
+                col = 8 * j + 2 * t
+                b = 16 * (t * n_full + c) + j if full else \
+                    n_full * BN // 2 + 4 * j + t
+                re = acc[pair, (c * BN + col)[:, None]]
+                im = acc[pair, (c * BN + col + 1)[:, None]]
+                p = ((re * re + im * im) * np.float32(inv_fft)).astype(
+                    np.float32)
+                energy += p
+                key = slots.key[b].astype(np.int64)
+                for l in range(n_slots):
+                    f = key + ((l - key) & (n_slots - 1))
+                    moved = f != cur[:, l]
+                    release(l, moved)
+                    cur[moved, l] = f[moved]
+                    run[:, l] += p * slots.w[b, l][:, None]
+        for l in range(n_slots):
+            release(l, np.ones(32, bool))
+        quads = energy.reshape(8, QUAD, 2)
+        total = (quads[:, 0] + quads[:, 1]) + (quads[:, 2] + quads[:, 3])
+        for i in range(2):
+            store(pair[::QUAD, i], np.full(8, n_filt), total[:, i])
+    for k, f in enumerate(homes.tail):
+        raw[:rows, f] = bnd[:rows, k] if k < homes.n_bnd else 0.0
+        writes[:rows, f] += 1
+    out = raw.copy()
+    out[:rows] = safe_log32(raw[:rows])
+    return out, writes

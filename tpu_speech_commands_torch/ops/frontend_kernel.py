@@ -29,9 +29,13 @@ same chain with the DFT as a bf16 GEMM on the tensor cores (wgmma on a
 TMA-fed ring, plan `dft_plan.py`), f32 accumulation, and an f32
 filterbank, log and DCT; where many filters leave its block too few
 windows or its DCT too many products (`dft_cepstrum`), it runs in log-mel
-mode and the cepstrum kernel finishes ("+cep").  `csrc/dft_frontend.cu`,
-its first design (mma.sync), computes the same function; `_mma_sync=True`
-runs it for the A/B.
+mode and the cepstrum kernel finishes ("+cep").  In log-mel mode a filter
+that one quad lane's walk alone weighs leaves the block from that lane's
+registers, and only the few boundary filters meet in shared memory
+(`dft_plan.filter_homes`); its first log-mel design, every filter summed
+in shared memory, runs with `_shared_sums=True` for the A/B.
+`csrc/dft_frontend.cu`, its first design (mma.sync), computes the same
+function; `_mma_sync=True` runs it for the A/B.
 
 `MfccFrontend` dispatches on the tensor it is given: a CPU tensor goes
 through the plain PyTorch chain (`frontend/dsp.py::Frontend`, with the same
@@ -73,8 +77,9 @@ from ._checks import OUT_DTYPES, check_launch, check_row_major, row_major
 from .ct_constants import ct_eligible
 from .ct_kernel import (CtConstants, ct_body, ct_cepstrum, ct_config_error,
                         ct_frontend_cuda)
-from .dft_plan import (WGMMA_STAGES, column_order, filter_slots,
-                       wgmma_rows, wgmma_smem_bytes, wgmma_table_bytes)
+from .dft_plan import (WGMMA_STAGES, column_order, filter_homes,
+                       filter_slots, wgmma_rows, wgmma_smem_bytes,
+                       wgmma_table_bytes)
 from .fft_plan import (SMEM_OPTIN, cepstrum_mode,
                        fft_layout, fft_plan,
                        fft_wide_plan, filterbank_plan, pack_filterbank,
@@ -122,11 +127,11 @@ _DFT_INT_ARGS = (1, 3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 14, 15, 16, 18, 21, 22,
 # tsc_dft_frontend_wgmma(audio, audio_int16, gain, batch, n_samples, hop,
 #   first_frame, n_features, wpb, n_seg, seg_pitch, win_pitch, dft, k_pad,
 #   n_pad, n_fft, bin_key, bin_w, slots, table_smem, stages, filt_packed,
-#   filt_range, dct_t, n_filt, n_mfcc, emit_deltas, logmel, out, out_bf16,
-#   stream)
-_WGMMA_N_ARGS = 31
+#   filt_range, dct_t, n_filt, n_mfcc, emit_deltas, logmel, shared_sums,
+#   filt_home, tail_filt, n_bnd, n_tail, out, out_bf16, stream)
+_WGMMA_N_ARGS = 36
 _WGMMA_INT_ARGS = (1, 3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 14, 15, 18, 19, 20, 24,
-                   25, 26, 27, 29)
+                   25, 26, 27, 28, 31, 32, 34)
 # csrc/dft_frontend.cu's tile (the mma.sync kernel): GEMM rows (frames) a
 # block, DFT columns a chunk, the K-slice, the B-stage row pitch and the
 # B-stage count.  Both kernels take 128 rows a block and the K padded to
@@ -273,7 +278,9 @@ class DftLayout:
     stages (5 where they fit, else 4; wpb is chosen at 4), and table_smem
     says whether its filter slots fit in shared memory beside the rest,
     else it reads them from the device's copy; `logmel`: the block of its
-    log-mel mode (no DCT region)."""
+    log-mel mode (no DCT region; its shared sums only the `n_bnd` boundary
+    filters' of `dft_plan.filter_homes`, unless `shared_sums`, the first
+    log-mel design's every filter sum)."""
 
     k_eff: int
     k_pad: int
@@ -288,6 +295,8 @@ class DftLayout:
     stages: int = 4
     wgmma_rows: int = 0
     logmel: bool = False
+    shared_sums: bool = False
+    n_bnd: int = 0
 
 
 def _dft_smem_bytes(wpb, win_pitch, n_filt, n_mfcc, k_pad, n_packed) -> int:
@@ -303,11 +312,14 @@ def _dft_smem_bytes(wpb, win_pitch, n_filt, n_mfcc, k_pad, n_packed) -> int:
 
 
 def dft_layout(p: ListenerParams, feature_type: str = "mfcc",
-               mma_sync: bool = False, logmel: bool = False) -> DftLayout:
+               mma_sync: bool = False, logmel: bool = False,
+               shared_sums: bool = False) -> DftLayout:
     """The layout of the wgmma kernel (fused, or with logmel in its log-mel
-    mode), or with mma_sync of the first design, at config p: the most
-    windows a block (up to 128 rows) whose shared memory fits."""
-    n_packed = len(pack_filterbank(filterbank_matrix(p, feature_type).T)[0])
+    mode, with shared_sums its first log-mel design), or with mma_sync of
+    the first design, at config p: the most windows a block (up to 128
+    rows) whose shared memory fits."""
+    filt_t = filterbank_matrix(p, feature_type).T
+    n_packed = len(pack_filterbank(filt_t)[0])
     hop = p.hop_samples
     k_eff = min(p.window_samples, p.n_fft)
     k_pad = _round_up(k_eff, 2 * DFT_BK)
@@ -318,27 +330,32 @@ def dft_layout(p: ListenerParams, feature_type: str = "mfcc",
     if (win_pitch // 8) % 2 == 0:
         win_pitch += 8
     wpb = max(1, DFT_BM // p.n_features)
-    def smem(wpb):
+    n_pad = _round_up(2 * p.n_fft_bins, 16)
+    rows = wgmma_rows(n_pad)
+    logmel = logmel and not mma_sync
+    shared_sums = logmel and shared_sums
+    slots = n_bnd = None
+    if not mma_sync:
+        slots = filter_slots(filt_t, rows // 2)
+        n_bnd = filter_homes(slots, p.n_filt, rows).n_bnd \
+            if logmel and not shared_sums else 0
+
+    def smem(wpb, **kw):
         if mma_sync:
             return _dft_smem_bytes(wpb, win_pitch, p.n_filt, p.n_mfcc, k_pad,
                                    n_packed)
         return wgmma_smem_bytes(wpb, win_pitch, p.n_filt, p.n_mfcc, k_pad,
-                                n_features=p.n_features, logmel=logmel)
+                                n_features=p.n_features, logmel=logmel,
+                                shared_sums=shared_sums, n_bnd=n_bnd, **kw)
 
     while wpb > 1 and smem(wpb) > DFT_SMEM_MAX:
         wpb -= 1
-    n_pad = _round_up(2 * p.n_fft_bins, 16)
     nbytes, table, stages = smem(wpb), False, DFT_STAGES
     if not mma_sync:
-        stages = max([st for st in WGMMA_STAGES if wgmma_smem_bytes(
-            wpb, win_pitch, p.n_filt, p.n_mfcc, k_pad, stages=st,
-            n_features=p.n_features, logmel=logmel)
-            <= DFT_SMEM_MAX] or [WGMMA_STAGES[0]])
-        nbytes = wgmma_smem_bytes(wpb, win_pitch, p.n_filt, p.n_mfcc, k_pad,
-                                  stages=stages, n_features=p.n_features,
-                                  logmel=logmel)
-        rows = wgmma_rows(n_pad)
-        slots = filter_slots(filterbank_matrix(p, feature_type).T, rows // 2)
+        stages = max([st for st in WGMMA_STAGES
+                      if smem(wpb, stages=st) <= DFT_SMEM_MAX]
+                     or [WGMMA_STAGES[0]])
+        nbytes = smem(wpb, stages=stages)
         extra = wgmma_table_bytes(rows, slots.slots)
         table = nbytes + extra <= DFT_SMEM_MAX
         nbytes += extra if table else 0
@@ -346,18 +363,20 @@ def dft_layout(p: ListenerParams, feature_type: str = "mfcc",
         k_eff=k_eff, k_pad=k_pad, n_bins=p.n_fft_bins, n_pad=n_pad,
         seg_pitch=seg_pitch, n_seg=n_seg, win_pitch=win_pitch, wpb=wpb,
         smem_bytes=nbytes, table_smem=table, stages=stages,
-        wgmma_rows=wgmma_rows(n_pad), logmel=logmel and not mma_sync)
+        wgmma_rows=rows, logmel=logmel, shared_sums=shared_sums,
+        n_bnd=n_bnd or 0)
 
 
 # The fused DCT's products a frame, n_filt (n_mfcc - 1), from which the
 # wgmma kernel runs in log-mel mode with the cepstrum kernel even where its
 # fused block holds as many windows (its fused DCT runs on the CUDA cores
 # after the last chunk, with nothing to overlap it): the fused / log-mel
-# sweep at n_fft 1024 (`dev/logmel_ablation.py --parts dft`, in turns, 30
-# launches a turn, B = 8192) found log-mel mode 8.8% faster at 96 x 20
-# (1,824 products), 11.8% at 128 x 20 and 23.6% at 240 x 20, and within
-# 3.4% of fused at 32 x 20, 40 x 13 and 64 x 20 (608, 480, 1,216).
-DFT_CEP_MIN_PRODUCTS = 1824
+# sweep at n_fft 1024, where both blocks hold 4 windows
+# (`dev/logmel_ablation.py --parts dft`, in turns, 10 launches a turn, B =
+# 8192, two runs) found log-mel mode 4.2% and 4.4% faster at 48 x 20 (912
+# products), 8.1% and 6.7% at 64 x 20, and within 1.3% of fused at 32 x 20
+# and 40 x 13 (608, 480).
+DFT_CEP_MIN_PRODUCTS = 912
 
 
 def dft_cepstrum(p: ListenerParams, feature_type: str = "mfcc") -> bool:
@@ -420,12 +439,14 @@ class DftConstants(cepstrum_plan.DctTables):
     wgmma kernel's filter slots over n_pad / 2 bins (`dft_plan.
     filter_slots`: `bin_key`, `bin_w`, `slots`), the DCT tables
     (`DctTables`: the whole table the mma.sync kernel reads, the trimmed
-    columns of the wgmma kernel's fused mode, the cepstrum kernel's); the
-    wgmma kernel's mode (`cepstrum`, `dft_cepstrum`) and the layouts of
-    both kernels (`layout`, that mode's; `layouts`, each mode's;
-    `mma_sync_layout`).  The wgmma kernel takes the matrix's rows in
-    `dft_plan.column_order` (`dft_wgmma`), the mma.sync kernel in the
-    natural order (`dft`)."""
+    columns of the wgmma kernel's fused mode, the cepstrum kernel's),
+    log-mel mode's home codes and tail filters (`dft_plan.filter_homes`:
+    `filt_home`, `tail_filt`, `n_bnd`); the wgmma kernel's mode
+    (`cepstrum`, `dft_cepstrum`) and the layouts of both kernels (`layout`,
+    that mode's; `layouts`, each mode's; `shared_sums_layout`, the first
+    log-mel design's; `mma_sync_layout`).  The wgmma kernel takes the
+    matrix's rows in `dft_plan.column_order` (`dft_wgmma`), the mma.sync
+    kernel in the natural order (`dft`)."""
 
     def __init__(self, p: ListenerParams, feature_type: str, device):
         super().__init__(p, device)
@@ -434,6 +455,8 @@ class DftConstants(cepstrum_plan.DctTables):
         self.layouts = {mode: dft_layout(p, feature_type, logmel=mode)
                         for mode in (False, True)}
         self.layout = self.layouts[self.cepstrum]
+        self.shared_sums_layout = dft_layout(p, feature_type, logmel=True,
+                                             shared_sums=True)
         self.mma_sync_layout = dft_layout(p, feature_type, mma_sync=True)
         matrix = dft_bf16_matrix(p, self.layout)
         self.dft = row_major(matrix, device).to(torch.bfloat16)
@@ -450,15 +473,20 @@ class DftConstants(cepstrum_plan.DctTables):
         self.slots = slots.slots
         self.bin_key = row_major(slots.key, device, np.int32)
         self.bin_w = row_major(slots.w, device)
+        homes = filter_homes(slots, p.n_filt, self.layout.wgmma_rows)
+        self.filt_home = row_major(homes.home, device, np.uint8)
+        self.tail_filt = row_major(homes.tail, device, np.int32)
+        self.n_bnd = homes.n_bnd
         self.device = self.dft.device
         lay = self.layout
         check_row_major(
             (self.dft, self.dft_wgmma, self.filt_packed, self.filt_range,
-             self.bin_key, self.bin_w, self.dct_t),
+             self.bin_key, self.bin_w, self.dct_t, self.filt_home,
+             self.tail_filt),
             ((lay.n_pad, lay.k_pad), (lay.wgmma_rows, lay.k_pad),
              (len(packed),), (p.n_filt, 3),
              (lay.wgmma_rows // 2,), (lay.wgmma_rows // 2, self.slots),
-             (p.n_filt, p.n_filt)))
+             (p.n_filt, p.n_filt), (p.n_filt,), (len(homes.tail),)))
 
 
 def mfcc_frontend_cuda(audio: torch.Tensor, gain: torch.Tensor,
@@ -653,23 +681,26 @@ def dft_frontend_bf16_cuda(audio: torch.Tensor, gain: torch.Tensor,
                            consts: DftConstants, p: ListenerParams,
                            out_dtype=torch.float32, *,
                            _mma_sync: bool = False,
-                           _cepstrum: bool | None = None) -> torch.Tensor:
+                           _cepstrum: bool | None = None,
+                           _shared_sums: bool = False) -> torch.Tensor:
     """Launch the fast_math (bf16 tensor-core DFT) frontend kernel, the
     wgmma one (csrc/dft_wgmma.cu).  audio (B, S) float32 or int16 and gain
     (1,) float32, both on consts' CUDA device -> (B, n_features,
     feature_size) out_dtype.  Fused, or where `consts.cepstrum` in log-mel
     mode (`dft_logmel_cuda`) with the cepstrum kernel after it
     (`cepstrum_cuda`).  The same-call A/Bs: `_cepstrum` (True or False)
-    forces the mode; `_mma_sync` runs the first design
-    (csrc/dft_frontend.cu, fused only) instead.  A launch of the wgmma
-    kernel adds one to `.launches` (and in log-mel mode one to
-    `DFT_LOGMEL.launches`), one of the mma.sync kernel to
-    `MMA_SYNC.launches`."""
+    forces the mode; `_shared_sums` runs log-mel mode's first design;
+    `_mma_sync` runs the first design (csrc/dft_frontend.cu, fused only)
+    instead.  A launch of the wgmma kernel adds one to `.launches` (and in
+    log-mel mode one to `DFT_LOGMEL.launches`, or to
+    `DFT_SHARED_SUMS.launches` in its first design), one of the mma.sync
+    kernel to `MMA_SYNC.launches`."""
     cepstrum = not _mma_sync and (consts.cepstrum if _cepstrum is None
                                   else _cepstrum)
     if cepstrum:
         check_launch(audio, gain, consts.device, p, out_dtype)
-        return cepstrum_cuda(dft_logmel_cuda(audio, gain, consts, p),
+        return cepstrum_cuda(dft_logmel_cuda(audio, gain, consts, p,
+                                             _shared_sums=_shared_sums),
                              consts.cep_table, p.n_mfcc, p.use_delta,
                              out_dtype=out_dtype)
     lay = consts.mma_sync_layout if _mma_sync else consts.layouts[False]
@@ -685,14 +716,17 @@ def dft_frontend_bf16_cuda(audio: torch.Tensor, gain: torch.Tensor,
 
 
 def dft_logmel_cuda(audio: torch.Tensor, gain: torch.Tensor,
-                    consts: DftConstants, p: ListenerParams) -> torch.Tensor:
+                    consts: DftConstants, p: ListenerParams, *,
+                    _shared_sums: bool = False) -> torch.Tensor:
     """Launch the wgmma kernel in log-mel mode: audio (B, S) float32 or
     int16 and gain (1,) float32 on consts' CUDA device -> the (B,
     n_features, n_filt + 1) f32 log-mel rows, the log energy last (the
     plain version: `cepstrum_plan.logmel_plain` on the fast_math chain).
-    A launch adds one to `dft_frontend_bf16_cuda.launches` and to
-    `DFT_LOGMEL.launches`."""
-    lay = consts.layouts[True]
+    `_shared_sums` runs the mode's first design (every filter summed in
+    shared memory), the same-call A/B.  A launch adds one to
+    `dft_frontend_bf16_cuda.launches` and to `DFT_LOGMEL.launches`
+    (`DFT_SHARED_SUMS.launches`)."""
+    lay = consts.shared_sums_layout if _shared_sums else consts.layouts[True]
     err = dft_config_error(p, consts.feature_type, False, lay)
     if err:
         raise ValueError(err)
@@ -733,18 +767,23 @@ def _dft_launch(audio, gain, consts: DftConstants, p: ListenerParams,
                     lay.stages, consts.filt_packed.data_ptr(),
                     consts.filt_range.data_ptr(), consts.dct_trim.data_ptr(),
                     p.n_filt, p.n_mfcc, int(p.use_delta), int(lay.logmel),
-                    out.data_ptr(), out_bf16, stream)
+                    int(lay.shared_sums), consts.filt_home.data_ptr(),
+                    consts.tail_filt.data_ptr(), consts.n_bnd,
+                    consts.tail_filt.numel(), out.data_ptr(), out_bf16,
+                    stream)
     _build.check(rc, name)
     if mma_sync:
         MMA_SYNC.launches += 1
     else:
         dft_frontend_bf16_cuda.launches += 1
-        DFT_LOGMEL.launches += int(lay.logmel)
+        if lay.logmel:
+            (DFT_SHARED_SUMS if lay.shared_sums else DFT_LOGMEL).launches += 1
 
 
 dft_frontend_bf16_cuda.launches = 0
 MMA_SYNC = LaunchCount()  # launches of the mma.sync kernel (the A/B)
 DFT_LOGMEL = LaunchCount()  # launches of the wgmma kernel in log-mel mode
+DFT_SHARED_SUMS = LaunchCount()  # and of log-mel mode's first design
 
 
 class MfccFrontend:
