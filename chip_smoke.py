@@ -15,10 +15,12 @@ Phases, in order; any failure raises and the script exits non-zero:
             and the tile kernels' reciprocal against the true divide on
             every float of [1, inf]; the projected route above 64
             features (fault 3.10): the projection kernel
-            (csrc/rnn_projection.cu) against its plain version and both
-            classifiers (the projection, then the tile kernel in projected
-            mode) against the plain module at 80, 300 and 600 features,
-            23 and 30 frames, f32 and bf16; the
+            (csrc/rnn_projection_wgmma.cu) and its first design
+            (csrc/rnn_projection.cu, `_mma_sync=True`) against the float64
+            XW and both classifiers (the projection, the design
+            `projection_design` names for the mode, then the tile kernel
+            in projected mode) against the plain module at 80, 300 and 600
+            features, 23 and 30 frames, f32 and bf16; the
             CNN classifier's tiled implicit GEMM and its SIMT kernel,
             `_simt=True`, at four model x shape cases, f32 and bf16; the
             CNN block-1 kernel and its first design (`_simt=True`) for both
@@ -139,8 +141,11 @@ Phases, in order; any failure raises and the script exits non-zero:
               48-unit GRU and LSTM of feature size 300, and at 600
               coefficients into a GRU of 600 (the projected route): the
               wide FFT's, the cepstrum kernel's, the projection's and the
-              tile kernel's launch counts rise, split-dup's and the SIMT
-              kernel's stay at 0, and the scores agree with the CPU's;
+              tile kernel's launch counts rise, split-dup's, the SIMT
+              kernel's and the first projection design's stay at 0, and
+              the scores agree with the CPU's; and the 300-coefficient GRU
+              with the first projection design (`_mma_sync=True`): its
+              count rises, the kernel's stays at 0, scores as the CPU's;
             - the seven measurement entry points of tpu_speech_commands_torch
               .dev at their own batch (pallas_experiments B = 16384, every
               variant; the others B = 8192), a few iterations each: every
@@ -317,12 +322,15 @@ Phases, in order; any failure raises and the script exits non-zero:
             in turns, beside the bound and the windows a block;
             the classifiers at 300 features (above gru_plan.CAP_D, the
             projected route), f32 and bf16: the GRU against its SIMT
-            kernel in turns, simt, new, new, simt, the projection alone
-            (beside torch.matmul of X @ W, a yardstick) and the recurrence
-            alone, the LSTM beside cuDNN's nn.LSTM in the same dtype, each
-            beside its bound (`projected_bound`; the FFMA floor
-            `rnn_bound`) and the plain module, and the 300-coefficient
-            scorer end to end against its SIMT form; the train step
+            kernel and the route on the first projection design in turns,
+            simt, mma_sync, new, new, mma_sync, simt, the projection alone
+            against its first design in turns, mma_sync, new, new,
+            mma_sync (beside torch.matmul of X @ W, a yardstick), at 600
+            features too, and the recurrence alone, the LSTM beside
+            cuDNN's nn.LSTM in the same dtype, each beside its bound
+            (`projected_bound`; the FFMA floor `rnn_bound`) and the plain
+            module, and the 300-coefficient scorer end to end against its
+            SIMT form and its first projection design; the train step
             at B = 512
             for simple_gru and simple_cnn from `dev.bench_train` (its
             config: 36 classes, adam on a cosine decay; the step of
@@ -451,7 +459,8 @@ BF16_STEP = 2.0 ** -7
 # - GRU and LSTM logits f32 (tile and SIMT kernels): same math, f32 sums
 #   in another order over 30 steps
 GRU_ATOL, GRU_RTOL = 1e-4, 1e-5
-# - the RNN projection's XW (rnn_projection.cu), f32 (3xTF32) and bf16 (bf16
+# - the RNN projection's XW (rnn_projection_wgmma.cu and its first design
+#   rnn_projection.cu), f32 (3xTF32) and bf16 (bf16
 #   products exact in f32): kernel and plain version each within the bound
 #   of an f32 sum of D products of the float64 XW of the mode's operands
 #   (`rnn_projection.exact_projection`, `check_projection`): at D 600 two
@@ -748,6 +757,7 @@ def kernel_bounds(p, batch, n_samples, rnn_dims, cnn_consts):
         "lstm_classifier": lstm,
         "lstm_classifier_simt": lstm,
         "rnn_projection": projection,
+        "rnn_projection_mma_sync": projection,
         "cnn_classifier": cnn,
         "cnn_classifier_simt": cnn,
         "cnn_block1": block1,
@@ -2306,8 +2316,9 @@ def main() -> int:
     # 23 frames): the projection kernel against its plain version, then
     # both classifiers (the projection and the tile kernel in projected
     # mode) against the plain module, at WIDE_FEATURES and 23 and 30
-    # frames, f32 and bf16 (bf16 on bf16 features)
-    proj_errs = []
+    # frames, f32 and bf16 (bf16 on bf16 features); the projection's first
+    # design (`_mma_sync=True`) the same way
+    proj_errs, proj_mma_errs = [], []
     for rnn, rnn_cls, model_cls in (("gru", GRUClassifier, SimpleGRU),
                                     ("lstm", LSTMClassifier, SimpleLSTM)):
         for d_in in WIDE_FEATURES:
@@ -2324,12 +2335,23 @@ def main() -> int:
                                                           48, dtype)
                     proj_errs.append(check_projection(
                         f"rnn_projection {rnn} D {d_in} T {steps} {dname}",
-                        rnn_projection.rnn_projection_cuda(x, pack), x,
+                        rnn_projection.rnn_projection_cuda(
+                            x, pack, _mma_sync=False), x,
                         cell.kernel, xw_bias, 48, dtype))
-                    before = rnn_projection.PROJECTION.launches
+                    proj_mma_errs.append(check_projection(
+                        f"rnn_projection_mma_sync {rnn} D {d_in} T {steps} "
+                        f"{dname}", rnn_projection.rnn_projection_cuda(
+                            x, pack, _mma_sync=True), x, cell.kernel,
+                        xw_bias, 48, dtype))
+                    # the design the rule names for the mode
+                    counter = (rnn_projection.PROJECTION
+                               if rnn_projection.projection_design(pack)
+                               == "wgmma"
+                               else rnn_projection.PROJECTION_MMA_SYNC)
+                    before = counter.launches
                     got = rnn_cls(model, dtype)(x)
                     torch.cuda.synchronize()
-                    if rnn_projection.PROJECTION.launches != before + 1:
+                    if counter.launches != before + 1:
                         raise AssertionError(f"{rnn} at {d_in} features did "
                                              "not take the projected route")
                     with torch.inference_mode():
@@ -2895,6 +2917,7 @@ def main() -> int:
         "lstm_classifier": rnn_kernel.lstm_layer_cuda,
         "lstm_classifier_simt": rnn_kernel.LSTM_SIMT,
         "rnn_projection": rnn_projection.PROJECTION,
+        "rnn_projection_mma_sync": rnn_projection.PROJECTION_MMA_SYNC,
         "cnn_classifier": cnn_kernel.cnn_classifier_cuda,
         "cnn_classifier_simt": cnn_kernel.SIMT,
         "cnn_block1": cnn_kernel.cnn_block1_cuda,
@@ -3128,11 +3151,25 @@ def main() -> int:
                     "rnn_projection", name),
                    ("mixed_fft_frontend", *ct_kernel.counters,
                     f"{name}_simt", "cepstrum_simt",
-                    "mfcc_frontend_partial_sums"))
+                    "mfcc_frontend_partial_sums", "rnn_projection_mma_sync"))
         cpu_wide = score_fn(rnn_cls(rnn_wide)(
             MfccFrontend(p_wide, "mfcc", "cpu")(torch.tensor(clips))))
         check_close(f"scores card vs CPU, n_fft 4352, {n_mfcc} coefficients, "
                     f"{model_type}", sc.cpu(), cpu_wide, SCORE_ATOL, 0.0)
+        if (n_mfcc, model_type) == (300, "simple_gru"):
+            # the projection's first design kept for the A/B
+            cls_first = rnn_cls(copy.deepcopy(rnn_wide).to(dev),
+                                _mma_sync=True)
+            sc = drive(f"MfccFrontend (n_fft 4352, {n_mfcc} coefficients) + "
+                       f"{rnn_cls.__name__} (random, D {n_mfcc}, "
+                       f"_mma_sync=True) on 8 clips",
+                       lambda: score_fn(cls_first(fe_wide(clips_dev))),
+                       ("rnn_projection_mma_sync", name),
+                       ("rnn_projection", f"{name}_simt"))
+            check_close(f"scores card vs CPU, n_fft 4352, {n_mfcc} "
+                        f"coefficients, {model_type}, the first projection",
+                        sc.cpu(), cpu_wide, SCORE_ATOL, 0.0)
+            del cls_first
     del rnn_wide, fe_wide, cls_wide
 
     for name, path in CNN_CHECKPOINTS.items():
@@ -3792,15 +3829,19 @@ def main() -> int:
     # frontend's, phase 4) on (B_TIME, 23, 300) features from a numpy seed,
     # f32 and bf16 (bf16 features), each first held to the plain module:
     # the projected route (the projection, then the tile kernel in
-    # projected mode) against the GRU's SIMT kernel in turns, simt, new,
-    # new, simt (the LSTM's SIMT block is refused at this width); the
-    # projection alone and the recurrence alone; torch.matmul of X @ W (a
+    # projected mode) against the GRU's SIMT kernel and the route on the
+    # projection's first design in turns, simt, mma_sync, new, new,
+    # mma_sync, simt (the LSTM's SIMT block is refused at this width); the
+    # projection alone against its first design in turns, mma_sync, new,
+    # new, mma_sync, and the recurrence alone; torch.matmul of X @ W (a
     # yardstick for the projection) and, for the LSTM, cuDNN's nn.LSTM in
     # the same dtype; each beside its bound (`projected_bound`; the FFMA
     # floor `rnn_bound`) and the plain module; device times from CUDA
-    # graphs.  Then the 300-coefficient scorer end to end (the +cep
-    # frontend, then the GRU) on the phase's audio, the new route against
-    # the SIMT kernel, back-to-back calls
+    # graphs.  The projection alone the same way at 600 features.  Then
+    # the 300-coefficient scorer end to end (the +cep frontend, then the
+    # GRU) on the phase's audio, the new route against the route on the
+    # first projection design in turns and the SIMT kernel, back-to-back
+    # calls
     p300 = ListenerParams(n_fft=4352, window_t=0.272, n_filt=300, n_mfcc=300)
     if (p300.n_features, p300.n_mfcc) != WIDE_RNN[:2]:
         raise AssertionError(f"WIDE_RNN {WIDE_RNN} is not the 300-coefficient "
@@ -3819,7 +3860,8 @@ def main() -> int:
         for dt in (torch.float32, torch.bfloat16):
             x = x300.to(dt)
             dname = str(dt)[6:]
-            runs = {"new": rnn_cls(model, dt)}
+            runs = {"new": rnn_cls(model, dt, _mma_sync=False),
+                    "mma_sync": rnn_cls(model, dt, _mma_sync=True)}
             if gates == 3:
                 runs["simt"] = rnn_cls(model, dt, _simt=True)
             with torch.inference_mode():
@@ -3830,17 +3872,30 @@ def main() -> int:
                 err = check_close(f"{rnn}_classifier ({which}) 300 features "
                                   f"{dname} B = {B_TIME}", run(x), want, *tol)
                 if dt == torch.float32:
-                    rnn_errs[rnn if which == "new" else f"{rnn}_simt"].append(err)
+                    rnn_errs[f"{rnn}_simt" if which == "simt" else rnn].append(
+                        err)
             pack = runs["new"].packs[cell]
-            xw = rnn_projection.rnn_projection_cuda(x, pack.projection)
+            xw = rnn_projection.rnn_projection_cuda(x, pack.projection,
+                                                    _mma_sync=False)
             proj_errs.append(check_projection(
                 f"rnn_projection {rnn} 300 features {dname} B = {B_TIME}", xw,
                 x, cell.kernel, xw_bias, 48, dt))
+            proj_mma_errs.append(check_projection(
+                f"rnn_projection_mma_sync {rnn} 300 features {dname} B = "
+                f"{B_TIME}", rnn_projection.rnn_projection_cuda(
+                    x, pack.projection, _mma_sync=True),
+                x, cell.kernel, xw_bias, 48, dt))
             ab = {which: [] for which in runs}
-            for which in (("simt", "new", "new", "simt") if gates == 3
-                          else ("new", "new")):
+            for which in (("simt", "mma_sync", "new", "new", "mma_sync",
+                           "simt") if gates == 3
+                          else ("mma_sync", "new", "new", "mma_sync")):
                 ab[which].append(graph_ms(lambda w=which: runs[w](x),
                                           5 if which == "simt" else 20))
+            proj_ab = {"mma_sync": [], "new": []}
+            for which in ("mma_sync", "new", "new", "mma_sync"):
+                proj_ab[which].append(graph_ms(
+                    lambda w=which: rnn_projection.rnn_projection_cuda(
+                        x, pack.projection, _mma_sync=w == "mma_sync")))
             w_dt = cell.kernel.detach().to(dt)
             x2d = x.reshape(-1, 300)
             bound = projected_bound(B_TIME, WIDE_RNN, gates, dname)
@@ -3850,9 +3905,14 @@ def main() -> int:
                 "features": 300, "frames": p300.n_features,
                 "ms": ab["new"][0], "turns_ms": ab["new"],
                 "simt_turns_ms": ab.get("simt"),
-                "projection_ms": graph_ms(
-                    lambda: rnn_projection.rnn_projection_cuda(
-                        x, pack.projection)),
+                "mma_sync_turns_ms": ab["mma_sync"],
+                "projection_ms": proj_ab["new"][0],
+                "projection_turns_ms": proj_ab["new"],
+                "projection_mma_sync_ms": proj_ab["mma_sync"][0],
+                "projection_mma_sync_turns_ms": proj_ab["mma_sync"],
+                "w_l2_bytes": rnn_projection.w_l2_bytes(
+                    B_TIME, p300.n_features, 300, gates * 48,
+                    dt == torch.bfloat16),
                 "recurrence_ms": graph_ms(
                     lambda: rnn_kernel.projected_recurrence_cuda(
                         xw, B_TIME, pack, head.kernel, head.bias)),
@@ -3887,33 +3947,100 @@ def main() -> int:
                     f"{sum(ab['simt']) / sum(ab['new']):.2f}x" if "simt" in ab
                     else "")
             log(f"  {rnn}_classifier at 300 features (projected route), "
-                f"{dname}: {ab['new'][0]:.4f}, {ab['new'][1]:.4f} ms{simt} "
-                f"(device times); the projection alone "
-                f"{entry['projection_ms']:.4f} ms (bound "
+                f"{dname}: {ab['new'][0]:.4f}, {ab['new'][1]:.4f} ms{simt}; "
+                f"on the first projection {ab['mma_sync'][0]:.4f}, "
+                f"{ab['mma_sync'][1]:.4f} ms (device times); the projection "
+                f"alone {proj_ab['new'][0]:.4f}, {proj_ab['new'][1]:.4f} ms, "
+                f"its first design {proj_ab['mma_sync'][0]:.4f}, "
+                f"{proj_ab['mma_sync'][1]:.4f} ms in turns (bound "
                 f"{proj_bound[0]:.4f}, {proj_bound[1]}; torch.matmul of X @ "
-                f"W {entry['matmul_ms']:.4f}), the recurrence alone "
+                f"W {entry['matmul_ms']:.4f}; W from L2 "
+                f"{entry['w_l2_bytes'] / 1e6:.1f} MB), the recurrence alone "
                 f"{entry['recurrence_ms']:.4f} ms; plain "
                 f"{entry['plain_ms']:.4f} ms; bound {bound[0]:.4f} ms "
                 f"({bound[1]}; {ab['new'][0] / bound[0]:.1f}x; the FFMA floor "
                 f"{floor[0]:.4f}){lib_note}  ({card})")
             del xw, runs
+    del x300
+    # the projection alone at 600 features (the 600-coefficient frontend's),
+    # the kernel against its first design in turns, mma_sync, new, new,
+    # mma_sync, each first held to the float64 XW
+    wide600 = {}
+    x600 = torch.tensor(np.random.default_rng(6).standard_normal(
+        (B_TIME, p300.n_features, 600)).astype(np.float32), device=dev)
+    for rnn, gates in (("gru", 3), ("lstm", 4)):
+        rng600 = np.random.default_rng(60 + gates)
+        kernel600 = torch.tensor(rng600.standard_normal((600, gates * 48))
+                                 / np.sqrt(600), dtype=torch.float32,
+                                 device=dev)
+        bias600 = torch.tensor(rng600.standard_normal(gates * 48),
+                               dtype=torch.float32, device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            x = x600.to(dt)
+            dname = str(dt)[6:]
+            pack = rnn_projection.pack_projection(kernel600, bias600, 48, dt)
+            proj_ab = {"mma_sync": [], "new": []}
+            for which in ("mma_sync", "new"):
+                errs = proj_errs if which == "new" else proj_mma_errs
+                errs.append(check_projection(
+                    f"rnn_projection{'' if which == 'new' else '_mma_sync'} "
+                    f"{rnn} 600 features {dname} B = {B_TIME}",
+                    rnn_projection.rnn_projection_cuda(
+                        x, pack, _mma_sync=which == "mma_sync"),
+                    x, kernel600, bias600, 48, dt))
+            for which in ("mma_sync", "new", "new", "mma_sync"):
+                proj_ab[which].append(graph_ms(
+                    lambda w=which: rnn_projection.rnn_projection_cuda(
+                        x, pack, _mma_sync=w == "mma_sync")))
+            bound600 = projection_bound(B_TIME, (p300.n_features, 600, 48, 5),
+                                        gates, dname)
+            x2d = x.reshape(-1, 600)
+            w_dt = kernel600.to(dt)
+            wide600[rnn, dname] = {
+                "ms": proj_ab["new"][0], "turns_ms": proj_ab["new"],
+                "mma_sync_turns_ms": proj_ab["mma_sync"],
+                "bound_ms": bound600[0], "bound_by": bound600[1],
+                "matmul_ms": graph_ms(lambda: torch.matmul(x2d, w_dt)),
+                "w_l2_bytes": rnn_projection.w_l2_bytes(
+                    B_TIME, p300.n_features, 600, gates * 48,
+                    dt == torch.bfloat16)}
+            log(f"  rnn_projection at 600 features, {rnn} (N {gates * 48}), "
+                f"{dname}: {proj_ab['new'][0]:.4f}, {proj_ab['new'][1]:.4f} "
+                f"ms, its first design {proj_ab['mma_sync'][0]:.4f}, "
+                f"{proj_ab['mma_sync'][1]:.4f} ms in turns (device times; "
+                f"bound {bound600[0]:.4f}, {bound600[1]}; torch.matmul of X @ "
+                f"W {wide600[rnn, dname]['matmul_ms']:.4f}; W from L2 "
+                f"{wide600[rnn, dname]['w_l2_bytes'] / 1e6:.1f} MB)  ({card})")
+            del x, x2d
+    del x600
     fe300 = MfccFrontend(p300, "mfcc", dev)
     gru300 = wide_models["gru"]
+    scorers300 = {"new": GRUClassifier(gru300),
+                  "mma_sync": GRUClassifier(gru300, _mma_sync=True),
+                  "simt": GRUClassifier(gru300, _simt=True)}
     e2e = {}
-    for which, cls in (("new", GRUClassifier(gru300)),
-                       ("simt", GRUClassifier(gru300, _simt=True))):
-        e2e[which] = cuda_ms(lambda: score_fn(cls(fe300(big))),
-                             10 if which == "new" else 3)
-    wide["gru", "float32"].update(scorer_ms=e2e["new"],
-                                  scorer_simt_ms=e2e["simt"])
+    for which in ("mma_sync", "new", "new", "mma_sync", "simt"):
+        e2e.setdefault(which, []).append(cuda_ms(
+            lambda: score_fn(scorers300[which](fe300(big))),
+            3 if which == "simt" else 10))
+    wide["gru", "float32"].update(scorer_ms=e2e["new"][0],
+                                  scorer_turns_ms=e2e["new"],
+                                  scorer_mma_sync_turns_ms=e2e["mma_sync"],
+                                  scorer_simt_ms=e2e["simt"][0])
     log(f"  the 300-coefficient scorer end to end (MfccFrontend n_fft 4352 "
         f"+cep, GRUClassifier at 300 features), f32, B = {B_TIME}: "
-        f"{e2e['new']:.4f} ms, with the SIMT kernel {e2e['simt']:.4f} ms "
-        f"(back-to-back calls)  ({card})")
+        f"{e2e['new'][0]:.4f}, {e2e['new'][1]:.4f} ms, on the first "
+        f"projection {e2e['mma_sync'][0]:.4f}, {e2e['mma_sync'][1]:.4f} ms in "
+        f"turns, with the SIMT kernel {e2e['simt'][0]:.4f} ms (back-to-back "
+        f"calls)  ({card})")
     times["rnn_projection"] = (wide["gru", "float32"]["projection_ms"],
                                wide["gru", "float32"]["plain_projection_ms"])
+    times["rnn_projection_mma_sync"] = (
+        wide["gru", "float32"]["projection_mma_sync_ms"],
+        wide["gru", "float32"]["plain_projection_ms"])
     library["rnn_projection"] = wide["gru", "float32"]["matmul_ms"]
-    del x300, wide_models, gru300, fe300
+    library["rnn_projection_mma_sync"] = wide["gru", "float32"]["matmul_ms"]
+    del wide_models, gru300, fe300, scorers300
     # the LSTM classifier the same way (the scorer runs it in f32), each
     # dtype beside cuDNN's nn.LSTM in that dtype (f32 held to the kernel;
     # bf16 keeps h and c in bf16 between steps, so its error is printed)
@@ -4121,6 +4248,8 @@ def main() -> int:
              rnn_kernel.LSTM_REPLACES, rnn_errs["lstm_simt"]),
             ("rnn_projection", rnn_projection.SOURCE, rnn_projection.REPLACES,
              proj_errs),
+            ("rnn_projection_mma_sync", rnn_projection.MMA_SYNC_SOURCE,
+             rnn_projection.REPLACES, proj_mma_errs),
             ("cnn_classifier", cnn_kernel.SOURCE, cnn_kernel.REPLACES,
              cnn_errs["cnn_classifier"]),
             ("cnn_classifier_simt", cnn_kernel.SOURCE, cnn_kernel.REPLACES,
@@ -4166,14 +4295,35 @@ def main() -> int:
                 kernels[-1]["features_300"] = {
                     dname: wide[rnn, dname] for dname in ("float32",
                                                           "bfloat16")}
-        if name == "rnn_projection":
-            # in bf16 (bf16 features), and the LSTM's 192 columns
+        if name.startswith("rnn_projection"):
+            # in bf16 (bf16 features), and the LSTM's 192 columns; both
+            # designs' times in turns and launches; at 600 features
+            key = ("projection_ms" if name == "rnn_projection"
+                   else "projection_mma_sync_ms")
             kernels[-1].update({
-                "bf16_ms": wide["gru", "bfloat16"]["projection_ms"],
+                "bf16_ms": wide["gru", "bfloat16"][key],
                 "bf16_bound_ms": wide["gru", "bfloat16"]["projection_bound_ms"],
                 "bf16_bound_by": wide["gru", "bfloat16"]["projection_bound_by"],
                 "bf16_library_ms": wide["gru", "bfloat16"]["matmul_ms"],
-                "lstm_ms": wide["lstm", "float32"]["projection_ms"]})
+                "lstm_ms": wide["lstm", "float32"][key],
+                "lstm_bf16_ms": wide["lstm", "bfloat16"][key],
+                "designs_ms": {
+                    f"{rnn}_{dname}": {
+                        "wgmma": wide[rnn, dname]["projection_turns_ms"],
+                        "mma_sync":
+                            wide[rnn, dname]["projection_mma_sync_turns_ms"]}
+                    for rnn in ("gru", "lstm")
+                    for dname in ("float32", "bfloat16")},
+                "designs_launches": {
+                    "wgmma": launches["rnn_projection"],
+                    "mma_sync": launches["rnn_projection_mma_sync"]},
+                "features_600": {f"{rnn}_{dname}": row
+                                 for (rnn, dname), row in wide600.items()}})
+            if name == "rnn_projection":
+                kernels[-1]["w_l2_bytes"] = {
+                    f"{rnn}_{dname}": wide[rnn, dname]["w_l2_bytes"]
+                    for rnn in ("gru", "lstm")
+                    for dname in ("float32", "bfloat16")}
         if name.startswith("gru_classifier"):
             # in bf16 (bf16 features), from the A/B above
             ab, plain_ms, bound = gru_ab["bfloat16"]

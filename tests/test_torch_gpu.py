@@ -845,13 +845,52 @@ def test_lstm_scorer_runs_both_kernels(cuda_device, compute_dtype):
 
 
 def _wide_counts():
+    """Launches of the projection (either design), the tile kernels and the
+    SIMT kernels."""
     from tpu_speech_commands_torch.ops import rnn_projection
 
-    return (rnn_projection.PROJECTION.launches,
+    return (rnn_projection.PROJECTION.launches
+            + rnn_projection.PROJECTION_MMA_SYNC.launches,
             rnn_kernel.gru_layer_cuda.launches + rnn_kernel.lstm_layer_cuda.launches,
             rnn_kernel.GRU_SIMT.launches + rnn_kernel.LSTM_SIMT.launches)
 
 
+def _projection_case(device, d_in, gates, units, batch, compute_dtype,
+                     x_dtype, design, shift=0):
+    """One launch of the projection by `design` ("wgmma": the kernel,
+    csrc/rnn_projection_wgmma.cu, on x converted to the mode's type;
+    "mma_sync": its first design, `_mma_sync=True`), held first to finite
+    values, then, with `rnn_projection_plain`, to `exact_projection`'s
+    bound of the float64 XW; `shift` elements into x's buffer (a row start
+    off a 16-byte boundary)."""
+    from tpu_speech_commands_torch.ops import rnn_projection as rp
+
+    rng = np.random.default_rng(d_in + units)
+    kernel = torch.tensor(rng.standard_normal((d_in, gates * units)) /
+                          np.sqrt(d_in), dtype=torch.float32,
+                          device=device)
+    bias = torch.tensor(rng.standard_normal(gates * units),
+                        dtype=torch.float32, device=device)
+    n = batch * 23 * d_in
+    x = torch.tensor(rng.standard_normal(shift + n), dtype=torch.float32,
+                     device=device).to(x_dtype)[shift:].view(batch, 23, d_in)
+    pack = rp.pack_projection(kernel, bias, units, compute_dtype)
+    mma_sync = design == "mma_sync"
+    counter = rp.PROJECTION_MMA_SYNC if mma_sync else rp.PROJECTION
+    before = counter.launches
+    got = rp.rnn_projection_cuda(x, pack, _mma_sync=mma_sync)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    want = rp.rnn_projection_plain(x, kernel, bias, units, compute_dtype)
+    assert got.shape == want.shape == (-(-batch // 16), 23,
+                                       gates * rp.padded(units) // 8, 32, 4)
+    assert torch.isfinite(got).all()
+    exact, bound = rp.exact_projection(x, kernel, bias, units, compute_dtype)
+    assert ((got.double() - exact).abs() <= bound).all()
+    assert ((want.double() - exact).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("design", ["wgmma", "mma_sync"])
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("batch", [37, 1000])
@@ -859,35 +898,44 @@ def _wide_counts():
                                          (3, 64), (4, 32)])
 @pytest.mark.parametrize("d_in", [33, 80, 300, 600])
 def test_rnn_projection_kernel_matches_plain(cuda_device, d_in, gates, units,
-                                             batch, compute_dtype, x_dtype):
-    """The projection kernel (csrc/rnn_projection.cu) in its tile layout:
-    every N it serves, D not a multiple of a stage (33, 300, 600; 33 odd:
-    bf16 rows at odd offsets take the register-staged ring) and a ragged
-    batch (37: a tile of 5 windows).  Kernel and `rnn_projection_plain`
-    each within `exact_projection`'s bound of the float64 XW (an f32 sum
-    of D products, plus 3xTF32's dropped terms in f32 mode)."""
-    from tpu_speech_commands_torch.ops import rnn_projection as rp
+                                             batch, compute_dtype, x_dtype,
+                                             design):
+    """Both designs of the projection in the tile layout: every N they
+    serve, D not a multiple of a stage (33, 300, 600; 33 odd: bf16 rows at
+    odd offsets, which the first design stages through registers and the
+    kernel reads at odd shifts) and a ragged batch (37: a tile of 5
+    windows); x in the other type than the mode's (the kernel's wrapper
+    converts it, the first design converts it where it stages it).  Kernel
+    and `rnn_projection_plain` each within
+    `exact_projection`'s bound of the float64 XW (an f32 sum of D products,
+    plus 3xTF32's dropped terms in f32 mode)."""
+    _projection_case(cuda_device, d_in, gates, units, batch, compute_dtype,
+                     x_dtype, design)
 
-    rng = np.random.default_rng(d_in + units)
-    kernel = torch.tensor(rng.standard_normal((d_in, gates * units)) /
-                          np.sqrt(d_in), dtype=torch.float32,
-                          device=cuda_device)
-    bias = torch.tensor(rng.standard_normal(gates * units),
-                        dtype=torch.float32, device=cuda_device)
-    x = torch.tensor(rng.standard_normal((batch, 23, d_in)),
-                     dtype=torch.float32, device=cuda_device).to(x_dtype)
-    pack = rp.pack_projection(kernel, bias, units, compute_dtype)
-    before = rp.PROJECTION.launches
-    got = rp.rnn_projection_cuda(x, pack)
-    torch.cuda.synchronize()
-    assert rp.PROJECTION.launches == before + 1
-    want = rp.rnn_projection_plain(x, kernel, bias, units, compute_dtype)
-    assert got.shape == want.shape == (-(-batch // 16), 23,
-                                       gates * rp.padded(units) // 8, 32, 4)
-    exact, bound = rp.exact_projection(x, kernel, bias, units, compute_dtype)
-    assert torch.isfinite(got).all()
-    assert ((got.double() - exact).abs() <= bound).all()
-    assert ((want.double() - exact).abs() <= bound).all()
+
+@pytest.mark.parametrize("design", ["wgmma", "mma_sync"])
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gates,units", [(3, 48), (4, 48), (3, 16), (4, 64),
+                                         (3, 64), (4, 32)])
+def test_rnn_projection_at_the_timed_batch(cuda_device, gates, units,
+                                           compute_dtype, design):
+    """The same at B 8192 and D 300, the shape phase 5 of chip_smoke.py
+    times (x in the mode's type)."""
+    _projection_case(cuda_device, 300, gates, units, 8192, compute_dtype,
+                     compute_dtype, design)
+
+
+@pytest.mark.parametrize("design", ["wgmma", "mma_sync"])
+@pytest.mark.parametrize("shift", [1, 2, 3, 5])
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d_in", [33, 300])
+def test_rnn_projection_takes_x_off_a_boundary(cuda_device, d_in,
+                                               compute_dtype, shift, design):
+    """x a view `shift` elements into its buffer, so that no row starts on
+    a 16-byte boundary where x does not: the kernel reads each row at its
+    address's shift, the first design through its register ring."""
+    _projection_case(cuda_device, d_in, 3, 48, 37, compute_dtype,
+                     compute_dtype, design, shift)
 
 
 @pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
@@ -902,8 +950,12 @@ def test_wide_classifiers_take_the_projected_route(cuda_device, cell, d_in,
     and the tile kernel in projected mode (one launch each, the SIMT kernel
     none), at feature sizes the SIMT kernel's block refused from 305 (GRU)
     and 227 (LSTM) at 23 frames; bf16 compute on bf16 features, as the
-    bf16 scorer hands them over.  Against the plain module: the GRU and
-    LSTM tolerances above."""
+    bf16 scorer hands them over; the projection is the design
+    `projection_design`'s rule names for the mode (f32 the wgmma kernel,
+    bf16 its first design).  Against the plain module: the GRU and LSTM
+    tolerances above."""
+    from tpu_speech_commands_torch.ops import rnn_projection as rp
+
     random = _random_gru if cell == "gru" else _random_lstm
     classifier = GRUClassifier if cell == "gru" else LSTMClassifier
     model = random(d_in, 48, 1, d_in + steps, cuda_device)
@@ -911,10 +963,38 @@ def test_wide_classifiers_take_the_projected_route(cuda_device, cell, d_in,
         (batch, steps, d_in)), dtype=torch.float32,
         device=cuda_device).to(compute_dtype)
     before = _wide_counts()
+    counter = (rp.PROJECTION if compute_dtype in rp.WGMMA_MODES
+               else rp.PROJECTION_MMA_SYNC)
+    launched = counter.launches
     got = classifier(model, compute_dtype)(x)
     torch.cuda.synchronize()
     assert _wide_counts() == (before[0] + 1, before[1] + 1, before[2])
+    assert counter.launches == launched + 1
     assert got.shape == (batch, 5) and got.dtype == torch.float32
+    with torch.no_grad():
+        want = model(x.float(), compute_dtype)
+    _gru_close(got, want, compute_dtype)
+
+
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_wide_classifiers_with_the_first_projection(cuda_device, cell,
+                                                    compute_dtype):
+    """`_mma_sync=True` runs the projected route's projection on its first
+    design (csrc/rnn_projection.cu) and nothing else differs: the plain
+    module's logits within the GRU and LSTM tolerances above."""
+    from tpu_speech_commands_torch.ops import rnn_projection as rp
+
+    random = _random_gru if cell == "gru" else _random_lstm
+    classifier = GRUClassifier if cell == "gru" else LSTMClassifier
+    model = random(300, 48, 1, 5, cuda_device)
+    x = torch.tensor(np.random.default_rng(2).standard_normal((37, 23, 300)),
+                     dtype=torch.float32, device=cuda_device).to(compute_dtype)
+    before = (rp.PROJECTION.launches, rp.PROJECTION_MMA_SYNC.launches)
+    got = classifier(model, compute_dtype, _mma_sync=True)(x)
+    torch.cuda.synchronize()
+    assert (rp.PROJECTION.launches, rp.PROJECTION_MMA_SYNC.launches) == (
+        before[0], before[1] + 1)
     with torch.no_grad():
         want = model(x.float(), compute_dtype)
     _gru_close(got, want, compute_dtype)

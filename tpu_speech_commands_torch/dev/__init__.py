@@ -38,9 +38,11 @@ package's `tools/dev/` scripts whose TPU kernels the port carries:
 - `lstm_ablation`: the LSTM tile kernel the same way, and with two passes
   over k a step in f32; both with `--features D` time the projected
   route's parts above 64 features;
-- `projection_ablation`: the RNN projection kernel with one design step
-  undone at a time (two blocks an SM, the widest `cp.async`, the
-  `cp.async` ring, conversion after the products);
+- `projection_ablation`: the RNN projection kernel against its first
+  design in turns (`--parts designs`), the kernel's stage cuts and its
+  cluster (`cuts`), and the first design with one step undone at a time
+  (`steps`: two blocks an SM, the widest `cp.async`, the `cp.async` ring,
+  conversion after the products);
 - `block1_ablation`: the CNN block-1 kernel with one design choice undone
   at a time (the ring, the stores, the tensor cores in bf16, the tile, the
   blocks an SM) and a load-and-store cut against the K7 load floor;
@@ -77,7 +79,7 @@ Each runs on the card and raises RuntimeError where CUDA is absent:
     python -m tpu_speech_commands_torch.dev.cnn_ablation
     python -m tpu_speech_commands_torch.dev.gru_ablation
     python -m tpu_speech_commands_torch.dev.lstm_ablation
-    python -m tpu_speech_commands_torch.dev.projection_ablation
+    python -m tpu_speech_commands_torch.dev.projection_ablation --parts designs cuts steps
     python -m tpu_speech_commands_torch.dev.block1_ablation
     python -m tpu_speech_commands_torch.dev.dryrun_multichip --devices cuda:0,cuda:1
     python -m tpu_speech_commands_torch.dev.bench_multichip --devices 2

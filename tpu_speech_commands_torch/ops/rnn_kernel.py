@@ -16,10 +16,12 @@ the layer's widths:
   emulation in `ops/gru_plan.py` and `ops/lstm_plan.py`), inputs and units
   padded to 64 or fewer;
 - "proj": inputs wider than that, two launches: the input projection
-  (`csrc/rnn_projection.cu`, `ops/rnn_projection.py`: XW = x @ W + b on
-  the tensor cores, into a workspace allocated here) and the tile kernel
-  in projected mode (`tsc_gru_layer_proj`, `tsc_lstm_layer_proj`: only
-  h @ U a step), the TPU kernel's hoisted projection;
+  (`csrc/rnn_projection_wgmma.cu`, `ops/rnn_projection.py`: XW = x @ W +
+  b on the tensor cores, into a workspace allocated here; its first
+  design `csrc/rnn_projection.cu` where `rnn_projection.projection_design`
+  names it) and the tile
+  kernel in projected mode (`tsc_gru_layer_proj`, `tsc_lstm_layer_proj`:
+  only h @ U a step), the TPU kernel's hoisted projection;
 - "simt": units padded past 64 (no shipped config), and every layer with
   `_simt=True` (the A/B baseline): the first, SIMT kernel
   (`tsc_gru_layer_simt`, `tsc_lstm_layer_simt`), whose block stages W and
@@ -193,11 +195,14 @@ def projected_recurrence_cuda(xw: torch.Tensor, batch: int,
 
 
 def _projected(x, pack: ProjectedPack, units, head_kernel, head_bias,
-               compute_dtype) -> torch.Tensor:
-    """The projected route's two launches: the projection into a workspace,
-    then the tile kernel in projected mode over it."""
+               compute_dtype, _mma_sync: bool | None = None
+               ) -> torch.Tensor:
+    """The projected route's two launches: the projection into a workspace
+    (the design `rnn_projection.projection_design` names), then the tile
+    kernel in projected mode over it."""
     _check_projected(pack, x.shape[2], units, compute_dtype, x.device)
-    xw = rnn_projection.rnn_projection_cuda(x, pack.projection)
+    xw = rnn_projection.rnn_projection_cuda(x, pack.projection,
+                                            _mma_sync=_mma_sync)
     return projected_recurrence_cuda(xw, x.shape[0], pack, head_kernel,
                                      head_bias)
 
@@ -208,7 +213,8 @@ def gru_layer_cuda(x: torch.Tensor, kernel: torch.Tensor,
                    head_bias=None, compute_dtype=torch.float32,
                    pack: TilePack | ProjectedPack | None = None,
                    _simt: bool = False,
-                   _split: tuple[int, int] | None = None) -> torch.Tensor:
+                   _split: tuple[int, int] | None = None,
+                   _mma_sync: bool | None = None) -> torch.Tensor:
     """Launch a GRU kernel for one layer.  x (B, T, D) float32 or bfloat16
     on a CUDA device, weights in the Keras layout (float32).  With a head:
     returns logits (B, C) float32; without: the layer's h sequence (B, T, U)
@@ -218,7 +224,8 @@ def gru_layer_cuda(x: torch.Tensor, kernel: torch.Tensor,
     (`pack_gru_weights` of these weights for compute_dtype; packed here
     when None), adding one to `.launches`; `_split` (windows a warp, warps
     a block; `gru_plan.SWEEP`) overrides its work split.  "proj", the
-    projection kernel (one to `rnn_projection.PROJECTION.launches`) and the
+    projection (`rnn_projection.rnn_projection_cuda`: the design
+    `projection_design(pack, _mma_sync)` names, one to its count) and the
     tile kernel in projected mode (one to `.launches`) on `pack`
     (`rnn_projection.pack_gru_projected`; packed here when None).  "simt",
     or `_simt=True` (the A/B): the SIMT kernel, one to
@@ -246,7 +253,7 @@ def gru_layer_cuda(x: torch.Tensor, kernel: torch.Tensor,
             pack = pack_gru_projected(kernel, recurrent_kernel, bias_input,
                                       bias_recurrent, compute_dtype)
         return _projected(x, pack, units, head_kernel, head_bias,
-                          compute_dtype)
+                          compute_dtype, _mma_sync)
     if pack is None:
         pack = pack_gru_weights(kernel, recurrent_kernel, bias_input,
                                 bias_recurrent, compute_dtype)
@@ -280,7 +287,8 @@ def lstm_layer_cuda(x: torch.Tensor, kernel: torch.Tensor,
                     head_kernel=None, head_bias=None,
                     compute_dtype=torch.float32,
                     pack: TilePack | ProjectedPack | None = None,
-                    _simt: bool = False) -> torch.Tensor:
+                    _simt: bool = False,
+                    _mma_sync: bool | None = None) -> torch.Tensor:
     """Launch an LSTM kernel for one layer.  x (B, T, D) float32 or
     bfloat16 on a CUDA device, weights in the Keras layout (float32, gates
     [i, f, c, o]).  With a head: returns logits (B, C) float32; without: the
@@ -288,9 +296,10 @@ def lstm_layer_cuda(x: torch.Tensor, kernel: torch.Tensor,
 
     By `lstm_plan.lstm_kernel_for(D, U)`: "tile", the tile kernel on `pack`
     (`pack_lstm_weights` of these weights for compute_dtype; packed here
-    when None), adding one to `.launches`.  "proj", the projection kernel
-    (one to `rnn_projection.PROJECTION.launches`) and the tile kernel in
-    projected mode (one to `.launches`) on `pack`
+    when None), adding one to `.launches`.  "proj", the projection (the
+    design `rnn_projection.projection_design(pack, _mma_sync)` names, one
+    to its count) and the tile kernel in projected mode (one to
+    `.launches`) on `pack`
     (`rnn_projection.pack_lstm_projected`; packed here when None).
     "simt", or `_simt=True` (the A/B): the SIMT kernel, one to
     `LSTM_SIMT.launches`."""
@@ -316,7 +325,7 @@ def lstm_layer_cuda(x: torch.Tensor, kernel: torch.Tensor,
             pack = pack_lstm_projected(kernel, recurrent_kernel, bias,
                                        compute_dtype)
         return _projected(x, pack, units, head_kernel, head_bias,
-                          compute_dtype)
+                          compute_dtype, _mma_sync)
     if pack is None:
         pack = pack_lstm_weights(kernel, recurrent_kernel, bias, compute_dtype)
     _check_pack(pack, d_in, units, compute_dtype, x.device)
@@ -336,11 +345,14 @@ class _RNNClassifier:
     last launch with the head.  For a model on the card, each layer the
     tile kernel takes, directly or projected, has its weights packed once,
     here: a later change to the model's weights needs a new classifier.
-    `_simt` runs every layer on the SIMT kernel instead, for the A/B.
+    `_simt` runs every layer on the SIMT kernel instead, for the A/B;
+    `_mma_sync` True or False runs the projected route's projection on its
+    first design or on the kernel, in place of `projection_design`'s rule.
     Subclasses name the model class, the route, the packs and the
     per-layer launch."""
 
-    def __init__(self, model, compute_dtype=torch.float32, _simt=False):
+    def __init__(self, model, compute_dtype=torch.float32, _simt=False,
+                 _mma_sync=None):
         if not isinstance(model, self.model_cls):
             raise TypeError(f"need a {self.model_cls.__name__}, got "
                             f"{type(model).__name__}")
@@ -350,6 +362,7 @@ class _RNNClassifier:
         self.model = model
         self.compute_dtype = compute_dtype
         self.simt = _simt
+        self.mma_sync = _mma_sync
         self.device = next(model.parameters()).device
         on_card = self.device.type == "cuda"
         routes = {cell: self._kernel_for(cell.kernel.shape[0], cell.units)
@@ -359,6 +372,10 @@ class _RNNClassifier:
                 cell, compute_dtype)
             for cell, route in routes.items()
             if on_card and not _simt and route in ("tile", "proj")}
+        if _mma_sync:  # the first design's pack, before the first call
+            for pack in self.packs.values():
+                if isinstance(pack, ProjectedPack):
+                    pack.projection.weights
 
     @torch.inference_mode()
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
@@ -398,7 +415,8 @@ class GRUClassifier(_RNNClassifier):
         return gru_layer_cuda(seq, cell.kernel, cell.recurrent_kernel,
                               cell.bias_input, cell.bias_recurrent,
                               head_kernel, head_bias, self.compute_dtype,
-                              self.packs.get(cell), _simt=self.simt)
+                              self.packs.get(cell), _simt=self.simt,
+                              _mma_sync=self.mma_sync)
 
 
 class LSTMClassifier(_RNNClassifier):
@@ -421,4 +439,4 @@ class LSTMClassifier(_RNNClassifier):
         return lstm_layer_cuda(seq, cell.kernel, cell.recurrent_kernel,
                                cell.bias, head_kernel, head_bias,
                                self.compute_dtype, self.packs.get(cell),
-                               _simt=self.simt)
+                               _simt=self.simt, _mma_sync=self.mma_sync)
